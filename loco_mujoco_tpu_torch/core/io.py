@@ -6,8 +6,9 @@ leaves and static aux of the JAX package's `put_model` output, written to
 an `.npz` by `save_model_npz` and read back by `load_model_npz`.
 `model_from_numpy` is the one converter from those arrays to the port's
 `Model`; it also fixes, once, everything the step needs to know statically:
-the contact groups and slot layout, and which plane-mesh groups run the
-Hopper select/top-K kernels (the reference's static gates).
+the contact groups and slot layout, which plane-mesh groups run the Hopper
+select/top-K kernels, and the plan of the mega path (the reference's static
+gates).
 
 The port covers the staged physics step of torque humanoids: hinge/slide
 joints, joint-transmission motors, JOINT equalities, friction loss, limits,
@@ -41,7 +42,7 @@ from .types import (
 _OPT_LEAVES = ("timestep", "gravity", "impratio")
 _OPT_STATIC = ("integrator", "cone", "iterations", "ls_iterations",
                "disableflags", "tolerance", "ls_tolerance")
-_PORT_ONLY = ("groups", "ncon", "mesh_kernel", "cache")
+_PORT_ONLY = ("groups", "ncon", "mesh_kernel", "mega", "cache")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -142,7 +143,7 @@ def model_from_numpy(leaves: dict, aux: dict, device=None,
     leaves: numeric leaves by field name (option leaves as `opt.<name>`);
     aux: static fields by name (`mesh_nbr` a tuple of tables or None,
     `names` a dict). Floating leaves are cast to `dtype` on `device`."""
-    from ..ops import collision, hopper_collision
+    from ..ops import collision, hopper_collision, plan
 
     device = resolve_device(device)
     _check_supported(aux)
@@ -171,7 +172,8 @@ def model_from_numpy(leaves: dict, aux: dict, device=None,
         for g in groups
     )
     return Model(opt=opt, groups=tuple(groups), ncon=ncon,
-                 mesh_kernel=mesh_kernel, **kw)
+                 mesh_kernel=mesh_kernel,
+                 mega=plan.build_plan(leaves, aux, groups, mesh_kernel), **kw)
 
 
 def load_model_npz(path, device=None, dtype=torch.float32) -> Model:
@@ -233,4 +235,5 @@ def make_data(model: Model, n_envs: int) -> Data:
         qfrc_smooth=z(nv), qacc_smooth=z(nv), qfrc_constraint=z(nv),
         efc_force_contact=z(nc, 10),
         solver_niter=torch.zeros(E, dtype=torch.int32, device=dev),
+        solver_taken=torch.zeros(E, dtype=torch.int32, device=dev),
     )

@@ -7,10 +7,11 @@ structural fields are numpy arrays or python objects (`static_field`).
 `Data` is the state of E environments: every tensor carries a leading env
 axis E, the axis `jax.vmap` added in the JAX package.
 
-The port adds four structural fields to `Model`, all fixed when the model
+The port adds five structural fields to `Model`, all fixed when the model
 is loaded (`core/io.py`): the contact groups and slot count of
 `ops/collision.py`, the per-group plan of the plane-mesh Hopper kernels
-(None where the reference keeps its XLA path), and a cache of static index
+(None where the reference keeps its XLA path), the plan of the mega path
+(`ops/plan.py`; None outside its envelope), and a cache of static index
 tables.
 """
 
@@ -256,6 +257,7 @@ class Model:
     groups: tuple = static_field(default=())  # collision.Group per group
     ncon: int = static_field(default=0)  # total contact slots
     mesh_kernel: tuple = static_field(default=())  # per group: plan or None
+    mega: Any = static_field(default=None)  # plan.MegaPlan or None
     cache: dict = static_field(default_factory=dict, compare=False)
 
 
@@ -325,6 +327,9 @@ class Data:
     qacc_smooth: torch.Tensor
     qfrc_constraint: torch.Tensor
     efc_force_contact: torch.Tensor  # (E, ncon, 10)
-    # Newton iterations each env ran in the last solve (mjData.solver_niter;
-    # not in the JAX package's Data)
+    # Newton iterations each env ran in the last solve (mjData.solver_niter)
+    # and that solve's discrete decisions (bit i: step i was taken; bit 31:
+    # it started at the warm start), which a plain solve can replay; not in
+    # the JAX package's Data
     solver_niter: torch.Tensor  # (E,) int32
+    solver_taken: torch.Tensor  # (E,) int32

@@ -1,19 +1,27 @@
-"""Forward dynamics and the RK4 integrator, staged.
+"""Forward dynamics, the RK4 integrator and the n-step control step.
 
-Counterpart of `loco_mujoco_tpu/ops/forward.py` on its staged path: the
-position stage, velocity stage, actuation, smooth acceleration and the
-constraint solve run as separate functions over a leading env axis E, and
-the four Hopper kernels of this slice carry the plane-mesh collision
+Counterpart of `loco_mujoco_tpu/ops/forward.py`. `forward` takes the mega
+path, the whole forward as one Hopper kernel (`hopper_mega.mega_forward`),
+when the model has a mega plan (`ops/plan.py`), the data is float32 and
+`LMT_MEGA` is not "0" (forward.py:202-210); otherwise it runs the staged
+path, `forward_staged`: the position stage, velocity stage, actuation,
+smooth acceleration and the constraint solve as separate functions over a
+leading env axis E, with the Hopper kernels of the plane-mesh collision
 (`hopper_collision`), the Newton solve (`hopper_newton`) and the relayouts
-around them (`hopper_layout`). The fused and mega kernels of the reference
-are later slices.
+around them (`hopper_layout`). `step_n` runs n physics steps as one
+megastep kernel launch, or returns None outside that envelope (and under
+`LMT_MEGASTEP=0` or `LMT_MEGA=0`), as forward.py:325-341 does.
 
 Every function runs on the device of its tensors. `plain=True` replaces the
 kernels by their plain PyTorch versions on any device: the reference the
-kernels are held to on the card.
+kernels are held to on the card. `forward_staged(..., replay=)` makes the
+plain Newton solves take another run's discrete decisions
+(`hopper_newton.newton_plain`); the mega path's plain versions use it.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -23,6 +31,7 @@ from . import collision as coll_mod
 from . import constraint as con_mod
 from . import inertia, kinematics, passive, solver, velocity
 from . import math as m3
+from .plan import maybe_plan
 from .support import dof_body_mask, static_tensor
 
 
@@ -62,23 +71,45 @@ def fwd_acceleration(model: Model, data: Data) -> Data:
     return data.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth)
 
 
-def fwd_constraint(model: Model, data: Data, plain: bool = False) -> Data:
+def fwd_constraint(model: Model, data: Data, plain: bool = False,
+                   replay=None) -> Data:
     efc = con_mod.make_constraint(model, data)
-    return solver.solve(model, data, efc, plain)
+    return solver.solve(model, data, efc, plain, replay)
 
 
-def forward(model: Model, data: Data, plain: bool = False) -> Data:
+def forward_staged(model: Model, data: Data, plain: bool = False,
+                   replay=None) -> Data:
     """mj_forward, staged."""
     data = fwd_position(model, data, plain)
     data = fwd_velocity(model, data)
     data = fwd_actuation(model, data)
     data = fwd_acceleration(model, data)
-    return fwd_constraint(model, data, plain)
+    return fwd_constraint(model, data, plain, replay)
 
 
-def _rk4(model: Model, data: Data, plain: bool = False) -> Data:
+def mega_enabled(model: Model, data: Data):
+    """The mega plan when `forward` takes the mega path, else None."""
+    if os.environ.get("LMT_MEGA", "1") == "0":
+        return None
+    return maybe_plan(model, data)
+
+
+def forward(model: Model, data: Data, plain: bool = False) -> Data:
+    """mj_forward: the mega path where it applies (see the module note),
+    else the staged path. On the mega path the position- and
+    velocity-stage fields of Data stay stale (hopper_mega)."""
+    if mega_enabled(model, data) is not None:
+        from . import hopper_mega
+
+        if plain:
+            return hopper_mega.mega_forward_plain(model, data)
+        return hopper_mega.mega_forward(model, data)
+    return forward_staged(model, data, plain)
+
+
+def rk4(model: Model, data: Data, stage_forward) -> Data:
     """mj_RungeKutta with the fixed RK4 tableau; `data` holds the stage-1
-    forward."""
+    forward and `stage_forward(d, i)` runs the forward of stage i = 1..3."""
     dt = model.opt.timestep
     a = [0.5, 0.5, 1.0]
     b = [1.0 / 6, 1.0 / 3, 1.0 / 3, 1.0 / 6]
@@ -91,7 +122,7 @@ def _rk4(model: Model, data: Data, plain: bool = False) -> Data:
     for i in range(3):
         d = d.replace(qpos=qpos0 + dt * a[i] * derivs[i][0],
                       qvel=qvel0 + dt * a[i] * derivs[i][1])
-        d = forward(model, d, plain)
+        d = stage_forward(d, i + 1)
         derivs.append((d.qvel, d.qacc))
     qpos = qpos0 + dt * sum(b[i] * derivs[i][0] for i in range(4))
     qvel = qvel0 + dt * sum(b[i] * derivs[i][1] for i in range(4))
@@ -105,4 +136,21 @@ def step(model: Model, data: Data, plain: bool = False) -> Data:
     """One physics step: forward dynamics, then RK4 (mj_step)."""
     if model.opt.integrator != int(IntegratorType.RK4):
         raise NotImplementedError("RK4 is the only integrator ported")
-    return _rk4(model, forward(model, data, plain), plain)
+
+    def fwd(d, i):
+        return forward(model, d, plain)
+
+    return rk4(model, fwd(data, 0), fwd)
+
+
+def step_n(model: Model, data: Data, n_steps: int) -> Data | None:
+    """n_steps physics steps as one megastep kernel launch
+    (`hopper_mega.mega_step_n`), or None outside its envelope: the caller
+    then runs `step` n times. Derived Data fields stay stale."""
+    if os.environ.get("LMT_MEGASTEP", "1") == "0":
+        return None
+    if mega_enabled(model, data) is None:
+        return None
+    from . import hopper_mega
+
+    return hopper_mega.mega_step_n(model, data, n_steps)

@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` holds `extern "C"` launchers with a plain C interface.
 It is compiled by `nvcc` for `sm_90a` into a shared library under
 `build/torch_kernels/` at first use, and loaded with ctypes (no PyTorch
 headers, so a build takes seconds, and no `ninja`). A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-a stale library is never loaded. `build_all()` starts one `nvcc` per
+carries a hash of its source, the shared headers (`csrc/*.cuh`) and its
+flags, so an edited source is rebuilt and a stale library is never
+loaded. `build_all()` starts one `nvcc` per
 source, all at once.
 
 Every launcher returns `cudaGetLastError()` after its launch; `check()`
@@ -27,9 +28,11 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("layout", "newton", "plane_mesh")
+SOURCES = ("layout", "newton", "plane_mesh", "mega")
 # the collision kernels mirror their plain versions' operation order
-# (no fused multiply-add), so both pick the same argmin vertex
+# (no fused multiply-add), so both pick the same argmin vertex and the
+# same active contacts; mega.cu unfuses its collision functions itself
+# (__fmul_rn / __fadd_rn) and keeps contraction elsewhere
 _EXTRA_FLAGS = {"plane_mesh": ["--fmad=false"]}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -55,7 +58,9 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[Path, list]:
     src = CSRC / f"{name}.cu"
     flags = _FLAGS + _EXTRA_FLAGS.get(name, [])
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(flags).encode())
     return build_dir() / f"{name}-{digest.hexdigest()[:12]}.so", flags
 
 

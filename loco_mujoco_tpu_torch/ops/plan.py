@@ -1,0 +1,471 @@
+"""The static plan of the mega path: one forward (or a whole control step)
+as one Hopper kernel.
+
+Counterpart of `loco_mujoco_tpu/ops/pallas_constraint.py`'s `RowPlan`
+(`:59-461`) restricted to its mega branch for pyramidal, plane-only,
+uniform-statics torque models, with the FK plan (`pallas_fk.FkPlan`) and
+the collision plan (`pallas_fk.ColPlan`) folded in. It is built once, at
+load (`core/io.model_from_numpy`), from the model arrays and the static
+contact layout; a model outside the envelope gets no plan (`build_plan`
+returns None) and keeps the staged path, as the reference does. The
+envelope:
+
+- pyramidal cones, every contact slot condim 3, one kinematic tree, the
+  constraint stage on;
+- JOINT equalities, dof friction loss and joint limits;
+- contacts against one static world plane only, with one pair solref,
+  solimp, margin, gap and sliding friction for every candidate pair
+  (`_check_uniform`); plane-box groups and at most one plane-mesh group,
+  which must run the plane-mesh kernels (k < P, graph hulls: its
+  `hopper_collision.MeshPlan`);
+- the smooth stage of joint motors without tendons or activations
+  (`_build_smooth`);
+- the batched Newton budget (iterations <= 16, ls_iterations <= 8) and the
+  kernel's compiled widths (`NV_MAX`, `BODY_MAX`, `CON_MAX`, `PAIR_MAX`).
+
+Float64 data gets no plan (`maybe_plan`), as in the reference. Left out of
+the port's plan, and refused: elliptic cones (`mega_ell`), muscles (`mp`),
+Euler's in-kernel damping (`euler_dv`) and damping as per-env rows
+(`sm_dyn_damping`); plane-cylinder groups are refused at load by
+`ops/collision.py`.
+
+`tables(device)` packs the plan into the two read-only buffers the kernels
+of `csrc/mega.cu` take: an int32 buffer that starts with the header
+`HEADER` (counts and the offsets of every table) and a float32 buffer.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.types import ConeType, DisableBit, EqType, GeomType, JointType
+
+MINVAL = 1e-15
+NV_MAX = 24  # the local-array widths compiled in csrc/mega.cu
+BODY_MAX = 32
+CON_MAX = 64
+PAIR_MAX = 128
+ROWS_MAX = 400  # the reference's LMT_MAX_PYR_ROWS default
+
+# int header of the packed tables; csrc/mega.cu's `enum Header` lists the
+# same names in the same order (tests/test_torch_mega_plan.py checks it)
+HEADER = (
+    "NQ", "NV", "NBODY", "NJNT", "NU", "NE", "NFL", "NL", "NPAD", "NROWS",
+    "NCON", "FLAGS", "NBOX", "KBOX", "OFFBOX", "NMESH", "KMESH", "OFFMESH",
+    "F_BODY", "I_BODY", "I_TOPO", "F_JNT", "I_JNT", "F_DOF", "I_DOF",
+    "I_ANC", "I_DMASK", "F_ACT", "I_ACT", "F_EQ", "I_EQ", "F_FL", "I_FL",
+    "F_LIM", "I_LIM", "F_CON", "F_BOX", "I_BOX", "F_MESH", "I_MESH",
+    "F_VERT",
+)
+H = {name: i for i, name in enumerate(HEADER)}
+# FLAGS bits
+PASSIVE, ACTUATION, CLAMPCTRL, REFSAFE = 1, 2, 4, 8
+# per-entry widths of the tables (floats / ints), as csrc/mega.cu reads them
+WIDTH = {"F_BODY": 20, "I_BODY": 4, "F_JNT": 10, "I_JNT": 4, "F_DOF": 2,
+         "I_DOF": 1, "F_ACT": 6, "I_ACT": 3, "F_EQ": 16, "I_EQ": 4,
+         "F_FL": 10, "I_FL": 1, "F_LIM": 12, "I_LIM": 2, "F_CON": 32,
+         "F_BOX": 12, "I_BOX": 2, "F_MESH": 16, "I_MESH": 5}
+
+
+def _floats(x):
+    return [float(v) for v in np.asarray(x).ravel()]
+
+
+def _quat_normal(q):
+    """Third column of the rotation of the (normalised) quaternion q."""
+    w, x, y, z = (float(v) for v in q)
+    n = (w * w + x * x + y * y + z * z) ** 0.5
+    w, x, y, z = w / n, x / n, y / n, z / n
+    return np.array([2 * (x * z + w * y), 2 * (y * z - w * x),
+                     1 - 2 * (x * x + y * y)])
+
+
+def _make_frame(n):
+    """mju_makeFrame rows (n, t1, t2), in numpy (collision.make_frame)."""
+    ref = (np.array([0.0, 1.0, 0.0]) if abs(n[1]) < 0.5
+           else np.array([0.0, 0.0, 1.0]))
+    t1 = ref - n * float(np.dot(n, ref))
+    t1 = t1 / np.linalg.norm(t1)
+    return np.stack([n, t1, np.cross(n, t1)])
+
+
+class MegaPlan:
+    """Static tables of the mega path (see the module note). Field names
+    follow the reference's RowPlan / FkPlan / ColPlan."""
+
+    def __init__(self, L: dict, A: dict, groups, mesh_kernel):
+        self.ok = False
+        nv, nb, njnt = int(A["nv"]), int(A["nbody"]), int(A["njnt"])
+        flags = int(A["opt.disableflags"])
+        if int(A["opt.cone"]) != int(ConeType.PYRAMIDAL):
+            return
+        if not groups or any(int(g.condim) != 3 for g in groups):
+            return
+        roots = np.asarray(A["body_rootid"])
+        if roots[1:].size and not np.all(roots[1:] == roots[1]):
+            return
+        if flags & (DisableBit.CONSTRAINT | DisableBit.CONTACT):
+            return
+        if not (int(A["opt.iterations"]) <= 16
+                and int(A["opt.ls_iterations"]) <= 8):
+            return
+        if int(A["ntendon"]) or int(A["na"]):
+            return
+        jt = np.asarray(A["jnt_type"])
+        if not np.all((jt == int(JointType.HINGE))
+                      | (jt == int(JointType.SLIDE))):
+            return
+        parent = [int(b) for b in np.asarray(A["body_parentid"])]
+        if (nv > NV_MAX or nb > BODY_MAX or int(A["nq"]) != nv
+                or njnt != nv):
+            return
+        f64 = {k: np.asarray(v, np.float64) for k, v in L.items()}
+        self.nq, self.nv, self.nbody, self.njnt = nv, nv, nb, njnt
+        self.nu = int(A["nu"])
+        self.timestep = float(f64["opt.timestep"])
+        self.refsafe = not (flags & DisableBit.REFSAFE)
+        self.iterations = int(A["opt.iterations"])
+        self.ls_iterations = int(A["opt.ls_iterations"])
+        self.scale = float(A["stat_meaninertia"]) * max(1, nv)
+        # MuJoCo's default tolerance is out of reach in float32
+        self.tolerance = max(float(A["opt.tolerance"]), 1e-6)
+        qpos0 = f64["qpos0"]
+        self.qpos0 = _floats(qpos0)
+        qadr = np.asarray(A["jnt_qposadr"])
+        dadr = np.asarray(A["jnt_dofadr"])
+        dof_iw = f64["dof_invweight0"]
+
+        # --- JOINT equalities ------------------------------------------
+        eq_ids = ([] if flags & DisableBit.EQUALITY else
+                  [e for e in range(int(A["neq"])) if A["eq_active0"][e]])
+        if any(int(A["eq_type"][e]) != int(EqType.JOINT) for e in eq_ids):
+            return
+        self.eq = []
+        for e in eq_ids:
+            j1, j2r = int(A["eq_obj1id"][e]), int(A["eq_obj2id"][e])
+            valid2 = 0 <= j2r < njnt and j2r != j1
+            j2 = j2r if valid2 else j1
+            self.eq.append(dict(
+                q1=int(qadr[j1]), v1=int(dadr[j1]), q2=int(qadr[j2]),
+                v2=int(dadr[j2]), m2=1.0 if valid2 else 0.0,
+                data=_floats(f64["eq_data"][e, :5]),
+                solref=_floats(f64["eq_solref"][e]),
+                solimp=_floats(f64["eq_solimp"][e]),
+                iw=float(dof_iw[int(dadr[j1])])
+                + (float(dof_iw[int(dadr[j2])]) if valid2 else 0.0)))
+
+        # --- dof friction loss -----------------------------------------
+        self.fl = []
+        if not flags & DisableBit.FRICTIONLOSS:
+            for v in np.nonzero(np.asarray(A["dof_frictionloss0"]) > 0)[0]:
+                self.fl.append(dict(
+                    v=int(v), solref=_floats(f64["dof_solref"][v]),
+                    solimp=_floats(f64["dof_solimp"][v]),
+                    floss=float(f64["dof_frictionloss"][v]),
+                    iw=float(dof_iw[v])))
+
+        # --- joint limits ----------------------------------------------
+        self.lim = []
+        if not flags & DisableBit.LIMIT:
+            for j in np.nonzero(np.asarray(A["jnt_limited"]))[0]:
+                v = int(dadr[j])
+                self.lim.append(dict(
+                    q=int(qadr[j]), v=v, lo=float(f64["jnt_range"][j, 0]),
+                    hi=float(f64["jnt_range"][j, 1]),
+                    margin=float(f64["jnt_margin"][j]),
+                    solref=_floats(f64["jnt_solref"][j]),
+                    solimp=_floats(f64["jnt_solimp"][j]),
+                    iw=float(dof_iw[v])))
+
+        self.ncon = int(sum(g.k * g.slots for g in groups))
+        self.ne, self.nfl, self.nl = len(self.eq), len(self.fl), len(self.lim)
+        # the reference pads the non-contact block to a multiple of 8 with
+        # inert rows; the kernel keeps that row layout (the pad rows are
+        # inactive and cost nothing)
+        self.npad = (8 - (self.ne + self.nfl + self.nl) % 8) % 8
+        self.nrows = self.ne + self.nfl + self.nl + self.npad + 4 * self.ncon
+        if self.ncon > CON_MAX or self.nrows > ROWS_MAX:
+            return
+        base = self.ne + self.nfl + self.nl + self.npad
+        self.con_efcadr = (base + 4 * np.arange(self.ncon)).astype(np.int32)
+        self.con_dim = np.full(self.ncon, 3, np.int32)
+
+        # --- tree tables ------------------------------------------------
+        self.body_parent = parent
+        if not all(parent[b] < b for b in range(1, nb)):
+            return  # put_model orders parents first
+        self.topo = list(range(1, nb))
+        self.topo_rev = sorted(range(1, nb), reverse=True)
+        self.dof_bodyid = [int(b) for b in np.asarray(A["dof_bodyid"])]
+        self.anc = np.asarray(A["dof_ancestor_mask"], dtype=bool)
+        self.dofmask = _dof_body_mask(A)  # (nbody, nv)
+        self.body_iw = _floats(f64["body_invweight0"][:, 0])
+
+        # --- FK tables (pallas_fk.FkPlan) --------------------------------
+        tup = lambda x: tuple(float(v) for v in x)  # noqa: E731
+        self.body_pos = [tup(f64["body_pos"][b]) for b in range(nb)]
+        self.body_quat = [tup(f64["body_quat"][b]) for b in range(nb)]
+        self.body_ipos = [tup(f64["body_ipos"][b]) for b in range(nb)]
+        self.body_iquat = [tup(f64["body_iquat"][b]) for b in range(nb)]
+        jadr, jnum = np.asarray(A["body_jntadr"]), np.asarray(A["body_jntnum"])
+        self.body_joints = [
+            [dict(j=int(j), q=int(qadr[j]), q0=float(qpos0[qadr[j]]),
+                  hinge=int(jt[j]) == int(JointType.HINGE),
+                  pos=tup(f64["jnt_pos"][j]), axis=tup(f64["jnt_axis"][j]))
+             for j in range(int(jadr[b]), int(jadr[b]) + int(jnum[b]))]
+            for b in range(nb)]
+
+        # --- smooth stage (_build_smooth: joint motors only) ------------
+        nu = self.nu
+        self.sm_acts = []
+        for u in range(nu):
+            j = int(A["actuator_trnid"][u, 0])
+            self.sm_acts.append(dict(
+                u=u, v=int(dadr[j]), gear=float(f64["actuator_gear"][u, 0]),
+                gain=float(f64["actuator_gainprm"][u, 0]),
+                clo=float(f64["actuator_ctrlrange"][u, 0]),
+                chi=float(f64["actuator_ctrlrange"][u, 1]),
+                climited=bool(A["actuator_ctrllimited"][u]),
+                flo=float(f64["actuator_forcerange"][u, 0]),
+                fhi=float(f64["actuator_forcerange"][u, 1]),
+                flimited=bool(A["actuator_forcelimited"][u])))
+        self._mass = _floats(f64["body_mass"])
+        self._inertia = [_floats(r) for r in f64["body_inertia"]]
+        self._stiffness = _floats(f64["jnt_stiffness"])
+        self._spring_ref = [float(f64["qpos_spring"][q]) for q in qadr]
+        self._jnt_dof = [int(v) for v in dadr]
+        self._damping = _floats(f64["dof_damping"])
+        self._armature = _floats(f64["dof_armature"])
+        self._jntadr = [int(x) for x in jadr]
+        g = f64["opt.gravity"]
+        self.sm_gravity = _floats(np.zeros(3) if flags & DisableBit.GRAVITY
+                                  else g)
+        self.sm_passive_on = not flags & DisableBit.PASSIVE
+        self.sm_actuation_on = not flags & DisableBit.ACTUATION
+        self.sm_clampctrl = not flags & DisableBit.CLAMPCTRL
+
+        # --- uniform contact statics (_check_uniform) and ColPlan --------
+        if not self._check_uniform(A, groups, f64):
+            return
+        if not self._col_plan(A, groups, mesh_kernel, f64):
+            return
+        self._dev = {}
+        self.ok = True
+
+    def _check_uniform(self, A, groups, f64) -> bool:
+        plane = int(GeomType.PLANE)
+        g1s = set()
+        for g in groups:
+            if int(g.t1) != plane:
+                return False
+            g1s.update(np.asarray(A["pair_geom1"])[g.pair_ids].tolist())
+        if len(g1s) != 1:
+            return False
+        gid = g1s.pop()
+        if int(A["geom_bodyid"][gid]) != 0 or self.body_iw[0] != 0.0:
+            return False  # plane on the world body, whose weight folds out
+        sref, simp = f64["pair_solref"], f64["pair_solimp"]
+        marg, gap, fric = f64["pair_margin"], f64["pair_gap"], \
+            f64["pair_friction"]
+        if not (np.all(sref == sref[0]) and np.all(simp == simp[0])
+                and np.all(marg == marg[0]) and np.all(gap == gap[0])
+                and np.all(fric[:, :2] == fric[0, :2])):
+            return False
+        self.c_solref = _floats(sref[0])
+        self.c_solimp = _floats(simp[0])
+        self.c_margin = float(marg[0] - gap[0])
+        self.c_fric = [float(fric[0, 0]), float(fric[0, 1])]
+        self.c_fric5 = _floats(fric[0])
+        n = _quat_normal(f64["geom_quat"][gid])
+        self.c_frame = [_floats(row) for row in _make_frame(n)]
+        self.plane_gid = int(gid)
+        self.n = tuple(float(x) for x in n)
+        self.pp = tuple(float(x) for x in f64["geom_pos"][gid])
+        return True
+
+    def _col_plan(self, A, groups, mesh_kernel, f64) -> bool:
+        gbody = np.asarray(A["geom_bodyid"])
+        gtype = np.asarray(A["geom_type"])
+        if int(gtype[self.plane_gid]) != int(GeomType.PLANE):
+            return False
+        tup = lambda x: tuple(float(v) for v in x)  # noqa: E731
+        self.groups = []
+        n_mesh = 0
+        for g, mk in zip(groups, mesh_kernel):
+            pid = np.asarray(g.pair_ids)
+            desc = dict(kind=None, k=int(g.k), slots=int(g.slots),
+                        offset=int(g.offset), margin=float(
+                            f64["pair_margin"][pid[0]]))
+            if int(g.t2) == int(GeomType.BOX):
+                desc["kind"] = "box"
+                pg2 = np.asarray(A["pair_geom2"])[pid]
+                desc["pairs"] = [dict(gid=int(q), body=int(gbody[q]),
+                                      size=tup(f64["geom_size"][q]),
+                                      gpos=tup(f64["geom_pos"][q]),
+                                      gquat=tup(f64["geom_quat"][q]))
+                                 for q in pg2]
+            elif int(g.t2) == int(GeomType.MESH):
+                n_mesh += 1
+                if mk is None or n_mesh > 1 or len(mk.pid) > PAIR_MAX:
+                    return False  # the group keeps the staged kernels
+                desc["kind"] = "mesh"
+                desc["mesh"] = mk
+                desc["pairs"] = [dict(gid=int(q), body=int(gbody[q]),
+                                      gpos=tup(f64["geom_pos"][q]),
+                                      gquat=tup(f64["geom_quat"][q]))
+                                 for q in mk.pg2]
+            else:
+                return False
+            self.groups.append(desc)
+        kinds = [d["kind"] for d in self.groups]
+        if kinds.count("box") > 1 or any(
+                len(d["pairs"]) > 32 for d in self.groups
+                if d["kind"] == "box"):
+            return False  # the kernel's top-K mask holds 32 box pairs
+        return True
+
+    # ------------------------------------------------------------------
+    # packed device tables
+    # ------------------------------------------------------------------
+    def pack(self):
+        """(ints, floats) numpy buffers of the kernels (see the module
+        note); the int buffer starts with the header."""
+        ints = [np.zeros(len(HEADER), np.int32)]
+        flts = []
+        n_i, n_f = [len(HEADER)], [0]
+        hdr = ints[0]
+
+        def put(name, rows):
+            arr = np.asarray(rows, np.float32 if name[0] == "F" else np.int32)
+            arr = arr.reshape(-1)
+            if name in WIDTH and arr.size % WIDTH[name]:
+                raise AssertionError(name)
+            if name[0] == "F":
+                hdr[H[name]] = n_f[0]
+                flts.append(arr)
+                n_f[0] += arr.size
+            else:
+                hdr[H[name]] = n_i[0]
+                ints.append(arr)
+                n_i[0] += arr.size
+
+        nb, nv = self.nbody, self.nv
+        put("F_BODY", [[*self.body_pos[b], *self.body_quat[b],
+                        *self.body_ipos[b], *self.body_iquat[b],
+                        self._mass[b], *self._inertia[b], self.body_iw[b], 0]
+                       for b in range(nb)])
+        put("I_BODY", [[self.body_parent[b], max(self._jntadr[b], 0),
+                        len(self.body_joints[b]), 0] for b in range(nb)])
+        put("I_TOPO", self.topo or [0])
+        jrows_f, jrows_i = [], []
+        for b in range(nb):
+            for jd in self.body_joints[b]:
+                j = jd["j"]
+                jrows_f.append([*jd["pos"], *jd["axis"], jd["q0"],
+                                self._stiffness[j], self._spring_ref[j], 0])
+                jrows_i.append([int(jd["hinge"]), jd["q"], self._jnt_dof[j],
+                                b])
+        order = np.argsort([jd["j"] for b in range(nb)
+                            for jd in self.body_joints[b]])
+        put("F_JNT", np.asarray(jrows_f)[order])
+        put("I_JNT", np.asarray(jrows_i)[order])
+        put("F_DOF", [[self._damping[d], self._armature[d]]
+                      for d in range(nv)])
+        put("I_DOF", self.dof_bodyid)
+        put("I_ANC", self.anc.astype(np.int32))
+        put("I_DMASK", self.dofmask.astype(np.int32))
+        put("F_ACT", [[a["gear"], a["gain"], a["clo"], a["chi"], a["flo"],
+                       a["fhi"]] for a in self.sm_acts] or [[0] * 6])
+        put("I_ACT", [[a["v"], int(a["climited"]), int(a["flimited"])]
+                      for a in self.sm_acts] or [[0] * 3])
+        put("F_EQ", [[*r["data"], *r["solref"], *r["solimp"], r["m2"],
+                      r["iw"], self.qpos0[r["q1"]], self.qpos0[r["q2"]]]
+                     for r in self.eq] or [[0] * 16])
+        put("I_EQ", [[r["q1"], r["v1"], r["q2"], r["v2"]] for r in self.eq]
+            or [[0] * 4])
+        put("F_FL", [[*r["solref"], *r["solimp"], r["floss"], r["iw"], 0]
+                     for r in self.fl] or [[0] * 10])
+        put("I_FL", [r["v"] for r in self.fl] or [0])
+        put("F_LIM", [[r["lo"], r["hi"], r["margin"], *r["solref"],
+                       *r["solimp"], r["iw"], 0] for r in self.lim]
+            or [[0] * 12])
+        put("I_LIM", [[r["q"], r["v"]] for r in self.lim] or [[0] * 2])
+        frame = np.asarray(self.c_frame).ravel()
+        put("F_CON", [*self.n, *self.pp, *frame, self.c_margin,
+                      *self.c_solref, *self.c_solimp, *self.c_fric,
+                      self.timestep, *self.sm_gravity, 0, 0, 0])
+        box = next((d for d in self.groups if d["kind"] == "box"), None)
+        mesh = next((d for d in self.groups if d["kind"] == "mesh"), None)
+        put("F_BOX", [[*p["gpos"], *p["gquat"], *p["size"], box["margin"], 0]
+                      for p in box["pairs"]] if box else [[0] * 12])
+        put("I_BOX", [[p["body"], p["gid"]] for p in box["pairs"]]
+            if box else [[0] * 2])
+        if mesh:
+            mk = mesh["mesh"]
+            put("F_MESH", [[*p["gpos"], *p["gquat"], *mk.pair_f[i], 0]
+                           for i, p in enumerate(mesh["pairs"])])
+            put("I_MESH", [[p["body"], p["gid"], *mk.pair_i[i]]
+                           for i, p in enumerate(mesh["pairs"])])
+            put("F_VERT", mk.flat)
+        else:
+            put("F_MESH", [[0] * 16])
+            put("I_MESH", [[0] * 5])
+            put("F_VERT", [0.0])
+        flags = ((PASSIVE if self.sm_passive_on else 0)
+                 | (ACTUATION if self.sm_actuation_on else 0)
+                 | (CLAMPCTRL if self.sm_clampctrl else 0)
+                 | (REFSAFE if self.refsafe else 0))
+        counts = dict(
+            NQ=self.nq, NV=nv, NBODY=nb, NJNT=self.njnt, NU=self.nu,
+            NE=self.ne, NFL=self.nfl, NL=self.nl, NPAD=self.npad,
+            NROWS=self.nrows, NCON=self.ncon, FLAGS=flags,
+            NBOX=len(box["pairs"]) if box else 0, KBOX=box["k"] if box else 0,
+            OFFBOX=box["offset"] if box else 0,
+            NMESH=len(mesh["pairs"]) if mesh else 0,
+            KMESH=mesh["k"] if mesh else 0,
+            OFFMESH=mesh["offset"] if mesh else 0)
+        for k, v in counts.items():
+            hdr[H[k]] = v
+        return np.concatenate(ints), np.concatenate(flts)
+
+    def tables(self, device) -> tuple:
+        """(ints, floats) on `device`, made once per device."""
+        key = str(device)
+        hit = self._dev.get(key)
+        if hit is None:
+            ints, flts = self.pack()
+            hit = self._dev[key] = (torch.as_tensor(ints, device=device),
+                                    torch.as_tensor(flts, device=device))
+        return hit
+
+
+def _dof_body_mask(A) -> np.ndarray:
+    """(nbody, nv) bool: dof d moves body b (support.dof_body_mask)."""
+    nb, nv = int(A["nbody"]), int(A["nv"])
+    parent = np.asarray(A["body_parentid"])
+    dofadr, dofnum = np.asarray(A["body_dofadr"]), np.asarray(A["body_dofnum"])
+    anc = np.asarray(A["dof_ancestor_mask"], dtype=bool)
+    mask = np.zeros((nb, nv), dtype=bool)
+    for b in range(1, nb):
+        c = b
+        while c > 0 and dofnum[c] == 0:
+            c = int(parent[c])
+        if c > 0:
+            mask[b] = anc[int(dofadr[c]) + int(dofnum[c]) - 1]
+    return mask
+
+
+def build_plan(leaves: dict, aux: dict, groups, mesh_kernel):
+    """The mega plan of a model, or None when it is outside the envelope
+    (the staged path runs it)."""
+    plan = MegaPlan(leaves, aux, groups, mesh_kernel)
+    return plan if plan.ok else None
+
+
+def maybe_plan(model, data):
+    """The mega plan for this data, or None: float64 data gets none, as
+    the reference's `maybe_plan` refuses it."""
+    if model.mega is None or data.qpos.dtype != torch.float32:
+        return None
+    return model.mega

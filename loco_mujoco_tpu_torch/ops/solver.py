@@ -42,17 +42,27 @@ def newton_inputs(model: Model, data: Data, efc: Efc):
     return operands, options
 
 
-def solve(model: Model, data: Data, efc: Efc, plain: bool = False) -> Data:
+def solve(model: Model, data: Data, efc: Efc, plain: bool = False,
+          replay=None) -> Data:
     """qacc and constraint forces of the rows `efc`. plain=True runs the
-    kernel's plain version on any device (the reference it is held to)."""
+    kernel's plain version on any device (the reference it is held to);
+    `replay` = (iters, taken) of another solve makes the plain version
+    take that solve's discrete decisions (`hopper_newton.newton_plain`)."""
     if efc.J.shape[1] == 0:
+        zero = torch.zeros_like(data.solver_niter)
         return data.replace(qacc=data.qacc_smooth,
                             qfrc_constraint=torch.zeros_like(data.qfrc_smooth),
-                            solver_niter=torch.zeros_like(data.solver_niter))
+                            solver_niter=zero, solver_taken=zero)
     operands, options = newton_inputs(model, data, efc)
-    fn = hn.newton_plain if plain else hn.solve
-    x, force, niter, _ = fn(*operands, **options)
-    return _finish(data, efc, x, force).replace(solver_niter=niter)
+    if plain:
+        out = hn.newton_plain(*operands, **options, replay=replay)
+    elif replay is not None:
+        raise ValueError("only the plain solve replays decisions")
+    else:
+        out = hn.solve(*operands, **options)
+    x, force, niter, taken = out
+    return _finish(data, efc, x, force).replace(solver_niter=niter,
+                                                solver_taken=taken)
 
 
 def _finish(data: Data, efc: Efc, x, force) -> Data:

@@ -11,7 +11,13 @@ floor. Tolerances are chip_smoke.py's: relayouts bit-exact; select/top-K
 active masks and geom ids exact, dist atol 1e-6, pos atol 1e-5, frame atol
 1e-6; Newton qacc and forces rel 5e-4 on every env, the plain version
 replaying the kernel's discrete decisions (warm start, iteration count,
-steps taken).
+steps taken). The mega forward and the megastep (one control step of 10
+RK4 substeps) are held to their plain versions replaying the kernels'
+decisions: qacc, qfrc_constraint and efc_force_contact (forward) and qpos,
+qvel (megastep) rel 5e-4 of their largest value, active slots and their
+geom ids exact and depths atol 1e-5, on every env whose active contact set
+matches; an env whose set differs must have a slot within 1e-5 of its
+margin (a float32 tie), and at most 0.5% of the envs may.
 """
 
 from pathlib import Path
@@ -26,6 +32,7 @@ from loco_mujoco_tpu_torch.ops import constraint as con
 from loco_mujoco_tpu_torch.ops import forward as fwd
 from loco_mujoco_tpu_torch.ops import hopper_collision as hc
 from loco_mujoco_tpu_torch.ops import hopper_layout as lay
+from loco_mujoco_tpu_torch.ops import hopper_mega as hm
 from loco_mujoco_tpu_torch.ops import hopper_newton as hn
 from loco_mujoco_tpu_torch.ops import kernels, solver
 
@@ -99,8 +106,10 @@ def test_newton_matches_plain(state):
     assert float((f_k - f_p).abs().max()) < 5e-4 * float(f_p.abs().max())
 
 
-def test_step_launches_every_kernel(state):
+def test_step_launches_every_kernel(state, monkeypatch):
+    """The staged path (LMT_MEGA=0) launches each of its kernels."""
     model, d = state
+    monkeypatch.setenv("LMT_MEGA", "0")
     kernels.LAUNCHES.clear()
     out = fwd.step(model, d)
     torch.cuda.synchronize()
@@ -117,3 +126,60 @@ def test_float64_on_card_raises(state):
     d = io.make_data(model, 4)
     with pytest.raises(TypeError, match="float32"):
         fwd.fwd_position(model, d)
+
+
+def _tie_envs(same, gap):
+    """Envs whose active set differs from the plain version's: each must
+    have a slot within 1e-5 of its margin, and they are at most 0.5%."""
+    differ = ~same
+    assert bool((gap[differ] < 1e-5).all()), gap[differ]
+    assert int(differ.sum()) <= 0.005 * same.numel()
+
+
+def _gap(d):
+    return (d.contact.dist - d.contact.includemargin).abs().min(dim=1).values
+
+
+def test_mega_forward_matches_plain(state):
+    model, d = state
+    d = d.replace(qvel=0.1 * torch.randn_like(d.qvel))
+    kernels.LAUNCHES.clear()
+    k = fwd.forward(model, d)
+    assert kernels.LAUNCHES["mega_forward"] == 1
+    assert set(kernels.LAUNCHES) == {"mega_forward"}
+    r = hm.mega_forward_plain(model, d,
+                              replay=(k.solver_niter, k.solver_taken))
+    act_k = k.contact.dist < k.contact.includemargin
+    act_r = r.contact.dist < r.contact.includemargin
+    assert act_r.any()
+    same = torch.all(act_k == act_r, dim=1)
+    _tie_envs(same, _gap(r))
+    for name in ("qacc", "qfrc_constraint", "efc_force_contact"):
+        got, ref = getattr(k, name)[same], getattr(r, name)[same]
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), name
+    on = act_r & same[:, None]
+    assert torch.equal(k.contact.geom2[on], r.contact.geom2[on])
+    assert float((k.contact.dist - r.contact.dist).abs()[on].max()) <= 1e-5
+
+
+def test_megastep_matches_plain(state):
+    model, d = state
+    n = 10
+    dec = torch.zeros((E, 4 * n, 2), dtype=torch.int32, device="cuda")
+    kernels.LAUNCHES.clear()
+    k = fwd.step_n(model, d, n)
+    assert dict(kernels.LAUNCHES) == {"megastep": 1}
+    k = hm.mega_step_n(model, d, n, decisions=dec)
+    gaps = []
+    r = hm.mega_step_n_plain(model, d, n, replay=dec,
+                             on_forward=lambda o: gaps.append(_gap(o)))
+    gap = torch.stack(gaps).min(dim=0).values
+    ok = torch.ones(E, dtype=torch.bool, device="cuda")
+    for name in ("qpos", "qvel"):
+        got, ref = getattr(k, name), getattr(r, name)
+        ok &= (got - ref).abs().max(dim=1).values < 5e-4 * float(
+            ref.abs().max())
+    _tie_envs(ok, gap)
+    assert torch.allclose(k.time, d.time + n * model.opt.timestep)
+    assert torch.equal(k.qacc, k.qacc_warmstart)

@@ -55,8 +55,10 @@ def humanoid_xml(full: bool, seed: int = SEED) -> str:
     """The fixture's MJCF (see the module note)."""
     rng = np.random.default_rng(seed)
     # vertex counts are multiples of 8: the reference's
-    # pack_plane_mesh_buckets fails when the largest hull's count is not
-    # (ROADMAP, Queue 3)
+    # pack_plane_mesh_buckets fails when the largest hull's count is not;
+    # its mega plan (ColPlan, vertex cap 5632) needs a multiple of 32, or
+    # LMT_MESH_VCAP at the table width, as mega_states sets (ROADMAP,
+    # Queue 3)
     nvert = (5, 38) if full else (2, 7)
     meshes, counter = [], [0]
 
@@ -238,6 +240,48 @@ def torch_model(full: bool, dtype=torch.float64, device="cpu"):
     jm = jax_model(full)
     leaves, aux = export_model(jm)
     return jm, tio.model_from_numpy(leaves, aux, device=device, dtype=dtype)
+
+
+def mega_states(monkeypatch, full: bool, n_envs: int, seed: int = 7):
+    """(JAX model, port model, JAX data, port data) in float32 for the mega
+    path tests: n_envs seeded states of the fixture in light contact (the
+    feet pressed 5-15 mm into the floor, small joint noise and velocities).
+    The JAX plan is built afresh with `LMT_MESH_VCAP` at the width of the
+    fixture's vertex table (the reference's default cap rounds the largest
+    hull past it; ROADMAP, Queue 3), and the JAX data gets its contact dims
+    from one collision pass, as the env's reset does. Call inside
+    `jax.enable_x64(False)`."""
+    import jax
+    import jax.numpy as jnp
+
+    from loco_mujoco_tpu.core.io import make_data as jax_make_data
+    from loco_mujoco_tpu.ops import collision as jcoll
+    from loco_mujoco_tpu.ops import kinematics as jkin
+    from loco_mujoco_tpu.ops import pallas_constraint as pc
+
+    jm64 = jax_model(full)
+    leaves, aux = export_model(jm64)
+    tm = tio.model_from_numpy(leaves, aux, device="cpu", dtype=torch.float32)
+    monkeypatch.setenv("LMT_MESH_VCAP", str(tm.mesh_vert.shape[1]))
+    monkeypatch.setattr(pc, "_PLAN_CACHE", {})
+    jm = jax_model(full, dtype=jnp.float32)
+    rng = np.random.default_rng(seed)
+    E = n_envs
+    qpos = np.asarray(tm.qpos0)[None] + rng.normal(scale=0.02,
+                                                   size=(E, tm.nq))
+    qpos[:, int(tm.jnt_qposadr[tm.names["joint"]["root_z"]])] -= \
+        rng.uniform(0.005, 0.015, size=E)
+    qvel = rng.normal(scale=0.1, size=(E, tm.nv))
+    ctrl = rng.uniform(-0.3, 0.3, size=(E, tm.nu))
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    d0 = jax_make_data(jm)
+    jd = jax.jit(jax.vmap(lambda q, v, u: jcoll.collision(jm, jkin.kinematics(
+        jm, d0.replace(qpos=q, qvel=v, ctrl=u)))))(
+        f32(qpos), f32(qvel), f32(ctrl))
+    t = lambda x: torch.as_tensor(f32(x))  # noqa: E731
+    td = tio.make_data(tm, E).replace(qpos=t(qpos), qvel=t(qvel),
+                                      ctrl=t(ctrl))
+    return jm, tm, jd, td
 
 
 def write_full_width(path) -> None:

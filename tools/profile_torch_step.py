@@ -2,13 +2,17 @@
 """Where the time of the PyTorch port's physics step goes, on one GPU.
 
     python3 tools/profile_torch_step.py [--envs 4096] [--steps 1]
+                                        [--path megastep|staged]
 
 Loads the committed HumanoidTorque-shaped model on the card, makes the same
 seeded state as `chip_smoke.py`, runs one warm-up control step (10 RK4
-substeps), then traces `--steps` control steps with `torch.profiler`. Each
-forward stage is wrapped in a `record_function` range (here, by wrapping the
-stage functions; the package itself carries no instrumentation), and every
-kernel the card ran is attributed to the innermost range that launched it.
+substeps), then traces `--steps` control steps with `torch.profiler`:
+`--path megastep` (the main path) runs each control step as one
+`forward.step_n`, `--path staged` runs 10 `forward.step` calls with the
+mega path off (`LMT_MEGA=0`). Each forward stage is wrapped in a
+`record_function` range (here, by wrapping the stage functions; the package
+itself carries no instrumentation), and every kernel the card ran is
+attributed to the innermost range that launched it.
 Prints the wall time per control step, the device's busy time and idle
 share, device time per stage and per kernel name, kernels per forward, and
 one JSON line with the same numbers, beside the card's name and power limit.
@@ -20,6 +24,7 @@ import argparse
 import bisect
 import collections
 import json
+import os
 import subprocess
 import sys
 import time
@@ -33,8 +38,8 @@ sys.path.insert(0, str(ROOT))
 
 from loco_mujoco_tpu_torch.core import io  # noqa: E402
 from loco_mujoco_tpu_torch.ops import (  # noqa: E402
-    actuation, collision, constraint, forward, hopper_newton, inertia,
-    kernels, kinematics, passive, solver, velocity)
+    actuation, collision, constraint, forward, hopper_mega, hopper_newton,
+    inertia, kernels, kinematics, passive, solver, velocity)
 
 SUBSTEPS = 10
 
@@ -46,7 +51,7 @@ STAGES = [
     (velocity, "com_vel"), (passive, "passive"), (velocity, "rne"),
     (actuation, "actuation"), (inertia, "solve_m"),
     (constraint, "make_constraint"), (solver, "solve"),
-    (hopper_newton, "solve"),
+    (hopper_newton, "solve"), (hopper_mega, "mega_step_n"),
 ]
 
 
@@ -102,7 +107,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=1)
+    ap.add_argument("--path", choices=("megastep", "staged"),
+                    default="megastep")
     args = ap.parse_args()
+    if args.path == "staged":
+        os.environ["LMT_MEGA"] = "0"
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
@@ -130,6 +139,8 @@ def main() -> int:
         _wrap(mod, name)
 
     def control_step(d):
+        if args.path == "megastep":
+            return forward.step_n(model, d, SUBSTEPS)
         for _ in range(SUBSTEPS):
             d = forward.step(model, d)
         return d
@@ -150,7 +161,7 @@ def main() -> int:
     forwards = 4 * SUBSTEPS * args.steps
     per_step = 1e-3 / args.steps
     print(f"card: {card}; {E} envs, {args.steps} control step(s) of "
-          f"{SUBSTEPS} RK4 substeps traced")
+          f"{SUBSTEPS} RK4 substeps traced, {args.path} path")
     print(f"wall {wall * per_step:.2f} ms/control step, device busy "
           f"{busy * per_step:.2f} ms, idle share {1 - busy / wall:.3f}; "
           f"{nkern / forwards:.0f} kernels per forward")
@@ -161,7 +172,8 @@ def main() -> int:
     for k, v in by_name.most_common(15):
         print(f"  {k:60s} {v * per_step:9.3f}")
     print(json.dumps({
-        "card": card, "envs": E, "wall_ms_per_control_step": wall * per_step,
+        "card": card, "envs": E, "path": args.path,
+        "wall_ms_per_control_step": wall * per_step,
         "device_busy_ms": busy * per_step, "idle_share": 1 - busy / wall,
         "kernels_per_forward": nkern / forwards,
         "stage_ms": {k: v * per_step for k, v in by_stage.items()},
