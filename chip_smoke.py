@@ -5,27 +5,36 @@ Run from the repository root: `python3 chip_smoke.py`. It
 
 1. prints the card and its power limit (nvidia-smi);
 2. builds the Hopper kernels from `loco_mujoco_tpu_torch/csrc/*.cu`;
-3. holds each kernel of the staged path against its plain PyTorch version
-   on the card, on the inputs that path gives it at full width (4096 envs
-   of the committed HumanoidTorque-shaped model: nv = 19, 75 plane-mesh
-   pairs);
-4. drives the staged path (`LMT_MEGA=0`, the earlier slice's path) for 2
-   control steps of 10 RK4 substeps, with every launch counter set to 0
-   just before and read just after, and checks the counts; then compares
-   one staged forward with the all-plain forward;
-5. drives the main path, as `bench.py` does: one forward at reset (the
+3. loads the committed HumanoidTorque-shaped model (nv = 19, 75 plane-mesh
+   pairs) in five configurations, each a change of the loaded arrays: RK4
+   and Euler with uniform contact statics (the mega plan), per-pair
+   friction (the fused kernel's 7-float contact pack), one pair's solref
+   (the generic 26-float pack), and 34 mesh slots per group (456 rows,
+   past the fused kernel's 400: no plan, the standalone Newton kernel);
+4. holds each kernel of the earlier staged path against its plain PyTorch
+   version on the card, on the inputs that path gives it at full width
+   (4096 envs);
+5. drives the staged path (`LMT_MEGA=0`) for 2 control steps of 10 RK4
+   substeps and 2 of 10 Euler substeps, now through the fused constraint
+   kernel, and 1 control step of the model with no plan, through the
+   Newton kernel and its relayouts, with every launch counter set to 0
+   just before each run and read just after, and checks the counts; then
+   compares one staged forward with the all-plain forward and holds the
+   Newton kernel to its plain version at the no-plan run's end state;
+6. drives the main path, as `bench.py` does: one forward at reset (the
    mega forward kernel) and `forward.step_n` for 20 control steps of 10
-   RK4 substeps (one megastep kernel launch each), counters again zeroed
-   just before and read just after, and checks the state, the contacts
-   and that exactly these launches were made;
-6. holds the mega forward kernel and the megastep kernel (one control
-   step) to their plain versions replaying the kernels' Newton decisions,
-   on all 4096 envs;
-7. times each kernel, its plain version and, where one PyTorch call
+   substeps (one megastep kernel launch each), RK4 and then Euler, counters
+   again zeroed just before and read just after, and checks the state, the
+   contacts and that exactly these launches were made;
+7. holds the mega forward kernel and the megastep kernel (one control
+   step), RK4 and Euler, and the fused kernel on all four plan
+   configurations, to their plain versions replaying the kernels' Newton
+   decisions, on all 4096 envs;
+8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the least time the card
    could take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
    the H100 SXM data-sheet peaks at 700 W);
-8. prints one JSON line of kernels and, last, one JSON line with `"ok"`.
+9. prints one JSON line of kernels and, last, one JSON line with `"ok"`.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 the port is missing. Every float32 matmul and convolution runs in full
@@ -47,12 +56,22 @@ from pathlib import Path
 N_ENVS = 4096
 CONTROL_STEPS = 20  # the main path
 STAGED_STEPS = 2  # the staged path, cut from 20 to keep the run short
-SUBSTEPS = 10  # RK4 substeps per control step; 4 forwards each
+WIDE_STEPS = 1  # the no-plan staged path (the Newton kernel's)
+SUBSTEPS = 10  # physics substeps per control step (RK4: 4 forwards each)
 TIE = 1e-5  # a slot this close to its margin is a float32 tie
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BIG = 1e10
+# configurations of the committed model: a static entry, or the first
+# column of the last contact pair's row of a leaf
+CONFIGS = {
+    "rk4": {},
+    "euler": {"opt.integrator": 0},
+    "fric": {"leaf:pair_friction": 0.8},
+    "solref": {"leaf:pair_solref": 0.03},
+    "wide": {"contact_k_plane": 34},
+}
 
 
 def _nvidia_smi() -> str:
@@ -75,6 +94,24 @@ def _time_ms(torch, fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ops(torch, fn):
+    """(kernels, copies and fills, copies from pageable host memory) that
+    one call of `fn` runs on the card, from torch.profiler; all 0 when the
+    profiler sees no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(1 for n in names if n.startswith(("Memcpy", "Memset")))
+    return (len(names) - copies, copies,
+            sum(1 for n in names if "Pageable" in n))
 
 
 def _bound(nbytes, flops):
@@ -141,21 +178,46 @@ def _tie_envs(torch, held, gap, E, what):
     return n
 
 
-def _forward_flops(torch, model, d, iters):
-    """Float operations of one mega forward per env (multiply-add = 2),
-    reckoned from csrc/mega.cu on this state: `d` is the staged forward's
-    Data at the same state (contacts, geom poses), `iters` the Newton
-    steps each env ran. The data-dependent parts are counted from the
-    data: the near plane-mesh pairs' height maps, the selected pairs'
-    neighbour walks, the active constraint rows and the Newton
-    iterations; the rest is per-env arithmetic of fixed size."""
+def _forward_flops(torch, model, d, iters, in_kernel_collision=True):
+    """Float operations of one forward per env (multiply-add = 2),
+    reckoned from csrc/mega.cu (in_kernel_collision: FK and collision in
+    the kernel) or csrc/fused.cu (without them) on this state: `d` is the
+    staged forward's Data at the same state (contacts, geom poses),
+    `iters` the Newton steps each env ran. The data-dependent parts are
+    counted from the data: the near plane-mesh pairs' height maps, the
+    selected pairs' neighbour walks, the active constraint rows and the
+    Newton iterations; the rest is per-env arithmetic of fixed size. A
+    plan with euler_dv adds its solve (M qacc, Cholesky, substitutions)."""
     from loco_mujoco_tpu_torch.ops import collision as coll
 
-    plan = model.mega
+    plan = model.plan
     nv, nb = model.nv, model.nbody
+    dev = d.qpos.device
+    act = d.contact.dist < d.contact.includemargin  # (E, ncon)
+    n_con = act.sum(dim=1).double()
+    lim = torch.zeros_like(n_con)
+    for r in plan.lim:
+        x = d.qpos[:, r["q"]]
+        lim += (torch.minimum(x - r["lo"], r["hi"] - x)
+                < r["margin"]).double()
+    A = plan.ne + plan.nfl + lim + 4 * n_con  # active rows
+    fixed = (nb * 170 + nv * 36 + 6 * nv * (nv + 1) + 2 * nv ** 3 / 3
+             + nb * nv * 18 + nv * nv * 6 + nb * 130 + 20 * nv)
+    if plan.euler_dv:
+        fixed += 4 * nv * nv + nv ** 3 / 3 + 2 * nv * nv
+    rows = (plan.ne + plan.nfl) * (4 * nv + 40) + lim * (2 * nv + 40) \
+        + n_con * (43 * nv + 60)
+    ls = plan.ls_iterations
+    per_iter = (4 * nv * nv + nv * nv / 2 + 2 * nv ** 3 / 3 + 4 * nv * nv
+                + 12 * nv + A * (6 * nv + nv * (nv + 1) + 14 + 8 * ls + 8))
+    newton = (2 * (A * (2 * nv + 6) + 2 * nv * nv + 4 * nv)
+              + iters.double() * per_iter + A * (4 * nv + 6))
+    total = fixed + rows + newton
+    if not in_kernel_collision:
+        return total
+    # FK, plane-box pairs, plane-mesh height maps and manifolds
     mesh = next(g for g in plan.groups if g["kind"] == "mesh")
     mk = mesh["mesh"]
-    dev = d.qpos.device
     a, b, _, _ = coll.mesh_kernel_inputs(mk, d)  # (E, P, 3), (E, P)
     pf = torch.as_tensor(mk.pair_f, device=dev)
     lb = b - 1e-6
@@ -165,29 +227,26 @@ def _forward_flops(torch, model, d, iters):
     V = torch.as_tensor(mk.pair_i[:, 1], device=dev, dtype=torch.float64)
     D = float(mk.pair_i[:, 2].max())
     near = ((lb < pf[:, 0]).double() * V).sum(dim=1) * 7  # height maps
-    act = d.contact.dist < d.contact.includemargin  # (E, ncon)
     o = mesh["offset"]
     sel = act[:, o:o + 3 * mesh["k"]:3].sum(dim=1).double()  # slot 0s
-    n_con = act.sum(dim=1).double()
-    lim = torch.zeros_like(n_con)
-    for r in plan.lim:
-        x = d.qpos[:, r["q"]]
-        lim += (torch.minimum(x - r["lo"], r["hi"] - x)
-                < r["margin"]).double()
-    A = plan.ne + plan.nfl + lim + 4 * n_con  # active rows
-    fixed = (nb * 300 + model.njnt * 160 + nv * 36 + 6 * nv * (nv + 1)
-             + 2 * nv ** 3 / 3 + nb * nv * 18 + nv * nv * 6 + nb * 130
-             + 20 * nv + 360 * len(next((g["pairs"] for g in plan.groups
-                                         if g["kind"] == "box"), []))
-             + 121 * mk.P + mesh["k"] * mk.P)
-    rows = (plan.ne + plan.nfl) * (4 * nv + 40) + lim * (2 * nv + 40) \
-        + n_con * (43 * nv + 60) + sel * (23 * D + 166)
-    ls = plan.ls_iterations
-    per_iter = (4 * nv * nv + nv * nv / 2 + 2 * nv ** 3 / 3 + 4 * nv * nv
-                + 12 * nv + A * (6 * nv + nv * (nv + 1) + 14 + 8 * ls + 8))
-    newton = (2 * (A * (2 * nv + 6) + 2 * nv * nv + 4 * nv)
-              + iters.double() * per_iter + A * (4 * nv + 6))
-    return fixed + near + rows + newton
+    fk_col = (nb * 130 + model.njnt * 160
+              + 360 * len(next((g["pairs"] for g in plan.groups
+                                if g["kind"] == "box"), []))
+              + 121 * mk.P + mesh["k"] * mk.P)
+    return total + fk_col + near + sel * (23 * D + 166)
+
+
+def _load(io, root, name, dev, torch):
+    """The committed model in configuration `name` (CONFIGS)."""
+    leaves, aux = io.read_model_npz(
+        root / "loco_mujoco_tpu_torch/assets/humanoid_torque_shape.npz")
+    for k, v in CONFIGS[name].items():
+        if k.startswith("leaf:"):
+            leaves[k[5:]] = leaves[k[5:]].copy()
+            leaves[k[5:]][-1, 0] = v
+        else:
+            aux[k] = v
+    return io.model_from_numpy(leaves, aux, device=dev, dtype=torch.float32)
 
 
 def main() -> int:
@@ -201,10 +260,11 @@ def main() -> int:
     from loco_mujoco_tpu_torch.ops import constraint as con
     from loco_mujoco_tpu_torch.ops import forward as fwd
     from loco_mujoco_tpu_torch.ops import hopper_collision as hc
+    from loco_mujoco_tpu_torch.ops import hopper_fused as hf
     from loco_mujoco_tpu_torch.ops import hopper_layout as lay
     from loco_mujoco_tpu_torch.ops import hopper_mega as hm
     from loco_mujoco_tpu_torch.ops import hopper_newton as hn
-    from loco_mujoco_tpu_torch.ops import kernels, solver
+    from loco_mujoco_tpu_torch.ops import kernels, kinematics, solver
 
     import numpy as np
 
@@ -227,22 +287,32 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
 
-    # ---- model and state ---------------------------------------------------
+    # ---- models and state --------------------------------------------------
     root = Path(__file__).resolve().parent
-    model = io.load_model_npz(
-        root / "loco_mujoco_tpu_torch/assets/humanoid_torque_shape.npz",
-        device=dev, dtype=torch.float32)
+    models = {name: _load(io, root, name, dev, torch) for name in CONFIGS}
+    model, m_eu, m_wide = models["rk4"], models["euler"], models["wide"]
     mesh_groups = [i for i, g in enumerate(model.groups)
                    if coll.is_plane_mesh(g)]
     assert mesh_groups and all(model.mesh_kernel[i] is not None
                                for i in mesh_groups), "mesh group off kernel"
-    assert model.mega is not None, "the model has no mega plan"
+    plans = {n: m.plan for n, m in models.items()}
+    assert plans["rk4"].mega and not plans["rk4"].euler_dv
+    assert plans["euler"].mega and plans["euler"].euler_dv
+    assert not plans["fric"].mega and plans["fric"].pack_w == 7
+    assert not plans["solref"].mega and plans["solref"].pack_w == 26
+    assert plans["wide"] is None, "the wide configuration has a plan"
     plan = model.mesh_kernel[mesh_groups[0]]
     print(f"model: nv={model.nv}, groups "
           f"{[(g.t2, g.k, len(g.pair_ids)) for g in model.groups]}, "
           f"ncon={model.ncon}; mesh group on the kernels: {plan.P} pairs, "
-          f"k={plan.k}, {len(plan.buckets)} vertex buckets; mega plan "
-          f"{model.mega.nrows} rows")
+          f"k={plan.k}, {len(plan.buckets)} vertex buckets; row plan "
+          f"{model.plan.nrows} rows; configurations "
+          + ", ".join(f"{n} (plan: " + ("none, " + str(m.ncon) + " slots"
+                                        if m.plan is None else
+                                        f"mega {m.plan.mega}, pack "
+                                        f"{m.plan.pack_w}, euler_dv "
+                                        f"{m.plan.euler_dv}") + ")"
+                      for n, m in models.items()))
 
     rng = np.random.default_rng(SEED)
     E = N_ENVS
@@ -250,14 +320,19 @@ def main() -> int:
         scale=0.02, size=(E, model.nq))
     z = int(model.jnt_qposadr[model.names["joint"]["root_z"]])
     qpos[:, z] -= rng.uniform(0.005, 0.02, size=E)  # feet and hulls touch
-    data = io.make_data(model, E).replace(
-        qpos=torch.as_tensor(qpos, dtype=torch.float32, device=dev))
+    qpos_t = torch.as_tensor(qpos, dtype=torch.float32, device=dev)
+    data = io.make_data(model, E).replace(qpos=qpos_t)
     ctrls = rng.uniform(-0.3, 0.3, size=(CONTROL_STEPS, E, model.nu))
 
     def ctrl(c):
         return torch.as_tensor(ctrls[c], dtype=torch.float32, device=dev)
 
-    # ---- each kernel against its plain version, at full width --------------
+    def start(m):
+        """The seeded state in model m (every configuration has the same
+        dofs and bodies)."""
+        return io.make_data(m, E).replace(qpos=qpos_t)
+
+    # ---- each kernel of the earlier staged path against its plain version --
     d_pos = fwd.fwd_position(model, data, plain=True)
     a, b, gxp, gxm = coll.mesh_kernel_inputs(plan, d_pos)
     a_t, b_t = lay.moveaxis0_last_plain(a), lay.moveaxis0_last_plain(b)
@@ -302,70 +377,94 @@ def main() -> int:
           f"{int(act_p.sum())}, max err {e_sel:.3g}; top-K active slots "
           f"{n_active}, max err {e_top:.3g}")
 
-    d_acc = fwd.fwd_acceleration(model, fwd.fwd_actuation(
-        model, fwd.fwd_velocity(model, d_pos)))
-    efc = con.make_constraint(model, d_acc)
-    operands, options = solver.newton_inputs(model, d_acc, efc)
-    # The float32 termination test compares a cost improvement with a floor
-    # of 1e-6 * scale, below the rounding of costs that reach 1e5 in deep
-    # contact, so two float32 orders of summation can stop an env one Newton
-    # step apart. The plain version therefore replays the kernel's discrete
-    # decisions (`replay`: warm start, iteration count, steps taken), and
-    # the two are held step for step on every env: qacc and row forces
-    # within rel 5e-4 of their largest value.
-    x_k, f_k, it_k, tk_k = hn.solve(*operands, **options)
-    x_p, f_p, _, _ = hn.newton_plain(*operands, **options,
-                                     replay=(it_k, tk_k))
-    it_own, tk_own = hn.newton_plain(*operands, **options)[2:]
-    e_x = float((x_k - x_p).abs().max())
-    e_f = float((f_k - f_p).abs().max())
-    sx = float(x_p.abs().max()) + 1e-9
-    sf = float(f_p.abs().max()) + 1e-9
-    print(f"newton: nefc={efc.J.shape[1]}; kernel iterations mean "
-          f"{float(it_k.float().mean()):.2f}, decisions replayed by the plain "
-          f"version; "
-          f"all {E} envs: qacc err {e_x:.3g} (rel {e_x / sx:.3g}), force err "
-          f"{e_f:.3g} (rel {e_f / sf:.3g}); the plain version's own "
-          f"decisions agree in "
-          f"{int(((it_own == it_k) & (tk_own == tk_k)).sum())}/{E} envs")
-    assert e_x / sx < 5e-4 and e_f / sf < 5e-4, (e_x, sx, e_f, sf)
-    errs["newton"] = e_x
+    def newton_check(m, d, what):
+        """The Newton kernel against its plain version on the rows of the
+        staged forward at d. The float32 termination test compares a cost
+        improvement with a floor of 1e-6 * scale, below the rounding of
+        costs that reach 1e5 in deep contact, so two float32 orders of
+        summation can stop an env one Newton step apart. The plain version
+        therefore replays the kernel's discrete decisions (`replay`: warm
+        start, iteration count, steps taken), and the two are held step for
+        step on every env: qacc and row forces within rel 5e-4 of their
+        largest value."""
+        d_acc = fwd.fwd_acceleration(m, fwd.fwd_actuation(
+            m, fwd.fwd_velocity(m, d)))
+        efc = con.make_constraint(m, d_acc)
+        operands, options = solver.newton_inputs(m, d_acc, efc)
+        x_k, f_k, it_k, tk_k = hn.solve(*operands, **options)
+        x_p, f_p, _, _ = hn.newton_plain(*operands, **options,
+                                         replay=(it_k, tk_k))
+        it_own, tk_own = hn.newton_plain(*operands, **options)[2:]
+        e_x = float((x_k - x_p).abs().max())
+        e_f = float((f_k - f_p).abs().max())
+        sx = float(x_p.abs().max()) + 1e-9
+        sf = float(f_p.abs().max()) + 1e-9
+        print(f"newton ({what}): nefc={efc.J.shape[1]}; kernel iterations "
+              f"mean {float(it_k.float().mean()):.2f}, decisions replayed by "
+              f"the plain version; all {E} envs: qacc err {e_x:.3g} (rel "
+              f"{e_x / sx:.3g}), force err {e_f:.3g} (rel {e_f / sf:.3g}); "
+              f"the plain version's own decisions agree in "
+              f"{int(((it_own == it_k) & (tk_own == tk_k)).sum())}/{E} envs")
+        assert e_x / sx < 5e-4 and e_f / sf < 5e-4, (e_x, sx, e_f, sf)
+        return e_x, operands, options
 
-    # ---- the staged path (the earlier slice's) --------------------------
-    with _staged_path():
+    e_newton, operands, options = newton_check(
+        model, d_pos, "the model's rows at the dropped state")
+
+    # ---- the staged path (LMT_MEGA=0) -------------------------------------
+    def staged_run(m, steps, per_fwd, what):
+        """`steps` control steps of `fwd.step`; checks every launch."""
         kernels.LAUNCHES.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        d = data
-        for c in range(STAGED_STEPS):
+        d = start(m)
+        for c in range(steps):
             d = d.replace(ctrl=ctrl(c))
             for _ in range(SUBSTEPS):
-                d = fwd.step(model, d)
+                d = fwd.step(m, d)
         torch.cuda.synchronize()
-        wall_staged = time.perf_counter() - t0
-        staged_launches = dict(kernels.LAUNCHES)
-        forwards = 4 * SUBSTEPS * STAGED_STEPS
-        nfl = options["nfl"]
-        per_fwd = {"newton": 1, "to_grouped": 8 + (1 if nfl else 0),
-                   "from_grouped": 2,
-                   "plane_mesh_select": len(mesh_groups),
-                   "group_topk": len(mesh_groups),
-                   "moveaxis0_last": 4 * len(mesh_groups),
-                   "moveaxis_last0": 4 * len(mesh_groups)}
-        assert staged_launches == {k: n * forwards
-                                   for k, n in per_fwd.items()}, \
-            staged_launches
+        wall = time.perf_counter() - t0
+        got = dict(kernels.LAUNCHES)
+        forwards = hm.forwards_per_step(m) * SUBSTEPS * steps
+        assert got == {k: n * forwards for k, n in per_fwd.items()}, got
         assert torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()
         n_con = int((d.contact.dist < d.contact.includemargin).sum())
         assert n_con > 0, "no active contacts"
-        staged_rate = E * STAGED_STEPS / wall_staged
-        print(f"staged path (LMT_MEGA=0): {STAGED_STEPS} control steps x "
-              f"{SUBSTEPS} RK4 substeps, {E} envs in {wall_staged:.2f} s = "
-              f"{staged_rate:.0f} env-steps/s ({card}); active contacts "
-              f"{n_con}; launches per control step "
-              f"{ {k: v // STAGED_STEPS for k, v in sorted(staged_launches.items())} }")
+        rate = E * steps / wall
+        ops = _device_ops(torch, lambda: fwd.forward(m, d))
+        print(f"staged path, {what}: {steps} control steps x {SUBSTEPS} "
+              f"substeps ({forwards // (steps * SUBSTEPS)} forwards each), "
+              f"{E} envs in {wall:.2f} s = {rate:.0f} env-steps/s ({card}); "
+              f"active contacts {n_con}; launches per control step "
+              f"{ {k: v // steps for k, v in sorted(got.items())} }; per "
+              f"forward (torch.profiler) "
+              + (f"{ops[0]} kernels, {ops[1]} copies and fills ({ops[2]} "
+                 f"from pageable host memory)" if sum(ops) else
+                 "not measured"))
+        return d, got, rate, ops[0]
+
+    per_fused = {"fused": 1, "plane_mesh_select": len(mesh_groups),
+                 "group_topk": len(mesh_groups),
+                 "moveaxis0_last": 4 * len(mesh_groups),
+                 "moveaxis_last0": 4 * len(mesh_groups)}
+    nfl = options["nfl"]
+    per_newton = {"newton": 1, "to_grouped": 8 + (1 if nfl else 0),
+                  "from_grouped": 2,
+                  "plane_mesh_select": len(mesh_groups),
+                  "group_topk": len(mesh_groups),
+                  "moveaxis0_last": 4 * len(mesh_groups),
+                  "moveaxis_last0": 4 * len(mesh_groups)}
+    with _staged_path():
+        d_staged, staged_launches, staged_rate, staged_ops = staged_run(
+            model, STAGED_STEPS, per_fused, "RK4 through the fused kernel")
+        d_staged_eu, staged_eu_launches, staged_eu_rate, _ = staged_run(
+            m_eu, STAGED_STEPS, per_fused, "Euler through the fused kernel")
+        d_wide, wide_launches, wide_rate, wide_ops = staged_run(
+            m_wide, WIDE_STEPS, per_newton,
+            f"RK4, no plan ({m_wide.ncon} slots), through the Newton kernel")
 
         # one staged forward against the all-plain forward
+        d = d_staged
         f_kern = fwd.forward(model, d)
         f_plain = fwd.forward(model, d, plain=True)
         same = (f_kern.solver_niter == f_plain.solver_niter) & torch.all(
@@ -383,135 +482,196 @@ def main() -> int:
               f"envs with the same contact set and Newton iterations, there "
               f"qacc max err {e_fwd:.3g} (rel {e_fwd / s_fwd:.3g}); all envs "
               f"{float(diff.max()):.3g}")
-    d_staged = d
+    # the standalone Newton kernel at the end state of its own path
+    d_wide_pos = fwd.fwd_position(m_wide, d_wide)
+    errs["newton"] = max(e_newton, newton_check(
+        m_wide, d_wide_pos, "no-plan path's end state")[0])
 
     # ---- the main path: reset forward, then step_n per control step -----
-    kernels.LAUNCHES.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    d = fwd.forward(model, data)  # the env reset's forward
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for c in range(CONTROL_STEPS):
-        d = fwd.step_n(model, d.replace(ctrl=ctrl(c)), SUBSTEPS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    launches = dict(kernels.LAUNCHES)
-    assert launches == {"mega_forward": 1, "megastep": CONTROL_STEPS}, \
-        launches
-    assert torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()
-    assert torch.allclose(d.time, data.time + CONTROL_STEPS * SUBSTEPS
-                          * model.opt.timestep)
-    f_end = fwd.forward(model, d)
-    n_con = int((f_end.contact.dist < f_end.contact.includemargin).sum())
-    assert n_con > 0, "no active contacts"
-    env_steps = E * CONTROL_STEPS / wall
-    print(f"main path: reset forward {1e3 * (t1 - t0):.2f} ms, then "
-          f"{CONTROL_STEPS} control steps x {SUBSTEPS} RK4 substeps, {E} envs "
-          f"in {wall:.3f} s = {env_steps:.0f} env-steps/s ({card}); active "
-          f"contacts at the end {n_con} ({n_con / E:.2f} per env); launches "
-          f"{launches}")
+    def main_run(m, what):
+        kernels.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = fwd.forward(m, start(m))  # the env reset's forward
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for c in range(CONTROL_STEPS):
+            d = fwd.step_n(m, d.replace(ctrl=ctrl(c)), SUBSTEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        got = dict(kernels.LAUNCHES)
+        assert got == {"mega_forward": 1, "megastep": CONTROL_STEPS}, got
+        assert torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()
+        assert torch.allclose(d.time, data.time + CONTROL_STEPS * SUBSTEPS
+                              * m.opt.timestep)
+        f_end = fwd.forward(m, d)
+        n_con = int((f_end.contact.dist < f_end.contact.includemargin).sum())
+        assert n_con > 0, "no active contacts"
+        rate = E * CONTROL_STEPS / wall
+        print(f"main path, {what}: reset forward {1e3 * (t1 - t0):.2f} ms, "
+              f"then {CONTROL_STEPS} control steps x {SUBSTEPS} substeps, "
+              f"{E} envs in {wall:.3f} s = {rate:.0f} env-steps/s ({card}); "
+              f"active contacts at the end {n_con} ({n_con / E:.2f} per "
+              f"env); launches {got}")
+        return d, got, rate
 
-    # ---- the mega forward against its plain version ---------------------
-    # From the main path's end state S. The plain version replays the
+    S, launches, env_steps = main_run(model, "RK4")
+    S_eu, launches_eu, env_steps_eu = main_run(m_eu, "Euler")
+
+    # ---- the mega forward and the megastep against their plain versions --
+    # From the main path's end state. The plain version replays the
     # kernel's Newton decisions (see the Newton check above); envs whose
     # active contact set differs may be float32 ties only (_tie_envs).
-    S = d
-    k = fwd.forward(model, S)
-    r = hm.mega_forward_plain(model, S, replay=(k.solver_niter,
+    def mega_forward_check(m, S, what):
+        k = fwd.forward(m, S)
+        r = hm.mega_forward_plain(m, S, replay=(k.solver_niter,
                                                 k.solver_taken))
-    act_k = k.contact.dist < k.contact.includemargin
-    act_r = r.contact.dist < r.contact.includemargin
-    same = torch.all(act_k == act_r, dim=1)
-    gap = torch.minimum(_margin_gap(k), _margin_gap(r))
-    ties_fwd = _tie_envs(torch, same, gap, E, "mega forward")
-    e_mega = 0.0
-    msg = []
-    for name in ("qacc", "qfrc_constraint", "efc_force_contact"):
-        got, ref = getattr(k, name)[same], getattr(r, name)[same]
-        err, scl = float((got - ref).abs().max()), float(ref.abs().max())
-        assert err <= 5e-4 * scl, (name, err, scl)
-        msg.append(f"{name} rel {err / (scl + 1e-9):.3g}")
-        if name == "qacc":
-            e_mega = err
-    on = act_r & same[:, None]
-    assert torch.equal(k.contact.geom2[on], r.contact.geom2[on]), "geom2"
-    e_dist = _active_close(k.contact.dist, r.contact.dist, on, 1e-5,
-                           "mega dist")
-    errs["mega_forward"] = e_mega
-    print(f"mega forward vs plain (replayed decisions): {int(act_r.sum())} "
-          f"active slots, {ties_fwd} tie envs excluded; " + ", ".join(msg)
-          + f"; dist max err {e_dist:.3g}; iterations mean "
-          f"{float(k.solver_niter.float().mean()):.2f}")
+        act_k = k.contact.dist < k.contact.includemargin
+        act_r = r.contact.dist < r.contact.includemargin
+        same = torch.all(act_k == act_r, dim=1)
+        gap = torch.minimum(_margin_gap(k), _margin_gap(r))
+        ties = _tie_envs(torch, same, gap, E, f"mega forward {what}")
+        fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
+        if m.plan.euler_dv:
+            fields.append("euler_dv")
+        e_qacc, msg = 0.0, []
+        for name in fields:
+            got, ref = getattr(k, name)[same], getattr(r, name)[same]
+            err, scl = float((got - ref).abs().max()), float(ref.abs().max())
+            assert err <= 5e-4 * scl, (name, err, scl)
+            msg.append(f"{name} rel {err / (scl + 1e-9):.3g}")
+            if name == "qacc":
+                e_qacc = err
+        on = act_r & same[:, None]
+        assert torch.equal(k.contact.geom2[on], r.contact.geom2[on]), "geom2"
+        e_dist = _active_close(k.contact.dist, r.contact.dist, on, 1e-5,
+                               "mega dist")
+        print(f"mega forward {what} vs plain (replayed decisions): "
+              f"{int(act_r.sum())} active slots, {ties} tie envs excluded; "
+              + ", ".join(msg) + f"; dist max err {e_dist:.3g}; iterations "
+              f"mean {float(k.solver_niter.float().mean()):.2f}")
+        return e_qacc
 
-    # ---- one control step of the megastep against its plain version ----
-    dec = torch.zeros((E, 4 * SUBSTEPS, 2), dtype=torch.int32, device=dev)
-    S1 = S.replace(ctrl=ctrl(0))
-    ks = hm.mega_step_n(model, S1, SUBSTEPS, decisions=dec)
-    gaps, step_flops = [], []
+    def megastep_check(m, S, what):
+        """One control step of the megastep against its plain version;
+        returns (error, S1, the flops of each forward)."""
+        per = hm.forwards_per_step(m)
+        dec = torch.zeros((E, per * SUBSTEPS, 2), dtype=torch.int32,
+                          device=dev)
+        S1 = S.replace(ctrl=ctrl(0))
+        ks = hm.mega_step_n(m, S1, SUBSTEPS, decisions=dec)
+        gaps, step_flops = [], []
 
-    def observe(o):
-        gaps.append(_margin_gap(o))
-        step_flops.append(_forward_flops(
-            torch, model, o, dec[:, len(step_flops), 0]))
+        def observe(o):
+            gaps.append(_margin_gap(o))
+            step_flops.append(_forward_flops(
+                torch, m, o, dec[:, len(step_flops), 0]))
 
-    rs = hm.mega_step_n_plain(model, S1, SUBSTEPS, replay=dec,
-                              on_forward=observe)
-    held = torch.ones(E, dtype=torch.bool, device=dev)
-    step_errs = {}
-    for name in ("qpos", "qvel"):
-        got, ref = getattr(ks, name), getattr(rs, name)
-        err = (got - ref).abs().max(dim=1).values
-        scl = float(ref.abs().max()) + 1e-9
-        held &= err <= 5e-4 * scl
-        step_errs[name] = (err, scl)
-    ties_step = _tie_envs(torch, held, torch.stack(gaps).min(dim=0).values,
-                          E, "megastep")
-    # the error over the envs held to the tolerance (all but the ties)
-    errs["megastep"] = max(float(e[held].max()) for e, _ in step_errs.values())
-    msg = [f"{name} rel {float(e[held].max()) / scl:.3g} (all envs "
-           f"{float(e.max()) / scl:.3g})"
-           for name, (e, scl) in step_errs.items()]
-    print(f"megastep (1 control step, {4 * SUBSTEPS} forwards) vs plain "
-          f"(replayed decisions): {ties_step} tie envs excluded; "
-          + ", ".join(msg) + f"; iterations mean "
-          f"{float(dec[..., 0].float().mean()):.2f}")
+        rs = hm.mega_step_n_plain(m, S1, SUBSTEPS, replay=dec,
+                                  on_forward=observe)
+        held = torch.ones(E, dtype=torch.bool, device=dev)
+        step_errs = {}
+        for name in ("qpos", "qvel"):
+            got, ref = getattr(ks, name), getattr(rs, name)
+            err = (got - ref).abs().max(dim=1).values
+            scl = float(ref.abs().max()) + 1e-9
+            held &= err <= 5e-4 * scl
+            step_errs[name] = (err, scl)
+        ties = _tie_envs(torch, held, torch.stack(gaps).min(dim=0).values,
+                         E, f"megastep {what}")
+        # the error over the envs held to the tolerance (all but the ties)
+        e = max(float(e[held].max()) for e, _ in step_errs.values())
+        msg = [f"{name} rel {float(e[held].max()) / scl:.3g} (all envs "
+               f"{float(e.max()) / scl:.3g})"
+               for name, (e, scl) in step_errs.items()]
+        print(f"megastep {what} (1 control step, {per * SUBSTEPS} forwards) "
+              f"vs plain (replayed decisions): {ties} tie envs excluded; "
+              + ", ".join(msg) + f"; iterations mean "
+              f"{float(dec[..., 0].float().mean()):.2f}")
+        return e, S1, step_flops
+
+    errs["mega_forward"] = mega_forward_check(model, S, "RK4")
+    errs["megastep"], S1, step_flops = megastep_check(model, S, "RK4")
+    errs["mega_forward_euler"] = mega_forward_check(m_eu, S_eu, "Euler")
+    errs["megastep_euler"], S1_eu, step_flops_eu = megastep_check(
+        m_eu, S_eu, "Euler")
+
+    # ---- the fused kernel against its plain version, four configurations --
+    # At the staged RK4 run's end state, carried into each configuration:
+    # both versions read the same FK outputs, contacts and warm start, so
+    # their active rows agree by construction and every env is held.
+    fused_in = {}
+    for name in ("rk4", "euler", "fric", "solref"):
+        m = models[name]
+        d = start(m).replace(qpos=d_staged.qpos, qvel=d_staged.qvel,
+                             ctrl=d_staged.ctrl,
+                             qacc_warmstart=d_staged.qacc_warmstart)
+        d = coll.collision(m, kinematics.kinematics(m, d))
+        fused_in[name] = d
+        kernels.LAUNCHES.clear()
+        k = hf.fused_constraint(m, d)
+        assert dict(kernels.LAUNCHES) == {"fused": 1}
+        r = hf.fused_constraint_plain(m, d, replay=(k.solver_niter,
+                                                    k.solver_taken))
+        fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
+        assert (k.euler_dv is None) == (not m.plan.euler_dv)
+        if m.plan.euler_dv:
+            fields.append("euler_dv")
+        held = torch.ones(E, dtype=torch.bool, device=dev)
+        per_env = {}
+        for f in fields:
+            got, ref = getattr(k, f), getattr(r, f)
+            err = (got - ref).abs().reshape(E, -1).max(dim=1).values
+            scl = float(ref.abs().max()) + 1e-9
+            held &= err <= 5e-4 * scl
+            per_env[f] = (err, scl)
+        assert bool(held.all()), (f"fused {name}: {int((~held).sum())} "
+                                  f"envs differ")
+        key = "fused" if name == "rk4" else f"fused_{name}"
+        errs[key] = float(per_env["qacc"][0].max())
+        n_act = int((d.contact.dist < d.contact.includemargin).sum())
+        print(f"fused {name} (pack {m.plan.pack_w}) vs plain (replayed "
+              f"decisions): {n_act} active slots, all {E} envs held; "
+              + ", ".join(f"{f} rel {float(e.max()) / s:.3g}"
+                          for f, (e, s) in per_env.items())
+              + f"; iterations mean "
+              f"{float(k.solver_niter.float().mean()):.2f}")
 
     # ---- timings -----------------------------------------------------------
-    # the staged path's kernels at the staged path's end state
-    d = d_staged
-    d_pos = fwd.fwd_position(model, d)
-    a, b, gxp, gxm = coll.mesh_kernel_inputs(plan, d_pos)
-    a_t, b_t = lay.moveaxis0_last(a), lay.moveaxis0_last(b)
-    gxp_t, gxm_t = lay.moveaxis0_last(gxp), lay.moveaxis0_last(gxm)
-    dist, vsel = hc.plane_mesh_select(plan, a_t, b_t)
-    topk_out = hc.group_topk(plan, dist, vsel, gxp_t, gxm_t)
-    d_acc = fwd.fwd_acceleration(model, fwd.fwd_actuation(
-        model, fwd.fwd_velocity(model, d_pos)))
-    efc = con.make_constraint(model, d_acc)
-    operands, options = solver.newton_inputs(model, d_acc, efc)
-    x, force, iters, _ = hn.solve(*operands, **options)
-
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
     rows = []
+    run_launches = {
+        "staged RK4": staged_launches, "staged Euler": staged_eu_launches,
+        "no-plan staged RK4": wide_launches, "main RK4": launches,
+        "main Euler": launches_eu}
 
-    path_launches = {**staged_launches, **launches}
-
-    def row(name, source, replaces, ms, plain_ms, nbytes_, flops,
-            library_ms=None):
+    def row(name, kernel, run, source, replaces, ms, plain_ms, nbytes_,
+            flops, library_ms=None):
         t, by = _bound(nbytes_, flops)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"loco_mujoco_tpu_torch/csrc/{source}",
             "replaces": f"loco_mujoco_tpu/ops/{replaces}",
-            "launches": path_launches.get(name, 0),
+            "launches": run_launches[run].get(kernel, 0),
             "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": t, "bound_by": by,
             "library_ms": library_ms})
 
-    # relayouts: one forward's calls of each role, summed
+    # the relayouts and the Newton kernel at the end state of their path
+    # (the no-plan staged run): one forward's calls of each role, summed
+    d_acc = fwd.fwd_acceleration(m_wide, fwd.fwd_actuation(
+        m_wide, fwd.fwd_velocity(m_wide, d_wide_pos)))
+    efc = con.make_constraint(m_wide, d_acc)
+    operands, options = solver.newton_inputs(m_wide, d_acc, efc)
+    x, force, iters, _ = hn.solve(*operands, **options)
+    wplan = m_wide.mesh_kernel[mesh_groups[0]]
+    a, b, gxp, gxm = coll.mesh_kernel_inputs(wplan, d_wide_pos)
+    a_t, b_t = lay.moveaxis0_last(a), lay.moveaxis0_last(b)
+    gxp_t, gxm_t = lay.moveaxis0_last(gxp), lay.moveaxis0_last(gxm)
+    dist, vsel = hc.plane_mesh_select(wplan, a_t, b_t)
+    topk_out = hc.group_topk(wplan, dist, vsel, gxp_t, gxm_t)
     E_, nefc, nv = operands[0].shape
     grouped_in = [t.reshape(E_, -1).contiguous() for t in operands]
     if nfl:
@@ -537,20 +697,31 @@ def main() -> int:
         ms = _time_ms(torch, lambda: [fns[role](t) for t in ts])
         plain = _time_ms(torch, lambda: [lay.transpose_plain(t) for t in ts])
         lib = _time_ms(torch, lambda: [t.t().contiguous() for t in ts])
-        row(role, "layout.cu", replaces, ms, plain, 2 * nbytes(*ts), 0, lib)
+        row(role, role, "no-plan staged RK4", "layout.cu", replaces, ms,
+            plain, 2 * nbytes(*ts), 0, lib)
 
+    # the select and top-K at the staged RK4 run's end state (the model's
+    # mesh group, k = 8)
+    d_pos = fwd.fwd_position(model, d_staged)
+    a, b, gxp, gxm = coll.mesh_kernel_inputs(plan, d_pos)
+    a_t, b_t = lay.moveaxis0_last(a), lay.moveaxis0_last(b)
+    gxp_t, gxm_t = lay.moveaxis0_last(gxp), lay.moveaxis0_last(gxm)
+    dist, vsel = hc.plane_mesh_select(plan, a_t, b_t)
+    topk_out = hc.group_topk(plan, dist, vsel, gxp_t, gxm_t)
     ms = _time_ms(torch, lambda: hc.plane_mesh_select(plan, a_t, b_t))
     plain = _time_ms(torch, lambda: hc.select_plain(plan, a_t, b_t))
     pt = plan.tensors(dev)
-    row("plane_mesh_select", "plane_mesh.cu", "pallas_collision.py:230", ms,
-        plain, nbytes(a_t, b_t, pt.flat, pt.pair_i, pt.pair_f, dist, vsel),
+    row("plane_mesh_select", "plane_mesh_select", "staged RK4",
+        "plane_mesh.cu", "pallas_collision.py:230", ms, plain,
+        nbytes(a_t, b_t, pt.flat, pt.pair_i, pt.pair_f, dist, vsel),
         _select_flops(torch, plan, a_t, b_t, dist))
 
     ms = _time_ms(torch, lambda: hc.group_topk(plan, dist, vsel, gxp_t, gxm_t))
     plain = _time_ms(
         torch, lambda: hc.group_topk_plain(plan, dist, vsel, gxp_t, gxm_t))
     slots_on = int((topk_out[0][:, 0] < BIG / 2).sum())
-    row("group_topk", "plane_mesh.cu", "pallas_collision.py:556", ms, plain,
+    row("group_topk", "group_topk", "staged RK4", "plane_mesh.cu",
+        "pallas_collision.py:556", ms, plain,
         nbytes(dist, vsel, gxp_t, gxm_t, pt.tbl16, pt.pg_local32, *topk_out),
         2 * plan.k * plan.P * E + 90 * slots_on)
 
@@ -563,38 +734,70 @@ def main() -> int:
                 + 2 * nv ** 3 / 3 + (8 * ls + 8) * nefc)
     flops = float((2 * (2 * nefc * nv + 2 * nv * nv + 8 * nefc)
                    + iters.double() * per_iter + 2 * nefc * nv).sum())
-    row("newton", "newton.cu", "pallas_newton.py:755", ms, plain,
+    row("newton", "newton", "no-plan staged RK4", "newton.cu",
+        "pallas_newton.py:755", ms, plain,
         nbytes(*operands, x, force, iters), flops)
-    print(f"newton iterations at the timed state: mean "
+    print(f"newton iterations at the timed state ({nefc} rows): mean "
           f"{float(iters.float().mean()):.2f}, max {int(iters.max())}")
 
-    # the mega path's kernels at the main path's end state S
-    pt = model.mega.tables(dev)
-    ins = (S.qpos, S.qvel, S.ctrl, S.qfrc_applied, S.xfrc_applied,
-           S.qacc_warmstart)
-    k = fwd.forward(model, S)
-    out_bytes = nbytes(k.qacc, k.qacc_smooth, k.qfrc_constraint,
-                       k.contact.dist, k.solver_niter, k.solver_taken) \
-        + E * model.ncon * (4 + 4 * 4)  # cgid, cforce
-    flops = float(_forward_flops(torch, model, fwd.forward_staged(
-        model, S, plain=True), k.solver_niter).sum())
-    ms = _time_ms(torch, lambda: hm.mega_forward(model, S))
-    plain = _time_ms(torch, lambda: hm.mega_forward_plain(model, S), reps=3)
-    row("mega_forward", "mega.cu", "pallas_constraint.py:2335", ms, plain,
-        nbytes(*pt, *ins) + out_bytes, flops)
-    ms = _time_ms(torch, lambda: hm.mega_step_n(model, S1, SUBSTEPS), reps=3)
-    plain = _time_ms(torch, lambda: hm.mega_step_n_plain(model, S1, SUBSTEPS),
-                     reps=1)
-    row("megastep", "mega.cu", "pallas_constraint.py:2800", ms, plain,
-        nbytes(*pt, *ins) + 3 * nbytes(S.qvel),
-        float(torch.stack(step_flops).sum()))
+    # the fused kernel at the staged RK4 run's end state (RK4 and Euler),
+    # and the mega forward there (FK and collision besides), like for like
+    ms_mega = _time_ms(torch, lambda: hm.mega_forward(model, d_staged))
+    print(f"mega forward at the staged RK4 end state: {ms_mega:.4f} ms "
+          f"per call ({card})")
+    for name, key, run in (("rk4", "fused", "staged RK4"),
+                           ("euler", "fused_euler", "staged Euler")):
+        m, d = models[name], fused_in[name]
+        k = hf.fused_constraint(m, d)
+        vec, pack = hf.smooth_vec(d), hf.contact_pack(m, d)
+        out_bytes = nbytes(k.qacc, k.qacc_smooth, k.qfrc_constraint,
+                           k.solver_niter, k.solver_taken) \
+            + E * m.plan.nrows * 4 \
+            + (nbytes(k.euler_dv) if m.plan.euler_dv else 0)
+        flops = float(_forward_flops(
+            torch, m, d, k.solver_niter, in_kernel_collision=False).sum())
+        ms = _time_ms(torch, lambda: hf.fused_constraint(m, d))
+        plain = _time_ms(torch, lambda: hf.fused_constraint_plain(m, d),
+                         reps=3)
+        row(key, "fused", run, "fused.cu", "pallas_constraint.py:2052", ms,
+            plain, nbytes(*m.plan.tables(dev), vec, pack) + out_bytes, flops)
+
+    # the mega path's kernels at the main paths' end states
+    for m, S_, S1_, sflops, sfx, run in (
+            (model, S, S1, step_flops, "", "main RK4"),
+            (m_eu, S_eu, S1_eu, step_flops_eu, "_euler", "main Euler")):
+        pt = m.plan.tables(dev)
+        ins = (S_.qpos, S_.qvel, S_.ctrl, S_.qfrc_applied, S_.xfrc_applied,
+               S_.qacc_warmstart)
+        k = fwd.forward(m, S_)
+        out_bytes = nbytes(k.qacc, k.qacc_smooth, k.qfrc_constraint,
+                           k.contact.dist, k.solver_niter, k.solver_taken) \
+            + E * m.ncon * (4 + 4 * 4) \
+            + (nbytes(k.euler_dv) if m.plan.euler_dv else 0)
+        flops = float(_forward_flops(torch, m, fwd.forward_staged(
+            m, S_, plain=True), k.solver_niter).sum())
+        ms = _time_ms(torch, lambda: hm.mega_forward(m, S_))
+        plain = _time_ms(torch, lambda: hm.mega_forward_plain(m, S_), reps=3)
+        row("mega_forward" + sfx, "mega_forward", run, "mega.cu",
+            "pallas_constraint.py:2335", ms, plain,
+            nbytes(*pt, *ins) + out_bytes, flops)
+        ms = _time_ms(torch, lambda: hm.mega_step_n(m, S1_, SUBSTEPS), reps=3)
+        plain = _time_ms(torch, lambda: hm.mega_step_n_plain(m, S1_, SUBSTEPS),
+                         reps=1)
+        row("megastep" + sfx, "megastep", run, "mega.cu",
+            "pallas_constraint.py:2800", ms, plain,
+            nbytes(*pt, *ins) + 3 * nbytes(S_.qvel),
+            float(torch.stack(sflops).sum()))
 
     for r in rows:
         print(f"  {r['name']:18s} {r['ms']:9.4f} ms  plain {r['plain_ms']:9.4f}"
               f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
               f"launches {r['launches']}")
-    print(f"main path {env_steps:.0f} env-steps/s, staged path "
-          f"{staged_rate:.0f} env-steps/s; card: {card}")
+    print(f"main path {env_steps:.0f} env-steps/s RK4, {env_steps_eu:.0f} "
+          f"Euler; staged path {staged_rate:.0f} env-steps/s RK4, "
+          f"{staged_eu_rate:.0f} Euler ({staged_ops or 'not measured'} "
+          f"kernels per forward), no-plan staged path {wide_rate:.0f} "
+          f"({wide_ops or 'not measured'} per forward); card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

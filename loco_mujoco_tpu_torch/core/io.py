@@ -7,13 +7,13 @@ an `.npz` by `save_model_npz` and read back by `load_model_npz`.
 `model_from_numpy` is the one converter from those arrays to the port's
 `Model`; it also fixes, once, everything the step needs to know statically:
 the contact groups and slot layout, which plane-mesh groups run the Hopper
-select/top-K kernels, and the plan of the mega path (the reference's static
-gates).
+select/top-K kernels, and the row plan of the fused constraint kernel and
+the mega path (the reference's static gates).
 
 The port covers the staged physics step of torque humanoids: hinge/slide
 joints, joint-transmission motors, JOINT equalities, friction loss, limits,
-pyramidal plane-box and plane-mesh contacts, RK4. Anything else raises
-`NotImplementedError` here, at load, rather than deep inside a step.
+pyramidal plane-box and plane-mesh contacts, Euler and RK4. Anything else
+raises `NotImplementedError` here, at load, rather than deep inside a step.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from .types import (
 _OPT_LEAVES = ("timestep", "gravity", "impratio")
 _OPT_STATIC = ("integrator", "cone", "iterations", "ls_iterations",
                "disableflags", "tolerance", "ls_tolerance")
-_PORT_ONLY = ("groups", "ncon", "mesh_kernel", "mega", "cache")
+_PORT_ONLY = ("groups", "ncon", "mesh_kernel", "plan", "cache")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -129,8 +129,9 @@ def _check_supported(aux: dict) -> None:
             raise NotImplementedError("joint motors are the only actuators ported")
     if int(aux["opt.cone"]) != int(ConeType.PYRAMIDAL):
         raise NotImplementedError("elliptic cones are not ported yet")
-    if int(aux["opt.integrator"]) != int(IntegratorType.RK4):
-        raise NotImplementedError("RK4 is the only integrator ported")
+    if int(aux["opt.integrator"]) not in (int(IntegratorType.EULER),
+                                          int(IntegratorType.RK4)):
+        raise NotImplementedError("Euler and RK4 are the integrators ported")
     active_eq = np.asarray(aux["eq_active0"], dtype=bool)
     if np.any(np.asarray(aux["eq_type"])[active_eq] != int(EqType.JOINT)):
         raise NotImplementedError("JOINT equalities are the only ones ported")
@@ -173,7 +174,7 @@ def model_from_numpy(leaves: dict, aux: dict, device=None,
     )
     return Model(opt=opt, groups=tuple(groups), ncon=ncon,
                  mesh_kernel=mesh_kernel,
-                 mega=plan.build_plan(leaves, aux, groups, mesh_kernel), **kw)
+                 plan=plan.build_plan(leaves, aux, groups, mesh_kernel), **kw)
 
 
 def load_model_npz(path, device=None, dtype=torch.float32) -> Model:

@@ -10,9 +10,9 @@ axis E, the axis `jax.vmap` added in the JAX package.
 The port adds five structural fields to `Model`, all fixed when the model
 is loaded (`core/io.py`): the contact groups and slot count of
 `ops/collision.py`, the per-group plan of the plane-mesh Hopper kernels
-(None where the reference keeps its XLA path), the plan of the mega path
-(`ops/plan.py`; None outside its envelope), and a cache of static index
-tables.
+(None where the reference keeps its XLA path), the row plan of the fused
+constraint kernel and the mega path (`ops/plan.py`; None outside its
+envelope), and a cache of static index tables.
 """
 
 from __future__ import annotations
@@ -257,7 +257,7 @@ class Model:
     groups: tuple = static_field(default=())  # collision.Group per group
     ncon: int = static_field(default=0)  # total contact slots
     mesh_kernel: tuple = static_field(default=())  # per group: plan or None
-    mega: Any = static_field(default=None)  # plan.MegaPlan or None
+    plan: Any = static_field(default=None)  # plan.RowPlan or None
     cache: dict = static_field(default_factory=dict, compare=False)
 
 
@@ -333,3 +333,7 @@ class Data:
     # the JAX package's Data
     solver_niter: torch.Tensor  # (E,) int32
     solver_taken: torch.Tensor  # (E,) int32
+    # Euler's implicit-damping velocity change (M + dt diag(damping))^-1
+    # M qacc, written by the kernels of a plan with `euler_dv`; None where
+    # the integrator solves it from qM (the JAX package's Data.euler_dv)
+    euler_dv: torch.Tensor | None = None

@@ -1,0 +1,177 @@
+// The fused constraint kernel: the smooth stage from FK outputs, the
+// constraint rows, the Newton solve and Euler's implicit damping of one
+// forward, one thread per env.
+//
+// fused_kernel replaces the Pallas program of
+// loco_mujoco_tpu/ops/pallas_constraint.py: _fused_batched (its
+// pallas_call) with its body _make_fused_kernel(mega=False) ->
+// _forward_env_block, smooth branch (:1268-1281): from the packed per-env
+// vector of FK outputs it computes com, cinert, cdof, the RNE bias,
+// passive forces and motor actuation (qfrc_smooth, _smooth_preamble
+// :950-1180), the CRB mass matrix and qacc_smooth = M^-1 qfrc_smooth
+// (:1301-1346), the JOINT-equality / friction-loss / limit rows and the
+// pyramidal contact rows of the slots the staged collision filled
+// (:1447-1590), the Newton solve (newton_core.cuh), the force of every row
+// and qfrc = J'f (:1864-1890), and euler_dv = (M + h diag(damping))^-1 M
+// qacc (:1893-1906). The device functions are forward_core.cuh's, shared
+// with csrc/mega.cu; the arithmetic follows the port's staged path, the
+// kernel's plain version (ops/hopper_fused.py fused_constraint_plain).
+//
+// Contact pack (ops/plan.py pack_w, per slot):
+//   uniform statics (5): pos (3), dist, geom2 -- the frame, margin, solref,
+//     solimp and friction are the plan's, the body comes from geom2
+//     through the plan's geom -> body table; (7) adds the pair's two
+//     sliding frictions;
+//   generic (26): pos (3), frame (9, rows n t1 t2), dist, includemargin,
+//     friction (2), solref (2), solimp (5), invweight of both bodies, body
+//     1, body 2 -- the point Jacobian's chain mask is body 2's minus body
+//     1's (_kbi_dyn's per-slot parameters).
+//
+// Row layout (the reference's): JOINT equalities, friction loss, limits,
+// npad inert rows, then the contact facets BLOCKED: facet f (+mu1 t1, -mu1
+// t1, +mu2 t2, -mu2 t2) of slot c at row s0 + f ncon + c. The kernel writes
+// every row's force in that layout; the wrapper remaps the facets to
+// efc_force_contact's per-slot order.
+//
+// Layout: the vector, the pack and the outputs are env-major (E, k) (each
+// thread reads and writes its own k contiguous values), so no relayout
+// kernel runs around this kernel, unlike the TPU's lanes layout and its
+// grouped blocking (use_grouped, pick_s), which have no counterpart here.
+// The rows go to global scratch, env-last ((nrows, nv, E) for J), so the
+// solve's row passes coalesce, as in newton.cu and mega.cu.
+//
+// Bound: operations, not bytes. An env reads ~1 KB (vector and pack) and
+// writes ~0.7 KB but does ~10^4-10^5 float operations (CRB and Cholesky,
+// the smooth stage, the rows, the Newton iterations over its active rows).
+// One thread per env gives E / 32 warps (128 at 4096 envs for 132 SMs),
+// and the per-thread state lives in local memory: latency, not issue
+// rate, limits this first version, as it does the mega kernels.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "forward_core.cuh"
+
+namespace {
+
+using namespace lmt;
+
+// Env-major operands and outputs of the fused kernel.
+struct Fused {
+  const float* vec;   // (E, nvec) [qpos qvel xipos ximat xanchor xaxis ctrl
+                      //            qfrc_applied xfrc ws]
+  const float* pack;  // (E, ncon, pack_w)
+  float *qacc, *force, *qfrc, *qacc_smooth, *dv;  // dv null: no euler_dv
+  int *iters, *taken;
+  int nvec;
+};
+
+__global__ void __launch_bounds__(32) fused_kernel(Tab T, Io io, Fused F) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= io.E) return;
+  const int nv = T.h(NV), nb = T.h(NBODY), njnt = T.h(NJNT), nu = T.h(NU);
+  const int nrows = T.h(NROWS), ncon = T.h(NCON), W = T.h(PACKW);
+  const int flags = T.h(FLAGS);
+  Body s;
+  float qpos[NVM], qvel[NVM], ws[NVM], qacc[NVM], qfrc[NVM];
+  const float* v = F.vec + (size_t)e * F.nvec;
+  for (int k = 0; k < nv; ++k) {
+    qpos[k] = v[k];
+    qvel[k] = v[nv + k];
+  }
+  v += 2 * nv;
+  for (int b = 0; b < nb; ++b)
+    for (int k = 0; k < 3; ++k) s.xipos[b][k] = v[3 * b + k];
+  v += 3 * nb;
+  for (int b = 0; b < nb; ++b)
+    for (int k = 0; k < 9; ++k) s.ximat[b][k] = v[9 * b + k];
+  v += 9 * nb;
+  for (int j = 0; j < njnt; ++j)
+    for (int k = 0; k < 3; ++k) s.xanchor[j][k] = v[3 * j + k];
+  v += 3 * njnt;
+  for (int j = 0; j < njnt; ++j)
+    for (int k = 0; k < 3; ++k) s.xaxis[j][k] = v[3 * j + k];
+  v += 3 * njnt;
+  const float* ctrl = v;
+  const float* app = ctrl + nu;
+  const float* xfrc = app + nv;
+  for (int k = 0; k < nv; ++k) ws[k] = xfrc[6 * nb + k];
+
+  com_pos(T, s);
+  crb_factor(T, s);
+  smooth_force(T, ctrl, app, xfrc, qpos, qvel, s);
+
+  const RowWriter w{io, e, nv};
+  const int s0 = joint_rows(T, w, qpos, qvel);
+  const float* con = T.f(F_CON);
+  const float* bf = T.f(F_BODY);
+  const int* gbody = T.i(I_GBODY);
+  const bool uniform = flags & UNIFORM;
+  for (int c = 0; c < ncon; ++c) {
+    const float* p = F.pack + ((size_t)e * ncon + c) * W;
+    const float dist = uniform ? p[3] : p[12];
+    const float margin = uniform ? con[kConMargin] : p[13];
+    if (!(dist < margin)) {
+      for (int f = 0; f < 4; ++f) w.off(s0 + f * ncon + c);
+      continue;
+    }
+    if (uniform) {
+      const int body = gbody[(int)p[4]];
+      const bool fu = flags & FRIC_UNIFORM;
+      contact_rows(T, w, s0, c, s, p, con + kConFrame, -1, body,
+                   dist - margin, con + kConSolref, con + kConSolimp,
+                   bf[20 * body + 18], fu ? con[kConFric] : p[5],
+                   fu ? con[kConFric + 1] : p[6], qvel);
+    } else {
+      contact_rows(T, w, s0, c, s, p, p + 3, (int)p[24], (int)p[25],
+                   dist - margin, p + 16, p + 18, p[23], p[14], p[15], qvel);
+    }
+  }
+
+  int it;
+  unsigned taken;
+  float* force = F.force + (size_t)e * nrows;
+  solve_rows(T, io, e, s, ws, qacc, qfrc, it, taken,
+             [&](int r, float f) { force[r] = f; });
+  for (int k = 0; k < nv; ++k) {
+    F.qacc[(size_t)e * nv + k] = qacc[k];
+    F.qfrc[(size_t)e * nv + k] = qfrc[k];
+    F.qacc_smooth[(size_t)e * nv + k] = s.asm_[k];
+  }
+  F.iters[e] = it;
+  F.taken[e] = (int)taken;
+  if (F.dv) {
+    float dv[NVM];
+    euler_dv(T, s, qacc, dv);
+    for (int k = 0; k < nv; ++k) F.dv[(size_t)e * nv + k] = dv[k];
+  }
+}
+
+constexpr int kBlock = 32;
+
+}  // namespace
+
+// ints/flts: the packed plan (ops/plan.py). vec (E, nvec) and pack
+// (E, ncon, pack_w) env-major. Outputs env-major: qacc, qfrc, qacc_smooth
+// (E, nv), force (E, nrows) in the blocked row layout, iters and taken
+// (E,) int, dv (E, nv) or null. Scratch env-last: J (nrows, nv, E), aref,
+// D, R, act, jar, jv (nrows, E), fl (max(nfl, 1), E).
+extern "C" int lmt_fused(const void* ints, const void* flts, const void* vec,
+                         const void* pack, void* qacc, void* force,
+                         void* qfrc, void* qacc_smooth, void* dv, void* iters,
+                         void* taken, void* J, void* aref, void* D, void* R,
+                         void* act, void* fl, void* jar, void* jv, int E,
+                         int nvec, int iterations, int ls_iterations,
+                         float scale, float tol, void* stream) {
+  if (E <= 0) return 0;
+  const Tab T{(const int*)ints, (const float*)flts};
+  const Io io{(float*)J, (float*)aref, (float*)D, (float*)R, (float*)act,
+              (float*)fl, (float*)jar, (float*)jv, E, iterations,
+              ls_iterations, scale, tol};
+  const Fused F{(const float*)vec, (const float*)pack, (float*)qacc,
+                (float*)force, (float*)qfrc, (float*)qacc_smooth, (float*)dv,
+                (int*)iters, (int*)taken, nvec};
+  fused_kernel<<<(E + kBlock - 1) / kBlock, kBlock, 0,
+                 (cudaStream_t)stream>>>(T, io, F);
+  return (int)cudaGetLastError();
+}

@@ -1,22 +1,28 @@
-"""Forward dynamics, the RK4 integrator and the n-step control step.
+"""Forward dynamics, the Euler and RK4 integrators and the n-step control
+step.
 
 Counterpart of `loco_mujoco_tpu/ops/forward.py`. `forward` takes the mega
 path, the whole forward as one Hopper kernel (`hopper_mega.mega_forward`),
-when the model has a mega plan (`ops/plan.py`), the data is float32 and
-`LMT_MEGA` is not "0" (forward.py:202-210); otherwise it runs the staged
-path, `forward_staged`: the position stage, velocity stage, actuation,
-smooth acceleration and the constraint solve as separate functions over a
-leading env axis E, with the Hopper kernels of the plane-mesh collision
-(`hopper_collision`), the Newton solve (`hopper_newton`) and the relayouts
-around them (`hopper_layout`). `step_n` runs n physics steps as one
-megastep kernel launch, or returns None outside that envelope (and under
-`LMT_MEGASTEP=0` or `LMT_MEGA=0`), as forward.py:325-341 does.
+when the model's row plan (`ops/plan.py`) has `mega`, the data is float32
+and `LMT_MEGA` is not "0" (forward.py:202-210); otherwise it runs the staged
+path, `forward_staged`: the stages as separate functions over a leading env
+axis E, with the Hopper kernels of the plane-mesh collision
+(`hopper_collision`). With a plan (float32 data of a model inside the row
+envelope), the constraint stage is the fused kernel
+(`hopper_fused.fused_constraint`, forward.py:179-192), which rebuilds the
+smooth stage from the FK outputs, so the reference's stage gates
+(forward.py:55-123) skip com_pos, the velocity, actuation and acceleration
+stages (`plan.smooth`), crb (RK4, or Euler with `euler_dv`; the port's
+plans are always smooth, and with EULERDAMP disabled Euler reads no qM)
+and factor_m. Without a plan every stage runs, then `make_constraint` and
+the Newton solve (`hopper_newton`) with the relayouts around it
+(`hopper_layout`). `step_n` runs n physics steps as one megastep kernel
+launch, or returns None outside that envelope (and under `LMT_MEGASTEP=0`
+or `LMT_MEGA=0`), as forward.py:325-341 does.
 
 Every function runs on the device of its tensors. `plain=True` replaces the
 kernels by their plain PyTorch versions on any device: the reference the
-kernels are held to on the card. `forward_staged(..., replay=)` makes the
-plain Newton solves take another run's discrete decisions
-(`hopper_newton.newton_plain`); the mega path's plain versions use it.
+kernels are held to on the card.
 """
 
 from __future__ import annotations
@@ -25,11 +31,11 @@ import os
 
 import torch
 
-from ..core.types import Data, IntegratorType, Model
+from ..core.types import Data, DisableBit, IntegratorType, Model
 from . import actuation as act_mod
 from . import collision as coll_mod
 from . import constraint as con_mod
-from . import inertia, kinematics, passive, solver, velocity
+from . import inertia, kinematics, linalg, passive, solver, velocity
 from . import math as m3
 from .plan import maybe_plan
 from .support import dof_body_mask, static_tensor
@@ -71,27 +77,40 @@ def fwd_acceleration(model: Model, data: Data) -> Data:
     return data.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth)
 
 
-def fwd_constraint(model: Model, data: Data, plain: bool = False,
-                   replay=None) -> Data:
-    efc = con_mod.make_constraint(model, data)
-    return solver.solve(model, data, efc, plain, replay)
+def fwd_constraint(model: Model, data: Data, plain: bool = False) -> Data:
+    """The constraint stage: the fused kernel with a plan (`data` then
+    needs only the FK outputs and the contacts), else make_constraint and
+    the Newton solve (euler_dv None: Euler then solves it from qM)."""
+    if maybe_plan(model, data) is None:
+        efc = con_mod.make_constraint(model, data)
+        return solver.solve(model, data, efc, plain).replace(euler_dv=None)
+    from . import hopper_fused
+
+    if plain:
+        return hopper_fused.fused_constraint_plain(model, data)
+    return hopper_fused.fused_constraint(model, data)
 
 
-def forward_staged(model: Model, data: Data, plain: bool = False,
-                   replay=None) -> Data:
-    """mj_forward, staged."""
+def forward_staged(model: Model, data: Data, plain: bool = False) -> Data:
+    """mj_forward, staged, with the reference's stage gates (see the module
+    note)."""
+    if maybe_plan(model, data) is not None:
+        data = kinematics.kinematics(model, data)
+        data = coll_mod.collision(model, data, plain)
+        return fwd_constraint(model, data, plain)
     data = fwd_position(model, data, plain)
     data = fwd_velocity(model, data)
     data = fwd_actuation(model, data)
     data = fwd_acceleration(model, data)
-    return fwd_constraint(model, data, plain, replay)
+    return fwd_constraint(model, data, plain)
 
 
 def mega_enabled(model: Model, data: Data):
-    """The mega plan when `forward` takes the mega path, else None."""
+    """The row plan when `forward` takes the mega path, else None."""
     if os.environ.get("LMT_MEGA", "1") == "0":
         return None
-    return maybe_plan(model, data)
+    plan = maybe_plan(model, data)
+    return plan if plan is not None and plan.mega else None
 
 
 def forward(model: Model, data: Data, plain: bool = False) -> Data:
@@ -132,15 +151,50 @@ def rk4(model: Model, data: Data, stage_forward) -> Data:
                      qacc_warmstart=d0.qacc)
 
 
+def _advance_act(model: Model, data: Data) -> torch.Tensor:
+    """The activations after a step (forward.py:219-237): with na == 0
+    there are none; activation dynamics come with the muscles."""
+    if model.na:
+        raise NotImplementedError("activations are not ported yet")
+    return data.act
+
+
+def damping_dv(model: Model, data: Data) -> torch.Tensor:
+    """Euler's implicit-damping velocity change from qM (forward.py:255-
+    259): (qM + dt diag(damping))^-1 (qM qacc)."""
+    mh = data.qM + model.opt.timestep * torch.diag(model.dof_damping)
+    return linalg.spd_solve(mh, inertia.mul_m(model, data, data.qacc))
+
+
+def euler(model: Model, data: Data) -> Data:
+    """mj_Euler after a forward (forward.py:240-266): semi-implicit, with
+    implicit joint damping qvel += dt (M + dt diag(damping))^-1 (M qacc),
+    taken from the kernels' euler_dv where a plan computed it, else solved
+    from qM; with EULERDAMP disabled, qvel += dt qacc."""
+    dt = model.opt.timestep
+    act = _advance_act(model, data)
+    if model.opt.disableflags & DisableBit.EULERDAMP:
+        qvel = data.qvel + dt * data.qacc
+    elif data.euler_dv is not None:
+        qvel = data.qvel + dt * data.euler_dv
+    else:
+        qvel = data.qvel + dt * damping_dv(model, data)
+    qpos = data.qpos + dt * qvel  # nq == nv: hinge and slide joints
+    return data.replace(qpos=qpos, qvel=qvel, act=act, time=data.time + dt,
+                        qacc_warmstart=data.qacc)
+
+
 def step(model: Model, data: Data, plain: bool = False) -> Data:
-    """One physics step: forward dynamics, then RK4 (mj_step)."""
-    if model.opt.integrator != int(IntegratorType.RK4):
-        raise NotImplementedError("RK4 is the only integrator ported")
+    """One physics step: forward dynamics, then RK4 or Euler (mj_step)."""
+    integrator = model.opt.integrator
+    if integrator == int(IntegratorType.RK4):
+        def fwd(d, i):
+            return forward(model, d, plain)
 
-    def fwd(d, i):
-        return forward(model, d, plain)
-
-    return rk4(model, fwd(data, 0), fwd)
+        return rk4(model, fwd(data, 0), fwd)
+    if integrator == int(IntegratorType.EULER):
+        return euler(model, forward(model, data, plain))
+    raise NotImplementedError("Euler and RK4 are the integrators ported")
 
 
 def step_n(model: Model, data: Data, n_steps: int) -> Data | None:

@@ -1,0 +1,175 @@
+"""The fused constraint kernel on the card: the smooth stage, the
+constraint rows, the Newton solve and Euler's implicit damping of one
+forward as one kernel launch, from the FK outputs and the contact slots of
+the staged path.
+
+Counterpart of `loco_mujoco_tpu/ops/pallas_constraint.py`'s
+`fused_constraint` (`:2204-2300`) over `_fused_batched` (`:2052`, its
+`pallas_call` at `:2134`), for plans with the smooth vec layout. The kernel
+is `csrc/fused.cu`'s `fused_kernel`, one thread per env, over the static
+tables of the model's row plan (`ops/plan.py`).
+
+`fused_constraint` packs the per-env vector (qpos, qvel, xipos, ximat,
+xanchor, xaxis, ctrl, qfrc_applied, xfrc_applied, qacc_warmstart;
+`:2246-2256`) and the contact slots in the plan's pack width (`:2215-2243`),
+launches the kernel, and writes qacc, qacc_smooth, qfrc_constraint,
+efc_force_contact, euler_dv (None unless the plan has it) and the Newton
+decisions `solver_niter` / `solver_taken`. The kernel's contact facet rows
+are BLOCKED, facet f of slot c at row s0 + f ncon + c (`:2279-2283`);
+`_finish` restores efc_force_contact's per-slot order. Every other Data
+field stays as it came in.
+
+A CUDA tensor launches the kernel (float32 only) or raises; a CPU tensor
+runs the plain version, `fused_constraint_plain`: the same function in
+plain PyTorch, from the staged path's own stages (com_pos, crb, the
+velocity stage, passive, actuation, qacc_smooth), `make_constraint`'s rows
+put in the fused layout (the `npad` inert rows, the blocked facets),
+`hopper_newton.newton_plain` and `forward.damping_dv` for euler_dv. Its
+`replay` = (iters, taken) makes the solve take another run's discrete
+decisions, so the kernel can be held to it step for step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.types import Data, Model
+from . import constraint as con_mod
+from . import hopper_newton as hn
+from . import inertia, kernels, kinematics
+from .kernels import FLOAT, INT, PTR
+from .support import static_tensor
+
+_SIGNATURES = {"lmt_fused": [PTR] * 19 + [INT] * 4 + [FLOAT, FLOAT, PTR]}
+
+
+def smooth_vec(data: Data) -> torch.Tensor:
+    """The (E, nvec) per-env vector of the smooth layout (nq == nv)."""
+    E = data.qpos.shape[0]
+    return torch.cat([
+        data.qpos, data.qvel, data.xipos.reshape(E, -1),
+        data.ximat.reshape(E, -1), data.xanchor.reshape(E, -1),
+        data.xaxis.reshape(E, -1), data.ctrl, data.qfrc_applied,
+        data.xfrc_applied.reshape(E, -1), data.qacc_warmstart], dim=1)
+
+
+def contact_pack(model: Model, data: Data) -> torch.Tensor:
+    """The (E, ncon, pack_w) contact slots of the plan's pack (see
+    csrc/fused.cu); (E, 1, pack_w) zeros with no contact rows."""
+    plan = model.plan
+    con, n = data.contact, plan.ncon
+    E, dt = data.qpos.shape[0], data.qpos.dtype
+    if not n:
+        return torch.zeros((E, 1, plan.pack_w), dtype=dt,
+                           device=data.qpos.device)
+    if plan.uniform:
+        fields = [con.pos[:, :n], con.dist[:, :n, None],
+                  con.geom2[:, :n, None].to(dt)]
+        if not plan.fric_uniform:
+            fields.append(con.friction[:, :n, :2])
+    else:
+        gb = static_tensor(model, "geom_bodyid", lambda: model.geom_bodyid,
+                           dtype=torch.int64)
+        b1, b2 = gb[con.geom1[:, :n]], gb[con.geom2[:, :n]]
+        biw = model.body_invweight0[:, 0]
+        fields = [con.pos[:, :n], con.frame[:, :n].reshape(E, n, 9),
+                  con.dist[:, :n, None], con.includemargin[:, :n, None],
+                  con.friction[:, :n, :plan.nfric], con.solref[:, :n],
+                  con.solimp[:, :n], (biw[b1] + biw[b2])[..., None],
+                  b1[..., None].to(dt), b2[..., None].to(dt)]
+    return torch.cat(fields, dim=-1).contiguous()
+
+
+def _finish(model: Model, data: Data, qacc, force, qfrc, asm, dv, iters,
+            taken) -> Data:
+    """The output contract (see the module note) on top of `data`; force
+    holds every row in the fused layout."""
+    plan = model.plan
+    n = plan.ncon
+    efc = torch.zeros_like(data.efc_force_contact)
+    if n:
+        w = min(4, efc.shape[2])
+        s0 = plan.nrows - 4 * n
+        blocked = force[:, s0:].reshape(-1, 4, n).transpose(1, 2)
+        efc[:, :n, :w] = blocked[..., :w]
+    return data.replace(qacc=qacc, qacc_smooth=asm, qfrc_constraint=qfrc,
+                        efc_force_contact=efc, euler_dv=dv,
+                        solver_niter=iters, solver_taken=taken)
+
+
+def fused_constraint(model: Model, data: Data) -> Data:
+    """make_constraint + solver.solve (and Euler's damping solve) of every
+    env in one kernel launch (see the module note). `data` holds the
+    staged path's FK outputs and contact slots; the model must have a
+    plan."""
+    plan = model.plan
+    if plan is None:
+        raise ValueError("the model has no row plan")
+    if not data.qpos.is_cuda:
+        return fused_constraint_plain(model, data)
+    vec, pack = smooth_vec(data), contact_pack(model, data)
+    E, nv, dev = vec.shape[0], model.nv, vec.device
+    kernels.require(vec, "vec", vec.shape)
+    kernels.require(pack, "contact pack", (E, max(plan.ncon, 1), plan.pack_w))
+    f = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa
+    i = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)  # noqa
+    qacc, qfrc, asm = f(E, nv), f(E, nv), f(E, nv)
+    force = f(E, plan.nrows)
+    dv = f(E, nv) if plan.euler_dv else None
+    iters, taken = i(E), i(E)
+    ints, flts = plan.tables(dev)
+    scratch = plan.scratch(E, dev)  # held until the launch is queued
+    p = kernels.ptr
+    lib = kernels.library("fused", _SIGNATURES)
+    rc = lib.lmt_fused(
+        p(ints), p(flts), p(vec), p(pack),
+        *map(p, (qacc, force, qfrc, asm)), None if dv is None else p(dv),
+        p(iters), p(taken), *map(p, scratch), E, vec.shape[1],
+        plan.iterations, plan.ls_iterations, plan.scale, plan.tolerance,
+        kernels.stream())
+    kernels.check(rc, "fused")
+    kernels.LAUNCHES["fused"] += 1
+    return _finish(model, data, qacc, force, qfrc, asm, dv, iters, taken)
+
+
+def fused_rows(plan, efc: con_mod.Efc):
+    """make_constraint's rows (equalities, friction loss, limits, contact
+    facets slot-major) in the fused layout: `npad` inert rows (J 0, aref 0,
+    R = D = 1, inactive) after the limits, then the facets blocked, facet f
+    of slot c at s0 + f ncon + c. Returns (J, aref, D, R, floss, active)."""
+    s0 = plan.ne + plan.nfl + plan.nl
+    inert = efc.J.shape[1]  # the index of an appended inert row
+    idx = (list(range(s0)) + [inert] * plan.npad
+           + [s0 + 4 * c + f for f in range(4) for c in range(plan.ncon)])
+    idx = torch.as_tensor(idx, device=efc.J.device)
+
+    def rows(t, fill):
+        pad = torch.full_like(t[:, :1], fill)
+        return torch.cat([t, pad], dim=1)[:, idx]
+
+    return (rows(efc.J, 0.0), rows(efc.aref, 0.0), rows(efc.D, 1.0),
+            rows(efc.R, 1.0), rows(efc.floss, 0.0),
+            rows(efc.active, False))
+
+
+def fused_constraint_plain(model: Model, data: Data, replay=None) -> Data:
+    """Plain version of `fused_constraint` (see the module note), on any
+    device; `replay` = (iters, taken)."""
+    from . import forward as fwd
+
+    plan = model.plan
+    d = kinematics.com_pos(model, data)
+    d = inertia.factor_m(model, inertia.crb(model, d))
+    d = fwd.fwd_acceleration(model, fwd.fwd_actuation(
+        model, fwd.fwd_velocity(model, d)))
+    J, aref, D, R, floss, active = fused_rows(
+        plan, con_mod.make_constraint(model, d))
+    x, force, iters, taken = hn.newton_plain(
+        J, d.qM, aref, D, R, floss, active.to(J.dtype), d.qacc_smooth,
+        d.qacc_warmstart, ne=plan.ne, nfl=plan.nfl,
+        iterations=plan.iterations, ls_iterations=plan.ls_iterations,
+        scale=plan.scale, tol=plan.tolerance, replay=replay)
+    qfrc = torch.einsum("erv,er->ev", J * active[..., None].to(J.dtype), force)
+    dv = fwd.damping_dv(model, d.replace(qacc=x)) if plan.euler_dv else None
+    return _finish(model, data, x, force, qfrc, d.qacc_smooth, dv, iters,
+                   taken)

@@ -3,29 +3,31 @@ kernel launch.
 
 Counterpart of `loco_mujoco_tpu/ops/pallas_constraint.py`: `mega_forward`
 (`:2486-2556`, with `_pad_slots` `:2475`) over `_mega_batched`, and
-`mega_step_n` (`:2926-2978`) over `_megastep_batched`, RK4 branch. The
-kernels are `csrc/mega.cu`'s `mega_forward_kernel` and `megastep_kernel`,
-one thread per env, over the static tables of the model's mega plan
-(`ops/plan.py`).
+`mega_step_n` (`:2926-2978`) over `_megastep_batched`, RK4 and Euler
+branches. The kernels are `csrc/mega.cu`'s `mega_forward_kernel` and
+`megastep_kernel`, one thread per env, over the static tables of the
+model's row plan (`ops/plan.py`, `mega` set).
 
 Output contract (the reference's): `mega_forward` returns Data with
 `qacc`, `qacc_smooth`, `qfrc_constraint`, `efc_force_contact` (the four
-facet forces of each slot, zero-padded to the field's width), the contact
-meta `dist`, `geom1` (the plane), `geom2`, the static `includemargin` and
-`friction`, and the Newton decisions `solver_niter` / `solver_taken`;
-every other position- and velocity-stage field stays as it came in
-(stale). `mega_step_n` returns Data with `qpos`, `qvel`,
-`qacc = qacc_warmstart` = the carried warm start and `time + n dt`, or
-None outside the envelope (not RK4, activations).
+facet forces of each slot, zero-padded to the field's width), `euler_dv`
+(None unless the plan has it), the contact meta `dist`, `geom1` (the
+plane), `geom2`, the static `includemargin` and `friction`, and the Newton
+decisions `solver_niter` / `solver_taken`; every other position- and
+velocity-stage field stays as it came in (stale). `mega_step_n` returns
+Data with `qpos`, `qvel`, `qacc = qacc_warmstart` = the carried warm start
+and `time + n dt`, or None outside the envelope (`megastep_mode`).
 
 A CUDA tensor launches the kernel (float32 only) or raises; a CPU tensor
 runs the plain version. The plain versions are no new copy of the math:
-`mega_forward_plain` is the staged forward (`forward.forward_staged`) with
-the plain kernels, repackaged into the contract above, and
-`mega_step_n_plain` is n staged RK4 steps. Their `replay` makes every
-Newton solve take the kernel's recorded decisions (the iteration count and
-the taken-step bits, `hopper_newton.newton_plain`), so the two can be held
-step for step; nothing on the card's main path calls them.
+`mega_forward_plain` is the staged forward of a model with a plan, in its
+plain versions (kinematics, the plain collision, then
+`hopper_fused.fused_constraint_plain`, whose rows, contact facets blocked,
+are the ones the kernel builds), repackaged into the contract above, and
+`mega_step_n_plain` is n such RK4 or Euler steps. Their `replay` makes
+every Newton solve take the kernel's recorded decisions (the iteration
+count and the taken-step bits, `hopper_newton.newton_plain`), so the two
+can be held step for step; nothing on the card's main path calls them.
 """
 
 from __future__ import annotations
@@ -33,13 +35,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.types import Data, IntegratorType, Model
-from . import kernels
+from ..core.types import Data, DisableBit, IntegratorType, Model
+from . import collision, hopper_fused, kernels, kinematics
 from .kernels import FLOAT, INT, PTR
 
 _SIGNATURES = {
-    "lmt_mega_forward": [PTR] * 24 + [INT] * 3 + [FLOAT, FLOAT, PTR],
-    "lmt_megastep": [PTR] * 20 + [INT] * 4 + [FLOAT] * 3 + [PTR],
+    "lmt_mega_forward": [PTR] * 25 + [INT] * 3 + [FLOAT, FLOAT, PTR],
+    "lmt_megastep": [PTR] * 20 + [INT] * 6 + [FLOAT] * 3 + [PTR],
 }
 _MAXD = 4  # facet rows per condim-3 pyramidal slot
 
@@ -58,18 +60,10 @@ def _inputs(model: Model, data: Data):
     return [t for _, t, _ in ops]
 
 
-def _scratch(plan, E, device):
-    """Env-last row scratch of the solve: J, aref, D, R, act, fl, jar, jv."""
-    f = lambda *s: torch.empty(s, dtype=torch.float32, device=device)  # noqa
-    rows = plan.nrows
-    return [f(rows * plan.nv, E), f(rows, E), f(rows, E), f(rows, E),
-            f(rows, E), f(max(plan.nfl, 1), E), f(rows, E), f(rows, E)]
-
-
 def _pack(model: Model, data: Data, qacc, qacc_smooth, qfrc, cdist, cgid,
-          cforce, iters, taken) -> Data:
+          cforce, dv, iters, taken) -> Data:
     """The mega output contract (see the module note) on top of `data`."""
-    plan = model.mega
+    plan = model.plan
     E, ncon = qacc.shape[0], plan.ncon
     dt, dev = qacc.dtype, qacc.device
     maxd = data.efc_force_contact.shape[2]
@@ -87,15 +81,15 @@ def _pack(model: Model, data: Data, qacc, qacc_smooth, qfrc, cdist, cgid,
         dim=np.asarray(plan.con_dim))
     return data.replace(qacc=qacc, qacc_smooth=qacc_smooth,
                         qfrc_constraint=qfrc, efc_force_contact=efc,
-                        contact=contact, solver_niter=iters,
+                        contact=contact, euler_dv=dv, solver_niter=iters,
                         solver_taken=taken)
 
 
 def mega_forward(model: Model, data: Data) -> Data:
     """One forward of every env in one kernel launch (see the module
-    note). The model must have a mega plan."""
-    plan = model.mega
-    if plan is None:
+    note). The model must have a plan with `mega`."""
+    plan = model.plan
+    if plan is None or not plan.mega:
         raise ValueError("the model has no mega plan")
     if not data.qpos.is_cuda:
         return mega_forward_plain(model, data)
@@ -106,27 +100,35 @@ def mega_forward(model: Model, data: Data) -> Data:
     qacc, asm, qfrc = f(E, nv), f(E, nv), f(E, nv)
     cdist, cgid, cforce = f(E, ncon), i(E, ncon), f(E, ncon * _MAXD)
     iters, taken = i(E), i(E)
+    dv = f(E, nv) if plan.euler_dv else None
     ints, flts = plan.tables(dev)
-    scratch = _scratch(plan, E, dev)
+    scratch = plan.scratch(E, dev)  # held until the launch is queued
     p = kernels.ptr
     lib = kernels.library("mega", _SIGNATURES)
     rc = lib.lmt_mega_forward(
         p(ints), p(flts), *map(p, (qpos, qvel, ctrl, qfrc_applied, xfrc, ws)),
         *map(p, (qacc, asm, qfrc, cdist, cgid, cforce, iters, taken)),
-        *map(p, scratch), E, plan.iterations,
-        plan.ls_iterations, plan.scale, plan.tolerance, kernels.stream())
+        None if dv is None else p(dv), *map(p, scratch), E,
+        plan.iterations, plan.ls_iterations, plan.scale, plan.tolerance,
+        kernels.stream())
     kernels.check(rc, "mega_forward")
     kernels.LAUNCHES["mega_forward"] += 1
-    return _pack(model, data, qacc, asm, qfrc, cdist, cgid, cforce, iters,
+    return _pack(model, data, qacc, asm, qfrc, cdist, cgid, cforce, dv, iters,
                  taken)
+
+
+def _forward_plain(model: Model, data: Data, replay) -> Data:
+    """The staged forward of a model with a plan, with the plain
+    kernels; `replay` = (iters, taken) or None."""
+    d = collision.collision(model, kinematics.kinematics(model, data),
+                            plain=True)
+    return hopper_fused.fused_constraint_plain(model, d, replay)
 
 
 def mega_forward_plain(model: Model, data: Data, replay=None) -> Data:
     """Plain version of `mega_forward`: the staged forward with the plain
     kernels, in the mega output contract; `replay` = (iters, taken)."""
-    from . import forward as fwd
-
-    d = fwd.forward_staged(model, data, plain=True, replay=replay)
+    d = _forward_plain(model, data, replay)
     c = d.contact
     contact = data.contact.replace(
         dist=c.dist, geom1=c.geom1, geom2=c.geom2,
@@ -134,36 +136,57 @@ def mega_forward_plain(model: Model, data: Data, replay=None) -> Data:
     return data.replace(qacc=d.qacc, qacc_smooth=d.qacc_smooth,
                         qfrc_constraint=d.qfrc_constraint,
                         efc_force_contact=d.efc_force_contact,
-                        contact=contact, solver_niter=d.solver_niter,
+                        contact=contact, euler_dv=d.euler_dv,
+                        solver_niter=d.solver_niter,
                         solver_taken=d.solver_taken)
 
 
-def _megastep_envelope(model: Model) -> bool:
-    return (model.mega is not None and model.na == 0
-            and model.opt.integrator == int(IntegratorType.RK4))
+def megastep_mode(model: Model):
+    """(rk4, use_dv) of the megastep for this model, or None outside its
+    envelope (the reference's gate, pallas_constraint.py:2936-2950): RK4
+    without activations; Euler moving qvel by euler_dv, or by qacc when
+    EULERDAMP is disabled (Euler with activations is not ported)."""
+    plan = model.plan
+    if plan is None or not plan.mega or model.na:
+        return None
+    if model.opt.integrator == int(IntegratorType.RK4):
+        return True, False
+    if model.opt.integrator == int(IntegratorType.EULER):
+        if model.opt.disableflags & DisableBit.EULERDAMP:
+            return False, False
+        return (False, True) if plan.euler_dv else None
+    return None
+
+
+def forwards_per_step(model: Model) -> int:
+    """Forwards per physics step: 4 for RK4, 1 for Euler."""
+    return 4 if model.opt.integrator == int(IntegratorType.RK4) else 1
 
 
 def mega_step_n(model: Model, data: Data, n_steps: int,
                 decisions: torch.Tensor | None = None) -> Data | None:
-    """n_steps RK4 physics steps of every env in one kernel launch (see
-    the module note), or None outside the envelope. `decisions`, an
-    (E, 4 n_steps, 2) int32 tensor or None, receives the iteration count
-    and the taken-step bits of every forward, for `mega_step_n_plain`'s
-    replay; with None the kernel records nothing."""
-    if not _megastep_envelope(model):
+    """n_steps physics steps of every env in one kernel launch (see the
+    module note), or None outside the envelope. `decisions`, an
+    (E, F n_steps, 2) int32 tensor or None (F = `forwards_per_step`),
+    receives the iteration count and the taken-step bits of every forward,
+    for `mega_step_n_plain`'s replay; with None the kernel records
+    nothing."""
+    mode = megastep_mode(model)
+    if mode is None:
         return None
     if not data.qpos.is_cuda:
         return mega_step_n_plain(model, data, n_steps)
-    plan = model.mega
+    plan = model.plan
     qpos, qvel, ctrl, qfrc_applied, xfrc, ws = _inputs(model, data)
     E, nv, dev = qpos.shape[0], model.nv, qpos.device
     n = int(n_steps)
     if decisions is not None:
-        kernels.require(decisions, "decisions", (E, 4 * n, 2), torch.int32)
+        kernels.require(decisions, "decisions",
+                        (E, forwards_per_step(model) * n, 2), torch.int32)
     f = lambda: torch.empty((E, nv), dtype=torch.float32, device=dev)  # noqa
     qpos_out, qvel_out, ws_out = f(), f(), f()
     ints, flts = plan.tables(dev)
-    scratch = _scratch(plan, E, dev)
+    scratch = plan.scratch(E, dev)  # held until the launch is queued
     p = kernels.ptr
     lib = kernels.library("mega", _SIGNATURES)
     rc = lib.lmt_megastep(
@@ -171,8 +194,8 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
         p(qpos_out), p(qvel_out), p(ws_out),
         None if decisions is None else p(decisions),
         *map(p, scratch), E, n, plan.iterations,
-        plan.ls_iterations, plan.scale, plan.tolerance, plan.timestep,
-        kernels.stream())
+        plan.ls_iterations, int(mode[0]), int(mode[1]), plan.scale,
+        plan.tolerance, plan.timestep, kernels.stream())
     kernels.check(rc, "megastep")
     kernels.LAUNCHES["megastep"] += 1
     return data.replace(qpos=qpos_out, qvel=qvel_out, qacc=ws_out,
@@ -182,24 +205,28 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
 
 def mega_step_n_plain(model: Model, data: Data, n_steps: int, replay=None,
                       on_forward=None) -> Data | None:
-    """Plain version of `mega_step_n`: n staged RK4 steps with the plain
-    kernels. `replay`: the kernel's (E, 4 n_steps, 2) decisions;
+    """Plain version of `mega_step_n`: n staged RK4 or Euler steps with
+    the plain kernels. `replay`: the kernel's (E, F n_steps, 2) decisions;
     `on_forward(d)` sees the Data of every forward, in order."""
-    if not _megastep_envelope(model):
+    if megastep_mode(model) is None:
         return None
     from . import forward as fwd
 
+    per = forwards_per_step(model)
     d = data
     for s in range(int(n_steps)):
         def stage(dd, i, s=s):
             rep = (None if replay is None else
-                   (replay[:, 4 * s + i, 0], replay[:, 4 * s + i, 1]))
-            out = fwd.forward_staged(model, dd, plain=True, replay=rep)
+                   (replay[:, per * s + i, 0], replay[:, per * s + i, 1]))
+            out = _forward_plain(model, dd, rep)
             if on_forward is not None:
                 on_forward(out)
             return out
 
-        d = fwd.rk4(model, stage(d, 0), stage)
+        if per == 4:
+            d = fwd.rk4(model, stage(d, 0), stage)
+        else:
+            d = fwd.euler(model, stage(d, 0))
     ws = d.qacc_warmstart
     return data.replace(qpos=d.qpos, qvel=d.qvel, qacc=ws, qacc_warmstart=ws,
                         time=data.time + int(n_steps) * model.opt.timestep)

@@ -28,7 +28,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("layout", "newton", "plane_mesh", "mega")
+SOURCES = ("layout", "newton", "plane_mesh", "mega", "fused")
 # the collision kernels mirror their plain versions' operation order
 # (no fused multiply-add), so both pick the same argmin vertex and the
 # same active contacts; mega.cu unfuses its collision functions itself

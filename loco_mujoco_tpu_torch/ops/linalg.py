@@ -49,3 +49,8 @@ def solve_upper_t(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def cho_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve (L L^T) x = b given the Cholesky factor."""
     return solve_upper_t(l, solve_lower(l, b))
+
+
+def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve the SPD system a x = b by the unrolled Cholesky."""
+    return cho_solve(cholesky(a), b)

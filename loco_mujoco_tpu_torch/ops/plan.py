@@ -1,37 +1,47 @@
-"""The static plan of the mega path: one forward (or a whole control step)
-as one Hopper kernel.
+"""The static plan of the fused constraint kernel and of the mega path.
 
 Counterpart of `loco_mujoco_tpu/ops/pallas_constraint.py`'s `RowPlan`
-(`:59-461`) restricted to its mega branch for pyramidal, plane-only,
-uniform-statics torque models, with the FK plan (`pallas_fk.FkPlan`) and
-the collision plan (`pallas_fk.ColPlan`) folded in. It is built once, at
-load (`core/io.model_from_numpy`), from the model arrays and the static
-contact layout; a model outside the envelope gets no plan (`build_plan`
-returns None) and keeps the staged path, as the reference does. The
-envelope:
+(`:59-461`, `:632-758`) for pyramidal torque models, with the FK plan
+(`pallas_fk.FkPlan`) and the collision plan (`pallas_fk.ColPlan`) of its
+mega branch folded in. It is built once, at load (`core/io.model_from_numpy`),
+from the model arrays and the static contact layout; a model outside the
+row envelope gets no plan (`build_plan` returns None) and keeps the staged
+path with the standalone Newton kernel, as the reference does.
+
+The row envelope (a plan, and the fused kernel of `csrc/fused.cu`):
 
 - pyramidal cones, every contact slot condim 3, one kinematic tree, the
-  constraint stage on;
-- JOINT equalities, dof friction loss and joint limits;
-- contacts against one static world plane only, with one pair solref,
-  solimp, margin, gap and sliding friction for every candidate pair
-  (`_check_uniform`); plane-box groups and at most one plane-mesh group,
-  which must run the plane-mesh kernels (k < P, graph hulls: its
-  `hopper_collision.MeshPlan`);
+  constraint stage on, the batched Newton budget (iterations <= 16,
+  ls_iterations <= 8);
+- JOINT equalities, dof friction loss and joint limits; at most
+  `ROWS_MAX` rows (the reference's `LMT_MAX_PYR_ROWS`, `:202-210`);
 - the smooth stage of joint motors without tendons or activations
-  (`_build_smooth`);
-- the batched Newton budget (iterations <= 16, ls_iterations <= 8) and the
-  kernel's compiled widths (`NV_MAX`, `BODY_MAX`, `CON_MAX`, `PAIR_MAX`).
+  (`smooth`, `_build_smooth`), hinge and slide joints, and the kernels'
+  compiled widths (`NV_MAX`, `BODY_MAX`).
+
+Within it, the contact pack the fused kernel reads per slot (`pack_w`,
+`:750-757`) is 5 floats when every candidate pair shares one static plane,
+solref, solimp, margin, gap (`uniform`, `_check_uniform`) and sliding
+friction (`fric_uniform`), 7 with per-pair friction, and the generic 26
+(= 24 + `nfric` 2) otherwise. Euler models get the in-kernel implicit
+damping `euler_dv` (`:314-329`) unless EULERDAMP is disabled.
+
+`mega` (one kernel per forward, `csrc/mega.cu`) is a flag on the plan: set
+for uniform statics with uniform friction, contacts against that one plane
+in plane-box groups and at most one plane-mesh group that runs the
+plane-mesh kernels (k < P, graph hulls: its `hopper_collision.MeshPlan`),
+and the compiled widths `CON_MAX`, `PAIR_MAX`.
 
 Float64 data gets no plan (`maybe_plan`), as in the reference. Left out of
-the port's plan, and refused: elliptic cones (`mega_ell`), muscles (`mp`),
-Euler's in-kernel damping (`euler_dv`) and damping as per-env rows
+the port's plan: the non-smooth vec layout (tendons, activations), elliptic
+cones (`ell_runs`, `mega_ell`), muscles (`mp`) and damping as per-env rows
 (`sm_dyn_damping`); plane-cylinder groups are refused at load by
 `ops/collision.py`.
 
 `tables(device)` packs the plan into the two read-only buffers the kernels
-of `csrc/mega.cu` take: an int32 buffer that starts with the header
-`HEADER` (counts and the offsets of every table) and a float32 buffer.
+of `csrc/mega.cu` and `csrc/fused.cu` take: an int32 buffer that starts with
+the header `HEADER` (counts and the offsets of every table) and a float32
+buffer.
 """
 
 from __future__ import annotations
@@ -39,29 +49,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.types import ConeType, DisableBit, EqType, GeomType, JointType
+from ..core.types import (ConeType, DisableBit, EqType, GeomType,
+                          IntegratorType, JointType)
 
 MINVAL = 1e-15
-NV_MAX = 24  # the local-array widths compiled in csrc/mega.cu
+NV_MAX = 24  # the local-array widths compiled in csrc/forward_core.cuh
 BODY_MAX = 32
-CON_MAX = 64
+CON_MAX = 64  # csrc/mega.cu
 PAIR_MAX = 128
 ROWS_MAX = 400  # the reference's LMT_MAX_PYR_ROWS default
 
-# int header of the packed tables; csrc/mega.cu's `enum Header` lists the
-# same names in the same order (tests/test_torch_mega_plan.py checks it)
+# int header of the packed tables; csrc/forward_core.cuh's `enum Header`
+# lists the same names in the same order (tests/test_torch_mega_plan.py
+# checks it)
 HEADER = (
     "NQ", "NV", "NBODY", "NJNT", "NU", "NE", "NFL", "NL", "NPAD", "NROWS",
     "NCON", "FLAGS", "NBOX", "KBOX", "OFFBOX", "NMESH", "KMESH", "OFFMESH",
     "F_BODY", "I_BODY", "I_TOPO", "F_JNT", "I_JNT", "F_DOF", "I_DOF",
     "I_ANC", "I_DMASK", "F_ACT", "I_ACT", "F_EQ", "I_EQ", "F_FL", "I_FL",
     "F_LIM", "I_LIM", "F_CON", "F_BOX", "I_BOX", "F_MESH", "I_MESH",
-    "F_VERT",
+    "F_VERT", "PACKW", "I_GBODY",
 )
 H = {name: i for i, name in enumerate(HEADER)}
 # FLAGS bits
 PASSIVE, ACTUATION, CLAMPCTRL, REFSAFE = 1, 2, 4, 8
-# per-entry widths of the tables (floats / ints), as csrc/mega.cu reads them
+UNIFORM, FRIC_UNIFORM = 16, 32
+# per-entry widths of the tables (floats / ints), as the kernels read them
 WIDTH = {"F_BODY": 20, "I_BODY": 4, "F_JNT": 10, "I_JNT": 4, "F_DOF": 2,
          "I_DOF": 1, "F_ACT": 6, "I_ACT": 3, "F_EQ": 16, "I_EQ": 4,
          "F_FL": 10, "I_FL": 1, "F_LIM": 12, "I_LIM": 2, "F_CON": 32,
@@ -90,28 +103,34 @@ def _make_frame(n):
     return np.stack([n, t1, np.cross(n, t1)])
 
 
-class MegaPlan:
-    """Static tables of the mega path (see the module note). Field names
-    follow the reference's RowPlan / FkPlan / ColPlan."""
+class RowPlan:
+    """Static tables of the fused kernel and the mega path (see the module
+    note). Field names follow the reference's RowPlan / FkPlan / ColPlan."""
 
     def __init__(self, L: dict, A: dict, groups, mesh_kernel):
         self.ok = False
+        self.mega = False
+        self.uniform = self.fric_uniform = False
+        self.groups = []
         nv, nb, njnt = int(A["nv"]), int(A["nbody"]), int(A["njnt"])
         flags = int(A["opt.disableflags"])
         if int(A["opt.cone"]) != int(ConeType.PYRAMIDAL):
             return
-        if not groups or any(int(g.condim) != 3 for g in groups):
+        if any(int(g.condim) != 3 for g in groups):
             return
         roots = np.asarray(A["body_rootid"])
         if roots[1:].size and not np.all(roots[1:] == roots[1]):
             return
-        if flags & (DisableBit.CONSTRAINT | DisableBit.CONTACT):
+        if flags & DisableBit.CONSTRAINT:
             return
         if not (int(A["opt.iterations"]) <= 16
                 and int(A["opt.ls_iterations"]) <= 8):
             return
-        if int(A["ntendon"]) or int(A["na"]):
-            return
+        # the smooth stage (_build_smooth): no tendons, no activations,
+        # joint motors (core/io refuses other actuators at load)
+        self.smooth = not (int(A["ntendon"]) or int(A["na"]))
+        if not self.smooth:
+            return  # the non-smooth vec layout is not ported
         jt = np.asarray(A["jnt_type"])
         if not np.all((jt == int(JointType.HINGE))
                       | (jt == int(JointType.SLIDE))):
@@ -178,15 +197,16 @@ class MegaPlan:
                     solimp=_floats(f64["jnt_solimp"][j]),
                     iw=float(dof_iw[v])))
 
-        self.ncon = int(sum(g.k * g.slots for g in groups))
+        self.ncon = (0 if flags & DisableBit.CONTACT
+                     else int(sum(g.k * g.slots for g in groups)))
         self.ne, self.nfl, self.nl = len(self.eq), len(self.fl), len(self.lim)
         # the reference pads the non-contact block to a multiple of 8 with
-        # inert rows; the kernel keeps that row layout (the pad rows are
+        # inert rows; the kernels keep that row layout (the pad rows are
         # inactive and cost nothing)
         self.npad = (8 - (self.ne + self.nfl + self.nl) % 8) % 8
         self.nrows = self.ne + self.nfl + self.nl + self.npad + 4 * self.ncon
-        if self.ncon > CON_MAX or self.nrows > ROWS_MAX:
-            return
+        if self.nrows == 0 or self.nrows > ROWS_MAX:
+            return  # the standalone Newton kernel's staged path
         base = self.ne + self.nfl + self.nl + self.npad
         self.con_efcadr = (base + 4 * np.arange(self.ncon)).astype(np.int32)
         self.con_dim = np.full(self.ncon, 3, np.int32)
@@ -201,6 +221,13 @@ class MegaPlan:
         self.anc = np.asarray(A["dof_ancestor_mask"], dtype=bool)
         self.dofmask = _dof_body_mask(A)  # (nbody, nv)
         self.body_iw = _floats(f64["body_invweight0"][:, 0])
+        self.geom_body = [int(b) for b in np.asarray(A["geom_bodyid"])]
+
+        # --- Euler's in-kernel implicit damping (:314-329) ---------------
+        self.euler_dv = (int(A["opt.integrator"]) == int(IntegratorType.EULER)
+                         and not flags & DisableBit.EULERDAMP)
+        self.dof_damping = _floats(f64["dof_damping"]) if self.euler_dv \
+            else None
 
         # --- FK tables (pallas_fk.FkPlan) --------------------------------
         tup = lambda x: tuple(float(v) for v in x)  # noqa: E731
@@ -244,37 +271,53 @@ class MegaPlan:
         self.sm_passive_on = not flags & DisableBit.PASSIVE
         self.sm_actuation_on = not flags & DisableBit.ACTUATION
         self.sm_clampctrl = not flags & DisableBit.CLAMPCTRL
-
-        # --- uniform contact statics (_check_uniform) and ColPlan --------
-        if not self._check_uniform(A, groups, f64):
-            return
-        if not self._col_plan(A, groups, mesh_kernel, f64):
-            return
         self._dev = {}
         self.ok = True
 
-    def _check_uniform(self, A, groups, f64) -> bool:
+        # --- uniform contact statics (_check_uniform) -------------------
+        if self.ncon:
+            self._check_uniform(A, groups, f64)
+        # --- mega: FK and collision in the kernel (ColPlan) --------------
+        self.mega = bool(self.uniform and self.fric_uniform and self.ncon
+                         and self.ncon <= CON_MAX
+                         and self._col_plan(A, groups, mesh_kernel, f64))
+
+    @property
+    def nfric(self):
+        """Friction components packed per slot: the 2 sliding ones."""
+        return 2
+
+    @property
+    def pack_w(self):
+        """Width of the packed per-slot contact input (:750-757)."""
+        if not self.ncon:
+            return 1
+        if self.uniform:
+            return 5 + (0 if self.fric_uniform else 2)
+        return 24 + self.nfric
+
+    def _check_uniform(self, A, groups, f64):
         plane = int(GeomType.PLANE)
         g1s = set()
         for g in groups:
             if int(g.t1) != plane:
-                return False
+                return
             g1s.update(np.asarray(A["pair_geom1"])[g.pair_ids].tolist())
         if len(g1s) != 1:
-            return False
+            return
         gid = g1s.pop()
         if int(A["geom_bodyid"][gid]) != 0 or self.body_iw[0] != 0.0:
-            return False  # plane on the world body, whose weight folds out
+            return  # plane on the world body, whose weight folds out
         sref, simp = f64["pair_solref"], f64["pair_solimp"]
         marg, gap, fric = f64["pair_margin"], f64["pair_gap"], \
             f64["pair_friction"]
         if not (np.all(sref == sref[0]) and np.all(simp == simp[0])
-                and np.all(marg == marg[0]) and np.all(gap == gap[0])
-                and np.all(fric[:, :2] == fric[0, :2])):
-            return False
+                and np.all(marg == marg[0]) and np.all(gap == gap[0])):
+            return
         self.c_solref = _floats(sref[0])
         self.c_solimp = _floats(simp[0])
         self.c_margin = float(marg[0] - gap[0])
+        self.fric_uniform = bool(np.all(fric[:, :2] == fric[0, :2]))
         self.c_fric = [float(fric[0, 0]), float(fric[0, 1])]
         self.c_fric5 = _floats(fric[0])
         n = _quat_normal(f64["geom_quat"][gid])
@@ -282,7 +325,7 @@ class MegaPlan:
         self.plane_gid = int(gid)
         self.n = tuple(float(x) for x in n)
         self.pp = tuple(float(x) for x in f64["geom_pos"][gid])
-        return True
+        self.uniform = True
 
     def _col_plan(self, A, groups, mesh_kernel, f64) -> bool:
         gbody = np.asarray(A["geom_bodyid"])
@@ -290,7 +333,7 @@ class MegaPlan:
         if int(gtype[self.plane_gid]) != int(GeomType.PLANE):
             return False
         tup = lambda x: tuple(float(v) for v in x)  # noqa: E731
-        self.groups = []
+        col = []
         n_mesh = 0
         for g, mk in zip(groups, mesh_kernel):
             pid = np.asarray(g.pair_ids)
@@ -317,12 +360,12 @@ class MegaPlan:
                                  for q in mk.pg2]
             else:
                 return False
-            self.groups.append(desc)
-        kinds = [d["kind"] for d in self.groups]
+            col.append(desc)
+        kinds = [d["kind"] for d in col]
         if kinds.count("box") > 1 or any(
-                len(d["pairs"]) > 32 for d in self.groups
-                if d["kind"] == "box"):
+                len(d["pairs"]) > 32 for d in col if d["kind"] == "box"):
             return False  # the kernel's top-K mask holds 32 box pairs
+        self.groups = col
         return True
 
     # ------------------------------------------------------------------
@@ -391,10 +434,14 @@ class MegaPlan:
                        *r["solimp"], r["iw"], 0] for r in self.lim]
             or [[0] * 12])
         put("I_LIM", [[r["q"], r["v"]] for r in self.lim] or [[0] * 2])
-        frame = np.asarray(self.c_frame).ravel()
-        put("F_CON", [*self.n, *self.pp, *frame, self.c_margin,
-                      *self.c_solref, *self.c_solimp, *self.c_fric,
-                      self.timestep, *self.sm_gravity, 0, 0, 0])
+        # contact statics (zero unless uniform), timestep and gravity
+        if self.uniform:
+            statics = [*self.n, *self.pp, *np.asarray(self.c_frame).ravel(),
+                       self.c_margin, *self.c_solref, *self.c_solimp,
+                       *self.c_fric]
+        else:
+            statics = [0.0] * 25
+        put("F_CON", [*statics, self.timestep, *self.sm_gravity, 0, 0, 0])
         box = next((d for d in self.groups if d["kind"] == "box"), None)
         mesh = next((d for d in self.groups if d["kind"] == "mesh"), None)
         put("F_BOX", [[*p["gpos"], *p["gquat"], *p["size"], box["margin"], 0]
@@ -412,10 +459,13 @@ class MegaPlan:
             put("F_MESH", [[0] * 16])
             put("I_MESH", [[0] * 5])
             put("F_VERT", [0.0])
+        put("I_GBODY", self.geom_body)
         flags = ((PASSIVE if self.sm_passive_on else 0)
                  | (ACTUATION if self.sm_actuation_on else 0)
                  | (CLAMPCTRL if self.sm_clampctrl else 0)
-                 | (REFSAFE if self.refsafe else 0))
+                 | (REFSAFE if self.refsafe else 0)
+                 | (UNIFORM if self.uniform else 0)
+                 | (FRIC_UNIFORM if self.fric_uniform else 0))
         counts = dict(
             NQ=self.nq, NV=nv, NBODY=nb, NJNT=self.njnt, NU=self.nu,
             NE=self.ne, NFL=self.nfl, NL=self.nl, NPAD=self.npad,
@@ -424,7 +474,7 @@ class MegaPlan:
             OFFBOX=box["offset"] if box else 0,
             NMESH=len(mesh["pairs"]) if mesh else 0,
             KMESH=mesh["k"] if mesh else 0,
-            OFFMESH=mesh["offset"] if mesh else 0)
+            OFFMESH=mesh["offset"] if mesh else 0, PACKW=self.pack_w)
         for k, v in counts.items():
             hdr[H[k]] = v
         return np.concatenate(ints), np.concatenate(flts)
@@ -438,6 +488,17 @@ class MegaPlan:
             hit = self._dev[key] = (torch.as_tensor(ints, device=device),
                                     torch.as_tensor(flts, device=device))
         return hit
+
+    def scratch(self, E, device) -> list:
+        """Env-last row scratch of the kernels' solve: J (nrows, nv, E),
+        aref, D, R, act, jar, jv (nrows, E) and fl (max(nfl, 1), E), in
+        the kernels' argument order (J, aref, D, R, act, fl, jar, jv)."""
+        def f(*s):
+            return torch.empty(s, dtype=torch.float32, device=device)
+
+        rows = self.nrows
+        return [f(rows * self.nv, E), f(rows, E), f(rows, E), f(rows, E),
+                f(rows, E), f(max(self.nfl, 1), E), f(rows, E), f(rows, E)]
 
 
 def _dof_body_mask(A) -> np.ndarray:
@@ -457,15 +518,15 @@ def _dof_body_mask(A) -> np.ndarray:
 
 
 def build_plan(leaves: dict, aux: dict, groups, mesh_kernel):
-    """The mega plan of a model, or None when it is outside the envelope
-    (the staged path runs it)."""
-    plan = MegaPlan(leaves, aux, groups, mesh_kernel)
+    """The row plan of a model, or None when it is outside the row
+    envelope (the staged path with the standalone Newton kernel runs it)."""
+    plan = RowPlan(leaves, aux, groups, mesh_kernel)
     return plan if plan.ok else None
 
 
 def maybe_plan(model, data):
-    """The mega plan for this data, or None: float64 data gets none, as
+    """The row plan for this data, or None: float64 data gets none, as
     the reference's `maybe_plan` refuses it."""
-    if model.mega is None or data.qpos.dtype != torch.float32:
+    if model.plan is None or data.qpos.dtype != torch.float32:
         return None
-    return model.mega
+    return model.plan

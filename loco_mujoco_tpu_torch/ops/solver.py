@@ -42,25 +42,17 @@ def newton_inputs(model: Model, data: Data, efc: Efc):
     return operands, options
 
 
-def solve(model: Model, data: Data, efc: Efc, plain: bool = False,
-          replay=None) -> Data:
+def solve(model: Model, data: Data, efc: Efc, plain: bool = False) -> Data:
     """qacc and constraint forces of the rows `efc`. plain=True runs the
-    kernel's plain version on any device (the reference it is held to);
-    `replay` = (iters, taken) of another solve makes the plain version
-    take that solve's discrete decisions (`hopper_newton.newton_plain`)."""
+    kernel's plain version on any device (the reference it is held to)."""
     if efc.J.shape[1] == 0:
         zero = torch.zeros_like(data.solver_niter)
         return data.replace(qacc=data.qacc_smooth,
                             qfrc_constraint=torch.zeros_like(data.qfrc_smooth),
                             solver_niter=zero, solver_taken=zero)
     operands, options = newton_inputs(model, data, efc)
-    if plain:
-        out = hn.newton_plain(*operands, **options, replay=replay)
-    elif replay is not None:
-        raise ValueError("only the plain solve replays decisions")
-    else:
-        out = hn.solve(*operands, **options)
-    x, force, niter, taken = out
+    fn = hn.newton_plain if plain else hn.solve
+    x, force, niter, taken = fn(*operands, **options)
     return _finish(data, efc, x, force).replace(solver_niter=niter,
                                                 solver_taken=taken)
 

@@ -11,13 +11,17 @@ floor. Tolerances are chip_smoke.py's: relayouts bit-exact; select/top-K
 active masks and geom ids exact, dist atol 1e-6, pos atol 1e-5, frame atol
 1e-6; Newton qacc and forces rel 5e-4 on every env, the plain version
 replaying the kernel's discrete decisions (warm start, iteration count,
-steps taken). The mega forward and the megastep (one control step of 10
-RK4 substeps) are held to their plain versions replaying the kernels'
-decisions: qacc, qfrc_constraint and efc_force_contact (forward) and qpos,
-qvel (megastep) rel 5e-4 of their largest value, active slots and their
-geom ids exact and depths atol 1e-5, on every env whose active contact set
-matches; an env whose set differs must have a slot within 1e-5 of its
-margin (a float32 tie), and at most 0.5% of the envs may.
+steps taken). The fused constraint kernel, on the four configurations of
+`test_torch_fixture.CONFIGS`, is held to its plain version with the
+kernel's decisions replayed: qacc, qfrc_constraint, efc_force_contact and
+euler_dv rel 5e-4 of their largest value on every env. The mega forward
+and the megastep (one control step of 10 RK4 or Euler substeps) are held
+to their plain versions replaying the kernels' decisions: qacc,
+qfrc_constraint and efc_force_contact (forward) and qpos, qvel (megastep)
+rel 5e-4 of their largest value, active slots and their geom ids exact and
+depths atol 1e-5, on every env whose active contact set matches; an env
+whose set differs must have a slot within 1e-5 of its margin (a float32
+tie), and at most 0.5% of the envs may.
 """
 
 from pathlib import Path
@@ -31,10 +35,12 @@ from loco_mujoco_tpu_torch.ops import collision as coll
 from loco_mujoco_tpu_torch.ops import constraint as con
 from loco_mujoco_tpu_torch.ops import forward as fwd
 from loco_mujoco_tpu_torch.ops import hopper_collision as hc
+from loco_mujoco_tpu_torch.ops import hopper_fused as hf
 from loco_mujoco_tpu_torch.ops import hopper_layout as lay
 from loco_mujoco_tpu_torch.ops import hopper_mega as hm
 from loco_mujoco_tpu_torch.ops import hopper_newton as hn
-from loco_mujoco_tpu_torch.ops import kernels, solver
+from loco_mujoco_tpu_torch.ops import kernels, kinematics, solver
+from test_torch_fixture import CONFIGS
 
 pytestmark = pytest.mark.cuda
 
@@ -43,19 +49,36 @@ ASSET = (Path(__file__).resolve().parent.parent / "loco_mujoco_tpu_torch"
 E = 256
 
 
+def _model(change=None):
+    """The committed model on the card with a configuration change: a
+    static entry, or the first column of the last pair's leaf row."""
+    leaves, aux = io.read_model_npz(ASSET)
+    for k, v in (change or {}).items():
+        if k.startswith("leaf:"):
+            leaves[k[5:]] = np.array(leaves[k[5:]])
+            leaves[k[5:]][-1, 0] = v
+        else:
+            aux[k] = v
+    return io.model_from_numpy(leaves, aux, device="cuda")
+
+
+def _dropped(model):
+    """E envs at qpos0 + noise, dropped 15 mm onto the floor."""
+    rng = np.random.default_rng(0)
+    qpos = model.qpos0.cpu().numpy()[None] + rng.normal(scale=0.02,
+                                                        size=(E, model.nq))
+    qpos[:, int(model.jnt_qposadr[model.names["joint"]["root_z"]])] -= 0.015
+    return io.make_data(model, E).replace(
+        qpos=torch.as_tensor(qpos, dtype=torch.float32, device="cuda"))
+
+
 @pytest.fixture(scope="module")
 def state():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = io.load_model_npz(ASSET, device="cuda")
-    rng = np.random.default_rng(0)
-    qpos = model.qpos0.cpu().numpy()[None] + rng.normal(scale=0.02,
-                                                        size=(E, model.nq))
-    qpos[:, int(model.jnt_qposadr[model.names["joint"]["root_z"]])] -= 0.015
-    data = io.make_data(model, E).replace(
-        qpos=torch.as_tensor(qpos, dtype=torch.float32, device="cuda"))
-    return model, fwd.fwd_position(model, data, plain=True)
+    model = _model()
+    return model, fwd.fwd_position(model, _dropped(model), plain=True)
 
 
 def test_relayouts_bit_exact(state):
@@ -107,11 +130,23 @@ def test_newton_matches_plain(state):
 
 
 def test_step_launches_every_kernel(state, monkeypatch):
-    """The staged path (LMT_MEGA=0) launches each of its kernels."""
+    """The staged path (LMT_MEGA=0) launches each of its kernels: the
+    fixture's, with a row plan, the fused kernel; a model with no plan
+    (110 contact slots put its rows past 400), the Newton kernel and the
+    relayouts around it."""
     model, d = state
     monkeypatch.setenv("LMT_MEGA", "0")
     kernels.LAUNCHES.clear()
     out = fwd.step(model, d)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.qpos).all()
+    assert set(kernels.LAUNCHES) == {"fused", "plane_mesh_select",
+                                     "group_topk", "moveaxis0_last",
+                                     "moveaxis_last0"}
+    wide = _model({"contact_k_plane": 34})
+    assert wide.plan is None
+    kernels.LAUNCHES.clear()
+    out = fwd.step(wide, _dropped(wide))
     torch.cuda.synchronize()
     assert torch.isfinite(out.qpos).all()
     for name in ("newton", "plane_mesh_select", "group_topk", "to_grouped",
@@ -163,10 +198,37 @@ def test_mega_forward_matches_plain(state):
     assert float((k.contact.dist - r.contact.dist).abs()[on].max()) <= 1e-5
 
 
-def test_megastep_matches_plain(state):
-    model, d = state
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_fused_matches_plain(state, name):
+    """The fused kernel against its plain version, decisions replayed, on
+    the same FK outputs and contacts."""
+    model = _model(CONFIGS[name])
+    assert model.plan.pack_w == {"fric": 7, "solref": 26}.get(name, 5)
+    d = _dropped(model).replace(qvel=0.1 * torch.randn(E, model.nv,
+                                                       device="cuda"))
+    d = coll.collision(model, kinematics.kinematics(model, d))
+    kernels.LAUNCHES.clear()
+    k = hf.fused_constraint(model, d)
+    assert dict(kernels.LAUNCHES) == {"fused": 1}
+    r = hf.fused_constraint_plain(model, d,
+                                  replay=(k.solver_niter, k.solver_taken))
+    fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
+    assert (k.euler_dv is None) == (not model.plan.euler_dv)
+    if model.plan.euler_dv:
+        fields.append("euler_dv")
+    assert bool((r.efc_force_contact != 0).any())
+    for f in fields:
+        got, ref = getattr(k, f), getattr(r, f)
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), f
+
+
+def _megastep_check(model, d):
+    """One control step (10 substeps) of the megastep against its plain
+    version, decisions replayed."""
     n = 10
-    dec = torch.zeros((E, 4 * n, 2), dtype=torch.int32, device="cuda")
+    per = hm.forwards_per_step(model)
+    dec = torch.zeros((E, per * n, 2), dtype=torch.int32, device="cuda")
     kernels.LAUNCHES.clear()
     k = fwd.step_n(model, d, n)
     assert dict(kernels.LAUNCHES) == {"megastep": 1}
@@ -183,3 +245,15 @@ def test_megastep_matches_plain(state):
     _tie_envs(ok, gap)
     assert torch.allclose(k.time, d.time + n * model.opt.timestep)
     assert torch.equal(k.qacc, k.qacc_warmstart)
+
+
+def test_megastep_matches_plain(state):
+    _megastep_check(*state)
+
+
+def test_euler_megastep_matches_plain(state):
+    """The Euler branch (qvel += dt euler_dv, qpos += dt qvel), one
+    forward per substep."""
+    model = _model(CONFIGS["euler"])
+    _megastep_check(model, fwd.fwd_position(model, _dropped(model),
+                                            plain=True))

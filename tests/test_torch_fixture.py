@@ -203,16 +203,39 @@ def _joint_friction(xml: str) -> str:
     return xml
 
 
-def jax_model(full: bool, dtype=None):
-    """The fixture compiled by the JAX package's own `put_model`."""
+# Configurations of the fixture, each a change of the model's arrays
+# (`jax_model`: a static option, or the first column of the last contact
+# pair's row of a leaf): RK4 with uniform contact statics (the mega plan's
+# 5-float contact pack), Euler (in-kernel implicit damping), the last
+# pair's sliding friction (per-pair friction: the 7-float pack) and the
+# last pair's solref time constant (the generic 26-float pack).
+CONFIGS = {
+    "rk4": {},
+    "euler": {"opt.integrator": 0},
+    "fric": {"leaf:pair_friction": 0.8},
+    "solref": {"leaf:pair_solref": 0.03},
+}
+
+
+def jax_model(full: bool, dtype=None, change=None):
+    """The fixture compiled by the JAX package's own `put_model`, with a
+    configuration change (`CONFIGS`)."""
     import jax.numpy as jnp
     import mujoco
 
     from loco_mujoco_tpu.core.io import put_model
 
     mjm = mujoco.MjModel.from_xml_string(_joint_friction(humanoid_xml(full)))
-    return put_model(mjm, dtype=dtype or jnp.float64,
-                     contact_k_plane=8 if full else 4)
+    jm = put_model(mjm, dtype=dtype or jnp.float64,
+                   contact_k_plane=8 if full else 4)
+    for k, v in (change or {}).items():
+        if k.startswith("opt."):
+            jm = jm.replace(opt=jm.opt.replace(**{k[4:]: v}))
+        else:
+            arr = np.array(getattr(jm, k[5:]))
+            arr[-1, 0] = v
+            jm = jm.replace(**{k[5:]: jnp.asarray(arr)})
+    return jm
 
 
 def export_model(model):
@@ -235,21 +258,23 @@ def export_model(model):
     return leaves, aux
 
 
-def torch_model(full: bool, dtype=torch.float64, device="cpu"):
+def torch_model(full: bool, dtype=torch.float64, device="cpu", change=None):
     """(JAX model, port model) of the fixture, both from one compile."""
-    jm = jax_model(full)
+    jm = jax_model(full, change=change)
     leaves, aux = export_model(jm)
     return jm, tio.model_from_numpy(leaves, aux, device=device, dtype=dtype)
 
 
-def mega_states(monkeypatch, full: bool, n_envs: int, seed: int = 7):
+def mega_states(monkeypatch, full: bool, n_envs: int, seed: int = 7,
+                change=None):
     """(JAX model, port model, JAX data, port data) in float32 for the mega
     path tests: n_envs seeded states of the fixture in light contact (the
     feet pressed 5-15 mm into the floor, small joint noise and velocities).
     The JAX plan is built afresh with `LMT_MESH_VCAP` at the width of the
     fixture's vertex table (the reference's default cap rounds the largest
     hull past it; ROADMAP, Queue 3), and the JAX data gets its contact dims
-    from one collision pass, as the env's reset does. Call inside
+    from one collision pass, as the env's reset does. `change`: a
+    configuration (`CONFIGS`) applied to both models. Call inside
     `jax.enable_x64(False)`."""
     import jax
     import jax.numpy as jnp
@@ -259,12 +284,12 @@ def mega_states(monkeypatch, full: bool, n_envs: int, seed: int = 7):
     from loco_mujoco_tpu.ops import kinematics as jkin
     from loco_mujoco_tpu.ops import pallas_constraint as pc
 
-    jm64 = jax_model(full)
+    jm64 = jax_model(full, change=change)
     leaves, aux = export_model(jm64)
     tm = tio.model_from_numpy(leaves, aux, device="cpu", dtype=torch.float32)
     monkeypatch.setenv("LMT_MESH_VCAP", str(tm.mesh_vert.shape[1]))
     monkeypatch.setattr(pc, "_PLAN_CACHE", {})
-    jm = jax_model(full, dtype=jnp.float32)
+    jm = jax_model(full, dtype=jnp.float32, change=change)
     rng = np.random.default_rng(seed)
     E = n_envs
     qpos = np.asarray(tm.qpos0)[None] + rng.normal(scale=0.02,
@@ -389,7 +414,7 @@ def test_committed_npz_matches_generator(tmp_path):
 @pytest.mark.parametrize("change", [
     {"ntendon": 1},
     {"opt.cone": 1},
-    {"opt.integrator": 0},
+    {"opt.integrator": 2},
     {"actuator_gaintype": 1},
     {"jnt_type": 1},
     {"geom_type": 2},

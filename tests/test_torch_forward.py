@@ -7,7 +7,8 @@ the constraint rows too); RK4 is driven eagerly around it by patching
 Tolerances: constraint rows J/aref/D/R atol 1e-9 on active rows (D = 1/R
 reaches 1e4, so relative to D this is 1e-13), rtol 1e-12 on all rows, and
 the active flags exact; forward qacc and
-constraint forces rel 1e-7; qpos/qvel after 5 RK4 substeps rel 1e-6.
+constraint forces rel 1e-7; qpos/qvel after 5 RK4 substeps, and after 5
+Euler substeps of the fixture's Euler configuration, rel 1e-6.
 """
 
 import jax
@@ -21,7 +22,7 @@ from loco_mujoco_tpu.ops import forward as jfwd
 from loco_mujoco_tpu.ops import solver as jsolver
 from loco_mujoco_tpu_torch.core import io as tio
 from loco_mujoco_tpu_torch.ops import constraint, forward
-from test_torch_fixture import torch_model
+from test_torch_fixture import export_model, torch_model
 
 E = 4
 SUBSTEPS = 5
@@ -95,6 +96,26 @@ def test_rk4_substeps_match(setup, monkeypatch):
     for _ in range(SUBSTEPS):
         jd = jfwd._rk4(jm, staged(jd)[0])
         td = forward.step(tm, td)
+    assert rel_err(td.qpos, jd.qpos) < 1e-6
+    assert rel_err(td.qvel, jd.qvel) < 1e-6
+    np.testing.assert_allclose(td.time.numpy(), np.asarray(jd.time),
+                               rtol=1e-12)
+
+
+def test_euler_substeps_match(setup):
+    """The fixture with the Euler integrator: float64 data gets no plan, so
+    the implicit damping (qM + dt diag(damping))^-1 qM qacc is solved from
+    qM (`forward.damping_dv`), as the JAX package's `_euler` solves it
+    after the same staged forward (which does not read the integrator)."""
+    jm, tm, jd, td, staged = setup
+    leaves, aux = export_model(jm)
+    aux["opt.integrator"] = 0
+    tm = tio.model_from_numpy(leaves, aux, device="cpu", dtype=torch.float64)
+    jm = jm.replace(opt=jm.opt.replace(integrator=0))
+    for _ in range(SUBSTEPS):
+        jd = jfwd._euler(jm, staged(jd)[0])
+        td = forward.step(tm, td)
+        assert td.euler_dv is None
     assert rel_err(td.qpos, jd.qpos) < 1e-6
     assert rel_err(td.qvel, jd.qvel) < 1e-6
     np.testing.assert_allclose(td.time.numpy(), np.asarray(jd.time),

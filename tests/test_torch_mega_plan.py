@@ -39,8 +39,8 @@ def plans(request, monkeypatch):
     with jax.enable_x64(False):
         jp = pc.get_plan(jm, d.contact)
     assert jp is not None and jp.mega and jp.smooth and jp.uniform
-    assert tm.mega is not None
-    return jp, tm.mega
+    assert tm.plan is not None and tm.plan.mega
+    return jp, tm.plan
 
 
 def test_rows_match(plans):
@@ -107,12 +107,12 @@ def test_float64_data_gets_no_plan():
     """maybe_plan refuses float64 data, as the reference's does: the
     forward takes the staged path."""
     m = tio.load_model_npz(ASSET, device="cpu", dtype=torch.float64)
-    assert m.mega is not None
+    assert m.plan is not None
     d = tio.make_data(m, 2)
     assert tplan.maybe_plan(m, d) is None
     assert fwd.step_n(m, d, 2) is None
     m32 = tio.load_model_npz(ASSET, device="cpu")
-    assert tplan.maybe_plan(m32, tio.make_data(m32, 2)) is m32.mega
+    assert tplan.maybe_plan(m32, tio.make_data(m32, 2)) is m32.plan
 
 
 @pytest.mark.parametrize("change", [
@@ -124,9 +124,11 @@ def test_float64_data_gets_no_plan():
 ])
 def test_outside_the_envelope_gets_no_plan(change):
     """Models the reference gives no mega plan load with none, and keep
-    the staged path: a solver budget past the batched fast path,
-    non-uniform pair statics, a mesh group with k >= P (no plane-mesh
-    kernel plan)."""
+    the staged path: a solver budget past the batched fast path (no plan
+    at all), non-uniform pair statics (a row plan for the fused kernel,
+    with the generic contact pack, but no mega), a mesh group with k >= P
+    (no plane-mesh kernel plan; its 233 slots also put the rows past
+    ROWS_MAX, so no plan at all)."""
     leaves, aux = tio.read_model_npz(ASSET)
     for k, v in change.items():
         if k.startswith("leaf:"):
@@ -136,20 +138,25 @@ def test_outside_the_envelope_gets_no_plan(change):
         else:
             aux[k] = v
     m = tio.model_from_numpy(leaves, aux, device="cpu")
-    assert m.mega is None
+    assert m.plan is None or not m.plan.mega
+    if "leaf:pair_margin" in change or "leaf:pair_solref" in change:
+        assert m.plan is not None and m.plan.pack_w == 26
+    else:
+        assert m.plan is None
 
 
 def test_header_matches_kernel_source():
-    """csrc/mega.cu reads the packed tables through `enum Header`, which
-    must list ops/plan.py's HEADER in order; the packed widths hold."""
-    src = (REPO / "loco_mujoco_tpu_torch/csrc/mega.cu").read_text()
+    """csrc/mega.cu and csrc/fused.cu read the packed tables through
+    forward_core.cuh's `enum Header`, which must list ops/plan.py's HEADER
+    in order; the packed widths hold."""
+    src = (REPO / "loco_mujoco_tpu_torch/csrc/forward_core.cuh").read_text()
     body = re.search(r"enum Header \{([^}]*)\}", src).group(1)
     names = [n.strip() for n in body.replace("\n", " ").split(",")
              if n.strip()]
     assert tuple(names) == tplan.HEADER
     m = tio.load_model_npz(ASSET, device="cpu")
-    ints, flts = m.mega.pack()
+    ints, flts = m.plan.pack()
     hdr = ints[:len(tplan.HEADER)]
-    assert hdr[tplan.H["NROWS"]] == m.mega.nrows == 144
+    assert hdr[tplan.H["NROWS"]] == m.plan.nrows == 144
     assert hdr[tplan.H["NCON"]] == m.ncon == 32
     assert flts.nbytes < 2.1e6  # the 75 hull tables, 1.97 MB

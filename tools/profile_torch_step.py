@@ -3,16 +3,18 @@
 
     python3 tools/profile_torch_step.py [--envs 4096] [--steps 1]
                                         [--path megastep|staged]
+                                        [--integrator rk4|euler]
 
-Loads the committed HumanoidTorque-shaped model on the card, makes the same
-seeded state as `chip_smoke.py`, runs one warm-up control step (10 RK4
-substeps), then traces `--steps` control steps with `torch.profiler`:
-`--path megastep` (the main path) runs each control step as one
-`forward.step_n`, `--path staged` runs 10 `forward.step` calls with the
-mega path off (`LMT_MEGA=0`). Each forward stage is wrapped in a
-`record_function` range (here, by wrapping the stage functions; the package
-itself carries no instrumentation), and every kernel the card ran is
-attributed to the innermost range that launched it.
+Loads the committed HumanoidTorque-shaped model on the card (`--integrator
+euler`: its Euler configuration, the same arrays with `opt.integrator` set
+to Euler), makes the same seeded state as `chip_smoke.py`, runs one warm-up
+control step (10 substeps), then traces `--steps` control steps with
+`torch.profiler`: `--path megastep` (the main path) runs each control step
+as one `forward.step_n`, `--path staged` runs 10 `forward.step` calls with
+the mega path off (`LMT_MEGA=0`: the fused constraint kernel). Each forward
+stage is wrapped in a `record_function` range (here, by wrapping the stage
+functions; the package itself carries no instrumentation), and every kernel
+the card ran is attributed to the innermost range that launched it.
 Prints the wall time per control step, the device's busy time and idle
 share, device time per stage and per kernel name, kernels per forward, and
 one JSON line with the same numbers, beside the card's name and power limit.
@@ -38,8 +40,8 @@ sys.path.insert(0, str(ROOT))
 
 from loco_mujoco_tpu_torch.core import io  # noqa: E402
 from loco_mujoco_tpu_torch.ops import (  # noqa: E402
-    actuation, collision, constraint, forward, hopper_mega, hopper_newton,
-    inertia, kernels, kinematics, passive, solver, velocity)
+    actuation, collision, constraint, forward, hopper_fused, hopper_mega,
+    hopper_newton, inertia, kernels, kinematics, passive, solver, velocity)
 
 SUBSTEPS = 10
 
@@ -51,7 +53,8 @@ STAGES = [
     (velocity, "com_vel"), (passive, "passive"), (velocity, "rne"),
     (actuation, "actuation"), (inertia, "solve_m"),
     (constraint, "make_constraint"), (solver, "solve"),
-    (hopper_newton, "solve"), (hopper_mega, "mega_step_n"),
+    (hopper_newton, "solve"), (hopper_fused, "fused_constraint"),
+    (hopper_mega, "mega_step_n"),
 ]
 
 
@@ -109,6 +112,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=1)
     ap.add_argument("--path", choices=("megastep", "staged"),
                     default="megastep")
+    ap.add_argument("--integrator", choices=("rk4", "euler"), default="rk4")
     args = ap.parse_args()
     if args.path == "staged":
         os.environ["LMT_MEGA"] = "0"
@@ -122,9 +126,11 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     kernels.build_all()
     dev = torch.device("cuda")
-    model = io.load_model_npz(
-        ROOT / "loco_mujoco_tpu_torch/assets/humanoid_torque_shape.npz",
-        device=dev)
+    leaves, aux = io.read_model_npz(
+        ROOT / "loco_mujoco_tpu_torch/assets/humanoid_torque_shape.npz")
+    if args.integrator == "euler":
+        aux["opt.integrator"] = 0
+    model = io.model_from_numpy(leaves, aux, device=dev)
     rng = np.random.default_rng(0)
     E = args.envs
     qpos = model.qpos0.cpu().numpy()[None] + rng.normal(scale=0.02,
@@ -158,10 +164,10 @@ def main() -> int:
     path = kernels.build_dir() / "profile_torch_step.json"
     prof.export_chrome_trace(str(path))
     by_stage, by_name, busy, nkern = _attribute(json.loads(path.read_text()))
-    forwards = 4 * SUBSTEPS * args.steps
+    forwards = hopper_mega.forwards_per_step(model) * SUBSTEPS * args.steps
     per_step = 1e-3 / args.steps
     print(f"card: {card}; {E} envs, {args.steps} control step(s) of "
-          f"{SUBSTEPS} RK4 substeps traced, {args.path} path")
+          f"{SUBSTEPS} {args.integrator} substeps traced, {args.path} path")
     print(f"wall {wall * per_step:.2f} ms/control step, device busy "
           f"{busy * per_step:.2f} ms, idle share {1 - busy / wall:.3f}; "
           f"{nkern / forwards:.0f} kernels per forward")
@@ -173,6 +179,7 @@ def main() -> int:
         print(f"  {k:60s} {v * per_step:9.3f}")
     print(json.dumps({
         "card": card, "envs": E, "path": args.path,
+        "integrator": args.integrator,
         "wall_ms_per_control_step": wall * per_step,
         "device_busy_ms": busy * per_step, "idle_share": 1 - busy / wall,
         "kernels_per_forward": nkern / forwards,
