@@ -11,11 +11,15 @@ Run from the repository root: `python3 chip_smoke.py`. It
    friction (the fused kernel's 7-float contact pack), one pair's solref
    (the generic 26-float pack), and 34 mesh slots per group (456 rows,
    past the fused kernel's 400: no plan, the standalone Newton kernel);
+   and the committed HumanoidMuscle-shaped model (the same tree and hulls,
+   92 site-path tendons driving 92 muscles, Euler: the `muscle`
+   configuration, a non-smooth plan with the mega path's muscle block);
 4. holds each kernel of the earlier staged path against its plain PyTorch
    version on the card, on the inputs that path gives it at full width
    (4096 envs);
 5. drives the staged path (`LMT_MEGA=0`) for 2 control steps of 10 RK4
-   substeps and 2 of 10 Euler substeps, now through the fused constraint
+   substeps, 2 of 10 Euler substeps and 2 of 10 muscle Euler substeps (the
+   fused kernel's non-smooth layout), through the fused constraint
    kernel, and 1 control step of the model with no plan, through the
    Newton kernel and its relayouts, with every launch counter set to 0
    just before each run and read just after, and checks the counts; then
@@ -23,13 +27,20 @@ Run from the repository root: `python3 chip_smoke.py`. It
    Newton kernel to its plain version at the no-plan run's end state;
 6. drives the main path, as `bench.py` does: one forward at reset (the
    mega forward kernel) and `forward.step_n` for 20 control steps of 10
-   substeps (one megastep kernel launch each), RK4 and then Euler, counters
-   again zeroed just before and read just after, and checks the state, the
-   contacts and that exactly these launches were made;
+   substeps (one megastep kernel launch each), RK4, Euler and the muscle
+   model (seeded muscle ctrls in [0, 1], act from 0), counters again zeroed
+   just before and read just after, and checks the state, the contacts,
+   the activations within [0, 1] and that exactly these launches were made;
 7. holds the mega forward kernel and the megastep kernel (one control
-   step), RK4 and Euler, and the fused kernel on all four plan
-   configurations, to their plain versions replaying the kernels' Newton
-   decisions, on all 4096 envs;
+   step), RK4, Euler and muscle (with act_dot and act; the muscle kernels
+   both at the end state, which the seeded activations lift off the
+   floor, and after the first control step, in deep contact), and the
+   fused kernel on all four plan configurations and the muscle model's
+   non-smooth layout, to their plain versions replaying the kernels'
+   Newton decisions, on all 4096 envs; a mega check excuses at most 0.5%
+   of the envs, each only as a float32 tie (a slot or limit within TIE of
+   its margin) or, in the megastep, as a Newton disagreement at a shared
+   state that a float64 witness settles for the kernel;
 8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the least time the card
    could take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
@@ -58,7 +69,8 @@ CONTROL_STEPS = 20  # the main path
 STAGED_STEPS = 2  # the staged path, cut from 20 to keep the run short
 WIDE_STEPS = 1  # the no-plan staged path (the Newton kernel's)
 SUBSTEPS = 10  # physics substeps per control step (RK4: 4 forwards each)
-TIE = 1e-5  # a slot this close to its margin is a float32 tie
+TIE = 1e-5  # a slot or limit this close to its margin is a float32 tie
+WITNESS_ITERATIONS = 30  # Newton and line-search steps of the float64 witness
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -72,6 +84,7 @@ CONFIGS = {
     "solref": {"leaf:pair_solref": 0.03},
     "wide": {"contact_k_plane": 34},
 }
+MUSCLE_ASSET = "loco_mujoco_tpu_torch/assets/humanoid_muscle_shape.npz"
 
 
 def _nvidia_smi() -> str:
@@ -158,24 +171,106 @@ def _staged_path():
             os.environ["LMT_MEGA"] = old
 
 
-def _margin_gap(d):
-    """Per env, the smallest |dist - margin| over the contact slots."""
-    return (d.contact.dist - d.contact.includemargin).abs().min(dim=1).values
+def _margin_gap(m, d):
+    """Per env, the smallest |dist - margin| over the contact slots and the
+    joint limits: the rows whose activation is a threshold test."""
+    gap = (d.contact.dist - d.contact.includemargin).abs().min(dim=1).values
+    for r in m.plan.lim:
+        x = d.qpos[:, r["q"]]
+        dist = (x - r["lo"]).minimum(r["hi"] - x)
+        gap = gap.minimum((dist - r["margin"]).abs())
+    return gap
 
 
-def _tie_envs(torch, held, gap, E, what):
-    """Envs where the comparison does not hold are excluded only where a
-    slot lies within TIE of its margin (a float32 tie flips the active
-    set), and only up to 0.5% of the envs. Returns their count."""
+def _newton_witness(torch, m, S, k, p, envs=None):
+    """Per env, at one state S that the kernel's and the plain version's
+    forwards share (`k`, `p`, the kernel's decisions replayed):
+    (apart, witnessed). `apart`: their accelerations lie more than rel
+    5e-4 (of the plain version's largest) apart (among `envs`, a mask,
+    where given). The replay covers the
+    iteration count and the taken steps, not the line search's or the
+    rows' float32 tests, so a plain version stopped at the kernel's count
+    can end less converged. `witnessed`: the float64 witness
+    (tools/newton_witness.py) settles such an env for the kernel: the
+    state's Newton problem (the plain version's rows) solved in float64 to
+    convergence lies within rel 5e-4 of the kernel's acceleration, and no
+    farther from it than the plain version's. Prints each apart env's
+    reading."""
+    from loco_mujoco_tpu_torch.ops import forward as fwd
+    from loco_mujoco_tpu_torch.ops import hopper_fused as hf
+    from loco_mujoco_tpu_torch.ops import hopper_newton as hn
+
+    scale = float(p.qacc.abs().max())
+    apart = (k.qacc - p.qacc).abs().amax(1) > 5e-4 * scale
+    if envs is not None:
+        apart &= envs
+    witnessed = torch.zeros_like(apart)
+    idx = apart.nonzero().flatten()
+    if not len(idx):
+        return apart, witnessed
+    plan = m.plan
+    _, problem = hf.newton_problem(m, fwd.stages(m, S, plain=True))
+    x_w = hn.newton_plain(
+        *(t[idx].double() for t in problem), k.qacc[idx].double(),
+        ne=plan.ne, nfl=plan.nfl, iterations=WITNESS_ITERATIONS,
+        ls_iterations=WITNESS_ITERATIONS, scale=plan.scale, tol=1e-14)[0]
+    e_k = (k.qacc[idx].double() - x_w).abs().amax(1) / scale
+    e_p = (p.qacc[idx].double() - x_w).abs().amax(1) / scale
+    ok = (e_k <= 5e-4) & (e_k <= e_p)
+    witnessed[idx] = ok
+    e_qs = ((k.qacc_smooth[idx] - p.qacc_smooth[idx]).abs().amax(1)
+            / float(p.qacc_smooth.abs().max()))
+    for e, ek, ep, es, w in zip(idx.tolist(), e_k.tolist(), e_p.tolist(),
+                                e_qs.tolist(), ok.tolist()):
+        print(f"  env {e}: accelerations apart at a shared state (their "
+              f"qacc_smooth rel {es:.3g}, {int(k.solver_niter[e])} Newton "
+              f"steps); against the float64 witness: kernel rel {ek:.3g}, "
+              f"plain rel {ep:.3g} "
+              f"({'the kernel holds' if w else 'not settled'})")
+    return apart, witnessed
+
+
+def _tie_envs(torch, held, gap, E, what, err=None, newton=None):
+    """Envs where the comparison does not hold are excluded only as float32
+    ties: where a contact slot or a joint limit lies within TIE of its
+    margin, or (`newton`) where every disagreement of the two versions at
+    a state they shared was settled for the kernel by the float64 witness
+    (_newton_witness); and only up to 0.5% of the envs.
+    Returns their count; prints each excluded env (`err`: its relative
+    error)."""
     out = ~held
     n = int(out.sum())
-    if n and not bool((gap[out] < TIE).all()):
-        raise AssertionError(f"{what}: {int((out & (gap >= TIE)).sum())} "
-                             f"envs differ with no slot within {TIE} of "
-                             f"its margin")
+    tie = gap < TIE if newton is None else (gap < TIE) | newton
+    for e in torch.nonzero(out).flatten().tolist():
+        print(f"  {what}: env {e} differs"
+              + ("" if err is None else f" (rel {float(err[e]):.3g})")
+              + f", nearest margin {float(gap[e]):.3g}"
+              + ("" if newton is None else
+                 f", Newton disagreement settled by the witness: "
+                 f"{bool(newton[e])}"))
+    if n and not bool(tie[out].all()):
+        raise AssertionError(f"{what}: {int((out & ~tie).sum())} envs "
+                             f"differ with no tie")
     if n > 0.005 * E:
         raise AssertionError(f"{what}: {n} tie envs, more than 0.5%")
     return n
+
+
+def _muscle_flops(model):
+    """Float operations the tendon and muscle stage needs per env-forward
+    (csrc/mega.cu muscle_block), each piece once: every site from its
+    body's frame (18), every segment's geometry (difference, com offsets,
+    length, unit vector and the two crosses: 37), its velocity dots (25)
+    and its wrench sums (24); per muscle the activation dynamics and the
+    FLV law with their clamps (84); per (body, dof) pair of a chain the
+    projection of the body's wrench (12); per dof the sum into
+    qfrc_smooth. The kernel walks the segments twice and so recomputes the
+    sites and the geometry; that repeat is not counted."""
+    mp = model.plan.mp
+    if mp is None:
+        return 0
+    return (18 * mp.ns + (37 + 25 + 24) * len(mp.i_seg) + 84 * mp.nmus
+            + 12 * int(model.plan.dofmask[1:].sum()) + model.nv)
 
 
 def _forward_flops(torch, model, d, iters, in_kernel_collision=True):
@@ -215,6 +310,7 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True):
     total = fixed + rows + newton
     if not in_kernel_collision:
         return total
+    total = total + _muscle_flops(model)
     # FK, plane-box pairs, plane-mesh height maps and manifolds
     mesh = next(g for g in plan.groups if g["kind"] == "mesh")
     mk = mesh["mesh"]
@@ -291,6 +387,7 @@ def main() -> int:
     root = Path(__file__).resolve().parent
     models = {name: _load(io, root, name, dev, torch) for name in CONFIGS}
     model, m_eu, m_wide = models["rk4"], models["euler"], models["wide"]
+    m_mu = io.load_model_npz(root / MUSCLE_ASSET, device=dev)
     mesh_groups = [i for i, g in enumerate(model.groups)
                    if coll.is_plane_mesh(g)]
     assert mesh_groups and all(model.mesh_kernel[i] is not None
@@ -301,6 +398,8 @@ def main() -> int:
     assert not plans["fric"].mega and plans["fric"].pack_w == 7
     assert not plans["solref"].mega and plans["solref"].pack_w == 26
     assert plans["wide"] is None, "the wide configuration has a plan"
+    mu = m_mu.plan
+    assert mu.mega and mu.euler_dv and not mu.smooth and mu.mp is not None
     plan = model.mesh_kernel[mesh_groups[0]]
     print(f"model: nv={model.nv}, groups "
           f"{[(g.t2, g.k, len(g.pair_ids)) for g in model.groups]}, "
@@ -312,7 +411,10 @@ def main() -> int:
                                         f"mega {m.plan.mega}, pack "
                                         f"{m.plan.pack_w}, euler_dv "
                                         f"{m.plan.euler_dv}") + ")"
-                      for n, m in models.items()))
+                      for n, m in models.items())
+          + f"; muscle: {mu.mp.nmus} muscles on {m_mu.ntendon} tendons, "
+          f"{len(mu.mp.i_seg)} segments, {mu.mp.ns} sites, na {m_mu.na}, "
+          f"{mu.nrows} rows")
 
     rng = np.random.default_rng(SEED)
     E = N_ENVS
@@ -323,9 +425,13 @@ def main() -> int:
     qpos_t = torch.as_tensor(qpos, dtype=torch.float32, device=dev)
     data = io.make_data(model, E).replace(qpos=qpos_t)
     ctrls = rng.uniform(-0.3, 0.3, size=(CONTROL_STEPS, E, model.nu))
+    ctrls_mu = rng.uniform(0.0, 1.0, size=(CONTROL_STEPS, E, m_mu.nu))
 
-    def ctrl(c):
-        return torch.as_tensor(ctrls[c], dtype=torch.float32, device=dev)
+    def ctrl(c, m=model):
+        """Control step c's seeded ctrl of model m (the muscle model's in
+        [0, 1])."""
+        src = ctrls_mu if m.na else ctrls
+        return torch.as_tensor(src[c], dtype=torch.float32, device=dev)
 
     def start(m):
         """The seeded state in model m (every configuration has the same
@@ -419,7 +525,7 @@ def main() -> int:
         t0 = time.perf_counter()
         d = start(m)
         for c in range(steps):
-            d = d.replace(ctrl=ctrl(c))
+            d = d.replace(ctrl=ctrl(c, m))
             for _ in range(SUBSTEPS):
                 d = fwd.step(m, d)
         torch.cuda.synchronize()
@@ -459,6 +565,9 @@ def main() -> int:
             model, STAGED_STEPS, per_fused, "RK4 through the fused kernel")
         d_staged_eu, staged_eu_launches, staged_eu_rate, _ = staged_run(
             m_eu, STAGED_STEPS, per_fused, "Euler through the fused kernel")
+        d_staged_mu, staged_mu_launches, staged_mu_rate, _ = staged_run(
+            m_mu, STAGED_STEPS, per_fused,
+            "muscle Euler through the fused kernel (non-smooth layout)")
         d_wide, wide_launches, wide_rate, wide_ops = staged_run(
             m_wide, WIDE_STEPS, per_newton,
             f"RK4, no plan ({m_wide.ncon} slots), through the Newton kernel")
@@ -496,12 +605,17 @@ def main() -> int:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for c in range(CONTROL_STEPS):
-            d = fwd.step_n(m, d.replace(ctrl=ctrl(c)), SUBSTEPS)
+            d = fwd.step_n(m, d.replace(ctrl=ctrl(c, m)), SUBSTEPS)
+            if c == 0:
+                first = d  # the state after the first control step
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         got = dict(kernels.LAUNCHES)
         assert got == {"mega_forward": 1, "megastep": CONTROL_STEPS}, got
         assert torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()
+        if m.na:
+            assert torch.isfinite(d.act).all()
+            assert bool(((d.act >= 0) & (d.act <= 1)).all()), "act range"
         assert torch.allclose(d.time, data.time + CONTROL_STEPS * SUBSTEPS
                               * m.opt.timestep)
         f_end = fwd.forward(m, d)
@@ -513,15 +627,21 @@ def main() -> int:
               f"{E} envs in {wall:.3f} s = {rate:.0f} env-steps/s ({card}); "
               f"active contacts at the end {n_con} ({n_con / E:.2f} per "
               f"env); launches {got}")
-        return d, got, rate
+        return d, got, rate, first
 
-    S, launches, env_steps = main_run(model, "RK4")
-    S_eu, launches_eu, env_steps_eu = main_run(m_eu, "Euler")
+    S, launches, env_steps, _ = main_run(model, "RK4")
+    S_eu, launches_eu, env_steps_eu, _ = main_run(m_eu, "Euler")
+    S_mu, launches_mu, env_steps_mu, S_mu_c = main_run(m_mu, "muscle Euler")
+    print(f"muscle activations at the end: mean "
+          f"{float(S_mu.act.mean()):.4f}, min {float(S_mu.act.min()):.4f}, "
+          f"max {float(S_mu.act.max()):.4f}")
 
     # ---- the mega forward and the megastep against their plain versions --
     # From the main path's end state. The plain version replays the
     # kernel's Newton decisions (see the Newton check above); envs whose
-    # active contact set differs may be float32 ties only (_tie_envs).
+    # active contact set differs may be float32 ties only, and envs with
+    # the same set may differ only where the float64 witness settles it
+    # for the kernel (_tie_envs, _newton_witness).
     def mega_forward_check(m, S, what):
         k = fwd.forward(m, S)
         r = hm.mega_forward_plain(m, S, replay=(k.solver_niter,
@@ -529,14 +649,19 @@ def main() -> int:
         act_k = k.contact.dist < k.contact.includemargin
         act_r = r.contact.dist < r.contact.includemargin
         same = torch.all(act_k == act_r, dim=1)
-        gap = torch.minimum(_margin_gap(k), _margin_gap(r))
-        ties = _tie_envs(torch, same, gap, E, f"mega forward {what}")
+        gap = torch.minimum(_margin_gap(m, k), _margin_gap(m, r))
+        apart, witnessed = _newton_witness(torch, m, S, k, r, envs=same)
+        held = same & ~(apart & witnessed)
+        ties = _tie_envs(torch, held, gap, E, f"mega forward {what}",
+                         newton=apart & witnessed)
         fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
         if m.plan.euler_dv:
             fields.append("euler_dv")
+        if m.plan.mp is not None:
+            fields.append("act_dot")
         e_qacc, msg = 0.0, []
         for name in fields:
-            got, ref = getattr(k, name)[same], getattr(r, name)[same]
+            got, ref = getattr(k, name)[held], getattr(r, name)[held]
             err, scl = float((got - ref).abs().max()), float(ref.abs().max())
             assert err <= 5e-4 * scl, (name, err, scl)
             msg.append(f"{name} rel {err / (scl + 1e-9):.3g}")
@@ -554,31 +679,61 @@ def main() -> int:
 
     def megastep_check(m, S, what):
         """One control step of the megastep against its plain version;
-        returns (error, S1, the flops of each forward)."""
+        returns (error, S1, the flops of each forward). Ties (_tie_envs)
+        are read along both trajectories, the plain version's (every
+        forward) and the kernel's (every substep's first forward)."""
         per = hm.forwards_per_step(m)
         dec = torch.zeros((E, per * SUBSTEPS, 2), dtype=torch.int32,
                           device=dev)
-        S1 = S.replace(ctrl=ctrl(0))
+        S1 = S.replace(ctrl=ctrl(0, m))
         ks = hm.mega_step_n(m, S1, SUBSTEPS, decisions=dec)
-        gaps, step_flops = [], []
+        gaps, step_flops, starts = [], [], []
 
         def observe(o):
-            gaps.append(_margin_gap(o))
+            if len(gaps) % per == 0:  # a substep's first forward
+                starts.append(o.qvel)
+            gaps.append(_margin_gap(m, o))
             step_flops.append(_forward_flops(
                 torch, m, o, dec[:, len(step_flops), 0]))
 
         rs = hm.mega_step_n_plain(m, S1, SUBSTEPS, replay=dec,
                                   on_forward=observe)
+        # along the kernel's own trajectory (the megastep is deterministic
+        # per env): its state after k substeps, the margins there, and
+        # whether the kernel's and the plain forward of that same state
+        # disagree, each disagreement settled or not by the float64
+        # witness (_newton_witness)
+        kgaps = []
+        apart = torch.zeros(E, dtype=torch.bool, device=dev)
+        settled = torch.ones(E, dtype=torch.bool, device=dev)
+        drift = []  # qvel error between the two at each substep's start
+        for k in range(SUBSTEPS):
+            Sk = S1 if k == 0 else hm.mega_step_n(m, S1, k)
+            drift.append((Sk.qvel - starts[k]).abs().amax(1))
+            fk = hm.mega_forward(m, Sk)
+            fp = hm.mega_forward_plain(
+                m, Sk, replay=(fk.solver_niter, fk.solver_taken))
+            kgaps.append(_margin_gap(m, fk))
+            a, w = _newton_witness(torch, m, Sk, fk, fp)
+            apart |= a
+            settled &= ~a | w
         held = torch.ones(E, dtype=torch.bool, device=dev)
         step_errs = {}
-        for name in ("qpos", "qvel"):
+        for name in ("qpos", "qvel") + (("act",) if m.na else ()):
             got, ref = getattr(ks, name), getattr(rs, name)
             err = (got - ref).abs().max(dim=1).values
             scl = float(ref.abs().max()) + 1e-9
             held &= err <= 5e-4 * scl
             step_errs[name] = (err, scl)
-        ties = _tie_envs(torch, held, torch.stack(gaps).min(dim=0).values,
-                         E, f"megastep {what}")
+        rel = torch.stack([e / s for e, s in step_errs.values()]).amax(0)
+        pgap = torch.stack(gaps).min(dim=0).values
+        kgap = torch.stack(kgaps).min(dim=0).values
+        for env in torch.nonzero(~held).flatten().tolist():
+            print(f"  megastep {what}: env {env} qvel error at each "
+                  f"substep's start "
+                  + " ".join(f"{float(d[env]):.2g}" for d in drift))
+        ties = _tie_envs(torch, held, pgap.minimum(kgap), E,
+                         f"megastep {what}", rel, apart & settled)
         # the error over the envs held to the tolerance (all but the ties)
         e = max(float(e[held].max()) for e, _ in step_errs.values())
         msg = [f"{name} rel {float(e[held].max()) / scl:.3g} (all envs "
@@ -595,18 +750,40 @@ def main() -> int:
     errs["mega_forward_euler"] = mega_forward_check(m_eu, S_eu, "Euler")
     errs["megastep_euler"], S1_eu, step_flops_eu = megastep_check(
         m_eu, S_eu, "Euler")
+    errs["mega_forward_muscle"] = mega_forward_check(m_mu, S_mu, "muscle")
+    errs["megastep_muscle"], S1_mu, step_flops_mu = megastep_check(
+        m_mu, S_mu, "muscle")
+    # The seeded activations lift the muscle humanoids off the floor by the
+    # end state; hold both muscle kernels also after the first control
+    # step, in deep contact.
+    f_c = fwd.forward(m_mu, S_mu_c)
+    n_con_c = int((f_c.contact.dist < f_c.contact.includemargin).sum())
+    assert n_con_c >= 2 * E, f"muscle state after one step: {n_con_c} contacts"
+    print(f"muscle state after the first control step: {n_con_c} active "
+          f"contacts ({n_con_c / E:.2f} per env)")
+    e_fc = mega_forward_check(m_mu, S_mu_c, "muscle, in contact")
+    e_sc, S1_mu_c, step_flops_mu_c = megastep_check(m_mu, S_mu_c,
+                                                    "muscle, in contact")
+    errs["mega_forward_muscle"] = max(errs["mega_forward_muscle"], e_fc)
+    errs["megastep_muscle"] = max(errs["megastep_muscle"], e_sc)
 
     # ---- the fused kernel against its plain version, four configurations --
     # At the staged RK4 run's end state, carried into each configuration:
     # both versions read the same FK outputs, contacts and warm start, so
     # their active rows agree by construction and every env is held.
+    # The muscle model's non-smooth layout at its own staged run's end
+    # state, from the staged stages' outputs.
     fused_in = {}
-    for name in ("rk4", "euler", "fric", "solref"):
+    models["muscle"] = m_mu
+    for name in ("rk4", "euler", "fric", "solref", "muscle"):
         m = models[name]
-        d = start(m).replace(qpos=d_staged.qpos, qvel=d_staged.qvel,
-                             ctrl=d_staged.ctrl,
-                             qacc_warmstart=d_staged.qacc_warmstart)
-        d = coll.collision(m, kinematics.kinematics(m, d))
+        src = d_staged_mu if name == "muscle" else d_staged
+        d = start(m).replace(qpos=src.qpos, qvel=src.qvel, ctrl=src.ctrl,
+                             act=src.act, qacc_warmstart=src.qacc_warmstart)
+        if name == "muscle":
+            d = fwd.stages(m, d)
+        else:
+            d = coll.collision(m, kinematics.kinematics(m, d))
         fused_in[name] = d
         kernels.LAUNCHES.clear()
         k = hf.fused_constraint(m, d)
@@ -644,8 +821,9 @@ def main() -> int:
     rows = []
     run_launches = {
         "staged RK4": staged_launches, "staged Euler": staged_eu_launches,
+        "staged muscle": staged_mu_launches,
         "no-plan staged RK4": wide_launches, "main RK4": launches,
-        "main Euler": launches_eu}
+        "main Euler": launches_eu, "main muscle": launches_mu}
 
     def row(name, kernel, run, source, replaces, ms, plain_ms, nbytes_,
             flops, library_ms=None):
@@ -746,10 +924,11 @@ def main() -> int:
     print(f"mega forward at the staged RK4 end state: {ms_mega:.4f} ms "
           f"per call ({card})")
     for name, key, run in (("rk4", "fused", "staged RK4"),
-                           ("euler", "fused_euler", "staged Euler")):
+                           ("euler", "fused_euler", "staged Euler"),
+                           ("muscle", "fused_muscle", "staged muscle")):
         m, d = models[name], fused_in[name]
         k = hf.fused_constraint(m, d)
-        vec, pack = hf.smooth_vec(d), hf.contact_pack(m, d)
+        vec, pack = hf.vec(m, d), hf.contact_pack(m, d)
         out_bytes = nbytes(k.qacc, k.qacc_smooth, k.qfrc_constraint,
                            k.solver_niter, k.solver_taken) \
             + E * m.plan.nrows * 4 \
@@ -763,39 +942,56 @@ def main() -> int:
             plain, nbytes(*m.plan.tables(dev), vec, pack) + out_bytes, flops)
 
     # the mega path's kernels at the main paths' end states
-    for m, S_, S1_, sflops, sfx, run in (
-            (model, S, S1, step_flops, "", "main RK4"),
-            (m_eu, S_eu, S1_eu, step_flops_eu, "_euler", "main Euler")):
+    def mega_bounds(m, S_, sflops):
+        """Bound ms of one mega forward at S_ and of the megastep's control
+        step whose forwards did `sflops`."""
         pt = m.plan.tables(dev)
-        ins = (S_.qpos, S_.qvel, S_.ctrl, S_.qfrc_applied, S_.xfrc_applied,
-               S_.qacc_warmstart)
+        ins = (S_.qpos, S_.qvel, S_.act, S_.ctrl, S_.qfrc_applied,
+               S_.xfrc_applied, S_.qacc_warmstart)
         k = fwd.forward(m, S_)
         out_bytes = nbytes(k.qacc, k.qacc_smooth, k.qfrc_constraint,
                            k.contact.dist, k.solver_niter, k.solver_taken) \
             + E * m.ncon * (4 + 4 * 4) \
-            + (nbytes(k.euler_dv) if m.plan.euler_dv else 0)
+            + (nbytes(k.euler_dv) if m.plan.euler_dv else 0) \
+            + (nbytes(k.act_dot) if m.na else 0)
         flops = float(_forward_flops(torch, m, fwd.forward_staged(
             m, S_, plain=True), k.solver_niter).sum())
+        return ((nbytes(*pt, *ins) + out_bytes, flops),
+                (nbytes(*pt, *ins) + 3 * nbytes(S_.qvel) + nbytes(S_.act),
+                 float(torch.stack(sflops).sum())))
+
+    for m, S_, S1_, sflops, sfx, run in (
+            (model, S, S1, step_flops, "", "main RK4"),
+            (m_eu, S_eu, S1_eu, step_flops_eu, "_euler", "main Euler"),
+            (m_mu, S_mu, S1_mu, step_flops_mu, "_muscle", "main muscle")):
+        b_fwd, b_step = mega_bounds(m, S_, sflops)
         ms = _time_ms(torch, lambda: hm.mega_forward(m, S_))
         plain = _time_ms(torch, lambda: hm.mega_forward_plain(m, S_), reps=3)
         row("mega_forward" + sfx, "mega_forward", run, "mega.cu",
-            "pallas_constraint.py:2335", ms, plain,
-            nbytes(*pt, *ins) + out_bytes, flops)
+            "pallas_constraint.py:2335", ms, plain, *b_fwd)
         ms = _time_ms(torch, lambda: hm.mega_step_n(m, S1_, SUBSTEPS), reps=3)
         plain = _time_ms(torch, lambda: hm.mega_step_n_plain(m, S1_, SUBSTEPS),
                          reps=1)
         row("megastep" + sfx, "megastep", run, "mega.cu",
-            "pallas_constraint.py:2800", ms, plain,
-            nbytes(*pt, *ins) + 3 * nbytes(S_.qvel),
-            float(torch.stack(sflops).sum()))
+            "pallas_constraint.py:2800", ms, plain, *b_step)
+    # the muscle kernels again in deep contact (after the first control step)
+    b_fwd, b_step = mega_bounds(m_mu, S_mu_c, step_flops_mu_c)
+    ms_fc = _time_ms(torch, lambda: hm.mega_forward(m_mu, S_mu_c))
+    ms_sc = _time_ms(torch, lambda: hm.mega_step_n(m_mu, S1_mu_c, SUBSTEPS),
+                     reps=3)
+    print(f"muscle kernels in contact ({n_con_c / E:.2f} contacts per env): "
+          f"mega forward {ms_fc:.4f} ms (bound {_bound(*b_fwd)[0]:.4f} ms), "
+          f"megastep {ms_sc:.4f} ms per control step (bound "
+          f"{_bound(*b_step)[0]:.4f} ms) ({card})")
 
     for r in rows:
         print(f"  {r['name']:18s} {r['ms']:9.4f} ms  plain {r['plain_ms']:9.4f}"
               f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
               f"launches {r['launches']}")
     print(f"main path {env_steps:.0f} env-steps/s RK4, {env_steps_eu:.0f} "
-          f"Euler; staged path {staged_rate:.0f} env-steps/s RK4, "
-          f"{staged_eu_rate:.0f} Euler ({staged_ops or 'not measured'} "
+          f"Euler, {env_steps_mu:.0f} muscle Euler; staged path "
+          f"{staged_rate:.0f} env-steps/s RK4, {staged_eu_rate:.0f} Euler, "
+          f"{staged_mu_rate:.0f} muscle ({staged_ops or 'not measured'} "
           f"kernels per forward), no-plan staged path {wide_rate:.0f} "
           f"({wide_ops or 'not measured'} per forward); card: {card}")
     print(json.dumps({"kernels": rows}))

@@ -10,10 +10,12 @@ the contact groups and slot layout, which plane-mesh groups run the Hopper
 select/top-K kernels, and the row plan of the fused constraint kernel and
 the mega path (the reference's static gates).
 
-The port covers the staged physics step of torque humanoids: hinge/slide
-joints, joint-transmission motors, JOINT equalities, friction loss, limits,
-pyramidal plane-box and plane-mesh contacts, Euler and RK4. Anything else
-raises `NotImplementedError` here, at load, rather than deep inside a step.
+The port covers the physics step of the torque and muscle humanoids:
+hinge/slide joints, joint-transmission motors, site-path spatial tendons
+(no stiffness, damping or limits) driving MUSCLE actuators with one
+activation each, JOINT equalities, friction loss, limits, pyramidal
+plane-box and plane-mesh contacts, Euler and RK4. Anything else raises
+`NotImplementedError` here, at load, rather than deep inside a step.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .types import (
     DynType,
     EqType,
     GainType,
+    GeomType,
     IntegratorType,
     JointType,
     Model,
@@ -115,18 +118,44 @@ def _check_supported(aux: dict) -> None:
     if not np.all((jt == int(JointType.HINGE)) | (jt == int(JointType.SLIDE))):
         raise NotImplementedError("hinge/slide joints only")
     if int(aux["ntendon"]):
-        raise NotImplementedError("tendons are not ported yet (ops/tendon.py)")
+        # the JAX package's put_model encodes site paths only (it refuses
+        # wrap geoms); a path of fewer than two sites is no site path
+        mask = np.asarray(aux["tendon_sitemask"], dtype=bool)
+        if np.any(mask.sum(axis=1) < 2):
+            raise NotImplementedError(
+                "site-path spatial tendons only (wrap geoms are not ported)")
+        for name in ("tendon_stiffness", "tendon_damping"):
+            if np.any(np.asarray(aux[name]) != 0):
+                raise NotImplementedError(f"{name} is not ported yet")
+        if np.any(np.asarray(aux["tendon_limited"])):
+            raise NotImplementedError("tendon limits are not ported yet")
     nu = int(aux["nu"])
     if nu:
-        motor = (
-            np.isin(aux["actuator_trntype"],
-                    [int(TrnType.JOINT), int(TrnType.JOINTINPARENT)])
-            & (aux["actuator_dyntype"] == int(DynType.NONE))
-            & (aux["actuator_gaintype"] == int(GainType.FIXED))
-            & (aux["actuator_biastype"] == int(BiasType.NONE))
-        )
-        if not np.all(motor):
-            raise NotImplementedError("joint motors are the only actuators ported")
+        trn = np.asarray(aux["actuator_trntype"])
+        dyn, gain, bias = (np.asarray(aux[f"actuator_{k}type"])
+                           for k in ("dyn", "gain", "bias"))
+        motor = (np.isin(trn, [int(TrnType.JOINT), int(TrnType.JOINTINPARENT)])
+                 & (dyn == int(DynType.NONE)) & (gain == int(GainType.FIXED))
+                 & (bias == int(BiasType.NONE)))
+        muscle = ((trn == int(TrnType.TENDON)) & (dyn == int(DynType.MUSCLE))
+                  & (gain == int(GainType.MUSCLE))
+                  & (bias == int(BiasType.MUSCLE))
+                  & (np.asarray(aux["actuator_actadr"]) >= 0)
+                  & (np.asarray(aux["actuator_actnum"]) == 1))
+        if np.any(np.isin(gain, [int(GainType.AFFINE)])
+                  | np.isin(bias, [int(BiasType.AFFINE)])):
+            raise NotImplementedError("affine gain and bias are not ported yet")
+        if np.any(np.isin(dyn, [int(DynType.INTEGRATOR), int(DynType.FILTER),
+                                int(DynType.FILTEREXACT)])):
+            raise NotImplementedError(
+                "integrator and filter activations are not ported yet")
+        if not np.all(motor | muscle):
+            raise NotImplementedError(
+                "joint motors and tendon muscles are the only actuators ported")
+    pair_types = {(int(aux["geom_type"][a]), int(aux["geom_type"][b]))
+                  for a, b in zip(aux["pair_geom1"], aux["pair_geom2"])}
+    if (int(GeomType.PLANE), int(GeomType.CYLINDER)) in pair_types:
+        raise NotImplementedError("plane-cylinder contacts are not ported yet")
     if int(aux["opt.cone"]) != int(ConeType.PYRAMIDAL):
         raise NotImplementedError("elliptic cones are not ported yet")
     if int(aux["opt.integrator"]) not in (int(IntegratorType.EULER),

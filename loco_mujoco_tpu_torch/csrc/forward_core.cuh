@@ -8,8 +8,8 @@
 //   pallas_constraint.py _smooth_preamble :950-1180 and the in-kernel CRB
 //   :1301-1346): com, cinert, cdof (com_pos), the CRB mass matrix and its
 //   Cholesky factor (crb_factor), cvel / cdof_dot, the RNE bias, joint
-//   springs and dampers, motors, the xfrc projection, qfrc_smooth and
-//   qacc_smooth = M^-1 qfrc_smooth (smooth_force);
+//   springs and dampers, motors, the xfrc projection and qfrc_smooth
+//   (smooth_force), and qacc_smooth = M^-1 qfrc_smooth (smooth_acc);
 // - the constraint row builders (:1374-1590): JOINT equalities, friction
 //   loss, limits, the inert pad rows, and the four pyramidal facets of one
 //   contact slot in the reference's blocked facet layout (:1660-1665);
@@ -31,6 +31,7 @@ namespace lmt {
 
 constexpr int NVM = 24;   // dofs (ops/plan.py NV_MAX)
 constexpr int BMAX = 32;  // bodies (BODY_MAX)
+constexpr int MUSM = 128; // muscles and activations (MUS_MAX)
 constexpr float kMinImp = 0.0001f, kMaxImp = 0.9999f;
 
 // the int header of the packed tables, in ops/plan.py HEADER order
@@ -38,11 +39,12 @@ enum Header {
   NQ, NV, NBODY, NJNT, NU, NE, NFL, NL, NPAD, NROWS, NCON, FLAGS, NBOX,
   KBOX, OFFBOX, NMESH, KMESH, OFFMESH, F_BODY, I_BODY, I_TOPO, F_JNT, I_JNT,
   F_DOF, I_DOF, I_ANC, I_DMASK, F_ACT, I_ACT, F_EQ, I_EQ, F_FL, I_FL, F_LIM,
-  I_LIM, F_CON, F_BOX, I_BOX, F_MESH, I_MESH, F_VERT, PACKW, I_GBODY
+  I_LIM, F_CON, F_BOX, I_BOX, F_MESH, I_MESH, F_VERT, PACKW, I_GBODY, NMOT,
+  NA, NMUS, F_MUS, I_MUS, I_SEG, F_SITE, I_SITE, F_ACTB
 };
 enum Flag {
   PASSIVE = 1, ACTUATION = 2, CLAMPCTRL = 4, REFSAFE = 8, UNIFORM = 16,
-  FRIC_UNIFORM = 32
+  FRIC_UNIFORM = 32, SMOOTH = 64, MUSCLE = 128
 };
 // F_CON: plane normal (3), plane point (3), contact frame (9), margin,
 // solref (2), solimp (5), friction (2) -- zero unless UNIFORM -- then the
@@ -223,9 +225,9 @@ __device__ void com_pos(const Tab& T, Body& s) {
   }
 }
 
-// CRB mass matrix (+ armature) and its Cholesky factor (inertia.crb,
-// inertia.factor_m)
-__device__ void crb_factor(const Tab& T, Body& s) {
+// CRB mass matrix (+ armature: `arm`, nv floats, or the plan's when null)
+// and its Cholesky factor (inertia.crb, inertia.factor_m)
+__device__ void crb_factor(const Tab& T, Body& s, const float* arm) {
   const int nb = T.h(NBODY), nv = T.h(NV);
   const int* topo = T.i(I_TOPO);
   const int* bi = T.i(I_BODY);
@@ -247,7 +249,7 @@ __device__ void crb_factor(const Tab& T, Body& s) {
         m = buf[0] * s.cdof[b][0];
         for (int i = 1; i < 6; ++i) m += buf[i] * s.cdof[b][i];
       }
-      if (a == b) m += df[2 * a + 1];
+      if (a == b) m += arm ? arm[a] : df[2 * a + 1];
       s.M[a * NVM + b] = m;
       s.M[b * NVM + a] = m;
     }
@@ -255,12 +257,13 @@ __device__ void crb_factor(const Tab& T, Body& s) {
   cholesky(s.M, s.L, nv);
 }
 
-// Velocity stage, passive, actuation, xfrc (qfrc_smooth) and qacc_smooth.
-// ctrl (nu), qfrc_applied (nv) and xfrc (nbody, 6) are this env's inputs.
+// Velocity stage, passive, motors and xfrc: qfrc_smooth (the muscles of
+// csrc/mega.cu add theirs after). ctrl (nu), qfrc_applied (nv) and xfrc
+// (nbody, 6) are this env's inputs.
 __device__ void smooth_force(const Tab& T, const float* ctrl,
                              const float* qfrc_applied, const float* xfrc,
                              const float* qpos, const float* qvel, Body& s) {
-  const int nb = T.h(NBODY), nv = T.h(NV), nu = T.h(NU), njnt = T.h(NJNT);
+  const int nb = T.h(NBODY), nv = T.h(NV), nmot = T.h(NMOT), njnt = T.h(NJNT);
   const int flags = T.h(FLAGS);
   const int* topo = T.i(I_TOPO);
   const int* bi = T.i(I_BODY);
@@ -331,17 +334,18 @@ __device__ void smooth_force(const Tab& T, const float* ctrl,
     }
     for (int d = 0; d < nv; ++d) passive[d] = passive[d] - df[2 * d] * qvel[d];
   }
-  if (nu) {
+  if (nmot) {  // the joint motors: ctrl index ai[4 m + 3]
     const float* af = T.f(F_ACT);
     const int* ai = T.i(I_ACT);
-    for (int u = 0; u < nu; ++u) {
-      const float* A = af + 6 * u;
-      float c = ctrl[u];
-      if ((flags & CLAMPCTRL) && ai[3 * u + 1]) c = fminf(fmaxf(c, A[2]), A[3]);
+    for (int m = 0; m < nmot; ++m) {
+      const float* A = af + 6 * m;
+      const int* B = ai + 4 * m;
+      float c = ctrl[B[3]];
+      if ((flags & CLAMPCTRL) && B[1]) c = fminf(fmaxf(c, A[2]), A[3]);
       float f = A[1] * c;
-      if (ai[3 * u + 2]) f = fminf(fmaxf(f, A[4]), A[5]);
+      if (B[2]) f = fminf(fmaxf(f, A[4]), A[5]);
       if (!(flags & ACTUATION)) f = 0.f;
-      actf[ai[3 * u]] += f * A[0];
+      actf[B[0]] += f * A[0];
     }
   }
   // xfrc projection (forward._xfrc_projection); zero wrenches add nothing
@@ -369,8 +373,11 @@ __device__ void smooth_force(const Tab& T, const float* ctrl,
     for (int i = 1; i < 6; ++i) bias += s.cdof[d][i] * f6[i];
     s.qfrc_smooth[d] = passive[d] - bias + actf[d] + qfrc_applied[d] + xf[d];
   }
-  // qacc_smooth = M^-1 qfrc_smooth with the factor (linalg.cho_solve)
-  cho_solve(s.L, s.qfrc_smooth, s.asm_, nv);
+}
+
+// qacc_smooth = M^-1 qfrc_smooth with the factor (linalg.cho_solve)
+__device__ void smooth_acc(const Tab& T, Body& s) {
+  cho_solve(s.L, s.qfrc_smooth, s.asm_, T.h(NV));
 }
 
 // ---- constraint rows -------------------------------------------------------

@@ -5,15 +5,19 @@
 // fused_kernel replaces the Pallas program of
 // loco_mujoco_tpu/ops/pallas_constraint.py: _fused_batched (its
 // pallas_call) with its body _make_fused_kernel(mega=False) ->
-// _forward_env_block, smooth branch (:1268-1281): from the packed per-env
-// vector of FK outputs it computes com, cinert, cdof, the RNE bias,
-// passive forces and motor actuation (qfrc_smooth, _smooth_preamble
-// :950-1180), the CRB mass matrix and qacc_smooth = M^-1 qfrc_smooth
-// (:1301-1346), the JOINT-equality / friction-loss / limit rows and the
-// pyramidal contact rows of the slots the staged collision filled
-// (:1447-1590), the Newton solve (newton_core.cuh), the force of every row
-// and qfrc = J'f (:1864-1890), and euler_dv = (M + h diag(damping))^-1 M
-// qacc (:1893-1906). The device functions are forward_core.cuh's, shared
+// _forward_env_block in its two vec layouts. Smooth (:1268-1281, plan flag
+// SMOOTH): from the packed per-env vector of FK outputs it computes com,
+// cinert, cdof, the RNE bias, passive forces and motor actuation
+// (qfrc_smooth, _smooth_preamble :950-1180). Non-smooth (:1282-1299, the
+// muscle humanoid's staged path): the vector carries cdof, the root
+// subtree com, cinert, qfrc_smooth (the staged tendon, velocity, passive
+// and actuation stages computed them) and the armature. Then, in both, the
+// CRB mass matrix and qacc_smooth = M^-1 qfrc_smooth (:1301-1346), the
+// JOINT-equality / friction-loss / limit rows and the pyramidal contact
+// rows of the slots the staged collision filled (:1447-1590), the Newton
+// solve (newton_core.cuh), the force of every row and qfrc = J'f
+// (:1864-1890), and euler_dv = (M + h diag(damping))^-1 M qacc
+// (:1893-1906). The device functions are forward_core.cuh's, shared
 // with csrc/mega.cu; the arithmetic follows the port's staged path, the
 // kernel's plain version (ops/hopper_fused.py fused_constraint_plain).
 //
@@ -58,8 +62,9 @@ using namespace lmt;
 
 // Env-major operands and outputs of the fused kernel.
 struct Fused {
-  const float* vec;   // (E, nvec) [qpos qvel xipos ximat xanchor xaxis ctrl
-                      //            qfrc_applied xfrc ws]
+  const float* vec;   // (E, nvec) smooth: [qpos qvel xipos ximat xanchor
+                      // xaxis ctrl qfrc_applied xfrc ws]; non-smooth: [qpos
+                      // qvel cdof com cinert qfrc_smooth ws armature]
   const float* pack;  // (E, ncon, pack_w)
   float *qacc, *force, *qfrc, *qacc_smooth, *dv;  // dv null: no euler_dv
   int *iters, *taken;
@@ -80,26 +85,42 @@ __global__ void __launch_bounds__(32) fused_kernel(Tab T, Io io, Fused F) {
     qvel[k] = v[nv + k];
   }
   v += 2 * nv;
-  for (int b = 0; b < nb; ++b)
-    for (int k = 0; k < 3; ++k) s.xipos[b][k] = v[3 * b + k];
-  v += 3 * nb;
-  for (int b = 0; b < nb; ++b)
-    for (int k = 0; k < 9; ++k) s.ximat[b][k] = v[9 * b + k];
-  v += 9 * nb;
-  for (int j = 0; j < njnt; ++j)
-    for (int k = 0; k < 3; ++k) s.xanchor[j][k] = v[3 * j + k];
-  v += 3 * njnt;
-  for (int j = 0; j < njnt; ++j)
-    for (int k = 0; k < 3; ++k) s.xaxis[j][k] = v[3 * j + k];
-  v += 3 * njnt;
-  const float* ctrl = v;
-  const float* app = ctrl + nu;
-  const float* xfrc = app + nv;
-  for (int k = 0; k < nv; ++k) ws[k] = xfrc[6 * nb + k];
-
-  com_pos(T, s);
-  crb_factor(T, s);
-  smooth_force(T, ctrl, app, xfrc, qpos, qvel, s);
+  if (flags & SMOOTH) {
+    for (int b = 0; b < nb; ++b)
+      for (int k = 0; k < 3; ++k) s.xipos[b][k] = v[3 * b + k];
+    v += 3 * nb;
+    for (int b = 0; b < nb; ++b)
+      for (int k = 0; k < 9; ++k) s.ximat[b][k] = v[9 * b + k];
+    v += 9 * nb;
+    for (int j = 0; j < njnt; ++j)
+      for (int k = 0; k < 3; ++k) s.xanchor[j][k] = v[3 * j + k];
+    v += 3 * njnt;
+    for (int j = 0; j < njnt; ++j)
+      for (int k = 0; k < 3; ++k) s.xaxis[j][k] = v[3 * j + k];
+    v += 3 * njnt;
+    const float* ctrl = v;
+    const float* app = ctrl + nu;
+    const float* xfrc = app + nv;
+    for (int k = 0; k < nv; ++k) ws[k] = xfrc[6 * nb + k];
+    com_pos(T, s);
+    crb_factor(T, s, nullptr);
+    smooth_force(T, ctrl, app, xfrc, qpos, qvel, s);
+  } else {
+    for (int d = 0; d < nv; ++d)
+      for (int k = 0; k < 6; ++k) s.cdof[d][k] = v[6 * d + k];
+    v += 6 * nv;
+    for (int k = 0; k < 3; ++k) s.com[k] = v[k];
+    v += 3;
+    for (int b = 0; b < nb; ++b)
+      for (int k = 0; k < 10; ++k) s.cinert[b][k] = v[10 * b + k];
+    v += 10 * nb;
+    for (int k = 0; k < nv; ++k) {
+      s.qfrc_smooth[k] = v[k];
+      ws[k] = v[nv + k];
+    }
+    crb_factor(T, s, v + 2 * nv);
+  }
+  smooth_acc(T, s);
 
   const RowWriter w{io, e, nv};
   const int s0 = joint_rows(T, w, qpos, qvel);

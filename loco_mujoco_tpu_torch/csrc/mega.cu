@@ -10,14 +10,21 @@
 // the CRB mass matrix and qacc_smooth by Cholesky, the JOINT-equality /
 // friction-loss / limit / pyramidal contact rows, solve_core and, for Euler
 // models, the implicit-damping dv (euler_dv, :1893-1906).
+// A plan with muscles (flag MUSCLE) adds the tendon and muscle stage
+// (muscle_block; pallas_fk.muscle_env_block :1140-1350, inlined at
+// pallas_constraint.py:1245-1264) after the smooth stage: qfrc_smooth gains
+// the muscles' joint forces and the kernel writes act_dot (E, na) in act
+// slot order.
 // megastep_kernel replaces _megastep_batched (its pallas_call) with its
 // body _make_megastep_kernel: the same forward looped over n substeps,
 // carrying qpos, qvel and the warm start. RK4 runs the four stages of each
 // substep (stage 1 warm-starts from the carried value; its qacc warm-starts
 // stages 2-4 and the next substep, pallas_constraint.py:2731-2755); Euler
-// (:2761-2783) runs one forward, qvel += dt dv with dv = euler_dv (or qacc
-// when EULERDAMP is disabled), qpos += dt qvel, and carries that qacc as
-// the warm start.
+// (:2761-2787) runs one forward, qvel += dt dv with dv = euler_dv (or qacc
+// when EULERDAMP is disabled), qpos += dt qvel, act += dt act_dot clamped
+// to each act slot's range (the clamped value feeds the next forward), and
+// carries that qacc as the warm start. RK4 with activations is no megastep
+// path (the wrapper refuses it, as the reference does).
 //
 // The arithmetic follows the port's staged path, which is these kernels'
 // plain version (ops/hopper_mega.py): kinematics.py and collision.py with
@@ -426,6 +433,165 @@ __device__ void collide(const Tab& T, State& s) {
   }
 }
 
+// ---- tendons and muscles ---------------------------------------------------
+// One segment of a tendon path: from site A (on body ba) to site B (on bb),
+// the sites computed from the body frames; u the unit direction and cA, cB
+// the com-referenced endpoint offsets crossed with u, so that
+// u . (J_B - J_A) qvel = cB . w_B + u . v_B - (cA . w_A + u . v_A) with
+// (w, v) a body's cvel (tendon.py's segment Jacobian).
+struct Seg {
+  float len, u[3], cA[3], cB[3];
+  int ba, bb;
+};
+
+__device__ void segment(const Tab& T, const State& s, const int* sg,
+                        Seg& g) {
+  const float* sf = T.f(F_SITE);
+  const int* si = T.i(I_SITE);
+  float p[2][3];
+  const int b2[2] = {si[sg[0]], si[sg[1]]};
+  for (int e = 0; e < 2; ++e) {
+    const float* l = sf + 4 * sg[e];
+    const float* R = s.xmat[b2[e]];
+    for (int i = 0; i < 3; ++i)
+      p[e][i] = s.xpos[b2[e]][i] + (R[3 * i] * l[0] + R[3 * i + 1] * l[1] +
+                                    R[3 * i + 2] * l[2]);
+  }
+  float d[3], offA[3], offB[3];
+  for (int i = 0; i < 3; ++i) {
+    d[i] = p[1][i] - p[0][i];
+    offA[i] = p[0][i] - s.com[i];
+    offB[i] = p[1][i] - s.com[i];
+  }
+  g.len = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+  const float inv = 1.f / fmaxf(g.len, 1e-12f);
+  for (int i = 0; i < 3; ++i) g.u[i] = d[i] * inv;
+  cross(offA, g.u, g.cA);
+  cross(offB, g.u, g.cB);
+  g.ba = b2[0];
+  g.bb = b2[1];
+}
+
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+// MuJoCo's skewed bump (actuation._bump) with mid = 1
+__device__ float bump(float x, float lmin, float lmax) {
+  const float mid = 1.f;
+  const float left = 0.5f * (lmin + mid), right = 0.5f * (mid + lmax);
+  float t;
+  if (x > lmin && x <= left) {
+    t = (x - lmin) / fmaxf(left - lmin, 1e-15f);
+    return 0.5f * t * t;
+  }
+  if (x > left && x <= mid) {
+    t = (mid - x) / fmaxf(mid - left, 1e-15f);
+    return 1.f - 0.5f * t * t;
+  }
+  if (x > mid && x <= right) {
+    t = (x - mid) / fmaxf(right - mid, 1e-15f);
+    return 1.f - 0.5f * t * t;
+  }
+  if (x > right && x < lmax) {
+    t = (lmax - x) / fmaxf(lmax - right, 1e-15f);
+    return 0.5f * t * t;
+  }
+  return 0.f;
+}
+
+// The tendon and muscle stage of one env (muscle_env_block; the
+// arithmetic of the staged tendon.py + actuation.py): per muscle i (F_MUS
+// row P = [tau_act tau_deact gainprm(9) biasprm(9) lr0 lr1 acc0 gear clo chi
+// flo fhi], I_MUS row Q = [seg0 nseg act_slot ctrl_index climited
+// flimited]) its tendon's length and velocity from its segments (pass 1),
+// the FLV force (mju_muscleGain / Bias) on act, act_dot (mju_muscleDynamics,
+// tausmooth 0) into act_dot[act_slot]; then (pass 2) the segments again, each
+// adding gear force through its endpoint bodies into per-body wrenches,
+// projected on every dof of their chains (I_DMASK). Needs s.cvel
+// (smooth_force) and adds to s.qfrc_smooth. act (na) and ctrl (nu) are this
+// env's; act_dot (na) out.
+__device__ void muscle_block(const Tab& T, State& s, const float* ctrl,
+                             const float* act, float* act_dot) {
+  const int nmus = T.h(NMUS), na = T.h(NA), nv = T.h(NV), nb = T.h(NBODY);
+  const int flags = T.h(FLAGS);
+  const float* mf = T.f(F_MUS);
+  const int* mi = T.i(I_MUS);
+  const int* sg = T.i(I_SEG);
+  const int* dmask = T.i(I_DMASK);
+  for (int a = 0; a < na; ++a) act_dot[a] = 0.f;
+  float gf[MUSM];  // gear * force of each muscle
+  Seg g;
+  for (int i = 0; i < nmus; ++i) {
+    const float* P = mf + 28 * i;
+    const int* Q = mi + 6 * i;
+    float len = 0.f, vel = 0.f;
+    for (int k = Q[0]; k < Q[0] + Q[1]; ++k) {
+      segment(T, s, sg + 2 * k, g);
+      len += g.len;
+      vel += (dot3(g.cB, s.cvel[g.bb]) + dot3(g.u, s.cvel[g.bb] + 3)) -
+             (dot3(g.cA, s.cvel[g.ba]) + dot3(g.u, s.cvel[g.ba] + 3));
+    }
+    const float gear = P[23], length = len * gear, velocity = vel * gear;
+    float c = ctrl[Q[3]];
+    if ((flags & CLAMPCTRL) && Q[4]) c = fminf(fmaxf(c, P[24]), P[25]);
+    const float a = act[Q[2]];
+    // activation dynamics: tau compares the clamped ctrl with the raw act
+    const float cc = clampf(c, 0.f, 1.f), ac = clampf(a, 0.f, 1.f);
+    const float tau = cc > a ? P[0] * (0.5f + 1.5f * ac)
+                             : P[1] / (0.5f + 1.5f * ac);
+    float adot = (cc - a) / fmaxf(tau, 1e-15f);
+    // gain: -F FL(L) FV(V)
+    const float lr0 = P[20], lr1 = P[21], acc0 = fmaxf(P[22], 1e-15f);
+    const float fg = P[4] < 0.f ? P[5] / acc0 : P[4];
+    const float l0g = (lr1 - lr0) / fmaxf(P[3] - P[2], 1e-15f);
+    const float lng = P[2] + (length - lr0) / fmaxf(l0g, 1e-15f);
+    const float v = velocity / fmaxf(l0g * P[8], 1e-15f);
+    const float fvmax = P[10], y = fvmax - 1.f;
+    const float fv = v <= -1.f ? 0.f
+                     : v <= 0.f ? (v + 1.f) * (v + 1.f)
+                     : v <= y   ? fvmax - (y - v) * (y - v) / fmaxf(y, 1e-15f)
+                                : fvmax;
+    const float gain = -fg * bump(lng, P[6], P[7]) * fv;
+    // bias: -F FP(L)
+    const float fb = P[13] < 0.f ? P[14] / acc0 : P[13];
+    const float l0b = (lr1 - lr0) / fmaxf(P[12] - P[11], 1e-15f);
+    const float lnb = P[11] + (length - lr0) / fmaxf(l0b, 1e-15f);
+    const float bmid = 0.5f * (1.f + P[16]), den = fmaxf(bmid - 1.f, 1e-15f);
+    const float xm = (lnb - 1.f) / den, xh = (lnb - bmid) / den;
+    const float fp = lnb <= 1.f ? 0.f
+                     : lnb <= bmid ? 0.5f * P[18] * xm * xm
+                                   : P[18] * (0.5f + xh);
+    float force = gain * a - fb * fp;
+    if (Q[5]) force = fminf(fmaxf(force, P[26]), P[27]);
+    if (!(flags & ACTUATION)) force = adot = 0.f;
+    act_dot[Q[2]] = adot;
+    gf[i] = force * gear;
+  }
+  float W[BMAX][6];
+  for (int b = 0; b < nb; ++b)
+    for (int k = 0; k < 6; ++k) W[b][k] = 0.f;
+  for (int i = 0; i < nmus; ++i) {
+    const int* Q = mi + 6 * i;
+    for (int k = Q[0]; k < Q[0] + Q[1]; ++k) {
+      segment(T, s, sg + 2 * k, g);
+      for (int j = 0; j < 3; ++j) {
+        W[g.bb][j] += gf[i] * g.cB[j];
+        W[g.bb][3 + j] += gf[i] * g.u[j];
+        W[g.ba][j] -= gf[i] * g.cA[j];
+        W[g.ba][3 + j] -= gf[i] * g.u[j];
+      }
+    }
+  }
+  for (int v = 0; v < nv; ++v) {
+    float q = 0.f;
+    for (int b = 1; b < nb; ++b)
+      if (dmask[b * nv + v])
+        q += dot3(s.cdof[v], W[b]) + dot3(s.cdof[v] + 3, W[b] + 3);
+    s.qfrc_smooth[v] += q;
+  }
+}
+
 // ---- constraint rows ------------------------------------------------------
 // The fused kernel's row order: equalities, friction loss, limits, the inert
 // pad rows, then the 4 pyramidal facets of every slot, blocked (facet f of
@@ -458,18 +624,22 @@ struct Out {
   int *cgid;
 };
 
-// One forward of env e at (qpos, qvel) warm-started from ws; qacc out.
+// One forward of env e at (qpos, qvel, act) warm-started from ws; qacc and
+// act_dot (na, with muscles) out.
 __device__ void forward_env(const Tab& T, const Io& io, const In& in,
                             const Out& out, int e, const float* qpos,
-                            const float* qvel, const float* ws, State& s,
-                            float* qacc, int& iters, unsigned& taken) {
+                            const float* qvel, const float* act,
+                            const float* ws, State& s, float* qacc,
+                            float* act_dot, int& iters, unsigned& taken) {
   const int nv = T.h(NV), nrows = T.h(NROWS), ncon = T.h(NCON);
+  const float* ctrl = in.ctrl + (size_t)e * T.h(NU);
   fk(T, qpos, s);
   com_pos(T, s);
-  crb_factor(T, s);
-  smooth_force(T, in.ctrl + (size_t)e * T.h(NU),
-               in.qfrc_applied + (size_t)e * nv,
+  crb_factor(T, s, nullptr);
+  smooth_force(T, ctrl, in.qfrc_applied + (size_t)e * nv,
                in.xfrc + (size_t)e * T.h(NBODY) * 6, qpos, qvel, s);
+  if (T.h(FLAGS) & MUSCLE) muscle_block(T, s, ctrl, act, act_dot);
+  smooth_acc(T, s);
   collide(T, s);
   make_rows(T, io, e, qpos, qvel, s);
   const int base = nrows - 4 * ncon;
@@ -500,50 +670,58 @@ __device__ void forward_env(const Tab& T, const Io& io, const In& in,
 
 __global__ void __launch_bounds__(32) mega_forward_kernel(
     Tab T, Io io, In in, Out out, const float* __restrict__ qpos_in,
-    const float* __restrict__ qvel_in, const float* __restrict__ ws_in,
-    float* __restrict__ qacc_out, int* __restrict__ iters_out,
+    const float* __restrict__ qvel_in, const float* __restrict__ act_in,
+    const float* __restrict__ ws_in, float* __restrict__ qacc_out,
+    float* __restrict__ act_dot_out, int* __restrict__ iters_out,
     int* __restrict__ taken_out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= io.E) return;
   State s;
-  const int nv = T.h(NV);
-  float qpos[NVM], qvel[NVM], ws[NVM], qacc[NVM];
+  const int nv = T.h(NV), na = T.h(NA);
+  float qpos[NVM], qvel[NVM], ws[NVM], qacc[NVM], act[MUSM], act_dot[MUSM];
   for (int k = 0; k < nv; ++k) {
     qpos[k] = qpos_in[(size_t)e * nv + k];
     qvel[k] = qvel_in[(size_t)e * nv + k];
     ws[k] = ws_in[(size_t)e * nv + k];
   }
+  for (int a = 0; a < na; ++a) act[a] = act_in[(size_t)e * na + a];
   int it;
   unsigned taken;
-  forward_env(T, io, in, out, e, qpos, qvel, ws, s, qacc, it, taken);
+  forward_env(T, io, in, out, e, qpos, qvel, act, ws, s, qacc, act_dot, it,
+              taken);
   for (int k = 0; k < nv; ++k) qacc_out[(size_t)e * nv + k] = qacc[k];
+  if (T.h(FLAGS) & MUSCLE)
+    for (int a = 0; a < na; ++a) act_dot_out[(size_t)e * na + a] = act_dot[a];
   iters_out[e] = it;
   taken_out[e] = (int)taken;
 }
 
 // n substeps of RK4 (mj_RungeKutta's tableau; forward.py _rk4) or Euler
 // (forward.py _euler; use_dv: qvel moves by euler_dv, else by qacc),
-// carrying qpos, qvel and the warm start. decisions (E, F n, 2), F = 4 for
-// RK4 and 1 for Euler: the iteration count and the taken bits of every
-// forward, when not null.
+// carrying qpos, qvel, the activations (Euler) and the warm start.
+// decisions (E, F n, 2), F = 4 for RK4 and 1 for Euler: the iteration count
+// and the taken bits of every forward, when not null.
 __global__ void __launch_bounds__(32) megastep_kernel(
     Tab T, Io io, In in, const float* __restrict__ qpos_in,
-    const float* __restrict__ qvel_in, const float* __restrict__ ws_in,
-    float* __restrict__ qpos_out, float* __restrict__ qvel_out,
+    const float* __restrict__ qvel_in, const float* __restrict__ act_in,
+    const float* __restrict__ ws_in, float* __restrict__ qpos_out,
+    float* __restrict__ qvel_out, float* __restrict__ act_out,
     float* __restrict__ ws_out, int* __restrict__ decisions, int n_steps,
     float dt, int rk4, int use_dv) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= io.E) return;
   State s;
   const Out none{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
-  const int nv = T.h(NV);
+  const int nv = T.h(NV), na = T.h(NA);
+  const float* act_lim = T.f(F_ACTB);  // (lo, hi) per act slot
   const int per = rk4 ? 4 : 1;  // forwards per substep
-  float qpos[NVM], qvel[NVM], ws[NVM];
+  float qpos[NVM], qvel[NVM], ws[NVM], act[MUSM], act_dot[MUSM];
   for (int k = 0; k < nv; ++k) {
     qpos[k] = qpos_in[(size_t)e * nv + k];
     qvel[k] = qvel_in[(size_t)e * nv + k];
     ws[k] = ws_in[(size_t)e * nv + k];
   }
+  for (int a = 0; a < na; ++a) act[a] = act_in[(size_t)e * na + a];
   auto record = [&](int f, int it, unsigned taken) {
     if (!decisions) return;
     int* dd = decisions + ((size_t)e * per * n_steps + f) * 2;
@@ -557,7 +735,8 @@ __global__ void __launch_bounds__(32) megastep_kernel(
     int it;
     unsigned taken;
     if (!rk4) {
-      forward_env(T, io, in, none, e, qpos, qvel, ws, s, qacc, it, taken);
+      forward_env(T, io, in, none, e, qpos, qvel, act, ws, s, qacc, act_dot,
+                  it, taken);
       record(step, it, taken);
       float dv[NVM];
       if (use_dv)
@@ -569,6 +748,10 @@ __global__ void __launch_bounds__(32) megastep_kernel(
         qpos[k] = qpos[k] + dt * qvel[k];
         ws[k] = qacc[k];
       }
+      if (T.h(FLAGS) & MUSCLE)
+        for (int a = 0; a < na; ++a)
+          act[a] = fminf(fmaxf(act[a] + dt * act_dot[a], act_lim[2 * a]),
+                         act_lim[2 * a + 1]);
       continue;
     }
     float qs[NVM], vs[NVM], aq[NVM], av[NVM];
@@ -579,7 +762,8 @@ __global__ void __launch_bounds__(32) megastep_kernel(
     for (int i = 0; i < 4; ++i) {
       // stage 1 warm-starts from the carried value, stages 2-4 from the
       // stage-1 qacc (mj_step copies it before mj_RungeKutta's stages)
-      forward_env(T, io, in, none, e, qs, vs, ws, s, qacc, it, taken);
+      forward_env(T, io, in, none, e, qs, vs, act, ws, s, qacc, act_dot, it,
+                  taken);
       record(4 * step + i, it, taken);
       for (int k = 0; k < nv; ++k) {
         aq[k] = i == 0 ? bw[0] * vs[k] : aq[k] + bw[i] * vs[k];
@@ -603,6 +787,7 @@ __global__ void __launch_bounds__(32) megastep_kernel(
     qvel_out[(size_t)e * nv + k] = qvel[k];
     ws_out[(size_t)e * nv + k] = ws[k];
   }
+  for (int a = 0; a < na; ++a) act_out[(size_t)e * na + a] = act[a];
 }
 
 Io make_io(void* J, void* aref, void* D, void* R, void* act, void* fl,
@@ -618,17 +803,18 @@ constexpr int kBlock = 32;
 }  // namespace
 
 // ints/flts: the packed plan (ops/plan.py). Per-env inputs env-major:
-// qpos (E, nq), qvel, ws (E, nv), ctrl (E, nu), qfrc_applied (E, nv),
-// xfrc (E, nbody, 6). Outputs env-major: qacc, qacc_smooth, qfrc (E, nv),
-// cdist (E, ncon), cgid (E, ncon) int, cforce (E, ncon, 4), iters and
-// taken (E,) int, dv (E, nv) or null (no euler_dv). Scratch env-last:
-// J (nrows, nv, E), aref, D, R, act, jar, jv (nrows, E), fl
-// (max(nfl, 1), E).
+// qpos (E, nq), qvel, ws (E, nv), act_in (E, na), ctrl (E, nu), qfrc_applied
+// (E, nv), xfrc (E, nbody, 6). Outputs env-major: qacc, qacc_smooth, qfrc
+// (E, nv), cdist (E, ncon), cgid (E, ncon) int, cforce (E, ncon, 4), iters
+// and taken (E,) int, dv (E, nv) or null (no euler_dv), act_dot (E, na)
+// (written with muscles). Scratch env-last: J (nrows, nv, E), aref, D, R,
+// act, jar, jv (nrows, E), fl (max(nfl, 1), E).
 extern "C" int lmt_mega_forward(
     const void* ints, const void* flts, const void* qpos, const void* qvel,
-    const void* ctrl, const void* qfrc_applied, const void* xfrc,
-    const void* ws, void* qacc, void* qacc_smooth, void* qfrc, void* cdist,
-    void* cgid, void* cforce, void* iters, void* taken, void* dv, void* J,
+    const void* act_in, const void* ctrl, const void* qfrc_applied,
+    const void* xfrc, const void* ws, void* qacc, void* qacc_smooth,
+    void* qfrc, void* cdist, void* cgid, void* cforce, void* iters,
+    void* taken, void* dv, void* act_dot, void* J,
     void* aref, void* D, void* R, void* act, void* fl, void* jar, void* jv,
     int E, int iterations, int ls_iterations, float scale, float tol,
     void* stream) {
@@ -643,19 +829,21 @@ extern "C" int lmt_mega_forward(
   mega_forward_kernel<<<(E + kBlock - 1) / kBlock, kBlock, 0,
                         (cudaStream_t)stream>>>(
       T, io, in, out, (const float*)qpos, (const float*)qvel,
-      (const float*)ws, (float*)qacc, (int*)iters, (int*)taken);
+      (const float*)act_in, (const float*)ws, (float*)qacc, (float*)act_dot,
+      (int*)iters, (int*)taken);
   return (int)cudaGetLastError();
 }
 
-// The same inputs and scratch; outputs qpos, qvel, ws (E, nv) after
-// n_steps substeps of `dt` (rk4: RK4, else Euler with use_dv);
-// decisions (E, F n_steps, 2) int or null.
+// The same inputs and scratch; outputs qpos, qvel, ws (E, nv) and act_out
+// (E, na) after n_steps substeps of `dt` (rk4: RK4, else Euler with
+// use_dv); decisions (E, F n_steps, 2) int or null.
 extern "C" int lmt_megastep(
     const void* ints, const void* flts, const void* qpos, const void* qvel,
-    const void* ctrl, const void* qfrc_applied, const void* xfrc,
-    const void* ws, void* qpos_out, void* qvel_out, void* ws_out,
-    void* decisions, void* J, void* aref, void* D, void* R, void* act,
-    void* fl, void* jar, void* jv, int E, int n_steps, int iterations,
+    const void* act_in, const void* ctrl, const void* qfrc_applied,
+    const void* xfrc, const void* ws, void* qpos_out, void* qvel_out,
+    void* act_out, void* ws_out, void* decisions, void* J, void* aref,
+    void* D, void* R, void* act, void* fl, void* jar, void* jv, int E,
+    int n_steps, int iterations,
     int ls_iterations, int rk4, int use_dv, float scale, float tol, float dt,
     void* stream) {
   if (E <= 0) return 0;
@@ -666,8 +854,9 @@ extern "C" int lmt_megastep(
               (const float*)xfrc};
   megastep_kernel<<<(E + kBlock - 1) / kBlock, kBlock, 0,
                     (cudaStream_t)stream>>>(
-      T, io, in, (const float*)qpos, (const float*)qvel, (const float*)ws,
-      (float*)qpos_out, (float*)qvel_out, (float*)ws_out, (int*)decisions,
+      T, io, in, (const float*)qpos, (const float*)qvel,
+      (const float*)act_in, (const float*)ws, (float*)qpos_out,
+      (float*)qvel_out, (float*)act_out, (float*)ws_out, (int*)decisions,
       n_steps, dt, rk4, use_dv);
   return (int)cudaGetLastError();
 }

@@ -9,12 +9,14 @@ path, `forward_staged`: the stages as separate functions over a leading env
 axis E, with the Hopper kernels of the plane-mesh collision
 (`hopper_collision`). With a plan (float32 data of a model inside the row
 envelope), the constraint stage is the fused kernel
-(`hopper_fused.fused_constraint`, forward.py:179-192), which rebuilds the
-smooth stage from the FK outputs, so the reference's stage gates
-(forward.py:55-123) skip com_pos, the velocity, actuation and acceleration
-stages (`plan.smooth`), crb (RK4, or Euler with `euler_dv`; the port's
-plans are always smooth, and with EULERDAMP disabled Euler reads no qM)
-and factor_m. Without a plan every stage runs, then `make_constraint` and
+(`hopper_fused.fused_constraint`, forward.py:179-192), and the reference's
+stage gates (forward.py:55-123) apply: a smooth plan rebuilds the smooth
+stage in the kernel from the FK outputs, so only kinematics and collision
+run before it; a non-smooth plan (tendons, activations) runs com_pos, the
+tendons, collision, the velocity, passive, rne and actuation stages, and
+acceleration writes qfrc_smooth only (the kernel builds M from cinert and
+solves qacc_smooth); crb is skipped under RK4 or `euler_dv`, and factor_m
+with any plan. Without a plan every stage runs, then `make_constraint` and
 the Newton solve (`hopper_newton`) with the relayouts around it
 (`hopper_layout`). `step_n` runs n physics steps as one megastep kernel
 launch, or returns None outside that envelope (and under `LMT_MEGASTEP=0`
@@ -35,21 +37,23 @@ from ..core.types import Data, DisableBit, IntegratorType, Model
 from . import actuation as act_mod
 from . import collision as coll_mod
 from . import constraint as con_mod
-from . import inertia, kinematics, linalg, passive, solver, velocity
+from . import inertia, kinematics, linalg, passive, solver, tendon, velocity
 from . import math as m3
+from . import plan as plan_mod
 from .plan import maybe_plan
 from .support import dof_body_mask, static_tensor
 
 
 def fwd_position(model: Model, data: Data, plain: bool = False) -> Data:
     data = kinematics.kinematics(model, data)
-    data = kinematics.com_pos(model, data)
+    data = tendon.tendon(model, kinematics.com_pos(model, data))
     data = inertia.crb(model, data)
     data = coll_mod.collision(model, data, plain)
     return inertia.factor_m(model, data)
 
 
 def fwd_velocity(model: Model, data: Data) -> Data:
+    data = tendon.tendon_vel(model, data)
     data = velocity.com_vel(model, data)
     data = passive.passive(model, data)
     return velocity.rne(model, data)
@@ -70,11 +74,16 @@ def _xfrc_projection(model: Model, data: Data) -> torch.Tensor:
     return torch.sum(data.cdof[..., :3] * tm + data.cdof[..., 3:] * fm, dim=-1)
 
 
+def qfrc_smooth(model: Model, data: Data) -> torch.Tensor:
+    """passive - bias + actuator + applied + projected xfrc."""
+    return (data.qfrc_passive - data.qfrc_bias + data.qfrc_actuator
+            + data.qfrc_applied) + _xfrc_projection(model, data)
+
+
 def fwd_acceleration(model: Model, data: Data) -> Data:
-    qfrc_smooth = (data.qfrc_passive - data.qfrc_bias + data.qfrc_actuator
-                   + data.qfrc_applied) + _xfrc_projection(model, data)
-    qacc_smooth = inertia.solve_m(model, data, qfrc_smooth)
-    return data.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth)
+    qfrc = qfrc_smooth(model, data)
+    return data.replace(qfrc_smooth=qfrc,
+                        qacc_smooth=inertia.solve_m(model, data, qfrc))
 
 
 def fwd_constraint(model: Model, data: Data, plain: bool = False) -> Data:
@@ -91,18 +100,29 @@ def fwd_constraint(model: Model, data: Data, plain: bool = False) -> Data:
     return hopper_fused.fused_constraint(model, data)
 
 
+def stages(model: Model, data: Data, plain: bool = False) -> Data:
+    """The stages before the constraint stage, with the reference's stage
+    gates (see the module note). With a plan, crb is skipped under Euler
+    too: the port's plans set `euler_dv` unless EULERDAMP is disabled, when
+    Euler reads no qM."""
+    plan = maybe_plan(model, data)
+    if plan is None:
+        data = fwd_position(model, data, plain)
+        return fwd_acceleration(model, fwd_actuation(
+            model, fwd_velocity(model, data)))
+    data = kinematics.kinematics(model, data)
+    if plan.smooth:
+        return coll_mod.collision(model, data, plain)
+    data = tendon.tendon(model, kinematics.com_pos(model, data))
+    data = coll_mod.collision(model, data, plain)
+    data = fwd_actuation(model, fwd_velocity(model, data))
+    return data.replace(qfrc_smooth=qfrc_smooth(model, data))
+
+
 def forward_staged(model: Model, data: Data, plain: bool = False) -> Data:
     """mj_forward, staged, with the reference's stage gates (see the module
     note)."""
-    if maybe_plan(model, data) is not None:
-        data = kinematics.kinematics(model, data)
-        data = coll_mod.collision(model, data, plain)
-        return fwd_constraint(model, data, plain)
-    data = fwd_position(model, data, plain)
-    data = fwd_velocity(model, data)
-    data = fwd_actuation(model, data)
-    data = fwd_acceleration(model, data)
-    return fwd_constraint(model, data, plain)
+    return fwd_constraint(model, stages(model, data, plain), plain)
 
 
 def mega_enabled(model: Model, data: Data):
@@ -133,30 +153,40 @@ def rk4(model: Model, data: Data, stage_forward) -> Data:
     a = [0.5, 0.5, 1.0]
     b = [1.0 / 6, 1.0 / 3, 1.0 / 3, 1.0 / 6]
     d0 = data
-    qpos0, qvel0 = d0.qpos, d0.qvel
-    derivs = [(d0.qvel, d0.qacc)]  # no activations: motors only (core/io)
+    qpos0, qvel0, act0 = d0.qpos, d0.qvel, d0.act
+    derivs = [(d0.qvel, d0.qacc, d0.act_dot)]
     # mj_step copies qacc -> qacc_warmstart right after the first forward,
     # so the stage 2-4 solves warm-start from the stage-1 acceleration
     d = d0.replace(qacc_warmstart=d0.qacc)
     for i in range(3):
         d = d.replace(qpos=qpos0 + dt * a[i] * derivs[i][0],
-                      qvel=qvel0 + dt * a[i] * derivs[i][1])
+                      qvel=qvel0 + dt * a[i] * derivs[i][1],
+                      act=act0 + dt * a[i] * derivs[i][2] if model.na
+                      else act0)
         d = stage_forward(d, i + 1)
-        derivs.append((d.qvel, d.qacc))
+        derivs.append((d.qvel, d.qacc, d.act_dot))
     qpos = qpos0 + dt * sum(b[i] * derivs[i][0] for i in range(4))
     qvel = qvel0 + dt * sum(b[i] * derivs[i][1] for i in range(4))
+    act = _advance_act(model, act0, sum(b[i] * derivs[i][2]
+                                        for i in range(4))) if model.na \
+        else act0
     # the returned Data's derived fields (contacts, forces, qacc) are the
     # stage-4 forward's, as after mj_RungeKutta
-    return d.replace(qpos=qpos, qvel=qvel, time=d0.time + dt,
+    return d.replace(qpos=qpos, qvel=qvel, act=act, time=d0.time + dt,
                      qacc_warmstart=d0.qacc)
 
 
-def _advance_act(model: Model, data: Data) -> torch.Tensor:
-    """The activations after a step (forward.py:219-237): with na == 0
-    there are none; activation dynamics come with the muscles."""
-    if model.na:
-        raise NotImplementedError("activations are not ported yet")
-    return data.act
+def _advance_act(model: Model, act: torch.Tensor,
+                 act_dot: torch.Tensor) -> torch.Tensor:
+    """act + dt act_dot, clamped per act slot to the actrange of its
+    actuator where that is limited (forward.py:219-237)."""
+    if model.na == 0:
+        return act
+    act = act + model.opt.timestep * act_dot
+    lo, hi = (static_tensor(model, f"act_{i}", lambda i=i: plan_mod.act_bounds(
+        model.na, model.actuator_actadr, model.actuator_actlimited,
+        model.actuator_actrange.cpu().numpy())[i]) for i in (0, 1))
+    return torch.minimum(torch.maximum(act, lo), hi)
 
 
 def damping_dv(model: Model, data: Data) -> torch.Tensor:
@@ -172,7 +202,7 @@ def euler(model: Model, data: Data) -> Data:
     taken from the kernels' euler_dv where a plan computed it, else solved
     from qM; with EULERDAMP disabled, qvel += dt qacc."""
     dt = model.opt.timestep
-    act = _advance_act(model, data)
+    act = _advance_act(model, data.act, data.act_dot)
     if model.opt.disableflags & DisableBit.EULERDAMP:
         qvel = data.qvel + dt * data.qacc
     elif data.euler_dv is not None:

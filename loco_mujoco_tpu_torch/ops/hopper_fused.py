@@ -5,13 +5,16 @@ the staged path.
 
 Counterpart of `loco_mujoco_tpu/ops/pallas_constraint.py`'s
 `fused_constraint` (`:2204-2300`) over `_fused_batched` (`:2052`, its
-`pallas_call` at `:2134`), for plans with the smooth vec layout. The kernel
-is `csrc/fused.cu`'s `fused_kernel`, one thread per env, over the static
+`pallas_call` at `:2134`), in both vec layouts. The kernel is
+`csrc/fused.cu`'s `fused_kernel`, one thread per env, over the static
 tables of the model's row plan (`ops/plan.py`).
 
-`fused_constraint` packs the per-env vector (qpos, qvel, xipos, ximat,
-xanchor, xaxis, ctrl, qfrc_applied, xfrc_applied, qacc_warmstart;
-`:2246-2256`) and the contact slots in the plan's pack width (`:2215-2243`),
+`fused_constraint` packs the per-env vector of the plan's layout (smooth:
+qpos, qvel, xipos, ximat, xanchor, xaxis, ctrl, qfrc_applied, xfrc_applied,
+qacc_warmstart, `:2246-2256`; non-smooth, the muscle humanoid's: qpos,
+qvel, cdof, the root subtree com, cinert, qfrc_smooth, qacc_warmstart,
+armature, `:2257-2264`) and the contact slots in the plan's pack width
+(`:2215-2243`),
 launches the kernel, and writes qacc, qacc_smooth, qfrc_constraint,
 efc_force_contact, euler_dv (None unless the plan has it) and the Newton
 decisions `solver_niter` / `solver_taken`. The kernel's contact facet rows
@@ -21,8 +24,10 @@ field stays as it came in.
 
 A CUDA tensor launches the kernel (float32 only) or raises; a CPU tensor
 runs the plain version, `fused_constraint_plain`: the same function in
-plain PyTorch, from the staged path's own stages (com_pos, crb, the
-velocity stage, passive, actuation, qacc_smooth), `make_constraint`'s rows
+plain PyTorch, from the staged path's own stages (smooth layout: com_pos,
+crb, the velocity stage, passive, actuation, qacc_smooth; non-smooth: crb
+and qacc_smooth from the given cinert and qfrc_smooth), `make_constraint`'s
+rows
 put in the fused layout (the `npad` inert rows, the blocked facets),
 `hopper_newton.newton_plain` and `forward.damping_dv` for euler_dv. Its
 `replay` = (iters, taken) makes the solve take another run's discrete
@@ -51,6 +56,26 @@ def smooth_vec(data: Data) -> torch.Tensor:
         data.ximat.reshape(E, -1), data.xanchor.reshape(E, -1),
         data.xaxis.reshape(E, -1), data.ctrl, data.qfrc_applied,
         data.xfrc_applied.reshape(E, -1), data.qacc_warmstart], dim=1)
+
+
+def nonsmooth_vec(model: Model, data: Data) -> torch.Tensor:
+    """The (E, nvec) per-env vector of the non-smooth layout: [qpos qvel
+    cdof(nv 6) com(3) cinert(nbody 10) qfrc_smooth ws armature], com the
+    root's subtree com (one kinematic tree: the plan's envelope)."""
+    E = data.qpos.shape[0]
+    root = int(model.body_rootid[1]) if model.nbody > 1 else 0
+    return torch.cat([
+        data.qpos, data.qvel, data.cdof.reshape(E, -1),
+        data.subtree_com[:, root], data.cinert.reshape(E, -1),
+        data.qfrc_smooth, data.qacc_warmstart,
+        model.dof_armature.expand(E, -1)], dim=1)
+
+
+def vec(model: Model, data: Data) -> torch.Tensor:
+    """The per-env vector in the plan's layout."""
+    if model.plan.smooth:
+        return smooth_vec(data)
+    return nonsmooth_vec(model, data)
 
 
 def contact_pack(model: Model, data: Data) -> torch.Tensor:
@@ -107,9 +132,9 @@ def fused_constraint(model: Model, data: Data) -> Data:
         raise ValueError("the model has no row plan")
     if not data.qpos.is_cuda:
         return fused_constraint_plain(model, data)
-    vec, pack = smooth_vec(data), contact_pack(model, data)
-    E, nv, dev = vec.shape[0], model.nv, vec.device
-    kernels.require(vec, "vec", vec.shape)
+    v, pack = vec(model, data), contact_pack(model, data)
+    E, nv, dev = v.shape[0], model.nv, v.device
+    kernels.require(v, "vec", v.shape)
     kernels.require(pack, "contact pack", (E, max(plan.ncon, 1), plan.pack_w))
     f = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa
     i = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)  # noqa
@@ -122,9 +147,9 @@ def fused_constraint(model: Model, data: Data) -> Data:
     p = kernels.ptr
     lib = kernels.library("fused", _SIGNATURES)
     rc = lib.lmt_fused(
-        p(ints), p(flts), p(vec), p(pack),
+        p(ints), p(flts), p(v), p(pack),
         *map(p, (qacc, force, qfrc, asm)), None if dv is None else p(dv),
-        p(iters), p(taken), *map(p, scratch), E, vec.shape[1],
+        p(iters), p(taken), *map(p, scratch), E, v.shape[1],
         plan.iterations, plan.ls_iterations, plan.scale, plan.tolerance,
         kernels.stream())
     kernels.check(rc, "fused")
@@ -152,24 +177,40 @@ def fused_rows(plan, efc: con_mod.Efc):
             rows(efc.active, False))
 
 
+def newton_problem(model: Model, data: Data):
+    """The fused kernel's Newton problem of `data`, in plain PyTorch: (the
+    Data with its smooth stage, (J, M, aref, D, R, floss, active, asm) in
+    the fused row layout), `hopper_newton.newton_plain`'s operands."""
+    from . import forward as fwd
+
+    plan = model.plan
+    if plan.smooth:
+        d = kinematics.com_pos(model, data)
+        d = inertia.factor_m(model, inertia.crb(model, d))
+        d = fwd.fwd_acceleration(model, fwd.fwd_actuation(
+            model, fwd.fwd_velocity(model, d)))
+    else:  # cdof, cinert and qfrc_smooth come with the data
+        d = inertia.factor_m(model, inertia.crb(model, data))
+        d = d.replace(qacc_smooth=inertia.solve_m(model, d, d.qfrc_smooth))
+    J, aref, D, R, floss, active = fused_rows(
+        plan, con_mod.make_constraint(model, d))
+    return d, (J, d.qM, aref, D, R, floss, active.to(J.dtype),
+               d.qacc_smooth)
+
+
 def fused_constraint_plain(model: Model, data: Data, replay=None) -> Data:
     """Plain version of `fused_constraint` (see the module note), on any
     device; `replay` = (iters, taken)."""
     from . import forward as fwd
 
     plan = model.plan
-    d = kinematics.com_pos(model, data)
-    d = inertia.factor_m(model, inertia.crb(model, d))
-    d = fwd.fwd_acceleration(model, fwd.fwd_actuation(
-        model, fwd.fwd_velocity(model, d)))
-    J, aref, D, R, floss, active = fused_rows(
-        plan, con_mod.make_constraint(model, d))
+    d, problem = newton_problem(model, data)
+    J, active = problem[0], problem[6]
     x, force, iters, taken = hn.newton_plain(
-        J, d.qM, aref, D, R, floss, active.to(J.dtype), d.qacc_smooth,
-        d.qacc_warmstart, ne=plan.ne, nfl=plan.nfl,
+        *problem, d.qacc_warmstart, ne=plan.ne, nfl=plan.nfl,
         iterations=plan.iterations, ls_iterations=plan.ls_iterations,
         scale=plan.scale, tol=plan.tolerance, replay=replay)
-    qfrc = torch.einsum("erv,er->ev", J * active[..., None].to(J.dtype), force)
+    qfrc = torch.einsum("erv,er->ev", J * active[..., None], force)
     dv = fwd.damping_dv(model, d.replace(qacc=x)) if plan.euler_dv else None
     return _finish(model, data, x, force, qfrc, d.qacc_smooth, dv, iters,
                    taken)

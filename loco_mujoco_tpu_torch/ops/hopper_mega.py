@@ -4,24 +4,29 @@ kernel launch.
 Counterpart of `loco_mujoco_tpu/ops/pallas_constraint.py`: `mega_forward`
 (`:2486-2556`, with `_pad_slots` `:2475`) over `_mega_batched`, and
 `mega_step_n` (`:2926-2978`) over `_megastep_batched`, RK4 and Euler
-branches. The kernels are `csrc/mega.cu`'s `mega_forward_kernel` and
-`megastep_kernel`, one thread per env, over the static tables of the
-model's row plan (`ops/plan.py`, `mega` set).
+branches, with the tendon and muscle stage of a plan with muscles (`mp`;
+`:1245-1264`, `:2762-2787`). The kernels are `csrc/mega.cu`'s
+`mega_forward_kernel` and `megastep_kernel`, one thread per env, over the
+static tables of the model's row plan (`ops/plan.py`, `mega` set).
 
 Output contract (the reference's): `mega_forward` returns Data with
 `qacc`, `qacc_smooth`, `qfrc_constraint`, `efc_force_contact` (the four
 facet forces of each slot, zero-padded to the field's width), `euler_dv`
-(None unless the plan has it), the contact meta `dist`, `geom1` (the
-plane), `geom2`, the static `includemargin` and `friction`, and the Newton
-decisions `solver_niter` / `solver_taken`; every other position- and
-velocity-stage field stays as it came in (stale). `mega_step_n` returns
-Data with `qpos`, `qvel`, `qacc = qacc_warmstart` = the carried warm start
-and `time + n dt`, or None outside the envelope (`megastep_mode`).
+(None unless the plan has it), `act_dot` (with muscles), the contact meta
+`dist`, `geom1` (the plane), `geom2`, the static `includemargin` and
+`friction`, and the Newton decisions `solver_niter` / `solver_taken`; every
+other position- and velocity-stage field stays as it came in (stale).
+`mega_step_n` returns Data with `qpos`, `qvel`, `act` (Euler with muscles:
+act += dt act_dot, clamped to actrange, every substep), `qacc =
+qacc_warmstart` = the carried warm start and `time + n dt`, or None outside
+the envelope (`megastep_mode`).
 
 A CUDA tensor launches the kernel (float32 only) or raises; a CPU tensor
 runs the plain version. The plain versions are no new copy of the math:
 `mega_forward_plain` is the staged forward of a model with a plan, in its
-plain versions (kinematics, the plain collision, then
+plain versions (`forward.stages` with the plain collision: kinematics and
+collision for a smooth plan, and for the muscle humanoid's non-smooth plan
+also com_pos, the tendons, velocity, passive, rne and actuation, then
 `hopper_fused.fused_constraint_plain`, whose rows, contact facets blocked,
 are the ones the kernel builds), repackaged into the contract above, and
 `mega_step_n_plain` is n such RK4 or Euler steps. Their `replay` makes
@@ -36,12 +41,12 @@ import numpy as np
 import torch
 
 from ..core.types import Data, DisableBit, IntegratorType, Model
-from . import collision, hopper_fused, kernels, kinematics
+from . import hopper_fused, kernels
 from .kernels import FLOAT, INT, PTR
 
 _SIGNATURES = {
-    "lmt_mega_forward": [PTR] * 25 + [INT] * 3 + [FLOAT, FLOAT, PTR],
-    "lmt_megastep": [PTR] * 20 + [INT] * 6 + [FLOAT] * 3 + [PTR],
+    "lmt_mega_forward": [PTR] * 27 + [INT] * 3 + [FLOAT, FLOAT, PTR],
+    "lmt_megastep": [PTR] * 22 + [INT] * 6 + [FLOAT] * 3 + [PTR],
 }
 _MAXD = 4  # facet rows per condim-3 pyramidal slot
 
@@ -51,7 +56,7 @@ def _inputs(model: Model, data: Data):
     E, nv, nu, nb = data.qpos.shape[0], model.nv, model.nu, model.nbody
     xfrc = data.xfrc_applied.reshape(E, nb * 6)
     ops = [("qpos", data.qpos, (E, nv)), ("qvel", data.qvel, (E, nv)),
-           ("ctrl", data.ctrl, (E, nu)),
+           ("act", data.act, (E, model.na)), ("ctrl", data.ctrl, (E, nu)),
            ("qfrc_applied", data.qfrc_applied, (E, nv)),
            ("xfrc_applied", xfrc, (E, nb * 6)),
            ("qacc_warmstart", data.qacc_warmstart, (E, nv))]
@@ -61,7 +66,7 @@ def _inputs(model: Model, data: Data):
 
 
 def _pack(model: Model, data: Data, qacc, qacc_smooth, qfrc, cdist, cgid,
-          cforce, dv, iters, taken) -> Data:
+          cforce, dv, act_dot, iters, taken) -> Data:
     """The mega output contract (see the module note) on top of `data`."""
     plan = model.plan
     E, ncon = qacc.shape[0], plan.ncon
@@ -81,8 +86,8 @@ def _pack(model: Model, data: Data, qacc, qacc_smooth, qfrc, cdist, cgid,
         dim=np.asarray(plan.con_dim))
     return data.replace(qacc=qacc, qacc_smooth=qacc_smooth,
                         qfrc_constraint=qfrc, efc_force_contact=efc,
-                        contact=contact, euler_dv=dv, solver_niter=iters,
-                        solver_taken=taken)
+                        contact=contact, euler_dv=dv, act_dot=act_dot,
+                        solver_niter=iters, solver_taken=taken)
 
 
 def mega_forward(model: Model, data: Data) -> Data:
@@ -93,7 +98,8 @@ def mega_forward(model: Model, data: Data) -> Data:
         raise ValueError("the model has no mega plan")
     if not data.qpos.is_cuda:
         return mega_forward_plain(model, data)
-    qpos, qvel, ctrl, qfrc_applied, xfrc, ws = _inputs(model, data)
+    ins = _inputs(model, data)
+    qpos = ins[0]
     E, nv, ncon, dev = qpos.shape[0], model.nv, plan.ncon, qpos.device
     f = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa
     i = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)  # noqa
@@ -101,27 +107,29 @@ def mega_forward(model: Model, data: Data) -> Data:
     cdist, cgid, cforce = f(E, ncon), i(E, ncon), f(E, ncon * _MAXD)
     iters, taken = i(E), i(E)
     dv = f(E, nv) if plan.euler_dv else None
+    act_dot = f(E, model.na) if plan.mp is not None else data.act_dot
     ints, flts = plan.tables(dev)
     scratch = plan.scratch(E, dev)  # held until the launch is queued
     p = kernels.ptr
     lib = kernels.library("mega", _SIGNATURES)
     rc = lib.lmt_mega_forward(
-        p(ints), p(flts), *map(p, (qpos, qvel, ctrl, qfrc_applied, xfrc, ws)),
+        p(ints), p(flts), *map(p, ins),
         *map(p, (qacc, asm, qfrc, cdist, cgid, cforce, iters, taken)),
-        None if dv is None else p(dv), *map(p, scratch), E,
+        None if dv is None else p(dv), p(act_dot), *map(p, scratch), E,
         plan.iterations, plan.ls_iterations, plan.scale, plan.tolerance,
         kernels.stream())
     kernels.check(rc, "mega_forward")
     kernels.LAUNCHES["mega_forward"] += 1
-    return _pack(model, data, qacc, asm, qfrc, cdist, cgid, cforce, dv, iters,
-                 taken)
+    return _pack(model, data, qacc, asm, qfrc, cdist, cgid, cforce, dv,
+                 act_dot, iters, taken)
 
 
 def _forward_plain(model: Model, data: Data, replay) -> Data:
     """The staged forward of a model with a plan, with the plain
     kernels; `replay` = (iters, taken) or None."""
-    d = collision.collision(model, kinematics.kinematics(model, data),
-                            plain=True)
+    from . import forward as fwd
+
+    d = fwd.stages(model, data, plain=True)
     return hopper_fused.fused_constraint_plain(model, d, replay)
 
 
@@ -137,20 +145,21 @@ def mega_forward_plain(model: Model, data: Data, replay=None) -> Data:
                         qfrc_constraint=d.qfrc_constraint,
                         efc_force_contact=d.efc_force_contact,
                         contact=contact, euler_dv=d.euler_dv,
-                        solver_niter=d.solver_niter,
+                        act_dot=d.act_dot, solver_niter=d.solver_niter,
                         solver_taken=d.solver_taken)
 
 
 def megastep_mode(model: Model):
     """(rk4, use_dv) of the megastep for this model, or None outside its
-    envelope (the reference's gate, pallas_constraint.py:2936-2950): RK4
+    envelope (the reference's gate, pallas_constraint.py:2936-2953): RK4
     without activations; Euler moving qvel by euler_dv, or by qacc when
-    EULERDAMP is disabled (Euler with activations is not ported)."""
+    EULERDAMP is disabled, and the activations (each slot's clamp bounds
+    are always static here: no leaf of the port is traced)."""
     plan = model.plan
-    if plan is None or not plan.mega or model.na:
+    if plan is None or not plan.mega:
         return None
     if model.opt.integrator == int(IntegratorType.RK4):
-        return True, False
+        return None if model.na else (True, False)
     if model.opt.integrator == int(IntegratorType.EULER):
         if model.opt.disableflags & DisableBit.EULERDAMP:
             return False, False
@@ -177,29 +186,28 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
     if not data.qpos.is_cuda:
         return mega_step_n_plain(model, data, n_steps)
     plan = model.plan
-    qpos, qvel, ctrl, qfrc_applied, xfrc, ws = _inputs(model, data)
-    E, nv, dev = qpos.shape[0], model.nv, qpos.device
+    ins = _inputs(model, data)
+    E, nv, dev = ins[0].shape[0], model.nv, ins[0].device
     n = int(n_steps)
     if decisions is not None:
         kernels.require(decisions, "decisions",
                         (E, forwards_per_step(model) * n, 2), torch.int32)
-    f = lambda: torch.empty((E, nv), dtype=torch.float32, device=dev)  # noqa
-    qpos_out, qvel_out, ws_out = f(), f(), f()
+    f = lambda k: torch.empty((E, k), dtype=torch.float32, device=dev)  # noqa
+    qpos_out, qvel_out, act_out, ws_out = f(nv), f(nv), f(model.na), f(nv)
     ints, flts = plan.tables(dev)
     scratch = plan.scratch(E, dev)  # held until the launch is queued
     p = kernels.ptr
     lib = kernels.library("mega", _SIGNATURES)
     rc = lib.lmt_megastep(
-        p(ints), p(flts), *map(p, (qpos, qvel, ctrl, qfrc_applied, xfrc, ws)),
-        p(qpos_out), p(qvel_out), p(ws_out),
-        None if decisions is None else p(decisions),
+        p(ints), p(flts), *map(p, ins), p(qpos_out), p(qvel_out),
+        p(act_out), p(ws_out), None if decisions is None else p(decisions),
         *map(p, scratch), E, n, plan.iterations,
         plan.ls_iterations, int(mode[0]), int(mode[1]), plan.scale,
         plan.tolerance, plan.timestep, kernels.stream())
     kernels.check(rc, "megastep")
     kernels.LAUNCHES["megastep"] += 1
-    return data.replace(qpos=qpos_out, qvel=qvel_out, qacc=ws_out,
-                        qacc_warmstart=ws_out,
+    return data.replace(qpos=qpos_out, qvel=qvel_out, act=act_out,
+                        qacc=ws_out, qacc_warmstart=ws_out,
                         time=data.time + n * model.opt.timestep)
 
 
@@ -228,5 +236,6 @@ def mega_step_n_plain(model: Model, data: Data, n_steps: int, replay=None,
         else:
             d = fwd.euler(model, stage(d, 0))
     ws = d.qacc_warmstart
-    return data.replace(qpos=d.qpos, qvel=d.qvel, qacc=ws, qacc_warmstart=ws,
+    return data.replace(qpos=d.qpos, qvel=d.qvel, act=d.act, qacc=ws,
+                        qacc_warmstart=ws,
                         time=data.time + int(n_steps) * model.opt.timestep)

@@ -1,7 +1,8 @@
 """Passive forces: joint springs and dof dampers.
 
 Counterpart of `loco_mujoco_tpu/ops/passive.py` (mj_passive) without the
-tendon springs: models with tendons are refused at load in this slice.
+tendon springs and dampers: tendon stiffness and damping are refused at
+load (core/io), as the reference's muscle plan refuses them.
 """
 
 from __future__ import annotations

@@ -15,9 +15,15 @@ The row envelope (a plan, and the fused kernel of `csrc/fused.cu`):
   ls_iterations <= 8);
 - JOINT equalities, dof friction loss and joint limits; at most
   `ROWS_MAX` rows (the reference's `LMT_MAX_PYR_ROWS`, `:202-210`);
-- the smooth stage of joint motors without tendons or activations
-  (`smooth`, `_build_smooth`), hinge and slide joints, and the kernels'
-  compiled widths (`NV_MAX`, `BODY_MAX`).
+- hinge and slide joints and the kernels' compiled widths (`NV_MAX`,
+  `BODY_MAX`).
+
+`smooth` (`_build_smooth`, `:495-627`) is set for models without tendons or
+activations: the fused kernel then rebuilds the smooth stage from the FK
+outputs (the smooth vec layout). Other models (the muscle humanoid) get a
+non-smooth plan: the staged path computes com, cinert, cdof and qfrc_smooth
+and hands them to the fused kernel (the non-smooth vec layout,
+`_forward_env_block` `:1282-1299`).
 
 Within it, the contact pack the fused kernel reads per slot (`pack_w`,
 `:750-757`) is 5 floats when every candidate pair shares one static plane,
@@ -30,13 +36,16 @@ damping `euler_dv` (`:314-329`) unless EULERDAMP is disabled.
 for uniform statics with uniform friction, contacts against that one plane
 in plane-box groups and at most one plane-mesh group that runs the
 plane-mesh kernels (k < P, graph hulls: its `hopper_collision.MeshPlan`),
-and the compiled widths `CON_MAX`, `PAIR_MAX`.
+and the compiled widths `CON_MAX`, `PAIR_MAX`. A non-smooth model takes the
+mega path through the in-kernel tendon and muscle stage (`smooth_mu`, the
+reference's `_build_smooth(allow_muscle=True)` `:366-378`, with the tables
+of `MusclePlan`, `pallas_fk.py:1001-1128`, within `MUS_MAX` muscles); the
+joint motors beside the muscles keep the smooth stage's actuator table.
 
 Float64 data gets no plan (`maybe_plan`), as in the reference. Left out of
-the port's plan: the non-smooth vec layout (tendons, activations), elliptic
-cones (`ell_runs`, `mega_ell`), muscles (`mp`) and damping as per-env rows
-(`sm_dyn_damping`); plane-cylinder groups are refused at load by
-`ops/collision.py`.
+the port's plan: elliptic cones (`ell_runs`, `mega_ell`) and damping as
+per-env rows (`sm_dyn_damping`); plane-cylinder groups are refused at load
+by `core/io.py`.
 
 `tables(device)` packs the plan into the two read-only buffers the kernels
 of `csrc/mega.cu` and `csrc/fused.cu` take: an int32 buffer that starts with
@@ -50,7 +59,7 @@ import numpy as np
 import torch
 
 from ..core.types import (ConeType, DisableBit, EqType, GeomType,
-                          IntegratorType, JointType)
+                          IntegratorType, JointType, TrnType)
 
 MINVAL = 1e-15
 NV_MAX = 24  # the local-array widths compiled in csrc/forward_core.cuh
@@ -58,6 +67,7 @@ BODY_MAX = 32
 CON_MAX = 64  # csrc/mega.cu
 PAIR_MAX = 128
 ROWS_MAX = 400  # the reference's LMT_MAX_PYR_ROWS default
+MUS_MAX = 128  # muscles and activations (csrc/forward_core.cuh)
 
 # int header of the packed tables; csrc/forward_core.cuh's `enum Header`
 # lists the same names in the same order (tests/test_torch_mega_plan.py
@@ -68,17 +78,19 @@ HEADER = (
     "F_BODY", "I_BODY", "I_TOPO", "F_JNT", "I_JNT", "F_DOF", "I_DOF",
     "I_ANC", "I_DMASK", "F_ACT", "I_ACT", "F_EQ", "I_EQ", "F_FL", "I_FL",
     "F_LIM", "I_LIM", "F_CON", "F_BOX", "I_BOX", "F_MESH", "I_MESH",
-    "F_VERT", "PACKW", "I_GBODY",
+    "F_VERT", "PACKW", "I_GBODY", "NMOT", "NA", "NMUS", "F_MUS", "I_MUS",
+    "I_SEG", "F_SITE", "I_SITE", "F_ACTB",
 )
 H = {name: i for i, name in enumerate(HEADER)}
 # FLAGS bits
 PASSIVE, ACTUATION, CLAMPCTRL, REFSAFE = 1, 2, 4, 8
-UNIFORM, FRIC_UNIFORM = 16, 32
+UNIFORM, FRIC_UNIFORM, SMOOTH, MUSCLE = 16, 32, 64, 128
 # per-entry widths of the tables (floats / ints), as the kernels read them
 WIDTH = {"F_BODY": 20, "I_BODY": 4, "F_JNT": 10, "I_JNT": 4, "F_DOF": 2,
-         "I_DOF": 1, "F_ACT": 6, "I_ACT": 3, "F_EQ": 16, "I_EQ": 4,
+         "I_DOF": 1, "F_ACT": 6, "I_ACT": 4, "F_EQ": 16, "I_EQ": 4,
          "F_FL": 10, "I_FL": 1, "F_LIM": 12, "I_LIM": 2, "F_CON": 32,
-         "F_BOX": 12, "I_BOX": 2, "F_MESH": 16, "I_MESH": 5}
+         "F_BOX": 12, "I_BOX": 2, "F_MESH": 16, "I_MESH": 5, "F_MUS": 28,
+         "I_MUS": 6, "I_SEG": 2, "F_SITE": 4, "I_SITE": 1, "F_ACTB": 2}
 
 
 def _floats(x):
@@ -126,11 +138,12 @@ class RowPlan:
         if not (int(A["opt.iterations"]) <= 16
                 and int(A["opt.ls_iterations"]) <= 8):
             return
-        # the smooth stage (_build_smooth): no tendons, no activations,
-        # joint motors (core/io refuses other actuators at load)
+        # the smooth stage (_build_smooth): no tendons, no activations
+        # (core/io admits joint motors and tendon muscles only)
         self.smooth = not (int(A["ntendon"]) or int(A["na"]))
-        if not self.smooth:
-            return  # the non-smooth vec layout is not ported
+        self.smooth_mu = False
+        self.mp = None
+        self.na = int(A["na"])
         jt = np.asarray(A["jnt_type"])
         if not np.all((jt == int(JointType.HINGE))
                       | (jt == int(JointType.SLIDE))):
@@ -243,10 +256,13 @@ class RowPlan:
              for j in range(int(jadr[b]), int(jadr[b]) + int(jnum[b]))]
             for b in range(nb)]
 
-        # --- smooth stage (_build_smooth: joint motors only) ------------
+        # --- smooth stage (_build_smooth: the joint motors; the muscles
+        # are MusclePlan's) ----------------------------------------------
         nu = self.nu
         self.sm_acts = []
         for u in range(nu):
+            if int(A["actuator_trntype"][u]) == int(TrnType.TENDON):
+                continue
             j = int(A["actuator_trnid"][u, 0])
             self.sm_acts.append(dict(
                 u=u, v=int(dadr[j]), gear=float(f64["actuator_gear"][u, 0]),
@@ -277,10 +293,18 @@ class RowPlan:
         # --- uniform contact statics (_check_uniform) -------------------
         if self.ncon:
             self._check_uniform(A, groups, f64)
-        # --- mega: FK and collision in the kernel (ColPlan) --------------
+        # --- mega: FK and collision in the kernel (ColPlan), and the
+        # tendon and muscle stage of a non-smooth model (:359-378) ---------
         self.mega = bool(self.uniform and self.fric_uniform and self.ncon
                          and self.ncon <= CON_MAX
                          and self._col_plan(A, groups, mesh_kernel, f64))
+        if self.mega and not self.smooth:
+            self.mp = MusclePlan.build(L, A, self.dofmask, flags)
+            self.smooth_mu = self.mp is not None
+            self.mega = self.smooth_mu
+        self.act_bounds = act_bounds(self.na, A["actuator_actadr"],
+                                     A["actuator_actlimited"],
+                                     f64["actuator_actrange"])
 
     @property
     def nfric(self):
@@ -420,8 +444,8 @@ class RowPlan:
         put("I_DMASK", self.dofmask.astype(np.int32))
         put("F_ACT", [[a["gear"], a["gain"], a["clo"], a["chi"], a["flo"],
                        a["fhi"]] for a in self.sm_acts] or [[0] * 6])
-        put("I_ACT", [[a["v"], int(a["climited"]), int(a["flimited"])]
-                      for a in self.sm_acts] or [[0] * 3])
+        put("I_ACT", [[a["v"], int(a["climited"]), int(a["flimited"]),
+                       a["u"]] for a in self.sm_acts] or [[0] * 4])
         put("F_EQ", [[*r["data"], *r["solref"], *r["solimp"], r["m2"],
                       r["iw"], self.qpos0[r["q1"]], self.qpos0[r["q2"]]]
                      for r in self.eq] or [[0] * 16])
@@ -460,12 +484,29 @@ class RowPlan:
             put("I_MESH", [[0] * 5])
             put("F_VERT", [0.0])
         put("I_GBODY", self.geom_body)
+        mp = self.mp
+        if mp is not None:
+            put("F_MUS", mp.f_mus)
+            put("I_MUS", mp.i_mus)
+            put("I_SEG", mp.i_seg)
+            put("F_SITE", mp.f_site)
+            put("I_SITE", mp.i_site)
+        else:
+            put("F_MUS", [[0] * 28])
+            put("I_MUS", [[0] * 6])
+            put("I_SEG", [[0] * 2])
+            put("F_SITE", [[0] * 4])
+            put("I_SITE", [0])
+        put("F_ACTB", np.stack(self.act_bounds, axis=1) if self.na
+            else [[0] * 2])
         flags = ((PASSIVE if self.sm_passive_on else 0)
                  | (ACTUATION if self.sm_actuation_on else 0)
                  | (CLAMPCTRL if self.sm_clampctrl else 0)
                  | (REFSAFE if self.refsafe else 0)
                  | (UNIFORM if self.uniform else 0)
-                 | (FRIC_UNIFORM if self.fric_uniform else 0))
+                 | (FRIC_UNIFORM if self.fric_uniform else 0)
+                 | (SMOOTH if self.smooth else 0)
+                 | (MUSCLE if mp is not None else 0))
         counts = dict(
             NQ=self.nq, NV=nv, NBODY=nb, NJNT=self.njnt, NU=self.nu,
             NE=self.ne, NFL=self.nfl, NL=self.nl, NPAD=self.npad,
@@ -474,7 +515,8 @@ class RowPlan:
             OFFBOX=box["offset"] if box else 0,
             NMESH=len(mesh["pairs"]) if mesh else 0,
             KMESH=mesh["k"] if mesh else 0,
-            OFFMESH=mesh["offset"] if mesh else 0, PACKW=self.pack_w)
+            OFFMESH=mesh["offset"] if mesh else 0, PACKW=self.pack_w,
+            NMOT=len(self.sm_acts), NA=self.na, NMUS=mp.nmus if mp else 0)
         for k, v in counts.items():
             hdr[H[k]] = v
         return np.concatenate(ints), np.concatenate(flts)
@@ -515,6 +557,89 @@ def _dof_body_mask(A) -> np.ndarray:
         if c > 0:
             mask[b] = anc[int(dofadr[c]) + int(dofnum[c]) - 1]
     return mask
+
+
+def act_bounds(na, actadr, actlimited, actrange):
+    """(lo, hi) per act slot, -inf / inf where unlimited: the reference's
+    `_act_bounds_static` (`:2619-2635`), which the port's leaves always
+    give (none is traced)."""
+    lo, hi = np.full(na, -np.inf), np.full(na, np.inf)
+    for u, adr in enumerate(np.asarray(actadr)):
+        if adr >= 0 and actlimited[u]:
+            lo[adr], hi[adr] = (float(x) for x in np.asarray(actrange)[u])
+    return lo, hi
+
+
+class MusclePlan:
+    """Static tables of the in-kernel tendon and muscle stage, the
+    reference's `pallas_fk.MusclePlan` (`:1001-1128`, same field names)
+    for site-path tendons driving MUSCLE actuators, and the tables the
+    kernels of `csrc/mega.cu` read (`f_mus`, `i_mus`, `i_seg`, `f_site`,
+    `i_site`): per muscle its 24 parameters and ctrl / force limits, its
+    segments (their range in `i_seg`), its act slot and ctrl index; per
+    segment its two sites; per site its body and local position. The
+    kernel computes the sites from the body frames and walks the endpoint
+    bodies' dof chains (the plan's `dofmask`), so the reference's
+    incidence tables (SB, SBo, GA, GB, WA, WB, S_u) are not kept."""
+
+    @classmethod
+    def build(cls, L, A, dofmask, flags):
+        """The plan, or None where the reference's refuses the model
+        (no tendon actuator, or more muscles than `MUS_MAX`)."""
+        trn = np.asarray(A["actuator_trntype"])
+        mus = np.nonzero(trn == int(TrnType.TENDON))[0]
+        if not len(mus) or len(mus) > MUS_MAX or int(A["na"]) > MUS_MAX:
+            return None
+        return cls(L, A, dofmask, flags, mus)
+
+    def __init__(self, L, A, dofmask, flags, mus):
+        from .tendon import site_path_tables
+
+        f64 = {k: np.asarray(L[k], np.float64) for k in (
+            "site_pos", "actuator_gear", "actuator_gainprm",
+            "actuator_biasprm", "actuator_dynprm", "actuator_lengthrange",
+            "actuator_acc0", "actuator_ctrlrange", "actuator_forcerange")}
+        site_ids, GA, GB, S, _, _ = site_path_tables(
+            A["tendon_site"], A["tendon_sitemask"], A["site_bodyid"], dofmask)
+        self.site_ids = [int(s) for s in site_ids]
+        spos, gear = f64["site_pos"], f64["actuator_gear"]
+        sbody = np.asarray(A["site_bodyid"])[site_ids]
+        ns = len(site_ids)
+        self.mus = [int(u) for u in mus]
+        S_u = S[np.asarray(A["actuator_trnid"])[mus, 0]]
+        self.gear = [float(gear[u, 0]) for u in mus]
+        self.act_adr = [int(A["actuator_actadr"][u]) for u in mus]
+        cr, fr = f64["actuator_ctrlrange"], f64["actuator_forcerange"]
+        self.ctrl_lim = [(float(cr[u, 0]), float(cr[u, 1]))
+                         if A["actuator_ctrllimited"][u] else None
+                         for u in mus]
+        self.force_lim = [(float(fr[u, 0]), float(fr[u, 1]))
+                          if A["actuator_forcelimited"][u] else None
+                          for u in mus]
+        # [dyn_tau_act, dyn_tau_deact, gainprm[0:9], biasprm[0:9], lr0,
+        #  lr1, acc0, gear] per muscle
+        lr, acc0 = f64["actuator_lengthrange"], f64["actuator_acc0"]
+        self.prm = np.asarray(
+            [[*f64["actuator_dynprm"][u, :2], *f64["actuator_gainprm"][u, :9],
+              *f64["actuator_biasprm"][u, :9], lr[u, 0], lr[u, 1], acc0[u],
+              gear[u, 0]] for u in mus], np.float32)
+        self.nmus, self.nseg, self.ns = len(mus), GA.shape[0], ns
+        self.clampctrl = not flags & DisableBit.CLAMPCTRL
+        self.actuation_on = not flags & DisableBit.ACTUATION
+        # the kernels' tables
+        seg_a, seg_b = GA.argmax(axis=1), GB.argmax(axis=1)
+        self.i_seg, self.i_mus, self.f_mus = [], [], []
+        for i, u in enumerate(mus):
+            segs = np.nonzero(S_u[i])[0]
+            lim = (self.ctrl_lim[i] or (0.0, 0.0),
+                   self.force_lim[i] or (0.0, 0.0))
+            self.i_mus.append([len(self.i_seg), len(segs), self.act_adr[i],
+                               int(u), int(self.ctrl_lim[i] is not None),
+                               int(self.force_lim[i] is not None)])
+            self.i_seg.extend([int(seg_a[k]), int(seg_b[k])] for k in segs)
+            self.f_mus.append([*self.prm[i], *lim[0], *lim[1]])
+        self.f_site = [[*spos[s], 0.0] for s in site_ids]
+        self.i_site = [int(b) for b in sbody]
 
 
 def build_plan(leaves: dict, aux: dict, groups, mesh_kernel):

@@ -21,7 +21,11 @@ qfrc_constraint and efc_force_contact (forward) and qpos, qvel (megastep)
 rel 5e-4 of their largest value, active slots and their geom ids exact and
 depths atol 1e-5, on every env whose active contact set matches; an env
 whose set differs must have a slot within 1e-5 of its margin (a float32
-tie), and at most 0.5% of the envs may.
+tie), and at most 0.5% of the envs may. The committed muscle model
+(`humanoid_muscle_shape.npz`, muscle ctrls in [0, 1], activations from
+`test_torch_fixture.seeded_act`) is held the same way: its mega forward
+with act_dot, its Euler megastep with act, and its staged non-smooth fused
+stage.
 """
 
 from pathlib import Path
@@ -40,19 +44,20 @@ from loco_mujoco_tpu_torch.ops import hopper_layout as lay
 from loco_mujoco_tpu_torch.ops import hopper_mega as hm
 from loco_mujoco_tpu_torch.ops import hopper_newton as hn
 from loco_mujoco_tpu_torch.ops import kernels, kinematics, solver
-from test_torch_fixture import CONFIGS
+from test_torch_fixture import CONFIGS, hold_ctrl, seeded_act
 
 pytestmark = pytest.mark.cuda
 
 ASSET = (Path(__file__).resolve().parent.parent / "loco_mujoco_tpu_torch"
          / "assets" / "humanoid_torque_shape.npz")
+MUSCLE_ASSET = ASSET.with_name("humanoid_muscle_shape.npz")
 E = 256
 
 
-def _model(change=None):
-    """The committed model on the card with a configuration change: a
+def _model(change=None, asset=ASSET):
+    """A committed model on the card with a configuration change: a
     static entry, or the first column of the last pair's leaf row."""
-    leaves, aux = io.read_model_npz(ASSET)
+    leaves, aux = io.read_model_npz(asset)
     for k, v in (change or {}).items():
         if k.startswith("leaf:"):
             leaves[k[5:]] = np.array(leaves[k[5:]])
@@ -225,7 +230,7 @@ def test_fused_matches_plain(state, name):
 
 def _megastep_check(model, d):
     """One control step (10 substeps) of the megastep against its plain
-    version, decisions replayed."""
+    version, decisions replayed (act too, with muscles)."""
     n = 10
     per = hm.forwards_per_step(model)
     dec = torch.zeros((E, per * n, 2), dtype=torch.int32, device="cuda")
@@ -238,7 +243,7 @@ def _megastep_check(model, d):
                              on_forward=lambda o: gaps.append(_gap(o)))
     gap = torch.stack(gaps).min(dim=0).values
     ok = torch.ones(E, dtype=torch.bool, device="cuda")
-    for name in ("qpos", "qvel"):
+    for name in ("qpos", "qvel") + (("act",) if model.na else ()):
         got, ref = getattr(k, name), getattr(r, name)
         ok &= (got - ref).abs().max(dim=1).values < 5e-4 * float(
             ref.abs().max())
@@ -257,3 +262,61 @@ def test_euler_megastep_matches_plain(state):
     model = _model(CONFIGS["euler"])
     _megastep_check(model, fwd.fwd_position(model, _dropped(model),
                                             plain=True))
+
+
+def _muscle_state():
+    """The muscle model and its dropped state, with seeded muscle ctrls
+    and activations (a quarter above 1 at full control)."""
+    model = _model(asset=MUSCLE_ASSET)
+    rng = np.random.default_rng(1)
+    act = seeded_act(rng, E, model.na)
+    ctrl = hold_ctrl(model, rng.uniform(0, 1, size=(E, model.nu)), act)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")  # noqa
+    d = _dropped(model).replace(qvel=0.1 * torch.randn(E, model.nv,
+                                                       device="cuda"),
+                                ctrl=t(ctrl), act=t(act))
+    return model, d
+
+
+def test_muscle_mega_forward_matches_plain(state):
+    """The mega forward with the muscle block: qacc, qfrc_constraint,
+    efc_force_contact and act_dot."""
+    model, d = _muscle_state()
+    assert model.plan.mega and model.plan.mp is not None
+    kernels.LAUNCHES.clear()
+    k = fwd.forward(model, d)
+    assert dict(kernels.LAUNCHES) == {"mega_forward": 1}
+    r = hm.mega_forward_plain(model, d,
+                              replay=(k.solver_niter, k.solver_taken))
+    same = torch.all((k.contact.dist < k.contact.includemargin)
+                     == (r.contact.dist < r.contact.includemargin), dim=1)
+    _tie_envs(same, _gap(r))
+    for name in ("qacc", "qfrc_constraint", "efc_force_contact", "act_dot"):
+        got, ref = getattr(k, name)[same], getattr(r, name)[same]
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), name
+
+
+def test_muscle_megastep_matches_plain(state):
+    """The Euler megastep carrying act, clamped to [0, 1]."""
+    model, d = _muscle_state()
+    _megastep_check(model, d)
+    out = fwd.step_n(model, d, 10)
+    assert bool(((out.act >= 0) & (out.act <= 1)).all())
+
+
+def test_muscle_fused_matches_plain(state, monkeypatch):
+    """The fused kernel in the non-smooth layout, on the staged stages'
+    outputs, decisions replayed."""
+    monkeypatch.setenv("LMT_MEGA", "0")
+    model, d = _muscle_state()
+    d = fwd.stages(model, d)
+    kernels.LAUNCHES.clear()
+    k = hf.fused_constraint(model, d)
+    assert dict(kernels.LAUNCHES) == {"fused": 1}
+    r = hf.fused_constraint_plain(model, d,
+                                  replay=(k.solver_niter, k.solver_taken))
+    for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
+        got, ref = getattr(k, f), getattr(r, f)
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), f

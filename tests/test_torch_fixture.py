@@ -17,6 +17,16 @@ HumanoidTorque's census. Two sizes come from the same generator:
 * small: nv = 10, 10 hulls in the mesh group with k = 4 < P, so the mesh
   group takes the kernel path in float32.
 
+The muscle variant (`muscle=True`, HumanoidMuscle's shape; its XML is not
+in the repository) keeps the bodies, joints, hulls, equality and friction
+loss, and adds sites on the torso, abdomen, thighs, shins and feet, spatial
+tendons over 2-4 of them spanning the lumbar, hip, knee and ankle joints and
+one `<general>` muscle per tendon, with Euler at 1 ms. At full width its
+92 muscles replace the 13 motors (committed as
+`loco_mujoco_tpu_torch/assets/humanoid_muscle_shape.npz`); the small
+variant's 4 muscles sit between its 4 motors. The same command regenerates
+both committed models.
+
 Both are compiled by the JAX package's own `put_model`; the model arrays
 are the "weights" carried across to the port.
 """
@@ -40,6 +50,7 @@ if str(REPO) not in sys.path:  # direct `python tests/test_torch_fixture.py`
 from loco_mujoco_tpu_torch.core import io as tio  # noqa: E402
 
 ASSET = REPO / "loco_mujoco_tpu_torch" / "assets" / "humanoid_torque_shape.npz"
+MUSCLE_ASSET = ASSET.with_name("humanoid_muscle_shape.npz")
 SEED = 0
 
 
@@ -51,9 +62,84 @@ def _hull(rng, semi, n):
     return " ".join(f"{v:.6f}" for v in (d * semi).ravel())
 
 
-def humanoid_xml(full: bool, seed: int = SEED) -> str:
-    """The fixture's MJCF (see the module note)."""
+# Sites of the muscle variant per body: (count, center, half extents), in
+# the body frame
+_SITES_FULL = {"torso": (8, (0, 0, -0.12), (0.1, 0.1, 0.07)),
+               "abdomen": (8, (0, 0, -0.06), (0.1, 0.12, 0.06)),
+               "thigh": (8, (0, 0, -0.19), (0.06, 0.05, 0.15)),
+               "shin": (8, (0, 0, -0.19), (0.05, 0.04, 0.15)),
+               "foot": (4, (0.035, 0, -0.03), (0.085, 0.04, 0.02))}
+_SITES_SMALL = {"torso": (4, (0, 0, -0.05), (0.1, 0.1, 0.05)),
+                "thigh": (4, (0, 0, -0.19), (0.06, 0.05, 0.15)),
+                "shin": (2, (0, 0, -0.1), (0.05, 0.04, 0.06))}
+# Tendon spans of the muscle variant, per side: (count, bodies the path
+# visits from origin to insertion). One joint group spanned: 2-3 sites;
+# two: 3-4 sites, one on the middle body.
+_SPANS_FULL = ((12, ("abdomen", "thigh")), (8, ("thigh", "shin")),
+               (8, ("shin", "foot")), (8, ("abdomen", "thigh", "shin")),
+               (6, ("thigh", "shin", "foot")))
+_SPANS_SMALL = ((1, ("torso", "thigh")), (1, ("thigh", "shin")))
+_LUMBAR = 8  # torso -> abdomen tendons (full width)
+# the compiler's muscle length ranges: the default tolerance (0.05) does not
+# converge on the shortest-range muscles
+LENGTHRANGE = '<lengthrange tolrange="0.5"/>'
+
+
+def _muscle_parts(full: bool, seed: int):
+    """(sites per body name, tendon XML, actuator XML of the muscles) of the
+    muscle variant, from its own generator so the torque fixture's hulls do
+    not move. Every tendon drives one `<general>` muscle (MuJoCo 3.x's
+    `<muscle>` shortcut refuses actlimited); half give their force
+    explicitly, half as force=-1 with a scale (force = scale / acc0)."""
+    rng = np.random.default_rng(seed + 1)
+    spec = _SITES_FULL if full else _SITES_SMALL
+    sites = {}
+    for body in (["torso", "abdomen"] if full else ["torso"]) + [
+            f"{b}_{s}" for s in "rl"
+            for b in (("thigh", "shin", "foot") if full else ("thigh", "shin"))]:
+        n, c, h = spec[body.split("_")[0]]
+        pts = np.asarray(c) + rng.uniform(-1, 1, size=(n, 3)) * np.asarray(h)
+        sites[body] = [(f"s_{body}_{i}", p) for i, p in enumerate(pts)]
+    paths = []
+    if full:
+        for _ in range(_LUMBAR):
+            paths.append(("torso", "abdomen"))
+    for side in "rl":
+        for count, bodies in (_SPANS_FULL if full else _SPANS_SMALL):
+            for _ in range(count):
+                paths.append(tuple(b if b in ("torso", "abdomen")
+                                   else f"{b}_{side}" for b in bodies))
+    tendons, muscles = [], []
+    for t, bodies in enumerate(paths):
+        names = [sites[b][int(rng.integers(len(sites[b])))][0] for b in bodies]
+        if rng.uniform() < 0.5 or not full:  # a second insertion site
+            extra = sites[bodies[-1]][int(rng.integers(len(sites[bodies[-1]])))]
+            if extra[0] != names[-1]:
+                names.append(extra[0])
+        tendons.append(f'<spatial name="t{t}">'
+                       + "".join(f'<site site="{s}"/>' for s in names)
+                       + "</spatial>")
+        force, scale = ((float(rng.uniform(150, 600)), 200.0) if t % 2 == 0
+                        else (-1.0, float(rng.uniform(100, 300))))
+        prm = f"0.75 1.05 {force:.2f} {scale:.2f} 0.5 1.6 1.5 1.3 1.2"
+        muscles.append(
+            f'<general name="m{t}" tendon="t{t}" dyntype="muscle" '
+            f'gaintype="muscle" biastype="muscle" ctrllimited="true" '
+            f'ctrlrange="0 1" actlimited="true" actrange="0 1" '
+            f'dynprm="0.01 0.04 0" gainprm="{prm}" biasprm="{prm}"/>')
+    return sites, tendons, muscles
+
+
+def humanoid_xml(full: bool, seed: int = SEED, muscle: bool = False) -> str:
+    """The fixture's MJCF (see the module note); `muscle`: the muscle
+    variant (sites, spatial tendons and muscles, Euler)."""
     rng = np.random.default_rng(seed)
+    sites, tendons, muscles = (_muscle_parts(full, seed) if muscle
+                               else ({}, [], []))
+
+    def site_xml(body):
+        return "\n".join(f'<site name="{n}" pos="{p[0]:.4f} {p[1]:.4f} '
+                         f'{p[2]:.4f}"/>' for n, p in sites.get(body, []))
     # vertex counts are multiples of 8: the reference's
     # pack_plane_mesh_buckets fails when the largest hull's count is not;
     # its mega plan (ColPlan, vertex cap 5632) needs a multiple of 32, or
@@ -88,7 +174,7 @@ def humanoid_xml(full: bool, seed: int = SEED) -> str:
 
     def foot(side):
         return (f'<geom name="foot_{side}" type="box" size="0.09 0.045 0.025" '
-                f'pos="0.04 0 -0.04"/>'
+                f'pos="0.04 0 -0.04"/>' + site_xml(f"foot_{side}")
                 + hulls(8 if full else 3, (0.04, 0, sole + 0.03),
                         (0.05, 0.02, 0.006), 0.02, 0.035))
 
@@ -100,10 +186,12 @@ def humanoid_xml(full: bool, seed: int = SEED) -> str:
         {hinge(f"hip_x_{side}", "1 0 0", -0.5, 0.5, 5)}
         {hinge(f"hip_z_{side}", "0 0 1", -0.6, 0.6, 5)}
         {hinge(f"hip_y_{side}", "0 1 0", -1.5, 0.5, 5)}
+        {site_xml(f"thigh_{side}")}
         {hulls(8, (0, 0, -0.19), (0.04, 0.03, 0.15), 0.03, 0.06)}
         <body name="shin_{side}" pos="0 0 -0.38">
           {inertial(3, -0.19)}
           {hinge(f"knee_{side}", "0 1 0", -0.1, 2.0, 3)}
+          {site_xml(f"shin_{side}")}
           {hulls(8, (0, 0, -0.19), (0.03, 0.02, 0.15), 0.025, 0.05)}
           <body name="foot_{side}" pos="0 0 -0.38">
             {inertial(1, -0.04)}
@@ -116,10 +204,12 @@ def humanoid_xml(full: bool, seed: int = SEED) -> str:
       <body name="thigh_{side}" pos="0 {y} -0.1">
         {inertial(5, -0.19)}
         {hinge(f"hip_y_{side}", "0 1 0", -1.5, 0.5, 5)}
+        {site_xml(f"thigh_{side}")}
         {hulls(1, (0, 0, -0.19), (0.04, 0.03, 0.15), 0.03, 0.06)}
         <body name="shin_{side}" pos="0 0 -0.38">
           {inertial(3, -0.25)}
           {hinge(f"knee_{side}", "0 1 0", -0.1, 2.0, 3)}
+          {site_xml(f"shin_{side}")}
           <geom name="foot_{side}" type="box" size="0.09 0.045 0.025"
                 pos="0.04 0 -0.4"/>
           {hulls(3, (0.04, 0, -0.4 + sole + 0.07), (0.05, 0.02, 0.006),
@@ -138,6 +228,7 @@ def humanoid_xml(full: bool, seed: int = SEED) -> str:
         {hinge("abdomen_z", "0 0 1", -0.8, 0.8, 5)}
         {hinge("abdomen_y", "0 1 0", -0.8, 0.8, 5)}
         {hinge("abdomen_x", "1 0 0", -0.6, 0.6, 5)}
+        {site_xml("abdomen")}
         {hulls(12, (0, 0, 0), (0.06, 0.1, 0.06), 0.03, 0.07)}
         {leg("r", -0.1)}
         {leg("l", 0.1)}
@@ -162,13 +253,18 @@ def humanoid_xml(full: bool, seed: int = SEED) -> str:
         for n, t, a in (("x", "slide", "1 0 0"), ("z", "slide", "0 0 1"),
                         ("y", "slide", "0 1 0"), ("rx", "hinge", "1 0 0"),
                         ("ry", "hinge", "0 1 0"), ("rz", "hinge", "0 0 1")))
-    motors = "\n".join(
-        f'<motor joint="{j}" gear="100" ctrllimited="true" ctrlrange="-1 1"/>'
-        for j in actuated)
+    motors = [f'<motor joint="{j}" gear="100" ctrllimited="true" '
+              f'ctrlrange="-1 1"/>' for j in actuated]
+    if muscle and full:
+        actuators = muscles  # the muscles replace the joint motors
+    else:  # motors and muscles interleaved
+        actuators = [a for pair in zip(motors, muscles + [""] * len(motors))
+                     for a in pair if a]
     return f"""
-<mujoco model="humanoid_torque_shape_{'full' if full else 'small'}">
-  <compiler angle="radian"/>
-  <option timestep="0.001" integrator="RK4" iterations="8" ls_iterations="8"/>
+<mujoco model="humanoid_{'muscle' if muscle else 'torque'}_shape_{'full' if full else 'small'}">
+  <compiler angle="radian">{LENGTHRANGE if muscle else ""}</compiler>
+  <option timestep="0.001" integrator="{'Euler' if muscle else 'RK4'}"
+          iterations="8" ls_iterations="8"/>
   <default>
     <joint limited="true" armature="0.01"/>
     <geom contype="2" conaffinity="1" condim="3" friction="1 0.005 0.0001"/>
@@ -182,14 +278,18 @@ def humanoid_xml(full: bool, seed: int = SEED) -> str:
     <body name="torso" pos="0 0 {height:.4f}">
       {inertial(10, 0)}
       {root}
+      {site_xml("torso")}
       {body}
     </body>
   </worldbody>
   <equality>
     {equality}
   </equality>
+  <tendon>
+    {chr(10).join(tendons)}
+  </tendon>
   <actuator>
-    {motors}
+    {chr(10).join(actuators)}
   </actuator>
   <contact/>
 </mujoco>"""
@@ -217,15 +317,16 @@ CONFIGS = {
 }
 
 
-def jax_model(full: bool, dtype=None, change=None):
-    """The fixture compiled by the JAX package's own `put_model`, with a
-    configuration change (`CONFIGS`)."""
+def jax_model(full: bool, dtype=None, change=None, muscle=False):
+    """The fixture (or its muscle variant) compiled by the JAX package's
+    own `put_model`, with a configuration change (`CONFIGS`)."""
     import jax.numpy as jnp
     import mujoco
 
     from loco_mujoco_tpu.core.io import put_model
 
-    mjm = mujoco.MjModel.from_xml_string(_joint_friction(humanoid_xml(full)))
+    mjm = mujoco.MjModel.from_xml_string(
+        _joint_friction(humanoid_xml(full, muscle=muscle)))
     jm = put_model(mjm, dtype=dtype or jnp.float64,
                    contact_k_plane=8 if full else 4)
     for k, v in (change or {}).items():
@@ -258,15 +359,16 @@ def export_model(model):
     return leaves, aux
 
 
-def torch_model(full: bool, dtype=torch.float64, device="cpu", change=None):
+def torch_model(full: bool, dtype=torch.float64, device="cpu", change=None,
+                muscle=False):
     """(JAX model, port model) of the fixture, both from one compile."""
-    jm = jax_model(full, change=change)
+    jm = jax_model(full, change=change, muscle=muscle)
     leaves, aux = export_model(jm)
     return jm, tio.model_from_numpy(leaves, aux, device=device, dtype=dtype)
 
 
 def mega_states(monkeypatch, full: bool, n_envs: int, seed: int = 7,
-                change=None):
+                change=None, muscle=False):
     """(JAX model, port model, JAX data, port data) in float32 for the mega
     path tests: n_envs seeded states of the fixture in light contact (the
     feet pressed 5-15 mm into the floor, small joint noise and velocities).
@@ -274,8 +376,9 @@ def mega_states(monkeypatch, full: bool, n_envs: int, seed: int = 7,
     fixture's vertex table (the reference's default cap rounds the largest
     hull past it; ROADMAP, Queue 3), and the JAX data gets its contact dims
     from one collision pass, as the env's reset does. `change`: a
-    configuration (`CONFIGS`) applied to both models. Call inside
-    `jax.enable_x64(False)`."""
+    configuration (`CONFIGS`) applied to both models; `muscle`: the muscle
+    variant, its muscle ctrls in [0, 1] and activations from `seeded_act`.
+    Call inside `jax.enable_x64(False)`."""
     import jax
     import jax.numpy as jnp
 
@@ -284,12 +387,12 @@ def mega_states(monkeypatch, full: bool, n_envs: int, seed: int = 7,
     from loco_mujoco_tpu.ops import kinematics as jkin
     from loco_mujoco_tpu.ops import pallas_constraint as pc
 
-    jm64 = jax_model(full, change=change)
+    jm64 = jax_model(full, change=change, muscle=muscle)
     leaves, aux = export_model(jm64)
     tm = tio.model_from_numpy(leaves, aux, device="cpu", dtype=torch.float32)
     monkeypatch.setenv("LMT_MESH_VCAP", str(tm.mesh_vert.shape[1]))
     monkeypatch.setattr(pc, "_PLAN_CACHE", {})
-    jm = jax_model(full, dtype=jnp.float32, change=change)
+    jm = jax_model(full, dtype=jnp.float32, change=change, muscle=muscle)
     rng = np.random.default_rng(seed)
     E = n_envs
     qpos = np.asarray(tm.qpos0)[None] + rng.normal(scale=0.02,
@@ -298,19 +401,44 @@ def mega_states(monkeypatch, full: bool, n_envs: int, seed: int = 7,
         rng.uniform(0.005, 0.015, size=E)
     qvel = rng.normal(scale=0.1, size=(E, tm.nv))
     ctrl = rng.uniform(-0.3, 0.3, size=(E, tm.nu))
+    act = seeded_act(rng, E, tm.na) if tm.na else np.zeros((E, 0))
+    if muscle:
+        ctrl = hold_ctrl(tm, np.where(tm.actuator_trntype == 3,
+                                      np.abs(ctrl) / 0.3, ctrl), act)
     f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
     d0 = jax_make_data(jm)
-    jd = jax.jit(jax.vmap(lambda q, v, u: jcoll.collision(jm, jkin.kinematics(
-        jm, d0.replace(qpos=q, qvel=v, ctrl=u)))))(
-        f32(qpos), f32(qvel), f32(ctrl))
+    jd = jax.jit(jax.vmap(lambda q, v, u, a: jcoll.collision(
+        jm, jkin.kinematics(jm, d0.replace(qpos=q, qvel=v, ctrl=u, act=a)))))(
+        f32(qpos), f32(qvel), f32(ctrl), f32(act))
     t = lambda x: torch.as_tensor(f32(x))  # noqa: E731
     td = tio.make_data(tm, E).replace(qpos=t(qpos), qvel=t(qvel),
-                                      ctrl=t(ctrl))
+                                      ctrl=t(ctrl), act=t(act))
     return jm, tm, jd, td
 
 
-def write_full_width(path) -> None:
-    leaves, aux = export_model(jax_model(full=True))
+def seeded_act(rng, E, na):
+    """(E, na) activations in [0, 1), but every fourth one up to 2e-3 above
+    1 (outside actrange, as a reset may leave it): the muscle dynamics see
+    the raw value and the next Euler step clamps it to 1. From inside the
+    range, Euler at dt below the activation time constants never reaches
+    the clamp."""
+    act = rng.uniform(0.0, 1.0, size=(E, na))
+    act[:, ::4] = 1.0 + rng.uniform(0.0, 2e-3, size=act[:, ::4].shape)
+    return act
+
+
+def hold_ctrl(model, ctrl, act):
+    """`ctrl` with the muscles whose activation starts above 1 at full
+    control, so that their first Euler step ends above 1 and is clamped."""
+    ctrl = ctrl.copy()
+    for u in np.nonzero(model.actuator_trntype == 3)[0]:
+        above = act[:, int(model.actuator_actadr[u])] > 1
+        ctrl[above, u] = 1.0
+    return ctrl
+
+
+def write_full_width(path, muscle=False) -> None:
+    leaves, aux = export_model(jax_model(full=True, muscle=muscle))
     tio.save_model_npz(path, leaves, aux)
 
 
@@ -397,13 +525,39 @@ def test_fixture_census_and_kernel_gate():
     assert os.path.getsize(ASSET) < 2 * 1024 * 1024
 
 
-def test_committed_npz_matches_generator(tmp_path):
-    """Drift test: the committed full-width model is what the generator
+def test_muscle_fixture_census():
+    """The muscle variant: the torque fixture's tree, contact groups and
+    constraint rows; 92 site-path tendons of 2-4 sites (150-250 segments)
+    driving 92 muscles (half force = -1 with a scale), no motors, Euler; the
+    small variant's 4 muscles interleaved with its 4 motors."""
+    full = tio.load_model_npz(MUSCLE_ASSET, device="cpu")
+    torque = tio.load_model_npz(ASSET, device="cpu")
+    assert (full.nv, full.ntendon, full.nu, full.na) == (19, 92, 92, 92)
+    assert [(g.t2, g.k, len(g.pair_ids)) for g in full.groups] == \
+        [(g.t2, g.k, len(g.pair_ids)) for g in torque.groups]
+    assert full.opt.integrator == 0 and np.all(full.actuator_trntype == 3)
+    sites = full.tendon_sitemask.sum(axis=1)
+    assert sites.min() == 2 and sites.max() <= 4
+    assert 150 <= int((sites - 1).sum()) <= 250
+    assert int((full.actuator_gainprm[:, 2] < 0).sum()) == 46
+    assert bool((full.actuator_lengthrange[:, 1]
+                 > full.actuator_lengthrange[:, 0]).all())
+    assert full.plan.mega and full.plan.mp.nseg == int((sites - 1).sum())
+    assert full.plan.nrows == torque.plan.nrows
+    _, small = torch_model(full=False, muscle=True)
+    assert small.actuator_trntype.tolist() == [0, 3] * 4
+    assert small.plan.mp.mus == [1, 3, 5, 7]
+    assert os.path.getsize(MUSCLE_ASSET) < 2 * 1024 * 1024
+
+
+@pytest.mark.parametrize("muscle", [False, True], ids=["torque", "muscle"])
+def test_committed_npz_matches_generator(tmp_path, muscle):
+    """Drift test: each committed full-width model is what the generator
     makes now, leaf for leaf."""
     fresh = tmp_path / "fresh.npz"
-    write_full_width(fresh)
+    write_full_width(fresh, muscle)
     got_l, got_a = tio.read_model_npz(fresh)
-    ref_l, ref_a = tio.read_model_npz(ASSET)
+    ref_l, ref_a = tio.read_model_npz(MUSCLE_ASSET if muscle else ASSET)
     assert got_l.keys() == ref_l.keys() and got_a.keys() == ref_a.keys()
     for k in ref_l:
         np.testing.assert_array_equal(got_l[k], ref_l[k], err_msg=k)
@@ -412,16 +566,27 @@ def test_committed_npz_matches_generator(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    {"ntendon": 1},
+    {"tendon_stiffness": 1.0},
     {"opt.cone": 1},
     {"opt.integrator": 2},
     {"actuator_gaintype": 1},
     {"jnt_type": 1},
     {"geom_type": 2},
+    {"tendon_damping": 1.0},
+    {"tendon_limited": 1},
+    {"tendon_sitemask": False},
+    {"actuator_dyntype": 2},
+    {"actuator_biastype": 1},
+    {"geom_type": 5},
 ])
 def test_unsupported_features_raise_at_load(change):
-    """Features outside this slice are refused when the model is loaded."""
-    leaves, aux = tio.read_model_npz(ASSET)
+    """Features outside this slice are refused when the model is loaded
+    (tendon changes on the muscle fixture: its last tendon's stiffness,
+    damping, limits, or a path of no site; the last actuator's filter
+    activation or affine bias; the last hull as a cylinder against the
+    plane)."""
+    tendon = any(k.startswith("tendon_") for k in change)
+    leaves, aux = tio.read_model_npz(MUSCLE_ASSET if tendon else ASSET)
     for k, v in change.items():
         if isinstance(aux[k], np.ndarray):  # set the last entry (a hull)
             aux[k] = aux[k].copy()
@@ -448,5 +613,6 @@ if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_enable_x64", True)  # as tests/conftest.py does
-    write_full_width(ASSET)
-    print(f"wrote {ASSET} ({os.path.getsize(ASSET)} bytes)")
+    for path, muscle in ((ASSET, False), (MUSCLE_ASSET, True)):
+        write_full_width(path, muscle)
+        print(f"wrote {path} ({os.path.getsize(path)} bytes)")

@@ -3,15 +3,17 @@
 
     python3 tools/profile_torch_step.py [--envs 4096] [--steps 1]
                                         [--path megastep|staged]
-                                        [--integrator rk4|euler]
+                                        [--integrator rk4|euler|muscle]
 
 Loads the committed HumanoidTorque-shaped model on the card (`--integrator
 euler`: its Euler configuration, the same arrays with `opt.integrator` set
-to Euler), makes the same seeded state as `chip_smoke.py`, runs one warm-up
-control step (10 substeps), then traces `--steps` control steps with
-`torch.profiler`: `--path megastep` (the main path) runs each control step
-as one `forward.step_n`, `--path staged` runs 10 `forward.step` calls with
-the mega path off (`LMT_MEGA=0`: the fused constraint kernel). Each forward
+to Euler; `muscle`: the committed HumanoidMuscle-shaped model, Euler,
+muscle ctrls in [0, 1]), makes the same seeded state as `chip_smoke.py`,
+runs one warm-up control step (10 substeps), then traces `--steps` control
+steps with `torch.profiler`: `--path megastep` (the main path) runs each
+control step as one `forward.step_n`, `--path staged` runs 10
+`forward.step` calls with the mega path off (`LMT_MEGA=0`: the fused
+constraint kernel). Each forward
 stage is wrapped in a `record_function` range (here, by wrapping the stage
 functions; the package itself carries no instrumentation), and every kernel
 the card ran is attributed to the innermost range that launched it.
@@ -41,13 +43,15 @@ sys.path.insert(0, str(ROOT))
 from loco_mujoco_tpu_torch.core import io  # noqa: E402
 from loco_mujoco_tpu_torch.ops import (  # noqa: E402
     actuation, collision, constraint, forward, hopper_fused, hopper_mega,
-    hopper_newton, inertia, kernels, kinematics, passive, solver, velocity)
+    hopper_newton, inertia, kernels, kinematics, passive, solver, tendon,
+    velocity)
 
 SUBSTEPS = 10
 
 # (module, function) of every stage; ranges nest (collision > plane-mesh)
 STAGES = [
-    (kinematics, "kinematics"), (kinematics, "com_pos"), (inertia, "crb"),
+    (kinematics, "kinematics"), (kinematics, "com_pos"), (tendon, "tendon"),
+    (tendon, "tendon_vel"), (inertia, "crb"),
     (collision, "collision"), (collision, "_plane_box_group"),
     (collision, "_plane_mesh_kernel"), (inertia, "factor_m"),
     (velocity, "com_vel"), (passive, "passive"), (velocity, "rne"),
@@ -112,7 +116,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=1)
     ap.add_argument("--path", choices=("megastep", "staged"),
                     default="megastep")
-    ap.add_argument("--integrator", choices=("rk4", "euler"), default="rk4")
+    ap.add_argument("--integrator", choices=("rk4", "euler", "muscle"),
+                    default="rk4")
     args = ap.parse_args()
     if args.path == "staged":
         os.environ["LMT_MEGA"] = "0"
@@ -126,8 +131,11 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     kernels.build_all()
     dev = torch.device("cuda")
+    muscle = args.integrator == "muscle"
     leaves, aux = io.read_model_npz(
-        ROOT / "loco_mujoco_tpu_torch/assets/humanoid_torque_shape.npz")
+        ROOT / "loco_mujoco_tpu_torch/assets" / ("humanoid_muscle_shape.npz"
+                                                 if muscle else
+                                                 "humanoid_torque_shape.npz"))
     if args.integrator == "euler":
         aux["opt.integrator"] = 0
     model = io.model_from_numpy(leaves, aux, device=dev)
@@ -139,7 +147,9 @@ def main() -> int:
     qpos[:, z] -= rng.uniform(0.005, 0.02, size=E)
     d = io.make_data(model, E).replace(
         qpos=torch.as_tensor(qpos, dtype=torch.float32, device=dev),
-        ctrl=torch.as_tensor(rng.uniform(-0.3, 0.3, size=(E, model.nu)),
+        ctrl=torch.as_tensor(rng.uniform(0.0, 1.0, size=(E, model.nu))
+                             if muscle else
+                             rng.uniform(-0.3, 0.3, size=(E, model.nu)),
                              dtype=torch.float32, device=dev))
     for mod, name in STAGES:
         _wrap(mod, name)
