@@ -11,36 +11,43 @@ Run from the repository root: `python3 chip_smoke.py`. It
    friction (the fused kernel's 7-float contact pack), one pair's solref
    (the generic 26-float pack), and 34 mesh slots per group (456 rows,
    past the fused kernel's 400: no plan, the standalone Newton kernel);
-   and the committed HumanoidMuscle-shaped model (the same tree and hulls,
+   the committed HumanoidMuscle-shaped model (the same tree and hulls,
    92 site-path tendons driving 92 muscles, Euler: the `muscle`
    configuration, a non-smooth plan with the mega path's muscle block);
+   and the committed UnitreeA1-shaped model (nv = 18, elliptic cones at
+   impratio 100, 76 slots over every classic analytic pair kind, 300 rows,
+   Euler: the `a1` configuration, the mega path's extended collision
+   `mega_ell` and the fused kernel's elliptic layout);
 4. holds each kernel of the earlier staged path against its plain PyTorch
    version on the card, on the inputs that path gives it at full width
    (4096 envs);
 5. drives the staged path (`LMT_MEGA=0`) for 2 control steps of 10 RK4
-   substeps, 2 of 10 Euler substeps and 2 of 10 muscle Euler substeps (the
-   fused kernel's non-smooth layout), through the fused constraint
-   kernel, and 1 control step of the model with no plan, through the
+   substeps, 2 of 10 Euler substeps, 2 of 10 muscle Euler substeps (the
+   fused kernel's non-smooth layout) and 2 of 10 A1 Euler substeps (torch
+   collision and the fused kernel's elliptic layout), through the fused
+   constraint kernel, and 1 control step of the model with no plan, through the
    Newton kernel and its relayouts, with every launch counter set to 0
    just before each run and read just after, and checks the counts; then
    compares one staged forward with the all-plain forward and holds the
    Newton kernel to its plain version at the no-plan run's end state;
 6. drives the main path, as `bench.py` does: one forward at reset (the
    mega forward kernel) and `forward.step_n` for 20 control steps of 10
-   substeps (one megastep kernel launch each), RK4, Euler and the muscle
-   model (seeded muscle ctrls in [0, 1], act from 0), counters again zeroed
+   substeps (one megastep kernel launch each), RK4, Euler, the muscle
+   model (seeded muscle ctrls in [0, 1], act from 0) and A1 (dropped 5-20
+   mm, seeded motor ctrls in half its ctrlrange), counters again zeroed
    just before and read just after, and checks the state, the contacts,
    the activations within [0, 1] and that exactly these launches were made;
 7. holds the mega forward kernel and the megastep kernel (one control
-   step), RK4, Euler and muscle (with act_dot and act; the muscle kernels
+   step), RK4, Euler, muscle (with act_dot and act; the muscle kernels
    both at the end state, which the seeded activations lift off the
-   floor, and after the first control step, in deep contact), and the
-   fused kernel on all four plan configurations and the muscle model's
-   non-smooth layout, to their plain versions replaying the kernels'
-   Newton decisions, on all 4096 envs; a mega check excuses at most 0.5%
-   of the envs, each only as a float32 tie (a slot or limit within TIE of
-   its margin) or, in the megastep, as a Newton disagreement at a shared
-   state that a float64 witness settles for the kernel;
+   floor, and after the first control step, in deep contact) and A1 (the
+   extended collision's geom1 and geom2 too), and the fused kernel on all
+   four plan configurations, the muscle model's non-smooth layout and A1's
+   elliptic layout, to their plain versions replaying the kernels' Newton
+   decisions, on all 4096 envs; a mega check (and the elliptic fused
+   check) excuses at most 0.5% of the envs, each only as a float32 tie (a
+   slot or limit within TIE of its margin) or as a Newton disagreement at
+   a shared state that a float64 witness settles for the kernel;
 8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the least time the card
    could take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
@@ -70,7 +77,11 @@ STAGED_STEPS = 2  # the staged path, cut from 20 to keep the run short
 WIDE_STEPS = 1  # the no-plan staged path (the Newton kernel's)
 SUBSTEPS = 10  # physics substeps per control step (RK4: 4 forwards each)
 TIE = 1e-5  # a slot or limit this close to its margin is a float32 tie
+SHOW_ENVS = 10  # envs printed per check
 WITNESS_ITERATIONS = 30  # Newton and line-search steps of the float64 witness
+# a budget-truncated solve's float32 spread: the kernel may lie this many
+# times as far from the float64 replay as the plain version does
+TRUNCATED_SPREAD = 3.0
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -85,6 +96,12 @@ CONFIGS = {
     "wide": {"contact_k_plane": 34},
 }
 MUSCLE_ASSET = "loco_mujoco_tpu_torch/assets/humanoid_muscle_shape.npz"
+A1_ASSET = "loco_mujoco_tpu_torch/assets/unitree_a1_shape.npz"
+# A1's seeded motor ctrls lie in [-A1_CTRL, A1_CTRL] of its ctrlrange
+# [-1, 1] (17 of the motors' 34 N m): with the full range redrawn every
+# control step some envs spin their light, slender calves fast enough that
+# Euler at 2 ms diverges, in the JAX package's float64 path as in the port
+A1_CTRL = 0.5
 
 
 def _nvidia_smi() -> str:
@@ -182,26 +199,47 @@ def _margin_gap(m, d):
     return gap
 
 
-def _newton_witness(torch, m, S, k, p, envs=None):
+def _newton_witness(torch, m, S, k, p, envs=None, staged=False):
     """Per env, at one state S that the kernel's and the plain version's
     forwards share (`k`, `p`, the kernel's decisions replayed):
-    (apart, witnessed). `apart`: their accelerations lie more than rel
-    5e-4 (of the plain version's largest) apart (among `envs`, a mask,
-    where given). The replay covers the
-    iteration count and the taken steps, not the line search's or the
-    rows' float32 tests, so a plain version stopped at the kernel's count
-    can end less converged. `witnessed`: the float64 witness
-    (tools/newton_witness.py) settles such an env for the kernel: the
-    state's Newton problem (the plain version's rows) solved in float64 to
-    convergence lies within rel 5e-4 of the kernel's acceleration, and no
-    farther from it than the plain version's. Prints each apart env's
-    reading."""
+    (apart, witnessed). `apart`: their accelerations, constraint forces or
+    contact forces lie more than rel 5e-4 (of the plain version's largest)
+    apart (among `envs`, a mask, where given). The replay covers the
+    iteration count, the taken steps and the line search's sign tests, not
+    the rows' float32 tests, so a plain version stopped at the kernel's
+    count can end elsewhere. `witnessed`: a float64 witness of the state's
+    Newton problem (the plain version's rows; tools/newton_witness.py)
+    settles such an env for the kernel, reading qacc and qfrc_constraint
+    (rel 5e-4 of the plain version's largest; with impratio 100 the
+    elliptic friction rows weigh 100 times the normal's, so the forces move
+    more than qacc), in one of two ways:
+
+    - converged or replayed: the problem solved in float64 to
+      convergence, or the same solve in float64 replaying the kernel's
+      decisions from the same start (the kernel's computation in exact
+      arithmetic), lies within rel 5e-4 of the kernel's result and no
+      farther from it than the plain version's;
+    - truncated: the kernel ran its whole Newton budget, and that float64
+      replay lies farther than rel 5e-4 from the float32 plain version
+      itself -- float32 does not fix this budget-truncated iterate to the
+      tolerance -- and no farther than TRUNCATED_SPREAD times that from
+      the kernel's (the same float32 spread).
+
+    `staged`: S already holds the stages' outputs (the fused kernel's
+    inputs). Prints each apart env's reading."""
     from loco_mujoco_tpu_torch.ops import forward as fwd
     from loco_mujoco_tpu_torch.ops import hopper_fused as hf
     from loco_mujoco_tpu_torch.ops import hopper_newton as hn
 
     scale = float(p.qacc.abs().max())
-    apart = (k.qacc - p.qacc).abs().amax(1) > 5e-4 * scale
+    fscale = float(p.qfrc_constraint.abs().max()) + 1e-9
+    cscale = float(p.efc_force_contact.abs().max()) + 1e-9
+    E = k.qacc.shape[0]
+    apart = (((k.qacc - p.qacc).abs().amax(1) > 5e-4 * scale)
+             | ((k.qfrc_constraint - p.qfrc_constraint).abs().amax(1)
+                > 5e-4 * fscale)
+             | ((k.efc_force_contact - p.efc_force_contact).abs().reshape(
+                 E, -1).amax(1) > 5e-4 * cscale))
     if envs is not None:
         apart &= envs
     witnessed = torch.zeros_like(apart)
@@ -209,24 +247,44 @@ def _newton_witness(torch, m, S, k, p, envs=None):
     if not len(idx):
         return apart, witnessed
     plan = m.plan
-    _, problem = hf.newton_problem(m, fwd.stages(m, S, plain=True))
-    x_w = hn.newton_plain(
-        *(t[idx].double() for t in problem), k.qacc[idx].double(),
-        ne=plan.ne, nfl=plan.nfl, iterations=WITNESS_ITERATIONS,
-        ls_iterations=WITNESS_ITERATIONS, scale=plan.scale, tol=1e-14)[0]
-    e_k = (k.qacc[idx].double() - x_w).abs().amax(1) / scale
-    e_p = (p.qacc[idx].double() - x_w).abs().amax(1) / scale
-    ok = (e_k <= 5e-4) & (e_k <= e_p)
-    witnessed[idx] = ok
+    _, problem, ell = hf.newton_problem(
+        m, S if staged else fwd.stages(m, S, plain=True))
+    if ell is not None:  # these envs' cone coefficients, in float64
+        ell = (ell[0], ell[1].double(), ell[2][idx].double(), ell[3])
+    sub = [t[idx].double() for t in problem]
+    opt = dict(ne=plan.ne, nfl=plan.nfl, scale=plan.scale, ell=ell)
+    x_c, f_c = hn.newton_plain(
+        *sub, k.qacc[idx].double(), iterations=WITNESS_ITERATIONS,
+        ls_iterations=WITNESS_ITERATIONS, tol=1e-14, **opt)[:2]
+    x_r, f_r = hn.newton_plain(
+        *sub, S.qacc_warmstart[idx].double(), iterations=plan.iterations,
+        ls_iterations=plan.ls_iterations, tol=plan.tolerance,
+        replay=(k.solver_niter[idx], k.solver_taken[idx],
+                k.solver_ls[idx]), **opt)[:2]
+
+    def err(d, x_w, f_w):
+        q_w = torch.einsum("erv,er->ev", sub[0] * sub[6][..., None], f_w)
+        return torch.maximum(
+            (d.qacc[idx].double() - x_w).abs().amax(1) / scale,
+            (d.qfrc_constraint[idx].double() - q_w).abs().amax(1) / fscale)
+
+    e_k, e_p = err(k, x_c, f_c), err(p, x_c, f_c)
+    r_k, r_p = err(k, x_r, f_r), err(p, x_r, f_r)
+    full = k.solver_niter[idx] >= plan.iterations
+    conv = ((e_k <= 5e-4) & (e_k <= e_p)) | ((r_k <= 5e-4) & (r_k <= r_p))
+    trunc = full & (r_p > 5e-4) & (r_k <= TRUNCATED_SPREAD * r_p)
+    witnessed[idx] = conv | trunc
     e_qs = ((k.qacc_smooth[idx] - p.qacc_smooth[idx]).abs().amax(1)
             / float(p.qacc_smooth.abs().max()))
-    for e, ek, ep, es, w in zip(idx.tolist(), e_k.tolist(), e_p.tolist(),
-                                e_qs.tolist(), ok.tolist()):
-        print(f"  env {e}: accelerations apart at a shared state (their "
-              f"qacc_smooth rel {es:.3g}, {int(k.solver_niter[e])} Newton "
-              f"steps); against the float64 witness: kernel rel {ek:.3g}, "
-              f"plain rel {ep:.3g} "
-              f"({'the kernel holds' if w else 'not settled'})")
+    for j, e in enumerate(idx.tolist()):
+        how = ("the kernel holds" if conv[j] else
+               "float32 tie (truncated)" if trunc[j] else "not settled")
+        print(f"  env {e}: apart at a shared state (their qacc_smooth rel "
+              f"{float(e_qs[j]):.3g}, {int(k.solver_niter[e])} Newton steps)"
+              f"; against the converged float64 witness: kernel rel "
+              f"{float(e_k[j]):.3g}, plain rel {float(e_p[j]):.3g}; against "
+              f"the float64 replay: kernel rel {float(r_k[j]):.3g}, plain "
+              f"rel {float(r_p[j]):.3g} ({how})")
     return apart, witnessed
 
 
@@ -241,13 +299,16 @@ def _tie_envs(torch, held, gap, E, what, err=None, newton=None):
     out = ~held
     n = int(out.sum())
     tie = gap < TIE if newton is None else (gap < TIE) | newton
-    for e in torch.nonzero(out).flatten().tolist():
+    for e in torch.nonzero(out).flatten().tolist()[:SHOW_ENVS]:
         print(f"  {what}: env {e} differs"
               + ("" if err is None else f" (rel {float(err[e]):.3g})")
               + f", nearest margin {float(gap[e]):.3g}"
               + ("" if newton is None else
-                 f", Newton disagreement settled by the witness: "
+                 f", a Newton disagreement the witness settles (or, in a "
+                 f"megastep, every substep held from the kernel's states): "
                  f"{bool(newton[e])}"))
+    if n > SHOW_ENVS:
+        print(f"  {what}: {n - SHOW_ENVS} more envs differ")
     if n and not bool(tie[out].all()):
         raise AssertionError(f"{what}: {int((out & ~tie).sum())} envs "
                              f"differ with no tie")
@@ -282,35 +343,67 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True):
     counted from the data: the near plane-mesh pairs' height maps, the
     selected pairs' neighbour walks, the active constraint rows and the
     Newton iterations; the rest is per-env arithmetic of fixed size. A
-    plan with euler_dv adds its solve (M qacc, Cholesky, substitutions)."""
+    plan with euler_dv adds its solve (M qacc, Cholesky, substitutions).
+    Elliptic contacts count their dim rows, the cone zone at each of the
+    solve's evaluations (3 + ls_iterations per Newton step) and the
+    middle zone's rank-1 Hessian terms, these as if every active contact
+    were in the middle zone (its share of a forward is a few percent); the
+    extended collision (`mega_ell`) counts both sides' poses and keys of
+    every pair of a top-K group and the narrowphase of the selected
+    pairs."""
     from loco_mujoco_tpu_torch.ops import collision as coll
 
     plan = model.plan
     nv, nb = model.nv, model.nbody
     dev = d.qpos.device
-    act = d.contact.dist < d.contact.includemargin  # (E, ncon)
+    n = plan.ncon
+    act = (d.contact.dist < d.contact.includemargin)[:, :n]  # (E, ncon)
     n_con = act.sum(dim=1).double()
     lim = torch.zeros_like(n_con)
     for r in plan.lim:
         x = d.qpos[:, r["q"]]
         lim += (torch.minimum(x - r["lo"], r["hi"] - x)
                 < r["margin"]).double()
-    A = plan.ne + plan.nfl + lim + 4 * n_con  # active rows
+    ls = plan.ls_iterations
+    if plan.elliptic:
+        dims = torch.as_tensor(plan.rows_per, device=dev, dtype=torch.float64)
+        crows = (act.double() * dims).sum(dim=1)  # active contact rows
+        rot = (act.double() * (dims > 3).double()).sum(dim=1)
+        con_rows = crows * (2 * nv + 12) + n_con * (24 * nv + 60) \
+            + rot * 18 * nv
+        cone = n_con * ((3 + ls) * (10 * 6 + 30) + 4 * 6 * nv
+                        + 2 * nv * (nv + 1))
+    else:
+        crows = 4 * n_con
+        con_rows = n_con * (43 * nv + 60)
+        cone = torch.zeros_like(n_con)
+    A = plan.ne + plan.nfl + lim + crows  # active rows
     fixed = (nb * 170 + nv * 36 + 6 * nv * (nv + 1) + 2 * nv ** 3 / 3
              + nb * nv * 18 + nv * nv * 6 + nb * 130 + 20 * nv)
     if plan.euler_dv:
         fixed += 4 * nv * nv + nv ** 3 / 3 + 2 * nv * nv
     rows = (plan.ne + plan.nfl) * (4 * nv + 40) + lim * (2 * nv + 40) \
-        + n_con * (43 * nv + 60)
-    ls = plan.ls_iterations
+        + con_rows
     per_iter = (4 * nv * nv + nv * nv / 2 + 2 * nv ** 3 / 3 + 4 * nv * nv
-                + 12 * nv + A * (6 * nv + nv * (nv + 1) + 14 + 8 * ls + 8))
+                + 12 * nv + A * (6 * nv + nv * (nv + 1) + 14 + 8 * ls + 8)
+                + cone)
     newton = (2 * (A * (2 * nv + 6) + 2 * nv * nv + 4 * nv)
               + iters.double() * per_iter + A * (4 * nv + 6))
     total = fixed + rows + newton
     if not in_kernel_collision:
         return total
     total = total + _muscle_flops(model)
+    if plan.mega_ell:
+        # per pair side a pose (63), per ranked pair its key (25), per
+        # selected pair its narrowphase (by kind, from csrc/mega.cu)
+        narrow = (20, 60, 150, 200, 40, 60, 100, 120)
+        col = nb * 130 + model.njnt * 160
+        for g in plan.ext:
+            P = len(g["ints"])
+            if g["k"] < P:
+                col += P * (2 * 63 + 25) * g["k"]
+            col += g["k"] * (2 * 63 + narrow[g["kind"]])
+        return total + col
     # FK, plane-box pairs, plane-mesh height maps and manifolds
     mesh = next(g for g in plan.groups if g["kind"] == "mesh")
     mk = mesh["mesh"]
@@ -388,6 +481,7 @@ def main() -> int:
     models = {name: _load(io, root, name, dev, torch) for name in CONFIGS}
     model, m_eu, m_wide = models["rk4"], models["euler"], models["wide"]
     m_mu = io.load_model_npz(root / MUSCLE_ASSET, device=dev)
+    m_a1 = io.load_model_npz(root / A1_ASSET, device=dev)
     mesh_groups = [i for i, g in enumerate(model.groups)
                    if coll.is_plane_mesh(g)]
     assert mesh_groups and all(model.mesh_kernel[i] is not None
@@ -400,6 +494,9 @@ def main() -> int:
     assert plans["wide"] is None, "the wide configuration has a plan"
     mu = m_mu.plan
     assert mu.mega and mu.euler_dv and not mu.smooth and mu.mp is not None
+    pa1 = m_a1.plan
+    assert pa1.mega and pa1.mega_ell and pa1.elliptic and pa1.euler_dv
+    assert pa1.pack_w == 29 and m_a1.ncon == pa1.ncon, "A1 plan"
     plan = model.mesh_kernel[mesh_groups[0]]
     print(f"model: nv={model.nv}, groups "
           f"{[(g.t2, g.k, len(g.pair_ids)) for g in model.groups]}, "
@@ -414,7 +511,10 @@ def main() -> int:
                       for n, m in models.items())
           + f"; muscle: {mu.mp.nmus} muscles on {m_mu.ntendon} tendons, "
           f"{len(mu.mp.i_seg)} segments, {mu.mp.ns} sites, na {m_mu.na}, "
-          f"{mu.nrows} rows")
+          f"{mu.nrows} rows; a1: nv={m_a1.nv}, groups "
+          f"{[(g.t1, g.t2, g.condim, g.k, len(g.pair_ids)) for g in m_a1.groups]}"
+          f", {pa1.ncon} slots, {pa1.nrows} rows, elliptic runs "
+          f"{pa1.ell_runs}, impratio {pa1.impratio}")
 
     rng = np.random.default_rng(SEED)
     E = N_ENVS
@@ -426,17 +526,29 @@ def main() -> int:
     data = io.make_data(model, E).replace(qpos=qpos_t)
     ctrls = rng.uniform(-0.3, 0.3, size=(CONTROL_STEPS, E, model.nu))
     ctrls_mu = rng.uniform(0.0, 1.0, size=(CONTROL_STEPS, E, m_mu.nu))
+    # A1: its own stream, so the earlier configurations' draws stay as
+    # they were; dropped 5-20 mm, motor ctrls within A1_CTRL of 0
+    rng_a1 = np.random.default_rng(SEED + 1)
+    qpos_a1 = m_a1.qpos0.cpu().numpy()[None] + rng_a1.normal(
+        scale=0.02, size=(E, m_a1.nq))
+    z_a1 = int(m_a1.jnt_qposadr[m_a1.names["joint"]["trunk_tz"]])
+    qpos_a1[:, z_a1] = float(m_a1.qpos0[z_a1]) - rng_a1.uniform(
+        0.005, 0.02, size=E)
+    qpos_a1_t = torch.as_tensor(qpos_a1, dtype=torch.float32, device=dev)
+    ctrls_a1 = rng_a1.uniform(-A1_CTRL, A1_CTRL,
+                              size=(CONTROL_STEPS, E, m_a1.nu))
 
     def ctrl(c, m=model):
         """Control step c's seeded ctrl of model m (the muscle model's in
         [0, 1])."""
-        src = ctrls_mu if m.na else ctrls
+        src = ctrls_a1 if m is m_a1 else ctrls_mu if m.na else ctrls
         return torch.as_tensor(src[c], dtype=torch.float32, device=dev)
 
     def start(m):
-        """The seeded state in model m (every configuration has the same
-        dofs and bodies)."""
-        return io.make_data(m, E).replace(qpos=qpos_t)
+        """The seeded state in model m (every humanoid configuration has
+        the same dofs and bodies; A1 its own)."""
+        return io.make_data(m, E).replace(
+            qpos=qpos_a1_t if m is m_a1 else qpos_t)
 
     # ---- each kernel of the earlier staged path against its plain version --
     d_pos = fwd.fwd_position(model, data, plain=True)
@@ -568,6 +680,10 @@ def main() -> int:
         d_staged_mu, staged_mu_launches, staged_mu_rate, _ = staged_run(
             m_mu, STAGED_STEPS, per_fused,
             "muscle Euler through the fused kernel (non-smooth layout)")
+        d_staged_a1, staged_a1_launches, staged_a1_rate, staged_a1_ops = \
+            staged_run(m_a1, STAGED_STEPS, {"fused": 1},
+                       "A1 Euler through torch collision and the fused "
+                       "kernel (elliptic layout)")
         d_wide, wide_launches, wide_rate, wide_ops = staged_run(
             m_wide, WIDE_STEPS, per_newton,
             f"RK4, no plan ({m_wide.ncon} slots), through the Newton kernel")
@@ -632,6 +748,8 @@ def main() -> int:
     S, launches, env_steps, _ = main_run(model, "RK4")
     S_eu, launches_eu, env_steps_eu, _ = main_run(m_eu, "Euler")
     S_mu, launches_mu, env_steps_mu, S_mu_c = main_run(m_mu, "muscle Euler")
+    S_a1, launches_a1, env_steps_a1, S_a1_c = main_run(
+        m_a1, "A1 Euler (elliptic cones, extended collision)")
     print(f"muscle activations at the end: mean "
           f"{float(S_mu.act.mean()):.4f}, min {float(S_mu.act.min()):.4f}, "
           f"max {float(S_mu.act.max()):.4f}")
@@ -645,7 +763,7 @@ def main() -> int:
     def mega_forward_check(m, S, what):
         k = fwd.forward(m, S)
         r = hm.mega_forward_plain(m, S, replay=(k.solver_niter,
-                                                k.solver_taken))
+                                                k.solver_taken, k.solver_ls))
         act_k = k.contact.dist < k.contact.includemargin
         act_r = r.contact.dist < r.contact.includemargin
         same = torch.all(act_k == act_r, dim=1)
@@ -669,6 +787,7 @@ def main() -> int:
                 e_qacc = err
         on = act_r & same[:, None]
         assert torch.equal(k.contact.geom2[on], r.contact.geom2[on]), "geom2"
+        assert torch.equal(k.contact.geom1[on], r.contact.geom1[on]), "geom1"
         e_dist = _active_close(k.contact.dist, r.contact.dist, on, 1e-5,
                                "mega dist")
         print(f"mega forward {what} vs plain (replayed decisions): "
@@ -681,10 +800,18 @@ def main() -> int:
         """One control step of the megastep against its plain version;
         returns (error, S1, the flops of each forward). Ties (_tie_envs)
         are read along both trajectories, the plain version's (every
-        forward) and the kernel's (every substep's first forward)."""
+        forward) and the kernel's (every substep's first forward). An env
+        whose two trajectories part is also held substep by substep from
+        the kernel's own states (the megastep is deterministic per env):
+        the plain version's substep from the kernel's state after k
+        substeps, replaying that substep's decisions, must land within
+        rel 5e-4 of the kernel's state after k + 1 (or be a Newton
+        disagreement the witness settles); where every substep holds so,
+        the parting is the float32 trajectories' own, amplified by the
+        dynamics, and the env counts as a tie."""
         per = hm.forwards_per_step(m)
-        dec = torch.zeros((E, per * SUBSTEPS, 2), dtype=torch.int32,
-                          device=dev)
+        dec = torch.zeros((E, per * SUBSTEPS, hm.DECISIONS),
+                          dtype=torch.int32, device=dev)
         S1 = S.replace(ctrl=ctrl(0, m))
         ks = hm.mega_step_n(m, S1, SUBSTEPS, decisions=dec)
         gaps, step_flops, starts = [], [], []
@@ -706,21 +833,38 @@ def main() -> int:
         kgaps = []
         apart = torch.zeros(E, dtype=torch.bool, device=dev)
         settled = torch.ones(E, dtype=torch.bool, device=dev)
+        stepwise = torch.ones(E, dtype=torch.bool, device=dev)
         drift = []  # qvel error between the two at each substep's start
+        names = ("qpos", "qvel") + (("act",) if m.na else ())
+        scales = {n: float(getattr(ks, n).abs().max()) + 1e-9 for n in names}
+        Sk = S1
         for k in range(SUBSTEPS):
-            Sk = S1 if k == 0 else hm.mega_step_n(m, S1, k)
             drift.append((Sk.qvel - starts[k]).abs().amax(1))
             fk = hm.mega_forward(m, Sk)
             fp = hm.mega_forward_plain(
-                m, Sk, replay=(fk.solver_niter, fk.solver_taken))
+                m, Sk, replay=(fk.solver_niter, fk.solver_taken, fk.solver_ls))
             kgaps.append(_margin_gap(m, fk))
             a, w = _newton_witness(torch, m, Sk, fk, fp)
             apart |= a
             settled &= ~a | w
+            # the substep from the kernel's state, against the kernel's
+            Sn = hm.mega_step_n(m, S1, k + 1)
+            pk = hm.mega_step_n_plain(m, Sk, 1,
+                                      replay=dec[:, per * k:per * (k + 1)])
+            ok = torch.ones(E, dtype=torch.bool, device=dev)
+            for n in names:
+                ok &= ((getattr(Sn, n) - getattr(pk, n)).abs().amax(1)
+                       <= 5e-4 * scales[n])
+            stepwise &= ok | (a & w)
+            Sk = Sn
         held = torch.ones(E, dtype=torch.bool, device=dev)
         step_errs = {}
         for name in ("qpos", "qvel") + (("act",) if m.na else ()):
             got, ref = getattr(ks, name), getattr(rs, name)
+            for side, t in (("kernel", got), ("plain version", ref)):
+                assert bool(torch.isfinite(t).all()), (
+                    f"megastep {what}: the {side}'s {name} is not finite in "
+                    f"{int((~torch.isfinite(t).all(1)).sum())} envs")
             err = (got - ref).abs().max(dim=1).values
             scl = float(ref.abs().max()) + 1e-9
             held &= err <= 5e-4 * scl
@@ -728,12 +872,15 @@ def main() -> int:
         rel = torch.stack([e / s for e, s in step_errs.values()]).amax(0)
         pgap = torch.stack(gaps).min(dim=0).values
         kgap = torch.stack(kgaps).min(dim=0).values
-        for env in torch.nonzero(~held).flatten().tolist():
+        for env in torch.nonzero(~held).flatten().tolist()[:SHOW_ENVS]:
             print(f"  megastep {what}: env {env} qvel error at each "
                   f"substep's start "
-                  + " ".join(f"{float(d[env]):.2g}" for d in drift))
+                  + " ".join(f"{float(d[env]):.2g}" for d in drift)
+                  + f"; every substep held from the kernel's states: "
+                  f"{bool(stepwise[env])}")
         ties = _tie_envs(torch, held, pgap.minimum(kgap), E,
-                         f"megastep {what}", rel, apart & settled)
+                         f"megastep {what}", rel,
+                         (apart & settled) | stepwise)
         # the error over the envs held to the tolerance (all but the ties)
         e = max(float(e[held].max()) for e, _ in step_errs.values())
         msg = [f"{name} rel {float(e[held].max()) / scl:.3g} (all envs "
@@ -766,6 +913,24 @@ def main() -> int:
                                                     "muscle, in contact")
     errs["mega_forward_muscle"] = max(errs["mega_forward_muscle"], e_fc)
     errs["megastep_muscle"] = max(errs["megastep_muscle"], e_sc)
+    # A1: the extended collision and the elliptic rows, at the end state
+    # (held also after the first control step where the end is
+    # contact-light, under 1 contact per env)
+    errs["mega_forward_a1"] = mega_forward_check(m_a1, S_a1, "A1")
+    errs["megastep_a1"], S1_a1, step_flops_a1 = megastep_check(m_a1, S_a1,
+                                                               "A1")
+    f_a1 = fwd.forward(m_a1, S_a1)
+    n_con_a1 = int((f_a1.contact.dist < f_a1.contact.includemargin).sum())
+    act_a1 = f_a1.contact.dist < f_a1.contact.includemargin
+    print("A1 end state: active slots per group "
+          + str([int(act_a1[:, g.offset:g.offset + g.k * g.slots].sum())
+                 for g in m_a1.groups]) + f" ({n_con_a1 / E:.2f} per env)")
+    if n_con_a1 < E:
+        errs["mega_forward_a1"] = max(errs["mega_forward_a1"],
+                                      mega_forward_check(m_a1, S_a1_c,
+                                                         "A1, in contact"))
+        errs["megastep_a1"] = max(errs["megastep_a1"], megastep_check(
+            m_a1, S_a1_c, "A1, in contact")[0])
 
     # ---- the fused kernel against its plain version, four configurations --
     # At the staged RK4 run's end state, carried into each configuration:
@@ -775,9 +940,10 @@ def main() -> int:
     # state, from the staged stages' outputs.
     fused_in = {}
     models["muscle"] = m_mu
-    for name in ("rk4", "euler", "fric", "solref", "muscle"):
+    models["a1"] = m_a1
+    for name in ("rk4", "euler", "fric", "solref", "muscle", "a1"):
         m = models[name]
-        src = d_staged_mu if name == "muscle" else d_staged
+        src = {"muscle": d_staged_mu, "a1": d_staged_a1}.get(name, d_staged)
         d = start(m).replace(qpos=src.qpos, qvel=src.qvel, ctrl=src.ctrl,
                              act=src.act, qacc_warmstart=src.qacc_warmstart)
         if name == "muscle":
@@ -788,8 +954,8 @@ def main() -> int:
         kernels.LAUNCHES.clear()
         k = hf.fused_constraint(m, d)
         assert dict(kernels.LAUNCHES) == {"fused": 1}
-        r = hf.fused_constraint_plain(m, d, replay=(k.solver_niter,
-                                                    k.solver_taken))
+        r = hf.fused_constraint_plain(m, d, replay=(
+            k.solver_niter, k.solver_taken, k.solver_ls))
         fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
         assert (k.euler_dv is None) == (not m.plan.euler_dv)
         if m.plan.euler_dv:
@@ -802,14 +968,23 @@ def main() -> int:
             scl = float(ref.abs().max()) + 1e-9
             held &= err <= 5e-4 * scl
             per_env[f] = (err, scl)
-        assert bool(held.all()), (f"fused {name}: {int((~held).sum())} "
-                                  f"envs differ")
+        ties = 0
+        if m.plan.elliptic:  # float32 ties and witnessed Newton envs
+            apart, witnessed = _newton_witness(torch, m, d, k, r,
+                                               staged=True)
+            ties = _tie_envs(torch, held, _margin_gap(m, d), E,
+                             f"fused {name}", newton=apart & witnessed)
+        else:
+            assert bool(held.all()), (f"fused {name}: {int((~held).sum())} "
+                                      f"envs differ")
         key = "fused" if name == "rk4" else f"fused_{name}"
-        errs[key] = float(per_env["qacc"][0].max())
+        errs[key] = float(per_env["qacc"][0][held].max())
         n_act = int((d.contact.dist < d.contact.includemargin).sum())
         print(f"fused {name} (pack {m.plan.pack_w}) vs plain (replayed "
-              f"decisions): {n_act} active slots, all {E} envs held; "
-              + ", ".join(f"{f} rel {float(e.max()) / s:.3g}"
+              f"decisions): {n_act} active slots, {int(held.sum())} of {E} "
+              f"envs held, {ties} tie envs excluded; "
+              + ", ".join(f"{f} rel {float(e[held].max()) / s:.3g} (all "
+                          f"envs {float(e.max()) / s:.3g})"
                           for f, (e, s) in per_env.items())
               + f"; iterations mean "
               f"{float(k.solver_niter.float().mean()):.2f}")
@@ -823,7 +998,8 @@ def main() -> int:
         "staged RK4": staged_launches, "staged Euler": staged_eu_launches,
         "staged muscle": staged_mu_launches,
         "no-plan staged RK4": wide_launches, "main RK4": launches,
-        "main Euler": launches_eu, "main muscle": launches_mu}
+        "main Euler": launches_eu, "main muscle": launches_mu,
+        "staged A1": staged_a1_launches, "main A1": launches_a1}
 
     def row(name, kernel, run, source, replaces, ms, plain_ms, nbytes_,
             flops, library_ms=None):
@@ -925,7 +1101,8 @@ def main() -> int:
           f"per call ({card})")
     for name, key, run in (("rk4", "fused", "staged RK4"),
                            ("euler", "fused_euler", "staged Euler"),
-                           ("muscle", "fused_muscle", "staged muscle")):
+                           ("muscle", "fused_muscle", "staged muscle"),
+                           ("a1", "fused_a1", "staged A1")):
         m, d = models[name], fused_in[name]
         k = hf.fused_constraint(m, d)
         vec, pack = hf.vec(m, d), hf.contact_pack(m, d)
@@ -951,7 +1128,8 @@ def main() -> int:
         k = fwd.forward(m, S_)
         out_bytes = nbytes(k.qacc, k.qacc_smooth, k.qfrc_constraint,
                            k.contact.dist, k.solver_niter, k.solver_taken) \
-            + E * m.ncon * (4 + 4 * 4) \
+            + E * 4 * (m.plan.ncon * (2 if m.plan.mega_ell else 1)
+                       + sum(m.plan.rows_per)) \
             + (nbytes(k.euler_dv) if m.plan.euler_dv else 0) \
             + (nbytes(k.act_dot) if m.na else 0)
         flops = float(_forward_flops(torch, m, fwd.forward_staged(
@@ -963,7 +1141,8 @@ def main() -> int:
     for m, S_, S1_, sflops, sfx, run in (
             (model, S, S1, step_flops, "", "main RK4"),
             (m_eu, S_eu, S1_eu, step_flops_eu, "_euler", "main Euler"),
-            (m_mu, S_mu, S1_mu, step_flops_mu, "_muscle", "main muscle")):
+            (m_mu, S_mu, S1_mu, step_flops_mu, "_muscle", "main muscle"),
+            (m_a1, S_a1, S1_a1, step_flops_a1, "_a1", "main A1")):
         b_fwd, b_step = mega_bounds(m, S_, sflops)
         ms = _time_ms(torch, lambda: hm.mega_forward(m, S_))
         plain = _time_ms(torch, lambda: hm.mega_forward_plain(m, S_), reps=3)
@@ -989,9 +1168,12 @@ def main() -> int:
               f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
               f"launches {r['launches']}")
     print(f"main path {env_steps:.0f} env-steps/s RK4, {env_steps_eu:.0f} "
-          f"Euler, {env_steps_mu:.0f} muscle Euler; staged path "
+          f"Euler, {env_steps_mu:.0f} muscle Euler, {env_steps_a1:.0f} A1; "
+          f"staged path "
           f"{staged_rate:.0f} env-steps/s RK4, {staged_eu_rate:.0f} Euler, "
-          f"{staged_mu_rate:.0f} muscle ({staged_ops or 'not measured'} "
+          f"{staged_mu_rate:.0f} muscle, {staged_a1_rate:.0f} A1 "
+          f"({staged_a1_ops or 'not measured'} kernels per A1 forward; "
+          f"{staged_ops or 'not measured'} "
           f"kernels per forward), no-plan staged path {wide_rate:.0f} "
           f"({wide_ops or 'not measured'} per forward); card: {card}")
     print(json.dumps({"kernels": rows}))

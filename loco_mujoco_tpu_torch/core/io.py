@@ -10,12 +10,16 @@ the contact groups and slot layout, which plane-mesh groups run the Hopper
 select/top-K kernels, and the row plan of the fused constraint kernel and
 the mega path (the reference's static gates).
 
-The port covers the physics step of the torque and muscle humanoids:
-hinge/slide joints, joint-transmission motors, site-path spatial tendons
-(no stiffness, damping or limits) driving MUSCLE actuators with one
-activation each, JOINT equalities, friction loss, limits, pyramidal
-plane-box and plane-mesh contacts, Euler and RK4. Anything else raises
-`NotImplementedError` here, at load, rather than deep inside a step.
+The port covers the physics step of the torque and muscle humanoids and
+the A1 quadruped: hinge/slide joints, joint-transmission motors, site-path
+spatial tendons (no stiffness, damping or limits) driving MUSCLE actuators
+with one activation each, JOINT equalities, friction loss, limits,
+pyramidal and elliptic contact cones over every classic analytic pair kind
+(plane against sphere, capsule, cylinder, box and mesh; sphere-sphere,
+sphere-capsule, sphere-box, capsule-capsule), convex pairs in float32 only
+(their slots stay inactive, as in the reference's float32 path), Euler and
+RK4. Anything else raises `NotImplementedError` here, at load, rather than
+deep inside a step.
 """
 
 from __future__ import annotations
@@ -28,13 +32,11 @@ import torch
 
 from .types import (
     BiasType,
-    ConeType,
     Contact,
     Data,
     DynType,
     EqType,
     GainType,
-    GeomType,
     IntegratorType,
     JointType,
     Model,
@@ -112,7 +114,7 @@ def read_model_npz(path):
     return leaves, aux
 
 
-def _check_supported(aux: dict) -> None:
+def _check_supported(aux: dict, dtype) -> None:
     """Raise NotImplementedError for features outside this slice."""
     jt = np.asarray(aux["jnt_type"])
     if not np.all((jt == int(JointType.HINGE)) | (jt == int(JointType.SLIDE))):
@@ -152,12 +154,16 @@ def _check_supported(aux: dict) -> None:
         if not np.all(motor | muscle):
             raise NotImplementedError(
                 "joint motors and tendon muscles are the only actuators ported")
+    from ..ops.collision import CONVEX_SLOTS
+
     pair_types = {(int(aux["geom_type"][a]), int(aux["geom_type"][b]))
                   for a, b in zip(aux["pair_geom1"], aux["pair_geom2"])}
-    if (int(GeomType.PLANE), int(GeomType.CYLINDER)) in pair_types:
-        raise NotImplementedError("plane-cylinder contacts are not ported yet")
-    if int(aux["opt.cone"]) != int(ConeType.PYRAMIDAL):
-        raise NotImplementedError("elliptic cones are not ported yet")
+    if dtype == torch.float64 and any(
+            t in CONVEX_SLOTS or t[::-1] in CONVEX_SLOTS for t in pair_types):
+        raise NotImplementedError(
+            "convex (GJK) contact pairs are not ported: float32 leaves their "
+            "slots inactive, as the reference's plans do; float64 would "
+            "need GJK")
     if int(aux["opt.integrator"]) not in (int(IntegratorType.EULER),
                                           int(IntegratorType.RK4)):
         raise NotImplementedError("Euler and RK4 are the integrators ported")
@@ -176,7 +182,7 @@ def model_from_numpy(leaves: dict, aux: dict, device=None,
     from ..ops import collision, hopper_collision, plan
 
     device = resolve_device(device)
-    _check_supported(aux)
+    _check_supported(aux, dtype)
 
     def t(x):
         x = np.array(x)  # a writable copy: the tensor owns its memory
@@ -266,4 +272,5 @@ def make_data(model: Model, n_envs: int) -> Data:
         efc_force_contact=z(nc, 10),
         solver_niter=torch.zeros(E, dtype=torch.int32, device=dev),
         solver_taken=torch.zeros(E, dtype=torch.int32, device=dev),
+        solver_ls=torch.zeros((E, 4), dtype=torch.int32, device=dev),
     )

@@ -329,10 +329,12 @@ class Data:
     efc_force_contact: torch.Tensor  # (E, ncon, 10)
     # Newton iterations each env ran in the last solve (mjData.solver_niter)
     # and that solve's discrete decisions (bit i: step i was taken; bit 31:
-    # it started at the warm start), which a plain solve can replay; not in
-    # the JAX package's Data
+    # it started at the warm start; and the line search's, bit
+    # it * ls_iterations + j: phi' < 0 at its trial j of step it), which a
+    # plain solve can replay; not in the JAX package's Data
     solver_niter: torch.Tensor  # (E,) int32
     solver_taken: torch.Tensor  # (E,) int32
+    solver_ls: torch.Tensor  # (E, 4) int32
     # Euler's implicit-damping velocity change (M + dt diag(damping))^-1
     # M qacc, written by the kernels of a plan with `euler_dv`; None where
     # the integrator solves it from qM (the JAX package's Data.euler_dv)

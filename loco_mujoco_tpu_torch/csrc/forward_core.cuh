@@ -11,8 +11,9 @@
 //   springs and dampers, motors, the xfrc projection and qfrc_smooth
 //   (smooth_force), and qacc_smooth = M^-1 qfrc_smooth (smooth_acc);
 // - the constraint row builders (:1374-1590): JOINT equalities, friction
-//   loss, limits, the inert pad rows, and the four pyramidal facets of one
-//   contact slot in the reference's blocked facet layout (:1660-1665);
+//   loss, limits, the inert pad rows, the four pyramidal facets of one
+//   contact slot in the reference's blocked facet layout (:1660-1665), and
+//   the dim rows of one elliptic slot, slot-major (:1654-1700);
 // - the constraint force pass (qfrc = J'f, :1864-1890) and Euler's
 //   implicit damping dv = (M + h diag(damping))^-1 M qacc (:1893-1906).
 //
@@ -40,17 +41,19 @@ enum Header {
   KBOX, OFFBOX, NMESH, KMESH, OFFMESH, F_BODY, I_BODY, I_TOPO, F_JNT, I_JNT,
   F_DOF, I_DOF, I_ANC, I_DMASK, F_ACT, I_ACT, F_EQ, I_EQ, F_FL, I_FL, F_LIM,
   I_LIM, F_CON, F_BOX, I_BOX, F_MESH, I_MESH, F_VERT, PACKW, I_GBODY, NMOT,
-  NA, NMUS, F_MUS, I_MUS, I_SEG, F_SITE, I_SITE, F_ACTB
+  NA, NMUS, F_MUS, I_MUS, I_SEG, F_SITE, I_SITE, F_ACTB, NELL, I_ELL, NXGRP,
+  I_XGRP, F_XGRP, I_XPAIR, F_XPAIR, I_CON
 };
 enum Flag {
   PASSIVE = 1, ACTUATION = 2, CLAMPCTRL = 4, REFSAFE = 8, UNIFORM = 16,
-  FRIC_UNIFORM = 32, SMOOTH = 64, MUSCLE = 128
+  FRIC_UNIFORM = 32, SMOOTH = 64, MUSCLE = 128, ELLIPTIC = 256
 };
 // F_CON: plane normal (3), plane point (3), contact frame (9), margin,
 // solref (2), solimp (5), friction (2) -- zero unless UNIFORM -- then the
-// timestep and gravity (3)
+// timestep, gravity (3) and impratio
 constexpr int kConFrame = 6, kConMargin = 15, kConSolref = 16,
-              kConSolimp = 18, kConFric = 23, kConDt = 25, kConGravity = 26;
+              kConSolimp = 18, kConFric = 23, kConDt = 25, kConGravity = 26,
+              kConImpratio = 29;
 
 struct Tab {
   const int* I;
@@ -60,9 +63,10 @@ struct Tab {
   __device__ const int* i(int k) const { return I + I[k]; }
 };
 
-// Env-last row scratch of the solve and the solve's options.
+// Env-last row scratch of the solve (mu: the elliptic contacts' cone
+// coefficients) and the solve's options.
 struct Io {
-  float *J, *aref, *D, *R, *act, *fl, *jar, *jv;
+  float *J, *aref, *D, *R, *act, *fl, *jar, *jv, *mu;
   int E, iterations, ls_iterations;
   float scale, tol;
 };
@@ -391,6 +395,12 @@ struct RowWriter {
     return io.J[((size_t)r * nv + k) * io.E + e];
   }
   __device__ void off(int r) const { io.act[at(r)] = 0.f; }
+  __device__ void set(int r, float aref, float R) const {
+    io.aref[at(r)] = aref;
+    io.R[at(r)] = R;
+    io.D[at(r)] = 1.f / R;
+    io.act[at(r)] = 1.f;
+  }
   __device__ void finish(int r, float k, float b, float imp, float pos,
                          float vel, float iw) const {
     const float R = r_of(imp, iw);
@@ -465,6 +475,36 @@ __device__ int joint_rows(const Tab& T, const RowWriter& w,
   return r;
 }
 
+// The frame rows times the point Jacobian of a contact at cpos between
+// bodies b1 and b2 (its chain mask is b2's minus b1's; b < 0: none):
+// ax[t][v] for t = 0..2, and with `rot` the frame rows times the rotational
+// Jacobian as ax[3 + t][v] (torsion and rolling rows).
+__device__ void contact_axes(const Tab& T, const Body& s, const float* cpos,
+                             const float* frame, int b1, int b2, bool rot,
+                             float (*ax)[NVM]) {
+  const int nv = T.h(NV);
+  const int* dmask = T.i(I_DMASK);
+  float off[3];
+  for (int i = 0; i < 3; ++i) off[i] = cpos[i] - s.com[i];
+  for (int v = 0; v < nv; ++v) {
+    const float m = (b2 >= 0 ? (float)dmask[b2 * nv + v] : 0.f) -
+                    (b1 >= 0 ? (float)dmask[b1 * nv + v] : 0.f);
+    float jp[3] = {0.f, 0.f, 0.f}, jr[3] = {0.f, 0.f, 0.f};
+    if (m != 0.f) {
+      const float* u = s.cdof[v];
+      jp[0] = m * ((u[1] * off[2] - u[2] * off[1]) + u[3]);
+      jp[1] = m * ((u[2] * off[0] - u[0] * off[2]) + u[4]);
+      jp[2] = m * ((u[0] * off[1] - u[1] * off[0]) + u[5]);
+      for (int i = 0; i < 3; ++i) jr[i] = m * u[i];
+    }
+    for (int t = 0; t < 3; ++t) {
+      const float* fr = frame + 3 * t;
+      ax[t][v] = fr[0] * jp[0] + fr[1] * jp[1] + fr[2] * jp[2];
+      if (rot) ax[3 + t][v] = fr[0] * jr[0] + fr[1] * jr[1] + fr[2] * jr[2];
+    }
+  }
+}
+
 // One active condim-3 contact slot c: facet f (J = Jn +- mu_t Jt, f = 0..3
 // for +mu1 t1, -mu1 t1, +mu2 t2, -mu2 t2) goes to row s0 + f ncon + c, the
 // blocked layout.
@@ -477,26 +517,10 @@ __device__ void contact_rows(const Tab& T, const RowWriter& w, int s0, int c,
                              const float* sr, const float* si, float iw,
                              float mu1, float mu2, const float* qvel) {
   const int nv = T.h(NV), ncon = T.h(NCON);
-  const int* dmask = T.i(I_DMASK);
   const bool refsafe = T.h(FLAGS) & REFSAFE;
   const float dt = T.f(F_CON)[kConDt];
-  float off[3];
-  for (int i = 0; i < 3; ++i) off[i] = cpos[i] - s.com[i];
   float ax[3][NVM];  // frame rows times the point Jacobian
-  for (int v = 0; v < nv; ++v) {
-    const float m = (b2 >= 0 ? (float)dmask[b2 * nv + v] : 0.f) -
-                    (b1 >= 0 ? (float)dmask[b1 * nv + v] : 0.f);
-    float jp[3] = {0.f, 0.f, 0.f};
-    if (m != 0.f) {
-      const float* u = s.cdof[v];
-      jp[0] = m * ((u[1] * off[2] - u[2] * off[1]) + u[3]);
-      jp[1] = m * ((u[2] * off[0] - u[0] * off[2]) + u[4]);
-      jp[2] = m * ((u[0] * off[1] - u[1] * off[0]) + u[5]);
-    }
-    for (int t = 0; t < 3; ++t)
-      ax[t][v] = frame[3 * t] * jp[0] + frame[3 * t + 1] * jp[1] +
-                 frame[3 * t + 2] * jp[2];
-  }
+  contact_axes(T, s, cpos, frame, b1, b2, false, ax);
   float kk, bb, imp;
   kbi(sr, si, pos, dt, refsafe, kk, bb, imp);
   const float iwp = iw * 2.f * mu1 * mu1 * (1.f + mu1 * mu1);
@@ -515,28 +539,70 @@ __device__ void contact_rows(const Tab& T, const RowWriter& w, int s0, int c,
   }
 }
 
+// One active elliptic contact slot (constraint.make_constraint's elliptic
+// branch; the reference's _forward_env_block :1654-1700): dim rows from row
+// r0, slot-major -- the normal, the tangents, then torsion and rolling from
+// the rotational Jacobian -- with aref = -b vel (- k imp pos on the normal)
+// and R_n = r_of(imp, iw), R_k = max(R_n mu0^2 / (mu_k^2 impratio), MINVAL)
+// for the friction rows (fric: the 5 friction coefficients); *mu_out gets
+// the cone coefficient mu0 / sqrt(impratio). dim 1 is one frictionless row.
+__device__ void ell_contact_rows(const Tab& T, const RowWriter& w, int r0,
+                                 int dim, const Body& s, const float* cpos,
+                                 const float* frame, int b1, int b2,
+                                 float pos, const float* sr, const float* si,
+                                 float iw, const float* fric,
+                                 const float* qvel, float* mu_out) {
+  const int nv = T.h(NV);
+  const bool refsafe = T.h(FLAGS) & REFSAFE;
+  const float* con = T.f(F_CON);
+  const float dt = con[kConDt], impratio = con[kConImpratio];
+  float ax[6][NVM];
+  contact_axes(T, s, cpos, frame, b1, b2, dim > 3, ax);
+  float kk, bb, imp;
+  kbi(sr, si, pos, dt, refsafe, kk, bb, imp);
+  const float rn = r_of(imp, iw);
+  const float mu = fric[0];
+  for (int t = 0; t < dim; ++t) {
+    const int r = r0 + t;
+    float vel = 0.f;
+    for (int v = 0; v < nv; ++v) {
+      w.J(r, v) = ax[t][v];
+      vel += ax[t][v] * qvel[v];
+    }
+    const float aref = t == 0 ? -bb * vel - kk * imp * pos : -bb * vel;
+    const float R = t == 0 ? rn
+                           : fmaxf(rn * (mu * mu) /
+                                       (fric[t - 1] * fric[t - 1]) / impratio,
+                                   kMinVal);
+    w.set(r, aref, R);
+  }
+  if (mu_out) *mu_out = mu / sqrtf(impratio);
+}
+
 // The Newton solve of the rows, then the force of every row (put(r, f))
-// and qfrc = J'f; qacc out.
+// and qfrc = J'f; qacc, the decisions (iters, taken and, where given, the
+// line search's ls_bits) out.
 template <class Put>
 __device__ void solve_rows(const Tab& T, const Io& io, int e, const Body& s,
                            const float* ws, float* qacc, float* qfrc,
-                           int& iters, unsigned& taken, Put&& put) {
+                           int& iters, unsigned& taken, unsigned* ls_bits,
+                           Put&& put) {
   const int nv = T.h(NV), nrows = T.h(NROWS);
-  const Rows rows{io.aref, io.D, io.R, io.fl, io.act, (size_t)io.E, e,
-                  T.h(NE), T.h(NFL)};
+  const Rows rows{io.aref, io.D,    io.R,    io.fl,     io.act,
+                  (size_t)io.E, e,  T.h(NE), T.h(NFL),  T.i(I_ELL),
+                  T.h(NELL),    io.mu};
   auto Mat = [&](int a, int b) { return s.M[a * NVM + b]; };
   newton_solve<NVM>(io.J, rows, Mat, s.asm_, ws, qacc, io.jar, io.jv, nv,
                     nrows, io.iterations, io.ls_iterations, io.scale, io.tol,
-                    iters, taken);
+                    iters, taken, ls_bits);
   if (!qfrc) return;
-  float jr[NVM];
   for (int k = 0; k < nv; ++k) qfrc[k] = 0.f;
-  for (int r = 0; r < nrows; ++r) {
-    const float f = row_force<NVM>(io.J, rows, qacc, jr, nv, r);
-    if (f != 0.f)
-      for (int k = 0; k < nv; ++k) qfrc[k] += jr[k] * f;
-    put(r, f);
-  }
+  row_forces<NVM>(io.J, rows, qacc, nv, nrows,
+                  [&](int r, float f, const float* jr) {
+                    if (f != 0.f)
+                      for (int k = 0; k < nv; ++k) qfrc[k] += jr[k] * f;
+                    put(r, f);
+                  });
 }
 
 // Euler's implicit damping (pallas_constraint.py:1893-1906):

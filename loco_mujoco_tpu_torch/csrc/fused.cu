@@ -26,15 +26,20 @@
 //     solimp and friction are the plan's, the body comes from geom2
 //     through the plan's geom -> body table; (7) adds the pair's two
 //     sliding frictions;
-//   generic (26): pos (3), frame (9, rows n t1 t2), dist, includemargin,
-//     friction (2), solref (2), solimp (5), invweight of both bodies, body
-//     1, body 2 -- the point Jacobian's chain mask is body 2's minus body
-//     1's (_kbi_dyn's per-slot parameters).
+//   generic (24 + nfric): pos (3), frame (9, rows n t1 t2), dist,
+//     includemargin, friction (nfric: 2 pyramidal, 5 elliptic), solref
+//     (2), solimp (5), invweight of both bodies, body 1, body 2 -- the
+//     point Jacobian's chain mask is body 2's minus body 1's (_kbi_dyn's
+//     per-slot parameters). Elliptic plans (flag ELLIPTIC, A1) always take
+//     it (29 floats).
 //
 // Row layout (the reference's): JOINT equalities, friction loss, limits,
-// npad inert rows, then the contact facets BLOCKED: facet f (+mu1 t1, -mu1
-// t1, +mu2 t2, -mu2 t2) of slot c at row s0 + f ncon + c. The kernel writes
-// every row's force in that layout; the wrapper remaps the facets to
+// npad inert rows, then the contact rows: pyramidal facets BLOCKED, facet f
+// (+mu1 t1, -mu1 t1, +mu2 t2, -mu2 t2) of slot c at row s0 + f ncon + c;
+// elliptic cones slot-major, dim rows per slot from the plan's I_CON
+// table (forward_core.cuh ell_contact_rows), with the cone zones of
+// newton_core.cuh over the plan's elliptic runs. The kernel writes every
+// row's force in that layout; the wrapper remaps them to
 // efc_force_contact's per-slot order.
 //
 // Layout: the vector, the pack and the outputs are env-major (E, k) (each
@@ -67,7 +72,7 @@ struct Fused {
                       // qvel cdof com cinert qfrc_smooth ws armature]
   const float* pack;  // (E, ncon, pack_w)
   float *qacc, *force, *qfrc, *qacc_smooth, *dv;  // dv null: no euler_dv
-  int *iters, *taken;
+  int *iters, *taken, *ls;  // ls: (E, kLsWords) line-search decisions
   int nvec;
 };
 
@@ -127,16 +132,29 @@ __global__ void __launch_bounds__(32) fused_kernel(Tab T, Io io, Fused F) {
   const float* con = T.f(F_CON);
   const float* bf = T.f(F_BODY);
   const int* gbody = T.i(I_GBODY);
-  const bool uniform = flags & UNIFORM;
+  const int* cinfo = T.i(I_CON);  // per slot: dim, first row
+  const bool uniform = flags & UNIFORM, elliptic = flags & ELLIPTIC;
+  const int nf = elliptic ? 5 : 2;  // frictions in the generic pack
+  int ci = 0;                       // elliptic contact index
   for (int c = 0; c < ncon; ++c) {
     const float* p = F.pack + ((size_t)e * ncon + c) * W;
     const float dist = uniform ? p[3] : p[12];
     const float margin = uniform ? con[kConMargin] : p[13];
+    const int dim = cinfo[2 * c], r0 = cinfo[2 * c + 1];
+    float* mu = elliptic && dim >= 3 ? io.mu + (size_t)(ci++) * io.E + e
+                                     : nullptr;
     if (!(dist < margin)) {
-      for (int f = 0; f < 4; ++f) w.off(s0 + f * ncon + c);
+      if (elliptic)
+        for (int t = 0; t < dim; ++t) w.off(r0 + t);
+      else
+        for (int f = 0; f < 4; ++f) w.off(s0 + f * ncon + c);
       continue;
     }
-    if (uniform) {
+    if (elliptic) {  // generic pack, slot-major rows
+      ell_contact_rows(T, w, r0, dim, s, p, p + 3, (int)p[22 + nf],
+                       (int)p[23 + nf], dist - margin, p + 14 + nf,
+                       p + 16 + nf, p[21 + nf], p + 14, qvel, mu);
+    } else if (uniform) {
       const int body = gbody[(int)p[4]];
       const bool fu = flags & FRIC_UNIFORM;
       contact_rows(T, w, s0, c, s, p, con + kConFrame, -1, body,
@@ -150,10 +168,11 @@ __global__ void __launch_bounds__(32) fused_kernel(Tab T, Io io, Fused F) {
   }
 
   int it;
-  unsigned taken;
+  unsigned taken, ls[kLsWords];
   float* force = F.force + (size_t)e * nrows;
-  solve_rows(T, io, e, s, ws, qacc, qfrc, it, taken,
+  solve_rows(T, io, e, s, ws, qacc, qfrc, it, taken, ls,
              [&](int r, float f) { force[r] = f; });
+  for (int w = 0; w < kLsWords; ++w) F.ls[(size_t)e * kLsWords + w] = (int)ls[w];
   for (int k = 0; k < nv; ++k) {
     F.qacc[(size_t)e * nv + k] = qacc[k];
     F.qfrc[(size_t)e * nv + k] = qfrc[k];
@@ -174,24 +193,28 @@ constexpr int kBlock = 32;
 
 // ints/flts: the packed plan (ops/plan.py). vec (E, nvec) and pack
 // (E, ncon, pack_w) env-major. Outputs env-major: qacc, qfrc, qacc_smooth
-// (E, nv), force (E, nrows) in the blocked row layout, iters and taken
-// (E,) int, dv (E, nv) or null. Scratch env-last: J (nrows, nv, E), aref,
-// D, R, act, jar, jv (nrows, E), fl (max(nfl, 1), E).
+// (E, nv), force (E, nrows) in the plan's row layout, iters and taken
+// (E,) int, ls (E, 4) int (the line search's decisions), dv (E, nv) or
+// null. Scratch env-last: J (nrows, nv, E), aref,
+// D, R, act, jar, jv (nrows, E), fl (max(nfl, 1), E), mu (max(ncon_ell,
+// 1), E).
 extern "C" int lmt_fused(const void* ints, const void* flts, const void* vec,
                          const void* pack, void* qacc, void* force,
                          void* qfrc, void* qacc_smooth, void* dv, void* iters,
-                         void* taken, void* J, void* aref, void* D, void* R,
-                         void* act, void* fl, void* jar, void* jv, int E,
-                         int nvec, int iterations, int ls_iterations,
+                         void* taken, void* ls, void* J, void* aref, void* D,
+                         void* R,
+                         void* act, void* fl, void* jar, void* jv, void* mu,
+                         int E, int nvec, int iterations, int ls_iterations,
                          float scale, float tol, void* stream) {
   if (E <= 0) return 0;
   const Tab T{(const int*)ints, (const float*)flts};
-  const Io io{(float*)J, (float*)aref, (float*)D, (float*)R, (float*)act,
-              (float*)fl, (float*)jar, (float*)jv, E, iterations,
-              ls_iterations, scale, tol};
+  const Io io{(float*)J,   (float*)aref, (float*)D,  (float*)R,
+              (float*)act, (float*)fl,   (float*)jar, (float*)jv,
+              (float*)mu,  E,            iterations, ls_iterations,
+              scale,       tol};
   const Fused F{(const float*)vec, (const float*)pack, (float*)qacc,
                 (float*)force, (float*)qfrc, (float*)qacc_smooth, (float*)dv,
-                (int*)iters, (int*)taken, nvec};
+                (int*)iters, (int*)taken, (int*)ls, nvec};
   fused_kernel<<<(E + kBlock - 1) / kBlock, kBlock, 0,
                  (cudaStream_t)stream>>>(T, io, F);
   return (int)cudaGetLastError();

@@ -10,6 +10,12 @@
 // the CRB mass matrix and qacc_smooth by Cholesky, the JOINT-equality /
 // friction-loss / limit / pyramidal contact rows, solve_core and, for Euler
 // models, the implicit-damping dv (euler_dv, :1893-1906).
+// An elliptic plan with the extended collision (mega_ell: ELLIPTIC and
+// NXGRP > 0) runs collide_ext instead, the counterpart of
+// pallas_fk.collide_env_block_ext (:1714-2039): every classic analytic
+// pair kind, self pairs included, into generic contact slots (frame, both
+// geoms and bodies, the group's statics), then dim elliptic rows per slot
+// and the Newton solve's cone zones.
 // A plan with muscles (flag MUSCLE) adds the tendon and muscle stage
 // (muscle_block; pallas_fk.muscle_env_block :1140-1350, inlined at
 // pallas_constraint.py:1245-1264) after the smooth stage: qfrc_smooth gains
@@ -66,8 +72,9 @@
 // control step), which removes the staged path's thousands of launches;
 // spreading an env over a warp is left to later work.
 //
-// Rounding: the collision functions (geom_pose, box_slots, collide) write
-// each product and each sum with __fmul_rn / __fadd_rn / __fsub_rn, which
+// Rounding: the collision functions (geom_pose, box_slots, collide and the
+// extended collision's) write each product and each sum with
+// __fmul_rn / __fadd_rn / __fsub_rn, which
 // nvcc never fuses into a multiply-add, so they round as the plain
 // versions' separate operations do and the active contact sets match. The
 // rest of the file is compiled with contraction on, as newton.cu is.
@@ -81,7 +88,7 @@ namespace {
 
 using namespace lmt;
 
-constexpr int CMAX = 64;  // contact slots (ops/plan.py CON_MAX)
+constexpr int CMAX = 80;  // contact slots (ops/plan.py CON_MAX)
 constexpr int PMAX = 128; // plane-mesh pairs (PAIR_MAX)
 constexpr float kBig = 1e10f;
 
@@ -130,6 +137,10 @@ struct State : Body {
   float xpos[BMAX][3], xquat[BMAX][4], xmat[BMAX][9];
   float cpos[CMAX][3], cdist[CMAX];
   int cbody[CMAX], cgid[CMAX];
+  // the extended collision's generic slots: frame, geom 1 and its body,
+  // group and invweight (collide_ext)
+  float cframe[CMAX][9], ciw[CMAX];
+  int cgid1[CMAX], cbody1[CMAX], cgrp[CMAX];
   float d0[PMAX];  // support depth, or the conservative bound
   int i0[PMAX];    // support vertex
 };
@@ -433,6 +444,341 @@ __device__ void collide(const Tab& T, State& s) {
   }
 }
 
+// ---- extended collision (mega_ell) ------------------------------------------
+// The counterpart of pallas_fk.collide_env_block_ext (:1714-2039) over the
+// plan's ColPlanExt tables: per group (I_XGRP [kind k slots P offset first
+// condim -], F_XGRP [margin includemargin solref(2) solimp(5) friction(5)])
+// its pairs (I_XPAIR [gid1 body1 gid2 body2], F_XPAIR: both sides' [gpos(3)
+// gquat(4) size(3) rbound] and the slot's invweight), ranked when k < P by
+// the midphase key of collision.midphase_key (first index on ties), then
+// the narrowphase of the selected pairs, the arithmetic of the port's
+// collision.py (its plain version) written unfused. Every slot gets the
+// generic contact fields: pos, frame, dist, both geoms and bodies, its
+// group (statics) and invweight.
+
+__device__ __forceinline__ float rdot(const float* a, const float* b) {
+  return rdot3(a[0], a[1], a[2], b[0], b[1], b[2]);
+}
+__device__ __forceinline__ void rsub3(const float* a, const float* b,
+                                      float* o) {
+  for (int i = 0; i < 3; ++i) o[i] = rsub(a[i], b[i]);
+}
+__device__ __forceinline__ void rcross(const float* a, const float* b,
+                                       float* o) {
+  o[0] = rsub(rmul(a[1], b[2]), rmul(a[2], b[1]));
+  o[1] = rsub(rmul(a[2], b[0]), rmul(a[0], b[2]));
+  o[2] = rsub(rmul(a[0], b[1]), rmul(a[1], b[0]));
+}
+__device__ __forceinline__ float rnorm(const float* a) {
+  return sqrtf(rdot(a, a));
+}
+__device__ __forceinline__ float clip(float x, float lim) {
+  return fminf(fmaxf(x, -lim), lim);
+}
+
+// make_frame: rows n, t1, t2 (mju_makeFrame)
+__device__ void make_frame(const float* n, float* fr) {
+  const float ax[3] = {0.f, fabsf(n[1]) < 0.5f ? 1.f : 0.f,
+                       fabsf(n[1]) < 0.5f ? 0.f : 1.f};
+  const float nd = rdot(n, ax);
+  float t1[3];
+  for (int i = 0; i < 3; ++i) t1[i] = rsub(ax[i], rmul(n[i], nd));
+  const float ln = fmaxf(rnorm(t1), 1e-15f);
+  for (int i = 0; i < 3; ++i) t1[i] = t1[i] / ln;
+  for (int i = 0; i < 3; ++i) {
+    fr[i] = n[i];
+    fr[3 + i] = t1[i];
+  }
+  rcross(n, t1, fr + 6);
+}
+
+// collision._frame_with_axis: first tangent = axis projected into the
+// contact plane, make_frame where axis || n
+__device__ void frame_with_axis(const float* n, const float* axis,
+                                float* fr) {
+  const float na = rdot(n, axis);
+  float t1[3];
+  for (int i = 0; i < 3; ++i) t1[i] = rsub(axis[i], rmul(n[i], na));
+  const float ln = rnorm(t1);
+  if (!(ln > 1e-8f)) {
+    make_frame(n, fr);
+    return;
+  }
+  const float l = fmaxf(ln, 1e-15f);
+  for (int i = 0; i < 3; ++i) {
+    fr[i] = n[i];
+    fr[3 + i] = t1[i] / l;
+  }
+  rcross(n, fr + 3, fr + 6);
+}
+
+// collision._sphere_sphere_core: pos, dist, frame
+__device__ void sphere_core(const float* c1, float r1, const float* c2,
+                            float r2, float* pos, float& dist, float* fr) {
+  float d[3], n[3];
+  rsub3(c2, c1, d);
+  const float ln = rnorm(d), l = fmaxf(ln, 1e-15f);
+  for (int i = 0; i < 3; ++i) n[i] = d[i] / l;
+  dist = rsub(rsub(ln, r1), r2);
+  for (int i = 0; i < 3; ++i)
+    pos[i] = rmul(0.5f, rsub(radd(radd(c1[i], rmul(n[i], r1)), c2[i]),
+                             rmul(n[i], r2)));
+  make_frame(n, fr);
+}
+
+// collision._seg_seg_closest: closest points of p +- l d
+__device__ void seg_seg(const float* p1, const float* d1, float l1,
+                        const float* p2, const float* d2, float l2, float* c1,
+                        float* c2) {
+  float r[3];
+  rsub3(p1, p2, r);
+  const float a = rdot(d1, d1), e = rdot(d2, d2), f = rdot(d2, r);
+  const float c = rdot(d1, r), b = rdot(d1, d2);
+  const float denom = rsub(rmul(a, e), rmul(b, b));
+  float sp = fabsf(denom) > 1e-12f
+                 ? rsub(rmul(b, f), rmul(c, e)) / fmaxf(denom, 1e-15f)
+                 : 0.f;
+  sp = clip(sp, l1);
+  const float t = clip(radd(rmul(b, sp), f) / fmaxf(e, 1e-15f), l2);
+  sp = clip(rsub(rmul(b, t), c) / fmaxf(a, 1e-15f), l1);
+  for (int i = 0; i < 3; ++i) {
+    c1[i] = radd(p1[i], rmul(sp, d1[i]));
+    c2[i] = radd(p2[i], rmul(t, d2[i]));
+  }
+}
+
+enum ExtKind {
+  PLANE_SPHERE, PLANE_CAPSULE, PLANE_CYLINDER, PLANE_BOX, SPHERE_SPHERE,
+  SPHERE_CAPSULE, SPHERE_BOX, CAPSULE_CAPSULE
+};
+
+// midphase key of one pair (collision.midphase_key), minus the margin
+__device__ float ext_key(int kind, const float* p1, const float* R1,
+                         const float* p2, const float* R2, const float* sz1,
+                         const float* sz2, float rb1, float rb2,
+                         float margin) {
+  float mid;
+  if (kind <= PLANE_BOX) {
+    const float n[3] = {R1[2], R1[5], R1[8]};
+    float d[3];
+    rsub3(p2, p1, d);
+    const float h = rdot(n, d);
+    float supp;
+    if (kind == PLANE_SPHERE) {
+      supp = sz2[0];
+    } else if (kind == PLANE_BOX) {
+      supp = 0.f;
+      for (int j = 0; j < 3; ++j)
+        supp = radd(supp, rmul(fabsf(rdot3(n[0], n[1], n[2], R2[j], R2[3 + j],
+                                           R2[6 + j])),
+                               sz2[j]));
+    } else {
+      const float ca =
+          fabsf(rdot3(n[0], n[1], n[2], R2[2], R2[5], R2[8]));
+      supp = kind == PLANE_CAPSULE
+                 ? radd(rmul(sz2[1], ca), sz2[0])
+                 : radd(rmul(sz2[1], ca),
+                        rmul(sz2[0], sqrtf(fmaxf(rsub(1.f, rmul(ca, ca)),
+                                                 0.f))));
+    }
+    mid = rsub(h, supp);
+  } else {
+    float d[3];
+    rsub3(p2, p1, d);
+    mid = rsub(rsub(rnorm(d), rb1), rb2);
+  }
+  return rsub(mid, margin);
+}
+
+// The slots of one selected pair into s, from slot o on.
+__device__ void ext_slots(int kind, const float* pp, const float* R1,
+                          const float* qp, const float* R2, const float* s1,
+                          const float* s2, int o, State& s) {
+  if (kind <= PLANE_BOX) {
+    const float n[3] = {R1[2], R1[5], R1[8]};
+    const float axis[3] = {R2[2], R2[5], R2[8]};
+    float fr[9];
+    if (kind == PLANE_CAPSULE)
+      frame_with_axis(n, axis, fr);
+    else
+      make_frame(n, fr);
+    if (kind == PLANE_SPHERE || kind == PLANE_CAPSULE) {
+      const int nsl = kind == PLANE_SPHERE ? 1 : 2;
+      for (int q = 0; q < nsl; ++q) {
+        float c[3], d[3];
+        const float off = kind == PLANE_SPHERE ? 0.f
+                                               : rmul(q ? -1.f : 1.f, s2[1]);
+        for (int i = 0; i < 3; ++i)
+          c[i] = kind == PLANE_SPHERE ? qp[i] : radd(qp[i], rmul(off, axis[i]));
+        rsub3(c, pp, d);
+        const float dist = rsub(rdot(n, d), s2[0]);
+        const float depth = radd(s2[0], rmul(0.5f, dist));
+        s.cdist[o + q] = dist;
+        for (int i = 0; i < 3; ++i)
+          s.cpos[o + q][i] = rsub(c[i], rmul(n[i], depth));
+        for (int i = 0; i < 9; ++i) s.cframe[o + q][i] = fr[i];
+      }
+      return;
+    }
+    if (kind == PLANE_CYLINDER) {
+      const float r = s2[0], hl = s2[1];
+      const float ca = rdot(n, axis);
+      const float sg = ca >= 0.f ? -1.f : 1.f;
+      float near[3], far_[3], d[3], e[3];
+      for (int i = 0; i < 3; ++i) {
+        near[i] = radd(qp[i], rmul(rmul(sg, hl), axis[i]));
+        far_[i] = rsub(qp[i], rmul(rmul(sg, hl), axis[i]));
+        d[i] = rsub(rmul(axis[i], ca), n[i]);
+      }
+      const float dn = rnorm(d);
+      if (dn > 1e-8f) {
+        const float l = fmaxf(dn, 1e-15f);
+        for (int i = 0; i < 3; ++i) d[i] = d[i] / l;
+      } else {
+        for (int i = 0; i < 3; ++i) d[i] = R2[3 * i];
+      }
+      rcross(axis, d, e);
+      const float le = fmaxf(rnorm(e), 1e-15f);
+      for (int i = 0; i < 3; ++i) e[i] = e[i] / le;
+      const float c120 = -0.5f, s120 = 0.8660254037844386f;
+      for (int q = 0; q < 4; ++q) {
+        float p[3], h3[3];
+        for (int i = 0; i < 3; ++i) {
+          const float dir =
+              q == 0 || q == 3 ? d[i]
+              : q == 1 ? radd(rmul(c120, d[i]), rmul(s120, e[i]))
+                       : rsub(rmul(c120, d[i]), rmul(s120, e[i]));
+          p[i] = radd(q == 3 ? far_[i] : near[i], rmul(r, dir));
+        }
+        rsub3(p, pp, h3);
+        const float h = rdot(n, h3);
+        s.cdist[o + q] = h;
+        for (int i = 0; i < 3; ++i)
+          s.cpos[o + q][i] = rsub(p[i], rmul(n[i], rmul(0.5f, h)));
+        for (int i = 0; i < 9; ++i) s.cframe[o + q][i] = fr[i];
+      }
+      return;
+    }
+    // plane-box: the four deepest corners (collision.plane_box)
+    box_slots(n, pp, qp, R2, s2, o, 0, 0, s);
+    for (int q = 0; q < 4; ++q)
+      for (int i = 0; i < 9; ++i) s.cframe[o + q][i] = fr[i];
+    return;
+  }
+  float pos[3], dist, fr[9];
+  if (kind == SPHERE_SPHERE) {
+    sphere_core(pp, s1[0], qp, s2[0], pos, dist, fr);
+  } else if (kind == SPHERE_CAPSULE) {
+    const float axis[3] = {R2[2], R2[5], R2[8]};
+    float d[3], c2[3];
+    rsub3(pp, qp, d);
+    const float t = fminf(fmaxf(rdot(d, axis), -s2[1]), s2[1]);
+    for (int i = 0; i < 3; ++i) c2[i] = radd(qp[i], rmul(t, axis[i]));
+    sphere_core(pp, s1[0], c2, s2[0], pos, dist, fr);
+  } else if (kind == SPHERE_BOX) {
+    // collision.sphere_box: the closest surface point, or with the centre
+    // inside the nearest face (first axis on ties)
+    const float r = s1[0];
+    float d[3], loc[3], cl[3], cw[3];
+    rsub3(pp, qp, d);
+    for (int i = 0; i < 3; ++i)
+      loc[i] = rdot3(R2[i], R2[3 + i], R2[6 + i], d[0], d[1], d[2]);
+    bool inside = true;
+    int ax = 0;
+    float gmin = 0.f;
+    for (int i = 0; i < 3; ++i) {
+      inside = inside && fabsf(loc[i]) < s2[i];
+      const float gap = rsub(s2[i], fabsf(loc[i]));
+      if (i == 0 || gap < gmin) {
+        gmin = gap;
+        ax = i;
+      }
+    }
+    for (int i = 0; i < 3; ++i) {
+      const float sgn = loc[i] > 0.f ? 1.f : (loc[i] < 0.f ? -1.f : 0.f);
+      cl[i] = inside ? (i == ax ? rmul(sgn, s2[i]) : loc[i])
+                     : fminf(fmaxf(loc[i], -s2[i]), s2[i]);
+    }
+    for (int i = 0; i < 3; ++i)
+      cw[i] = radd(qp[i], rdot3(R2[3 * i], R2[3 * i + 1], R2[3 * i + 2],
+                                cl[0], cl[1], cl[2]));
+    float dd[3], n[3];
+    rsub3(cw, pp, dd);
+    const float ln = rnorm(dd), l = fmaxf(ln, 1e-15f);
+    for (int i = 0; i < 3; ++i) n[i] = inside ? -(dd[i] / l) : dd[i] / l;
+    dist = inside ? -radd(ln, r) : rsub(ln, r);
+    for (int i = 0; i < 3; ++i)
+      pos[i] = rmul(0.5f, radd(radd(pp[i], rmul(n[i], r)), cw[i]));
+    make_frame(n, fr);
+  } else {  // capsule-capsule: one contact, the second slot inactive
+    const float a1[3] = {R1[2], R1[5], R1[8]};
+    const float a2[3] = {R2[2], R2[5], R2[8]};
+    float c1[3], c2[3];
+    seg_seg(pp, a1, s1[1], qp, a2, s2[1], c1, c2);
+    sphere_core(c1, s1[0], c2, s2[0], pos, dist, fr);
+    s.cdist[o + 1] = kBig;
+    for (int i = 0; i < 3; ++i) s.cpos[o + 1][i] = 0.f;
+    for (int i = 0; i < 9; ++i) s.cframe[o + 1][i] = fr[i];
+  }
+  s.cdist[o] = dist;
+  for (int i = 0; i < 3; ++i) s.cpos[o][i] = pos[i];
+  for (int i = 0; i < 9; ++i) s.cframe[o][i] = fr[i];
+}
+
+__device__ void collide_ext(const Tab& T, State& s) {
+  const int ng = T.h(NXGRP);
+  const int* gi = T.i(I_XGRP);
+  const int* pi = T.i(I_XPAIR);
+  const float* pf = T.f(F_XPAIR);
+  const float* gf = T.f(F_XGRP);
+  for (int g = 0; g < ng; ++g) {
+    const int* G = gi + 8 * g;
+    const int kind = G[0], k = G[1], slots = G[2], P = G[3], off = G[4],
+              first = G[5];
+    const float margin = gf[16 * g];
+    unsigned taken = 0u;
+    for (int rk = 0; rk < k; ++rk) {
+      int p = rk;  // k == P: pairs in order
+      if (k < P) {
+        float m = 0.f;
+        p = -1;
+        for (int q = 0; q < P; ++q) {
+          const int* I = pi + 4 * (first + q);
+          const float* F = pf + 24 * (first + q);
+          float p1[3], R1[9], p2[3], R2[9];
+          geom_pose(s, I[1], F, p1, R1);
+          geom_pose(s, I[3], F + 11, p2, R2);
+          const float key =
+              ((taken >> q) & 1u)
+                  ? kBig
+                  : ext_key(kind, p1, R1, p2, R2, F + 7, F + 18, F[10],
+                            F[21], margin);
+          if (p < 0 || key < m) {
+            m = key;
+            p = q;
+          }
+        }
+        taken |= 1u << p;
+      }
+      const int* I = pi + 4 * (first + p);
+      const float* F = pf + 24 * (first + p);
+      float p1[3], R1[9], p2[3], R2[9];
+      geom_pose(s, I[1], F, p1, R1);
+      geom_pose(s, I[3], F + 11, p2, R2);
+      const int o = off + slots * rk;
+      ext_slots(kind, p1, R1, p2, R2, F + 7, F + 18, o, s);
+      for (int q = 0; q < slots; ++q) {
+        s.cgid1[o + q] = I[0];
+        s.cbody1[o + q] = I[1];
+        s.cgid[o + q] = I[2];
+        s.cbody[o + q] = I[3];
+        s.cgrp[o + q] = g;
+        s.ciw[o + q] = F[22];
+      }
+    }
+  }
+}
+
 // ---- tendons and muscles ---------------------------------------------------
 // One segment of a tendon path: from site A (on body ba) to site B (on bb),
 // the sites computed from the body frames; u the unit direction and cA, cB
@@ -596,6 +942,7 @@ __device__ void muscle_block(const Tab& T, State& s, const float* ctrl,
 // The fused kernel's row order: equalities, friction loss, limits, the inert
 // pad rows, then the 4 pyramidal facets of every slot, blocked (facet f of
 // slot c at row base + f ncon + c).
+template <bool EXT>
 __device__ void make_rows(const Tab& T, const Io& io, int e,
                           const float* qpos, const float* qvel,
                           const State& s) {
@@ -604,6 +951,24 @@ __device__ void make_rows(const Tab& T, const Io& io, int e,
   const int ncon = T.h(NCON);
   const float* con = T.f(F_CON);
   const float* bf = T.f(F_BODY);
+  if constexpr (EXT) {  // the extended collision's slots, elliptic rows
+    const int* cinfo = T.i(I_CON);  // per slot: dim, first row
+    const float* gf = T.f(F_XGRP);
+    int ci = 0;  // elliptic contact index
+    for (int c = 0; c < ncon; ++c) {
+      const int dim = cinfo[2 * c], r0 = cinfo[2 * c + 1];
+      const float* G = gf + 16 * s.cgrp[c];
+      float* mu = dim >= 3 ? io.mu + (size_t)(ci++) * io.E + e : nullptr;
+      if (!(s.cdist[c] < G[1])) {
+        for (int t = 0; t < dim; ++t) w.off(r0 + t);
+        continue;
+      }
+      ell_contact_rows(T, w, r0, dim, s, s.cpos[c], s.cframe[c],
+                       s.cbody1[c], s.cbody[c], s.cdist[c] - G[1], G + 2,
+                       G + 4, s.ciw[c], G + 9, qvel, mu);
+    }
+    return;
+  }
   for (int c = 0; c < ncon; ++c) {
     const float dist = s.cdist[c];
     if (!(dist < con[kConMargin])) {
@@ -621,16 +986,20 @@ __device__ void make_rows(const Tab& T, const Io& io, int e,
 // the megastep leaves these null.
 struct Out {
   float *qacc_smooth, *qfrc, *cdist, *cforce, *dv;
-  int *cgid;
+  int *cgid, *cgid1;
 };
 
 // One forward of env e at (qpos, qvel, act) warm-started from ws; qacc and
-// act_dot (na, with muscles) out.
+// act_dot (na, with muscles) out. EXT: the extended collision and elliptic
+// rows of a mega_ell plan (a separate instance, so that the plane-only
+// kernels carry none of its code or registers).
+template <bool EXT>
 __device__ void forward_env(const Tab& T, const Io& io, const In& in,
                             const Out& out, int e, const float* qpos,
                             const float* qvel, const float* act,
                             const float* ws, State& s, float* qacc,
-                            float* act_dot, int& iters, unsigned& taken) {
+                            float* act_dot, int& iters, unsigned& taken,
+                            unsigned* ls_bits) {
   const int nv = T.h(NV), nrows = T.h(NROWS), ncon = T.h(NCON);
   const float* ctrl = in.ctrl + (size_t)e * T.h(NU);
   fk(T, qpos, s);
@@ -640,17 +1009,19 @@ __device__ void forward_env(const Tab& T, const Io& io, const In& in,
                in.xfrc + (size_t)e * T.h(NBODY) * 6, qpos, qvel, s);
   if (T.h(FLAGS) & MUSCLE) muscle_block(T, s, ctrl, act, act_dot);
   smooth_acc(T, s);
-  collide(T, s);
-  make_rows(T, io, e, qpos, qvel, s);
-  const int base = nrows - 4 * ncon;
+  if constexpr (EXT)
+    collide_ext(T, s);
+  else
+    collide(T, s);
+  make_rows<EXT>(T, io, e, qpos, qvel, s);
+  // the contact rows, in the plan's layout (blocked facets or slot-major
+  // elliptic rows), after the joint and pad rows
+  const int base = T.h(NE) + T.h(NFL) + T.h(NL) + T.h(NPAD);
+  const int crows = nrows - base;
   float qfrc[NVM];
   solve_rows(T, io, e, s, ws, qacc, out.qfrc ? qfrc : nullptr, iters, taken,
-             [&](int r, float f) {  // facet (r - base) / ncon of slot c
-               if (r >= base) {
-                 const int c = (r - base) % ncon;
-                 out.cforce[((size_t)e * ncon + c) * 4 + (r - base) / ncon] =
-                     f;
-               }
+             ls_bits, [&](int r, float f) {
+               if (r >= base) out.cforce[(size_t)e * crows + r - base] = f;
              });
   if (!out.qfrc) return;
   for (int k = 0; k < nv; ++k) {
@@ -660,6 +1031,7 @@ __device__ void forward_env(const Tab& T, const Io& io, const In& in,
   for (int c = 0; c < ncon; ++c) {
     out.cdist[(size_t)e * ncon + c] = s.cdist[c];
     out.cgid[(size_t)e * ncon + c] = s.cgid[c];
+    if constexpr (EXT) out.cgid1[(size_t)e * ncon + c] = s.cgid1[c];
   }
   if (out.dv) {
     float dv[NVM];
@@ -668,12 +1040,13 @@ __device__ void forward_env(const Tab& T, const Io& io, const In& in,
   }
 }
 
+template <bool EXT>
 __global__ void __launch_bounds__(32) mega_forward_kernel(
     Tab T, Io io, In in, Out out, const float* __restrict__ qpos_in,
     const float* __restrict__ qvel_in, const float* __restrict__ act_in,
     const float* __restrict__ ws_in, float* __restrict__ qacc_out,
     float* __restrict__ act_dot_out, int* __restrict__ iters_out,
-    int* __restrict__ taken_out) {
+    int* __restrict__ taken_out, int* __restrict__ ls_out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= io.E) return;
   State s;
@@ -686,9 +1059,12 @@ __global__ void __launch_bounds__(32) mega_forward_kernel(
   }
   for (int a = 0; a < na; ++a) act[a] = act_in[(size_t)e * na + a];
   int it;
-  unsigned taken;
-  forward_env(T, io, in, out, e, qpos, qvel, act, ws, s, qacc, act_dot, it,
-              taken);
+  unsigned taken, ls[kLsWords];
+  forward_env<EXT>(T, io, in, out, e, qpos, qvel, act, ws, s, qacc, act_dot,
+                   it,
+              taken, ls);
+  for (int w = 0; w < kLsWords; ++w)
+    ls_out[(size_t)e * kLsWords + w] = (int)ls[w];
   for (int k = 0; k < nv; ++k) qacc_out[(size_t)e * nv + k] = qacc[k];
   if (T.h(FLAGS) & MUSCLE)
     for (int a = 0; a < na; ++a) act_dot_out[(size_t)e * na + a] = act_dot[a];
@@ -699,8 +1075,10 @@ __global__ void __launch_bounds__(32) mega_forward_kernel(
 // n substeps of RK4 (mj_RungeKutta's tableau; forward.py _rk4) or Euler
 // (forward.py _euler; use_dv: qvel moves by euler_dv, else by qacc),
 // carrying qpos, qvel, the activations (Euler) and the warm start.
-// decisions (E, F n, 2), F = 4 for RK4 and 1 for Euler: the iteration count
-// and the taken bits of every forward, when not null.
+// decisions (E, F n, 2 + kLsWords), F = 4 for RK4 and 1 for Euler: the
+// iteration count, the taken bits and the line search's decision bits of
+// every forward, when not null.
+template <bool EXT>
 __global__ void __launch_bounds__(32) megastep_kernel(
     Tab T, Io io, In in, const float* __restrict__ qpos_in,
     const float* __restrict__ qvel_in, const float* __restrict__ act_in,
@@ -711,7 +1089,8 @@ __global__ void __launch_bounds__(32) megastep_kernel(
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= io.E) return;
   State s;
-  const Out none{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  const Out none{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr};
   const int nv = T.h(NV), na = T.h(NA);
   const float* act_lim = T.f(F_ACTB);  // (lo, hi) per act slot
   const int per = rk4 ? 4 : 1;  // forwards per substep
@@ -722,11 +1101,14 @@ __global__ void __launch_bounds__(32) megastep_kernel(
     ws[k] = ws_in[(size_t)e * nv + k];
   }
   for (int a = 0; a < na; ++a) act[a] = act_in[(size_t)e * na + a];
+  unsigned ls[kLsWords];
+  unsigned* lsp = decisions ? ls : nullptr;
   auto record = [&](int f, int it, unsigned taken) {
     if (!decisions) return;
-    int* dd = decisions + ((size_t)e * per * n_steps + f) * 2;
+    int* dd = decisions + ((size_t)e * per * n_steps + f) * (2 + kLsWords);
     dd[0] = it;
     dd[1] = (int)taken;
+    for (int w = 0; w < kLsWords; ++w) dd[2 + w] = (int)ls[w];
   };
   const float a[3] = {0.5f, 0.5f, 1.f};
   const float bw[4] = {1.f / 6, 1.f / 3, 1.f / 3, 1.f / 6};
@@ -735,8 +1117,9 @@ __global__ void __launch_bounds__(32) megastep_kernel(
     int it;
     unsigned taken;
     if (!rk4) {
-      forward_env(T, io, in, none, e, qpos, qvel, act, ws, s, qacc, act_dot,
-                  it, taken);
+      forward_env<EXT>(T, io, in, none, e, qpos, qvel, act, ws, s, qacc,
+                       act_dot,
+                  it, taken, lsp);
       record(step, it, taken);
       float dv[NVM];
       if (use_dv)
@@ -762,8 +1145,9 @@ __global__ void __launch_bounds__(32) megastep_kernel(
     for (int i = 0; i < 4; ++i) {
       // stage 1 warm-starts from the carried value, stages 2-4 from the
       // stage-1 qacc (mj_step copies it before mj_RungeKutta's stages)
-      forward_env(T, io, in, none, e, qs, vs, act, ws, s, qacc, act_dot, it,
-                  taken);
+      forward_env<EXT>(T, io, in, none, e, qs, vs, act, ws, s, qacc, act_dot,
+                       it,
+                  taken, lsp);
       record(4 * step + i, it, taken);
       for (int k = 0; k < nv; ++k) {
         aq[k] = i == 0 ? bw[0] * vs[k] : aq[k] + bw[i] * vs[k];
@@ -791,11 +1175,12 @@ __global__ void __launch_bounds__(32) megastep_kernel(
 }
 
 Io make_io(void* J, void* aref, void* D, void* R, void* act, void* fl,
-           void* jar, void* jv, int E, int iterations, int ls_iterations,
-           float scale, float tol) {
-  return Io{(float*)J, (float*)aref, (float*)D, (float*)R, (float*)act,
-            (float*)fl, (float*)jar, (float*)jv, E, iterations,
-            ls_iterations, scale, tol};
+           void* jar, void* jv, void* mu, int E, int iterations,
+           int ls_iterations, float scale, float tol) {
+  return Io{(float*)J,   (float*)aref, (float*)D,  (float*)R,
+            (float*)act, (float*)fl,   (float*)jar, (float*)jv,
+            (float*)mu,  E,            iterations, ls_iterations,
+            scale,       tol};
 }
 
 constexpr int kBlock = 32;
@@ -805,58 +1190,72 @@ constexpr int kBlock = 32;
 // ints/flts: the packed plan (ops/plan.py). Per-env inputs env-major:
 // qpos (E, nq), qvel, ws (E, nv), act_in (E, na), ctrl (E, nu), qfrc_applied
 // (E, nv), xfrc (E, nbody, 6). Outputs env-major: qacc, qacc_smooth, qfrc
-// (E, nv), cdist (E, ncon), cgid (E, ncon) int, cforce (E, ncon, 4), iters
-// and taken (E,) int, dv (E, nv) or null (no euler_dv), act_dot (E, na)
-// (written with muscles). Scratch env-last: J (nrows, nv, E), aref, D, R,
-// act, jar, jv (nrows, E), fl (max(nfl, 1), E).
+// (E, nv), cdist (E, ncon), cgid and cgid1 (E, ncon) int (geom 2 and, from
+// the extended collision, geom 1), cforce (E, nrows - first contact row) in
+// the plan's row layout, iters and taken (E,) int, ls (E, 4) int (the line
+// search's decisions), dv (E, nv) or null (no
+// euler_dv), act_dot (E, na) (written with muscles). Scratch env-last: J
+// (nrows, nv, E), aref, D, R, act, jar, jv (nrows, E), fl (max(nfl, 1), E),
+// mu (max(ncon_ell, 1), E). ext: the plan is mega_ell (the extended
+// collision and elliptic rows).
 extern "C" int lmt_mega_forward(
     const void* ints, const void* flts, const void* qpos, const void* qvel,
     const void* act_in, const void* ctrl, const void* qfrc_applied,
     const void* xfrc, const void* ws, void* qacc, void* qacc_smooth,
-    void* qfrc, void* cdist, void* cgid, void* cforce, void* iters,
-    void* taken, void* dv, void* act_dot, void* J,
-    void* aref, void* D, void* R, void* act, void* fl, void* jar, void* jv,
-    int E, int iterations, int ls_iterations, float scale, float tol,
-    void* stream) {
+    void* qfrc, void* cdist, void* cgid, void* cgid1, void* cforce,
+    void* iters, void* taken, void* ls, void* dv, void* act_dot, void* J,
+    void* aref,
+    void* D, void* R, void* act, void* fl, void* jar, void* jv, void* mu,
+    int E, int iterations, int ls_iterations, int ext, float scale,
+    float tol, void* stream) {
   if (E <= 0) return 0;
   const Tab T{(const int*)ints, (const float*)flts};
-  const Io io = make_io(J, aref, D, R, act, fl, jar, jv, E, iterations,
+  const Io io = make_io(J, aref, D, R, act, fl, jar, jv, mu, E, iterations,
                         ls_iterations, scale, tol);
   const In in{(const float*)ctrl, (const float*)qfrc_applied,
               (const float*)xfrc};
   const Out out{(float*)qacc_smooth, (float*)qfrc, (float*)cdist,
-                (float*)cforce, (float*)dv, (int*)cgid};
-  mega_forward_kernel<<<(E + kBlock - 1) / kBlock, kBlock, 0,
-                        (cudaStream_t)stream>>>(
-      T, io, in, out, (const float*)qpos, (const float*)qvel,
-      (const float*)act_in, (const float*)ws, (float*)qacc, (float*)act_dot,
-      (int*)iters, (int*)taken);
+                (float*)cforce, (float*)dv, (int*)cgid, (int*)cgid1};
+  auto go = [&](auto kernel) {
+    kernel<<<(E + kBlock - 1) / kBlock, kBlock, 0, (cudaStream_t)stream>>>(
+        T, io, in, out, (const float*)qpos, (const float*)qvel,
+        (const float*)act_in, (const float*)ws, (float*)qacc,
+        (float*)act_dot, (int*)iters, (int*)taken, (int*)ls);
+  };
+  if (ext)
+    go(mega_forward_kernel<true>);
+  else
+    go(mega_forward_kernel<false>);
   return (int)cudaGetLastError();
 }
 
 // The same inputs and scratch; outputs qpos, qvel, ws (E, nv) and act_out
 // (E, na) after n_steps substeps of `dt` (rk4: RK4, else Euler with
-// use_dv); decisions (E, F n_steps, 2) int or null.
+// use_dv); decisions (E, F n_steps, 6) int or null.
 extern "C" int lmt_megastep(
     const void* ints, const void* flts, const void* qpos, const void* qvel,
     const void* act_in, const void* ctrl, const void* qfrc_applied,
     const void* xfrc, const void* ws, void* qpos_out, void* qvel_out,
     void* act_out, void* ws_out, void* decisions, void* J, void* aref,
-    void* D, void* R, void* act, void* fl, void* jar, void* jv, int E,
-    int n_steps, int iterations,
-    int ls_iterations, int rk4, int use_dv, float scale, float tol, float dt,
-    void* stream) {
+    void* D, void* R, void* act, void* fl, void* jar, void* jv, void* mu,
+    int E, int n_steps, int iterations, int ls_iterations, int rk4,
+    int use_dv, int ext, float scale, float tol, float dt, void* stream) {
   if (E <= 0) return 0;
   const Tab T{(const int*)ints, (const float*)flts};
-  const Io io = make_io(J, aref, D, R, act, fl, jar, jv, E, iterations,
+  const Io io = make_io(J, aref, D, R, act, fl, jar, jv, mu, E, iterations,
                         ls_iterations, scale, tol);
   const In in{(const float*)ctrl, (const float*)qfrc_applied,
               (const float*)xfrc};
-  megastep_kernel<<<(E + kBlock - 1) / kBlock, kBlock, 0,
-                    (cudaStream_t)stream>>>(
-      T, io, in, (const float*)qpos, (const float*)qvel,
-      (const float*)act_in, (const float*)ws, (float*)qpos_out,
-      (float*)qvel_out, (float*)act_out, (float*)ws_out, (int*)decisions,
-      n_steps, dt, rk4, use_dv);
+  auto go = [&](auto kernel) {
+    kernel<<<(E + kBlock - 1) / kBlock, kBlock, 0, (cudaStream_t)stream>>>(
+        T, io, in, (const float*)qpos, (const float*)qvel,
+        (const float*)act_in, (const float*)ws, (float*)qpos_out,
+        (float*)qvel_out, (float*)act_out, (float*)ws_out, (int*)decisions,
+        n_steps, dt, rk4, use_dv);
+  };
+  if (ext)
+    go(megastep_kernel<true>);
+  else
+    go(megastep_kernel<false>);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,17 @@
 """Constraint assembly: JOINT equalities, dof friction loss, joint limits and
-pyramidal contacts.
+pyramidal or elliptic contacts.
 
 Counterpart of `loco_mujoco_tpu/ops/constraint.py` (mj_makeConstraint) in
 the staged row order the Newton solve relies on (`solver.row_class_counts`):
-equality rows, then friction-loss rows, then limits, then contact facets in
-slot order. Every potential row always exists and carries an active flag,
-so shapes are static; all tensors carry a leading env axis E. Elliptic
-cones and non-JOINT equalities are refused at load in this slice.
+equality rows, then friction-loss rows, then limits, then the contact rows
+of each slot in slot order: 2 (dim - 1) pyramidal facets, or, with
+elliptic cones, dim rows (normal, tangents, then torsion and rolling from
+the angular Jacobian; `:420-460`) whose friction rows carry the
+impratio-scaled R, with the per-contact bookkeeping (`ell_start`,
+`ell_dim`, `con_mu` = friction0 / sqrt(impratio)) the cone zones of the
+solve read. Every potential row always exists and carries an active flag,
+so shapes are static; all tensors carry a leading env axis E.
+Non-JOINT equalities are refused at load.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.types import Data, DisableBit, Model
+from ..core.types import ConeType, Data, DisableBit, Model
 from . import support
 
 MINVAL = 1e-15
@@ -28,6 +33,7 @@ FRICTION_DOF = 1
 LIMIT_JOINT = 3
 CONTACT_FRICTIONLESS = 5
 CONTACT_PYRAMIDAL = 6
+CONTACT_ELLIPTIC = 7
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +52,13 @@ class Efc:
     is_bilateral: np.ndarray
     con_efcadr: np.ndarray  # contact slot -> first row, -1 if none
     con_dim: np.ndarray
+    # elliptic contacts (empty for pyramidal models): first row and dim of
+    # each, and its cone coefficient friction0 / sqrt(impratio), (E, n)
+    ell_start: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int32))
+    ell_dim: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int32))
+    con_mu: torch.Tensor | None = None
 
 
 def impedance(solimp: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -176,6 +189,8 @@ def make_constraint(model: Model, data: Data) -> Efc:
     ncon = model.ncon
     con_efcadr = np.full(ncon, -1, dtype=np.int32)
     con_dim = np.zeros(ncon, dtype=np.int32)
+    elliptic = model.opt.cone == int(ConeType.ELLIPTIC)
+    ell_start, ell_dim, con_mu = [], [], []
     if ncon and not (flags & DisableBit.CONTACT) and not disabled:
         gb = torch.as_tensor(model.geom_bodyid, device=dev, dtype=torch.int64)
         runs, start = [], 0
@@ -189,25 +204,53 @@ def make_constraint(model: Model, data: Data) -> Efc:
             b1, b2 = gb[con.geom1[:, sl]], gb[con.geom2[:, sl]]
             pos_c = con.dist[:, sl] - con.includemargin[:, sl]
             active = con.dist[:, sl] < con.includemargin[:, sl]
-            jacp1, _ = support.jac_dyn(model, data, con.pos[:, sl], b1)
-            jacp2, _ = support.jac_dyn(model, data, con.pos[:, sl], b2)
+            jacp1, jacr1 = support.jac_dyn(model, data, con.pos[:, sl], b1)
+            jacp2, jacr2 = support.jac_dyn(model, data, con.pos[:, sl], b2)
             jp = jacp2 - jacp1  # (E, cnt, 3, nv)
             frame = con.frame[:, sl]
             iw_t = model.body_invweight0[b1, 0] + model.body_invweight0[b2, 0]
             mu = con.friction[:, sl, 0]
             k, b_, imp = kbi(model, con.solref[:, sl], con.solimp[:, sl],
                              pos_c)
+            # frame rows times the Jacobians: translational for rows 0-2,
+            # rotational (frame row t - 3) for torsion and rolling
             axis_rows = [torch.einsum("eci,eciv->ecv", frame[:, :, t], jp)
                          for t in range(min(dim, 3))]
             if dim > 3:
-                raise NotImplementedError("condim > 3 is not ported yet")
-            nr = 1 if dim == 1 else 2 * (dim - 1)
+                jr = jacr2 - jacr1
+                axis_rows += [torch.einsum("eci,eciv->ecv", frame[:, :, t],
+                                           jr) for t in range(dim - 3)]
+            nr = 1 if dim == 1 else (dim if elliptic else 2 * (dim - 1))
             con_efcadr[s0:s0 + cnt] = cursor + nr * np.arange(cnt)
             con_dim[s0:s0 + cnt] = dim
             if dim == 1:
                 jblk = axis_rows[0]
                 r = _r_of(imp, iw_t)
                 typ = CONTACT_FRICTIONLESS
+            elif elliptic:
+                # normal row, then the friction rows with
+                # R = Rn mu0^2 / (mu_i^2 impratio)
+                jblk = torch.stack(axis_rows, dim=2).reshape(E, cnt * nr, nv)
+                r_n = _r_of(imp, iw_t)
+                mus = con.friction[:, sl, :dim - 1]
+                r_f = torch.clamp(r_n[..., None] * (mu * mu)[..., None]
+                                  / (mus * mus) / model.opt.impratio,
+                                  min=MINVAL)
+                r = torch.cat([r_n[..., None], r_f], dim=-1).reshape(E, -1)
+                ell_start.extend(cursor + nr * np.arange(cnt))
+                ell_dim.extend([dim] * cnt)
+                con_mu.append(mu / torch.sqrt(model.opt.impratio))
+                vel = torch.einsum("erv,ev->er", jblk, qvel)
+                kimp = torch.zeros((E, cnt, nr), dtype=dt, device=dev)
+                kimp[..., 0] = k * imp * pos_c
+                aref = -torch.repeat_interleave(b_, nr, dim=1) * vel \
+                    - kimp.reshape(E, -1)
+                rep = lambda x: torch.repeat_interleave(x, nr, dim=1)  # noqa
+                blocks.append((jblk, rep(pos_c), aref, r, zeros(cnt * nr),
+                               rep(active)))
+                types += [CONTACT_ELLIPTIC] * (cnt * nr)
+                cursor += cnt * nr
+                continue
             else:
                 # pyramidal facets J = Jn +- mu_i Jt_i, all with
                 # R = Rn * 2 mu0^2 (1 + mu0^2)
@@ -228,6 +271,9 @@ def make_constraint(model: Model, data: Data) -> Efc:
             cursor += cnt * nr
 
     type_arr = np.asarray(types, dtype=np.int32)
+    ell = dict(ell_start=np.asarray(ell_start, np.int32),
+               ell_dim=np.asarray(ell_dim, np.int32),
+               con_mu=torch.cat(con_mu, dim=1) if con_mu else None)
     if not blocks:
         z = zeros(0)
         return Efc(J=torch.zeros((E, 0, nv), dtype=dt, device=dev), pos=z,
@@ -235,7 +281,7 @@ def make_constraint(model: Model, data: Data) -> Efc:
                    active=torch.zeros((E, 0), dtype=torch.bool, device=dev),
                    type=type_arr, is_fl=type_arr == FRICTION_DOF,
                    is_bilateral=type_arr == EQUALITY, con_efcadr=con_efcadr,
-                   con_dim=con_dim)
+                   con_dim=con_dim, **ell)
     J, pos, aref, R, floss, active = (
         torch.cat([blk[i].expand(E, *blk[i].shape[-(2 if i == 0 else 1):])
                    for blk in blocks], dim=1)
@@ -243,4 +289,4 @@ def make_constraint(model: Model, data: Data) -> Efc:
     return Efc(J=J, pos=pos, aref=aref, R=R, D=1.0 / R, floss=floss,
                active=active, type=type_arr, is_fl=type_arr == FRICTION_DOF,
                is_bilateral=type_arr == EQUALITY, con_efcadr=con_efcadr,
-               con_dim=con_dim)
+               con_dim=con_dim, **ell)

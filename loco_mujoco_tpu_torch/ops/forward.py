@@ -3,8 +3,10 @@ step.
 
 Counterpart of `loco_mujoco_tpu/ops/forward.py`. `forward` takes the mega
 path, the whole forward as one Hopper kernel (`hopper_mega.mega_forward`),
-when the model's row plan (`ops/plan.py`) has `mega`, the data is float32
-and `LMT_MEGA` is not "0" (forward.py:202-210); otherwise it runs the staged
+when the model's row plan (`ops/plan.py`) has `mega` (plane-only
+collision, or with `mega_ell` the extended collision of an elliptic
+model), the data is float32 and `LMT_MEGA` is not "0" (forward.py:202-210);
+otherwise it runs the staged
 path, `forward_staged`: the stages as separate functions over a leading env
 axis E, with the Hopper kernels of the plane-mesh collision
 (`hopper_collision`). With a plan (float32 data of a model inside the row

@@ -14,13 +14,14 @@ qpos, qvel, xipos, ximat, xanchor, xaxis, ctrl, qfrc_applied, xfrc_applied,
 qacc_warmstart, `:2246-2256`; non-smooth, the muscle humanoid's: qpos,
 qvel, cdof, the root subtree com, cinert, qfrc_smooth, qacc_warmstart,
 armature, `:2257-2264`) and the contact slots in the plan's pack width
-(`:2215-2243`),
-launches the kernel, and writes qacc, qacc_smooth, qfrc_constraint,
+(`:2215-2243`; elliptic plans take the generic 29-float pack with 5
+frictions), launches the kernel, and writes qacc, qacc_smooth, qfrc_constraint,
 efc_force_contact, euler_dv (None unless the plan has it) and the Newton
-decisions `solver_niter` / `solver_taken`. The kernel's contact facet rows
-are BLOCKED, facet f of slot c at row s0 + f ncon + c (`:2279-2283`);
-`_finish` restores efc_force_contact's per-slot order. Every other Data
-field stays as it came in.
+decisions `solver_niter` / `solver_taken` / `solver_ls`. The kernel's
+pyramidal facet rows are BLOCKED, facet f of slot c at row s0 + f ncon + c
+(`:2279-2283`), its elliptic rows slot-major, dim rows per slot
+(`:1654-1700`); `_finish` (`contact_forces`) restores efc_force_contact's
+per-slot order. Every other Data field stays as it came in.
 
 A CUDA tensor launches the kernel (float32 only) or raises; a CPU tensor
 runs the plain version, `fused_constraint_plain`: the same function in
@@ -29,13 +30,15 @@ crb, the velocity stage, passive, actuation, qacc_smooth; non-smooth: crb
 and qacc_smooth from the given cinert and qfrc_smooth), `make_constraint`'s
 rows
 put in the fused layout (the `npad` inert rows, the blocked facets),
-`hopper_newton.newton_plain` and `forward.damping_dv` for euler_dv. Its
+`hopper_newton.newton_plain` (with the elliptic contacts' cone zones where
+the plan is elliptic) and `forward.damping_dv` for euler_dv. Its
 `replay` = (iters, taken) makes the solve take another run's discrete
 decisions, so the kernel can be held to it step for step.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.types import Data, Model
@@ -45,7 +48,7 @@ from . import inertia, kernels, kinematics
 from .kernels import FLOAT, INT, PTR
 from .support import static_tensor
 
-_SIGNATURES = {"lmt_fused": [PTR] * 19 + [INT] * 4 + [FLOAT, FLOAT, PTR]}
+_SIGNATURES = {"lmt_fused": [PTR] * 21 + [INT] * 4 + [FLOAT, FLOAT, PTR]}
 
 
 def smooth_vec(data: Data) -> torch.Tensor:
@@ -105,21 +108,45 @@ def contact_pack(model: Model, data: Data) -> torch.Tensor:
     return torch.cat(fields, dim=-1).contiguous()
 
 
+def contact_forces(plan, force, width: int) -> torch.Tensor:
+    """(E, ncon, width) per-slot forces from the rows of the fused layout
+    (`force` (E, nrows), or its contact rows alone, (E, nrows - s0)):
+    the four facets of each pyramidal slot (blocked, facet f of slot c at
+    s0 + f ncon + c), or the dim rows of each elliptic slot (slot-major
+    from `con_efcadr`), zero past them."""
+    n = plan.ncon
+    s0 = plan.nrows - sum(plan.rows_per)
+    crow = force[:, force.shape[1] - (plan.nrows - s0):]
+    efc = torch.zeros((force.shape[0], n, width), dtype=force.dtype,
+                      device=force.device)
+    if not plan.elliptic:
+        w = min(4, width)
+        efc[..., :w] = crow.reshape(-1, 4, n).transpose(1, 2)[..., :w]
+        return efc
+    idx = np.zeros((n, width), np.int64)
+    msk = np.zeros((n, width), bool)
+    for c, (adr, d) in enumerate(zip(plan.con_efcadr, plan.rows_per)):
+        d = min(d, width)
+        idx[c, :d] = adr - s0 + np.arange(d)
+        msk[c, :d] = True
+    got = crow[:, torch.as_tensor(idx, device=force.device)]
+    return torch.where(torch.as_tensor(msk, device=force.device), got,
+                       torch.zeros_like(got))
+
+
 def _finish(model: Model, data: Data, qacc, force, qfrc, asm, dv, iters,
-            taken) -> Data:
+            taken, ls) -> Data:
     """The output contract (see the module note) on top of `data`; force
     holds every row in the fused layout."""
     plan = model.plan
     n = plan.ncon
     efc = torch.zeros_like(data.efc_force_contact)
     if n:
-        w = min(4, efc.shape[2])
-        s0 = plan.nrows - 4 * n
-        blocked = force[:, s0:].reshape(-1, 4, n).transpose(1, 2)
-        efc[:, :n, :w] = blocked[..., :w]
+        efc[:, :n] = contact_forces(plan, force, efc.shape[2])
     return data.replace(qacc=qacc, qacc_smooth=asm, qfrc_constraint=qfrc,
                         efc_force_contact=efc, euler_dv=dv,
-                        solver_niter=iters, solver_taken=taken)
+                        solver_niter=iters, solver_taken=taken,
+                        solver_ls=ls)
 
 
 def fused_constraint(model: Model, data: Data) -> Data:
@@ -141,7 +168,7 @@ def fused_constraint(model: Model, data: Data) -> Data:
     qacc, qfrc, asm = f(E, nv), f(E, nv), f(E, nv)
     force = f(E, plan.nrows)
     dv = f(E, nv) if plan.euler_dv else None
-    iters, taken = i(E), i(E)
+    iters, taken, ls = i(E), i(E), i(E, hn.LS_WORDS)
     ints, flts = plan.tables(dev)
     scratch = plan.scratch(E, dev)  # held until the launch is queued
     p = kernels.ptr
@@ -149,23 +176,28 @@ def fused_constraint(model: Model, data: Data) -> Data:
     rc = lib.lmt_fused(
         p(ints), p(flts), p(v), p(pack),
         *map(p, (qacc, force, qfrc, asm)), None if dv is None else p(dv),
-        p(iters), p(taken), *map(p, scratch), E, v.shape[1],
+        p(iters), p(taken), p(ls), *map(p, scratch), E, v.shape[1],
         plan.iterations, plan.ls_iterations, plan.scale, plan.tolerance,
         kernels.stream())
     kernels.check(rc, "fused")
     kernels.LAUNCHES["fused"] += 1
-    return _finish(model, data, qacc, force, qfrc, asm, dv, iters, taken)
+    return _finish(model, data, qacc, force, qfrc, asm, dv, iters, taken,
+                   ls)
 
 
 def fused_rows(plan, efc: con_mod.Efc):
     """make_constraint's rows (equalities, friction loss, limits, contact
-    facets slot-major) in the fused layout: `npad` inert rows (J 0, aref 0,
-    R = D = 1, inactive) after the limits, then the facets blocked, facet f
-    of slot c at s0 + f ncon + c. Returns (J, aref, D, R, floss, active)."""
+    rows slot-major) in the fused layout: `npad` inert rows (J 0, aref 0,
+    R = D = 1, inactive) after the limits, then pyramidal facets blocked,
+    facet f of slot c at s0 + f ncon + c, or elliptic rows slot-major, as
+    they come. Returns (J, aref, D, R, floss, active)."""
     s0 = plan.ne + plan.nfl + plan.nl
     inert = efc.J.shape[1]  # the index of an appended inert row
-    idx = (list(range(s0)) + [inert] * plan.npad
-           + [s0 + 4 * c + f for f in range(4) for c in range(plan.ncon)])
+    if plan.elliptic:  # dim rows per slot, slot-major, as make_constraint's
+        crows = list(range(s0, s0 + sum(plan.rows_per)))
+    else:
+        crows = [s0 + 4 * c + f for f in range(4) for c in range(plan.ncon)]
+    idx = list(range(s0)) + [inert] * plan.npad + crows
     idx = torch.as_tensor(idx, device=efc.J.device)
 
     def rows(t, fill):
@@ -180,7 +212,8 @@ def fused_rows(plan, efc: con_mod.Efc):
 def newton_problem(model: Model, data: Data):
     """The fused kernel's Newton problem of `data`, in plain PyTorch: (the
     Data with its smooth stage, (J, M, aref, D, R, floss, active, asm) in
-    the fused row layout), `hopper_newton.newton_plain`'s operands."""
+    the fused row layout, the elliptic contacts' tables or None),
+    `hopper_newton.newton_plain`'s operands and its `ell`."""
     from . import forward as fwd
 
     plan = model.plan
@@ -192,25 +225,32 @@ def newton_problem(model: Model, data: Data):
     else:  # cdof, cinert and qfrc_smooth come with the data
         d = inertia.factor_m(model, inertia.crb(model, data))
         d = d.replace(qacc_smooth=inertia.solve_m(model, d, d.qfrc_smooth))
-    J, aref, D, R, floss, active = fused_rows(
-        plan, con_mod.make_constraint(model, d))
+    efc = con_mod.make_constraint(model, d)
+    J, aref, D, R, floss, active = fused_rows(plan, efc)
+    ell = None
+    if plan.elliptic and plan.ell_runs:
+        on = plan.con_dim >= 3
+        ell = hn.ell_tables(plan.con_efcadr[on], plan.con_dim[on],
+                            efc.con_mu, plan.nrows, J.device)
     return d, (J, d.qM, aref, D, R, floss, active.to(J.dtype),
-               d.qacc_smooth)
+               d.qacc_smooth), ell
 
 
 def fused_constraint_plain(model: Model, data: Data, replay=None) -> Data:
     """Plain version of `fused_constraint` (see the module note), on any
-    device; `replay` = (iters, taken)."""
+    device; `replay` = (iters, taken[, ls]) (`hopper_newton.newton_plain`)."""
     from . import forward as fwd
 
     plan = model.plan
-    d, problem = newton_problem(model, data)
+    d, problem, ell = newton_problem(model, data)
     J, active = problem[0], problem[6]
     x, force, iters, taken = hn.newton_plain(
         *problem, d.qacc_warmstart, ne=plan.ne, nfl=plan.nfl,
         iterations=plan.iterations, ls_iterations=plan.ls_iterations,
-        scale=plan.scale, tol=plan.tolerance, replay=replay)
+        scale=plan.scale, tol=plan.tolerance, replay=replay, ell=ell)
     qfrc = torch.einsum("erv,er->ev", J * active[..., None], force)
     dv = fwd.damping_dv(model, d.replace(qacc=x)) if plan.euler_dv else None
+    ls = (replay[2] if replay is not None and len(replay) > 2
+          else torch.zeros_like(data.solver_ls))
     return _finish(model, data, x, force, qfrc, d.qacc_smooth, dv, iters,
-                   taken)
+                   taken, ls)

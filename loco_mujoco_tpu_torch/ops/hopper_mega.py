@@ -5,17 +5,23 @@ Counterpart of `loco_mujoco_tpu/ops/pallas_constraint.py`: `mega_forward`
 (`:2486-2556`, with `_pad_slots` `:2475`) over `_mega_batched`, and
 `mega_step_n` (`:2926-2978`) over `_megastep_batched`, RK4 and Euler
 branches, with the tendon and muscle stage of a plan with muscles (`mp`;
-`:1245-1264`, `:2762-2787`). The kernels are `csrc/mega.cu`'s
-`mega_forward_kernel` and `megastep_kernel`, one thread per env, over the
+`:1245-1264`, `:2762-2787`) and the extended collision and elliptic rows
+of a `mega_ell` plan (A1; `_mega_ell_finish` `:2559-2610`). The kernels
+are `csrc/mega.cu`'s `mega_forward_kernel` and `megastep_kernel` (each in
+a plane-only and an extended instance), one thread per env, over the
 static tables of the model's row plan (`ops/plan.py`, `mega` set).
 
 Output contract (the reference's): `mega_forward` returns Data with
 `qacc`, `qacc_smooth`, `qfrc_constraint`, `efc_force_contact` (the four
-facet forces of each slot, zero-padded to the field's width), `euler_dv`
-(None unless the plan has it), `act_dot` (with muscles), the contact meta
-`dist`, `geom1` (the plane), `geom2`, the static `includemargin` and
-`friction`, and the Newton decisions `solver_niter` / `solver_taken`; every
-other position- and velocity-stage field stays as it came in (stale).
+facet forces of each pyramidal slot, or the dim rows of each elliptic
+slot, zero-padded to the field's width), `euler_dv` (None unless the plan
+has it), `act_dot` (with muscles), the contact meta `dist`, `geom1` (the
+plane, or with `mega_ell` the kernel's, self pairs included), `geom2`, the
+static `includemargin` and `friction` (with `mega_ell` per slot from its
+group's statics), and the Newton decisions `solver_niter` /
+`solver_taken` / `solver_ls`; slots of a convex tail are padded inactive;
+every other position- and velocity-stage field stays as it came in
+(stale).
 `mega_step_n` returns Data with `qpos`, `qvel`, `act` (Euler with muscles:
 act += dt act_dot, clamped to actrange, every substep), `qacc =
 qacc_warmstart` = the carried warm start and `time + n dt`, or None outside
@@ -31,7 +37,8 @@ also com_pos, the tendons, velocity, passive, rne and actuation, then
 are the ones the kernel builds), repackaged into the contract above, and
 `mega_step_n_plain` is n such RK4 or Euler steps. Their `replay` makes
 every Newton solve take the kernel's recorded decisions (the iteration
-count and the taken-step bits, `hopper_newton.newton_plain`), so the two
+count, the taken-step bits and the line search's sign tests,
+`hopper_newton.newton_plain`), so the two
 can be held step for step; nothing on the card's main path calls them.
 """
 
@@ -42,13 +49,16 @@ import torch
 
 from ..core.types import Data, DisableBit, IntegratorType, Model
 from . import hopper_fused, kernels
+from . import hopper_newton as hn
+from .collision import BIG
 from .kernels import FLOAT, INT, PTR
 
 _SIGNATURES = {
-    "lmt_mega_forward": [PTR] * 27 + [INT] * 3 + [FLOAT, FLOAT, PTR],
-    "lmt_megastep": [PTR] * 22 + [INT] * 6 + [FLOAT] * 3 + [PTR],
+    "lmt_mega_forward": [PTR] * 30 + [INT] * 4 + [FLOAT, FLOAT, PTR],
+    "lmt_megastep": [PTR] * 23 + [INT] * 7 + [FLOAT] * 3 + [PTR],
 }
-_MAXD = 4  # facet rows per condim-3 pyramidal slot
+# per forward of the megastep: iterations, taken bits, line-search bits
+DECISIONS = 2 + hn.LS_WORDS
 
 
 def _inputs(model: Model, data: Data):
@@ -65,29 +75,52 @@ def _inputs(model: Model, data: Data):
     return [t for _, t, _ in ops]
 
 
+def _pad(x, full: int, fill=0):
+    """Slots (E, ncon, ...) padded to the model's `full` slots (the convex
+    tail, inactive)."""
+    if x.shape[1] == full:
+        return x
+    pad = torch.full((x.shape[0], full - x.shape[1], *x.shape[2:]), fill,
+                     dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
 def _pack(model: Model, data: Data, qacc, qacc_smooth, qfrc, cdist, cgid,
-          cforce, dv, act_dot, iters, taken) -> Data:
+          cgid1, cforce, dv, act_dot, iters, taken, ls) -> Data:
     """The mega output contract (see the module note) on top of `data`."""
     plan = model.plan
-    E, ncon = qacc.shape[0], plan.ncon
+    E, ncon, full = qacc.shape[0], plan.ncon, model.ncon
     dt, dev = qacc.dtype, qacc.device
-    maxd = data.efc_force_contact.shape[2]
-    efc = torch.zeros((E, ncon, maxd), dtype=dt, device=dev)
-    efc[..., :_MAXD] = cforce.reshape(E, ncon, _MAXD)[..., :maxd]
+    efc = hopper_fused.contact_forces(plan, cforce,
+                                      data.efc_force_contact.shape[2])
+    if plan.mega_ell:  # per-slot statics of the groups (_mega_ell_finish)
+        incl = [d["statics"][1] for d in plan.ext
+                for _ in range(d["k"] * d["slots"])]
+        fric = [d["statics"][9:14] for d in plan.ext
+                for _ in range(d["k"] * d["slots"])]
+        includemargin = torch.tensor(incl, dtype=dt, device=dev).expand(
+            E, ncon)
+        friction = torch.tensor(fric, dtype=dt, device=dev).expand(E, ncon, 5)
+        geom1 = cgid1.to(torch.int64)
+    else:
+        includemargin = torch.full((E, ncon), plan.c_margin, dtype=dt,
+                                   device=dev)
+        friction = torch.tensor(plan.c_fric5, dtype=dt,
+                                device=dev).expand(E, ncon, 5)
+        geom1 = torch.full((E, ncon), plan.plane_gid, dtype=torch.int64,
+                           device=dev)
     contact = data.contact.replace(
-        dist=cdist,
-        geom1=torch.full((E, ncon), plan.plane_gid, dtype=torch.int64,
-                         device=dev),
-        geom2=cgid.to(torch.int64),
-        includemargin=torch.full((E, ncon), plan.c_margin, dtype=dt,
-                                 device=dev),
-        friction=torch.tensor(plan.c_fric5, dtype=dt,
-                              device=dev).expand(E, ncon, 5).clone(),
-        dim=np.asarray(plan.con_dim))
+        dist=_pad(cdist, full, BIG), geom1=_pad(geom1, full),
+        geom2=_pad(cgid.to(torch.int64), full),
+        includemargin=_pad(includemargin.clone(), full),
+        friction=_pad(friction.clone(), full),
+        dim=np.concatenate([plan.con_dim, data.contact.dim[ncon:]]))
     return data.replace(qacc=qacc, qacc_smooth=qacc_smooth,
-                        qfrc_constraint=qfrc, efc_force_contact=efc,
+                        qfrc_constraint=qfrc,
+                        efc_force_contact=_pad(efc, full),
                         contact=contact, euler_dv=dv, act_dot=act_dot,
-                        solver_niter=iters, solver_taken=taken)
+                        solver_niter=iters, solver_taken=taken,
+                        solver_ls=ls)
 
 
 def mega_forward(model: Model, data: Data) -> Data:
@@ -104,8 +137,10 @@ def mega_forward(model: Model, data: Data) -> Data:
     f = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa
     i = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)  # noqa
     qacc, asm, qfrc = f(E, nv), f(E, nv), f(E, nv)
-    cdist, cgid, cforce = f(E, ncon), i(E, ncon), f(E, ncon * _MAXD)
-    iters, taken = i(E), i(E)
+    crows = sum(plan.rows_per)  # the contact rows, slot-major
+    cdist, cgid, cgid1 = f(E, ncon), i(E, ncon), i(E, ncon)
+    cforce = f(E, crows)
+    iters, taken, ls = i(E), i(E), i(E, hn.LS_WORDS)
     dv = f(E, nv) if plan.euler_dv else None
     act_dot = f(E, model.na) if plan.mp is not None else data.act_dot
     ints, flts = plan.tables(dev)
@@ -114,14 +149,15 @@ def mega_forward(model: Model, data: Data) -> Data:
     lib = kernels.library("mega", _SIGNATURES)
     rc = lib.lmt_mega_forward(
         p(ints), p(flts), *map(p, ins),
-        *map(p, (qacc, asm, qfrc, cdist, cgid, cforce, iters, taken)),
+        *map(p, (qacc, asm, qfrc, cdist, cgid, cgid1, cforce, iters,
+                 taken, ls)),
         None if dv is None else p(dv), p(act_dot), *map(p, scratch), E,
-        plan.iterations, plan.ls_iterations, plan.scale, plan.tolerance,
-        kernels.stream())
+        plan.iterations, plan.ls_iterations, int(plan.mega_ell), plan.scale,
+        plan.tolerance, kernels.stream())
     kernels.check(rc, "mega_forward")
     kernels.LAUNCHES["mega_forward"] += 1
-    return _pack(model, data, qacc, asm, qfrc, cdist, cgid, cforce, dv,
-                 act_dot, iters, taken)
+    return _pack(model, data, qacc, asm, qfrc, cdist, cgid, cgid1, cforce,
+                 dv, act_dot, iters, taken, ls)
 
 
 def _forward_plain(model: Model, data: Data, replay) -> Data:
@@ -146,7 +182,7 @@ def mega_forward_plain(model: Model, data: Data, replay=None) -> Data:
                         efc_force_contact=d.efc_force_contact,
                         contact=contact, euler_dv=d.euler_dv,
                         act_dot=d.act_dot, solver_niter=d.solver_niter,
-                        solver_taken=d.solver_taken)
+                        solver_taken=d.solver_taken, solver_ls=d.solver_ls)
 
 
 def megastep_mode(model: Model):
@@ -176,10 +212,10 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
                 decisions: torch.Tensor | None = None) -> Data | None:
     """n_steps physics steps of every env in one kernel launch (see the
     module note), or None outside the envelope. `decisions`, an
-    (E, F n_steps, 2) int32 tensor or None (F = `forwards_per_step`),
-    receives the iteration count and the taken-step bits of every forward,
-    for `mega_step_n_plain`'s replay; with None the kernel records
-    nothing."""
+    (E, F n_steps, DECISIONS) int32 tensor or None (F =
+    `forwards_per_step`), receives the iteration count, the taken-step bits
+    and the line search's bits of every forward, for `mega_step_n_plain`'s
+    replay; with None the kernel records nothing."""
     mode = megastep_mode(model)
     if mode is None:
         return None
@@ -191,7 +227,8 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
     n = int(n_steps)
     if decisions is not None:
         kernels.require(decisions, "decisions",
-                        (E, forwards_per_step(model) * n, 2), torch.int32)
+                        (E, forwards_per_step(model) * n, DECISIONS),
+                        torch.int32)
     f = lambda k: torch.empty((E, k), dtype=torch.float32, device=dev)  # noqa
     qpos_out, qvel_out, act_out, ws_out = f(nv), f(nv), f(model.na), f(nv)
     ints, flts = plan.tables(dev)
@@ -202,8 +239,8 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
         p(ints), p(flts), *map(p, ins), p(qpos_out), p(qvel_out),
         p(act_out), p(ws_out), None if decisions is None else p(decisions),
         *map(p, scratch), E, n, plan.iterations,
-        plan.ls_iterations, int(mode[0]), int(mode[1]), plan.scale,
-        plan.tolerance, plan.timestep, kernels.stream())
+        plan.ls_iterations, int(mode[0]), int(mode[1]), int(plan.mega_ell),
+        plan.scale, plan.tolerance, plan.timestep, kernels.stream())
     kernels.check(rc, "megastep")
     kernels.LAUNCHES["megastep"] += 1
     return data.replace(qpos=qpos_out, qvel=qvel_out, act=act_out,
@@ -214,7 +251,8 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
 def mega_step_n_plain(model: Model, data: Data, n_steps: int, replay=None,
                       on_forward=None) -> Data | None:
     """Plain version of `mega_step_n`: n staged RK4 or Euler steps with
-    the plain kernels. `replay`: the kernel's (E, F n_steps, 2) decisions;
+    the plain kernels. `replay`: the kernel's (E, F n_steps, DECISIONS)
+    decisions;
     `on_forward(d)` sees the Data of every forward, in order."""
     if megastep_mode(model) is None:
         return None
@@ -225,7 +263,8 @@ def mega_step_n_plain(model: Model, data: Data, n_steps: int, replay=None,
     for s in range(int(n_steps)):
         def stage(dd, i, s=s):
             rep = (None if replay is None else
-                   (replay[:, per * s + i, 0], replay[:, per * s + i, 1]))
+                   (replay[:, per * s + i, 0], replay[:, per * s + i, 1],
+                    replay[:, per * s + i, 2:]))
             out = _forward_plain(model, dd, rep)
             if on_forward is not None:
                 on_forward(out)

@@ -31,6 +31,7 @@ from .kernels import FLOAT, INT, PTR
 
 MINVAL = 1e-15
 NV_MAX = 24  # the local-array width compiled in csrc/newton.cu
+LS_WORDS = 4  # line-search decision words (csrc/newton_core.cuh kLsWords)
 
 _SIGNATURES = {"lmt_newton_solve": [PTR] * 15 + [INT] * 7 + [FLOAT, FLOAT, PTR]}
 
@@ -54,12 +55,16 @@ def _row_classes(nefc, ne, nfl, device):
     return rows < ne, (rows >= ne) & (rows < ne + nfl)
 
 
-def _quantities(jar, D, R, floss, on, is_eq, is_fl):
-    """Per-row force and Hessian weight, and the total row cost (E,)."""
+def _quantities(jar, D, R, floss, on, is_eq, is_fl, ell=None):
+    """Per-row force and Hessian weight, and the total row cost (E,); with
+    `ell` (elliptic contacts, `ell_tables`) also the cone zones' data for
+    the Hessian (`cone_terms`)."""
     zero = torch.zeros((), dtype=jar.dtype, device=jar.device)
     rf = R * floss
     in_quad = jar.abs() <= rf
     neg = jar < 0
+    if ell is not None:  # elliptic rows take no one-sided term
+        neg = neg & ~ell[3]
     f = torch.where(is_eq, -D * jar, torch.where(
         is_fl, torch.minimum(torch.maximum(-D * jar, -floss), floss),
         torch.where(neg, -D * jar, zero)))
@@ -69,27 +74,123 @@ def _quantities(jar, D, R, floss, on, is_eq, is_fl):
     c = torch.where(is_eq, quad, torch.where(
         is_fl, torch.where(in_quad, quad, floss * jar.abs() - 0.5 * rf * floss),
         torch.where(neg, quad, zero)))
-    return (torch.where(on, f, zero), torch.where(on, w, zero),
-            torch.where(on, c, zero).sum(-1))
+    f, w = torch.where(on, f, zero), torch.where(on, w, zero)
+    cost = torch.where(on, c, zero).sum(-1)
+    if ell is None:
+        return f, w, cost, None
+    fe, we, ce, cone = _cone_zones(jar, D, on, ell)
+    flat = ell[0].reshape(-1)
+    f = f.index_add(1, flat, fe.reshape(f.shape[0], -1))
+    w = w.index_add(1, flat, we.reshape(w.shape[0], -1))
+    return f, w, cost + ce, cone
+
+
+def ell_tables(ell_start, ell_dim, con_mu, nrows, device):
+    """(idx (n, maxdim), msk (n, maxdim) in con_mu's dtype, mu (E, n),
+    is_ell (nrows,) bool) of the elliptic contacts of a row layout
+    (`_ell_tables`): their rows, the normal row first; None without."""
+    n = len(ell_start)
+    if n == 0:
+        return None
+    maxd = int(max(ell_dim))
+    idx = np.zeros((n, maxd), np.int64)
+    msk = np.zeros((n, maxd), bool)
+    for c in range(n):
+        idx[c, :ell_dim[c]] = ell_start[c] + np.arange(ell_dim[c])
+        msk[c, :ell_dim[c]] = True
+    is_ell = np.zeros(nrows, bool)
+    is_ell[idx[msk]] = True
+    return (torch.as_tensor(idx, device=device),
+            torch.as_tensor(msk, dtype=con_mu.dtype, device=device), con_mu,
+            torch.as_tensor(is_ell, device=device))
+
+
+def _cone_zones(jar, D, on, ell):
+    """The elliptic cone of each contact (solver._quantities, :102-161) in
+    cone-scaled coordinates u_i = jar_i sqrt(D_i / D_n): separating (no
+    force), sticking (quadratic in every row) or the middle zone (cost
+    0.5 D_n / (1 + mu^2) (n - mu t)^2). Returns per-contact row forces and
+    weights (E, n, maxdim), the cost (E,) and the middle zone's Hessian
+    data (g, w_gn, jt_scale, wdir, c2; _cone_hessian_terms :173-215)."""
+    idx, msk, mu, _ = ell
+    jar_c, d_c = jar[:, idx], D[:, idx]
+    dn = d_c[..., 0]
+    scale = torch.sqrt(d_c / torch.clamp(dn[..., None], min=MINVAL))
+    u = jar_c * scale * msk
+    n = u[..., 0]
+    t = torch.sqrt(torch.sum(u[..., 1:] ** 2, dim=-1))
+    t_safe = torch.clamp(t, min=MINVAL)
+    con_on = on[:, idx[:, 0]]
+    top = n >= mu * t
+    bottom = (mu * n + t <= 0) & con_on
+    mid = ~(top | bottom) & con_on
+    zero = torch.zeros((), dtype=jar.dtype, device=jar.device)
+    f_bot = -d_c * jar_c * msk
+    c_bot = 0.5 * torch.sum(d_c * jar_c * jar_c * msk, dim=-1)
+    nmt = n - mu * t
+    dm = dn / (1.0 + mu * mu)
+    c_mid = 0.5 * dm * nmt * nmt
+    wdir = torch.cat([torch.zeros_like(n)[..., None],
+                      u[..., 1:] / t_safe[..., None]], dim=-1) * msk
+    g = torch.cat([torch.ones_like(n)[..., None],
+                   -mu[..., None] * u[..., 1:] / t_safe[..., None]],
+                  dim=-1) * scale
+    f_mid = (-dm * nmt)[..., None] * g * msk
+    force = torch.where(mid[..., None], f_mid,
+                        torch.where(bottom[..., None], f_bot, zero))
+    cost = torch.where(mid, c_mid, torch.where(bottom, c_bot, zero)).sum(-1)
+    w = torch.where(bottom[..., None], d_c * msk, zero)
+    jt_scale = torch.cat([torch.zeros_like(n)[..., None], scale[..., 1:]],
+                         dim=-1) * msk
+    cone = (g * msk, torch.where(mid, dm, zero), jt_scale, wdir,
+            torch.where(mid, dm * mu * (mu * t - n) / t_safe, zero))
+    return force, w, cost, cone
+
+
+def cone_hessian(Jm, idx, cone):
+    """The middle zone's Hessian terms of the elliptic contacts
+    (solver.newton_direction :278-300): sum over contacts of
+    w_gn Jg Jg' + c2 (sum_k Jt_k Jt_k' - Jq Jq'), Jg = sum_k g_k J_k,
+    Jt_k = jt_scale_k J_k, Jq = sum_k wdir_k Jt_k. The curvature term is
+    summed in Lagrange's form, sum_{k<l} v_kl v_kl' + (1 - |wdir|^2)
+    sum_k Jt_k Jt_k' with v_kl = wdir_l Jt_k - wdir_k Jt_l: the same matrix
+    (positive semidefinite), without the difference of two terms that grow
+    as 1/t near the cone's apex and cancel in float32."""
+    g, w_gn, jt_scale, wdir, c2 = cone
+    Jc = Jm[:, idx]  # (E, n, maxdim, nv)
+    Jg = torch.einsum("eck,eckv->ecv", g, Jc)
+    H = torch.einsum("ec,ecv,ecw->evw", w_gn, Jg, Jg)
+    Jt = Jc * jt_scale[..., None]
+    rest = c2 * (1.0 - torch.sum(wdir * wdir, dim=-1))
+    H = H + torch.einsum("ec,eckv,eckw->evw", rest, Jt, Jt)
+    maxd = Jt.shape[2]
+    for k in range(1, maxd):
+        for l_ in range(k + 1, maxd):
+            v = (wdir[..., l_, None] * Jt[:, :, k]
+                 - wdir[..., k, None] * Jt[:, :, l_])
+            H = H + torch.einsum("ec,ecv,ecw->evw", c2, v, v)
+    return H
 
 
 def _mv(A, v):
     return (A @ v[..., None])[..., 0]
 
 
-def newton_cost(J, M, aref, D, R, floss, active, asm, x, *, ne, nfl):
+def newton_cost(J, M, aref, D, R, floss, active, asm, x, *, ne, nfl,
+                ell=None):
     """The objective the solve minimises, at x (E, nv): the constraint rows'
     cost plus 0.5 (x - asm)' M (x - asm)."""
     on = active > 0
     is_eq, is_fl = _row_classes(J.shape[1], ne, nfl, J.device)
     jar = _mv(J * on[..., None].to(J.dtype), x) - aref
     d = x - asm
-    c = _quantities(jar, D, R, floss, on, is_eq, is_fl)[2]
+    c = _quantities(jar, D, R, floss, on, is_eq, is_fl, ell)[2]
     return c + 0.5 * (d * _mv(M, d)).sum(-1)
 
 
 def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
-                 iterations, ls_iterations, scale, tol, replay=None):
+                 iterations, ls_iterations, scale, tol, replay=None,
+                 ell=None):
     """Plain version of the kernel: the XLA fast path, batched over E.
     Returns qacc, forces, the Newton steps each env ran and its discrete
     decisions as an int32 per env: bit i, step i lowered the cost and was
@@ -98,7 +199,14 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
     `replay` = (iters, taken) of another solve makes env e start where
     bit 31 of taken[e] says, run exactly iters[e] steps and take step i
     iff bit i is set, whatever its own cost tests say: the two solves then
-    make the same discrete decisions and can be compared step for step."""
+    make the same discrete decisions and can be compared step for step;
+    (iters, taken, ls), ls (E, LS_WORDS) int32, also replays the line
+    search's sign tests (bit it * ls_iterations + j: phi' < 0 at trial j of
+    step it).
+
+    `ell` (`ell_tables`): the elliptic contacts' rows and cone
+    coefficients; their rows take the cone zones' forces, weights and
+    Hessian terms (solver.py:102-215, :278-300)."""
     E, nefc, nv = J.shape
     dt, dev = J.dtype, J.device
     on = active > 0
@@ -106,14 +214,14 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
     is_eq, is_fl = _row_classes(nefc, ne, nfl, dev)
 
     def quantities(jar):
-        return _quantities(jar, D, R, floss, on, is_eq, is_fl)
+        return _quantities(jar, D, R, floss, on, is_eq, is_fl, ell)
 
     def dot(a, b):
         return (a * b).sum(-1)
 
     def cost_at(x):
         return newton_cost(J, M, aref, D, R, floss, active, asm, x, ne=ne,
-                           nfl=nfl)
+                           nfl=nfl, ell=ell)
 
     def falsi(lo, dlo, hi, dhi):
         denom = dhi - dlo
@@ -135,10 +243,13 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
     for it in range(iterations):
         iters += (~done).to(torch.int32)
         jar = _mv(Jm, x) - aref
-        f, w, _ = quantities(jar)
+        f, w, _, cone = quantities(jar)
         mx = _mv(M, x - asm)
         grad = mx - _mv(Jm.transpose(1, 2), f)
-        H = M + Jm.transpose(1, 2) @ (Jm * w[..., None]) + eye
+        H = M + Jm.transpose(1, 2) @ (Jm * w[..., None])
+        if cone is not None:
+            H = H + cone_hessian(Jm, ell[0], cone)
+        H = H + eye
         dx = -linalg.cho_solve(linalg.cholesky(H), grad)
         jv = _mv(Jm, dx)
         mdx = _mv(M, dx)
@@ -150,16 +261,19 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
         has_hi = torch.zeros_like(done)
         a = torch.ones_like(g0)
         for _ls in range(ls_iterations):
-            fa, _, _ = quantities(jar + a[:, None] * jv)
+            fa = quantities(jar + a[:, None] * jv)[0]
             d = g0 + a * h0 - dot(fa, jv)
             neg = d < 0
+            if replay is not None and len(replay) > 2:
+                bit = it * ls_iterations + _ls
+                neg = (replay[2][:, bit // 32] >> (bit % 32)) & 1 == 1
             lo, dlo = torch.where(neg, a, lo), torch.where(neg, d, dlo)
             hi, dhi = torch.where(neg, hi, a), torch.where(neg, dhi, d)
             has_hi = has_hi | ~neg
             a = torch.where(has_hi, falsi(lo, dlo, hi, dhi), a * 2.0)
         alpha = torch.where(has_hi, falsi(lo, dlo, hi, dhi), lo)
         x_new = x + alpha[:, None] * dx
-        _, _, c_new = quantities(jar + alpha[:, None] * jv)
+        c_new = quantities(jar + alpha[:, None] * jv)[2]
         new_cost = c_new + 0.5 * dot(x_new - asm, mx + alpha[:, None] * mdx)
         newly = ((cost - new_cost) / scale < tol) | (
             torch.linalg.norm(grad, dim=-1) / scale < tol)
@@ -171,19 +285,29 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
         x = torch.where(upd[:, None], x_new, x)
         cost = torch.where(upd, new_cost, cost)
         done = done | (newly if replay is None else iters >= replay[0])
-    f, _, _ = quantities(_mv(Jm, x) - aref)
+    # the returned forces are D times J x - aref, a difference of nearly
+    # equal terms on stiff rows: it is taken in float64 and rounded once
+    # (as the kernels do)
+    f = quantities((_mv(Jm.double(), x.double()) - aref.double()).to(dt))[0]
     return x, f, iters, taken
 
 
 def solve(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl, iterations,
-          ls_iterations, scale, tol):
+          ls_iterations, scale, tol, ell=None):
     """Batched Newton solve (see the module note). `active` is the rows'
     0/1 flag in J's dtype; `floss` holds the friction-loss bounds of the
-    friction rows (the kernel reads rows ne..ne+nfl only)."""
+    friction rows (the kernel reads rows ne..ne+nfl only). Elliptic rows
+    (`ell`) have no kernel here: the reference keeps its XLA solve for them
+    (solver.py:263), so a CUDA tensor with `ell` raises."""
     if not J.is_cuda:
         return newton_plain(J, M, aref, D, R, floss, active, asm, ws, ne=ne,
                             nfl=nfl, iterations=iterations,
-                            ls_iterations=ls_iterations, scale=scale, tol=tol)
+                            ls_iterations=ls_iterations, scale=scale, tol=tol,
+                            ell=ell)
+    if ell is not None:
+        raise NotImplementedError(
+            "the standalone Newton kernel has no elliptic cone zones; an "
+            "elliptic model runs the fused or mega kernels (a row plan)")
     E, nefc, nv = J.shape
     if nv > NV_MAX:
         raise NotImplementedError(

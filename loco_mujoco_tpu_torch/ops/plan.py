@@ -1,22 +1,28 @@
 """The static plan of the fused constraint kernel and of the mega path.
 
 Counterpart of `loco_mujoco_tpu/ops/pallas_constraint.py`'s `RowPlan`
-(`:59-461`, `:632-758`) for pyramidal torque models, with the FK plan
-(`pallas_fk.FkPlan`) and the collision plan (`pallas_fk.ColPlan`) of its
-mega branch folded in. It is built once, at load (`core/io.model_from_numpy`),
-from the model arrays and the static contact layout; a model outside the
-row envelope gets no plan (`build_plan` returns None) and keeps the staged
-path with the standalone Newton kernel, as the reference does.
+(`:59-461`, `:632-758`), with the FK plan (`pallas_fk.FkPlan`) and the
+collision plans (`pallas_fk.ColPlan`, `ColPlanExt`) of its mega branches
+folded in. It is built once, at load (`core/io.model_from_numpy`), from the
+model arrays and the static contact layout; a model outside the row
+envelope gets no plan (`build_plan` returns None) and keeps the staged path
+with the standalone Newton kernel, as the reference does.
 
 The row envelope (a plan, and the fused kernel of `csrc/fused.cu`):
 
-- pyramidal cones, every contact slot condim 3, one kinematic tree, the
-  constraint stage on, the batched Newton budget (iterations <= 16,
-  ls_iterations <= 8);
+- pyramidal cones with every contact slot condim 3, or elliptic cones
+  (`elliptic`) with condim 1, 3, 4 or 6 (dim rows per slot, `rows_per`,
+  `:76-82`, `:178-182`); one kinematic tree, the constraint stage on, the
+  batched Newton budget (iterations <= 16, ls_iterations <= 8);
 - JOINT equalities, dof friction loss and joint limits; at most
-  `ROWS_MAX` rows (the reference's `LMT_MAX_PYR_ROWS`, `:202-210`);
+  `ROWS_MAX` rows (the reference's `LMT_MAX_PYR_ROWS`, `:202-210`), or,
+  elliptic, `ELL_ROWS_MAX` rows and nv <= 24 (`:211-214`);
 - hinge and slide joints and the kernels' compiled widths (`NV_MAX`,
   `BODY_MAX`).
+
+The convex (GJK) groups at the tail of the slot layout are left out of the
+rows (`collision.classic_ncon`): their slots stay inactive in float32, as
+in the reference.
 
 `smooth` (`_build_smooth`, `:495-627`) is set for models without tendons or
 activations: the fused kernel then rebuilds the smooth stage from the FK
@@ -27,10 +33,14 @@ and hands them to the fused kernel (the non-smooth vec layout,
 
 Within it, the contact pack the fused kernel reads per slot (`pack_w`,
 `:750-757`) is 5 floats when every candidate pair shares one static plane,
-solref, solimp, margin, gap (`uniform`, `_check_uniform`) and sliding
-friction (`fric_uniform`), 7 with per-pair friction, and the generic 26
-(= 24 + `nfric` 2) otherwise. Euler models get the in-kernel implicit
-damping `euler_dv` (`:314-329`) unless EULERDAMP is disabled.
+solref, solimp, margin, gap (`uniform`, `_check_uniform`, pyramidal only)
+and sliding friction (`fric_uniform`), 7 with per-pair friction, and the
+generic 24 + `nfric` otherwise: 26 pyramidal, 29 elliptic (5 frictions,
+torsion and rolling). Elliptic plans also carry `ell_runs` (`:286-299`:
+first row, contacts and dim of each run of equal-dim slots of dim >= 3),
+which the solve's cone zones walk, and `impratio`. Euler models get the
+in-kernel implicit damping `euler_dv` (`:314-329`) unless EULERDAMP is
+disabled.
 
 `mega` (one kernel per forward, `csrc/mega.cu`) is a flag on the plan: set
 for uniform statics with uniform friction, contacts against that one plane
@@ -41,11 +51,21 @@ mega path through the in-kernel tendon and muscle stage (`smooth_mu`, the
 reference's `_build_smooth(allow_muscle=True)` `:366-378`, with the tables
 of `MusclePlan`, `pallas_fk.py:1001-1128`, within `MUS_MAX` muscles); the
 joint motors beside the muscles keep the smooth stage's actuator table.
+An elliptic smooth model takes it with the extended collision (`mega_ell`,
+`:428-461`; its tables `ext`, the port's `ColPlanExt`,
+`pallas_fk.py:1507-1697`): every classic analytic group kind but
+plane-mesh, per-group uniform statics, one static plane on the world
+body, both geoms of self pairs. The reference's `ell_fast` branch
+specialization (`:301-312`, `:463-493`: a reduced slot subset when no env
+of a TPU block has an outside slot active) is not ported: the port's
+threads skip their own inactive rows in every solve pass, which makes the
+reduced branch's saving without a branch (as for the pyramidal fast and
+full branches).
 
 Float64 data gets no plan (`maybe_plan`), as in the reference. Left out of
-the port's plan: elliptic cones (`ell_runs`, `mega_ell`) and damping as
-per-env rows (`sm_dyn_damping`); plane-cylinder groups are refused at load
-by `core/io.py`.
+the port's plan: damping as per-env rows (`sm_dyn_damping`), plane-cylinder
+groups in the plane-only collision plan (H1's pyramidal mega) and
+plane-mesh groups in the extended one (G1).
 
 `tables(device)` packs the plan into the two read-only buffers the kernels
 of `csrc/mega.cu` and `csrc/fused.cu` take: an int32 buffer that starts with
@@ -64,9 +84,10 @@ from ..core.types import (ConeType, DisableBit, EqType, GeomType,
 MINVAL = 1e-15
 NV_MAX = 24  # the local-array widths compiled in csrc/forward_core.cuh
 BODY_MAX = 32
-CON_MAX = 64  # csrc/mega.cu
+CON_MAX = 80  # csrc/mega.cu
 PAIR_MAX = 128
 ROWS_MAX = 400  # the reference's LMT_MAX_PYR_ROWS default
+ELL_ROWS_MAX = 320  # the reference's elliptic envelope (:211-214)
 MUS_MAX = 128  # muscles and activations (csrc/forward_core.cuh)
 
 # int header of the packed tables; csrc/forward_core.cuh's `enum Header`
@@ -79,18 +100,32 @@ HEADER = (
     "I_ANC", "I_DMASK", "F_ACT", "I_ACT", "F_EQ", "I_EQ", "F_FL", "I_FL",
     "F_LIM", "I_LIM", "F_CON", "F_BOX", "I_BOX", "F_MESH", "I_MESH",
     "F_VERT", "PACKW", "I_GBODY", "NMOT", "NA", "NMUS", "F_MUS", "I_MUS",
-    "I_SEG", "F_SITE", "I_SITE", "F_ACTB",
+    "I_SEG", "F_SITE", "I_SITE", "F_ACTB", "NELL", "I_ELL", "NXGRP",
+    "I_XGRP", "F_XGRP", "I_XPAIR", "F_XPAIR", "I_CON",
 )
 H = {name: i for i, name in enumerate(HEADER)}
 # FLAGS bits
 PASSIVE, ACTUATION, CLAMPCTRL, REFSAFE = 1, 2, 4, 8
 UNIFORM, FRIC_UNIFORM, SMOOTH, MUSCLE = 16, 32, 64, 128
+ELLIPTIC = 256
 # per-entry widths of the tables (floats / ints), as the kernels read them
 WIDTH = {"F_BODY": 20, "I_BODY": 4, "F_JNT": 10, "I_JNT": 4, "F_DOF": 2,
          "I_DOF": 1, "F_ACT": 6, "I_ACT": 4, "F_EQ": 16, "I_EQ": 4,
          "F_FL": 10, "I_FL": 1, "F_LIM": 12, "I_LIM": 2, "F_CON": 32,
          "F_BOX": 12, "I_BOX": 2, "F_MESH": 16, "I_MESH": 5, "F_MUS": 28,
-         "I_MUS": 6, "I_SEG": 2, "F_SITE": 4, "I_SITE": 1, "F_ACTB": 2}
+         "I_MUS": 6, "I_SEG": 2, "F_SITE": 4, "I_SITE": 1, "F_ACTB": 2,
+         "I_ELL": 3, "I_CON": 2, "I_XGRP": 8, "F_XGRP": 16, "I_XPAIR": 4,
+         "F_XPAIR": 24}
+# pair kinds of the extended in-kernel collision (ColPlanExt._SUP without
+# plane-mesh), as the kernels number them (csrc/mega.cu `collide_ext`)
+EXT_KINDS = {(int(GeomType.PLANE), int(GeomType.SPHERE)): 0,
+             (int(GeomType.PLANE), int(GeomType.CAPSULE)): 1,
+             (int(GeomType.PLANE), int(GeomType.CYLINDER)): 2,
+             (int(GeomType.PLANE), int(GeomType.BOX)): 3,
+             (int(GeomType.SPHERE), int(GeomType.SPHERE)): 4,
+             (int(GeomType.SPHERE), int(GeomType.CAPSULE)): 5,
+             (int(GeomType.SPHERE), int(GeomType.BOX)): 6,
+             (int(GeomType.CAPSULE), int(GeomType.CAPSULE)): 7}
 
 
 def _floats(x):
@@ -126,10 +161,18 @@ class RowPlan:
         self.groups = []
         nv, nb, njnt = int(A["nv"]), int(A["nbody"]), int(A["njnt"])
         flags = int(A["opt.disableflags"])
-        if int(A["opt.cone"]) != int(ConeType.PYRAMIDAL):
+        # the convex tail's slots stay inactive in float32 and are left out
+        # of the rows (the reference's classic_ncon truncation, :64-73)
+        groups = [g for g in groups if not g.convex]
+        self.elliptic = (bool(groups)
+                         and int(A["opt.cone"]) == int(ConeType.ELLIPTIC))
+        dims = [int(g.condim) for g in groups for _ in range(g.k * g.slots)]
+        if any(d not in ((1, 3, 4, 6) if self.elliptic else (3,))
+               for d in dims):
             return
-        if any(int(g.condim) != 3 for g in groups):
-            return
+        self.impratio = float(np.asarray(L["opt.impratio"]))
+        self.ell_runs = ()
+        self.mega_ell = False
         roots = np.asarray(A["body_rootid"])
         if roots[1:].size and not np.all(roots[1:] == roots[1]):
             return
@@ -210,19 +253,39 @@ class RowPlan:
                     solimp=_floats(f64["jnt_solimp"][j]),
                     iw=float(dof_iw[v])))
 
-        self.ncon = (0 if flags & DisableBit.CONTACT
-                     else int(sum(g.k * g.slots for g in groups)))
+        self.ncon = 0 if flags & DisableBit.CONTACT else len(dims)
         self.ne, self.nfl, self.nl = len(self.eq), len(self.fl), len(self.lim)
         # the reference pads the non-contact block to a multiple of 8 with
         # inert rows; the kernels keep that row layout (the pad rows are
         # inactive and cost nothing)
         self.npad = (8 - (self.ne + self.nfl + self.nl) % 8) % 8
-        self.nrows = self.ne + self.nfl + self.nl + self.npad + 4 * self.ncon
-        if self.nrows == 0 or self.nrows > ROWS_MAX:
-            return  # the standalone Newton kernel's staged path
+        # rows per slot: 4 pyramidal facets, or dim elliptic rows (:178-182)
+        self.con_dim = np.asarray(dims[:self.ncon], np.int32)
+        self.rows_per = [1 if d == 1 else (d if self.elliptic else 4)
+                         for d in self.con_dim]
         base = self.ne + self.nfl + self.nl + self.npad
-        self.con_efcadr = (base + 4 * np.arange(self.ncon)).astype(np.int32)
-        self.con_dim = np.full(self.ncon, 3, np.int32)
+        self.nrows = base + sum(self.rows_per)
+        if self.nrows == 0:
+            return
+        if self.elliptic and (self.nrows > ELL_ROWS_MAX or nv > 24):
+            return  # the validated elliptic envelope (:211-214)
+        if not self.elliptic and self.nrows > ROWS_MAX:
+            return  # the standalone Newton kernel's staged path
+        self.con_efcadr = (base + np.concatenate(
+            [[0], np.cumsum(self.rows_per)[:-1]])).astype(np.int32) \
+            if self.ncon else np.zeros(0, np.int32)
+        # elliptic runs: contiguous equal-dim slots of dim >= 3, as
+        # (first row, contacts, dim), for the solve's cone zones (:286-299)
+        runs, i = [], 0
+        while self.elliptic and i < self.ncon:
+            j = i
+            while j < self.ncon and self.con_dim[j] == self.con_dim[i]:
+                j += 1
+            if self.con_dim[i] >= 3:
+                runs.append((int(self.con_efcadr[i]), j - i,
+                             int(self.con_dim[i])))
+            i = j
+        self.ell_runs = tuple(runs)
 
         # --- tree tables ------------------------------------------------
         self.body_parent = parent
@@ -291,13 +354,20 @@ class RowPlan:
         self.ok = True
 
         # --- uniform contact statics (_check_uniform) -------------------
-        if self.ncon:
+        if self.ncon and not self.elliptic:
             self._check_uniform(A, groups, f64)
         # --- mega: FK and collision in the kernel (ColPlan), and the
         # tendon and muscle stage of a non-smooth model (:359-378) ---------
         self.mega = bool(self.uniform and self.fric_uniform and self.ncon
                          and self.ncon <= CON_MAX
                          and self._col_plan(A, groups, mesh_kernel, f64))
+        # --- mega_ell: FK and the extended collision of every analytic
+        # group kind in the kernel (ColPlanExt, :428-461), for elliptic
+        # models with the smooth stage ------------------------------------
+        if (self.elliptic and not self.mega and self.ncon and self.smooth
+                and self.ncon <= CON_MAX):
+            self.mega_ell = self._ext_plan(A, groups, f64)
+            self.mega = self.mega_ell
         if self.mega and not self.smooth:
             self.mp = MusclePlan.build(L, A, self.dofmask, flags)
             self.smooth_mu = self.mp is not None
@@ -308,8 +378,9 @@ class RowPlan:
 
     @property
     def nfric(self):
-        """Friction components packed per slot: the 2 sliding ones."""
-        return 2
+        """Friction components packed per slot: 5 with elliptic cones
+        (torsion and rolling rows), else the 2 sliding ones (:745-748)."""
+        return 5 if self.elliptic else 2
 
     @property
     def pack_w(self):
@@ -392,6 +463,67 @@ class RowPlan:
         self.groups = col
         return True
 
+    def _ext_plan(self, A, groups, f64) -> bool:
+        """The port's ColPlanExt (pallas_fk.py:1507-1697): per group its
+        kind, budget and uniform pair statics (margin, includemargin,
+        solref, solimp, the 5 frictions), per candidate pair both geoms'
+        ids, bodies, local poses, sizes and static bounding radii (the
+        self groups' midphase) and the slot's invweight; one static plane
+        on the world body. False where a group falls outside it (plane-mesh
+        groups, non-uniform statics in a group, several planes)."""
+        from .collision import rbound_of
+
+        gbody = np.asarray(A["geom_bodyid"])
+        gtype = np.asarray(A["geom_type"])
+        gsize = f64["geom_size"]
+        # the float32 values the plain collision computes: bounding radii,
+        # the slot invweight and includemargin
+        f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+        rb = rbound_of(torch.as_tensor(f32(gsize)), gtype).numpy()
+        biw = f32(f64["body_invweight0"][:, 0])
+        pg1_all, pg2_all = (np.asarray(A["pair_geom1"]),
+                            np.asarray(A["pair_geom2"]))
+        planes = set()
+        col = []
+        for g in groups:
+            kind = EXT_KINDS.get((int(g.t1), int(g.t2)))
+            if kind is None:
+                return False
+            pid = np.asarray(g.pair_ids)
+            for name in ("pair_solref", "pair_solimp", "pair_margin",
+                         "pair_gap", "pair_friction"):
+                arr = f64[name]
+                if not np.all(arr[pid] == arr[pid[0]]):
+                    return False
+            pg1, pg2 = pg1_all[pid], pg2_all[pid]
+            if int(g.t1) == int(GeomType.PLANE):
+                planes.update(int(x) for x in pg1)
+            p0 = int(pid[0])
+
+            def side(gid):
+                return [*f64["geom_pos"][gid], *f64["geom_quat"][gid],
+                        *gsize[gid], float(rb[gid])]
+
+            col.append(dict(
+                kind=kind, k=int(g.k), slots=int(g.slots),
+                offset=int(g.offset), condim=int(g.condim),
+                statics=[float(f64["pair_margin"][p0]),
+                         float(f32(f64["pair_margin"][p0])
+                               - f32(f64["pair_gap"][p0])),
+                         *f64["pair_solref"][p0], *f64["pair_solimp"][p0],
+                         *f64["pair_friction"][p0], 0.0, 0.0],
+                ints=[[int(a), int(gbody[a]), int(b), int(gbody[b])]
+                      for a, b in zip(pg1, pg2)],
+                floats=[[*side(a), *side(b),
+                         float(biw[gbody[a]] + biw[gbody[b]]), 0.0]
+                        for a, b in zip(pg1, pg2)]))
+        if len(planes) > 1 or any(int(gbody[q]) != 0 for q in planes):
+            return False
+        if any(len(d["ints"]) > 32 for d in col):
+            return False  # the kernel's top-K mask holds 32 pairs
+        self.ext = col
+        return True
+
     # ------------------------------------------------------------------
     # packed device tables
     # ------------------------------------------------------------------
@@ -465,7 +597,8 @@ class RowPlan:
                        *self.c_fric]
         else:
             statics = [0.0] * 25
-        put("F_CON", [*statics, self.timestep, *self.sm_gravity, 0, 0, 0])
+        put("F_CON", [*statics, self.timestep, *self.sm_gravity,
+                      self.impratio, 0, 0])
         box = next((d for d in self.groups if d["kind"] == "box"), None)
         mesh = next((d for d in self.groups if d["kind"] == "mesh"), None)
         put("F_BOX", [[*p["gpos"], *p["gquat"], *p["size"], box["margin"], 0]
@@ -499,6 +632,20 @@ class RowPlan:
             put("I_SITE", [0])
         put("F_ACTB", np.stack(self.act_bounds, axis=1) if self.na
             else [[0] * 2])
+        put("I_ELL", list(self.ell_runs) or [[0] * 3])
+        put("I_CON", [[int(d), int(a)] for d, a in zip(self.con_dim,
+                                                        self.con_efcadr)]
+            or [[0] * 2])
+        ext = self.ext if self.mega_ell else []
+        first, xi, xf = 0, [], []
+        for d in ext:
+            xi.append([d["kind"], d["k"], d["slots"], len(d["ints"]),
+                       d["offset"], first, d["condim"], 0])
+            first += len(d["ints"])
+        put("I_XGRP", xi or [[0] * 8])
+        put("F_XGRP", [d["statics"] for d in ext] or [[0] * 16])
+        put("I_XPAIR", [r for d in ext for r in d["ints"]] or [[0] * 4])
+        put("F_XPAIR", [r for d in ext for r in d["floats"]] or [[0] * 24])
         flags = ((PASSIVE if self.sm_passive_on else 0)
                  | (ACTUATION if self.sm_actuation_on else 0)
                  | (CLAMPCTRL if self.sm_clampctrl else 0)
@@ -506,7 +653,8 @@ class RowPlan:
                  | (UNIFORM if self.uniform else 0)
                  | (FRIC_UNIFORM if self.fric_uniform else 0)
                  | (SMOOTH if self.smooth else 0)
-                 | (MUSCLE if mp is not None else 0))
+                 | (MUSCLE if mp is not None else 0)
+                 | (ELLIPTIC if self.elliptic else 0))
         counts = dict(
             NQ=self.nq, NV=nv, NBODY=nb, NJNT=self.njnt, NU=self.nu,
             NE=self.ne, NFL=self.nfl, NL=self.nl, NPAD=self.npad,
@@ -516,7 +664,8 @@ class RowPlan:
             NMESH=len(mesh["pairs"]) if mesh else 0,
             KMESH=mesh["k"] if mesh else 0,
             OFFMESH=mesh["offset"] if mesh else 0, PACKW=self.pack_w,
-            NMOT=len(self.sm_acts), NA=self.na, NMUS=mp.nmus if mp else 0)
+            NMOT=len(self.sm_acts), NA=self.na, NMUS=mp.nmus if mp else 0,
+            NELL=len(self.ell_runs), NXGRP=len(ext))
         for k, v in counts.items():
             hdr[H[k]] = v
         return np.concatenate(ints), np.concatenate(flts)
@@ -531,16 +680,24 @@ class RowPlan:
                                     torch.as_tensor(flts, device=device))
         return hit
 
+    @property
+    def ncon_ell(self) -> int:
+        """Elliptic contacts (the slots of `ell_runs`)."""
+        return sum(cnt for _, cnt, _ in self.ell_runs)
+
     def scratch(self, E, device) -> list:
         """Env-last row scratch of the kernels' solve: J (nrows, nv, E),
-        aref, D, R, act, jar, jv (nrows, E) and fl (max(nfl, 1), E), in
-        the kernels' argument order (J, aref, D, R, act, fl, jar, jv)."""
+        aref, D, R, act, jar, jv (nrows, E), fl (max(nfl, 1), E) and the
+        elliptic contacts' cone coefficients mu (max(ncon_ell, 1), E), in
+        the kernels' argument order (J, aref, D, R, act, fl, jar, jv,
+        mu)."""
         def f(*s):
             return torch.empty(s, dtype=torch.float32, device=device)
 
         rows = self.nrows
         return [f(rows * self.nv, E), f(rows, E), f(rows, E), f(rows, E),
-                f(rows, E), f(max(self.nfl, 1), E), f(rows, E), f(rows, E)]
+                f(rows, E), f(max(self.nfl, 1), E), f(rows, E), f(rows, E),
+                f(max(self.ncon_ell, 1), E)]
 
 
 def _dof_body_mask(A) -> np.ndarray:

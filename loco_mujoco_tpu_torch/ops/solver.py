@@ -3,12 +3,14 @@
 Counterpart of `loco_mujoco_tpu/ops/solver.py`'s fast path (solver.py:217-
 383), the one the env layer's budget selects (iterations <= 16,
 ls_iterations <= 8): warm-start select, a fixed budget of Newton steps with
-an unrolled safeguarded-secant line search, per-env MuJoCo termination, and
-the float32 floor of the tolerance (the reference's line-search floors,
+an unrolled safeguarded-secant line search, per-env MuJoCo termination, the
+float32 floor of the tolerance, and the elliptic cones' zones and Hessian
+terms (`:102-215`, `:278-300`). The reference's line-search floors,
 ls_atol and ls_step_tol, belong to its convergent path, which the batched
-budget never takes). The solve itself runs in
-`hopper_newton` (the Hopper kernel on the card, its plain version on the
-CPU); this module sets it up and writes the solution back.
+budget never takes. The solve itself runs in `hopper_newton` (the Hopper
+kernel on the card, its plain version on the CPU; elliptic rows have no
+standalone kernel, as in the reference); this module sets it up and writes
+the solution back.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ def newton_inputs(model: Model, data: Data, efc: Efc):
                 efc.active.to(dt), data.qacc_smooth, data.qacc_warmstart)
     options = dict(ne=counts[0], nfl=counts[1], iterations=opt.iterations,
                    ls_iterations=opt.ls_iterations,
-                   scale=model.stat_meaninertia * max(1, model.nv), tol=tol)
+                   scale=model.stat_meaninertia * max(1, model.nv), tol=tol,
+                   ell=hn.ell_tables(efc.ell_start, efc.ell_dim, efc.con_mu,
+                                     efc.J.shape[1], efc.J.device))
     return operands, options
 
 
@@ -49,12 +53,14 @@ def solve(model: Model, data: Data, efc: Efc, plain: bool = False) -> Data:
         zero = torch.zeros_like(data.solver_niter)
         return data.replace(qacc=data.qacc_smooth,
                             qfrc_constraint=torch.zeros_like(data.qfrc_smooth),
-                            solver_niter=zero, solver_taken=zero)
+                            solver_niter=zero, solver_taken=zero,
+                            solver_ls=torch.zeros_like(data.solver_ls))
     operands, options = newton_inputs(model, data, efc)
     fn = hn.newton_plain if plain else hn.solve
     x, force, niter, taken = fn(*operands, **options)
-    return _finish(data, efc, x, force).replace(solver_niter=niter,
-                                                solver_taken=taken)
+    return _finish(data, efc, x, force).replace(
+        solver_niter=niter, solver_taken=taken,
+        solver_ls=torch.zeros_like(data.solver_ls))
 
 
 def _finish(data: Data, efc: Efc, x, force) -> Data:
@@ -69,7 +75,7 @@ def _finish(data: Data, efc: Efc, x, force) -> Data:
         adr, dim = int(efc.con_efcadr[c]), int(efc.con_dim[c])
         if adr < 0:
             continue
-        nrow = dim if efc.type[adr] == 5 else 2 * (dim - 1)
+        nrow = dim if efc.type[adr] in (5, 7) else 2 * (dim - 1)
         nrow = min(nrow, maxd)
         rowidx[c, :nrow] = adr + np.arange(nrow)
         rowmsk[c, :nrow] = True

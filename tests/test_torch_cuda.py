@@ -25,9 +25,15 @@ tie), and at most 0.5% of the envs may. The committed muscle model
 (`humanoid_muscle_shape.npz`, muscle ctrls in [0, 1], activations from
 `test_torch_fixture.seeded_act`) is held the same way: its mega forward
 with act_dot, its Euler megastep with act, and its staged non-smooth fused
-stage.
+stage. The committed A1-shaped model (`unitree_a1_shape.npz`, elliptic
+cones, all classic analytic pair kinds, Euler) is held the same way on
+`test_torch_a1_fixture.a1_states`' states: its mega forward and megastep
+with the extended collision (geom1 and geom2 exact on active slots), its
+staged fused elliptic layout, and the refusal of its rows by the
+standalone Newton kernel.
 """
 
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -188,7 +194,8 @@ def test_mega_forward_matches_plain(state):
     assert kernels.LAUNCHES["mega_forward"] == 1
     assert set(kernels.LAUNCHES) == {"mega_forward"}
     r = hm.mega_forward_plain(model, d,
-                              replay=(k.solver_niter, k.solver_taken))
+                              replay=(k.solver_niter, k.solver_taken,
+                                      k.solver_ls))
     act_k = k.contact.dist < k.contact.includemargin
     act_r = r.contact.dist < r.contact.includemargin
     assert act_r.any()
@@ -216,7 +223,8 @@ def test_fused_matches_plain(state, name):
     k = hf.fused_constraint(model, d)
     assert dict(kernels.LAUNCHES) == {"fused": 1}
     r = hf.fused_constraint_plain(model, d,
-                                  replay=(k.solver_niter, k.solver_taken))
+                                  replay=(k.solver_niter, k.solver_taken,
+                                      k.solver_ls))
     fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
     assert (k.euler_dv is None) == (not model.plan.euler_dv)
     if model.plan.euler_dv:
@@ -233,7 +241,8 @@ def _megastep_check(model, d):
     version, decisions replayed (act too, with muscles)."""
     n = 10
     per = hm.forwards_per_step(model)
-    dec = torch.zeros((E, per * n, 2), dtype=torch.int32, device="cuda")
+    dec = torch.zeros((E, per * n, hm.DECISIONS), dtype=torch.int32,
+                      device="cuda")
     kernels.LAUNCHES.clear()
     k = fwd.step_n(model, d, n)
     assert dict(kernels.LAUNCHES) == {"megastep": 1}
@@ -287,7 +296,8 @@ def test_muscle_mega_forward_matches_plain(state):
     k = fwd.forward(model, d)
     assert dict(kernels.LAUNCHES) == {"mega_forward": 1}
     r = hm.mega_forward_plain(model, d,
-                              replay=(k.solver_niter, k.solver_taken))
+                              replay=(k.solver_niter, k.solver_taken,
+                                      k.solver_ls))
     same = torch.all((k.contact.dist < k.contact.includemargin)
                      == (r.contact.dist < r.contact.includemargin), dim=1)
     _tie_envs(same, _gap(r))
@@ -315,8 +325,101 @@ def test_muscle_fused_matches_plain(state, monkeypatch):
     k = hf.fused_constraint(model, d)
     assert dict(kernels.LAUNCHES) == {"fused": 1}
     r = hf.fused_constraint_plain(model, d,
-                                  replay=(k.solver_niter, k.solver_taken))
+                                  replay=(k.solver_niter, k.solver_taken,
+                                      k.solver_ls))
     for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
         got, ref = getattr(k, f), getattr(r, f)
         assert float((got - ref).abs().max()) < 5e-4 * float(
             ref.abs().max()), f
+
+
+def _a1_state(n=E):
+    """The committed A1-shaped model on the card and `a1_states`' seeded
+    states of it (standing, legs touching each other, tipped over)."""
+    from test_torch_a1_fixture import ASSET as A1_ASSET
+    from test_torch_a1_fixture import a1_states
+
+    model = io.load_model_npz(A1_ASSET, device="cuda")
+    qpos, qvel, ctrl = a1_states(io.load_model_npz(A1_ASSET, device="cpu"),
+                                 n)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")  # noqa
+    return model, io.make_data(model, n).replace(qpos=t(qpos), qvel=t(qvel),
+                                                 ctrl=t(ctrl))
+
+
+def test_a1_mega_forward_matches_plain(state):
+    """The mega forward with the extended collision and elliptic rows:
+    active slots and both geom ids exact, qacc, qfrc_constraint,
+    efc_force_contact and euler_dv rel 5e-4."""
+    model, d = _a1_state()
+    assert model.plan.mega_ell and model.plan.elliptic
+    kernels.LAUNCHES.clear()
+    k = fwd.forward(model, d)
+    assert dict(kernels.LAUNCHES) == {"mega_forward": 1}
+    r = hm.mega_forward_plain(model, d,
+                              replay=(k.solver_niter, k.solver_taken,
+                                      k.solver_ls))
+    act_r = r.contact.dist < r.contact.includemargin
+    same = torch.all((k.contact.dist < k.contact.includemargin) == act_r,
+                     dim=1)
+    _tie_envs(same, _gap(r))
+    for name in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
+        got, ref = getattr(k, name)[same], getattr(r, name)[same]
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), name
+    on = act_r & same[:, None]
+    assert bool((on & (r.contact.geom1 != 0)).any()), "no self pair active"
+    for name in ("geom1", "geom2"):
+        assert torch.equal(getattr(k.contact, name)[on],
+                           getattr(r.contact, name)[on]), name
+    assert float((k.contact.dist - r.contact.dist).abs()[on].max()) <= 1e-5
+
+
+def test_a1_megastep_matches_plain(state):
+    """The Euler megastep with the extended collision and elliptic rows."""
+    _megastep_check(*_a1_state())
+
+
+def test_a1_fused_matches_plain(state, monkeypatch):
+    """The fused kernel's elliptic layout (29-float pack) on the staged
+    collision's slots, decisions replayed: every env within rel 5e-4, or
+    a Newton disagreement that `chip_smoke.py`'s float64 witness settles
+    for the kernel (its rule for the elliptic fused check), at most 0.5%
+    of the envs."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    monkeypatch.setenv("LMT_MEGA", "0")
+    model, d = _a1_state()
+    assert model.plan.pack_w == 29
+    d = fwd.stages(model, d)
+    kernels.LAUNCHES.clear()
+    k = hf.fused_constraint(model, d)
+    assert dict(kernels.LAUNCHES) == {"fused": 1}
+    r = hf.fused_constraint_plain(model, d,
+                                  replay=(k.solver_niter, k.solver_taken,
+                                          k.solver_ls))
+    held = torch.ones(E, dtype=torch.bool, device="cuda")
+    for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
+        got, ref = getattr(k, f), getattr(r, f)
+        held &= ((got - ref).abs().reshape(E, -1).amax(1)
+                 < 5e-4 * float(ref.abs().max()))
+    apart, witnessed = chip_smoke._newton_witness(torch, model, d, k, r,
+                                                  staged=True)
+    excused = ~held & apart & witnessed
+    assert bool((held | excused).all()), (~held).nonzero().flatten()
+    assert int(excused.sum()) <= 0.005 * E
+
+
+def test_a1_standalone_newton_raises(state):
+    """Elliptic rows have no standalone Newton kernel (the reference keeps
+    XLA there): a CUDA tensor raises rather than running the plain version
+    on the card."""
+    model, d = _a1_state(8)
+    d = fwd.fwd_acceleration(model, fwd.fwd_actuation(
+        model, fwd.fwd_velocity(model, fwd.fwd_position(model, d))))
+    operands, options = solver.newton_inputs(model, d,
+                                             con.make_constraint(model, d))
+    assert options["ell"] is not None
+    with pytest.raises(NotImplementedError, match="elliptic"):
+        hn.solve(*operands, **options)

@@ -567,24 +567,25 @@ def test_committed_npz_matches_generator(tmp_path, muscle):
 
 @pytest.mark.parametrize("change", [
     {"tendon_stiffness": 1.0},
-    {"opt.cone": 1},
+    {"eq_type": 0},
     {"opt.integrator": 2},
     {"actuator_gaintype": 1},
     {"jnt_type": 1},
-    {"geom_type": 2},
+    {"actuator_trntype": 4},
     {"tendon_damping": 1.0},
     {"tendon_limited": 1},
     {"tendon_sitemask": False},
     {"actuator_dyntype": 2},
     {"actuator_biastype": 1},
-    {"geom_type": 5},
+    {"pair_geom1": 76},
 ])
 def test_unsupported_features_raise_at_load(change):
-    """Features outside this slice are refused when the model is loaded
-    (tendon changes on the muscle fixture: its last tendon's stiffness,
-    damping, limits, or a path of no site; the last actuator's filter
-    activation or affine bias; the last hull as a cylinder against the
-    plane)."""
+    """Features outside this slice are refused when the model is loaded in
+    float64 (tendon changes on the muscle fixture: its last tendon's
+    stiffness, damping, limits, or a path of no site; the equality as a
+    CONNECT; the last actuator's site transmission, filter activation or
+    affine bias; the last pair between two hulls, a convex pair, which
+    float64 would need GJK for)."""
     tendon = any(k.startswith("tendon_") for k in change)
     leaves, aux = tio.read_model_npz(MUSCLE_ASSET if tendon else ASSET)
     for k, v in change.items():
@@ -594,7 +595,7 @@ def test_unsupported_features_raise_at_load(change):
         else:
             aux[k] = v
     with pytest.raises(NotImplementedError):
-        tio.model_from_numpy(leaves, aux, device="cpu")
+        tio.model_from_numpy(leaves, aux, device="cpu", dtype=torch.float64)
 
 
 def test_to_casts_float_leaves_only():

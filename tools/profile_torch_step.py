@@ -3,12 +3,14 @@
 
     python3 tools/profile_torch_step.py [--envs 4096] [--steps 1]
                                         [--path megastep|staged]
-                                        [--integrator rk4|euler|muscle]
+                                        [--integrator rk4|euler|muscle|a1]
 
 Loads the committed HumanoidTorque-shaped model on the card (`--integrator
 euler`: its Euler configuration, the same arrays with `opt.integrator` set
 to Euler; `muscle`: the committed HumanoidMuscle-shaped model, Euler,
-muscle ctrls in [0, 1]), makes the same seeded state as `chip_smoke.py`,
+muscle ctrls in [0, 1]; `a1`: the committed UnitreeA1-shaped model,
+Euler, elliptic cones, its motor ctrls in half the ctrlrange, the
+smoke's A1 draws), makes the same seeded state as `chip_smoke.py`,
 runs one warm-up control step (10 substeps), then traces `--steps` control
 steps with `torch.profiler`: `--path megastep` (the main path) runs each
 control step as one `forward.step_n`, `--path staged` runs 10
@@ -52,7 +54,7 @@ SUBSTEPS = 10
 STAGES = [
     (kinematics, "kinematics"), (kinematics, "com_pos"), (tendon, "tendon"),
     (tendon, "tendon_vel"), (inertia, "crb"),
-    (collision, "collision"), (collision, "_plane_box_group"),
+    (collision, "collision"), (collision, "_analytic_group"),
     (collision, "_plane_mesh_kernel"), (inertia, "factor_m"),
     (velocity, "com_vel"), (passive, "passive"), (velocity, "rne"),
     (actuation, "actuation"), (inertia, "solve_m"),
@@ -116,7 +118,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=1)
     ap.add_argument("--path", choices=("megastep", "staged"),
                     default="megastep")
-    ap.add_argument("--integrator", choices=("rk4", "euler", "muscle"),
+    ap.add_argument("--integrator", choices=("rk4", "euler", "muscle", "a1"),
                     default="rk4")
     args = ap.parse_args()
     if args.path == "staged":
@@ -131,26 +133,30 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     kernels.build_all()
     dev = torch.device("cuda")
-    muscle = args.integrator == "muscle"
+    muscle, a1 = args.integrator == "muscle", args.integrator == "a1"
     leaves, aux = io.read_model_npz(
-        ROOT / "loco_mujoco_tpu_torch/assets" / ("humanoid_muscle_shape.npz"
-                                                 if muscle else
-                                                 "humanoid_torque_shape.npz"))
+        ROOT / "loco_mujoco_tpu_torch/assets" / (
+            "humanoid_muscle_shape.npz" if muscle else
+            "unitree_a1_shape.npz" if a1 else "humanoid_torque_shape.npz"))
     if args.integrator == "euler":
         aux["opt.integrator"] = 0
     model = io.model_from_numpy(leaves, aux, device=dev)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(1 if a1 else 0)  # chip_smoke.py's draws
     E = args.envs
     qpos = model.qpos0.cpu().numpy()[None] + rng.normal(scale=0.02,
                                                         size=(E, model.nq))
-    z = int(model.jnt_qposadr[model.names["joint"]["root_z"]])
-    qpos[:, z] -= rng.uniform(0.005, 0.02, size=E)
+    if a1:
+        z = int(model.jnt_qposadr[model.names["joint"]["trunk_tz"]])
+        qpos[:, z] = float(model.qpos0[z]) - rng.uniform(0.005, 0.02, size=E)
+        ctrl = rng.uniform(-0.5, 0.5, size=(E, model.nu))  # A1_CTRL
+    else:
+        z = int(model.jnt_qposadr[model.names["joint"]["root_z"]])
+        qpos[:, z] -= rng.uniform(0.005, 0.02, size=E)
+        ctrl = (rng.uniform(0.0, 1.0, size=(E, model.nu)) if muscle else
+                rng.uniform(-0.3, 0.3, size=(E, model.nu)))
     d = io.make_data(model, E).replace(
         qpos=torch.as_tensor(qpos, dtype=torch.float32, device=dev),
-        ctrl=torch.as_tensor(rng.uniform(0.0, 1.0, size=(E, model.nu))
-                             if muscle else
-                             rng.uniform(-0.3, 0.3, size=(E, model.nu)),
-                             dtype=torch.float32, device=dev))
+        ctrl=torch.as_tensor(ctrl, dtype=torch.float32, device=dev))
     for mod, name in STAGES:
         _wrap(mod, name)
 
