@@ -79,9 +79,11 @@ SUBSTEPS = 10  # physics substeps per control step (RK4: 4 forwards each)
 TIE = 1e-5  # a slot or limit this close to its margin is a float32 tie
 SHOW_ENVS = 10  # envs printed per check
 WITNESS_ITERATIONS = 30  # Newton and line-search steps of the float64 witness
-# a budget-truncated solve's float32 spread: the kernel may lie this many
-# times as far from the float64 replay as the plain version does
-TRUNCATED_SPREAD = 3.0
+# the reference's own tolerance on float32 elliptic solves
+# (tests/test_pallas_newton.py:152-159, the fused elliptic forces): the
+# farthest an elliptic solve cut at its Newton budget may lie from the
+# float64 replay of its own decisions (_newton_witness)
+ELL_TOL = 2e-3
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -202,28 +204,25 @@ def _margin_gap(m, d):
 def _newton_witness(torch, m, S, k, p, envs=None, staged=False):
     """Per env, at one state S that the kernel's and the plain version's
     forwards share (`k`, `p`, the kernel's decisions replayed):
-    (apart, witnessed). `apart`: their accelerations, constraint forces or
-    contact forces lie more than rel 5e-4 (of the plain version's largest)
-    apart (among `envs`, a mask, where given). The replay covers the
-    iteration count, the taken steps and the line search's sign tests, not
-    the rows' float32 tests, so a plain version stopped at the kernel's
-    count can end elsewhere. `witnessed`: a float64 witness of the state's
-    Newton problem (the plain version's rows; tools/newton_witness.py)
-    settles such an env for the kernel, reading qacc and qfrc_constraint
-    (rel 5e-4 of the plain version's largest; with impratio 100 the
-    elliptic friction rows weigh 100 times the normal's, so the forces move
-    more than qacc), in one of two ways:
-
-    - converged or replayed: the problem solved in float64 to
-      convergence, or the same solve in float64 replaying the kernel's
-      decisions from the same start (the kernel's computation in exact
-      arithmetic), lies within rel 5e-4 of the kernel's result and no
-      farther from it than the plain version's;
-    - truncated: the kernel ran its whole Newton budget, and that float64
-      replay lies farther than rel 5e-4 from the float32 plain version
-      itself -- float32 does not fix this budget-truncated iterate to the
-      tolerance -- and no farther than TRUNCATED_SPREAD times that from
-      the kernel's (the same float32 spread).
+    (apart, witnessed). `apart`: their accelerations lie more than rel
+    5e-4 (of the plain version's largest) apart (among `envs`, a mask,
+    where given); with elliptic cones also their constraint or contact
+    forces (impratio 100 makes the friction rows 100 times stiffer than
+    the normal's, so the forces move more than qacc). The replay covers
+    the iteration count, the taken steps and the line search's sign tests,
+    not the rows' float32 tests, so a plain version stopped at the
+    kernel's count can end less converged. `witnessed`: the float64
+    witness (tools/newton_witness.py) settles such an env for the kernel:
+    the state's Newton problem (the plain version's rows) solved in float64
+    to convergence lies within rel 5e-4 of the kernel's acceleration (and,
+    elliptic, its constraint forces), and no farther from it than the
+    plain version's. With elliptic cones the witness is also the same
+    solve in float64 replaying the kernel's decisions from the same start
+    (the kernel's computation in exact arithmetic): it settles an env that
+    lies no farther from the kernel than from the plain version, and
+    within rel 5e-4 of the kernel, or within ELL_TOL where the kernel ran
+    its whole Newton budget (a solve cut mid-way, which float32 does not
+    fix to 5e-4: the plain version lies as far).
 
     `staged`: S already holds the stages' outputs (the fused kernel's
     inputs). Prints each apart env's reading."""
@@ -231,15 +230,17 @@ def _newton_witness(torch, m, S, k, p, envs=None, staged=False):
     from loco_mujoco_tpu_torch.ops import hopper_fused as hf
     from loco_mujoco_tpu_torch.ops import hopper_newton as hn
 
+    ell_model = m.plan.elliptic
     scale = float(p.qacc.abs().max())
     fscale = float(p.qfrc_constraint.abs().max()) + 1e-9
-    cscale = float(p.efc_force_contact.abs().max()) + 1e-9
     E = k.qacc.shape[0]
-    apart = (((k.qacc - p.qacc).abs().amax(1) > 5e-4 * scale)
-             | ((k.qfrc_constraint - p.qfrc_constraint).abs().amax(1)
-                > 5e-4 * fscale)
-             | ((k.efc_force_contact - p.efc_force_contact).abs().reshape(
-                 E, -1).amax(1) > 5e-4 * cscale))
+    apart = (k.qacc - p.qacc).abs().amax(1) > 5e-4 * scale
+    if ell_model:
+        cscale = float(p.efc_force_contact.abs().max()) + 1e-9
+        apart |= (((k.qfrc_constraint - p.qfrc_constraint).abs().amax(1)
+                   > 5e-4 * fscale)
+                  | ((k.efc_force_contact - p.efc_force_contact).abs()
+                     .reshape(E, -1).amax(1) > 5e-4 * cscale))
     if envs is not None:
         apart &= envs
     witnessed = torch.zeros_like(apart)
@@ -256,35 +257,40 @@ def _newton_witness(torch, m, S, k, p, envs=None, staged=False):
     x_c, f_c = hn.newton_plain(
         *sub, k.qacc[idx].double(), iterations=WITNESS_ITERATIONS,
         ls_iterations=WITNESS_ITERATIONS, tol=1e-14, **opt)[:2]
-    x_r, f_r = hn.newton_plain(
-        *sub, S.qacc_warmstart[idx].double(), iterations=plan.iterations,
-        ls_iterations=plan.ls_iterations, tol=plan.tolerance,
-        replay=(k.solver_niter[idx], k.solver_taken[idx],
-                k.solver_ls[idx]), **opt)[:2]
 
     def err(d, x_w, f_w):
+        e = (d.qacc[idx].double() - x_w).abs().amax(1) / scale
+        if not ell_model:
+            return e
         q_w = torch.einsum("erv,er->ev", sub[0] * sub[6][..., None], f_w)
-        return torch.maximum(
-            (d.qacc[idx].double() - x_w).abs().amax(1) / scale,
-            (d.qfrc_constraint[idx].double() - q_w).abs().amax(1) / fscale)
+        return torch.maximum(e, (d.qfrc_constraint[idx].double() - q_w)
+                             .abs().amax(1) / fscale)
 
     e_k, e_p = err(k, x_c, f_c), err(p, x_c, f_c)
-    r_k, r_p = err(k, x_r, f_r), err(p, x_r, f_r)
-    full = k.solver_niter[idx] >= plan.iterations
-    conv = ((e_k <= 5e-4) & (e_k <= e_p)) | ((r_k <= 5e-4) & (r_k <= r_p))
-    trunc = full & (r_p > 5e-4) & (r_k <= TRUNCATED_SPREAD * r_p)
-    witnessed[idx] = conv | trunc
+    ok = (e_k <= 5e-4) & (e_k <= e_p)
+    reading = [f"against the converged float64 witness: kernel rel "
+               f"{float(a):.3g}, plain rel {float(b):.3g}"
+               for a, b in zip(e_k, e_p)]
+    if ell_model:
+        x_r, f_r = hn.newton_plain(
+            *sub, S.qacc_warmstart[idx].double(), iterations=plan.iterations,
+            ls_iterations=plan.ls_iterations, tol=plan.tolerance,
+            replay=(k.solver_niter[idx], k.solver_taken[idx],
+                    k.solver_ls[idx]), **opt)[:2]
+        r_k, r_p = err(k, x_r, f_r), err(p, x_r, f_r)
+        full = k.solver_niter[idx] >= plan.iterations
+        ok |= (r_k <= r_p) & (r_k <= torch.where(full, ELL_TOL, 5e-4))
+        reading = [f"{t}; against the float64 replay: kernel rel "
+                   f"{float(a):.3g}, plain rel {float(b):.3g}"
+                   for t, a, b in zip(reading, r_k, r_p)]
+    witnessed[idx] = ok
     e_qs = ((k.qacc_smooth[idx] - p.qacc_smooth[idx]).abs().amax(1)
             / float(p.qacc_smooth.abs().max()))
-    for j, e in enumerate(idx.tolist()):
-        how = ("the kernel holds" if conv[j] else
-               "float32 tie (truncated)" if trunc[j] else "not settled")
+    for e, es, t, w in zip(idx.tolist(), e_qs.tolist(), reading,
+                           ok.tolist()):
         print(f"  env {e}: apart at a shared state (their qacc_smooth rel "
-              f"{float(e_qs[j]):.3g}, {int(k.solver_niter[e])} Newton steps)"
-              f"; against the converged float64 witness: kernel rel "
-              f"{float(e_k[j]):.3g}, plain rel {float(e_p[j]):.3g}; against "
-              f"the float64 replay: kernel rel {float(r_k[j]):.3g}, plain "
-              f"rel {float(r_p[j]):.3g} ({how})")
+              f"{es:.3g}, {int(k.solver_niter[e])} Newton steps); {t} "
+              f"({'the kernel holds' if w else 'not settled'})")
     return apart, witnessed
 
 
@@ -304,8 +310,7 @@ def _tie_envs(torch, held, gap, E, what, err=None, newton=None):
               + ("" if err is None else f" (rel {float(err[e]):.3g})")
               + f", nearest margin {float(gap[e]):.3g}"
               + ("" if newton is None else
-                 f", a Newton disagreement the witness settles (or, in a "
-                 f"megastep, every substep held from the kernel's states): "
+                 f", Newton disagreement settled by the witness: "
                  f"{bool(newton[e])}"))
     if n > SHOW_ENVS:
         print(f"  {what}: {n - SHOW_ENVS} more envs differ")
@@ -334,7 +339,23 @@ def _muscle_flops(model):
             + 12 * int(model.plan.dofmask[1:].sum()) + model.nv)
 
 
-def _forward_flops(torch, model, d, iters, in_kernel_collision=True):
+def _cone_census(torch, model, d, qacc):
+    """The elliptic contacts' census of one solve, from the plain version's
+    rows at data `d` and the solution `qacc`: (active, sticking, in the
+    middle zone (E, n) at qacc, dim (n,)), float64."""
+    from loco_mujoco_tpu_torch.ops import hopper_fused as hf
+    from loco_mujoco_tpu_torch.ops import hopper_newton as hn
+
+    _, problem, ell = hf.newton_problem(model, d)
+    J, aref, D, on = problem[0], problem[2], problem[3], problem[6] > 0
+    jar = torch.einsum("erv,ev->er", J, qacc.to(J.dtype)) - aref
+    _, w, _, cone = hn._cone_zones(jar, D, on, ell)
+    return (on[:, ell[0][:, 0]].double(), (w[..., 0] > 0).double(),
+            (cone[1] > 0).double(), ell[1].sum(-1).double())
+
+
+def _forward_flops(torch, model, d, iters, in_kernel_collision=True,
+                   qacc=None):
     """Float operations of one forward per env (multiply-add = 2),
     reckoned from csrc/mega.cu (in_kernel_collision: FK and collision in
     the kernel) or csrc/fused.cu (without them) on this state: `d` is the
@@ -344,11 +365,14 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True):
     selected pairs' neighbour walks, the active constraint rows and the
     Newton iterations; the rest is per-env arithmetic of fixed size. A
     plan with euler_dv adds its solve (M qacc, Cholesky, substitutions).
-    Elliptic contacts count their dim rows, the cone zone at each of the
-    solve's evaluations (3 + ls_iterations per Newton step) and the
-    middle zone's rank-1 Hessian terms, these as if every active contact
-    were in the middle zone (its share of a forward is a few percent); the
-    extended collision (`mega_ell`) counts both sides' poses and keys of
+    Elliptic contacts count their dim rows and, per Newton step, each
+    active contact's cone zone at each of the solve's 3 + ls_iterations
+    evaluations, and the Hessian outer products of its zone at the
+    solution (`qacc`, or d.qacc: _cone_census), as csrc/newton_core.cuh
+    computes them: none separating, dim sticking, and in the middle zone
+    its dim - 1 tangential rows, its rank-1 term and its
+    (dim - 1)(dim - 2) / 2 curvature pairs. The extended collision
+    (`mega_ell`) counts both sides' poses and keys of
     every pair of a top-K group and the narrowphase of the selected
     pairs."""
     from loco_mujoco_tpu_torch.ops import collision as coll
@@ -371,11 +395,16 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True):
         rot = (act.double() * (dims > 3).double()).sum(dim=1)
         con_rows = crows * (2 * nv + 12) + n_con * (24 * nv + 60) \
             + rot * 18 * nv
-        cone = n_con * ((3 + ls) * (10 * 6 + 30) + 4 * 6 * nv
-                        + 2 * nv * (nv + 1))
+        on, stick, mid, dim = _cone_census(
+            torch, model, d, d.qacc if qacc is None else qacc)
+        pairs = (dim - 1) * (dim - 2) / 2  # curvature outer products
+        outers = (stick * dim + mid * (dim + pairs)).sum(dim=1)
+        cone = (on * (3 + ls) * (10 * dim + 30)).sum(dim=1) \
+            + (mid * (2 * dim * nv + pairs * 3 * nv)).sum(dim=1)
     else:
         crows = 4 * n_con
         con_rows = n_con * (43 * nv + 60)
+        outers = crows
         cone = torch.zeros_like(n_con)
     A = plan.ne + plan.nfl + lim + crows  # active rows
     fixed = (nb * 170 + nv * 36 + 6 * nv * (nv + 1) + 2 * nv ** 3 / 3
@@ -385,8 +414,8 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True):
     rows = (plan.ne + plan.nfl) * (4 * nv + 40) + lim * (2 * nv + 40) \
         + con_rows
     per_iter = (4 * nv * nv + nv * nv / 2 + 2 * nv ** 3 / 3 + 4 * nv * nv
-                + 12 * nv + A * (6 * nv + nv * (nv + 1) + 14 + 8 * ls + 8)
-                + cone)
+                + 12 * nv + A * (6 * nv + 14 + 8 * ls + 8)
+                + (A - crows + outers) * nv * (nv + 1) + cone)
     newton = (2 * (A * (2 * nv + 6) + 2 * nv * nv + 4 * nv)
               + iters.double() * per_iter + A * (4 * nv + 6))
     total = fixed + rows + newton
@@ -800,15 +829,7 @@ def main() -> int:
         """One control step of the megastep against its plain version;
         returns (error, S1, the flops of each forward). Ties (_tie_envs)
         are read along both trajectories, the plain version's (every
-        forward) and the kernel's (every substep's first forward). An env
-        whose two trajectories part is also held substep by substep from
-        the kernel's own states (the megastep is deterministic per env):
-        the plain version's substep from the kernel's state after k
-        substeps, replaying that substep's decisions, must land within
-        rel 5e-4 of the kernel's state after k + 1 (or be a Newton
-        disagreement the witness settles); where every substep holds so,
-        the parting is the float32 trajectories' own, amplified by the
-        dynamics, and the env counts as a tie."""
+        forward) and the kernel's (every substep's first forward)."""
         per = hm.forwards_per_step(m)
         dec = torch.zeros((E, per * SUBSTEPS, hm.DECISIONS),
                           dtype=torch.int32, device=dev)
@@ -833,12 +854,9 @@ def main() -> int:
         kgaps = []
         apart = torch.zeros(E, dtype=torch.bool, device=dev)
         settled = torch.ones(E, dtype=torch.bool, device=dev)
-        stepwise = torch.ones(E, dtype=torch.bool, device=dev)
         drift = []  # qvel error between the two at each substep's start
-        names = ("qpos", "qvel") + (("act",) if m.na else ())
-        scales = {n: float(getattr(ks, n).abs().max()) + 1e-9 for n in names}
-        Sk = S1
         for k in range(SUBSTEPS):
+            Sk = S1 if k == 0 else hm.mega_step_n(m, S1, k)
             drift.append((Sk.qvel - starts[k]).abs().amax(1))
             fk = hm.mega_forward(m, Sk)
             fp = hm.mega_forward_plain(
@@ -847,16 +865,6 @@ def main() -> int:
             a, w = _newton_witness(torch, m, Sk, fk, fp)
             apart |= a
             settled &= ~a | w
-            # the substep from the kernel's state, against the kernel's
-            Sn = hm.mega_step_n(m, S1, k + 1)
-            pk = hm.mega_step_n_plain(m, Sk, 1,
-                                      replay=dec[:, per * k:per * (k + 1)])
-            ok = torch.ones(E, dtype=torch.bool, device=dev)
-            for n in names:
-                ok &= ((getattr(Sn, n) - getattr(pk, n)).abs().amax(1)
-                       <= 5e-4 * scales[n])
-            stepwise &= ok | (a & w)
-            Sk = Sn
         held = torch.ones(E, dtype=torch.bool, device=dev)
         step_errs = {}
         for name in ("qpos", "qvel") + (("act",) if m.na else ()):
@@ -875,12 +883,9 @@ def main() -> int:
         for env in torch.nonzero(~held).flatten().tolist()[:SHOW_ENVS]:
             print(f"  megastep {what}: env {env} qvel error at each "
                   f"substep's start "
-                  + " ".join(f"{float(d[env]):.2g}" for d in drift)
-                  + f"; every substep held from the kernel's states: "
-                  f"{bool(stepwise[env])}")
+                  + " ".join(f"{float(d[env]):.2g}" for d in drift))
         ties = _tie_envs(torch, held, pgap.minimum(kgap), E,
-                         f"megastep {what}", rel,
-                         (apart & settled) | stepwise)
+                         f"megastep {what}", rel, apart & settled)
         # the error over the envs held to the tolerance (all but the ties)
         e = max(float(e[held].max()) for e, _ in step_errs.values())
         msg = [f"{name} rel {float(e[held].max()) / scl:.3g} (all envs "
@@ -1111,7 +1116,8 @@ def main() -> int:
             + E * m.plan.nrows * 4 \
             + (nbytes(k.euler_dv) if m.plan.euler_dv else 0)
         flops = float(_forward_flops(
-            torch, m, d, k.solver_niter, in_kernel_collision=False).sum())
+            torch, m, d, k.solver_niter, in_kernel_collision=False,
+            qacc=k.qacc).sum())
         ms = _time_ms(torch, lambda: hf.fused_constraint(m, d))
         plain = _time_ms(torch, lambda: hf.fused_constraint_plain(m, d),
                          reps=3)
