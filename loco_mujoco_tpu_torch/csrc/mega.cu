@@ -92,6 +92,29 @@ constexpr int CMAX = 80;  // contact slots (ops/plan.py CON_MAX)
 constexpr int PMAX = 128; // plane-mesh pairs (PAIR_MAX)
 constexpr float kBig = 1e10f;
 
+// ---- per-phase clocks (a compile-time variant) ------------------------------
+// Built with -DLMT_PHASES only by tools/megastep_phases.py, never for the
+// main path: clock64() is read at the phase boundaries of forward_env and
+// each phase's cycles are summed per env into g_phase (E, kPhases + 1), the
+// last column holding the previous reading.
+constexpr int kPhases = 6;  // FK, collision, smooth, rows, Newton, integration
+enum Phase { PH_FK, PH_COLLISION, PH_SMOOTH, PH_ROWS, PH_NEWTON, PH_STEP };
+#ifdef LMT_PHASES
+__device__ long long* g_phase;
+__device__ __forceinline__ void phase_start(int e) {
+  g_phase[(size_t)e * (kPhases + 1) + kPhases] = clock64();
+}
+__device__ __forceinline__ void phase_tick(int e, int p) {
+  long long* g = g_phase + (size_t)e * (kPhases + 1);
+  const long long t = clock64();
+  g[p] += t - g[kPhases];
+  g[kPhases] = t;
+}
+#else
+__device__ __forceinline__ void phase_start(int) {}
+__device__ __forceinline__ void phase_tick(int, int) {}
+#endif
+
 // ---- quaternion helpers (the port's ops/math.py formulas) ---------------
 __device__ void quat_rotate(const float* q, const float* v, float* o) {
   float c[3], uc[3];
@@ -1003,17 +1026,21 @@ __device__ void forward_env(const Tab& T, const Io& io, const In& in,
   const int nv = T.h(NV), nrows = T.h(NROWS), ncon = T.h(NCON);
   const float* ctrl = in.ctrl + (size_t)e * T.h(NU);
   fk(T, qpos, s);
+  phase_tick(e, PH_FK);
   com_pos(T, s);
   crb_factor(T, s, nullptr);
   smooth_force(T, ctrl, in.qfrc_applied + (size_t)e * nv,
                in.xfrc + (size_t)e * T.h(NBODY) * 6, qpos, qvel, s);
   if (T.h(FLAGS) & MUSCLE) muscle_block(T, s, ctrl, act, act_dot);
   smooth_acc(T, s);
+  phase_tick(e, PH_SMOOTH);
   if constexpr (EXT)
     collide_ext(T, s);
   else
     collide(T, s);
+  phase_tick(e, PH_COLLISION);
   make_rows<EXT>(T, io, e, qpos, qvel, s);
+  phase_tick(e, PH_ROWS);
   // the contact rows, in the plan's layout (blocked facets or slot-major
   // elliptic rows), after the joint and pad rows
   const int base = T.h(NE) + T.h(NFL) + T.h(NL) + T.h(NPAD);
@@ -1023,6 +1050,7 @@ __device__ void forward_env(const Tab& T, const Io& io, const In& in,
              ls_bits, [&](int r, float f) {
                if (r >= base) out.cforce[(size_t)e * crows + r - base] = f;
              });
+  phase_tick(e, PH_NEWTON);
   if (!out.qfrc) return;
   for (int k = 0; k < nv; ++k) {
     out.qfrc[(size_t)e * nv + k] = qfrc[k];
@@ -1038,6 +1066,7 @@ __device__ void forward_env(const Tab& T, const Io& io, const In& in,
     euler_dv(T, s, qacc, dv);
     for (int k = 0; k < nv; ++k) out.dv[(size_t)e * nv + k] = dv[k];
   }
+  phase_tick(e, PH_STEP);
 }
 
 template <bool EXT>
@@ -1060,6 +1089,7 @@ __global__ void __launch_bounds__(32) mega_forward_kernel(
   for (int a = 0; a < na; ++a) act[a] = act_in[(size_t)e * na + a];
   int it;
   unsigned taken, ls[kLsWords];
+  phase_start(e);
   forward_env<EXT>(T, io, in, out, e, qpos, qvel, act, ws, s, qacc, act_dot,
                    it,
               taken, ls);
@@ -1112,6 +1142,7 @@ __global__ void __launch_bounds__(32) megastep_kernel(
   };
   const float a[3] = {0.5f, 0.5f, 1.f};
   const float bw[4] = {1.f / 6, 1.f / 3, 1.f / 3, 1.f / 6};
+  phase_start(e);
   for (int step = 0; step < n_steps; ++step) {
     float qacc[NVM];
     int it;
@@ -1135,6 +1166,7 @@ __global__ void __launch_bounds__(32) megastep_kernel(
         for (int a = 0; a < na; ++a)
           act[a] = fminf(fmaxf(act[a] + dt * act_dot[a], act_lim[2 * a]),
                          act_lim[2 * a + 1]);
+      phase_tick(e, PH_STEP);
       continue;
     }
     float qs[NVM], vs[NVM], aq[NVM], av[NVM];
@@ -1160,6 +1192,7 @@ __global__ void __launch_bounds__(32) megastep_kernel(
           qs[k] = qpos[k] + dt * a[i] * vs[k];
           vs[k] = qvel[k] + dt * a[i] * qacc[k];
         }
+      phase_tick(e, PH_STEP);
     }
     for (int k = 0; k < nv; ++k) {
       qpos[k] = qpos[k] + dt * aq[k];
@@ -1228,6 +1261,16 @@ extern "C" int lmt_mega_forward(
     go(mega_forward_kernel<false>);
   return (int)cudaGetLastError();
 }
+
+#ifdef LMT_PHASES
+// The per-phase clock buffer (E, kPhases + 1) int64 of the next launches
+// (tools/megastep_phases.py zeroes it).
+extern "C" int lmt_mega_phases(void* buf) {
+  long long* p = (long long*)buf;
+  cudaMemcpyToSymbol(g_phase, &p, sizeof(p));
+  return (int)cudaGetLastError();
+}
+#endif
 
 // The same inputs and scratch; outputs qpos, qvel, ws (E, nv) and act_out
 // (E, na) after n_steps substeps of `dt` (rk4: RK4, else Euler with

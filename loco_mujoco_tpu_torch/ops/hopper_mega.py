@@ -209,13 +209,16 @@ def forwards_per_step(model: Model) -> int:
 
 
 def mega_step_n(model: Model, data: Data, n_steps: int,
-                decisions: torch.Tensor | None = None) -> Data | None:
+                decisions: torch.Tensor | None = None,
+                defines=()) -> Data | None:
     """n_steps physics steps of every env in one kernel launch (see the
     module note), or None outside the envelope. `decisions`, an
     (E, F n_steps, DECISIONS) int32 tensor or None (F =
     `forwards_per_step`), receives the iteration count, the taken-step bits
     and the line search's bits of every forward, for `mega_step_n_plain`'s
-    replay; with None the kernel records nothing."""
+    replay; with None the kernel records nothing. `defines`: a
+    compile-time variant of `csrc/mega.cu` (`LMT_PHASES`,
+    tools/megastep_phases.py)."""
     mode = megastep_mode(model)
     if mode is None:
         return None
@@ -234,7 +237,7 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
     ints, flts = plan.tables(dev)
     scratch = plan.scratch(E, dev)  # held until the launch is queued
     p = kernels.ptr
-    lib = kernels.library("mega", _SIGNATURES)
+    lib = kernels.library("mega", _SIGNATURES, defines)
     rc = lib.lmt_megastep(
         p(ints), p(flts), *map(p, ins), p(qpos_out), p(qvel_out),
         p(act_out), p(ws_out), None if decisions is None else p(decisions),

@@ -55,24 +55,31 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> tuple[Path, list]:
+def _label(name: str, defines=()) -> str:
+    return "-".join([name, *(d.lower() for d in defines)])
+
+
+def _target(name: str, defines=()) -> tuple[Path, list]:
     src = CSRC / f"{name}.cu"
-    flags = _FLAGS + _EXTRA_FLAGS.get(name, [])
+    flags = (_FLAGS + _EXTRA_FLAGS.get(name, [])
+             + [f"-D{d}" for d in defines])
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(flags).encode())
-    return build_dir() / f"{name}-{digest.hexdigest()[:12]}.so", flags
+    so = f"{_label(name, defines)}-{digest.hexdigest()[:12]}.so"
+    return build_dir() / so, flags
 
 
-def build_all(names=SOURCES) -> float:
-    """Compile every missing library, one `nvcc` per source in parallel.
-    Returns the seconds spent; raises with the compiler's output on a
-    failed build. `-Xptxas -v` (registers, spills) goes to `<name>.ptxas`."""
+def build_all(names=SOURCES, defines=()) -> float:
+    """Compile every missing library, one `nvcc` per source in parallel
+    (each with the macros `defines`). Returns the seconds spent; raises
+    with the compiler's output on a failed build. `-Xptxas -v` (registers,
+    spills) goes to `<name>.ptxas`."""
     t0 = time.perf_counter()
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
-        so, flags = _target(name)
+        so, flags = _target(name, defines)
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -82,7 +89,7 @@ def build_all(names=SOURCES) -> float:
     errors = []
     for name, so, tmp, proc in procs:
         out, _ = proc.communicate()
-        (build_dir() / f"{name}.ptxas").write_text(out)
+        (build_dir() / f"{_label(name, defines)}.ptxas").write_text(out)
         if proc.returncode != 0:
             errors.append(f"nvcc {name}.cu failed:\n{out}")
         else:
@@ -92,20 +99,21 @@ def build_all(names=SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str, signatures: dict) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if missing.
-    `signatures` maps each launcher to its argtypes; every launcher returns
-    an int CUDA error code."""
-    lib = _LIBS.get(name)
+def library(name: str, signatures: dict, defines=()) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu` (compiled with the macros
+    `defines`), built first if missing. `signatures` maps each launcher to
+    its argtypes; every launcher returns an int CUDA error code."""
+    key = _label(name, defines)
+    lib = _LIBS.get(key)
     if lib is None:
-        so, _ = _target(name)
+        so, _ = _target(name, defines)
         if not so.exists():
-            build_all([name])
+            build_all([name], defines)
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+        _LIBS[key] = lib
     return lib
 
 
