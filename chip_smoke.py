@@ -4,7 +4,13 @@
 Run from the repository root: `python3 chip_smoke.py`. It
 
 1. prints the card and its power limit (nvidia-smi);
-2. builds the Hopper kernels from `loco_mujoco_tpu_torch/csrc/*.cu`;
+2. builds the Hopper kernels from `loco_mujoco_tpu_torch/csrc/*.cu` and
+   prints what ptxas reports of each (registers, stack, spills), and, for
+   the mega kernels (a warp per env, its state in shared memory), each
+   main-path configuration's launch: shared bytes per env, envs per block
+   and the resident warps per SM that
+   `cudaOccupancyMaxActiveBlocksPerMultiprocessor` gives both kernels (at
+   least 4);
 3. loads the committed HumanoidTorque-shaped model (nv = 19, 75 plane-mesh
    pairs) in five configurations, each a change of the loaded arrays: RK4
    and Euler with uniform contact statics (the mega plan), per-pair
@@ -44,7 +50,8 @@ Run from the repository root: `python3 chip_smoke.py`. It
    extended collision's geom1 and geom2 too), and the fused kernel on all
    four plan configurations, the muscle model's non-smooth layout and A1's
    elliptic layout, to their plain versions replaying the kernels' Newton
-   decisions, on all 4096 envs; a mega check (and the elliptic fused
+   decisions (the iteration count, the taken steps, the line search's
+   signs and each step's Hessian decision of every row), on all 4096 envs; a mega check (and the elliptic fused
    check) excuses at most 0.5% of the envs, each only as a float32 tie (a
    slot or limit within TIE of its margin) or as a Newton disagreement at
    a shared state that a float64 witness settles for the kernel;
@@ -276,7 +283,7 @@ def _newton_witness(torch, m, S, k, p, envs=None, staged=False):
             *sub, S.qacc_warmstart[idx].double(), iterations=plan.iterations,
             ls_iterations=plan.ls_iterations, tol=plan.tolerance,
             replay=(k.solver_niter[idx], k.solver_taken[idx],
-                    k.solver_ls[idx]), **opt)[:2]
+                    k.solver_ls[idx], k.solver_rows[idx]), **opt)[:2]
         r_k, r_p = err(k, x_r, f_r), err(p, x_r, f_r)
         full = k.solver_niter[idx] >= plan.iterations
         ok |= (r_k <= r_p) & (r_k <= torch.where(full, ELL_TOL, 5e-4))
@@ -349,7 +356,7 @@ def _cone_census(torch, model, d, qacc):
     _, problem, ell = hf.newton_problem(model, d)
     J, aref, D, on = problem[0], problem[2], problem[3], problem[6] > 0
     jar = torch.einsum("erv,ev->er", J, qacc.to(J.dtype)) - aref
-    _, w, _, cone = hn._cone_zones(jar, D, on, ell)
+    _, w, _, cone, _ = hn._cone_zones(jar, D, on, ell)
     return (on[:, ell[0][:, 0]].double(), (w[..., 0] > 0).double(),
             (cone[1] > 0).double(), ell[1].sum(-1).double())
 
@@ -483,6 +490,7 @@ def main() -> int:
     from loco_mujoco_tpu_torch.ops import hopper_mega as hm
     from loco_mujoco_tpu_torch.ops import hopper_newton as hn
     from loco_mujoco_tpu_torch.ops import kernels, kinematics, solver
+    from loco_mujoco_tpu_torch.ops.plan import RESIDENT_FLOOR, mega_launch
 
     import numpy as np
 
@@ -502,7 +510,8 @@ def main() -> int:
         log = (kernels.build_dir() / f"{name}.ptxas")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
                     print(f"  ptxas {name}: {line.strip()}")
 
     # ---- models and state --------------------------------------------------
@@ -544,6 +553,19 @@ def main() -> int:
           f"{[(g.t1, g.t2, g.condim, g.k, len(g.pair_ids)) for g in m_a1.groups]}"
           f", {pa1.ncon} slots, {pa1.nrows} rows, elliptic runs "
           f"{pa1.ell_runs}, impratio {pa1.impratio}")
+
+    # the mega kernels' launch: a warp per env, its state in shared memory
+    for name, m in (("rk4", model), ("euler", m_eu), ("muscle", m_mu),
+                    ("a1", m_a1)):
+        launch = mega_launch(m.plan)
+        occ = hm.occupancy(m)
+        print(f"mega launch {name}: {4 * launch.env_floats} bytes of shared "
+              f"memory per env, {launch.envs_per_block} envs (warps) per "
+              f"block; resident warps per SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor): mega "
+              f"forward {occ[0]}, megastep {occ[1]} (the launch plan's "
+              f"shared-memory bound {launch.resident_warps})")
+        assert min(occ) >= RESIDENT_FLOOR, (name, occ)
 
     rng = np.random.default_rng(SEED)
     E = N_ENVS
@@ -791,8 +813,8 @@ def main() -> int:
     # for the kernel (_tie_envs, _newton_witness).
     def mega_forward_check(m, S, what):
         k = fwd.forward(m, S)
-        r = hm.mega_forward_plain(m, S, replay=(k.solver_niter,
-                                                k.solver_taken, k.solver_ls))
+        r = hm.mega_forward_plain(m, S, replay=(
+            k.solver_niter, k.solver_taken, k.solver_ls, k.solver_rows))
         act_k = k.contact.dist < k.contact.includemargin
         act_r = r.contact.dist < r.contact.includemargin
         same = torch.all(act_k == act_r, dim=1)
@@ -831,7 +853,7 @@ def main() -> int:
         are read along both trajectories, the plain version's (every
         forward) and the kernel's (every substep's first forward)."""
         per = hm.forwards_per_step(m)
-        dec = torch.zeros((E, per * SUBSTEPS, hm.DECISIONS),
+        dec = torch.zeros((E, per * SUBSTEPS, hm.decision_width(m)),
                           dtype=torch.int32, device=dev)
         S1 = S.replace(ctrl=ctrl(0, m))
         ks = hm.mega_step_n(m, S1, SUBSTEPS, decisions=dec)
@@ -860,7 +882,8 @@ def main() -> int:
             drift.append((Sk.qvel - starts[k]).abs().amax(1))
             fk = hm.mega_forward(m, Sk)
             fp = hm.mega_forward_plain(
-                m, Sk, replay=(fk.solver_niter, fk.solver_taken, fk.solver_ls))
+                m, Sk, replay=(fk.solver_niter, fk.solver_taken, fk.solver_ls,
+                               fk.solver_rows))
             kgaps.append(_margin_gap(m, fk))
             a, w = _newton_witness(torch, m, Sk, fk, fp)
             apart |= a
@@ -960,7 +983,7 @@ def main() -> int:
         k = hf.fused_constraint(m, d)
         assert dict(kernels.LAUNCHES) == {"fused": 1}
         r = hf.fused_constraint_plain(m, d, replay=(
-            k.solver_niter, k.solver_taken, k.solver_ls))
+            k.solver_niter, k.solver_taken, k.solver_ls, k.solver_rows))
         fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
         assert (k.euler_dv is None) == (not m.plan.euler_dv)
         if m.plan.euler_dv:

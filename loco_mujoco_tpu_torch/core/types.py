@@ -339,3 +339,7 @@ class Data:
     # M qacc, written by the kernels of a plan with `euler_dv`; None where
     # the integrator solves it from qM (the JAX package's Data.euler_dv)
     euler_dv: torch.Tensor | None = None
+    # the last solve's Hessian decision of every row at each Newton step
+    # (E, iterations, row words) int32 (hopper_newton.row_bits), written by
+    # the fused and mega kernels and their plain versions; None elsewhere
+    solver_rows: torch.Tensor | None = None

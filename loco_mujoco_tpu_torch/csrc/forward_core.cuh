@@ -1,6 +1,8 @@
-// Device code of one env's forward that the one-thread-per-env kernels
-// share: csrc/mega.cu (FK and collision in the kernel) and csrc/fused.cu
-// (FK outputs and contact slots passed in). It holds
+// Device code of one env's forward, one thread per env, for csrc/fused.cu
+// (FK outputs and contact slots passed in); csrc/mega.cu, a warp per env,
+// shares its table reader, its row formulas (kbi, r_of, inert_mul) and,
+// through newton_core.cuh, the solve's row quantities, and keeps its own
+// warp-parallel counterparts of the rest. It holds
 //
 // - the reader of the packed plan tables (ops/plan.py: an int buffer that
 //   starts with the header `Header`, and a float buffer);
@@ -42,7 +44,7 @@ enum Header {
   F_DOF, I_DOF, I_ANC, I_DMASK, F_ACT, I_ACT, F_EQ, I_EQ, F_FL, I_FL, F_LIM,
   I_LIM, F_CON, F_BOX, I_BOX, F_MESH, I_MESH, F_VERT, PACKW, I_GBODY, NMOT,
   NA, NMUS, F_MUS, I_MUS, I_SEG, F_SITE, I_SITE, F_ACTB, NELL, I_ELL, NXGRP,
-  I_XGRP, F_XGRP, I_XPAIR, F_XPAIR, I_CON
+  I_XGRP, F_XGRP, I_XPAIR, F_XPAIR, I_CON, I_SHM
 };
 enum Flag {
   PASSIVE = 1, ACTUATION = 2, CLAMPCTRL = 4, REFSAFE = 8, UNIFORM = 16,
@@ -261,9 +263,8 @@ __device__ void crb_factor(const Tab& T, Body& s, const float* arm) {
   cholesky(s.M, s.L, nv);
 }
 
-// Velocity stage, passive, motors and xfrc: qfrc_smooth (the muscles of
-// csrc/mega.cu add theirs after). ctrl (nu), qfrc_applied (nv) and xfrc
-// (nbody, 6) are this env's inputs.
+// Velocity stage, passive, motors and xfrc: qfrc_smooth. ctrl (nu),
+// qfrc_applied (nv) and xfrc (nbody, 6) are this env's inputs.
 __device__ void smooth_force(const Tab& T, const float* ctrl,
                              const float* qfrc_applied, const float* xfrc,
                              const float* qpos, const float* qvel, Body& s) {
@@ -581,12 +582,12 @@ __device__ void ell_contact_rows(const Tab& T, const RowWriter& w, int r0,
 
 // The Newton solve of the rows, then the force of every row (put(r, f))
 // and qfrc = J'f; qacc, the decisions (iters, taken and, where given, the
-// line search's ls_bits) out.
+// line search's ls_bits and the rows' row_bits) out.
 template <class Put>
 __device__ void solve_rows(const Tab& T, const Io& io, int e, const Body& s,
                            const float* ws, float* qacc, float* qfrc,
                            int& iters, unsigned& taken, unsigned* ls_bits,
-                           Put&& put) {
+                           unsigned* row_bits, Put&& put) {
   const int nv = T.h(NV), nrows = T.h(NROWS);
   const Rows rows{io.aref, io.D,    io.R,    io.fl,     io.act,
                   (size_t)io.E, e,  T.h(NE), T.h(NFL),  T.i(I_ELL),
@@ -594,7 +595,7 @@ __device__ void solve_rows(const Tab& T, const Io& io, int e, const Body& s,
   auto Mat = [&](int a, int b) { return s.M[a * NVM + b]; };
   newton_solve<NVM>(io.J, rows, Mat, s.asm_, ws, qacc, io.jar, io.jv, nv,
                     nrows, io.iterations, io.ls_iterations, io.scale, io.tol,
-                    iters, taken, ls_bits);
+                    iters, taken, ls_bits, row_bits);
   if (!qfrc) return;
   for (int k = 0; k < nv; ++k) qfrc[k] = 0.f;
   row_forces<NVM>(io.J, rows, qacc, nv, nrows,

@@ -17,8 +17,9 @@
 // rows of the slots the staged collision filled (:1447-1590), the Newton
 // solve (newton_core.cuh), the force of every row and qfrc = J'f
 // (:1864-1890), and euler_dv = (M + h diag(damping))^-1 M qacc
-// (:1893-1906). The device functions are forward_core.cuh's, shared
-// with csrc/mega.cu; the arithmetic follows the port's staged path, the
+// (:1893-1906). The device functions are forward_core.cuh's (csrc/mega.cu
+// has warp-per-env counterparts of them); the arithmetic follows the
+// port's staged path, the
 // kernel's plain version (ops/hopper_fused.py fused_constraint_plain).
 //
 // Contact pack (ops/plan.py pack_w, per slot):
@@ -47,14 +48,15 @@
 // kernel runs around this kernel, unlike the TPU's lanes layout and its
 // grouped blocking (use_grouped, pick_s), which have no counterpart here.
 // The rows go to global scratch, env-last ((nrows, nv, E) for J), so the
-// solve's row passes coalesce, as in newton.cu and mega.cu.
+// solve's row passes coalesce, as in newton.cu.
 //
 // Bound: operations, not bytes. An env reads ~1 KB (vector and pack) and
 // writes ~0.7 KB but does ~10^4-10^5 float operations (CRB and Cholesky,
 // the smooth stage, the rows, the Newton iterations over its active rows).
 // One thread per env gives E / 32 warps (128 at 4096 envs for 132 SMs),
 // and the per-thread state lives in local memory: latency, not issue
-// rate, limits this first version, as it does the mega kernels.
+// rate, limits this first version (the mega kernels now run a warp per
+// env with the state in shared memory; this kernel is next).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,6 +75,7 @@ struct Fused {
   const float* pack;  // (E, ncon, pack_w)
   float *qacc, *force, *qfrc, *qacc_smooth, *dv;  // dv null: no euler_dv
   int *iters, *taken, *ls;  // ls: (E, kLsWords) line-search decisions
+  int* rows;  // (E, iterations, (nrows + 31) / 32) the rows' decisions
   int nvec;
 };
 
@@ -170,7 +173,9 @@ __global__ void __launch_bounds__(32) fused_kernel(Tab T, Io io, Fused F) {
   int it;
   unsigned taken, ls[kLsWords];
   float* force = F.force + (size_t)e * nrows;
-  solve_rows(T, io, e, s, ws, qacc, qfrc, it, taken, ls,
+  unsigned* rb = (unsigned*)F.rows +
+                 (size_t)e * io.iterations * ((nrows + 31) >> 5);
+  solve_rows(T, io, e, s, ws, qacc, qfrc, it, taken, ls, rb,
              [&](int r, float f) { force[r] = f; });
   for (int w = 0; w < kLsWords; ++w) F.ls[(size_t)e * kLsWords + w] = (int)ls[w];
   for (int k = 0; k < nv; ++k) {
@@ -194,14 +199,16 @@ constexpr int kBlock = 32;
 // ints/flts: the packed plan (ops/plan.py). vec (E, nvec) and pack
 // (E, ncon, pack_w) env-major. Outputs env-major: qacc, qfrc, qacc_smooth
 // (E, nv), force (E, nrows) in the plan's row layout, iters and taken
-// (E,) int, ls (E, 4) int (the line search's decisions), dv (E, nv) or
-// null. Scratch env-last: J (nrows, nv, E), aref,
+// (E,) int, ls (E, 4) int (the line search's decisions), rows (E,
+// iterations, (nrows + 31) / 32) int (the rows' Hessian decisions), dv
+// (E, nv) or null. Scratch env-last: J (nrows, nv, E), aref,
 // D, R, act, jar, jv (nrows, E), fl (max(nfl, 1), E), mu (max(ncon_ell,
 // 1), E).
 extern "C" int lmt_fused(const void* ints, const void* flts, const void* vec,
                          const void* pack, void* qacc, void* force,
                          void* qfrc, void* qacc_smooth, void* dv, void* iters,
-                         void* taken, void* ls, void* J, void* aref, void* D,
+                         void* taken, void* ls, void* rows, void* J,
+                         void* aref, void* D,
                          void* R,
                          void* act, void* fl, void* jar, void* jv, void* mu,
                          int E, int nvec, int iterations, int ls_iterations,
@@ -214,7 +221,7 @@ extern "C" int lmt_fused(const void* ints, const void* flts, const void* vec,
               scale,       tol};
   const Fused F{(const float*)vec, (const float*)pack, (float*)qacc,
                 (float*)force, (float*)qfrc, (float*)qacc_smooth, (float*)dv,
-                (int*)iters, (int*)taken, (int*)ls, nvec};
+                (int*)iters, (int*)taken, (int*)ls, (int*)rows, nvec};
   fused_kernel<<<(E + kBlock - 1) / kBlock, kBlock, 0,
                  (cudaStream_t)stream>>>(T, io, F);
   return (int)cudaGetLastError();

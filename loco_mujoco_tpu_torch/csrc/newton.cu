@@ -3,8 +3,8 @@
 // Replaces the Pallas solve kernel of loco_mujoco_tpu/ops/pallas_newton.py:
 // _solve_batched (pallas_call) with its body _make_kernel -> solve_core and
 // chol_solve_spd, reached through get_solver from solver.solve's fast path.
-// The solve itself is lmt::newton_solve (newton_core.cuh), which the mega
-// kernels (mega.cu) share; this kernel feeds it J, M and the row quantities
+// The solve itself is lmt::newton_solve (newton_core.cuh), which the fused
+// kernel (fused.cu) shares; this kernel feeds it J, M and the row quantities
 // from global memory.
 //
 // Layout: every operand is env-last, so the 32 threads of a warp read 32

@@ -1,5 +1,8 @@
-// The Newton constraint solve of one env, shared by the standalone solve
-// kernel (newton.cu) and the mega kernels (mega.cu): one Newton code.
+// The Newton constraint solve of one env, one thread per env, shared by the
+// standalone solve kernel (newton.cu) and the fused kernel (fused.cu); its
+// row quantities and cone zones (`Rows`, `Cone`) also serve the
+// warp-per-env solve of the mega kernels (mega.cu), so the three kernels
+// compute one Newton code.
 //
 // It computes what loco_mujoco_tpu/ops/pallas_newton.py: solve_core
 // computes for pyramidal / limit / friction-loss / equality rows and
@@ -18,7 +21,8 @@
 // force, Hessian weight and cost, so every pass skips it before loading
 // its J row: the sums are the same as over all rows. M comes through an
 // accessor (`Mat(a, b)`), global env-last in the standalone kernel and a
-// per-thread array in the mega kernels.
+// per-thread array in the fused kernel. (The mega kernels hold the rows in
+// shared memory and build `Rows` over them with E = 1, e = 0.)
 //
 // Elliptic contacts (Rows::runs, (first row, contacts, dim) per run of
 // equal dim, and their cone coefficients mu env-last (n, E)) are walked
@@ -54,7 +58,7 @@ constexpr int kLsWords = 4;  // line-search decision words (16 x 8 bits)
 struct Cone {
   float f[kDimMax], w[kDimMax], g[kDimMax], q[kDimMax], sc[kDimMax];
   float c, wg, c2;
-  bool mid;
+  bool mid, bottom;
 };
 
 struct Rows {
@@ -101,6 +105,7 @@ struct Rows {
     const bool top = n >= m * t;
     const bool bottom = m * n + t <= 0.f;
     z.mid = !(top || bottom);
+    z.bottom = bottom;
     z.c = z.wg = z.c2 = 0.f;
     for (int k = 0; k < d; ++k) {
       z.f[k] = z.w[k] = z.g[k] = z.q[k] = 0.f;
@@ -188,10 +193,16 @@ __device__ __forceinline__ float falsi(float lo, float dlo, float hi,
 // Newton steps run in `iters` and the discrete decisions in `taken`: bit
 // i, step i lowered the cost and was taken; bit 31, x started at the warm
 // start; and, where ls_bits (kLsWords words) is given, the line search's:
-// bit it * ls_iterations + j, phi' < 0 at trial j of step it.
-// Not inlined: inlined into the mega kernels, whose FK, collision and
-// smooth stage keep much state live, its loops spilled and slowed the
-// megastep by a third (the same H100, parent against change).
+// bit it * ls_iterations + j, phi' < 0 at trial j of step it; and, where
+// row_bits ((iterations, (nefc + 31) / 32) words) is given, each step's
+// Hessian decision of every row (ops/hopper_newton.py row_bits): bit r of
+// step it's words where scalar row r took its Hessian weight, and, for an
+// elliptic contact from row r, bit r in the middle zone and bit r + 1 in
+// the sticking zone.
+// Not inlined: inlined into the one-thread mega kernels of an earlier
+// version, whose FK, collision and smooth stage kept much state live, its
+// loops spilled and slowed the megastep by a third (the same H100, parent
+// against change).
 template <int NVM, class MatFn>
 __device__ __noinline__ void newton_solve(const float* __restrict__ J,
                                           const Rows& rows,
@@ -200,7 +211,8 @@ __device__ __noinline__ void newton_solve(const float* __restrict__ J,
                              float* __restrict__ jv, int nv, int nefc,
                              int iterations, int ls_iterations, float scale,
                              float tol, int& iters, unsigned& taken,
-                             unsigned* ls_bits = nullptr) {
+                             unsigned* ls_bits = nullptr,
+                             unsigned* row_bits = nullptr) {
   const size_t sE = rows.E;
   const int e = rows.e;
   float g[NVM], dx[NVM], mdx0[NVM], mdx[NVM], jr[NVM];
@@ -258,6 +270,9 @@ __device__ __noinline__ void newton_solve(const float* __restrict__ J,
   taken = use_ws ? 1u << 31 : 0u;
   if (ls_bits)
     for (int w = 0; w < kLsWords; ++w) ls_bits[w] = 0u;
+  const int nrw = (nefc + 31) >> 5;  // row_bits words per step
+  if (row_bits)
+    for (int w = 0; w < iterations * nrw; ++w) row_bits[w] = 0u;
   int it = 0;
   for (; it < iterations; ++it) {
     // M (x - asm), the gradient start and the Hessian's M part
@@ -269,7 +284,18 @@ __device__ __noinline__ void newton_solve(const float* __restrict__ J,
       H[a * NVM + a] += 1e-12f;
     }
     // one pass over the rows: jar, grad -= J'f, H += J' diag(w) J (and an
-    // elliptic contact's rank-1 terms)
+    // elliptic contact's rank-1 terms); the rows' Hessian decisions, one
+    // word at a time (rows come in increasing order)
+    unsigned word = 0u;
+    int wi = 0;
+    auto mark = [&](int r) {
+      if ((r >> 5) != wi) {
+        if (word) row_bits[it * nrw + wi] = word;
+        word = 0u;
+        wi = r >> 5;
+      }
+      word |= 1u << (r & 31);
+    };
     auto add_row = [&](const float* j, float f, float w) {
       if (f != 0.f)
         for (int k = 0; k < nv; ++k) g[k] -= j[k] * f;
@@ -290,6 +316,7 @@ __device__ __noinline__ void newton_solve(const float* __restrict__ J,
           float f, w, c;
           rows.fwc(r, s, f, w, c);
           add_row(jr, f, w);
+          if (row_bits && w != 0.f) mark(r);
         },
         [&](int r, int d, int ci) {
           if (!rows.on(r)) return;
@@ -302,6 +329,8 @@ __device__ __noinline__ void newton_solve(const float* __restrict__ J,
           }
           Cone z;
           rows.cone(r, d, ci, sv, z);
+          if (row_bits && z.mid) mark(r);
+          if (row_bits && z.bottom) mark(r + 1);
           for (int k = 0; k < d; ++k) add_row(jc[k], z.f[k], z.w[k]);
           if (z.mid) {  // wg Jg Jg' + c2 sum_{k<l} v_kl v_kl'
             float jg[NVM];
@@ -319,6 +348,7 @@ __device__ __noinline__ void newton_solve(const float* __restrict__ J,
               }
           }
         });
+    if (row_bits && word) row_bits[it * nrw + wi] = word;
     // Cholesky H = L L' in place (lower), pivots floored at 1e-30
     for (int j = 0; j < nv; ++j) {
       float d = H[j * NVM + j];

@@ -17,7 +17,8 @@ armature, `:2257-2264`) and the contact slots in the plan's pack width
 (`:2215-2243`; elliptic plans take the generic 29-float pack with 5
 frictions), launches the kernel, and writes qacc, qacc_smooth, qfrc_constraint,
 efc_force_contact, euler_dv (None unless the plan has it) and the Newton
-decisions `solver_niter` / `solver_taken` / `solver_ls`. The kernel's
+decisions `solver_niter` / `solver_taken` / `solver_ls` / `solver_rows`
+(each Newton step's Hessian decision of every row). The kernel's
 pyramidal facet rows are BLOCKED, facet f of slot c at row s0 + f ncon + c
 (`:2279-2283`), its elliptic rows slot-major, dim rows per slot
 (`:1654-1700`); `_finish` (`contact_forces`) restores efc_force_contact's
@@ -32,8 +33,9 @@ rows
 put in the fused layout (the `npad` inert rows, the blocked facets),
 `hopper_newton.newton_plain` (with the elliptic contacts' cone zones where
 the plan is elliptic) and `forward.damping_dv` for euler_dv. Its
-`replay` = (iters, taken) makes the solve take another run's discrete
-decisions, so the kernel can be held to it step for step.
+`replay` = (iters, taken, ls, rows) makes the solve take another run's
+discrete decisions, so the kernel can be held to it step for step; it
+writes its own decisions (or the replayed ones) into the same fields.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from . import inertia, kernels, kinematics
 from .kernels import FLOAT, INT, PTR
 from .support import static_tensor
 
-_SIGNATURES = {"lmt_fused": [PTR] * 21 + [INT] * 4 + [FLOAT, FLOAT, PTR]}
+_SIGNATURES = {"lmt_fused": [PTR] * 22 + [INT] * 4 + [FLOAT, FLOAT, PTR]}
 
 
 def smooth_vec(data: Data) -> torch.Tensor:
@@ -135,7 +137,7 @@ def contact_forces(plan, force, width: int) -> torch.Tensor:
 
 
 def _finish(model: Model, data: Data, qacc, force, qfrc, asm, dv, iters,
-            taken, ls) -> Data:
+            taken, ls, rows) -> Data:
     """The output contract (see the module note) on top of `data`; force
     holds every row in the fused layout."""
     plan = model.plan
@@ -146,7 +148,7 @@ def _finish(model: Model, data: Data, qacc, force, qfrc, asm, dv, iters,
     return data.replace(qacc=qacc, qacc_smooth=asm, qfrc_constraint=qfrc,
                         efc_force_contact=efc, euler_dv=dv,
                         solver_niter=iters, solver_taken=taken,
-                        solver_ls=ls)
+                        solver_ls=ls, solver_rows=rows)
 
 
 def fused_constraint(model: Model, data: Data) -> Data:
@@ -169,6 +171,7 @@ def fused_constraint(model: Model, data: Data) -> Data:
     force = f(E, plan.nrows)
     dv = f(E, nv) if plan.euler_dv else None
     iters, taken, ls = i(E), i(E), i(E, hn.LS_WORDS)
+    rows = i(E, plan.iterations, hn.row_words(plan.nrows))
     ints, flts = plan.tables(dev)
     scratch = plan.scratch(E, dev)  # held until the launch is queued
     p = kernels.ptr
@@ -176,13 +179,13 @@ def fused_constraint(model: Model, data: Data) -> Data:
     rc = lib.lmt_fused(
         p(ints), p(flts), p(v), p(pack),
         *map(p, (qacc, force, qfrc, asm)), None if dv is None else p(dv),
-        p(iters), p(taken), p(ls), *map(p, scratch), E, v.shape[1],
+        p(iters), p(taken), p(ls), p(rows), *map(p, scratch), E, v.shape[1],
         plan.iterations, plan.ls_iterations, plan.scale, plan.tolerance,
         kernels.stream())
     kernels.check(rc, "fused")
     kernels.LAUNCHES["fused"] += 1
     return _finish(model, data, qacc, force, qfrc, asm, dv, iters, taken,
-                   ls)
+                   ls, rows)
 
 
 def fused_rows(plan, efc: con_mod.Efc):
@@ -236,21 +239,24 @@ def newton_problem(model: Model, data: Data):
                d.qacc_smooth), ell
 
 
-def fused_constraint_plain(model: Model, data: Data, replay=None) -> Data:
+def fused_constraint_plain(model: Model, data: Data, replay=None,
+                           dir64=False) -> Data:
     """Plain version of `fused_constraint` (see the module note), on any
-    device; `replay` = (iters, taken[, ls]) (`hopper_newton.newton_plain`)."""
+    device; `replay` = (iters, taken[, ls[, rows]]) and `dir64` (the
+    Newton direction in float64, the mega kernels' arithmetic) as in
+    `hopper_newton.newton_plain`."""
     from . import forward as fwd
 
     plan = model.plan
     d, problem, ell = newton_problem(model, data)
     J, active = problem[0], problem[6]
+    rec = {}
     x, force, iters, taken = hn.newton_plain(
         *problem, d.qacc_warmstart, ne=plan.ne, nfl=plan.nfl,
         iterations=plan.iterations, ls_iterations=plan.ls_iterations,
-        scale=plan.scale, tol=plan.tolerance, replay=replay, ell=ell)
+        scale=plan.scale, tol=plan.tolerance, replay=replay, ell=ell,
+        record=rec, dir64=dir64)
     qfrc = torch.einsum("erv,er->ev", J * active[..., None], force)
     dv = fwd.damping_dv(model, d.replace(qacc=x)) if plan.euler_dv else None
-    ls = (replay[2] if replay is not None and len(replay) > 2
-          else torch.zeros_like(data.solver_ls))
     return _finish(model, data, x, force, qfrc, d.qacc_smooth, dv, iters,
-                   taken, ls)
+                   taken, rec["ls"], rec["rows"])

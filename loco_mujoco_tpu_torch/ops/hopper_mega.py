@@ -8,8 +8,11 @@ branches, with the tendon and muscle stage of a plan with muscles (`mp`;
 `:1245-1264`, `:2762-2787`) and the extended collision and elliptic rows
 of a `mega_ell` plan (A1; `_mega_ell_finish` `:2559-2610`). The kernels
 are `csrc/mega.cu`'s `mega_forward_kernel` and `megastep_kernel` (each in
-a plane-only and an extended instance), one thread per env, over the
-static tables of the model's row plan (`ops/plan.py`, `mega` set).
+a plane-only and an extended instance), one warp per env with the env's
+state in shared memory, over the static tables of the model's row plan
+(`ops/plan.py`, `mega` set); the launch (shared floats per env, envs per
+block) is the plan's `mega_launch`, which raises where the state leaves
+fewer than `plan.RESIDENT_FLOOR` warps resident per SM.
 
 Output contract (the reference's): `mega_forward` returns Data with
 `qacc`, `qacc_smooth`, `qfrc_constraint`, `efc_force_contact` (the four
@@ -19,7 +22,8 @@ has it), `act_dot` (with muscles), the contact meta `dist`, `geom1` (the
 plane, or with `mega_ell` the kernel's, self pairs included), `geom2`, the
 static `includemargin` and `friction` (with `mega_ell` per slot from its
 group's statics), and the Newton decisions `solver_niter` /
-`solver_taken` / `solver_ls`; slots of a convex tail are padded inactive;
+`solver_taken` / `solver_ls` / `solver_rows`; slots of a convex tail are
+padded inactive;
 every other position- and velocity-stage field stays as it came in
 (stale).
 `mega_step_n` returns Data with `qpos`, `qvel`, `act` (Euler with muscles:
@@ -35,14 +39,18 @@ collision for a smooth plan, and for the muscle humanoid's non-smooth plan
 also com_pos, the tendons, velocity, passive, rne and actuation, then
 `hopper_fused.fused_constraint_plain`, whose rows, contact facets blocked,
 are the ones the kernel builds), repackaged into the contract above, and
-`mega_step_n_plain` is n such RK4 or Euler steps. Their `replay` makes
+`mega_step_n_plain` is n such RK4 or Euler steps; with the extended
+collision (elliptic cones) both compute each Newton direction in float64,
+as the kernels do. Their `replay` makes
 every Newton solve take the kernel's recorded decisions (the iteration
-count, the taken-step bits and the line search's sign tests,
-`hopper_newton.newton_plain`), so the two
+count, the taken-step bits, the line search's sign tests and each step's
+Hessian decisions of the rows, `hopper_newton.newton_plain`), so the two
 can be held step for step; nothing on the card's main path calls them.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -52,13 +60,52 @@ from . import hopper_fused, kernels
 from . import hopper_newton as hn
 from .collision import BIG
 from .kernels import FLOAT, INT, PTR
+from .plan import mega_launch
 
 _SIGNATURES = {
-    "lmt_mega_forward": [PTR] * 30 + [INT] * 4 + [FLOAT, FLOAT, PTR],
-    "lmt_megastep": [PTR] * 23 + [INT] * 7 + [FLOAT] * 3 + [PTR],
+    "lmt_mega_forward": [PTR] * 22 + [INT] * 6 + [FLOAT, FLOAT, PTR],
+    "lmt_megastep": [PTR] * 14 + [INT] * 9 + [FLOAT] * 3 + [PTR],
+    "lmt_mega_occupancy": [INT] * 3 + [PTR],
 }
-# per forward of the megastep: iterations, taken bits, line-search bits
-DECISIONS = 2 + hn.LS_WORDS
+
+
+def decision_width(model: Model) -> int:
+    """int32 words of one forward's record in the megastep's `decisions`:
+    the iteration count, the taken-step bits, the line search's bits
+    (`hopper_newton.LS_WORDS`) and each Newton step's Hessian decisions of
+    the rows (`hopper_newton.row_bits`, iterations x row words)."""
+    plan = model.plan
+    return 2 + hn.LS_WORDS + plan.iterations * hn.row_words(plan.nrows)
+
+
+def decisions_of(d: Data) -> torch.Tensor:
+    """(E, decision_width) record of the forward whose Data is `d` (its
+    solver_* fields), in the megastep's layout."""
+    E = d.solver_niter.shape[0]
+    return torch.cat([d.solver_niter[:, None], d.solver_taken[:, None],
+                      d.solver_ls, d.solver_rows.reshape(E, -1)], dim=1)
+
+
+def replay_of(model: Model, rec: torch.Tensor) -> tuple:
+    """`decisions_of`'s inverse: (iters, taken, ls, rows) for a replay."""
+    plan = model.plan
+    E = rec.shape[0]
+    w = 2 + hn.LS_WORDS
+    return (rec[:, 0], rec[:, 1], rec[:, 2:w],
+            rec[:, w:].reshape(E, plan.iterations, -1))
+
+
+def occupancy(model: Model) -> tuple:
+    """Resident warps (envs) per SM of (the mega forward, the megastep) at
+    the model's launch, from the CUDA runtime (needs the card)."""
+    plan = model.plan
+    launch = mega_launch(plan)
+    out = (ctypes.c_int * 2)()
+    lib = kernels.library("mega", _SIGNATURES)
+    kernels.check(lib.lmt_mega_occupancy(
+        launch.env_floats, launch.envs_per_block, int(plan.mega_ell),
+        ctypes.cast(out, ctypes.c_void_p)), "mega occupancy")
+    return out[0], out[1]
 
 
 def _inputs(model: Model, data: Data):
@@ -86,7 +133,7 @@ def _pad(x, full: int, fill=0):
 
 
 def _pack(model: Model, data: Data, qacc, qacc_smooth, qfrc, cdist, cgid,
-          cgid1, cforce, dv, act_dot, iters, taken, ls) -> Data:
+          cgid1, cforce, dv, act_dot, iters, taken, ls, rows) -> Data:
     """The mega output contract (see the module note) on top of `data`."""
     plan = model.plan
     E, ncon, full = qacc.shape[0], plan.ncon, model.ncon
@@ -120,7 +167,7 @@ def _pack(model: Model, data: Data, qacc, qacc_smooth, qfrc, cdist, cgid,
                         efc_force_contact=_pad(efc, full),
                         contact=contact, euler_dv=dv, act_dot=act_dot,
                         solver_niter=iters, solver_taken=taken,
-                        solver_ls=ls)
+                        solver_ls=ls, solver_rows=rows)
 
 
 def mega_forward(model: Model, data: Data) -> Data:
@@ -134,6 +181,7 @@ def mega_forward(model: Model, data: Data) -> Data:
     ins = _inputs(model, data)
     qpos = ins[0]
     E, nv, ncon, dev = qpos.shape[0], model.nv, plan.ncon, qpos.device
+    launch = mega_launch(plan)
     f = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa
     i = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)  # noqa
     qacc, asm, qfrc = f(E, nv), f(E, nv), f(E, nv)
@@ -141,37 +189,38 @@ def mega_forward(model: Model, data: Data) -> Data:
     cdist, cgid, cgid1 = f(E, ncon), i(E, ncon), i(E, ncon)
     cforce = f(E, crows)
     iters, taken, ls = i(E), i(E), i(E, hn.LS_WORDS)
+    rows = i(E, plan.iterations, hn.row_words(plan.nrows))
     dv = f(E, nv) if plan.euler_dv else None
     act_dot = f(E, model.na) if plan.mp is not None else data.act_dot
     ints, flts = plan.tables(dev)
-    scratch = plan.scratch(E, dev)  # held until the launch is queued
-    p = kernels.ptr
+    p = lambda t: None if t is None else kernels.ptr(t)  # noqa: E731
     lib = kernels.library("mega", _SIGNATURES)
     rc = lib.lmt_mega_forward(
         p(ints), p(flts), *map(p, ins),
         *map(p, (qacc, asm, qfrc, cdist, cgid, cgid1, cforce, iters,
-                 taken, ls)),
-        None if dv is None else p(dv), p(act_dot), *map(p, scratch), E,
-        plan.iterations, plan.ls_iterations, int(plan.mega_ell), plan.scale,
-        plan.tolerance, kernels.stream())
+                 taken, ls, rows, dv, act_dot)), E, plan.iterations,
+        plan.ls_iterations, int(plan.mega_ell), launch.env_floats,
+        launch.envs_per_block, plan.scale, plan.tolerance, kernels.stream())
     kernels.check(rc, "mega_forward")
     kernels.LAUNCHES["mega_forward"] += 1
     return _pack(model, data, qacc, asm, qfrc, cdist, cgid, cgid1, cforce,
-                 dv, act_dot, iters, taken, ls)
+                 dv, act_dot, iters, taken, ls, rows)
 
 
 def _forward_plain(model: Model, data: Data, replay) -> Data:
     """The staged forward of a model with a plan, with the plain
-    kernels; `replay` = (iters, taken) or None."""
+    kernels; `replay` = (iters, taken[, ls[, rows]]) or None."""
     from . import forward as fwd
 
     d = fwd.stages(model, data, plain=True)
-    return hopper_fused.fused_constraint_plain(model, d, replay)
+    return hopper_fused.fused_constraint_plain(model, d, replay,
+                                               dir64=model.plan.mega_ell)
 
 
 def mega_forward_plain(model: Model, data: Data, replay=None) -> Data:
     """Plain version of `mega_forward`: the staged forward with the plain
-    kernels, in the mega output contract; `replay` = (iters, taken)."""
+    kernels, in the mega output contract; `replay` = (iters, taken[, ls[,
+    rows]]) (`hopper_newton.newton_plain`)."""
     d = _forward_plain(model, data, replay)
     c = d.contact
     contact = data.contact.replace(
@@ -182,7 +231,8 @@ def mega_forward_plain(model: Model, data: Data, replay=None) -> Data:
                         efc_force_contact=d.efc_force_contact,
                         contact=contact, euler_dv=d.euler_dv,
                         act_dot=d.act_dot, solver_niter=d.solver_niter,
-                        solver_taken=d.solver_taken, solver_ls=d.solver_ls)
+                        solver_taken=d.solver_taken, solver_ls=d.solver_ls,
+                        solver_rows=d.solver_rows)
 
 
 def megastep_mode(model: Model):
@@ -213,10 +263,11 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
                 defines=()) -> Data | None:
     """n_steps physics steps of every env in one kernel launch (see the
     module note), or None outside the envelope. `decisions`, an
-    (E, F n_steps, DECISIONS) int32 tensor or None (F =
-    `forwards_per_step`), receives the iteration count, the taken-step bits
-    and the line search's bits of every forward, for `mega_step_n_plain`'s
-    replay; with None the kernel records nothing. `defines`: a
+    (E, F n_steps, decision_width) int32 tensor or None (F =
+    `forwards_per_step`), receives the iteration count, the taken-step
+    bits, the line search's bits and the rows' Hessian decisions of every
+    forward, for `mega_step_n_plain`'s replay; with None the kernel
+    records nothing. `defines`: a
     compile-time variant of `csrc/mega.cu` (`LMT_PHASES`,
     tools/megastep_phases.py)."""
     mode = megastep_mode(model)
@@ -230,20 +281,20 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
     n = int(n_steps)
     if decisions is not None:
         kernels.require(decisions, "decisions",
-                        (E, forwards_per_step(model) * n, DECISIONS),
-                        torch.int32)
+                        (E, forwards_per_step(model) * n,
+                         decision_width(model)), torch.int32)
+    launch = mega_launch(plan)
     f = lambda k: torch.empty((E, k), dtype=torch.float32, device=dev)  # noqa
     qpos_out, qvel_out, act_out, ws_out = f(nv), f(nv), f(model.na), f(nv)
     ints, flts = plan.tables(dev)
-    scratch = plan.scratch(E, dev)  # held until the launch is queued
-    p = kernels.ptr
+    p = lambda t: None if t is None else kernels.ptr(t)  # noqa: E731
     lib = kernels.library("mega", _SIGNATURES, defines)
     rc = lib.lmt_megastep(
         p(ints), p(flts), *map(p, ins), p(qpos_out), p(qvel_out),
-        p(act_out), p(ws_out), None if decisions is None else p(decisions),
-        *map(p, scratch), E, n, plan.iterations,
-        plan.ls_iterations, int(mode[0]), int(mode[1]), int(plan.mega_ell),
-        plan.scale, plan.tolerance, plan.timestep, kernels.stream())
+        p(act_out), p(ws_out), p(decisions), E, n, plan.iterations, plan.ls_iterations, int(mode[0]),
+        int(mode[1]), int(plan.mega_ell), launch.env_floats,
+        launch.envs_per_block, plan.scale, plan.tolerance, plan.timestep,
+        kernels.stream())
     kernels.check(rc, "megastep")
     kernels.LAUNCHES["megastep"] += 1
     return data.replace(qpos=qpos_out, qvel=qvel_out, act=act_out,
@@ -254,8 +305,8 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
 def mega_step_n_plain(model: Model, data: Data, n_steps: int, replay=None,
                       on_forward=None) -> Data | None:
     """Plain version of `mega_step_n`: n staged RK4 or Euler steps with
-    the plain kernels. `replay`: the kernel's (E, F n_steps, DECISIONS)
-    decisions;
+    the plain kernels. `replay`: the kernel's (E, F n_steps,
+    decision_width) decisions;
     `on_forward(d)` sees the Data of every forward, in order."""
     if megastep_mode(model) is None:
         return None
@@ -266,8 +317,7 @@ def mega_step_n_plain(model: Model, data: Data, n_steps: int, replay=None,
     for s in range(int(n_steps)):
         def stage(dd, i, s=s):
             rep = (None if replay is None else
-                   (replay[:, per * s + i, 0], replay[:, per * s + i, 1],
-                    replay[:, per * s + i, 2:]))
+                   replay_of(model, replay[:, per * s + i]))
             out = _forward_plain(model, dd, rep)
             if on_forward is not None:
                 on_forward(out)

@@ -55,14 +55,19 @@ def _row_classes(nefc, ne, nfl, device):
     return rows < ne, (rows >= ne) & (rows < ne + nfl)
 
 
-def _quantities(jar, D, R, floss, on, is_eq, is_fl, ell=None):
-    """Per-row force and Hessian weight, and the total row cost (E,); with
-    `ell` (elliptic contacts, `ell_tables`) also the cone zones' data for
-    the Hessian (`cone_terms`)."""
+def _quantities(jar, D, R, floss, on, is_eq, is_fl, ell=None, hess=None):
+    """Per-row force and Hessian weight, the total row cost (E,), the cone
+    zones' data for the Hessian (`cone_terms`, with `ell`, the elliptic
+    contacts of `ell_tables`) and the rows' Hessian decisions (E, nefc)
+    bool (`row_bits`' meaning). `hess`, such decisions of another solve,
+    replaces this one's: a friction-loss row's quadratic zone, a one-sided
+    row's sign and an elliptic contact's zone."""
     zero = torch.zeros((), dtype=jar.dtype, device=jar.device)
     rf = R * floss
     in_quad = jar.abs() <= rf
     neg = jar < 0
+    if hess is not None:
+        in_quad, neg = hess, hess
     if ell is not None:  # elliptic rows take no one-sided term
         neg = neg & ~ell[3]
     f = torch.where(is_eq, -D * jar, torch.where(
@@ -76,13 +81,48 @@ def _quantities(jar, D, R, floss, on, is_eq, is_fl, ell=None):
         torch.where(neg, quad, zero)))
     f, w = torch.where(on, f, zero), torch.where(on, w, zero)
     cost = torch.where(on, c, zero).sum(-1)
+    bits = on & (is_eq | torch.where(is_fl, in_quad, neg))
     if ell is None:
-        return f, w, cost, None
-    fe, we, ce, cone = _cone_zones(jar, D, on, ell)
+        return f, w, cost, None, bits
+    zones = None if hess is None else (hess[:, ell[0][:, 0]],
+                                       hess[:, ell[0][:, 1]])
+    fe, we, ce, cone, (mid, bottom) = _cone_zones(jar, D, on, ell, zones)
     flat = ell[0].reshape(-1)
     f = f.index_add(1, flat, fe.reshape(f.shape[0], -1))
     w = w.index_add(1, flat, we.reshape(w.shape[0], -1))
-    return f, w, cost + ce, cone
+    bits = bits.clone()
+    bits[:, ell[0][:, 0]] = mid
+    bits[:, ell[0][:, 1]] = bottom
+    return f, w, cost + ce, cone, bits
+
+
+def row_words(nefc: int) -> int:
+    """int32 words of one solve step's row decisions (`row_bits`)."""
+    return (nefc + 31) // 32
+
+
+def row_bits(bits):
+    """(E, nefc) bool Hessian decisions of one Newton step as (E,
+    row_words) int32: bit r % 32 of word r // 32 is row r's. A scalar
+    row's bit is set where it took its Hessian weight (an equality row
+    always, a friction-loss row in its quadratic zone, a limit or
+    pyramidal facet below zero); an elliptic contact's first row's bit is
+    set in the middle zone and its second row's in the sticking zone. The
+    kernels record the same bits (`csrc/newton_core.cuh`)."""
+    E, n = bits.shape
+    pad = torch.zeros((E, 32 * row_words(n)), dtype=torch.int64,
+                      device=bits.device)
+    pad[:, :n] = bits.to(torch.int64)
+    w = (pad.reshape(E, -1, 32) << torch.arange(
+        32, device=bits.device)).sum(-1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def unpack_row_bits(words, nefc: int):
+    """`row_bits`' inverse: (E, row_words) int32 -> (E, nefc) bool."""
+    sh = torch.arange(32, device=words.device, dtype=torch.int32)
+    b = (words[..., None] >> sh) & 1
+    return b.reshape(words.shape[0], -1)[:, :nefc] == 1
 
 
 def ell_tables(ell_start, ell_dim, con_mu, nrows, device):
@@ -105,13 +145,15 @@ def ell_tables(ell_start, ell_dim, con_mu, nrows, device):
             torch.as_tensor(is_ell, device=device))
 
 
-def _cone_zones(jar, D, on, ell):
+def _cone_zones(jar, D, on, ell, zones=None):
     """The elliptic cone of each contact (solver._quantities, :102-161) in
     cone-scaled coordinates u_i = jar_i sqrt(D_i / D_n): separating (no
     force), sticking (quadratic in every row) or the middle zone (cost
     0.5 D_n / (1 + mu^2) (n - mu t)^2). Returns per-contact row forces and
-    weights (E, n, maxdim), the cost (E,) and the middle zone's Hessian
-    data (g, w_gn, jt_scale, wdir, c2; _cone_hessian_terms :173-215)."""
+    weights (E, n, maxdim), the cost (E,), the middle zone's Hessian
+    data (g, w_gn, jt_scale, wdir, c2; _cone_hessian_terms :173-215) and
+    the zones (middle, sticking) (E, n) bool; `zones`, another solve's,
+    replaces them."""
     idx, msk, mu, _ = ell
     jar_c, d_c = jar[:, idx], D[:, idx]
     dn = d_c[..., 0]
@@ -124,6 +166,8 @@ def _cone_zones(jar, D, on, ell):
     top = n >= mu * t
     bottom = (mu * n + t <= 0) & con_on
     mid = ~(top | bottom) & con_on
+    if zones is not None:
+        mid, bottom = zones[0] & con_on, zones[1] & con_on
     zero = torch.zeros((), dtype=jar.dtype, device=jar.device)
     f_bot = -d_c * jar_c * msk
     c_bot = 0.5 * torch.sum(d_c * jar_c * jar_c * msk, dim=-1)
@@ -144,7 +188,7 @@ def _cone_zones(jar, D, on, ell):
                          dim=-1) * msk
     cone = (g * msk, torch.where(mid, dm, zero), jt_scale, wdir,
             torch.where(mid, dm * mu * (mu * t - n) / t_safe, zero))
-    return force, w, cost, cone
+    return force, w, cost, cone, (mid, bottom)
 
 
 def cone_hessian(Jm, idx, cone):
@@ -190,7 +234,7 @@ def newton_cost(J, M, aref, D, R, floss, active, asm, x, *, ne, nfl,
 
 def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
                  iterations, ls_iterations, scale, tol, replay=None,
-                 ell=None):
+                 ell=None, record=None, dir64=False):
     """Plain version of the kernel: the XLA fast path, batched over E.
     Returns qacc, forces, the Newton steps each env ran and its discrete
     decisions as an int32 per env: bit i, step i lowered the cost and was
@@ -202,7 +246,19 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
     make the same discrete decisions and can be compared step for step;
     (iters, taken, ls), ls (E, LS_WORDS) int32, also replays the line
     search's sign tests (bit it * ls_iterations + j: phi' < 0 at trial j of
-    step it).
+    step it); (iters, taken, ls, rows), rows (E, iterations, row_words)
+    int32, also each step's Hessian decisions of every row (`row_bits`):
+    the float32 tests of a row's sign, a friction-loss row's zone and an
+    elliptic contact's zone, which two summation orders can decide apart
+    where a row sits at its threshold.
+
+    `record`, a dict, receives this solve's own line-search and row
+    decisions (`ls` (E, LS_WORDS), `rows` (E, iterations, row_words)
+    int32, zero past each env's last step), the ones a kernel records.
+
+    `dir64`: each Newton direction in float64 (the gradient, the Hessian,
+    its factor and the substitutions; the mega kernels' arithmetic),
+    rounded once to the working type.
 
     `ell` (`ell_tables`): the elliptic contacts' rows and cone
     coefficients; their rows take the cone zones' forces, weights and
@@ -240,17 +296,38 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
     iters = torch.zeros(E, dtype=torch.int32, device=dev)
     taken = torch.where(use_ws, -2 ** 31, 0).to(torch.int32)
     eye = torch.eye(nv, dtype=dt, device=dev) * 1e-12
+    rw = row_words(nefc)
+    rows_rec = torch.zeros((E, iterations, rw), dtype=torch.int32,
+                           device=dev)
+    ls_rec = torch.zeros((E, LS_WORDS), dtype=torch.int64, device=dev)
     for it in range(iterations):
-        iters += (~done).to(torch.int32)
+        running = ~done
+        iters += running.to(torch.int32)
         jar = _mv(Jm, x) - aref
-        f, w, _, cone = quantities(jar)
+        hess = None
+        if replay is not None and len(replay) > 3:
+            hess = unpack_row_bits(replay[3][:, it], nefc)
+        f, w, _, cone, bits = _quantities(jar, D, R, floss, on, is_eq, is_fl,
+                                          ell, hess)
+        rows_rec[:, it] = torch.where(running[:, None], row_bits(bits), 0)
         mx = _mv(M, x - asm)
-        grad = mx - _mv(Jm.transpose(1, 2), f)
-        H = M + Jm.transpose(1, 2) @ (Jm * w[..., None])
-        if cone is not None:
-            H = H + cone_hessian(Jm, ell[0], cone)
-        H = H + eye
-        dx = -linalg.cho_solve(linalg.cholesky(H), grad)
+        if dir64:
+            J64 = Jm.double()
+            g64 = mx.double() - _mv(J64.transpose(1, 2), f.double())
+            H = M.double() + J64.transpose(1, 2) @ (J64 * w.double()[..., None])
+            if cone is not None:
+                H = H + cone_hessian(J64, ell[0],
+                                     tuple(t.double() for t in cone))
+            H = H + eye.double()
+            dx = -linalg.cho_solve(linalg.cholesky(H), g64).to(dt)
+            grad = g64.to(dt)
+        else:
+            grad = mx - _mv(Jm.transpose(1, 2), f)
+            H = M + Jm.transpose(1, 2) @ (Jm * w[..., None])
+            if cone is not None:
+                H = H + cone_hessian(Jm, ell[0], cone)
+            H = H + eye
+            dx = -linalg.cho_solve(linalg.cholesky(H), grad)
         jv = _mv(Jm, dx)
         mdx = _mv(M, dx)
         g0, h0 = dot(dx, mx), dot(dx, mdx)
@@ -264,9 +341,12 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
             fa = quantities(jar + a[:, None] * jv)[0]
             d = g0 + a * h0 - dot(fa, jv)
             neg = d < 0
+            bit = it * ls_iterations + _ls
             if replay is not None and len(replay) > 2:
-                bit = it * ls_iterations + _ls
                 neg = (replay[2][:, bit // 32] >> (bit % 32)) & 1 == 1
+            if bit < 32 * LS_WORDS:
+                ls_rec[:, bit // 32] |= (neg & running).to(
+                    torch.int64) << (bit % 32)
             lo, dlo = torch.where(neg, a, lo), torch.where(neg, d, dlo)
             hi, dhi = torch.where(neg, hi, a), torch.where(neg, dhi, d)
             has_hi = has_hi | ~neg
@@ -289,6 +369,10 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
     # equal terms on stiff rows: it is taken in float64 and rounded once
     # (as the kernels do)
     f = quantities((_mv(Jm.double(), x.double()) - aref.double()).to(dt))[0]
+    if record is not None:
+        record["ls"] = torch.where(ls_rec >= 2 ** 31, ls_rec - 2 ** 32,
+                                   ls_rec).to(torch.int32)
+        record["rows"] = rows_rec
     return x, f, iters, taken
 
 

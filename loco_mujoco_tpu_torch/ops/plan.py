@@ -42,7 +42,8 @@ which the solve's cone zones walk, and `impratio`. Euler models get the
 in-kernel implicit damping `euler_dv` (`:314-329`) unless EULERDAMP is
 disabled.
 
-`mega` (one kernel per forward, `csrc/mega.cu`) is a flag on the plan: set
+`mega` (one kernel per forward, `csrc/mega.cu`, a warp per env with its
+state in shared memory sized by `mega_launch`) is a flag on the plan: set
 for uniform statics with uniform friction, contacts against that one plane
 in plane-box groups and at most one plane-mesh group that runs the
 plane-mesh kernels (k < P, graph hulls: its `hopper_collision.MeshPlan`),
@@ -101,7 +102,7 @@ HEADER = (
     "F_LIM", "I_LIM", "F_CON", "F_BOX", "I_BOX", "F_MESH", "I_MESH",
     "F_VERT", "PACKW", "I_GBODY", "NMOT", "NA", "NMUS", "F_MUS", "I_MUS",
     "I_SEG", "F_SITE", "I_SITE", "F_ACTB", "NELL", "I_ELL", "NXGRP",
-    "I_XGRP", "F_XGRP", "I_XPAIR", "F_XPAIR", "I_CON",
+    "I_XGRP", "F_XGRP", "I_XPAIR", "F_XPAIR", "I_CON", "I_SHM",
 )
 H = {name: i for i, name in enumerate(HEADER)}
 # FLAGS bits
@@ -157,6 +158,7 @@ class RowPlan:
     def __init__(self, L: dict, A: dict, groups, mesh_kernel):
         self.ok = False
         self.mega = False
+        self._launch = None  # mega_launch's
         self.uniform = self.fric_uniform = False
         self.groups = []
         nv, nb, njnt = int(A["nv"]), int(A["nbody"]), int(A["njnt"])
@@ -636,6 +638,8 @@ class RowPlan:
         put("I_CON", [[int(d), int(a)] for d, a in zip(self.con_dim,
                                                         self.con_efcadr)]
             or [[0] * 2])
+        put("I_SHM", mega_launch(self).table() if self.mega
+            else [0] * len(SHM))
         ext = self.ext if self.mega_ell else []
         first, xi, xf = 0, [], []
         for d in ext:
@@ -686,7 +690,8 @@ class RowPlan:
         return sum(cnt for _, cnt, _ in self.ell_runs)
 
     def scratch(self, E, device) -> list:
-        """Env-last row scratch of the kernels' solve: J (nrows, nv, E),
+        """Env-last row scratch of the fused kernel's solve (the mega
+        kernels keep their rows in shared memory): J (nrows, nv, E),
         aref, D, R, act, jar, jv (nrows, E), fl (max(nfl, 1), E) and the
         elliptic contacts' cone coefficients mu (max(ncon_ell, 1), E), in
         the kernels' argument order (J, aref, D, R, act, fl, jar, jv,
@@ -812,3 +817,126 @@ def maybe_plan(model, data):
     if model.plan is None or data.qpos.dtype != torch.float32:
         return None
     return model.plan
+
+
+# ---- launch geometry of the mega kernels (csrc/mega.cu) --------------------
+# One warp per env: its state lives in the block's dynamic shared memory,
+# laid out per env by `MegaLaunch` from the model's census (the table
+# I_SHM, which the kernels read; csrc/mega.cu enum Shm lists SHM in
+# order). The widths below are csrc/mega.cu's: NVEC per-dof vectors (enum
+# Vec), BODY_W floats per body (enum BodyF), the per-row arrays and lists
+# (enum RowA; 4 more arrays for elliptic plans), SLOT_W floats per contact
+# slot (enum SlotF) and SEG_W floats per tendon segment (the muscle
+# block's scratch).
+SHM = ("TOTAL", "VEC", "CDOF", "JNT", "BODY", "M", "L", "J", "ROW", "R",
+       "FL", "MU", "SLOT", "MESH", "MUS", "MISC", "NVJ", "RS", "SLOTW",
+       "PMAX", "KMAX")
+NVEC, BODY_W, SEG_W, MISC_W = 16, 60, 12, 8
+CONE_VECS = 11  # one middle-zone cone's J'g and curvature pairs (dim 6)
+ROW_ARRAYS, ROW_ARRAYS_ELL = 8, 12
+SLOT_W, SLOT_W_EXT = 8, 20
+# Hopper (H100): shared memory per SM and per block, the runtime's
+# reservation per block, and the SM's block and warp limits
+SHM_PER_SM, SHM_PER_BLOCK, SHM_RESERVED = 233472, 232448, 1024
+BLOCKS_PER_SM, WARPS_PER_SM = 32, 64
+ENVS_PER_BLOCK_MAX = 4  # csrc/mega.cu kMaxEnvsPerBlock
+# the fewest resident warps (envs) per SM a launch takes. J stays in
+# shared memory: on the A1-shaped model (4 warps per SM with J in shared
+# memory, 7 with J in a global scratch) the megastep ran 92.0 against
+# 93.1 ms (NVIDIA H100 80GB HBM3, 700 W, tools/megastep_phases.py)
+RESIDENT_FLOOR = 4
+
+
+class MegaLaunch:
+    """The mega kernels' launch: per-env shared layout (offsets in floats
+    of each region of SHM), its size, the envs (warps) per block and the
+    resident warps per SM that shared memory allows."""
+
+    def __init__(self, census: dict):
+        c = census
+        nv, nrows = c["nv"], c["nrows"]
+        if nv > NV_MAX:
+            raise ValueError(f"mega kernels: nv {nv} > {NV_MAX}")
+        nvj = nv | 1  # odd: lanes read J rows without conflicts
+        rs = -(-nrows // 4) * 4
+        ell = c["ell"]
+        pmax, kmax = max(c["pairs"], default=1), max(c["ks"], default=1)
+        mus = (2 * c["na"] + c["nmus"] + 6 * c["nbody"]) if c["nmus"] else 1
+        # the J region: J; before the rows, the smooth stage's and the
+        # muscle block's scratch, then the collision's (MESH)
+        scratch = max(12 * nv, SEG_W * c["nseg"], 3 * pmax + 2 * kmax)
+        sizes = {
+            "VEC": NVEC * nv, "CDOF": 12 * nv, "JNT": 6 * c["njnt"],
+            # L: the factor of M, or the Newton direction's H and
+            # gradient (in double for elliptic plans)
+            "BODY": BODY_W * c["nbody"], "M": nv * nv,
+            "L": (nv * nv + nv) * (2 if ell else 1),
+            "J": max(nrows * nvj, scratch),
+            "ROW": (ROW_ARRAYS_ELL if ell else ROW_ARRAYS) * rs,
+            "R": max(c["ne"] + c["nfl"], 1), "FL": max(c["nfl"], 1),
+            "MU": max(c["ncon_ell"], 1),
+            "SLOT": c["ncon"] * (SLOT_W_EXT if ell else SLOT_W),
+            "MUS": mus,
+            "MISC": MISC_W + 2 * -(-nrows // 64)
+            + (2 * CONE_VECS * nv if ell else 0)}
+        self._place(sizes)
+        if self.resident_warps < RESIDENT_FLOOR:
+            raise ValueError(
+                f"mega kernels: {4 * self.env_floats} bytes of shared memory "
+                f"per env leave {self.resident_warps} resident warps per SM, "
+                f"fewer than {RESIDENT_FLOOR}")
+        self.extra = {"NVJ": nvj, "RS": rs,
+                      "SLOTW": SLOT_W_EXT if ell else SLOT_W,
+                      "PMAX": pmax, "KMAX": kmax}
+
+    def _place(self, sizes):
+        """The regions' offsets, the env's floats and the launch."""
+        self.offset, off = {}, 0
+        for name in SHM[1:16]:
+            if name == "MESH":
+                continue
+            self.offset[name] = off
+            off += -(-sizes[name] // 4) * 4  # 16-byte aligned regions
+        self.offset["MESH"] = self.offset["J"]
+        self.env_floats = off
+        env_bytes = 4 * off
+        best = (0, 1)
+        for epb in range(1, ENVS_PER_BLOCK_MAX + 1):
+            if epb * env_bytes > SHM_PER_BLOCK:
+                break
+            blocks = min(BLOCKS_PER_SM, WARPS_PER_SM // epb,
+                         SHM_PER_SM // (epb * env_bytes + SHM_RESERVED))
+            if blocks * epb > best[0]:
+                best = (blocks * epb, epb)
+        self.resident_warps, self.envs_per_block = best
+        self.shared_bytes = self.envs_per_block * env_bytes
+
+    def table(self) -> list:
+        """The I_SHM table, in SHM order."""
+        return ([self.env_floats]
+                + [self.offset[n] for n in SHM[1:16]]
+                + [self.extra[n] for n in SHM[16:]])
+
+
+def mega_census(plan) -> dict:
+    """The counts of a mega plan that size its per-env state."""
+    groups = ([(len(g["pairs"]), g["k"]) for g in plan.groups
+               if g["kind"] in ("box", "mesh")]
+              + [(len(d["ints"]), d["k"])
+                 for d in (plan.ext if plan.mega_ell else [])])
+    mp = plan.mp
+    c = dict(nv=plan.nv, nbody=plan.nbody, njnt=plan.njnt,
+             nrows=plan.nrows, ncon=plan.ncon, ne=plan.ne, nfl=plan.nfl,
+             ncon_ell=plan.ncon_ell, na=plan.na, nmus=mp.nmus if mp else 0,
+             nseg=len(mp.i_seg) if mp else 0)
+    c = {k: int(v) for k, v in c.items()}
+    return dict(c, ell=bool(plan.mega_ell), pairs=[int(p) for p, _ in groups],
+                ks=[int(k) for _, k in groups])
+
+
+def mega_launch(plan) -> MegaLaunch:
+    """The launch of the mega kernels for a plan with `mega` (raises where
+    its state does not fit the card, see `MegaLaunch`); made once."""
+    if plan._launch is None:
+        plan._launch = MegaLaunch(mega_census(plan))
+    return plan._launch

@@ -31,6 +31,14 @@ cones, all classic analytic pair kinds, Euler) is held the same way on
 with the extended collision (geom1 and geom2 exact on active slots), its
 staged fused elliptic layout, and the refusal of its rows by the
 standalone Newton kernel.
+
+Every random input comes from numpy's seeded generator or from a CUDA
+generator seeded with the draw's number (`_qvel`, the draws of
+`tools/fused_determinism.py`, whose draw 14 and draw 27 held the two
+envs the replay missed before it carried the rows' Hessian decisions).
+The mega forward and the megastep are also held at a ragged env count
+(4093, not a multiple of a block's envs) and at one env, and checked
+bit-deterministic from run to run.
 """
 
 import sys
@@ -58,6 +66,14 @@ ASSET = (Path(__file__).resolve().parent.parent / "loco_mujoco_tpu_torch"
          / "assets" / "humanoid_torque_shape.npz")
 MUSCLE_ASSET = ASSET.with_name("humanoid_muscle_shape.npz")
 E = 256
+DRAWS = (0, 14, 27)  # tools/fused_determinism.py's draws of qvel
+
+
+def _qvel(n, nv, draw):
+    """tools/fused_determinism.py's qvel of `draw`: 0.1 x a normal draw
+    from a CUDA generator seeded with the draw's number."""
+    g = torch.Generator(device="cuda").manual_seed(draw)
+    return 0.1 * torch.randn(n, nv, device="cuda", generator=g)
 
 
 def _model(change=None, asset=ASSET):
@@ -73,13 +89,13 @@ def _model(change=None, asset=ASSET):
     return io.model_from_numpy(leaves, aux, device="cuda")
 
 
-def _dropped(model):
-    """E envs at qpos0 + noise, dropped 15 mm onto the floor."""
+def _dropped(model, n=E):
+    """n envs at qpos0 + noise, dropped 15 mm onto the floor."""
     rng = np.random.default_rng(0)
     qpos = model.qpos0.cpu().numpy()[None] + rng.normal(scale=0.02,
-                                                        size=(E, model.nq))
+                                                        size=(n, model.nq))
     qpos[:, int(model.jnt_qposadr[model.names["joint"]["root_z"]])] -= 0.015
-    return io.make_data(model, E).replace(
+    return io.make_data(model, n).replace(
         qpos=torch.as_tensor(qpos, dtype=torch.float32, device="cuda"))
 
 
@@ -93,10 +109,11 @@ def state():
 
 
 def test_relayouts_bit_exact(state):
-    x = torch.randn(E, 37, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(E, 37, device="cuda", generator=g)
     assert torch.equal(lay.to_grouped(x), x.t().contiguous())
     assert torch.equal(lay.from_grouped(x.t().contiguous()), x)
-    y = torch.randn(E, 5, 9, device="cuda")
+    y = torch.randn(E, 5, 9, device="cuda", generator=g)
     assert torch.equal(lay.moveaxis0_last(y), torch.movedim(y, 0, -1))
     assert torch.equal(lay.moveaxis_last0(lay.moveaxis0_last(y)), y)
 
@@ -186,16 +203,19 @@ def _gap(d):
     return (d.contact.dist - d.contact.includemargin).abs().min(dim=1).values
 
 
+def _replay(k):
+    """A kernel's recorded Newton decisions, for its plain version."""
+    return (k.solver_niter, k.solver_taken, k.solver_ls, k.solver_rows)
+
+
 def test_mega_forward_matches_plain(state):
     model, d = state
-    d = d.replace(qvel=0.1 * torch.randn_like(d.qvel))
+    d = d.replace(qvel=_qvel(E, model.nv, 0))
     kernels.LAUNCHES.clear()
     k = fwd.forward(model, d)
     assert kernels.LAUNCHES["mega_forward"] == 1
     assert set(kernels.LAUNCHES) == {"mega_forward"}
-    r = hm.mega_forward_plain(model, d,
-                              replay=(k.solver_niter, k.solver_taken,
-                                      k.solver_ls))
+    r = hm.mega_forward_plain(model, d, replay=_replay(k))
     act_k = k.contact.dist < k.contact.includemargin
     act_r = r.contact.dist < r.contact.includemargin
     assert act_r.any()
@@ -213,36 +233,34 @@ def test_mega_forward_matches_plain(state):
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_fused_matches_plain(state, name):
     """The fused kernel against its plain version, decisions replayed, on
-    the same FK outputs and contacts."""
+    the same FK outputs and contacts, on each of DRAWS."""
     model = _model(CONFIGS[name])
     assert model.plan.pack_w == {"fric": 7, "solref": 26}.get(name, 5)
-    d = _dropped(model).replace(qvel=0.1 * torch.randn(E, model.nv,
-                                                       device="cuda"))
-    d = coll.collision(model, kinematics.kinematics(model, d))
-    kernels.LAUNCHES.clear()
-    k = hf.fused_constraint(model, d)
-    assert dict(kernels.LAUNCHES) == {"fused": 1}
-    r = hf.fused_constraint_plain(model, d,
-                                  replay=(k.solver_niter, k.solver_taken,
-                                      k.solver_ls))
-    fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
-    assert (k.euler_dv is None) == (not model.plan.euler_dv)
-    if model.plan.euler_dv:
-        fields.append("euler_dv")
-    assert bool((r.efc_force_contact != 0).any())
-    for f in fields:
-        got, ref = getattr(k, f), getattr(r, f)
-        assert float((got - ref).abs().max()) < 5e-4 * float(
-            ref.abs().max()), f
+    for draw in DRAWS:
+        d = _dropped(model).replace(qvel=_qvel(E, model.nv, draw))
+        d = coll.collision(model, kinematics.kinematics(model, d))
+        kernels.LAUNCHES.clear()
+        k = hf.fused_constraint(model, d)
+        assert dict(kernels.LAUNCHES) == {"fused": 1}
+        r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+        fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
+        assert (k.euler_dv is None) == (not model.plan.euler_dv)
+        if model.plan.euler_dv:
+            fields.append("euler_dv")
+        assert bool((r.efc_force_contact != 0).any())
+        for f in fields:
+            got, ref = getattr(k, f), getattr(r, f)
+            assert float((got - ref).abs().max()) < 5e-4 * float(
+                ref.abs().max()), (draw, f)
 
 
-def _megastep_check(model, d):
-    """One control step (10 substeps) of the megastep against its plain
+def _megastep_check(model, d, n=10):
+    """n substeps (a control step) of the megastep against its plain
     version, decisions replayed (act too, with muscles)."""
-    n = 10
+    E = d.qpos.shape[0]
     per = hm.forwards_per_step(model)
-    dec = torch.zeros((E, per * n, hm.DECISIONS), dtype=torch.int32,
-                      device="cuda")
+    dec = torch.zeros((E, per * n, hm.decision_width(model)),
+                      dtype=torch.int32, device="cuda")
     kernels.LAUNCHES.clear()
     k = fwd.step_n(model, d, n)
     assert dict(kernels.LAUNCHES) == {"megastep": 1}
@@ -273,17 +291,17 @@ def test_euler_megastep_matches_plain(state):
                                             plain=True))
 
 
-def _muscle_state():
+def _muscle_state(draw=0):
     """The muscle model and its dropped state, with seeded muscle ctrls
-    and activations (a quarter above 1 at full control)."""
+    and activations (a quarter above 1 at full control), qvel of
+    `draw`."""
     model = _model(asset=MUSCLE_ASSET)
     rng = np.random.default_rng(1)
     act = seeded_act(rng, E, model.na)
     ctrl = hold_ctrl(model, rng.uniform(0, 1, size=(E, model.nu)), act)
     t = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")  # noqa
-    d = _dropped(model).replace(qvel=0.1 * torch.randn(E, model.nv,
-                                                       device="cuda"),
-                                ctrl=t(ctrl), act=t(act))
+    d = _dropped(model).replace(qvel=_qvel(E, model.nv, draw), ctrl=t(ctrl),
+                                act=t(act))
     return model, d
 
 
@@ -295,9 +313,7 @@ def test_muscle_mega_forward_matches_plain(state):
     kernels.LAUNCHES.clear()
     k = fwd.forward(model, d)
     assert dict(kernels.LAUNCHES) == {"mega_forward": 1}
-    r = hm.mega_forward_plain(model, d,
-                              replay=(k.solver_niter, k.solver_taken,
-                                      k.solver_ls))
+    r = hm.mega_forward_plain(model, d, replay=_replay(k))
     same = torch.all((k.contact.dist < k.contact.includemargin)
                      == (r.contact.dist < r.contact.includemargin), dim=1)
     _tie_envs(same, _gap(r))
@@ -317,20 +333,20 @@ def test_muscle_megastep_matches_plain(state):
 
 def test_muscle_fused_matches_plain(state, monkeypatch):
     """The fused kernel in the non-smooth layout, on the staged stages'
-    outputs, decisions replayed."""
+    outputs, decisions replayed, on each of DRAWS."""
     monkeypatch.setenv("LMT_MEGA", "0")
-    model, d = _muscle_state()
-    d = fwd.stages(model, d)
-    kernels.LAUNCHES.clear()
-    k = hf.fused_constraint(model, d)
-    assert dict(kernels.LAUNCHES) == {"fused": 1}
-    r = hf.fused_constraint_plain(model, d,
-                                  replay=(k.solver_niter, k.solver_taken,
-                                      k.solver_ls))
-    for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
-        got, ref = getattr(k, f), getattr(r, f)
-        assert float((got - ref).abs().max()) < 5e-4 * float(
-            ref.abs().max()), f
+    for draw in DRAWS:
+        model, d = _muscle_state(draw)
+        d = fwd.stages(model, d)
+        kernels.LAUNCHES.clear()
+        k = hf.fused_constraint(model, d)
+        assert dict(kernels.LAUNCHES) == {"fused": 1}
+        r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+        for f in ("qacc", "qfrc_constraint", "efc_force_contact",
+                  "euler_dv"):
+            got, ref = getattr(k, f), getattr(r, f)
+            assert float((got - ref).abs().max()) < 5e-4 * float(
+                ref.abs().max()), (draw, f)
 
 
 def _a1_state(n=E):
@@ -356,9 +372,7 @@ def test_a1_mega_forward_matches_plain(state):
     kernels.LAUNCHES.clear()
     k = fwd.forward(model, d)
     assert dict(kernels.LAUNCHES) == {"mega_forward": 1}
-    r = hm.mega_forward_plain(model, d,
-                              replay=(k.solver_niter, k.solver_taken,
-                                      k.solver_ls))
+    r = hm.mega_forward_plain(model, d, replay=_replay(k))
     act_r = r.contact.dist < r.contact.includemargin
     same = torch.all((k.contact.dist < k.contact.includemargin) == act_r,
                      dim=1)
@@ -396,9 +410,7 @@ def test_a1_fused_matches_plain(state, monkeypatch):
     kernels.LAUNCHES.clear()
     k = hf.fused_constraint(model, d)
     assert dict(kernels.LAUNCHES) == {"fused": 1}
-    r = hf.fused_constraint_plain(model, d,
-                                  replay=(k.solver_niter, k.solver_taken,
-                                          k.solver_ls))
+    r = hf.fused_constraint_plain(model, d, replay=_replay(k))
     held = torch.ones(E, dtype=torch.bool, device="cuda")
     for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
         got, ref = getattr(k, f), getattr(r, f)
@@ -423,3 +435,48 @@ def test_a1_standalone_newton_raises(state):
     assert options["ell"] is not None
     with pytest.raises(NotImplementedError, match="elliptic"):
         hn.solve(*operands, **options)
+
+
+@pytest.mark.parametrize("n", [4093, 1])
+def test_mega_ragged_and_single_env(state, n):
+    """Both mega kernels at an env count that is no multiple of a block's
+    envs, and at one env, against their plain versions (decisions
+    replayed; chip_smoke.py's tie rule on active sets)."""
+    model = _model(CONFIGS["euler"])
+    d = _dropped(model, n).replace(qvel=_qvel(n, model.nv, 0))
+    d = d.replace(ctrl=torch.full((n, model.nu), 0.1, device="cuda"))
+    k = fwd.forward(model, d)
+    r = hm.mega_forward_plain(model, d, replay=_replay(k))
+    same = torch.all((k.contact.dist < k.contact.includemargin)
+                     == (r.contact.dist < r.contact.includemargin), dim=1)
+    if n > 1:
+        _tie_envs(same, _gap(r))
+    else:
+        assert bool(same.all())
+    for name in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
+        got, ref = getattr(k, name)[same], getattr(r, name)[same]
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), name
+    _megastep_check(model, d, n=2)
+
+
+def test_mega_bit_deterministic(state):
+    """Two launches of each mega kernel on the same inputs, another
+    launch between, are bit-equal in every output."""
+    model, d = state
+    d = d.replace(qvel=_qvel(E, model.nv, 14))
+    other = d.replace(qvel=_qvel(E, model.nv, 27))
+    dec = [torch.zeros((E, 8, hm.decision_width(model)), dtype=torch.int32,
+                       device="cuda") for _ in range(2)]
+    runs = []
+    for i in range(2):
+        f = hm.mega_forward(model, d)
+        hm.mega_forward(model, other)
+        s = hm.mega_step_n(model, d, 2, decisions=dec[i])
+        hm.mega_step_n(model, other, 2)
+        runs.append([f.qacc, f.qacc_smooth, f.qfrc_constraint,
+                     f.efc_force_contact, f.contact.dist, f.solver_niter,
+                     f.solver_taken, f.solver_ls, f.solver_rows, s.qpos,
+                     s.qvel, s.qacc, dec[i]])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

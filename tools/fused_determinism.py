@@ -20,13 +20,14 @@ the draw's number) and
   with the same replay and checks it bit-equal too (`plain_equal`);
 - holds the kernel against its plain version replaying its decisions (the
   warm start, iteration count, steps taken and, where the tree records
-  them, the line search's signs) by the test's rule, per env: qacc,
+  them, the line search's signs and each Newton step's Hessian decisions
+  of the rows) by the test's rule, per env: qacc,
   qfrc_constraint and efc_force_contact within rel 5e-4 of the field's
   largest value (`bad`: the envs that are not).
 
 Prints the card's name and power limit, one JSON line per draw and a
 summary line. Runs on any checkout of the port since the fused kernel
-(it reads `solver_ls` only where the Data has it).
+(it reads `solver_ls` and `solver_rows` only where the Data has them).
 """
 
 from __future__ import annotations
@@ -87,8 +88,9 @@ def _operands(model, E, seed):
 def _outputs(k):
     out = [getattr(k, f) for f in FIELDS]
     out += [k.solver_niter, k.solver_taken]
-    if getattr(k, "solver_ls", None) is not None:
-        out.append(k.solver_ls)
+    for f in ("solver_ls", "solver_rows"):
+        if getattr(k, f, None) is not None:
+            out.append(getattr(k, f))
     return out
 
 
@@ -127,8 +129,9 @@ def main() -> int:
             kernel_equal &= all(torch.equal(a, b)
                                 for a, b in zip(first, again))
         replay = (k.solver_niter, k.solver_taken)
-        if getattr(k, "solver_ls", None) is not None:
-            replay += (k.solver_ls,)
+        for f in ("solver_ls", "solver_rows"):
+            if getattr(k, f, None) is not None:
+                replay += (getattr(k, f),)
         r = hf.fused_constraint_plain(model, d, replay=replay)
         r2 = hf.fused_constraint_plain(model, d, replay=replay)
         plain_equal = all(torch.equal(getattr(r, f), getattr(r2, f))

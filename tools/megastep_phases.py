@@ -19,9 +19,11 @@ never builds it), launches it once on the same inputs and reads the
 clock64() cycles each env spent in each phase of its forwards: FK,
 collision, the smooth stage (com, CRB and its factor, forces, the muscle
 block, qacc_smooth), the constraint rows, the Newton solve and the
-integration (the substep's update, Euler's damping solve). It prints each
-phase's share of the summed cycles and that share of the timed launch, in
-ms. The clocks count the cycles between a warp's readings, so time spent
+integration (the substep's update, Euler's damping solve), and where the
+kernel records them the Newton solve's parts (the gradient and Hessian,
+the factor and substitutions, the line search with the new cost; the rest
+is its row passes). It prints each phase's share of the summed cycles and
+that share of the timed launch, in ms. The clocks count the cycles between a warp's readings, so time spent
 waiting for another warp of the same SM is charged to the phase that
 waits.
 
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -44,6 +47,9 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("fk", "collision", "smooth", "rows", "newton", "integration")
+# the Newton solve's parts (where the kernel splits it; the rest of the
+# Newton phase is its row passes)
+NEWTON_PARTS = ("gradient_hessian", "factor_solve", "line_search")
 SUBSTEPS = 10
 CONTROL_STEPS = 20
 SEED = 0
@@ -146,6 +152,8 @@ def main() -> int:
     print(f"nvidia-smi: {card}; port from {root}")
     src = (root / "loco_mujoco_tpu_torch" / "csrc" / "mega.cu").read_text()
     phases = not args.no_phases and "LMT_PHASES" in src
+    found = re.search(r"constexpr int kPhases = (\d+);", src)
+    ncol = int(found.group(1)) if found else 0
     kernels.build_all()
     if phases:
         kernels.build_all(["mega"], ("LMT_PHASES",))
@@ -173,7 +181,7 @@ def main() -> int:
             variant = ("LMT_PHASES",)
             lib = kernels.library("mega", hm._SIGNATURES, variant)
             lib.lmt_mega_phases.argtypes = [kernels.PTR]
-            buf = torch.zeros((E, len(PHASES) + 1), dtype=torch.int64,
+            buf = torch.zeros((E, ncol + 1), dtype=torch.int64,
                               device="cuda")
             kernels.check(lib.lmt_mega_phases(kernels.ptr(buf)), "phases")
             hm.mega_step_n(m, S, SUBSTEPS, defines=variant)  # warm-up
@@ -191,6 +199,10 @@ def main() -> int:
             line["phase_ms"] = {p: s * ms for p, s in zip(PHASES, share)}
             line["cycles_per_env"] = dict(zip(
                 PHASES, (cyc / E).tolist()))
+            if ncol > len(PHASES):  # the Newton solve's parts
+                part = buf[:, len(PHASES):ncol].sum(0).double() / cyc[4]
+                line["newton_share"] = dict(zip(NEWTON_PARTS,
+                                                part.tolist()))
         print(json.dumps(line), flush=True)
     return 0
 
