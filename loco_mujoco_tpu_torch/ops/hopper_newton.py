@@ -220,13 +220,21 @@ def _mv(A, v):
     return (A @ v[..., None])[..., 0]
 
 
+def _jar(Jm, x, aref, dir64=False):
+    """J x - aref; with dir64 taken in float64 and rounded once (the mega
+    kernels' arithmetic for elliptic plans)."""
+    if dir64:
+        return (_mv(Jm.double(), x.double()) - aref.double()).to(Jm.dtype)
+    return _mv(Jm, x) - aref
+
+
 def newton_cost(J, M, aref, D, R, floss, active, asm, x, *, ne, nfl,
-                ell=None):
+                ell=None, dir64=False):
     """The objective the solve minimises, at x (E, nv): the constraint rows'
     cost plus 0.5 (x - asm)' M (x - asm)."""
     on = active > 0
     is_eq, is_fl = _row_classes(J.shape[1], ne, nfl, J.device)
-    jar = _mv(J * on[..., None].to(J.dtype), x) - aref
+    jar = _jar(J * on[..., None].to(J.dtype), x, aref, dir64)
     d = x - asm
     c = _quantities(jar, D, R, floss, on, is_eq, is_fl, ell)[2]
     return c + 0.5 * (d * _mv(M, d)).sum(-1)
@@ -257,8 +265,9 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
     int32, zero past each env's last step), the ones a kernel records.
 
     `dir64`: each Newton direction in float64 (the gradient, the Hessian,
-    its factor and the substitutions; the mega kernels' arithmetic),
-    rounded once to the working type.
+    its factor and the substitutions), rounded once to the working type,
+    and J x - aref taken in float64 and rounded once: the mega kernels'
+    arithmetic for elliptic plans.
 
     `ell` (`ell_tables`): the elliptic contacts' rows and cone
     coefficients; their rows take the cone zones' forces, weights and
@@ -277,7 +286,7 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
 
     def cost_at(x):
         return newton_cost(J, M, aref, D, R, floss, active, asm, x, ne=ne,
-                           nfl=nfl, ell=ell)
+                           nfl=nfl, ell=ell, dir64=dir64)
 
     def falsi(lo, dlo, hi, dhi):
         denom = dhi - dlo
@@ -303,7 +312,7 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
     for it in range(iterations):
         running = ~done
         iters += running.to(torch.int32)
-        jar = _mv(Jm, x) - aref
+        jar = _jar(Jm, x, aref, dir64)
         hess = None
         if replay is not None and len(replay) > 3:
             hess = unpack_row_bits(replay[3][:, it], nefc)
