@@ -51,10 +51,13 @@ Run from the repository root: `python3 chip_smoke.py`. It
    four plan configurations, the muscle model's non-smooth layout and A1's
    elliptic layout, to their plain versions replaying the kernels' Newton
    decisions (the iteration count, the taken steps, the line search's
-   signs and each step's Hessian decision of every row), on all 4096 envs; a mega check (and the elliptic fused
-   check) excuses at most 0.5% of the envs, each only as a float32 tie (a
-   slot or limit within TIE of its margin) or as a Newton disagreement at
-   a shared state that a float64 witness settles for the kernel;
+   signs and each step's Hessian decision of every row), on all 4096
+   envs; a mega check (and the elliptic fused check) excuses at most 0.5%
+   of the envs, each only as a float32 tie (a slot or limit within TIE of
+   its margin) or as a Newton disagreement at a shared state that a
+   float64 witness settles for the kernel; and the replayed row decisions
+   may depart from the plain version's own at the first Newton step (the
+   shared start) in at most 0.5% of the envs (_row_departures);
 8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the least time the card
    could take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
@@ -216,9 +219,9 @@ def _newton_witness(torch, m, S, k, p, envs=None, staged=False):
     where given); with elliptic cones also their constraint or contact
     forces (impratio 100 makes the friction rows 100 times stiffer than
     the normal's, so the forces move more than qacc). The replay covers
-    the iteration count, the taken steps and the line search's sign tests,
-    not the rows' float32 tests, so a plain version stopped at the
-    kernel's count can end less converged. `witnessed`: the float64
+    the iteration count, the taken steps, the line search's sign tests and
+    the rows' Hessian decisions, not the line search's own row tests at
+    its trial points. `witnessed`: the float64
     witness (tools/newton_witness.py) settles such an env for the kernel:
     the state's Newton problem (the plain version's rows) solved in float64
     to convergence lies within rel 5e-4 of the kernel's acceleration (and,
@@ -299,6 +302,27 @@ def _newton_witness(torch, m, S, k, p, envs=None, staged=False):
               f"{es:.3g}, {int(k.solver_niter[e])} Newton steps); {t} "
               f"({'the kernel holds' if w else 'not settled'})")
     return apart, witnessed
+
+
+def _row_departures(torch, k, own, E, what):
+    """The rows whose Hessian decision the kernel recorded (and the plain
+    version replayed) where the plain version's own test at the same
+    step's x decides otherwise (`own`, newton_plain's `own_rows`). At the
+    first Newton step both start from the same x, so such rows are float32
+    ties and may lie in at most 0.5% of the envs; over the later steps they
+    are counted. Prints both counts; returns the first step's envs."""
+    diff = k.solver_rows ^ own
+    n = sum(((diff >> b) & 1) for b in range(32)).sum(-1)  # (E, steps)
+    e0 = int((n[:, 0] > 0).sum())
+    print(f"  {what}: replayed row decisions the plain version's own tests "
+          f"do not make: {int(n[:, 0].sum())} rows in {e0} envs at the "
+          f"first Newton step, {int(n.sum())} rows in "
+          f"{int((n.sum(1) > 0).sum())} envs over all steps")
+    if e0 > 0.005 * E:
+        raise AssertionError(f"{what}: {e0} envs depart from the plain "
+                             f"version's own row decisions at the first "
+                             f"Newton step, more than 0.5%")
+    return e0
 
 
 def _tie_envs(torch, held, gap, E, what, err=None, newton=None):
@@ -474,6 +498,34 @@ def _load(io, root, name, dev, torch):
     return io.model_from_numpy(leaves, aux, device=dev, dtype=torch.float32)
 
 
+def seeded_draws(model, m_mu, m_a1, E):
+    """The main path's seeded start states and control streams (numpy):
+    the humanoids' qpos (the torque model's noise, dropped 5-20 mm so feet
+    and hulls touch; every humanoid configuration starts there), the
+    torque ctrls in [-0.3, 0.3], the muscle ctrls in [0, 1], then from a
+    stream of its own (so the earlier draws stay as they were) A1's qpos,
+    dropped 5-20 mm, and its motor ctrls within A1_CTRL of 0. Each ctrls
+    array is (CONTROL_STEPS, E, nu)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    qpos = model.qpos0.cpu().numpy()[None] + rng.normal(
+        scale=0.02, size=(E, model.nq))
+    z = int(model.jnt_qposadr[model.names["joint"]["root_z"]])
+    qpos[:, z] -= rng.uniform(0.005, 0.02, size=E)
+    ctrls = rng.uniform(-0.3, 0.3, size=(CONTROL_STEPS, E, model.nu))
+    ctrls_mu = rng.uniform(0.0, 1.0, size=(CONTROL_STEPS, E, m_mu.nu))
+    rng_a1 = np.random.default_rng(SEED + 1)
+    qpos_a1 = m_a1.qpos0.cpu().numpy()[None] + rng_a1.normal(
+        scale=0.02, size=(E, m_a1.nq))
+    z_a1 = int(m_a1.jnt_qposadr[m_a1.names["joint"]["trunk_tz"]])
+    qpos_a1[:, z_a1] = float(m_a1.qpos0[z_a1]) - rng_a1.uniform(
+        0.005, 0.02, size=E)
+    ctrls_a1 = rng_a1.uniform(-A1_CTRL, A1_CTRL,
+                              size=(CONTROL_STEPS, E, m_a1.nu))
+    return qpos, ctrls, ctrls_mu, qpos_a1, ctrls_a1
+
+
 def main() -> int:
     import torch
 
@@ -491,8 +543,6 @@ def main() -> int:
     from loco_mujoco_tpu_torch.ops import hopper_newton as hn
     from loco_mujoco_tpu_torch.ops import kernels, kinematics, solver
     from loco_mujoco_tpu_torch.ops.plan import RESIDENT_FLOOR, mega_launch
-
-    import numpy as np
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -567,27 +617,12 @@ def main() -> int:
               f"shared-memory bound {launch.resident_warps})")
         assert min(occ) >= RESIDENT_FLOOR, (name, occ)
 
-    rng = np.random.default_rng(SEED)
     E = N_ENVS
-    qpos = model.qpos0.cpu().numpy()[None] + rng.normal(
-        scale=0.02, size=(E, model.nq))
-    z = int(model.jnt_qposadr[model.names["joint"]["root_z"]])
-    qpos[:, z] -= rng.uniform(0.005, 0.02, size=E)  # feet and hulls touch
+    qpos, ctrls, ctrls_mu, qpos_a1, ctrls_a1 = seeded_draws(model, m_mu, m_a1,
+                                                            E)
     qpos_t = torch.as_tensor(qpos, dtype=torch.float32, device=dev)
     data = io.make_data(model, E).replace(qpos=qpos_t)
-    ctrls = rng.uniform(-0.3, 0.3, size=(CONTROL_STEPS, E, model.nu))
-    ctrls_mu = rng.uniform(0.0, 1.0, size=(CONTROL_STEPS, E, m_mu.nu))
-    # A1: its own stream, so the earlier configurations' draws stay as
-    # they were; dropped 5-20 mm, motor ctrls within A1_CTRL of 0
-    rng_a1 = np.random.default_rng(SEED + 1)
-    qpos_a1 = m_a1.qpos0.cpu().numpy()[None] + rng_a1.normal(
-        scale=0.02, size=(E, m_a1.nq))
-    z_a1 = int(m_a1.jnt_qposadr[m_a1.names["joint"]["trunk_tz"]])
-    qpos_a1[:, z_a1] = float(m_a1.qpos0[z_a1]) - rng_a1.uniform(
-        0.005, 0.02, size=E)
     qpos_a1_t = torch.as_tensor(qpos_a1, dtype=torch.float32, device=dev)
-    ctrls_a1 = rng_a1.uniform(-A1_CTRL, A1_CTRL,
-                              size=(CONTROL_STEPS, E, m_a1.nu))
 
     def ctrl(c, m=model):
         """Control step c's seeded ctrl of model m (the muscle model's in
@@ -813,8 +848,11 @@ def main() -> int:
     # for the kernel (_tie_envs, _newton_witness).
     def mega_forward_check(m, S, what):
         k = fwd.forward(m, S)
+        own = {}
         r = hm.mega_forward_plain(m, S, replay=(
-            k.solver_niter, k.solver_taken, k.solver_ls, k.solver_rows))
+            k.solver_niter, k.solver_taken, k.solver_ls, k.solver_rows),
+            record=own)
+        _row_departures(torch, k, own["own_rows"], E, f"mega forward {what}")
         act_k = k.contact.dist < k.contact.includemargin
         act_r = r.contact.dist < r.contact.includemargin
         same = torch.all(act_k == act_r, dim=1)
@@ -982,8 +1020,11 @@ def main() -> int:
         kernels.LAUNCHES.clear()
         k = hf.fused_constraint(m, d)
         assert dict(kernels.LAUNCHES) == {"fused": 1}
+        own = {}
         r = hf.fused_constraint_plain(m, d, replay=(
-            k.solver_niter, k.solver_taken, k.solver_ls, k.solver_rows))
+            k.solver_niter, k.solver_taken, k.solver_ls, k.solver_rows),
+            record=own)
+        _row_departures(torch, k, own["own_rows"], E, f"fused {name}")
         fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
         assert (k.euler_dv is None) == (not m.plan.euler_dv)
         if m.plan.euler_dv:

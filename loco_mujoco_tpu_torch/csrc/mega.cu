@@ -238,12 +238,13 @@ enum BodyF {
 // rows with a force and the rows with a Hessian term, which the solve's
 // passes walk instead of every row; the
 // row's class (int: -1 a scalar row, 8 ci + dim on an elliptic contact's
-// first row, -2 on its other rows); the cone zone's g, q and sc per row
-// (on the first row q holds the middle zone's weight, or -1 in the
-// sticking zone, and sc its curvature c2)
+// first row, -2 on its other rows); in two arrays' room (R_FD, R_FD2)
+// the rows' forces in double, for the gradient of the double solve; an
+// elliptic contact's zone on its first row (1 middle, -1
+// sticking, 0 neither)
 enum RowA {
-  R_AREF, R_D, R_ACT, R_JAR, R_JV, R_F, R_LISTS, R_CLS = R_LISTS + 2, R_G,
-  R_Q, R_SC
+  R_AREF, R_D, R_ACT, R_JAR, R_JV, R_F, R_LISTS, R_CLS = R_LISTS + 2, R_FD,
+  R_FD2, R_ZONE
 };
 enum RowList { L_ACT, L_F, L_H };
 // per-slot fields of SH_SLOT (ops/plan.py SLOT_W, SLOT_W_EXT); ints as
@@ -255,8 +256,9 @@ enum SlotF {
 // SH_MISC: the subtree com (3), then the row-decision words of one step,
 // then (elliptic plans) the vectors of one middle-zone cone in double:
 // J'g and its curvature pairs' v_kl, 1 + (dim - 1)(dim - 2) / 2 <= 11 of
-// nv (ops/plan.py CONE_VECS)
-constexpr int kMiscCom = 0, kMiscBits = 8;
+// nv (ops/plan.py CONE_VECS), and its zone's terms (4 kDimMax + 2
+// doubles, CONE_SCR)
+constexpr int kMiscCom = 0, kMiscBits = 8, kConeVecs = 11;
 
 struct Env {
   // J: the rows' Jacobian; scr, the same region, holds scratch before the
@@ -279,6 +281,13 @@ struct Env {
     return (P*)(misc + kMiscBits + (((nrows + 31) / 32 + 1) & ~1));
   }
 };
+
+// The double Newton solve's x, dx, M (x - asm) and M dx (nv each), in the
+// L region after its H (nv x nv) and gradient (nv) (ops/plan.py: L holds
+// nv (nv + 5) doubles for elliptic plans).
+__device__ __forceinline__ double* solve_vecs(const Env& s) {
+  return (double*)s.L + s.nv * s.nv + s.nv;
+}
 
 __device__ Env env_of(const Tab& T, float* base, int e) {
   const int* sh = T.i(I_SHM);
@@ -316,6 +325,10 @@ __device__ Env env_of(const Tab& T, float* base, int e) {
 // The warp's sum of v, in one fixed order; every lane gets the same value
 // (a butterfly: each pair of lanes adds the same two numbers).
 __device__ __forceinline__ float wsum(float v) {
+  for (int m = kWarp / 2; m; m >>= 1) v += __shfl_xor_sync(kFull, v, m);
+  return v;
+}
+__device__ __forceinline__ double wsum(double v) {
   for (int m = kWarp / 2; m; m >>= 1) v += __shfl_xor_sync(kFull, v, m);
   return v;
 }
@@ -397,11 +410,12 @@ __device__ __forceinline__ double wsqrt(double x) { return sqrt(x); }
 // then the backward one (L' x = y) an unknown at a time; each entry of L is
 // the sequential factorisation's dot in its order (INV: the Newton
 // solve's multiply by the pivot's inverse, else a division, as
-// linalg.cholesky). T: float, or double for the Newton direction; x is
-// rounded to float; b and x in shared memory (may be the same).
-template <bool INV, class T>
-__device__ void wfactor_solve(const Env& s, T* A, const T* b, float* x,
-                              int n, bool neg) {
+// linalg.cholesky). T: float, or double for the elliptic plans' Newton
+// solve; x in its own type (X); b and x in shared memory (may be the
+// same).
+template <bool INV, class T, class X>
+__device__ void wfactor_solve(const Env& s, T* A, const T* b, X* x, int n,
+                              bool neg) {
   const int i = s.lane;
   T y = i < n ? (neg ? -b[i] : b[i]) : T(0);
   for (int j = 0; j < n; ++j) {
@@ -439,15 +453,16 @@ __device__ void wfactor_solve(const Env& s, T* A, const T* b, float* x,
       y -= A[k * n + i] * xk;
   }
   __syncwarp();
-  if (i < n) x[i] = (float)y;
+  if (i < n) x[i] = (X)y;
   __syncwarp();
 }
 
-// out = A v (A n x n, row stride n), lane per row
-__device__ void wmat_vec(const Env& s, const float* A, const float* v,
-                         float* out, int n) {
+// out = A v (A n x n, row stride n), lane per row, in v's type
+template <class V>
+__device__ void wmat_vec(const Env& s, const float* A, const V* v, V* out,
+                         int n) {
   for (int a = s.lane; a < n; a += kWarp) {
-    float t = 0.f;
+    V t = 0;
     for (int b = 0; b < n; ++b) t += A[a * n + b] * v[b];
     out[a] = t;
   }
@@ -470,42 +485,69 @@ __device__ int compact(const Env& s, int n, unsigned short* list, P&& pred) {
   return cnt;
 }
 
-// J row . v
-__device__ __forceinline__ float jdot(const float* j, const float* v,
-                                      int nv) {
-  float t = 0.f;
+// J row . v, in v's type
+template <class V>
+__device__ __forceinline__ V jdot(const float* j, const V* v, int nv) {
+  V t = 0;
   for (int k = 0; k < nv; ++k) t += j[k] * v[k];
   return t;
 }
 
+// J row . x - aref accumulated in double, returned in x's type (rounded
+// once for a float x: newton_core.cuh's jar_exact)
+template <class X>
+__device__ __forceinline__ X jar_wide(const float* j, const X* x, int nv,
+                                      float aref) {
+  double t = 0.0;
+  for (int k = 0; k < nv; ++k) t += (double)j[k] * (double)x[k];
+  return (X)(t - (double)aref);
+}
+
+// newton_core.cuh's Cone in precision T.
+template <class T>
+struct ConeT {
+  T f[kDimMax], w[kDimMax], g[kDimMax], q[kDimMax], sc[kDimMax];
+  T c, wg, c2;
+  bool mid, bottom;
+};
+
+__device__ __forceinline__ float wmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double wmax(double a, double b) {
+  return fmax(a, b);
+}
+
 // newton_core.cuh's Rows::cone with its loops unrolled over kDimMax, so
-// that a lane keeps the cone's arrays in registers (the same arithmetic);
-// s holds the contact's dim jar values (zero past dim).
+// that a lane keeps the cone's arrays in registers; in float the same
+// arithmetic, in double (the elliptic plans' Newton solve) the same
+// steps on the float inputs widened; s holds the contact's dim jar values
+// (zero past dim).
+template <class T>
 __device__ __forceinline__ void cone_zone(const Rows& rows, int r, int d,
-                                          int ci, const float* s, Cone& z) {
-  float Dk[kDimMax], sc[kDimMax], u[kDimMax];
-  const float dn = rows.D[rows.at(r)];
-  float t2 = 0.f;
+                                          int ci, const T* s, ConeT<T>& z) {
+  T Dk[kDimMax], sc[kDimMax], u[kDimMax];
+  const T dn = rows.D[rows.at(r)];
+  const T minv = T(1e-15);  // kMinVal
+  T t2 = 0;
 #pragma unroll
   for (int k = 0; k < kDimMax; ++k) {
-    Dk[k] = sc[k] = u[k] = 0.f;
+    Dk[k] = sc[k] = u[k] = 0;
     if (k < d) {
       Dk[k] = rows.D[rows.at(r + k)];
-      sc[k] = sqrtf(Dk[k] / fmaxf(dn, kMinVal));
+      sc[k] = wsqrt(Dk[k] / wmax(dn, minv));
       u[k] = s[k] * sc[k];
       if (k) t2 += u[k] * u[k];
     }
   }
-  const float m = rows.mu[(size_t)ci * rows.E + rows.e];
-  const float n = u[0], t = sqrtf(t2), ts = fmaxf(t, kMinVal);
+  const T m = rows.mu[(size_t)ci * rows.E + rows.e];
+  const T n = u[0], t = wsqrt(t2), ts = wmax(t, minv);
   const bool top = n >= m * t;
-  const bool bottom = m * n + t <= 0.f;
+  const bool bottom = m * n + t <= T(0);
   z.mid = !(top || bottom);
   z.bottom = bottom;
-  z.c = z.wg = z.c2 = 0.f;
+  z.c = z.wg = z.c2 = 0;
 #pragma unroll
   for (int k = 0; k < kDimMax; ++k) {
-    z.f[k] = z.w[k] = z.g[k] = z.q[k] = 0.f;
+    z.f[k] = z.w[k] = z.g[k] = z.q[k] = 0;
     z.sc[k] = sc[k];
   }
   if (bottom) {
@@ -516,16 +558,16 @@ __device__ __forceinline__ void cone_zone(const Rows& rows, int r, int d,
         z.w[k] = Dk[k];
         z.c += Dk[k] * s[k] * s[k];
       }
-    z.c *= 0.5f;
+    z.c *= T(0.5);
   } else if (z.mid) {
-    const float dm = dn / (1.f + m * m);
-    const float nmt = n - m * t;
-    const float c2 = dm * m * (m * t - n) / ts;
-    z.c = 0.5f * dm * nmt * nmt;
+    const T dm = dn / (T(1) + m * m);
+    const T nmt = n - m * t;
+    const T c2 = dm * m * (m * t - n) / ts;
+    z.c = T(0.5) * dm * nmt * nmt;
     z.wg = dm;
     z.c2 = c2;
     z.g[0] = sc[0];
-    float q2 = 0.f;
+    T q2 = 0;
 #pragma unroll
     for (int k = 1; k < kDimMax; ++k)
       if (k < d) {
@@ -533,7 +575,7 @@ __device__ __forceinline__ void cone_zone(const Rows& rows, int r, int d,
         z.q[k] = u[k] / ts;
         q2 += z.q[k] * z.q[k];
       }
-    const float rest = c2 * (1.f - q2);
+    const T rest = c2 * (T(1) - q2);
 #pragma unroll
     for (int k = 1; k < kDimMax; ++k)
       if (k < d) z.w[k] = rest * sc[k] * sc[k];
@@ -541,6 +583,100 @@ __device__ __forceinline__ void cone_zone(const Rows& rows, int r, int d,
     for (int k = 0; k < kDimMax; ++k)
       if (k < d) z.f[k] = -dm * nmt * z.g[k];
   }
+}
+
+// cone_zone's Hessian terms of an elliptic contact (the same arithmetic),
+// written to z as they are formed: its weights w, g, q and sc (kDimMax
+// each), then wg (0 outside the middle zone) and c2; s: the contact's jar
+// values (dim of them).
+template <class T>
+__device__ void cone_terms(const Rows& rows, int r, int d, int ci,
+                           const float* s, T* z) {
+  T* w = z;
+  T* g = z + kDimMax;
+  T* q = z + 2 * kDimMax;
+  T* sc = z + 3 * kDimMax;
+  const T dn = rows.D[rows.at(r)];
+  const T minv = T(1e-15);  // kMinVal
+  T t2 = 0;
+  for (int k = 0; k < kDimMax; ++k) {
+    w[k] = g[k] = q[k] = sc[k] = 0;
+    if (k < d) {
+      const T Dk = rows.D[rows.at(r + k)];
+      sc[k] = wsqrt(Dk / wmax(dn, minv));
+      const T u = s[k] * sc[k];
+      q[k] = u;  // u until the zone is known
+      if (k) t2 += u * u;
+    }
+  }
+  const T m = rows.mu[(size_t)ci * rows.E + rows.e];
+  const T n = q[0], t = wsqrt(t2), ts = wmax(t, minv);
+  const bool top = n >= m * t;
+  const bool bottom = m * n + t <= T(0);
+  const bool mid = !(top || bottom);
+  T wg = 0, c2 = 0;
+  if (bottom) {
+    for (int k = 0; k < d; ++k) w[k] = rows.D[rows.at(r + k)];
+  } else if (mid) {
+    const T dm = dn / (T(1) + m * m);
+    wg = dm;
+    c2 = dm * m * (m * t - n) / ts;
+    g[0] = sc[0];
+    T q2 = 0;
+    for (int k = 1; k < d; ++k) {
+      const T u = q[k];
+      g[k] = -m * u / ts * sc[k];
+      q[k] = u / ts;
+      q2 += q[k] * q[k];
+    }
+    const T rest = c2 * (T(1) - q2);
+    for (int k = 1; k < d; ++k) w[k] = rest * sc[k] * sc[k];
+  }
+  q[0] = 0;
+  if (!mid)
+    for (int k = 1; k < d; ++k) q[k] = 0;
+  z[4 * kDimMax] = wg;
+  z[4 * kDimMax + 1] = c2;
+}
+
+// newton_core.cuh's Rows::fwc in double: the force, Hessian weight and
+// cost of active scalar row r at jar value s (the elliptic plans' Newton
+// solve).
+__device__ void fwc_double(const Rows& rows, int r, double s, double& f,
+                           double& w, double& c) {
+  const size_t o = rows.at(r);
+  const double d = rows.D[o];
+  f = w = c = 0.0;
+  if (r < rows.ne) {
+    f = -d * s;
+    w = d;
+    c = 0.5 * d * s * s;
+  } else if (r < rows.ne + rows.nfl) {
+    const double flv = rows.fl[(size_t)(r - rows.ne) * rows.E + rows.e];
+    const double rf = (double)rows.R[o] * flv;
+    f = fmin(fmax(-d * s, -flv), flv);
+    const bool quad = fabs(s) <= rf;
+    w = quad ? d : 0.0;
+    c = quad ? 0.5 * d * s * s : flv * fabs(s) - 0.5 * rf * flv;
+  } else if (s < 0.0) {
+    f = -d * s;
+    w = d;
+    c = 0.5 * d * s * s;
+  }
+}
+
+// newton_core.cuh's falsi in double
+__device__ __forceinline__ double falsi(double lo, double dlo, double hi,
+                                        double dhi) {
+  const double denom = dhi - dlo;
+  const double a = denom > 1e-15 ? lo - dlo * (hi - lo) / denom
+                                 : 0.5 * (lo + hi);
+  return fmin(fmax(a, lo), hi);
+}
+
+__device__ __forceinline__ float wmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double wmin(double a, double b) {
+  return fmin(a, b);
 }
 
 // Env-major per-env inputs held constant over a control step.
@@ -1937,48 +2073,68 @@ __device__ void row_classes(const Tab& T, const Env& s) {
 
 
 // ---- the Newton solve -------------------------------------------------------
-// newton_core.cuh's newton_solve with a warp per env: the same cost-based
-// warm start, Newton steps, Hessian, Cholesky, safeguarded-secant line
-// search and termination, with, for elliptic plans, each Newton direction
-// (the gradient, the Hessian, its factor and the substitutions) in double,
-// rounded once: at impratio 100 the Hessian of an elliptic contact spans
-// many orders of magnitude, and a float32 factor put a solve's result as
-// far as rel 1e-3 from the same solve in float64 (the plain version,
-// newton_plain's dir64, does the same); and the same recorded decisions (iters, taken,
-// the line search's bits; where row_out is given each step's Hessian
-// decision of every row, (iterations, (nrows + 31) / 32) words). The row
-// quantities and cone zones are newton_core.cuh's `Rows` over the env's
-// shared arrays (E = 1, e = 0). Row passes go lane per active row (an
-// elliptic contact on one lane) over the list of active rows, and sum by
-// warp shuffles; the gradient goes lane per dof over the rows with a
-// force and the Hessian lane per entry over the rows with a Hessian term,
-// each list in row order; the factor and the substitutions a column and
-// an unknown at a time.
+// newton_core.cuh's newton_solve with a warp per env: the same cost-based warm
+// start, Newton steps, Hessian, Cholesky, safeguarded-secant line search and
+// termination. For elliptic plans (P double) the solve runs in double on the
+// widened float inputs: x, the direction and its products, the rows' forces,
+// weights and cone zones for the direction, the gradient, the Hessian and its
+// factor, the line search's sums and step; jar and J dx are kept in float
+// (rounded once from their double sums) in the row arrays, the line search
+// takes each row's force and cost at a trial point in float, and x is rounded
+// once into V_X (against the plain version's float64 solve within rel 1.1e-4 on
+// A1's 4096 seeded states, tools/a1_forward_check.py, an NVIDIA H100 80GB HBM3
+// at 700 W). At impratio 100 the Hessian of an elliptic contact spans many
+// orders of magnitude, and a solve cut at its Newton budget carries every
+// rounding forward: a float32 solve replaying the same decisions ends more than
+// rel 5e-4 from the same solve in float64 (tests/test_torch_replay.py), so two
+// float32 versions could not be held to rel 5e-4 of each other; the plain
+// version solves in float64 (hopper_fused.fused_constraint_plain's solve64).
+// The solve records the same decisions (iters, taken, the line search's bits;
+// where row_out is given each step's Hessian decision of every row,
+// (iterations, (nrows + 31) / 32) words). The row quantities and cone zones are
+// newton_core.cuh's `Rows` over the env's shared arrays (E = 1, e = 0). Row
+// passes go lane per active row (an elliptic contact on one lane) over the list
+// of active rows, and sum by warp shuffles; the gradient goes lane per dof over
+// the rows with a force and the Hessian lane per entry over the rows with a
+// Hessian term, each list in row order; the factor and the substitutions a
+// column and an unknown at a time.
 template <class P>
 struct Solve {
   const Env& s;
   const Rows& rows;
-  bool ell;  // elliptic rows (R_CLS, the cone arrays)
+  bool ell;  // elliptic rows (R_CLS, R_ZONE)
   int nv, nrows;
   int nA;  // active rows (an elliptic contact by its first row): L_ACT
+  static constexpr bool kWide = sizeof(P) == sizeof(double);
 
   __device__ int cls(int r) const { return ell ? s.cls()[r] : -1; }
+  // every row's force in P at the Newton step's x (kWide)
+  __device__ double* forces() const { return (double*)s.ra(R_FD); }
 
-  // J_r v - aref_r: in float, or with a double direction (P) accumulated
-  // in double and rounded once (jar_exact), as the solve's forces at the
-  // solution are
-  __device__ float jar_at(int r, const float* v) const {
-    if (sizeof(P) == sizeof(double))
-      return jar_exact(s.jrow(r), v, nv, s.ra(R_AREF)[r]);
-    return jdot(s.jrow(r), v, nv) - s.ra(R_AREF)[r];
+  // J_r v - aref_r in float: a float sum, or (kWide) a double one rounded
+  // once
+  template <class V>
+  __device__ float jar_at(int r, const V* v) const {
+    if constexpr (kWide)
+      return (float)jar_wide(s.jrow(r), v, nv, s.ra(R_AREF)[r]);
+    else
+      return jdot(s.jrow(r), v, nv) - s.ra(R_AREF)[r];
+  }
+
+  // force, Hessian weight and cost of active scalar row r at jar value v
+  __device__ void fwc(int r, P v, P& f, P& w, P& c) const {
+    if constexpr (kWide)
+      fwc_double(rows, r, v, f, w, c);
+    else
+      rows.fwc(r, v, f, w, c);
   }
 
   // sum over the active rows of scalar(r), and over the active elliptic
   // contacts (first row r, dim d, index ci) of cone(r, d, ci)
   template <class S, class C>
-  __device__ float sum_rows(S&& scalar, C&& cone) const {
+  __device__ P sum_rows(S&& scalar, C&& cone) const {
     const unsigned short* la = s.list(L_ACT);
-    float t = 0.f;
+    P t = 0;
     for (int i = s.lane; i < nA; i += kWarp) {
       const int r = la[i], c = cls(r);
       t += c == -1 ? scalar(r) : cone(r, c & 7, c >> 3);
@@ -1986,76 +2142,68 @@ struct Solve {
     return wsum(t);
   }
 
-  // total cost at v: constraint rows plus 0.5 (v - asm)' M (v - asm)
-  __device__ float total_cost(const float* v) const {
-    const float* asm_ = s.vec(V_ASM);
-    const float c = sum_rows(
-        [&](int r) {
-          return rows.cost(r, jar_at(r, v));
-        },
-        [&](int r, int d, int ci) {
-          float sv[kDimMax];
-#pragma unroll
-          for (int k = 0; k < kDimMax; ++k)
-            sv[k] = k < d ? jar_at(r + k, v) : 0.f;
-          Cone z;
-          cone_zone(rows, r, d, ci, sv, z);
-          return z.c;
-        });
-    float gauss = 0.f;
-    for (int a = s.lane; a < nv; a += kWarp) {
-      float mt = 0.f;
-      for (int b = 0; b < nv; ++b) mt += s.M[a * nv + b] * (v[b] - asm_[b]);
-      gauss += (v[a] - asm_[a]) * mt;
-    }
-    return c + 0.5f * wsum(gauss);
-  }
-
-  // the rows' force . jv at jar + a jv
-  __device__ float force_jv(float a) const {
-    const float* jar = s.ra(R_JAR);
-    const float* jv = s.ra(R_JV);
+  // the rows' cost (fn false) or force . jv (fn true) at jar + a jv, or
+  // (jv null) at jar_of(r): each row's force and cost in float (at a
+  // float trial point), summed in P
+  template <class J>
+  __device__ P rows_at(J&& jar_of, const float* jv, float a,
+                       bool fn) const {
     return sum_rows(
-        [&](int r) { return rows.force(r, jar[r] + a * jv[r]) * jv[r]; },
-        [&](int r, int d, int ci) {
+        [&](int r) -> P {
+          float f, w, c;
+          rows.fwc(r, jv ? jar_of(r) + a * jv[r] : jar_of(r), f, w, c);
+          return fn ? (P)f * jv[r] : (P)c;
+        },
+        [&](int r, int d, int ci) -> P {
           float sv[kDimMax];
 #pragma unroll
           for (int k = 0; k < kDimMax; ++k)
-            sv[k] = k < d ? jar[r + k] + a * jv[r + k] : 0.f;
-          Cone z;
+            sv[k] = k < d ? (jv ? jar_of(r + k) + a * jv[r + k]
+                                : jar_of(r + k))
+                          : 0.f;
+          ConeT<float> z;
           cone_zone(rows, r, d, ci, sv, z);
-          float t = 0.f;
+          if (!fn) return z.c;
+          P t = 0;
 #pragma unroll
           for (int k = 0; k < kDimMax; ++k)
-            if (k < d) t += z.f[k] * jv[r + k];
+            if (k < d) t += (P)z.f[k] * jv[r + k];
           return t;
         });
   }
 
-  // the rows' cost at jar + a jv
-  __device__ float cost_at(float a) const {
-    const float* jar = s.ra(R_JAR);
-    const float* jv = s.ra(R_JV);
-    return sum_rows(
-        [&](int r) { return rows.cost(r, jar[r] + a * jv[r]); },
-        [&](int r, int d, int ci) {
-          float sv[kDimMax];
-#pragma unroll
-          for (int k = 0; k < kDimMax; ++k)
-            sv[k] = k < d ? jar[r + k] + a * jv[r + k] : 0.f;
-          Cone z;
-          cone_zone(rows, r, d, ci, sv, z);
-          return z.c;
-        });
+  // total cost at v: constraint rows plus 0.5 (v - asm)' M (v - asm)
+  __device__ P total_cost(const float* v) const {
+    const float* asm_ = s.vec(V_ASM);
+    const P c = rows_at([&](int r) { return jar_at(r, v); }, nullptr, 0.f,
+                        false);
+    P gauss = 0;
+    for (int a = s.lane; a < nv; a += kWarp) {
+      P mt = 0;
+      for (int b = 0; b < nv; ++b) mt += s.M[a * nv + b] * (v[b] - asm_[b]);
+      gauss += (v[a] - asm_[a]) * mt;
+    }
+    return c + P(0.5) * wsum(gauss);
   }
 
-  // One pass over the active rows at x: jar, each row's force (R_F) and
-  // Hessian weight (in R_JV), an elliptic contact's zone data (R_G, R_Q,
-  // R_SC); then the lists of the rows with a force (returned in nF) and
-  // with a Hessian term (nH), and the rows' Hessian decisions into the
-  // misc words (when `rec`).
-  __device__ void row_pass(const float* x, bool rec, int& nF,
-                           int& nH) const {
+  // the rows' force . jv and cost at jar + a jv (R_JAR, R_JV)
+  __device__ P force_jv(P a) const {
+    const float* jar = s.ra(R_JAR);
+    return rows_at([&](int r) { return jar[r]; }, s.ra(R_JV), (float)a,
+                   true);
+  }
+  __device__ P cost_at(P a) const {
+    const float* jar = s.ra(R_JAR);
+    return rows_at([&](int r) { return jar[r]; }, s.ra(R_JV), (float)a,
+                   false);
+  }
+
+  // One pass over the active rows at x: jar, each row's force (R_F, and
+  // with kWide in double, forces()), a scalar row's Hessian weight (in
+  // R_JV), an elliptic contact's zone (R_ZONE); then the lists of the rows
+  // with a force (returned in nF) and with a Hessian term (nH), and the
+  // rows' Hessian decisions into the misc words (when `rec`).
+  __device__ void row_pass(const P* x, bool rec, int& nF, int& nH) const {
     const float* act = s.ra(R_ACT);
     float* jar = s.ra(R_JAR);
     float* F = s.ra(R_F);
@@ -2064,40 +2212,35 @@ struct Solve {
     for (int i = s.lane; i < nA; i += kWarp) {
       const int r = la[i], c = cls(r);
       if (c == -1) {
-        const float sv = jar_at(r, x);
-        jar[r] = sv;
-        float f, w, cc;
-        rows.fwc(r, sv, f, w, cc);
-        F[r] = f;
-        W[r] = w;
+        const float v = jar_at(r, x);
+        jar[r] = v;
+        P f, w, cc;
+        fwc(r, v, f, w, cc);
+        if constexpr (kWide) forces()[r] = f;
+        F[r] = (float)f;
+        W[r] = (float)w;
         continue;
       }
       const int d = c & 7;
-      float sv[kDimMax];
+      P sv[kDimMax];
 #pragma unroll
       for (int k = 0; k < kDimMax; ++k) {
-        sv[k] = 0.f;
+        sv[k] = 0;
         if (k < d) {
-          sv[k] = jar_at(r + k, x);
-          jar[r + k] = sv[k];
+          const float v = jar_at(r + k, x);
+          jar[r + k] = v;
+          sv[k] = v;
         }
       }
-      Cone z;
+      ConeT<P> z;
       cone_zone(rows, r, d, c >> 3, sv, z);
-      float* G = s.ra(R_G);
-      float* Q = s.ra(R_Q);
-      float* SC = s.ra(R_SC);
 #pragma unroll
       for (int k = 0; k < kDimMax; ++k)
         if (k < d) {
-          F[r + k] = z.f[k];
-          W[r + k] = z.w[k];
-          G[r + k] = z.g[k];
-          Q[r + k] = z.q[k];
-          SC[r + k] = z.sc[k];
+          if constexpr (kWide) forces()[r + k] = z.f[k];
+          F[r + k] = (float)z.f[k];
         }
-      Q[r] = z.mid ? z.wg : (z.bottom ? -1.f : 0.f);
-      SC[r] = z.c2;
+      s.ra(R_ZONE)[r] = z.mid ? 1.f : (z.bottom ? -1.f : 0.f);
     }
     __syncwarp();
     // the lists, and the scalar rows' Hessian decisions a word at a time
@@ -2127,43 +2270,43 @@ struct Solve {
     __syncwarp();
     if (rec && ell) {  // the cone zones' bits: middle on the first row,
                        // sticking on the second
-      const float* Q = s.ra(R_Q);
+      const float* Z = s.ra(R_ZONE);
       for (int i = s.lane; i < nA; i += kWarp) {
         const int r = la[i];
         if (cls(r) < 0) continue;
-        const int b = Q[r] > 0.f ? r : (Q[r] < 0.f ? r + 1 : -1);
+        const int b = Z[r] > 0.f ? r : (Z[r] < 0.f ? r + 1 : -1);
         if (b >= 0) atomicOr(bits + (b >> 5), 1u << (b & 31));
       }
       __syncwarp();
     }
   }
 
-  // g = M (x - asm) - J'f in P into gd, rounded into g (lane per dof
-  // over the rows with a force; mdx0 holds M (x - asm))
-  __device__ void gradient(P* gd, float* g, const float* mdx0,
-                           int nF) const {
+  // g = M (x - asm) - J'f in P (lane per dof over the rows with a force;
+  // mdx0 holds M (x - asm))
+  __device__ void gradient(P* g, const P* mdx0, int nF) const {
     const float* F = s.ra(R_F);
     const unsigned short* lf = s.list(L_F);
     for (int a = s.lane; a < nv; a += kWarp) {
       P t = mdx0[a];
       for (int i = 0; i < nF; ++i) {
         const int r = lf[i];
-        t -= (P)s.jrow(r)[a] * F[r];
+        if constexpr (kWide)
+          t -= s.jrow(r)[a] * forces()[r];
+        else
+          t -= s.jrow(r)[a] * F[r];
       }
-      gd[a] = t;
-      g[a] = (float)t;
+      g[a] = t;
     }
   }
 
   // H = M + 1e-12 I + J' diag(w) J + the middle zones' rank-1 and
   // curvature terms in P, lower triangle into H (row stride nv): lane per
   // entry, each over the rows with a Hessian term in row order
-  // (newton_core.cuh's add_row)
+  // (newton_core.cuh's add_row). An elliptic contact's zone is formed
+  // again from jar on lane 0 and shared through the misc scratch.
   __device__ void hessian(P* H, int nH) const {
     const float* W = s.ra(R_JV);
-    const float* G = s.ra(R_G);
-    const float* Q = s.ra(R_Q);
-    const float* SC = s.ra(R_SC);
+    const float* jar = s.ra(R_JAR);
     const unsigned short* lh = s.list(L_H);
     const int ntri = nv * (nv + 1) / 2;
     P h[kEnt];
@@ -2181,14 +2324,18 @@ struct Solve {
       while (b > a) b -= ++a;
     }
     const int mine = (ntri - s.lane + kWarp - 1) / kWarp;  // my entries
-    auto add = [&](const float* j, float w) {
+    auto add = [&](const float* j, P w) {
 #pragma unroll
       for (int i = 0; i < kEnt; ++i) {
         if (i >= mine) break;
-        const P wa = (P)w * j[ea[i]];
+        const P wa = w * j[ea[i]];
         if (wa != P(0)) h[i] += wa * j[eb[i]];
       }
     };
+    P* cv = s.cone_vecs<P>();
+    // the zone's weights w, g, q and sc (kDimMax each), then wg and c2
+    // (wg 0 outside the middle zone)
+    P* cz = cv + kConeVecs * nv;
     for (int t = 0; t < nH; ++t) {
       const int r = lh[t], c = cls(r);
       if (c == -1) {
@@ -2196,36 +2343,41 @@ struct Solve {
         continue;
       }
       const int d = c & 7;
-      for (int k = 0; k < d; ++k)
-        if (W[r + k] != 0.f) add(s.jrow(r + k), W[r + k]);
-      const float wg = Q[r];
-      if (!(wg > 0.f)) continue;
-      // the middle zone: wg Jg Jg' + c2 sum_{k<l} v_kl v_kl', with Jg and
-      // the v_kl formed once per contact, lane per dof
-      const float c2 = SC[r];
-      P* cv = s.cone_vecs<P>();
-      const int nvec = 1 + (d - 1) * (d - 2) / 2;
-      for (int a = s.lane; a < nv; a += kWarp) {
-        P jg = 0;
-        for (int k = 0; k < d; ++k) jg += (P)G[r + k] * s.jrow(r + k)[a];
-        cv[a] = jg;
-        int q = 1;
-        for (int k = 1; k < d; ++k)
-          for (int l = k + 1; l < d; ++l, ++q) {
-            const P ak = (P)Q[r + l] * SC[r + k];
-            const P al = (P)Q[r + k] * SC[r + l];
-            cv[q * nv + a] = ak * s.jrow(r + k)[a] - al * s.jrow(r + l)[a];
-          }
-      }
+      if (s.lane == 0) cone_terms(rows, r, d, c >> 3, jar + r, cz);
       __syncwarp();
+      for (int k = 0; k < d; ++k)
+        if (cz[k] != P(0)) add(s.jrow(r + k), cz[k]);
+      const P wg = cz[4 * kDimMax], c2 = cz[4 * kDimMax + 1];
+      if (wg > P(0)) {
+        // the middle zone: wg Jg Jg' + c2 sum_{k<l} v_kl v_kl', with Jg
+        // and the v_kl formed once per contact, lane per dof
+        const P* zg = cz + kDimMax;
+        const P* zq = cz + 2 * kDimMax;
+        const P* zs = cz + 3 * kDimMax;
+        const int nvec = 1 + (d - 1) * (d - 2) / 2;
+        for (int a = s.lane; a < nv; a += kWarp) {
+          P jg = 0;
+          for (int k = 0; k < d; ++k) jg += zg[k] * s.jrow(r + k)[a];
+          cv[a] = jg;
+          int q = 1;
+          for (int k = 1; k < d; ++k)
+            for (int l = k + 1; l < d; ++l, ++q) {
+              const P ak = zq[l] * zs[k];
+              const P al = zq[k] * zs[l];
+              cv[q * nv + a] =
+                  ak * s.jrow(r + k)[a] - al * s.jrow(r + l)[a];
+            }
+        }
+        __syncwarp();
 #pragma unroll
-      for (int i = 0; i < kEnt; ++i) {
-        if (i >= mine) break;
-        const P wa = wg * cv[ea[i]];
-        if (wa != P(0)) h[i] += wa * cv[eb[i]];
-        for (int q = 1; q < nvec; ++q) {
-          const P wv = c2 * cv[q * nv + ea[i]];
-          if (wv != P(0)) h[i] += wv * cv[q * nv + eb[i]];
+        for (int i = 0; i < kEnt; ++i) {
+          if (i >= mine) break;
+          const P wa = wg * cv[ea[i]];
+          if (wa != P(0)) h[i] += wa * cv[eb[i]];
+          for (int q = 1; q < nvec; ++q) {
+            const P wv = c2 * cv[q * nv + ea[i]];
+            if (wv != P(0)) h[i] += wv * cv[q * nv + eb[i]];
+          }
         }
       }
       __syncwarp();
@@ -2239,13 +2391,15 @@ struct Solve {
 
 // Solve for the env's rows: qacc into V_X from asm (V_ASM) and the warm
 // start ws; the decisions out (identical on every lane; lane 0 writes the
-// line search's words to ls_out). P: the precision of the Newton
-// direction.
+// line search's words to ls_out). P: the solve's precision; in double its
+// x, direction and products live in the L region after H and the gradient
+// (`solve_vecs`), and x is rounded into V_X at the end.
 template <class P>
 __device__ void newton(const Env& s, const Rows& rows, bool ell,
                        const float* ws, int iterations, int ls_iterations,
                        float scale, float tol, int& iters, unsigned& taken,
                        unsigned* ls_out, unsigned* row_out) {
+  constexpr bool kWide = Solve<P>::kWide;
   const int nv = s.nv, nrows = s.nrows;
   unsigned ls_bits[kLsWords];
   const float* act = s.ra(R_ACT);
@@ -2255,27 +2409,34 @@ __device__ void newton(const Env& s, const Rows& rows, bool ell,
     return act[r] != 0.f && (!ell || clsa[r] != -2);
   });
   const Solve<P> sv{s, rows, ell, nv, nrows, nA};
-  float* x = s.vec(V_X);
   const float* asm_ = s.vec(V_ASM);
-  float* g = s.vec(V_G);
-  float* dx = s.vec(V_DX);
-  float* mdx0 = s.vec(V_MDX0);
-  float* mdx = s.vec(V_MDX);
   // the Newton direction in P, in the L region (the factor of M is not
   // needed during the solve): H (nv x nv), then the gradient
   P* H = (P*)s.L;
-  P* gd = H + nv * nv;
+  P* g = H + nv * nv;
+  P *x, *dx, *mdx0, *mdx;
+  if constexpr (kWide) {
+    x = solve_vecs(s);
+    dx = x + nv;
+    mdx0 = dx + nv;
+    mdx = mdx0 + nv;
+  } else {
+    x = s.vec(V_X);
+    dx = s.vec(V_DX);
+    mdx0 = s.vec(V_MDX0);
+    mdx = s.vec(V_MDX);
+  }
   float* jv = s.ra(R_JV);
   const float* F = s.ra(R_F);
   const unsigned short* la = s.list(L_ACT);
   const int nrw = (nrows + 31) >> 5;
   const bool rec = row_out != nullptr;
 
-  const float c_ws = sv.total_cost(ws);
-  const float c_sm = sv.total_cost(asm_);
+  const P c_ws = sv.total_cost(ws);
+  const P c_sm = sv.total_cost(asm_);
   const bool use_ws = c_ws < c_sm;
   for (int k = s.lane; k < nv; k += kWarp) x[k] = use_ws ? ws[k] : asm_[k];
-  float cost = fminf(c_ws, c_sm);
+  P cost = wmin(c_ws, c_sm);
   if (rec)
     for (int w = s.lane; w < iterations * nrw; w += kWarp) row_out[w] = 0u;
   taken = use_ws ? 1u << 31 : 0u;
@@ -2295,27 +2456,30 @@ __device__ void newton(const Env& s, const Rows& rows, bool ell,
       for (int w = s.lane; w < nrw; w += kWarp)
         row_out[it * nrw + w] = s.bits()[w];
     long long t0 = phase_now();
-    sv.gradient(gd, g, mdx0, nF);
+    sv.gradient(g, mdx0, nF);
     sv.hessian(H, nH);  // ends in a warp barrier
     t0 = phase_part(s.e, s.lane, PH_N_HESSIAN, t0);
-    wfactor_solve<true>(s, H, (const P*)gd, dx, nv, true);
+    wfactor_solve<true>(s, H, (const P*)g, dx, nv, true);
     phase_part(s.e, s.lane, PH_N_FACTOR, t0);
-    // jv = J dx, and phi'(0) = dx' M (x - asm) - f(jar)' jv
-    float fjv = 0.f;
+    // jv = J dx (stored in float), and phi'(0) = dx' M (x - asm) - f' jv
+    P fjv = 0;
     for (int i = s.lane; i < nA; i += kWarp) {
       const int r = la[i], c = sv.cls(r);
       const int d = c == -1 ? 1 : c & 7;
 #pragma unroll
       for (int k = 0; k < kDimMax; ++k)
         if (k < d) {
-          const float v = jdot(s.jrow(r + k), dx, nv);
+          const float v = (float)jdot(s.jrow(r + k), dx, nv);
           jv[r + k] = v;
-          fjv += F[r + k] * v;
+          if constexpr (kWide)
+            fjv += sv.forces()[r + k] * v;
+          else
+            fjv += F[r + k] * v;
         }
     }
     fjv = wsum(fjv);
     wmat_vec(s, s.M, dx, mdx, nv);  // ends in a warp barrier
-    float g0 = 0.f, h0 = 0.f;
+    P g0 = 0, h0 = 0;
     for (int k = s.lane; k < nv; k += kWarp) {
       g0 += dx[k] * mdx0[k];
       h0 += dx[k] * mdx[k];
@@ -2324,11 +2488,11 @@ __device__ void newton(const Env& s, const Rows& rows, bool ell,
     h0 = wsum(h0);
     // safeguarded secant on phi'(a) = g0 + a h0 - f(jar + a jv)' jv
     t0 = phase_now();
-    float lo = 0.f, dlo = g0 - fjv, hi = 0.f, dhi = 1.f, a = 1.f;
+    P lo = 0, dlo = g0 - fjv, hi = 0, dhi = 1, a = 1;
     bool has_hi = false;
     for (int ls = 0; ls < ls_iterations; ++ls) {
-      const float d = g0 + a * h0 - sv.force_jv(a);
-      if (d < 0.f) {
+      const P d = g0 + a * h0 - sv.force_jv(a);
+      if (d < P(0)) {
         lo = a;
         dlo = d;
         const int bit = it * ls_iterations + ls;
@@ -2340,21 +2504,21 @@ __device__ void newton(const Env& s, const Rows& rows, bool ell,
         dhi = d;
         has_hi = true;
       }
-      a = has_hi ? falsi(lo, dlo, hi, dhi) : a * 2.f;
+      a = has_hi ? falsi(lo, dlo, hi, dhi) : a * P(2);
     }
-    const float alpha = has_hi ? falsi(lo, dlo, hi, dhi) : lo;
+    const P alpha = has_hi ? falsi(lo, dlo, hi, dhi) : lo;
     // the new cost from this iteration's products; termination test
-    float cost_new = sv.cost_at(alpha);
-    float gauss = 0.f, gn = 0.f;
+    P cost_new = sv.cost_at(alpha);
+    P gauss = 0, gn = 0;
     for (int k = s.lane; k < nv; k += kWarp) {
       gauss += (x[k] + alpha * dx[k] - asm_[k]) * (mdx0[k] + alpha * mdx[k]);
       gn += g[k] * g[k];
     }
-    cost_new += 0.5f * wsum(gauss);
+    cost_new += P(0.5) * wsum(gauss);
     gn = wsum(gn);
     phase_part(s.e, s.lane, PH_N_LINE, t0);
     const bool done =
-        (cost - cost_new) / scale < tol || sqrtf(gn) / scale < tol;
+        (cost - cost_new) / scale < tol || wsqrt(gn) / scale < tol;
     if (cost_new < cost) {
       taken |= 1u << it;
       for (int k = s.lane; k < nv; k += kWarp) x[k] += alpha * dx[k];
@@ -2367,15 +2531,21 @@ __device__ void newton(const Env& s, const Rows& rows, bool ell,
     }
   }
   iters = it;
+  if constexpr (kWide) {
+    for (int k = s.lane; k < nv; k += kWarp) s.vec(V_X)[k] = (float)x[k];
+    __syncwarp();
+  }
   if (ls_out && s.lane == 0)
 #pragma unroll
     for (int w = 0; w < kLsWords; ++w) ls_out[w] = ls_bits[w];
 }
 
 // Every row's force at the solution x (R_F; 0 for an inactive row), J x -
-// aref taken in double and rounded once (newton_core.cuh row_forces).
+// aref taken in double: rounded once for a float x (newton_core.cuh
+// row_forces), kept in double with the forces for the double solve's x.
+template <class X>
 __device__ void row_forces(const Env& s, const Rows& rows, bool ell,
-                           const float* x) {
+                           const X* x) {
   const int nv = s.nv, nrows = s.nrows;
   const float* aref = s.ra(R_AREF);
   const float* act = s.ra(R_ACT);
@@ -2384,24 +2554,33 @@ __device__ void row_forces(const Env& s, const Rows& rows, bool ell,
   for (int r = s.lane; r < nrows; r += kWarp) {
     const int c = ell ? cls[r] : -1;
     if (c == -1) {
-      F[r] = act[r] != 0.f
-                 ? rows.force(r, jar_exact(s.jrow(r), x, nv, aref[r]))
-                 : 0.f;
+      float f = 0.f;
+      if (act[r] != 0.f) {
+        const X v = jar_wide(s.jrow(r), x, nv, aref[r]);
+        if constexpr (sizeof(X) == sizeof(double)) {
+          double fd, w, cc;
+          fwc_double(rows, r, v, fd, w, cc);
+          f = (float)fd;
+        } else {
+          f = rows.force(r, v);
+        }
+      }
+      F[r] = f;
     } else if (c >= 0) {
       const int d = c & 7;
       if (act[r] == 0.f) {
         for (int k = 0; k < d; ++k) F[r + k] = 0.f;
         continue;
       }
-      float sv[kDimMax];
+      X sv[kDimMax];
 #pragma unroll
       for (int k = 0; k < kDimMax; ++k)
-        sv[k] = k < d ? jar_exact(s.jrow(r + k), x, nv, aref[r + k]) : 0.f;
-      Cone z;
+        sv[k] = k < d ? jar_wide(s.jrow(r + k), x, nv, aref[r + k]) : X(0);
+      ConeT<X> z;
       cone_zone(rows, r, d, c >> 3, sv, z);
 #pragma unroll
       for (int k = 0; k < kDimMax; ++k)
-        if (k < d) F[r + k] = z.f[k];
+        if (k < d) F[r + k] = (float)z.f[k];
     }
   }
   __syncwarp();
@@ -2479,7 +2658,7 @@ __device__ void forward_env(const Tab& T, const Opt& o, const In& in,
   contact_rows_all<EXT>(T, s, qvel);
   phase_tick(e, s.lane, PH_ROWS);
   const Rows rows = rows_of(T, s);
-  // the elliptic plans' Newton direction in double (see newton)
+  // the elliptic plans' Newton solve in double (see Solve)
   newton<typename std::conditional<EXT, double, float>::type>(
       s, rows, EXT, s.vec(V_WS), o.iterations, o.ls_iterations, o.scale,
       o.tol, iters, taken, ls_out, row_out);
@@ -2494,7 +2673,10 @@ __device__ void forward_out(const Tab& T, const Out& out, const Env& s,
                             float* act_dot_out) {
   const int e = s.e, nv = s.nv, nrows = s.nrows, ncon = s.ncon;
   const float* x = s.vec(V_X);
-  row_forces(s, rows_of(T, s), EXT, x);
+  if constexpr (EXT)  // at the double solve's x
+    row_forces(s, rows_of(T, s), EXT, (const double*)solve_vecs(s));
+  else
+    row_forces(s, rows_of(T, s), EXT, x);
   const float* F = s.ra(R_F);
   unsigned short* lf = s.list(L_F);
   const int nF = compact(s, nrows, lf, [&](int r) { return F[r] != 0.f; });

@@ -240,22 +240,30 @@ def newton_problem(model: Model, data: Data):
 
 
 def fused_constraint_plain(model: Model, data: Data, replay=None,
-                           dir64=False) -> Data:
+                           solve64=False, record=None) -> Data:
     """Plain version of `fused_constraint` (see the module note), on any
-    device; `replay` = (iters, taken[, ls[, rows]]) and `dir64` (the
-    Newton direction in float64, the mega kernels' arithmetic) as in
-    `hopper_newton.newton_plain`."""
+    device; `replay` = (iters, taken[, ls[, rows]]) and `record` (a dict
+    for the solve's decisions, its own row decisions among them) as in
+    `hopper_newton.newton_plain`. `solve64`: the Newton solve in float64 on
+    the widened float32 problem, its qacc and forces rounded once (the
+    mega kernels' solve for elliptic plans)."""
     from . import forward as fwd
 
     plan = model.plan
     d, problem, ell = newton_problem(model, data)
     J, active = problem[0], problem[6]
-    rec = {}
+    ws = d.qacc_warmstart
+    if solve64:
+        problem = tuple(t.double() for t in problem)
+        ws = ws.double()
+        if ell is not None:
+            ell = (ell[0], ell[1].double(), ell[2].double(), ell[3])
+    rec = {} if record is None else record
     x, force, iters, taken = hn.newton_plain(
-        *problem, d.qacc_warmstart, ne=plan.ne, nfl=plan.nfl,
-        iterations=plan.iterations, ls_iterations=plan.ls_iterations,
-        scale=plan.scale, tol=plan.tolerance, replay=replay, ell=ell,
-        record=rec, dir64=dir64)
+        *problem, ws, ne=plan.ne, nfl=plan.nfl, iterations=plan.iterations,
+        ls_iterations=plan.ls_iterations, scale=plan.scale,
+        tol=plan.tolerance, replay=replay, ell=ell, record=rec)
+    x, force = x.to(J.dtype), force.to(J.dtype)
     qfrc = torch.einsum("erv,er->ev", J * active[..., None], force)
     dv = fwd.damping_dv(model, d.replace(qacc=x)) if plan.euler_dv else None
     return _finish(model, data, x, force, qfrc, d.qacc_smooth, dv, iters,

@@ -40,8 +40,8 @@ also com_pos, the tendons, velocity, passive, rne and actuation, then
 `hopper_fused.fused_constraint_plain`, whose rows, contact facets blocked,
 are the ones the kernel builds), repackaged into the contract above, and
 `mega_step_n_plain` is n such RK4 or Euler steps; with the extended
-collision (elliptic cones) both compute each Newton direction in float64,
-as the kernels do. Their `replay` makes
+collision (elliptic cones) both solve the Newton problem in float64, as
+the kernels do. Their `replay` makes
 every Newton solve take the kernel's recorded decisions (the iteration
 count, the taken-step bits, the line search's sign tests and each step's
 Hessian decisions of the rows, `hopper_newton.newton_plain`), so the two
@@ -207,21 +207,23 @@ def mega_forward(model: Model, data: Data) -> Data:
                  dv, act_dot, iters, taken, ls, rows)
 
 
-def _forward_plain(model: Model, data: Data, replay) -> Data:
+def _forward_plain(model: Model, data: Data, replay, record=None) -> Data:
     """The staged forward of a model with a plan, with the plain
     kernels; `replay` = (iters, taken[, ls[, rows]]) or None."""
     from . import forward as fwd
 
     d = fwd.stages(model, data, plain=True)
-    return hopper_fused.fused_constraint_plain(model, d, replay,
-                                               dir64=model.plan.mega_ell)
+    return hopper_fused.fused_constraint_plain(
+        model, d, replay, solve64=model.plan.mega_ell, record=record)
 
 
-def mega_forward_plain(model: Model, data: Data, replay=None) -> Data:
+def mega_forward_plain(model: Model, data: Data, replay=None,
+                       record=None) -> Data:
     """Plain version of `mega_forward`: the staged forward with the plain
     kernels, in the mega output contract; `replay` = (iters, taken[, ls[,
-    rows]]) (`hopper_newton.newton_plain`)."""
-    d = _forward_plain(model, data, replay)
+    rows]]) and `record` (a dict for the solve's decisions, its own row
+    decisions among them) as in `hopper_newton.newton_plain`."""
+    d = _forward_plain(model, data, replay, record)
     c = d.contact
     contact = data.contact.replace(
         dist=c.dist, geom1=c.geom1, geom2=c.geom2,

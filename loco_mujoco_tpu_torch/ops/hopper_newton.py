@@ -220,21 +220,13 @@ def _mv(A, v):
     return (A @ v[..., None])[..., 0]
 
 
-def _jar(Jm, x, aref, dir64=False):
-    """J x - aref; with dir64 taken in float64 and rounded once (the mega
-    kernels' arithmetic for elliptic plans)."""
-    if dir64:
-        return (_mv(Jm.double(), x.double()) - aref.double()).to(Jm.dtype)
-    return _mv(Jm, x) - aref
-
-
 def newton_cost(J, M, aref, D, R, floss, active, asm, x, *, ne, nfl,
-                ell=None, dir64=False):
+                ell=None):
     """The objective the solve minimises, at x (E, nv): the constraint rows'
     cost plus 0.5 (x - asm)' M (x - asm)."""
     on = active > 0
     is_eq, is_fl = _row_classes(J.shape[1], ne, nfl, J.device)
-    jar = _jar(J * on[..., None].to(J.dtype), x, aref, dir64)
+    jar = _mv(J * on[..., None].to(J.dtype), x) - aref
     d = x - asm
     c = _quantities(jar, D, R, floss, on, is_eq, is_fl, ell)[2]
     return c + 0.5 * (d * _mv(M, d)).sum(-1)
@@ -242,7 +234,7 @@ def newton_cost(J, M, aref, D, R, floss, active, asm, x, *, ne, nfl,
 
 def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
                  iterations, ls_iterations, scale, tol, replay=None,
-                 ell=None, record=None, dir64=False):
+                 ell=None, record=None):
     """Plain version of the kernel: the XLA fast path, batched over E.
     Returns qacc, forces, the Newton steps each env ran and its discrete
     decisions as an int32 per env: bit i, step i lowered the cost and was
@@ -260,14 +252,13 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
     elliptic contact's zone, which two summation orders can decide apart
     where a row sits at its threshold.
 
-    `record`, a dict, receives this solve's own line-search and row
-    decisions (`ls` (E, LS_WORDS), `rows` (E, iterations, row_words)
-    int32, zero past each env's last step), the ones a kernel records.
-
-    `dir64`: each Newton direction in float64 (the gradient, the Hessian,
-    its factor and the substitutions), rounded once to the working type,
-    and J x - aref taken in float64 and rounded once: the mega kernels'
-    arithmetic for elliptic plans.
+    `record`, a dict, receives this solve's line-search and row decisions
+    (`ls` (E, LS_WORDS), `rows` (E, iterations, row_words) int32, zero
+    past each env's last step), the ones a kernel records (the replayed
+    ones where `replay` gives them), and `own_rows`, the row decisions its
+    own tests make at each step's x: where rows are replayed, the rows at
+    which `own_rows` and `rows` differ are the replayed decisions the
+    plain version would not have made.
 
     `ell` (`ell_tables`): the elliptic contacts' rows and cone
     coefficients; their rows take the cone zones' forces, weights and
@@ -286,7 +277,7 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
 
     def cost_at(x):
         return newton_cost(J, M, aref, D, R, floss, active, asm, x, ne=ne,
-                           nfl=nfl, ell=ell, dir64=dir64)
+                           nfl=nfl, ell=ell)
 
     def falsi(lo, dlo, hi, dhi):
         denom = dhi - dlo
@@ -308,35 +299,28 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
     rw = row_words(nefc)
     rows_rec = torch.zeros((E, iterations, rw), dtype=torch.int32,
                            device=dev)
+    own_rec = torch.zeros_like(rows_rec)
     ls_rec = torch.zeros((E, LS_WORDS), dtype=torch.int64, device=dev)
     for it in range(iterations):
         running = ~done
         iters += running.to(torch.int32)
-        jar = _jar(Jm, x, aref, dir64)
+        jar = _mv(Jm, x) - aref
         hess = None
         if replay is not None and len(replay) > 3:
             hess = unpack_row_bits(replay[3][:, it], nefc)
         f, w, _, cone, bits = _quantities(jar, D, R, floss, on, is_eq, is_fl,
                                           ell, hess)
+        own = (bits if hess is None or record is None
+               else _quantities(jar, D, R, floss, on, is_eq, is_fl, ell)[4])
         rows_rec[:, it] = torch.where(running[:, None], row_bits(bits), 0)
+        own_rec[:, it] = torch.where(running[:, None], row_bits(own), 0)
         mx = _mv(M, x - asm)
-        if dir64:
-            J64 = Jm.double()
-            g64 = mx.double() - _mv(J64.transpose(1, 2), f.double())
-            H = M.double() + J64.transpose(1, 2) @ (J64 * w.double()[..., None])
-            if cone is not None:
-                H = H + cone_hessian(J64, ell[0],
-                                     tuple(t.double() for t in cone))
-            H = H + eye.double()
-            dx = -linalg.cho_solve(linalg.cholesky(H), g64).to(dt)
-            grad = g64.to(dt)
-        else:
-            grad = mx - _mv(Jm.transpose(1, 2), f)
-            H = M + Jm.transpose(1, 2) @ (Jm * w[..., None])
-            if cone is not None:
-                H = H + cone_hessian(Jm, ell[0], cone)
-            H = H + eye
-            dx = -linalg.cho_solve(linalg.cholesky(H), grad)
+        grad = mx - _mv(Jm.transpose(1, 2), f)
+        H = M + Jm.transpose(1, 2) @ (Jm * w[..., None])
+        if cone is not None:
+            H = H + cone_hessian(Jm, ell[0], cone)
+        H = H + eye
+        dx = -linalg.cho_solve(linalg.cholesky(H), grad)
         jv = _mv(Jm, dx)
         mdx = _mv(M, dx)
         g0, h0 = dot(dx, mx), dot(dx, mdx)
@@ -382,6 +366,7 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
         record["ls"] = torch.where(ls_rec >= 2 ** 31, ls_rec - 2 ** 32,
                                    ls_rec).to(torch.int32)
         record["rows"] = rows_rec
+        record["own_rows"] = own_rec
     return x, f, iters, taken
 
 

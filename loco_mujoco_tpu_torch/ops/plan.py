@@ -833,6 +833,7 @@ SHM = ("TOTAL", "VEC", "CDOF", "JNT", "BODY", "M", "L", "J", "ROW", "R",
        "PMAX", "KMAX")
 NVEC, BODY_W, SEG_W, MISC_W = 16, 60, 12, 8
 CONE_VECS = 11  # one middle-zone cone's J'g and curvature pairs (dim 6)
+CONE_SCR = 26  # its zone's terms: w, g, q, sc (6 each), wg, c2
 ROW_ARRAYS, ROW_ARRAYS_ELL = 8, 12
 SLOT_W, SLOT_W_EXT = 8, 20
 # Hopper (H100): shared memory per SM and per block, the runtime's
@@ -868,9 +869,10 @@ class MegaLaunch:
         sizes = {
             "VEC": NVEC * nv, "CDOF": 12 * nv, "JNT": 6 * c["njnt"],
             # L: the factor of M, or the Newton direction's H and
-            # gradient (in double for elliptic plans)
+            # gradient; for elliptic plans in double, with the double
+            # solve's x, dx, M (x - asm) and M dx
             "BODY": BODY_W * c["nbody"], "M": nv * nv,
-            "L": (nv * nv + nv) * (2 if ell else 1),
+            "L": 2 * (nv * nv + 5 * nv) if ell else nv * nv + nv,
             "J": max(nrows * nvj, scratch),
             "ROW": (ROW_ARRAYS_ELL if ell else ROW_ARRAYS) * rs,
             "R": max(c["ne"] + c["nfl"], 1), "FL": max(c["nfl"], 1),
@@ -878,7 +880,7 @@ class MegaLaunch:
             "SLOT": c["ncon"] * (SLOT_W_EXT if ell else SLOT_W),
             "MUS": mus,
             "MISC": MISC_W + 2 * -(-nrows // 64)
-            + (2 * CONE_VECS * nv if ell else 0)}
+            + (2 * (CONE_VECS * nv + CONE_SCR) if ell else 0)}
         self._place(sizes)
         if self.resident_warps < RESIDENT_FLOOR:
             raise ValueError(

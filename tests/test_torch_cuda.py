@@ -480,3 +480,30 @@ def test_mega_bit_deterministic(state):
                      s.qvel, s.qacc, dec[i]])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["mega", "a1", "fused"])
+def test_replayed_row_decisions_are_the_plain_versions_own(state, name):
+    """The plain version's own row tests at each step's x against the
+    kernel's recorded row decisions that it replays (the mega forward on
+    the torque humanoid and on A1, the fused kernel on draw 14): at the
+    first Newton step, from the shared start, they depart in at most 0.5%
+    of the envs (chip_smoke.py's _row_departures)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    own = {}
+    if name == "fused":
+        model = _model(CONFIGS["rk4"])
+        d = _dropped(model).replace(qvel=_qvel(E, model.nv, 14))
+        d = coll.collision(model, kinematics.kinematics(model, d))
+        k = hf.fused_constraint(model, d)
+        hf.fused_constraint_plain(model, d, replay=_replay(k), record=own)
+    else:
+        model, d = state if name == "mega" else _a1_state()
+        if name == "mega":
+            d = d.replace(qvel=_qvel(E, model.nv, 0))
+        k = fwd.forward(model, d)
+        hm.mega_forward_plain(model, d, replay=_replay(k), record=own)
+    assert bool((k.solver_rows != 0).any())
+    chip_smoke._row_departures(torch, k, own["own_rows"], E, name)

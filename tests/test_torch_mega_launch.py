@@ -73,7 +73,8 @@ def test_launch_fits_and_layout_holds(name):
     assert launch.extra["RS"] % 4 == 0 and launch.extra["RS"] >= plan.nrows
     need = {"VEC": tplan.NVEC * plan.nv, "J": plan.nrows * nvj,
             "M": plan.nv ** 2,
-            "L": (plan.nv ** 2 + plan.nv) * (2 if plan.mega_ell else 1),
+            "L": (2 * (plan.nv ** 2 + 5 * plan.nv) if plan.mega_ell
+                  else plan.nv ** 2 + plan.nv),
             "BODY": tplan.BODY_W * plan.nbody,
             "SLOT": plan.ncon * launch.extra["SLOTW"],
             "ROW": (tplan.ROW_ARRAYS_ELL if plan.mega_ell

@@ -18,7 +18,12 @@ own recorded decisions is bit-equal to the solve that recorded them, in
 every output and in the record itself; a flipped row decision changes the
 replayed solve (the replay reads it); the megastep's per-forward record
 (`hopper_mega.decisions_of` / `replay_of`) round-trips through
-`mega_step_n_plain`; and the row words pack and unpack exactly.
+`mega_step_n_plain`; the row words pack and unpack exactly; a solve
+replaying itself records its own row decisions (`own_rows`, which the card
+checks hold against a kernel's) equal to the replayed ones; and the mega
+plain version's float64 solve of A1's elliptic problem (`solve64`, the
+elliptic mega kernels' precision) is the float64 solve rounded, where the
+float32 solve replaying the same decisions lies past rel 5e-4.
 """
 
 from pathlib import Path
@@ -146,3 +151,54 @@ def test_row_words_pack_and_unpack():
         assert words.dtype == torch.int32
         assert words.shape == (5, hn.row_words(n))
         assert torch.equal(hn.unpack_row_bits(words, n), bits)
+
+
+@pytest.mark.parametrize("name", ["torque", "a1"])
+def test_own_row_decisions_on_self_replay(name):
+    """`record`'s `own_rows`, the row decisions the plain version's own
+    tests make, equal the replayed ones where it replays itself: the mega
+    path's plain version (with A1, its float64 Newton direction)."""
+    m, d = _state(name)
+    own = hm.mega_forward_plain(m, d)
+    rec = {}
+    rep = hm.mega_forward_plain(m, d, replay=_replay(own), record=rec)
+    assert bool((rec["rows"] != 0).any())
+    assert torch.equal(rec["own_rows"], rec["rows"])
+    assert torch.equal(rec["rows"], own.solver_rows)
+    for f in ("qacc", "qfrc_constraint", "efc_force_contact"):
+        assert torch.equal(getattr(own, f), getattr(rep, f)), f
+
+
+def test_solve64_is_the_float64_solve_rounded():
+    """A1's Newton solves cut at their budget (impratio 100): the plain
+    version's `solve64` (the mega kernels' solve for elliptic plans) is the
+    float64 solve of the widened float32 problem, rounded once; the float32
+    solve replaying the same decisions lies more than rel 5e-4 (of the
+    largest) from it in qfrc_constraint. On `a1_states`' first 256 of 4096
+    seeded states and the five of the 4096 where float32 solves lay
+    farthest from float64."""
+    m = io.load_model_npz(ASSETS / "unitree_a1_shape.npz", device="cpu")
+    pick = list(range(256)) + [827, 1082, 1963, 2129, 3708]
+    n = len(pick)
+    qpos, qvel, ctrl = (a[pick] for a in a1_states(m, 4096))
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32)  # noqa: E731
+    d = fwd.stages(m, io.make_data(m, n).replace(qpos=t(qpos), qvel=t(qvel),
+                                                 ctrl=t(ctrl)), plain=True)
+    rec = {}
+    wide = hf.fused_constraint_plain(m, d, solve64=True, record=rec)
+    p = m.plan
+    assert int((wide.solver_niter == p.iterations).sum()) > n // 4
+    _, problem, ell = hf.newton_problem(m, d)
+    rep = (wide.solver_niter, wide.solver_taken, rec["ls"], rec["rows"])
+    x64, f64 = hn.newton_plain(
+        *(t.double() for t in problem), d.qacc_warmstart.double(),
+        ne=p.ne, nfl=p.nfl, iterations=p.iterations,
+        ls_iterations=p.ls_iterations, scale=p.scale, tol=p.tolerance,
+        ell=(ell[0], ell[1].double(), ell[2].double(), ell[3]),
+        replay=rep)[:2]
+    assert torch.equal(wide.qacc, x64.float())
+    narrow = hf.fused_constraint_plain(m, d, replay=rep)
+    q64 = torch.einsum("erv,er->ev", problem[0].double()
+                       * problem[6].double()[..., None], f64)
+    err = (narrow.qfrc_constraint.double() - q64).abs().max()
+    assert float(err) > 5e-4 * float(q64.abs().max())

@@ -7,9 +7,10 @@
 For each configuration of `chip_smoke.py`'s main path (the committed
 HumanoidTorque-shaped model with RK4 and with Euler, the muscle model, the
 A1-shaped model) it drives the main path as the smoke does: the seeded
-dropped state, a reset forward and 20 control steps of
-`forward.step_n` (10 substeps each) with the smoke's seeded controls, and
-prints the main path's env-steps/s. At that end state, with the first
+dropped state and controls of this checkout's `chip_smoke.seeded_draws`,
+a reset forward and 20 control steps of `forward.step_n` (10 substeps
+each), and prints the main path's rate (control steps x envs per
+second, the `env_steps_per_s` key). At that end state, with the first
 control step's controls, it times one megastep launch (one control step,
 CUDA events, mean of `--reps` after a warm-up).
 
@@ -37,6 +38,7 @@ configuration and nothing else on standard output.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import re
 import subprocess
@@ -44,16 +46,20 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
-
 PHASES = ("fk", "collision", "smooth", "rows", "newton", "integration")
 # the Newton solve's parts (where the kernel splits it; the rest of the
 # Newton phase is its row passes)
 NEWTON_PARTS = ("gradient_hessian", "factor_solve", "line_search")
-SUBSTEPS = 10
-CONTROL_STEPS = 20
-SEED = 0
-A1_CTRL = 0.5  # chip_smoke.A1_CTRL
+
+
+def _smoke():
+    """This checkout's chip_smoke.py (its seeded draws and step counts),
+    whichever port `--root` times."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _models(io, torch, root: Path, names):
@@ -77,35 +83,6 @@ def _models(io, torch, root: Path, names):
                                   device=dev)
         out[name] = m
     return out
-
-
-def _start(io, torch, m, name, E, humanoid=None):
-    """chip_smoke.py's seeded start state and control stream of `name`
-    (`humanoid`: the torque model, whose draws the muscle model shares)."""
-    dev = torch.device("cuda")
-    if name == "a1":
-        rng = np.random.default_rng(SEED + 1)
-        qpos = m.qpos0.cpu().numpy()[None] + rng.normal(scale=0.02,
-                                                        size=(E, m.nq))
-        z = int(m.jnt_qposadr[m.names["joint"]["trunk_tz"]])
-        qpos[:, z] = float(m.qpos0[z]) - rng.uniform(0.005, 0.02, size=E)
-        ctrls = rng.uniform(-A1_CTRL, A1_CTRL, size=(CONTROL_STEPS, E, m.nu))
-    else:
-        # every humanoid starts from the torque model's draws; the smoke
-        # draws its torque ctrls first, then the muscle ctrls, from one
-        # stream
-        torque = humanoid if humanoid is not None else m
-        rng = np.random.default_rng(SEED)
-        qpos = torque.qpos0.cpu().numpy()[None] + rng.normal(
-            scale=0.02, size=(E, torque.nq))
-        z = int(m.jnt_qposadr[m.names["joint"]["root_z"]])
-        qpos[:, z] -= rng.uniform(0.005, 0.02, size=E)
-        ctrls = rng.uniform(-0.3, 0.3, size=(CONTROL_STEPS, E, torque.nu))
-        if name == "muscle":
-            ctrls = rng.uniform(0.0, 1.0, size=(CONTROL_STEPS, E, m.nu))
-    d = io.make_data(m, E).replace(
-        qpos=torch.as_tensor(qpos, dtype=torch.float32, device=dev))
-    return d, torch.as_tensor(ctrls, dtype=torch.float32, device=dev)
 
 
 def _time_ms(torch, fn, reps):
@@ -158,24 +135,32 @@ def main() -> int:
     if phases:
         kernels.build_all(["mega"], ("LMT_PHASES",))
     E = args.envs
-    torque = _models(io, torch, root, ["rk4"])["rk4"]
+    smoke = _smoke()
+    steps, substeps = smoke.CONTROL_STEPS, smoke.SUBSTEPS
+    drawn = _models(io, torch, root, ["rk4", "muscle", "a1"])
+    qpos, ctrls_tq, ctrls_mu, qpos_a1, ctrls_a1 = smoke.seeded_draws(
+        drawn["rk4"], drawn["muscle"], drawn["a1"], E)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
+                                  device="cuda")
     for name, m in _models(io, torch, root, args.configs).items():
-        d, ctrls = _start(io, torch, m, name, E, torque)
+        q0, ctrls = {"a1": (qpos_a1, ctrls_a1),
+                     "muscle": (qpos, ctrls_mu)}.get(name, (qpos, ctrls_tq))
+        d, ctrls = io.make_data(m, E).replace(qpos=t(q0)), t(ctrls)
         kernels.LAUNCHES.clear()
         d = fwd.forward(m, d)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for c in range(CONTROL_STEPS):
-            d = fwd.step_n(m, d.replace(ctrl=ctrls[c]), SUBSTEPS)
+        for c in range(steps):
+            d = fwd.step_n(m, d.replace(ctrl=ctrls[c]), substeps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         assert dict(kernels.LAUNCHES) == {"mega_forward": 1,
-                                          "megastep": CONTROL_STEPS}
+                                          "megastep": steps}
         S = d.replace(ctrl=ctrls[0])
-        ms = _time_ms(torch, lambda: hm.mega_step_n(m, S, SUBSTEPS),
+        ms = _time_ms(torch, lambda: hm.mega_step_n(m, S, substeps),
                       args.reps)
         line = {"config": name, "envs": E, "card": card,
-                "env_steps_per_s": E * CONTROL_STEPS / wall,
+                "env_steps_per_s": E * steps / wall,
                 "megastep_ms": ms}
         if phases:
             variant = ("LMT_PHASES",)
@@ -184,12 +169,12 @@ def main() -> int:
             buf = torch.zeros((E, ncol + 1), dtype=torch.int64,
                               device="cuda")
             kernels.check(lib.lmt_mega_phases(kernels.ptr(buf)), "phases")
-            hm.mega_step_n(m, S, SUBSTEPS, defines=variant)  # warm-up
+            hm.mega_step_n(m, S, substeps, defines=variant)  # warm-up
             buf.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            hm.mega_step_n(m, S, SUBSTEPS, defines=variant)
+            hm.mega_step_n(m, S, substeps, defines=variant)
             end.record()
             torch.cuda.synchronize()
             cyc = buf[:, :len(PHASES)].sum(0).double()
