@@ -20,42 +20,53 @@ Run from the repository root: `python3 chip_smoke.py`. It
    the committed HumanoidMuscle-shaped model (the same tree and hulls,
    92 site-path tendons driving 92 muscles, Euler: the `muscle`
    configuration, a non-smooth plan with the mega path's muscle block);
-   and the committed UnitreeA1-shaped model (nv = 18, elliptic cones at
+   the committed UnitreeA1-shaped model (nv = 18, elliptic cones at
    impratio 100, 76 slots over every classic analytic pair kind, 300 rows,
    Euler: the `a1` configuration, the mega path's extended collision
-   `mega_ell` and the fused kernel's elliptic layout);
+   `mega_ell` and the fused kernel's elliptic layout); and the committed
+   UnitreeH1- and Atlas-shaped bipeds (the `h1` configuration: nv = 17,
+   Euler, a plane-cylinder group with its pairs in order beside a
+   plane-mesh group, 40 slots, 176 rows; `atlas`: nv = 19, RK4, top-K
+   plane-cylinder and plane-box groups, 64 slots, 272 rows), pyramidal
+   models on the mega path's plane-only collision with its cylinder
+   branch;
 4. holds each kernel of the earlier staged path against its plain PyTorch
    version on the card, on the inputs that path gives it at full width
    (4096 envs);
 5. drives the staged path (`LMT_MEGA=0`) for 2 control steps of 10 RK4
    substeps, 2 of 10 Euler substeps, 2 of 10 muscle Euler substeps (the
-   fused kernel's non-smooth layout) and 2 of 10 A1 Euler substeps (torch
-   collision and the fused kernel's elliptic layout), through the fused
-   constraint kernel, and 1 control step of the model with no plan, through the
-   Newton kernel and its relayouts, with every launch counter set to 0
-   just before each run and read just after, and checks the counts; then
-   compares one staged forward with the all-plain forward and holds the
-   Newton kernel to its plain version at the no-plan run's end state;
+   fused kernel's non-smooth layout), 2 of 10 A1 Euler substeps (torch
+   collision and the fused kernel's elliptic layout) and 2 each of H1 and
+   Atlas, through the fused constraint kernel, and 1 control step of the
+   model with no plan, through the Newton kernel and its relayouts, with
+   every launch counter set to 0 just before each run and read just after,
+   and checks the counts; then compares one staged forward with the
+   all-plain forward and holds the Newton kernel to its plain version at
+   the no-plan run's end state;
 6. drives the main path, as `bench.py` does: one forward at reset (the
    mega forward kernel) and `forward.step_n` for 20 control steps of 10
    substeps (one megastep kernel launch each), RK4, Euler, the muscle
-   model (seeded muscle ctrls in [0, 1], act from 0) and A1 (dropped 5-20
-   mm, seeded motor ctrls in half its ctrlrange), counters again zeroed
+   model (seeded muscle ctrls in [0, 1], act from 0), A1 (dropped 5-20
+   mm, seeded motor ctrls in half its ctrlrange), H1 and Atlas (dropped
+   5-20 mm, seeded motor ctrls in [-0.3, 0.3]), counters again zeroed
    just before and read just after, and checks the state, the contacts,
    the activations within [0, 1] and that exactly these launches were made;
 7. holds the mega forward kernel and the megastep kernel (one control
    step), RK4, Euler, muscle (with act_dot and act; the muscle kernels
    both at the end state, which the seeded activations lift off the
-   floor, and after the first control step, in deep contact) and A1 (the
-   extended collision's geom1 and geom2 too), and the fused kernel on all
-   four plan configurations, the muscle model's non-smooth layout and A1's
-   elliptic layout, to their plain versions replaying the kernels' Newton
-   decisions (the iteration count, the taken steps, the line search's
-   signs and each step's Hessian decision of every row), on all 4096
-   envs; a mega check (and the elliptic fused check) excuses at most 0.5%
-   of the envs, each only as a float32 tie (a slot or limit within TIE of
-   its margin) or as a Newton disagreement at a shared state that a
-   float64 witness settles for the kernel; and the replayed row decisions
+   floor, and after the first control step, in deep contact), A1 (the
+   extended collision's geom1 and geom2 too), H1 and Atlas (their end
+   states in contact), and the fused kernel on all four plan
+   configurations, the muscle model's non-smooth layout, A1's elliptic
+   layout, H1 and Atlas, to their plain versions replaying the kernels'
+   Newton decisions (the iteration count, the taken steps, the line
+   search's signs and each step's Hessian decision of every row), on all
+   4096 envs; a mega check (and the elliptic fused check) excuses at most
+   0.5% of the envs, each only as a float32 tie (a slot or limit within
+   TIE of its margin), as a Newton disagreement at a shared state that a
+   float64 witness settles for the kernel, or (the megastep) as a
+   trajectory parted by the replay itself, where the kernel is shown
+   right without it (_megastep_rule); and the replayed row decisions
    may depart from the plain version's own at the first Newton step (the
    shared start) in at most 0.5% of the envs (_row_departures);
 8. times each kernel, its plain version and, where one PyTorch call
@@ -109,6 +120,10 @@ CONFIGS = {
 }
 MUSCLE_ASSET = "loco_mujoco_tpu_torch/assets/humanoid_muscle_shape.npz"
 A1_ASSET = "loco_mujoco_tpu_torch/assets/unitree_a1_shape.npz"
+# the bipeds with plane-cylinder groups: configuration -> (asset, seed of
+# their draws' own stream)
+BIPEDS = {"h1": ("loco_mujoco_tpu_torch/assets/unitree_h1_shape.npz", 2),
+          "atlas": ("loco_mujoco_tpu_torch/assets/atlas_shape.npz", 3)}
 # A1's seeded motor ctrls lie in [-A1_CTRL, A1_CTRL] of its ctrlrange
 # [-1, 1] (17 of the motors' 34 N m): with the full range redrawn every
 # control step some envs spin their light, slender calves fast enough that
@@ -325,24 +340,32 @@ def _row_departures(torch, k, own, E, what):
     return e0
 
 
-def _tie_envs(torch, held, gap, E, what, err=None, newton=None):
+def _tie_envs(torch, held, gap, E, what, err=None, newton=None,
+              replay=None):
     """Envs where the comparison does not hold are excluded only as float32
     ties: where a contact slot or a joint limit lies within TIE of its
     margin, or (`newton`) where every disagreement of the two versions at
     a state they shared was settled for the kernel by the float64 witness
-    (_newton_witness); and only up to 0.5% of the envs.
+    (_newton_witness), or (`replay`, the megastep) where the trajectories
+    part by the replay itself (_megastep_rule); and only up to 0.5% of the
+    envs, all three kinds counted together.
     Returns their count; prints each excluded env (`err`: its relative
     error)."""
     out = ~held
     n = int(out.sum())
-    tie = gap < TIE if newton is None else (gap < TIE) | newton
+    tie = gap < TIE
+    for extra in (newton, replay):
+        if extra is not None:
+            tie = tie | extra
     for e in torch.nonzero(out).flatten().tolist()[:SHOW_ENVS]:
         print(f"  {what}: env {e} differs"
               + ("" if err is None else f" (rel {float(err[e]):.3g})")
               + f", nearest margin {float(gap[e]):.3g}"
               + ("" if newton is None else
                  f", Newton disagreement settled by the witness: "
-                 f"{bool(newton[e])}"))
+                 f"{bool(newton[e])}")
+              + ("" if replay is None else
+                 f", parted by the replay: {bool(replay[e])}"))
     if n > SHOW_ENVS:
         print(f"  {what}: {n - SHOW_ENVS} more envs differ")
     if n and not bool(tie[out].all()):
@@ -351,6 +374,119 @@ def _tie_envs(torch, held, gap, E, what, err=None, newton=None):
     if n > 0.005 * E:
         raise AssertionError(f"{what}: {n} tie envs, more than 0.5%")
     return n
+
+
+def _megastep_rule(torch, m, S1, n, what, on_forward=None):
+    """n substeps of the megastep from S1 against its plain version
+    replaying the kernel's recorded decisions: every env's qpos, qvel (and
+    act) within rel 5e-4, except the ties of _tie_envs, read along both
+    trajectories: the margins at the plain version's every forward and at
+    the kernel's substep starts, the Newton disagreements at those starts
+    (the kernel's and the plain forward of the kernel's own state) that
+    the float64 witness settles, and the envs parted by the replay itself.
+
+    The replay forces on the plain version's state the decisions the
+    kernel made at its own; once float32 rounding parts the trajectories
+    (~1e-6), a row's recorded Hessian decision can sit on the far side of
+    its test there and move the plain solve away from that state's
+    solution (tools/megastep_parting.py; PERF.md). Such an env counts as a
+    tie only where the replay made such a decision (a row decision the
+    plain version's own test at that step does not make) and the kernel
+    is shown right without it: its control step lies within rel 5e-4 of
+    the plain version's on its own decisions, and at every forward of the
+    replayed run the kernel's own forward of that state agrees with the
+    plain version replaying it (the same active slots, qacc within rel
+    5e-4), with no unsettled disagreement at the kernel's substep starts.
+    The error printed and returned for it stays the replayed
+    comparison's.
+
+    `on_forward(o, j, dec)` sees the replayed run's forward j. Returns
+    (ks, the largest error over the held envs, the tie count, the
+    replay-parted count, {field: (per-env error, scale)}, dec)."""
+    from loco_mujoco_tpu_torch.ops import hopper_mega as hm
+
+    E, dev = S1.qpos.shape[0], S1.qpos.device
+    per = hm.forwards_per_step(m)
+    dec = torch.zeros((E, per * n, hm.decision_width(m)), dtype=torch.int32,
+                      device=dev)
+    ks = hm.mega_step_n(m, S1, n, decisions=dec)
+    gaps, starts = [], []
+    agree = torch.ones(E, dtype=torch.bool, device=dev)
+
+    def observe(o):
+        nonlocal agree
+        if len(gaps) % per == 0:  # a substep's first forward
+            starts.append(o.qvel)
+        gaps.append(_margin_gap(m, o))
+        fk = hm.mega_forward(m, o)
+        fp = hm.mega_forward_plain(m, o, replay=(
+            fk.solver_niter, fk.solver_taken, fk.solver_ls, fk.solver_rows))
+        act_k = fk.contact.dist < fk.contact.includemargin
+        act_p = fp.contact.dist < fp.contact.includemargin
+        agree &= (torch.all(act_k == act_p, dim=1)
+                  & ((fk.qacc - fp.qacc).abs().amax(1)
+                     <= 5e-4 * float(fp.qacc.abs().max())))
+        if on_forward is not None:
+            on_forward(o, len(gaps) - 1, dec)
+
+    records = []
+    rs = hm.mega_step_n_plain(m, S1, n, replay=dec, on_forward=observe,
+                              records=records)
+    # the replayed row decisions that the plain version's own tests at its
+    # state do not make, per env over the whole run (_row_departures)
+    departed = torch.stack([((r["rows"] ^ r["own_rows"]) != 0).flatten(1)
+                            .any(1) for r in records]).any(0)
+    # along the kernel's own trajectory (the megastep is deterministic per
+    # env): its state after k substeps, the margins there, and whether the
+    # kernel's and the plain forward of that same state disagree, each
+    # disagreement settled or not by the float64 witness (_newton_witness)
+    kgaps = []
+    apart = torch.zeros(E, dtype=torch.bool, device=dev)
+    settled = torch.ones(E, dtype=torch.bool, device=dev)
+    drift = []  # qvel error between the two at each substep's start
+    for k in range(n):
+        Sk = S1 if k == 0 else hm.mega_step_n(m, S1, k)
+        drift.append((Sk.qvel - starts[k]).abs().amax(1))
+        fk = hm.mega_forward(m, Sk)
+        fp = hm.mega_forward_plain(
+            m, Sk, replay=(fk.solver_niter, fk.solver_taken, fk.solver_ls,
+                           fk.solver_rows))
+        kgaps.append(_margin_gap(m, fk))
+        a, w = _newton_witness(torch, m, Sk, fk, fp)
+        apart |= a
+        settled &= ~a | w
+    ro = hm.mega_step_n_plain(m, S1, n)  # the plain version's own decisions
+    held = torch.ones(E, dtype=torch.bool, device=dev)
+    held_own = torch.ones(E, dtype=torch.bool, device=dev)
+    step_errs = {}
+    for name in ("qpos", "qvel") + (("act",) if m.na else ()):
+        got, ref, own = (getattr(x, name) for x in (ks, rs, ro))
+        for side, t in (("kernel", got), ("plain version", ref)):
+            assert bool(torch.isfinite(t).all()), (
+                f"megastep {what}: the {side}'s {name} is not finite in "
+                f"{int((~torch.isfinite(t).all(1)).sum())} envs")
+        err = (got - ref).abs().max(dim=1).values
+        scl = float(ref.abs().max()) + 1e-9
+        held &= err <= 5e-4 * scl
+        held_own &= ((got - own).abs().max(dim=1).values
+                     <= 5e-4 * (float(own.abs().max()) + 1e-9))
+        step_errs[name] = (err, scl)
+    by_replay = ~held & held_own & agree & settled & departed
+    rel = torch.stack([e / s for e, s in step_errs.values()]).amax(0)
+    gap = torch.stack(gaps).min(dim=0).values.minimum(
+        torch.stack(kgaps).min(dim=0).values)
+    for env in torch.nonzero(~held).flatten().tolist()[:SHOW_ENVS]:
+        print(f"  megastep {what}: env {env} qvel error at each substep's "
+              f"start " + " ".join(f"{float(d[env]):.2g}" for d in drift)
+              + f"; row decisions the replay forced: {bool(departed[env])}"
+              f", the kernel within rel 5e-4 of the plain version on its "
+              f"own decisions: {bool(held_own[env])}, agrees with it at "
+              f"every state of the replayed run: {bool(agree[env])}")
+    ties = _tie_envs(torch, held, gap, E, f"megastep {what}", rel,
+                     apart & settled, by_replay)
+    # the error over the envs held to the tolerance (all but the ties)
+    e = max(float(e[held].max()) for e, _ in step_errs.values())
+    return ks, e, ties, int(by_replay.sum()), step_errs, dec
 
 
 def _muscle_flops(model):
@@ -464,8 +600,19 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True,
                 col += P * (2 * 63 + 25) * g["k"]
             col += g["k"] * (2 * 63 + narrow[g["kind"]])
         return total + col
-    # FK, plane-box pairs, plane-mesh height maps and manifolds
-    mesh = next(g for g in plan.groups if g["kind"] == "mesh")
+    # FK; per plane-box and plane-cylinder pair a pose and, ranked (k <
+    # P), its support key (88); per selected pair its pose and slots (the
+    # box's corners and 4 argmin rounds 360, the cylinder's rim points
+    # 213); the plane-mesh pairs' bounds, height maps and manifolds
+    col = nb * 130 + model.njnt * 160
+    for g in plan.groups:
+        P, k = len(g["pairs"]), g["k"]
+        if g["kind"] != "mesh":
+            col += (88 * P if k < P else 0) + k * (
+                360 if g["kind"] == "box" else 213)
+    mesh = next((g for g in plan.groups if g["kind"] == "mesh"), None)
+    if mesh is None:
+        return total + col
     mk = mesh["mesh"]
     a, b, _, _ = coll.mesh_kernel_inputs(mk, d)  # (E, P, 3), (E, P)
     pf = torch.as_tensor(mk.pair_f, device=dev)
@@ -478,11 +625,8 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True,
     near = ((lb < pf[:, 0]).double() * V).sum(dim=1) * 7  # height maps
     o = mesh["offset"]
     sel = act[:, o:o + 3 * mesh["k"]:3].sum(dim=1).double()  # slot 0s
-    fk_col = (nb * 130 + model.njnt * 160
-              + 360 * len(next((g["pairs"] for g in plan.groups
-                                if g["kind"] == "box"), []))
-              + 121 * mk.P + mesh["k"] * mk.P)
-    return total + fk_col + near + sel * (23 * D + 166)
+    return (total + col + 121 * mk.P + mesh["k"] * mk.P + near
+            + sel * (23 * D + 166))
 
 
 def _load(io, root, name, dev, torch):
@@ -524,6 +668,21 @@ def seeded_draws(model, m_mu, m_a1, E):
     ctrls_a1 = rng_a1.uniform(-A1_CTRL, A1_CTRL,
                               size=(CONTROL_STEPS, E, m_a1.nu))
     return qpos, ctrls, ctrls_mu, qpos_a1, ctrls_a1
+
+
+def seeded_biped(m, seed, E):
+    """A biped's seeded start state and controls (numpy), from a stream of
+    its own (`BIPEDS`): qpos0 with the torque model's noise, the pelvis
+    dropped 5-20 mm, and motor ctrls in [-0.3, 0.3], (CONTROL_STEPS, E,
+    nu)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + seed)
+    qpos = m.qpos0.cpu().numpy()[None] + rng.normal(scale=0.02,
+                                                    size=(E, m.nq))
+    z = int(m.jnt_qposadr[m.names["joint"]["pelvis_tz"]])
+    qpos[:, z] = float(m.qpos0[z]) - rng.uniform(0.005, 0.02, size=E)
+    return qpos, rng.uniform(-0.3, 0.3, size=(CONTROL_STEPS, E, m.nu))
 
 
 def main() -> int:
@@ -570,6 +729,9 @@ def main() -> int:
     model, m_eu, m_wide = models["rk4"], models["euler"], models["wide"]
     m_mu = io.load_model_npz(root / MUSCLE_ASSET, device=dev)
     m_a1 = io.load_model_npz(root / A1_ASSET, device=dev)
+    bipeds = {name: io.load_model_npz(root / asset, device=dev)
+              for name, (asset, _) in BIPEDS.items()}
+    m_h1, m_at = bipeds["h1"], bipeds["atlas"]
     mesh_groups = [i for i, g in enumerate(model.groups)
                    if coll.is_plane_mesh(g)]
     assert mesh_groups and all(model.mesh_kernel[i] is not None
@@ -585,6 +747,11 @@ def main() -> int:
     pa1 = m_a1.plan
     assert pa1.mega and pa1.mega_ell and pa1.elliptic and pa1.euler_dv
     assert pa1.pack_w == 29 and m_a1.ncon == pa1.ncon, "A1 plan"
+    for name, m in bipeds.items():  # the plane-only plan with cylinders
+        p = m.plan
+        assert p.mega and p.uniform and not p.elliptic and not p.mega_ell
+        assert "cyl" in [g["kind"] for g in p.groups], name
+    assert m_h1.plan.euler_dv and hm.forwards_per_step(m_at) == 4
     plan = model.mesh_kernel[mesh_groups[0]]
     print(f"model: nv={model.nv}, groups "
           f"{[(g.t2, g.k, len(g.pair_ids)) for g in model.groups]}, "
@@ -602,11 +769,17 @@ def main() -> int:
           f"{mu.nrows} rows; a1: nv={m_a1.nv}, groups "
           f"{[(g.t1, g.t2, g.condim, g.k, len(g.pair_ids)) for g in m_a1.groups]}"
           f", {pa1.ncon} slots, {pa1.nrows} rows, elliptic runs "
-          f"{pa1.ell_runs}, impratio {pa1.impratio}")
+          f"{pa1.ell_runs}, impratio {pa1.impratio}; "
+          + "; ".join(f"{n}: nv={m.nv}, groups "
+                      + str([(g["kind"], g["k"], len(g["pairs"]))
+                             for g in m.plan.groups])
+                      + f", {m.plan.ncon} slots, {m.plan.nrows} rows, "
+                      f"{hm.forwards_per_step(m)} forwards per substep"
+                      for n, m in bipeds.items()))
 
     # the mega kernels' launch: a warp per env, its state in shared memory
     for name, m in (("rk4", model), ("euler", m_eu), ("muscle", m_mu),
-                    ("a1", m_a1)):
+                    ("a1", m_a1), *bipeds.items()):
         launch = mega_launch(m.plan)
         occ = hm.occupancy(m)
         print(f"mega launch {name}: {4 * launch.env_floats} bytes of shared "
@@ -623,18 +796,27 @@ def main() -> int:
     qpos_t = torch.as_tensor(qpos, dtype=torch.float32, device=dev)
     data = io.make_data(model, E).replace(qpos=qpos_t)
     qpos_a1_t = torch.as_tensor(qpos_a1, dtype=torch.float32, device=dev)
+    biped_draws = {name: seeded_biped(m, BIPEDS[name][1], E)
+                   for name, m in bipeds.items()}
+
+    def biped(m):
+        """The biped configuration's name of model m, or None."""
+        return next((n for n, b in bipeds.items() if b is m), None)
 
     def ctrl(c, m=model):
         """Control step c's seeded ctrl of model m (the muscle model's in
         [0, 1])."""
-        src = ctrls_a1 if m is m_a1 else ctrls_mu if m.na else ctrls
+        src = (biped_draws[biped(m)][1] if biped(m) else ctrls_a1
+               if m is m_a1 else ctrls_mu if m.na else ctrls)
         return torch.as_tensor(src[c], dtype=torch.float32, device=dev)
 
     def start(m):
         """The seeded state in model m (every humanoid configuration has
-        the same dofs and bodies; A1 its own)."""
-        return io.make_data(m, E).replace(
-            qpos=qpos_a1_t if m is m_a1 else qpos_t)
+        the same dofs and bodies; A1 and the bipeds their own)."""
+        q = (torch.as_tensor(biped_draws[biped(m)][0], dtype=torch.float32,
+                             device=dev) if biped(m)
+             else qpos_a1_t if m is m_a1 else qpos_t)
+        return io.make_data(m, E).replace(qpos=q)
 
     # ---- each kernel of the earlier staged path against its plain version --
     d_pos = fwd.fwd_position(model, data, plain=True)
@@ -770,6 +952,12 @@ def main() -> int:
             staged_run(m_a1, STAGED_STEPS, {"fused": 1},
                        "A1 Euler through torch collision and the fused "
                        "kernel (elliptic layout)")
+        d_staged_h1, staged_h1_launches, staged_h1_rate, _ = staged_run(
+            m_h1, STAGED_STEPS, per_fused, "H1 Euler through the fused "
+            "kernel")
+        d_staged_at, staged_at_launches, staged_at_rate, _ = staged_run(
+            m_at, STAGED_STEPS, {"fused": 1}, "Atlas RK4 through torch "
+            "collision and the fused kernel")
         d_wide, wide_launches, wide_rate, wide_ops = staged_run(
             m_wide, WIDE_STEPS, per_newton,
             f"RK4, no plan ({m_wide.ncon} slots), through the Newton kernel")
@@ -836,6 +1024,10 @@ def main() -> int:
     S_mu, launches_mu, env_steps_mu, S_mu_c = main_run(m_mu, "muscle Euler")
     S_a1, launches_a1, env_steps_a1, S_a1_c = main_run(
         m_a1, "A1 Euler (elliptic cones, extended collision)")
+    S_h1, launches_h1, env_steps_h1, _ = main_run(
+        m_h1, "H1 Euler (plane-cylinder pairs in order, plane-mesh)")
+    S_at, launches_at, env_steps_at, _ = main_run(
+        m_at, "Atlas RK4 (top-K plane-cylinder and plane-box)")
     print(f"muscle activations at the end: mean "
           f"{float(S_mu.act.mean()):.4f}, min {float(S_mu.act.min()):.4f}, "
           f"max {float(S_mu.act.max()):.4f}")
@@ -886,76 +1078,26 @@ def main() -> int:
         return e_qacc
 
     def megastep_check(m, S, what):
-        """One control step of the megastep against its plain version;
-        returns (error, S1, the flops of each forward). Ties (_tie_envs)
-        are read along both trajectories, the plain version's (every
-        forward) and the kernel's (every substep's first forward)."""
-        per = hm.forwards_per_step(m)
-        dec = torch.zeros((E, per * SUBSTEPS, hm.decision_width(m)),
-                          dtype=torch.int32, device=dev)
+        """One control step of the megastep against its plain version
+        (_megastep_rule); returns (error, S1, the flops of each
+        forward)."""
+        step_flops = []
         S1 = S.replace(ctrl=ctrl(0, m))
-        ks = hm.mega_step_n(m, S1, SUBSTEPS, decisions=dec)
-        gaps, step_flops, starts = [], [], []
-
-        def observe(o):
-            if len(gaps) % per == 0:  # a substep's first forward
-                starts.append(o.qvel)
-            gaps.append(_margin_gap(m, o))
-            step_flops.append(_forward_flops(
-                torch, m, o, dec[:, len(step_flops), 0]))
-
-        rs = hm.mega_step_n_plain(m, S1, SUBSTEPS, replay=dec,
-                                  on_forward=observe)
-        # along the kernel's own trajectory (the megastep is deterministic
-        # per env): its state after k substeps, the margins there, and
-        # whether the kernel's and the plain forward of that same state
-        # disagree, each disagreement settled or not by the float64
-        # witness (_newton_witness)
-        kgaps = []
-        apart = torch.zeros(E, dtype=torch.bool, device=dev)
-        settled = torch.ones(E, dtype=torch.bool, device=dev)
-        drift = []  # qvel error between the two at each substep's start
-        for k in range(SUBSTEPS):
-            Sk = S1 if k == 0 else hm.mega_step_n(m, S1, k)
-            drift.append((Sk.qvel - starts[k]).abs().amax(1))
-            fk = hm.mega_forward(m, Sk)
-            fp = hm.mega_forward_plain(
-                m, Sk, replay=(fk.solver_niter, fk.solver_taken, fk.solver_ls,
-                               fk.solver_rows))
-            kgaps.append(_margin_gap(m, fk))
-            a, w = _newton_witness(torch, m, Sk, fk, fp)
-            apart |= a
-            settled &= ~a | w
+        per = hm.forwards_per_step(m)
+        _, e, ties, n_replay, step_errs, dec = _megastep_rule(
+            torch, m, S1, SUBSTEPS, what,
+            on_forward=lambda o, j, dec: step_flops.append(
+                _forward_flops(torch, m, o, dec[:, j, 0])))
         held = torch.ones(E, dtype=torch.bool, device=dev)
-        step_errs = {}
-        for name in ("qpos", "qvel") + (("act",) if m.na else ()):
-            got, ref = getattr(ks, name), getattr(rs, name)
-            for side, t in (("kernel", got), ("plain version", ref)):
-                assert bool(torch.isfinite(t).all()), (
-                    f"megastep {what}: the {side}'s {name} is not finite in "
-                    f"{int((~torch.isfinite(t).all(1)).sum())} envs")
-            err = (got - ref).abs().max(dim=1).values
-            scl = float(ref.abs().max()) + 1e-9
+        for err, scl in step_errs.values():
             held &= err <= 5e-4 * scl
-            step_errs[name] = (err, scl)
-        rel = torch.stack([e / s for e, s in step_errs.values()]).amax(0)
-        pgap = torch.stack(gaps).min(dim=0).values
-        kgap = torch.stack(kgaps).min(dim=0).values
-        for env in torch.nonzero(~held).flatten().tolist()[:SHOW_ENVS]:
-            print(f"  megastep {what}: env {env} qvel error at each "
-                  f"substep's start "
-                  + " ".join(f"{float(d[env]):.2g}" for d in drift))
-        ties = _tie_envs(torch, held, pgap.minimum(kgap), E,
-                         f"megastep {what}", rel, apart & settled)
-        # the error over the envs held to the tolerance (all but the ties)
-        e = max(float(e[held].max()) for e, _ in step_errs.values())
-        msg = [f"{name} rel {float(e[held].max()) / scl:.3g} (all envs "
-               f"{float(e.max()) / scl:.3g})"
-               for name, (e, scl) in step_errs.items()]
+        msg = [f"{name} rel {float(err[held].max()) / scl:.3g} (all envs "
+               f"{float(err.max()) / scl:.3g})"
+               for name, (err, scl) in step_errs.items()]
         print(f"megastep {what} (1 control step, {per * SUBSTEPS} forwards) "
-              f"vs plain (replayed decisions): {ties} tie envs excluded; "
-              + ", ".join(msg) + f"; iterations mean "
-              f"{float(dec[..., 0].float().mean()):.2f}")
+              f"vs plain (replayed decisions): {ties} tie envs excluded "
+              f"({n_replay} parted by the replay); " + ", ".join(msg)
+              + f"; iterations mean {float(dec[..., 0].float().mean()):.2f}")
         return e, S1, step_flops
 
     errs["mega_forward"] = mega_forward_check(model, S, "RK4")
@@ -997,6 +1139,23 @@ def main() -> int:
                                                          "A1, in contact"))
         errs["megastep_a1"] = max(errs["megastep_a1"], megastep_check(
             m_a1, S_a1_c, "A1, in contact")[0])
+    # H1 and Atlas: the plane-only collision's cylinder branch, at the end
+    # state, which must hold a contact in at least 90% of the envs (else
+    # the kernels would be held off the floor; the muscle model's case)
+    biped_runs = {}
+    for name, m, S_ in (("h1", m_h1, S_h1), ("atlas", m_at, S_at)):
+        f_ = fwd.forward(m, S_)
+        act_ = f_.contact.dist < f_.contact.includemargin
+        n_ = int(act_.sum())
+        touching = int(act_.any(1).sum())
+        print(f"{name} end state: active slots per group "
+              + str([int(act_[:, g.offset:g.offset + g.k * g.slots].sum())
+                     for g in m.groups]) + f" ({n_ / E:.2f} per env; "
+              f"{touching} of {E} envs touch the floor)")
+        assert touching >= 0.9 * E, f"{name}: the end state is contact-light"
+        errs[f"mega_forward_{name}"] = mega_forward_check(m, S_, name)
+        errs[f"megastep_{name}"], S1_, flops_ = megastep_check(m, S_, name)
+        biped_runs[name] = (S1_, flops_)
 
     # ---- the fused kernel against its plain version, four configurations --
     # At the staged RK4 run's end state, carried into each configuration:
@@ -1005,11 +1164,12 @@ def main() -> int:
     # The muscle model's non-smooth layout at its own staged run's end
     # state, from the staged stages' outputs.
     fused_in = {}
-    models["muscle"] = m_mu
-    models["a1"] = m_a1
-    for name in ("rk4", "euler", "fric", "solref", "muscle", "a1"):
+    models.update(muscle=m_mu, a1=m_a1, **bipeds)
+    for name in ("rk4", "euler", "fric", "solref", "muscle", "a1", "h1",
+                 "atlas"):
         m = models[name]
-        src = {"muscle": d_staged_mu, "a1": d_staged_a1}.get(name, d_staged)
+        src = {"muscle": d_staged_mu, "a1": d_staged_a1, "h1": d_staged_h1,
+               "atlas": d_staged_at}.get(name, d_staged)
         d = start(m).replace(qpos=src.qpos, qvel=src.qvel, ctrl=src.ctrl,
                              act=src.act, qacc_warmstart=src.qacc_warmstart)
         if name == "muscle":
@@ -1068,7 +1228,9 @@ def main() -> int:
         "staged muscle": staged_mu_launches,
         "no-plan staged RK4": wide_launches, "main RK4": launches,
         "main Euler": launches_eu, "main muscle": launches_mu,
-        "staged A1": staged_a1_launches, "main A1": launches_a1}
+        "staged A1": staged_a1_launches, "main A1": launches_a1,
+        "staged H1": staged_h1_launches, "main H1": launches_h1,
+        "staged Atlas": staged_at_launches, "main Atlas": launches_at}
 
     def row(name, kernel, run, source, replaces, ms, plain_ms, nbytes_,
             flops, library_ms=None):
@@ -1171,7 +1333,9 @@ def main() -> int:
     for name, key, run in (("rk4", "fused", "staged RK4"),
                            ("euler", "fused_euler", "staged Euler"),
                            ("muscle", "fused_muscle", "staged muscle"),
-                           ("a1", "fused_a1", "staged A1")):
+                           ("a1", "fused_a1", "staged A1"),
+                           ("h1", "fused_h1", "staged H1"),
+                           ("atlas", "fused_atlas", "staged Atlas")):
         m, d = models[name], fused_in[name]
         k = hf.fused_constraint(m, d)
         vec, pack = hf.vec(m, d), hf.contact_pack(m, d)
@@ -1212,7 +1376,9 @@ def main() -> int:
             (model, S, S1, step_flops, "", "main RK4"),
             (m_eu, S_eu, S1_eu, step_flops_eu, "_euler", "main Euler"),
             (m_mu, S_mu, S1_mu, step_flops_mu, "_muscle", "main muscle"),
-            (m_a1, S_a1, S1_a1, step_flops_a1, "_a1", "main A1")):
+            (m_a1, S_a1, S1_a1, step_flops_a1, "_a1", "main A1"),
+            (m_h1, S_h1, *biped_runs["h1"], "_h1", "main H1"),
+            (m_at, S_at, *biped_runs["atlas"], "_atlas", "main Atlas")):
         b_fwd, b_step = mega_bounds(m, S_, sflops)
         ms = _time_ms(torch, lambda: hm.mega_forward(m, S_))
         plain = _time_ms(torch, lambda: hm.mega_forward_plain(m, S_), reps=3)
@@ -1238,10 +1404,11 @@ def main() -> int:
               f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
               f"launches {r['launches']}")
     print(f"main path {env_steps:.0f} env-steps/s RK4, {env_steps_eu:.0f} "
-          f"Euler, {env_steps_mu:.0f} muscle Euler, {env_steps_a1:.0f} A1; "
-          f"staged path "
+          f"Euler, {env_steps_mu:.0f} muscle Euler, {env_steps_a1:.0f} A1, "
+          f"{env_steps_h1:.0f} H1, {env_steps_at:.0f} Atlas; staged path "
           f"{staged_rate:.0f} env-steps/s RK4, {staged_eu_rate:.0f} Euler, "
-          f"{staged_mu_rate:.0f} muscle, {staged_a1_rate:.0f} A1 "
+          f"{staged_mu_rate:.0f} muscle, {staged_a1_rate:.0f} A1, "
+          f"{staged_h1_rate:.0f} H1, {staged_at_rate:.0f} Atlas "
           f"({staged_a1_ops or 'not measured'} kernels per A1 forward; "
           f"{staged_ops or 'not measured'} "
           f"kernels per forward), no-plan staged path {wide_rate:.0f} "

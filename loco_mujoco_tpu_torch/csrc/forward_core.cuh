@@ -40,11 +40,12 @@ constexpr float kMinImp = 0.0001f, kMaxImp = 0.9999f;
 // the int header of the packed tables, in ops/plan.py HEADER order
 enum Header {
   NQ, NV, NBODY, NJNT, NU, NE, NFL, NL, NPAD, NROWS, NCON, FLAGS, NBOX,
-  KBOX, OFFBOX, NMESH, KMESH, OFFMESH, F_BODY, I_BODY, I_TOPO, F_JNT, I_JNT,
-  F_DOF, I_DOF, I_ANC, I_DMASK, F_ACT, I_ACT, F_EQ, I_EQ, F_FL, I_FL, F_LIM,
-  I_LIM, F_CON, F_BOX, I_BOX, F_MESH, I_MESH, F_VERT, PACKW, I_GBODY, NMOT,
-  NA, NMUS, F_MUS, I_MUS, I_SEG, F_SITE, I_SITE, F_ACTB, NELL, I_ELL, NXGRP,
-  I_XGRP, F_XGRP, I_XPAIR, F_XPAIR, I_CON, I_SHM
+  KBOX, OFFBOX, NCYL, KCYL, OFFCYL, NMESH, KMESH, OFFMESH, F_BODY, I_BODY,
+  I_TOPO, F_JNT, I_JNT, F_DOF, I_DOF, I_ANC, I_DMASK, F_ACT, I_ACT, F_EQ,
+  I_EQ, F_FL, I_FL, F_LIM, I_LIM, F_CON, F_BOX, I_BOX, F_CYL, I_CYL, F_MESH,
+  I_MESH, F_VERT, PACKW, I_GBODY, NMOT, NA, NMUS, F_MUS, I_MUS, I_SEG,
+  F_SITE, I_SITE, F_ACTB, NELL, I_ELL, NXGRP, I_XGRP, F_XGRP, I_XPAIR,
+  F_XPAIR, I_CON, I_SHM
 };
 enum Flag {
   PASSIVE = 1, ACTUATION = 2, CLAMPCTRL = 4, REFSAFE = 8, UNIFORM = 16,

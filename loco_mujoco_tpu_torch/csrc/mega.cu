@@ -6,11 +6,12 @@
 // loco_mujoco_tpu/ops/pallas_constraint.py: _mega_batched (:2335, its
 // pallas_call) with its body _make_fused_kernel(mega=True) ->
 // _forward_env_block (:1183), which inlines pallas_fk.fk_env_block,
-// pallas_fk.collide_env_block (plane-box _box_slots and plane-mesh
-// _mesh_group_slots with top-K), _smooth_preamble, the CRB mass matrix and
-// qacc_smooth by Cholesky, the JOINT-equality / friction-loss / limit /
-// pyramidal contact rows, solve_core and, for Euler models, the
-// implicit-damping dv (euler_dv, :1893-1906).
+// pallas_fk.collide_env_block (plane-box _box_slots, plane-cylinder
+// _cyl_slots and plane-mesh _mesh_group_slots with top-K),
+// _smooth_preamble, the CRB mass matrix and qacc_smooth by Cholesky, the
+// JOINT-equality / friction-loss / limit / pyramidal contact rows,
+// solve_core and, for Euler models, the implicit-damping dv (euler_dv,
+// :1893-1906).
 // An elliptic plan with the extended collision (mega_ell: ELLIPTIC and
 // NXGRP > 0) runs collide_ext instead, the counterpart of
 // pallas_fk.collide_env_block_ext (:1714-2039): every classic analytic
@@ -102,10 +103,10 @@
 // bank conflicts) stay in shared memory: no global scratch (a launch whose
 // state leaves fewer than 4 envs resident per SM is refused).
 //
-// Rounding: the collision functions (geom_pose, box_slots, collide and the
-// extended collision's) write each product and each sum with
-// __fmul_rn / __fadd_rn / __fsub_rn, which
-// nvcc never fuses into a multiply-add, so they round as the plain
+// Rounding: the collision functions (geom_pose, box_slots, cyl_slots,
+// collide and the extended collision's) write each product and each sum
+// with __fmul_rn / __fadd_rn / __fsub_rn, which nvcc never fuses into a
+// multiply-add, so they round as the plain
 // versions' separate operations do and the active contact sets match. The
 // rest of the file is compiled with contraction on, as newton.cu is.
 
@@ -793,6 +794,22 @@ __device__ __forceinline__ float rdot3(float a0, float a1, float a2, float b0,
                                        float b1, float b2) {
   return radd(radd(rmul(a0, b0), rmul(a1, b1)), rmul(a2, b2));
 }
+__device__ __forceinline__ float rdot(const float* a, const float* b) {
+  return rdot3(a[0], a[1], a[2], b[0], b[1], b[2]);
+}
+__device__ __forceinline__ void rsub3(const float* a, const float* b,
+                                      float* o) {
+  for (int i = 0; i < 3; ++i) o[i] = rsub(a[i], b[i]);
+}
+__device__ __forceinline__ void rcross(const float* a, const float* b,
+                                       float* o) {
+  o[0] = rsub(rmul(a[1], b[2]), rmul(a[2], b[1]));
+  o[1] = rsub(rmul(a[2], b[0]), rmul(a[0], b[2]));
+  o[2] = rsub(rmul(a[0], b[1]), rmul(a[1], b[0]));
+}
+__device__ __forceinline__ float rnorm(const float* a) {
+  return sqrtf(rdot(a, a));
+}
 
 // world pose of a pair's geom: qp = xpos + xmat gpos, R2 = xmat R(gquat)
 __device__ void geom_pose(const Env& s, int body, const float* G, float* qp,
@@ -869,6 +886,54 @@ __device__ void box_slots(const Env& s, const float* n, const float* pp,
   }
 }
 
+// plane-cylinder (collision.plane_cylinder), for the plane-only and the
+// extended collision alike: the near cap's deepest rim point, its +-120
+// degree companions on that rim and the far cap's deepest rim point, as
+// slot positions w[q] (halfway back along n) and depths h[q]. The rim
+// direction is axis (axis . n) - n normalised, or the geom's local x axis
+// where its norm is at most 1e-8 (the axis along n: every near-cap rim point
+// lies at one depth). R: the cylinder's world rotation (its axis the third
+// column); r, hl: its radius and half-length.
+__device__ void cyl_slots(const float* n, const float* pp, const float* qp,
+                          const float* R, float r, float hl, float (*w)[3],
+                          float* h) {
+  const float axis[3] = {R[2], R[5], R[8]};
+  const float ca = rdot(n, axis);
+  const float sg = ca >= 0.f ? -1.f : 1.f;
+  float near[3], far_[3], d[3], e[3];
+  for (int i = 0; i < 3; ++i) {
+    near[i] = radd(qp[i], rmul(rmul(sg, hl), axis[i]));
+    far_[i] = rsub(qp[i], rmul(rmul(sg, hl), axis[i]));
+    d[i] = rsub(rmul(axis[i], ca), n[i]);
+  }
+  const float dn = rnorm(d);
+  if (dn > 1e-8f) {
+    const float l = fmaxf(dn, 1e-15f);
+    for (int i = 0; i < 3; ++i) d[i] = d[i] / l;
+  } else {
+    for (int i = 0; i < 3; ++i) d[i] = R[3 * i];
+  }
+  rcross(axis, d, e);
+  const float le = fmaxf(rnorm(e), 1e-15f);
+  for (int i = 0; i < 3; ++i) e[i] = e[i] / le;
+  const float c120 = -0.5f, s120 = 0.8660254037844386f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float p[3], h3[3];
+    for (int i = 0; i < 3; ++i) {
+      const float dir =
+          q == 0 || q == 3 ? d[i]
+          : q == 1 ? radd(rmul(c120, d[i]), rmul(s120, e[i]))
+                   : rsub(rmul(c120, d[i]), rmul(s120, e[i]));
+      p[i] = radd(q == 3 ? far_[i] : near[i], rmul(r, dir));
+    }
+    rsub3(p, pp, h3);
+    h[q] = rdot(n, h3);
+    for (int i = 0; i < 3; ++i)
+      w[q][i] = rsub(p[i], rmul(n[i], rmul(0.5f, h[q])));
+  }
+}
+
 // the mesh region (in the J region, free between the smooth stage and the
 // rows): keys (pmax), support depths (pmax), support vertices (pmax, int),
 // the selected pairs (kmax, int) and their keys (kmax)
@@ -889,36 +954,54 @@ __device__ void collide(const Tab& T, const Env& s) {
   const float* n = con;
   const float* pp = con + 3;
   const MeshBuf mb = mesh_buf(s);
-  // plane-box group: k == P takes the pairs in order, else the top-k by
-  // the exact support distance
-  const int nbox = T.h(NBOX), kbox = T.h(KBOX), offbox = T.h(OFFBOX);
-  if (nbox) {
-    const float* bf = T.f(F_BOX);
-    const int* bi = T.i(I_BOX);
-    if (kbox < nbox) {
-      for (int q = s.lane; q < nbox; q += kWarp) {
-        const float* B = bf + 12 * q;
+  // the plane-box and the plane-cylinder group, in that order, through one
+  // loop: k == P takes the pairs in order, else the top-k by the exact
+  // support distance minus the margin (collision.midphase_key); each pair
+  // row holds the geom's pose, its size and the margin (B[10])
+#pragma unroll 1
+  for (int cyl = 0; cyl < 2; ++cyl) {
+    const int P = T.h(cyl ? NCYL : NBOX), k = T.h(cyl ? KCYL : KBOX);
+    if (!P) continue;
+    const int off = T.h(cyl ? OFFCYL : OFFBOX);
+    const float* gf = T.f(cyl ? F_CYL : F_BOX);
+    const int* gi = T.i(cyl ? I_CYL : I_BOX);
+    if (k < P) {
+      for (int q = s.lane; q < P; q += kWarp) {
+        const float* B = gf + 12 * q;
         float qp[3], R[9];
-        geom_pose(s, bi[2 * q], B, qp, R);
+        geom_pose(s, gi[2 * q], B, qp, R);
         const float h = rdot3(n[0], n[1], n[2], qp[0] - pp[0], qp[1] - pp[1],
                               qp[2] - pp[2]);
         float supp = 0.f;
-        for (int j = 0; j < 3; ++j)
-          supp = radd(supp, rmul(fabsf(rdot3(n[0], n[1], n[2], R[j], R[3 + j],
-                                             R[6 + j])),
-                                 B[7 + j]));
-        mb.key[q] = h - supp - B[10];
+        if (cyl) {
+          const float ca = fabsf(rdot3(n[0], n[1], n[2], R[2], R[5], R[8]));
+          supp = radd(rmul(B[8], ca),
+                      rmul(B[7], sqrtf(fmaxf(rsub(1.f, rmul(ca, ca)), 0.f))));
+        } else {
+          for (int j = 0; j < 3; ++j)
+            supp = radd(supp, rmul(fabsf(rdot3(n[0], n[1], n[2], R[j],
+                                               R[3 + j], R[6 + j])),
+                                   B[7 + j]));
+        }
+        mb.key[q] = rsub(rsub(h, supp), B[10]);
       }
       __syncwarp();
-      wtopk(s, mb.key, nbox, kbox, mb.sel, mb.mk);
+      wtopk(s, mb.key, P, k, mb.sel, mb.mk);
     }
-    for (int r = s.lane; r < kbox; r += kWarp) {
-      const int p = kbox < nbox ? mb.sel[r] : r;
-      const float* B = bf + 12 * p;
+    for (int r = s.lane; r < k; r += kWarp) {
+      const int p = k < P ? mb.sel[r] : r;
+      const float* B = gf + 12 * p;
       float qp[3], R[9];
-      geom_pose(s, bi[2 * p], B, qp, R);
-      box_slots(s, n, pp, qp, R, B + 7, offbox + 4 * r, bi[2 * p],
-                bi[2 * p + 1]);
+      geom_pose(s, gi[2 * p], B, qp, R);
+      if (cyl) {
+        float w[4][3], h[4];
+        cyl_slots(n, pp, qp, R, B[7], B[8], w, h);
+        for (int q = 0; q < 4; ++q)
+          put_slot(s, off + 4 * r + q, w[q], h[q], gi[2 * p], gi[2 * p + 1]);
+      } else {
+        box_slots(s, n, pp, qp, R, B + 7, off + 4 * r, gi[2 * p],
+                  gi[2 * p + 1]);
+      }
     }
     __syncwarp();
   }
@@ -1049,22 +1132,6 @@ __device__ void collide(const Tab& T, const Env& s) {
 // generic contact fields: pos, frame, dist, both geoms and bodies, its
 // group (statics) and invweight.
 
-__device__ __forceinline__ float rdot(const float* a, const float* b) {
-  return rdot3(a[0], a[1], a[2], b[0], b[1], b[2]);
-}
-__device__ __forceinline__ void rsub3(const float* a, const float* b,
-                                      float* o) {
-  for (int i = 0; i < 3; ++i) o[i] = rsub(a[i], b[i]);
-}
-__device__ __forceinline__ void rcross(const float* a, const float* b,
-                                       float* o) {
-  o[0] = rsub(rmul(a[1], b[2]), rmul(a[2], b[1]));
-  o[1] = rsub(rmul(a[2], b[0]), rmul(a[0], b[2]));
-  o[2] = rsub(rmul(a[0], b[1]), rmul(a[1], b[0]));
-}
-__device__ __forceinline__ float rnorm(const float* a) {
-  return sqrtf(rdot(a, a));
-}
 __device__ __forceinline__ float clip(float x, float lim) {
   return fminf(fmaxf(x, -lim), lim);
 }
@@ -1221,40 +1288,9 @@ __device__ void ext_slots(const Env& s, int kind, const float* pp,
       return;
     }
     if (kind == PLANE_CYLINDER) {
-      const float r = s2[0], hl = s2[1];
-      const float ca = rdot(n, axis);
-      const float sg = ca >= 0.f ? -1.f : 1.f;
-      float near[3], far_[3], d[3], e[3];
-      for (int i = 0; i < 3; ++i) {
-        near[i] = radd(qp[i], rmul(rmul(sg, hl), axis[i]));
-        far_[i] = rsub(qp[i], rmul(rmul(sg, hl), axis[i]));
-        d[i] = rsub(rmul(axis[i], ca), n[i]);
-      }
-      const float dn = rnorm(d);
-      if (dn > 1e-8f) {
-        const float l = fmaxf(dn, 1e-15f);
-        for (int i = 0; i < 3; ++i) d[i] = d[i] / l;
-      } else {
-        for (int i = 0; i < 3; ++i) d[i] = R2[3 * i];
-      }
-      rcross(axis, d, e);
-      const float le = fmaxf(rnorm(e), 1e-15f);
-      for (int i = 0; i < 3; ++i) e[i] = e[i] / le;
-      const float c120 = -0.5f, s120 = 0.8660254037844386f;
-      for (int q = 0; q < 4; ++q) {
-        float p[3], h3[3], w[3];
-        for (int i = 0; i < 3; ++i) {
-          const float dir =
-              q == 0 || q == 3 ? d[i]
-              : q == 1 ? radd(rmul(c120, d[i]), rmul(s120, e[i]))
-                       : rsub(rmul(c120, d[i]), rmul(s120, e[i]));
-          p[i] = radd(q == 3 ? far_[i] : near[i], rmul(r, dir));
-        }
-        rsub3(p, pp, h3);
-        const float h = rdot(n, h3);
-        for (int i = 0; i < 3; ++i) w[i] = rsub(p[i], rmul(n[i], rmul(0.5f, h)));
-        put_gen(s, o + q, w, h, fr);
-      }
+      float w[4][3], h[4];
+      cyl_slots(n, pp, qp, R2, s2[0], s2[1], w, h);
+      for (int q = 0; q < 4; ++q) put_gen(s, o + q, w[q], h[q], fr);
       return;
     }
     // plane-box: the four deepest corners (collision.plane_box)

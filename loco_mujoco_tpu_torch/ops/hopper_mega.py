@@ -305,11 +305,13 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
 
 
 def mega_step_n_plain(model: Model, data: Data, n_steps: int, replay=None,
-                      on_forward=None) -> Data | None:
+                      on_forward=None, records=None) -> Data | None:
     """Plain version of `mega_step_n`: n staged RK4 or Euler steps with
     the plain kernels. `replay`: the kernel's (E, F n_steps,
     decision_width) decisions;
-    `on_forward(d)` sees the Data of every forward, in order."""
+    `on_forward(d)` sees the Data of every forward, in order; `records`,
+    a list, receives each forward's solve record (`hopper_newton.
+    newton_plain`'s `record`: its row decisions and its own tests')."""
     if megastep_mode(model) is None:
         return None
     from . import forward as fwd
@@ -320,7 +322,10 @@ def mega_step_n_plain(model: Model, data: Data, n_steps: int, replay=None,
         def stage(dd, i, s=s):
             rep = (None if replay is None else
                    replay_of(model, replay[:, per * s + i]))
-            out = _forward_plain(model, dd, rep)
+            rec = None if records is None else {}
+            out = _forward_plain(model, dd, rep, rec)
+            if records is not None:
+                records.append(rec)
             if on_forward is not None:
                 on_forward(out)
             return out

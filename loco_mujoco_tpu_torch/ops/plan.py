@@ -45,12 +45,13 @@ disabled.
 `mega` (one kernel per forward, `csrc/mega.cu`, a warp per env with its
 state in shared memory sized by `mega_launch`) is a flag on the plan: set
 for uniform statics with uniform friction, contacts against that one plane
-in plane-box groups and at most one plane-mesh group that runs the
-plane-mesh kernels (k < P, graph hulls: its `hopper_collision.MeshPlan`),
-and the compiled widths `CON_MAX`, `PAIR_MAX`. A non-smooth model takes the
-mega path through the in-kernel tendon and muscle stage (`smooth_mu`, the
-reference's `_build_smooth(allow_muscle=True)` `:366-378`, with the tables
-of `MusclePlan`, `pallas_fk.py:1001-1128`, within `MUS_MAX` muscles); the
+in at most one plane-box group, one plane-cylinder group and one
+plane-mesh group that runs the plane-mesh kernels (k < P, graph hulls: its
+`hopper_collision.MeshPlan`), and the compiled widths `CON_MAX`,
+`PAIR_MAX`. A non-smooth model takes the mega path through the in-kernel
+tendon and muscle stage (`smooth_mu`, the reference's
+`_build_smooth(allow_muscle=True)` `:366-378`, with the tables of
+`MusclePlan`, `pallas_fk.py:1001-1128`, within `MUS_MAX` muscles); the
 joint motors beside the muscles keep the smooth stage's actuator table.
 An elliptic smooth model takes it with the extended collision (`mega_ell`,
 `:428-461`; its tables `ext`, the port's `ColPlanExt`,
@@ -64,9 +65,8 @@ reduced branch's saving without a branch (as for the pyramidal fast and
 full branches).
 
 Float64 data gets no plan (`maybe_plan`), as in the reference. Left out of
-the port's plan: damping as per-env rows (`sm_dyn_damping`), plane-cylinder
-groups in the plane-only collision plan (H1's pyramidal mega) and
-plane-mesh groups in the extended one (G1).
+the port's plan: damping as per-env rows (`sm_dyn_damping`) and plane-mesh
+groups in the extended collision plan (G1).
 
 `tables(device)` packs the plan into the two read-only buffers the kernels
 of `csrc/mega.cu` and `csrc/fused.cu` take: an int32 buffer that starts with
@@ -96,10 +96,11 @@ MUS_MAX = 128  # muscles and activations (csrc/forward_core.cuh)
 # checks it)
 HEADER = (
     "NQ", "NV", "NBODY", "NJNT", "NU", "NE", "NFL", "NL", "NPAD", "NROWS",
-    "NCON", "FLAGS", "NBOX", "KBOX", "OFFBOX", "NMESH", "KMESH", "OFFMESH",
-    "F_BODY", "I_BODY", "I_TOPO", "F_JNT", "I_JNT", "F_DOF", "I_DOF",
-    "I_ANC", "I_DMASK", "F_ACT", "I_ACT", "F_EQ", "I_EQ", "F_FL", "I_FL",
-    "F_LIM", "I_LIM", "F_CON", "F_BOX", "I_BOX", "F_MESH", "I_MESH",
+    "NCON", "FLAGS", "NBOX", "KBOX", "OFFBOX", "NCYL", "KCYL", "OFFCYL",
+    "NMESH", "KMESH", "OFFMESH", "F_BODY", "I_BODY", "I_TOPO", "F_JNT",
+    "I_JNT", "F_DOF", "I_DOF", "I_ANC", "I_DMASK", "F_ACT", "I_ACT", "F_EQ",
+    "I_EQ", "F_FL", "I_FL", "F_LIM", "I_LIM", "F_CON", "F_BOX", "I_BOX",
+    "F_CYL", "I_CYL", "F_MESH", "I_MESH",
     "F_VERT", "PACKW", "I_GBODY", "NMOT", "NA", "NMUS", "F_MUS", "I_MUS",
     "I_SEG", "F_SITE", "I_SITE", "F_ACTB", "NELL", "I_ELL", "NXGRP",
     "I_XGRP", "F_XGRP", "I_XPAIR", "F_XPAIR", "I_CON", "I_SHM",
@@ -113,10 +114,10 @@ ELLIPTIC = 256
 WIDTH = {"F_BODY": 20, "I_BODY": 4, "F_JNT": 10, "I_JNT": 4, "F_DOF": 2,
          "I_DOF": 1, "F_ACT": 6, "I_ACT": 4, "F_EQ": 16, "I_EQ": 4,
          "F_FL": 10, "I_FL": 1, "F_LIM": 12, "I_LIM": 2, "F_CON": 32,
-         "F_BOX": 12, "I_BOX": 2, "F_MESH": 16, "I_MESH": 5, "F_MUS": 28,
-         "I_MUS": 6, "I_SEG": 2, "F_SITE": 4, "I_SITE": 1, "F_ACTB": 2,
-         "I_ELL": 3, "I_CON": 2, "I_XGRP": 8, "F_XGRP": 16, "I_XPAIR": 4,
-         "F_XPAIR": 24}
+         "F_BOX": 12, "I_BOX": 2, "F_CYL": 12, "I_CYL": 2, "F_MESH": 16,
+         "I_MESH": 5, "F_MUS": 28, "I_MUS": 6, "I_SEG": 2, "F_SITE": 4,
+         "I_SITE": 1, "F_ACTB": 2, "I_ELL": 3, "I_CON": 2, "I_XGRP": 8,
+         "F_XGRP": 16, "I_XPAIR": 4, "F_XPAIR": 24}
 # pair kinds of the extended in-kernel collision (ColPlanExt._SUP without
 # plane-mesh), as the kernels number them (csrc/mega.cu `collide_ext`)
 EXT_KINDS = {(int(GeomType.PLANE), int(GeomType.SPHERE)): 0,
@@ -437,8 +438,10 @@ class RowPlan:
             desc = dict(kind=None, k=int(g.k), slots=int(g.slots),
                         offset=int(g.offset), margin=float(
                             f64["pair_margin"][pid[0]]))
-            if int(g.t2) == int(GeomType.BOX):
-                desc["kind"] = "box"
+            solid = {int(GeomType.BOX): "box",
+                     int(GeomType.CYLINDER): "cyl"}.get(int(g.t2))
+            if solid:
+                desc["kind"] = solid
                 pg2 = np.asarray(A["pair_geom2"])[pid]
                 desc["pairs"] = [dict(gid=int(q), body=int(gbody[q]),
                                       size=tup(f64["geom_size"][q]),
@@ -459,9 +462,11 @@ class RowPlan:
                 return False
             col.append(desc)
         kinds = [d["kind"] for d in col]
-        if kinds.count("box") > 1 or any(
-                len(d["pairs"]) > 32 for d in col if d["kind"] == "box"):
-            return False  # the kernel's top-K mask holds 32 box pairs
+        if kinds.count("box") > 1 or kinds.count("cyl") > 1 or any(
+                len(d["pairs"]) > 32 for d in col if d["kind"] != "mesh"):
+            # one table of each kind; a box or cylinder group's top-K
+            # ranks at most a warp of pairs (csrc/mega.cu wtopk)
+            return False
         self.groups = col
         return True
 
@@ -601,12 +606,16 @@ class RowPlan:
             statics = [0.0] * 25
         put("F_CON", [*statics, self.timestep, *self.sm_gravity,
                       self.impratio, 0, 0])
-        box = next((d for d in self.groups if d["kind"] == "box"), None)
-        mesh = next((d for d in self.groups if d["kind"] == "mesh"), None)
-        put("F_BOX", [[*p["gpos"], *p["gquat"], *p["size"], box["margin"], 0]
-                      for p in box["pairs"]] if box else [[0] * 12])
-        put("I_BOX", [[p["body"], p["gid"]] for p in box["pairs"]]
-            if box else [[0] * 2])
+        box, cyl, mesh = (next((d for d in self.groups if d["kind"] == kind),
+                               None) for kind in ("box", "cyl", "mesh"))
+        # box and cylinder pairs: local pose, size (half extents, or the
+        # radius and half-length), the group's margin; body and geom
+        for name, grp in (("BOX", box), ("CYL", cyl)):
+            put(f"F_{name}", [[*p["gpos"], *p["gquat"], *p["size"],
+                               grp["margin"], 0] for p in grp["pairs"]]
+                if grp else [[0] * 12])
+            put(f"I_{name}", [[p["body"], p["gid"]] for p in grp["pairs"]]
+                if grp else [[0] * 2])
         if mesh:
             mk = mesh["mesh"]
             put("F_MESH", [[*p["gpos"], *p["gquat"], *mk.pair_f[i], 0]
@@ -665,6 +674,8 @@ class RowPlan:
             NROWS=self.nrows, NCON=self.ncon, FLAGS=flags,
             NBOX=len(box["pairs"]) if box else 0, KBOX=box["k"] if box else 0,
             OFFBOX=box["offset"] if box else 0,
+            NCYL=len(cyl["pairs"]) if cyl else 0, KCYL=cyl["k"] if cyl else 0,
+            OFFCYL=cyl["offset"] if cyl else 0,
             NMESH=len(mesh["pairs"]) if mesh else 0,
             KMESH=mesh["k"] if mesh else 0,
             OFFMESH=mesh["offset"] if mesh else 0, PACKW=self.pack_w,
@@ -922,8 +933,7 @@ class MegaLaunch:
 
 def mega_census(plan) -> dict:
     """The counts of a mega plan that size its per-env state."""
-    groups = ([(len(g["pairs"]), g["k"]) for g in plan.groups
-               if g["kind"] in ("box", "mesh")]
+    groups = ([(len(g["pairs"]), g["k"]) for g in plan.groups]
               + [(len(d["ints"]), d["k"])
                  for d in (plan.ext if plan.mega_ell else [])])
     mp = plan.mp

@@ -30,7 +30,14 @@ cones, all classic analytic pair kinds, Euler) is held the same way on
 `test_torch_a1_fixture.a1_states`' states: its mega forward and megastep
 with the extended collision (geom1 and geom2 exact on active slots), its
 staged fused elliptic layout, and the refusal of its rows by the
-standalone Newton kernel.
+standalone Newton kernel. The committed H1- and Atlas-shaped models
+(`unitree_h1_shape.npz`, Euler, a plane-cylinder group with its pairs in
+order beside a plane-mesh group; `atlas_shape.npz`, RK4, top-K
+plane-cylinder and plane-box groups) are held the same way on
+`test_torch_h1_fixture.biped_states`' states, whose env 0 stands with its
+heel discs upright on the floor and env 1 with them on their rim: both
+mega kernels at 4096 envs, at a ragged count and at one env, the upright
+and the rim envs held with no tie excuse.
 
 Every random input comes from numpy's seeded generator or from a CUDA
 generator seeded with the draw's number (`_qvel`, the draws of
@@ -507,3 +514,75 @@ def test_replayed_row_decisions_are_the_plain_versions_own(state, name):
         hm.mega_forward_plain(model, d, replay=_replay(k), record=own)
     assert bool((k.solver_rows != 0).any())
     chip_smoke._row_departures(torch, k, own["own_rows"], E, name)
+
+
+def _biped_state(name, n):
+    """A committed biped with a plane-cylinder group on the card and
+    `biped_states`' seeded states of it (env 0's heel discs upright on the
+    floor, env 1's on their rim)."""
+    from test_torch_atlas_fixture import ASSET as ATLAS_ASSET
+    from test_torch_h1_fixture import ASSET as H1_ASSET
+    from test_torch_h1_fixture import biped_states
+
+    asset = {"h1": H1_ASSET, "atlas": ATLAS_ASSET}[name]
+    model = io.load_model_npz(asset, device="cuda")
+    qpos, qvel, ctrl = biped_states(io.load_model_npz(asset, device="cpu"),
+                                    n)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")  # noqa
+    return model, io.make_data(model, n).replace(qpos=t(qpos), qvel=t(qvel),
+                                                 ctrl=t(ctrl))
+
+
+@pytest.mark.parametrize("n", [4096, 4093, 1])
+@pytest.mark.parametrize("name", ["h1", "atlas"])
+def test_cyl_mega_forward_matches_plain(state, name, n):
+    """The mega forward with the plane-only collision's cylinder branch
+    (H1: pairs in order; Atlas: the top-K of the cylinder and box groups):
+    active slots and geom2 exact, qacc, qfrc_constraint, efc_force_contact
+    (and H1's euler_dv) rel 5e-4; the upright and the rim envs (0 and 1)
+    match with no tie excuse."""
+    model, d = _biped_state(name, n)
+    assert model.plan.mega and "cyl" in [g["kind"] for g in model.plan.groups]
+    kernels.LAUNCHES.clear()
+    k = fwd.forward(model, d)
+    assert dict(kernels.LAUNCHES) == {"mega_forward": 1}
+    r = hm.mega_forward_plain(model, d, replay=_replay(k))
+    act_r = r.contact.dist < r.contact.includemargin
+    same = torch.all((k.contact.dist < k.contact.includemargin) == act_r,
+                     dim=1)
+    assert bool(same[:2].all()), "an upright or rim env differs"
+    if n > 1:
+        _tie_envs(same, _gap(r))
+    fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
+    if model.plan.euler_dv:
+        fields.append("euler_dv")
+    for f in fields:
+        got, ref = getattr(k, f)[same], getattr(r, f)[same]
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), f
+    on = act_r & same[:, None]
+    g = next(g for g in model.groups if g.t2 == 5)  # the cylinder group
+    assert bool(on[0, g.offset:g.offset + g.k * g.slots].any())
+    assert torch.equal(k.contact.geom2[on], r.contact.geom2[on])
+    assert float((k.contact.dist - r.contact.dist).abs()[on].max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [4096, 4093, 1])
+@pytest.mark.parametrize("name", ["h1", "atlas"])
+def test_cyl_megastep_matches_plain(state, name, n):
+    """The megastep (H1 Euler, Atlas RK4) with the cylinder branch, a
+    whole control step (10 substeps; 2 at the ragged count and at one
+    env, as test_mega_ragged_and_single_env), held to chip_smoke.py's
+    megastep rule (`_megastep_rule`: rel 5e-4 with the decisions
+    replayed; ties within 0.5% of the envs)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _biped_state(name, n)
+    steps = 10 if n == 4096 else 2
+    kernels.LAUNCHES.clear()
+    fwd.step_n(model, d, steps)
+    assert dict(kernels.LAUNCHES) == {"megastep": 1}
+    k = chip_smoke._megastep_rule(torch, model, d, steps, name)[0]
+    assert torch.allclose(k.time, d.time + steps * model.opt.timestep)
+    assert torch.equal(k.qacc, k.qacc_warmstart)

@@ -3,8 +3,9 @@
 `csrc/mega.cu` runs one warp per env with the env's state in the block's
 dynamic shared memory, laid out per env from the model's census by
 `ops/plan.py`'s `MegaLaunch` (the table I_SHM of the packed plan). Here,
-for the four configurations of `chip_smoke.py`'s main path (the torque
-humanoid with RK4 and with Euler, the muscle humanoid, A1):
+for the configurations of `chip_smoke.py`'s main path (the torque
+humanoid with RK4 and with Euler, the muscle humanoid, A1, and the H1- and
+Atlas-shaped bipeds with their plane-cylinder groups):
 
 - the shared bytes per env and the envs per block fit a Hopper block's
   227 KB, and leave at least `RESIDENT_FLOOR` (4) resident warps per SM;
@@ -38,7 +39,9 @@ from loco_mujoco_tpu_torch.ops import plan as tplan
 REPO = Path(__file__).resolve().parent.parent
 ASSETS = REPO / "loco_mujoco_tpu_torch" / "assets"
 SRC = (REPO / "loco_mujoco_tpu_torch" / "csrc" / "mega.cu").read_text()
-CONFIGS = ("rk4", "euler", "muscle", "a1")
+CONFIGS = ("rk4", "euler", "muscle", "a1", "h1", "atlas")
+ASSET_OF = {"muscle": "humanoid_muscle_shape", "a1": "unitree_a1_shape",
+            "h1": "unitree_h1_shape", "atlas": "atlas_shape"}
 
 
 def _model(name):
@@ -48,9 +51,7 @@ def _model(name):
             aux["opt.integrator"] = 0
         return io.model_from_numpy(leaves, aux, device="cpu",
                                    dtype=torch.float32)
-    asset = "humanoid_muscle_shape" if name == "muscle" else \
-        "unitree_a1_shape"
-    return io.load_model_npz(ASSETS / f"{asset}.npz", device="cpu")
+    return io.load_model_npz(ASSETS / f"{ASSET_OF[name]}.npz", device="cpu")
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -167,7 +168,7 @@ class _Recorder:
         return call
 
 
-@pytest.mark.parametrize("name", ["euler", "a1"])
+@pytest.mark.parametrize("name", ["euler", "a1", "h1", "atlas"])
 def test_wrappers_pass_the_prototypes(name, monkeypatch):
     """The wrappers' operands, launch and outputs against the prototypes:
     no scratch, the launch plan's shared floats and envs per block, the
@@ -182,7 +183,8 @@ def test_wrappers_pass_the_prototypes(name, monkeypatch):
     n, E = 3, 5
     d = io.make_data(m, E)
     out = hm.mega_forward(m, d)
-    dec = torch.zeros((E, n, hm.decision_width(m)), dtype=torch.int32)
+    dec = torch.zeros((E, hm.forwards_per_step(m) * n, hm.decision_width(m)),
+                      dtype=torch.int32)
     hm.mega_step_n(m, d, n, decisions=dec)
     for fn in ("lmt_mega_forward", "lmt_megastep"):
         args, types = rec.calls[fn], hm._SIGNATURES[fn]

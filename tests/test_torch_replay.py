@@ -18,9 +18,11 @@ own recorded decisions is bit-equal to the solve that recorded them, in
 every output and in the record itself; a flipped row decision changes the
 replayed solve (the replay reads it); the megastep's per-forward record
 (`hopper_mega.decisions_of` / `replay_of`) round-trips through
-`mega_step_n_plain`; the row words pack and unpack exactly; a solve
-replaying itself records its own row decisions (`own_rows`, which the card
-checks hold against a kernel's) equal to the replayed ones; and the mega
+`mega_step_n_plain`, whose per-forward solve records show a forced
+row decision (one the plain version's own test refuses); the row words
+pack and unpack exactly; a solve replaying itself records its own row
+decisions (`own_rows`, which the card checks hold against a kernel's)
+equal to the replayed ones; and the mega
 plain version's float64 solve of A1's elliptic problem (`solve64`, the
 elliptic mega kernels' precision) is the float64 solve rounded, where the
 float32 solve replaying the same decisions lies past rel 5e-4.
@@ -140,6 +142,39 @@ def test_megastep_record_round_trips(name):
     rep = hm.mega_step_n_plain(m, d, 2, replay=dec)
     for f in ("qpos", "qvel", "qacc_warmstart"):
         assert torch.equal(getattr(own, f), getattr(rep, f)), f
+
+
+def test_megastep_records_forced_row_decisions():
+    """`mega_step_n_plain`'s `records`: one solve record per forward; a
+    run replaying its own decisions forces no row decision its own tests
+    refuse (`rows` == `own_rows`, the megastep rule's forced decisions in
+    chip_smoke._megastep_rule), and a flipped row decision at the first
+    forward is one such decision, in that env only."""
+    m, d = _state("torque")
+    leaves, aux = io.read_model_npz(ASSETS / "humanoid_torque_shape.npz")
+    aux["opt.integrator"] = 0
+    m = io.model_from_numpy(leaves, aux, device="cpu", dtype=torch.float32)
+    decs = []
+    hm.mega_step_n_plain(m, d, 2, on_forward=lambda o: decs.append(
+        hm.decisions_of(o)))
+    dec = torch.stack(decs, dim=1)
+    recs = []
+    hm.mega_step_n_plain(m, d, 2, replay=dec, records=recs)
+    assert len(recs) == 2
+    for rec in recs:
+        assert torch.equal(rec["rows"], rec["own_rows"])
+    rows = hm.replay_of(m, dec[:, 0])[3]
+    first = hn.unpack_row_bits(rows[:, 0], m.plan.nrows)
+    s0 = m.plan.nrows - sum(m.plan.rows_per)
+    env = int(torch.nonzero((dec[:, 0, 0] >= 2) & first[:, s0:].any(1))[0])
+    r = s0 + int(torch.nonzero(first[env, s0:])[0])
+    w = 2 + hn.LS_WORDS  # the first Newton step's row words
+    flipped = dec.clone()
+    flipped[env, 0, w + r // 32] ^= 1 << (r % 32)
+    recs = []
+    hm.mega_step_n_plain(m, d, 2, replay=flipped, records=recs)
+    forced = (recs[0]["rows"] != recs[0]["own_rows"]).flatten(1).any(1)
+    assert bool(forced[env]) and int(forced.sum()) == 1
 
 
 def test_row_words_pack_and_unpack():

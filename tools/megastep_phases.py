@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Time the megastep kernel on one GPU and break it down by phase.
 
-    python3 tools/megastep_phases.py [--configs rk4 euler muscle a1]
+    python3 tools/megastep_phases.py [--configs rk4 euler muscle a1 h1 atlas]
         [--envs 4096] [--reps 3] [--root DIR] [--no-phases]
 
 For each configuration of `chip_smoke.py`'s main path (the committed
 HumanoidTorque-shaped model with RK4 and with Euler, the muscle model, the
-A1-shaped model) it drives the main path as the smoke does: the seeded
-dropped state and controls of this checkout's `chip_smoke.seeded_draws`,
+A1-shaped model, the H1- and Atlas-shaped bipeds) it drives the main path
+as the smoke does: the seeded dropped state and controls of this
+checkout's `chip_smoke.seeded_draws` (the bipeds': `seeded_biped`),
 a reset forward and 20 control steps of `forward.step_n` (10 substeps
 each), and prints the main path's rate (control steps x envs per
 second, the `env_steps_per_s` key). At that end state, with the first
@@ -47,6 +48,9 @@ import time
 from pathlib import Path
 
 PHASES = ("fk", "collision", "smooth", "rows", "newton", "integration")
+CONFIGS = ("rk4", "euler", "muscle", "a1", "h1", "atlas")
+ASSET_OF = {"muscle": "humanoid_muscle_shape", "a1": "unitree_a1_shape",
+            "h1": "unitree_h1_shape", "atlas": "atlas_shape"}
 # the Newton solve's parts (where the kernel splits it; the rest of the
 # Newton phase is its row passes)
 NEWTON_PARTS = ("gradient_hessian", "factor_solve", "line_search")
@@ -75,11 +79,8 @@ def _models(io, torch, root: Path, names):
                 aux["opt.integrator"] = 0
             m = io.model_from_numpy(leaves, aux, device=dev,
                                     dtype=torch.float32)
-        elif name == "muscle":
-            m = io.load_model_npz(assets / "humanoid_muscle_shape.npz",
-                                  device=dev)
         else:
-            m = io.load_model_npz(assets / "unitree_a1_shape.npz",
+            m = io.load_model_npz(assets / f"{ASSET_OF[name]}.npz",
                                   device=dev)
         out[name] = m
     return out
@@ -100,9 +101,8 @@ def _time_ms(torch, fn, reps):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--configs", nargs="+",
-                    default=["rk4", "euler", "muscle", "a1"],
-                    choices=["rk4", "euler", "muscle", "a1"])
+    ap.add_argument("--configs", nargs="+", default=list(CONFIGS),
+                    choices=CONFIGS)
     ap.add_argument("--envs", type=int, default=4096)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--root", type=Path,
@@ -143,8 +143,12 @@ def main() -> int:
     t = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
                                   device="cuda")
     for name, m in _models(io, torch, root, args.configs).items():
-        q0, ctrls = {"a1": (qpos_a1, ctrls_a1),
-                     "muscle": (qpos, ctrls_mu)}.get(name, (qpos, ctrls_tq))
+        if name in smoke.BIPEDS:
+            q0, ctrls = smoke.seeded_biped(m, smoke.BIPEDS[name][1], E)
+        else:
+            q0, ctrls = {"a1": (qpos_a1, ctrls_a1),
+                         "muscle": (qpos, ctrls_mu)}.get(name,
+                                                         (qpos, ctrls_tq))
         d, ctrls = io.make_data(m, E).replace(qpos=t(q0)), t(ctrls)
         kernels.LAUNCHES.clear()
         d = fwd.forward(m, d)
