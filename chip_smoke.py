@@ -51,6 +51,18 @@ Run from the repository root: `python3 chip_smoke.py`. It
    5-20 mm, seeded motor ctrls in [-0.3, 0.3]), counters again zeroed
    just before and read just after, and checks the state, the contacts,
    the activations within [0, 1] and that exactly these launches were made;
+   then drives the env layer (`LocoEnv`, `envs.standins.make_env`): the RK4
+   humanoid's
+   env at 4096 envs (random starts on a synthetic trajectory, the
+   target-velocity reward, its fall predicate), 20 `step_batch` calls with
+   seeded actions in episodes of 8 control steps (the auto-reset merge
+   runs), then in one episode without and with joint-damping
+   randomization (the damping rows' plan variant), each beside
+   `forward.step_n` alone on the same state and controls, the megastep
+   with and without the rows in turns, and A1's env with the
+   randomization (Euler: the per-substep mega forward with the rows), and
+   both randomized envs on the staged path (the fused kernel's smooth and
+   elliptic layouts with the rows), counters zeroed and read as above;
 7. holds the mega forward kernel and the megastep kernel (one control
    step), RK4, Euler, muscle (with act_dot and act; the muscle kernels
    both at the end state, which the seeded activations lift off the
@@ -58,7 +70,10 @@ Run from the repository root: `python3 chip_smoke.py`. It
    extended collision's geom1 and geom2 too), H1 and Atlas (their end
    states in contact), and the fused kernel on all four plan
    configurations, the muscle model's non-smooth layout, A1's elliptic
-   layout, H1 and Atlas, to their plain versions replaying the kernels'
+   layout, H1 and Atlas, and the damping rows (the mega forward's
+   plane-only and extended instances, the RK4 megastep, the fused
+   kernel's smooth and elliptic layouts, at the randomized envs' end
+   states), to their plain versions replaying the kernels'
    Newton decisions (the iteration count, the taken steps, the line
    search's signs and each step's Hessian decision of every row), on all
    4096 envs; a mega check (and the elliptic fused check) excuses at most
@@ -66,7 +81,8 @@ Run from the repository root: `python3 chip_smoke.py`. It
    TIE of its margin), as a Newton disagreement at a shared state that a
    float64 witness settles for the kernel, or (the megastep) as a
    trajectory parted by the replay itself, where the kernel is shown
-   right without it (_megastep_rule); and the replayed row decisions
+   right without it, or on a plane-mesh support-vertex tie at a shared
+   state (_megastep_rule); and the replayed row decisions
    may depart from the plain version's own at the first Newton step (the
    shared start) in at most 0.5% of the envs (_row_departures);
 8. times each kernel, its plain version and, where one PyTorch call
@@ -98,6 +114,9 @@ STAGED_STEPS = 2  # the staged path, cut from 20 to keep the run short
 WIDE_STEPS = 1  # the no-plan staged path (the Newton kernel's)
 SUBSTEPS = 10  # physics substeps per control step (RK4: 4 forwards each)
 TIE = 1e-5  # a slot or limit this close to its margin is a float32 tie
+# a slot whose point moved farther (m) between two forwards of one state
+# holds another contact (float32 rounding moves it ~1e-7)
+SLOT_MOVED = 1e-5
 SHOW_ENVS = 10  # envs printed per check
 WITNESS_ITERATIONS = 30  # Newton and line-search steps of the float64 witness
 # the reference's own tolerance on float32 elliptic solves
@@ -341,20 +360,22 @@ def _row_departures(torch, k, own, E, what):
 
 
 def _tie_envs(torch, held, gap, E, what, err=None, newton=None,
-              replay=None):
+              replay=None, vertex=None):
     """Envs where the comparison does not hold are excluded only as float32
     ties: where a contact slot or a joint limit lies within TIE of its
     margin, or (`newton`) where every disagreement of the two versions at
     a state they shared was settled for the kernel by the float64 witness
     (_newton_witness), or (`replay`, the megastep) where the trajectories
-    part by the replay itself (_megastep_rule); and only up to 0.5% of the
-    envs, all three kinds counted together.
+    part by the replay itself (_megastep_rule), or (`vertex`, the
+    megastep) where the two versions part at a shared state on a
+    plane-mesh support-vertex tie there (_vertex_ties); and only up to
+    0.5% of the envs, all four kinds counted together.
     Returns their count; prints each excluded env (`err`: its relative
     error)."""
     out = ~held
     n = int(out.sum())
     tie = gap < TIE
-    for extra in (newton, replay):
+    for extra in (newton, replay, vertex):
         if extra is not None:
             tie = tie | extra
     for e in torch.nonzero(out).flatten().tolist()[:SHOW_ENVS]:
@@ -365,7 +386,9 @@ def _tie_envs(torch, held, gap, E, what, err=None, newton=None,
                  f", Newton disagreement settled by the witness: "
                  f"{bool(newton[e])}")
               + ("" if replay is None else
-                 f", parted by the replay: {bool(replay[e])}"))
+                 f", parted by the replay: {bool(replay[e])}")
+              + ("" if vertex is None else
+                 f", parted on a support-vertex tie: {bool(vertex[e])}"))
     if n > SHOW_ENVS:
         print(f"  {what}: {n - SHOW_ENVS} more envs differ")
     if n and not bool(tie[out].all()):
@@ -376,6 +399,150 @@ def _tie_envs(torch, held, gap, E, what, err=None, newton=None,
     return n
 
 
+def _ulp(torch, x):
+    """The float32 ulp at |x| (float64)."""
+    x = x.abs().float()
+    return (torch.nextafter(x, torch.full_like(x, float("inf"))) - x).double()
+
+
+def _moved(torch, fk, fp, lo, hi):
+    """(E, hi - lo) per slot of a group, active in either forward: its
+    geom or its point differs (past SLOT_MOVED) between the two (`fk`
+    made with `points=True`)."""
+    ck, cp = fk.contact, fp.contact
+    on = (ck.dist < ck.includemargin) | (cp.dist < cp.includemargin)
+    diff = ((ck.geom2 != cp.geom2)
+            | ((ck.pos - cp.pos).abs().amax(-1) > SLOT_MOVED))
+    return (on & diff)[:, lo:hi]
+
+
+def _vertex_ties(torch, m, d, fk, fp, envs):
+    """Among `envs` (a mask): a plane-mesh pair whose slot differs between
+    the kernel's forward `fk` and the plain version's `fp` at the shared
+    state `d` (in geom or point, _moved) has a second hull vertex within 2
+    float32 ulps of its support depth, the ulp taken at the magnitude of
+    the depth's largest term (the mesh origin's height above the plane, b
+    in a.v + b). Which of two such vertices is the support is decided by
+    float32 rounding (of the FK, of a.v + b), and it moves the pair's
+    manifold by the vertices' distance (tests/test_torch_cuda.py's H1
+    env 810: 1.9e-9 apart at b ~ 0.1 m, 5.7 mm apart in x, y). Prints
+    each env's pair."""
+    import numpy as np
+
+    from loco_mujoco_tpu_torch.ops import collision as coll
+    from loco_mujoco_tpu_torch.ops import kinematics
+
+    E, dev = d.qpos.shape[0], d.qpos.device
+    tie = torch.zeros(E, dtype=torch.bool, device=dev)
+    pos = kinematics.kinematics(m, d)
+    for g in m.groups:
+        if not coll.is_plane_mesh(g):
+            continue
+        pid = np.asarray(g.pair_ids)
+        pg1, pg2 = m.pair_geom1[pid], m.pair_geom2[pid]
+        a, b = coll.plane_in_mesh_frame(pos, pg1, pg2)  # (E, P, 3), (E, P)
+        mesh = np.maximum(np.asarray(m.geom_meshid)[pg2], 0)
+        verts = m.mesh_vert[mesh].double()  # (P, V, 3)
+        valid = torch.as_tensor(np.asarray(m.mesh_vertmask)[mesh],
+                                device=dev)
+        h = torch.einsum("epj,pvj->epv", a.double(), verts) \
+            + b.double()[..., None]
+        h = torch.where(valid, h, torch.full_like(h, float("inf")))
+        d0 = h.min(dim=-1).values
+        close = ((h - d0[..., None]) <= 2 * _ulp(torch, b)[..., None]
+                 ).sum(-1) >= 2
+        # the pairs (by their mesh geom) in this group's slots that differ
+        lo, hi = g.offset, g.offset + g.k * g.slots
+        moved = _moved(torch, fk, fp, lo, hi)
+        pg2_t = torch.as_tensor(np.asarray(pg2), device=dev)
+        in_moved = torch.zeros_like(close)
+        for f in (fk, fp):
+            in_moved |= ((f.contact.geom2[:, lo:hi, None] == pg2_t)
+                         & moved[..., None]).any(1)
+        hit = close & envs[:, None]
+        tie |= (hit & in_moved).any(1)
+        for e, q in hit.nonzero().tolist()[:SHOW_ENVS]:
+            print(f"  env {e}: support-vertex tie of pair {int(pid[q])} "
+                  f"(geoms {int(pg1[q])}, {int(pg2[q])}), its slots "
+                  + ("differ" if bool(in_moved[e, q]) else "the same")
+                  + " in the two forwards")
+    return tie
+
+
+def _rank_ties(torch, m, d, fk, fp, envs):
+    """Among `envs` (a mask): at the state `d` the kernel's forward `fk`
+    and the plain version's `fp` (replaying fk's decisions) fill a top-K
+    group with the same pairs but rank some in another order, and the
+    plain version with its slots put in the kernel's order, replaying the
+    same decisions, agrees with the kernel (qacc within rel 5e-4 of the
+    plain version's largest). Which of two pairs whose ranking keys nearly
+    tie ranks first is decided by float32 rounding; it swaps their slots,
+    and a replay of the kernel's decisions then lands on other rows
+    (tests/test_torch_cuda.py's step_batch env 107: two foot meshes'
+    support depths 4.5e-9 apart). A pair that only one of them selects is
+    no such tie. Prints each env's ranks with both versions' depths."""
+    import dataclasses
+
+    from loco_mujoco_tpu_torch.ops import forward as fwd
+    from loco_mujoco_tpu_torch.ops import hopper_fused as hf
+
+    E, dev = d.qpos.shape[0], d.qpos.device
+    perm = torch.arange(m.ncon, device=dev).expand(E, -1).clone()
+    swapped = torch.zeros(E, dtype=torch.bool, device=dev)
+    other = torch.zeros_like(swapped)
+    for g in m.groups:
+        if g.convex or g.k >= len(g.pair_ids):
+            continue
+        first = g.offset + g.slots * torch.arange(g.k, device=dev)
+        ids = [f.contact.geom1[:, first] * m.ngeom + f.contact.geom2[:, first]
+               for f in (fk, fp)]  # (E, k) the pair at each rank
+        diff = ids[0] != ids[1]
+        for e in (envs & diff.any(1)).nonzero().flatten().tolist():
+            ranks = diff[e].nonzero().flatten().tolist()
+            k_ids, p_ids = ids[0][e].tolist(), ids[1][e].tolist()
+            src = {}  # the kernel's rank -> the plain version's
+            for r in ranks:
+                hit = [q for q in ranks if p_ids[q] == k_ids[r]
+                       and q not in src.values()]
+                if not hit:
+                    other[e] = True
+                    break
+                src[r] = hit[0]
+            swapped[e] = True
+            for r, q in src.items():
+                for j in range(g.slots):
+                    perm[e, g.offset + r * g.slots + j] = (
+                        g.offset + q * g.slots + j)
+                print(f"  env {e}: top-K rank {r} of group ({g.t1}, {g.t2}) "
+                      f"holds geom {k_ids[r] % m.ngeom} in the kernel "
+                      f"(depth {float(fk.contact.dist[e, first[r]]):.9g}), "
+                      f"geom {p_ids[r] % m.ngeom} in the plain version "
+                      f"({float(fp.contact.dist[e, first[r]]):.9g})")
+    swapped &= ~other
+    if not bool(swapped.any()):
+        return swapped
+    st = fwd.stages(m, d, plain=True)
+    c = st.contact
+
+    def take(t):
+        idx = perm.reshape(E, -1, *([1] * (t.dim() - 2))).expand_as(t)
+        return t.gather(1, idx)
+
+    c = c.replace(**{f.name: take(getattr(c, f.name))
+                     for f in dataclasses.fields(c)
+                     if isinstance(getattr(c, f.name), torch.Tensor)})
+    r = hf.fused_constraint_plain(
+        m, st.replace(contact=c), (fk.solver_niter, fk.solver_taken,
+                                   fk.solver_ls, fk.solver_rows),
+        solve64=m.plan.mega_ell)
+    rel = (fk.qacc - r.qacc).abs().amax(1) / float(fp.qacc.abs().max())
+    for e in swapped.nonzero().flatten().tolist()[:SHOW_ENVS]:
+        print(f"  env {e}: the plain version in the kernel's slot order "
+              f"replaying its decisions: qacc rel {float(rel[e]):.3g} from "
+              f"the kernel's")
+    return swapped & (rel <= 5e-4)
+
+
 def _megastep_rule(torch, m, S1, n, what, on_forward=None):
     """n substeps of the megastep from S1 against its plain version
     replaying the kernel's recorded decisions: every env's qpos, qvel (and
@@ -383,7 +550,9 @@ def _megastep_rule(torch, m, S1, n, what, on_forward=None):
     trajectories: the margins at the plain version's every forward and at
     the kernel's substep starts, the Newton disagreements at those starts
     (the kernel's and the plain forward of the kernel's own state) that
-    the float64 witness settles, and the envs parted by the replay itself.
+    the float64 witness settles, the envs parted by the replay itself, and
+    the envs whose versions part at one of those starts on a plane-mesh
+    support-vertex tie there (_vertex_ties).
 
     The replay forces on the plain version's state the decisions the
     kernel made at its own; once float32 rounding parts the trajectories
@@ -397,8 +566,11 @@ def _megastep_rule(torch, m, S1, n, what, on_forward=None):
     replayed run the kernel's own forward of that state agrees with the
     plain version replaying it (the same active slots, qacc within rel
     5e-4), with no unsettled disagreement at the kernel's substep starts.
-    The error printed and returned for it stays the replayed
-    comparison's.
+    At a forward where the two rank tied pairs of a top-K differently
+    (_rank_ties), the plain version replays the kernel's decisions on
+    swapped rows; there the kernel agrees where the plain version with
+    its slots in the kernel's order agrees with it. The error printed and
+    returned for it stays the replayed comparison's.
 
     `on_forward(o, j, dec)` sees the replayed run's forward j. Returns
     (ks, the largest error over the held envs, the tie count, the
@@ -412,9 +584,10 @@ def _megastep_rule(torch, m, S1, n, what, on_forward=None):
     ks = hm.mega_step_n(m, S1, n, decisions=dec)
     gaps, starts = [], []
     agree = torch.ones(E, dtype=torch.bool, device=dev)
+    ranked = torch.zeros(E, dtype=torch.bool, device=dev)
 
     def observe(o):
-        nonlocal agree
+        nonlocal agree, ranked
         if len(gaps) % per == 0:  # a substep's first forward
             starts.append(o.qvel)
         gaps.append(_margin_gap(m, o))
@@ -423,9 +596,18 @@ def _megastep_rule(torch, m, S1, n, what, on_forward=None):
             fk.solver_niter, fk.solver_taken, fk.solver_ls, fk.solver_rows))
         act_k = fk.contact.dist < fk.contact.includemargin
         act_p = fp.contact.dist < fp.contact.includemargin
-        agree &= (torch.all(act_k == act_p, dim=1)
-                  & ((fk.qacc - fp.qacc).abs().amax(1)
-                     <= 5e-4 * float(fp.qacc.abs().max())))
+        ok = (torch.all(act_k == act_p, dim=1)
+              & ((fk.qacc - fp.qacc).abs().amax(1)
+                 <= 5e-4 * float(fp.qacc.abs().max())))
+        if not bool(ok.all()):
+            # the two forwards of this state rank tied pairs differently,
+            # so the kernel's decisions are replayed on swapped rows: the
+            # kernel agrees where the plain version in its slot order
+            # agrees with it (_rank_ties)
+            rank = _rank_ties(torch, m, o, fk, fp, ~ok)
+            ranked |= rank
+            ok |= rank
+        agree &= ok
         if on_forward is not None:
             on_forward(o, len(gaps) - 1, dec)
 
@@ -443,11 +625,12 @@ def _megastep_rule(torch, m, S1, n, what, on_forward=None):
     kgaps = []
     apart = torch.zeros(E, dtype=torch.bool, device=dev)
     settled = torch.ones(E, dtype=torch.bool, device=dev)
+    vertex = torch.zeros(E, dtype=torch.bool, device=dev)
     drift = []  # qvel error between the two at each substep's start
     for k in range(n):
         Sk = S1 if k == 0 else hm.mega_step_n(m, S1, k)
         drift.append((Sk.qvel - starts[k]).abs().amax(1))
-        fk = hm.mega_forward(m, Sk)
+        fk = hm.mega_forward(m, Sk, points=True)
         fp = hm.mega_forward_plain(
             m, Sk, replay=(fk.solver_niter, fk.solver_taken, fk.solver_ls,
                            fk.solver_rows))
@@ -455,6 +638,8 @@ def _megastep_rule(torch, m, S1, n, what, on_forward=None):
         a, w = _newton_witness(torch, m, Sk, fk, fp)
         apart |= a
         settled &= ~a | w
+        if bool(a.any()):  # parted at this shared state on a vertex tie
+            vertex |= _vertex_ties(torch, m, Sk, fk, fp, a)
     ro = hm.mega_step_n_plain(m, S1, n)  # the plain version's own decisions
     held = torch.ones(E, dtype=torch.bool, device=dev)
     held_own = torch.ones(E, dtype=torch.bool, device=dev)
@@ -481,9 +666,10 @@ def _megastep_rule(torch, m, S1, n, what, on_forward=None):
               + f"; row decisions the replay forced: {bool(departed[env])}"
               f", the kernel within rel 5e-4 of the plain version on its "
               f"own decisions: {bool(held_own[env])}, agrees with it at "
-              f"every state of the replayed run: {bool(agree[env])}")
+              f"every state of the replayed run: {bool(agree[env])} (on "
+              f"a top-K rank tie at one of them: {bool(ranked[env])})")
     ties = _tie_envs(torch, held, gap, E, f"megastep {what}", rel,
-                     apart & settled, by_replay)
+                     apart & settled, by_replay, vertex)
     # the error over the envs held to the tolerance (all but the ties)
     e = max(float(e[held].max()) for e, _ in step_errs.values())
     return ks, e, ties, int(by_replay.sum()), step_errs, dec
@@ -685,6 +871,10 @@ def seeded_biped(m, seed, E):
     return qpos, rng.uniform(-0.3, 0.3, size=(CONTROL_STEPS, E, m.nu))
 
 
+# ---- the env layer (LocoEnv) on the committed stand-ins --------------------
+ENV_HORIZON = 8  # control steps per episode: the auto-reset runs in the phase
+
+
 def main() -> int:
     import torch
 
@@ -692,6 +882,7 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py runs on the GPU", file=sys.stderr)
         return 2
     from loco_mujoco_tpu_torch.core import io
+    from loco_mujoco_tpu_torch.envs.standins import damping_dr, make_env
     from loco_mujoco_tpu_torch.ops import collision as coll
     from loco_mujoco_tpu_torch.ops import constraint as con
     from loco_mujoco_tpu_torch.ops import forward as fwd
@@ -1032,6 +1223,134 @@ def main() -> int:
           f"{float(S_mu.act.mean()):.4f}, min {float(S_mu.act.min()):.4f}, "
           f"max {float(S_mu.act.max()):.4f}")
 
+    # ---- the env layer: LocoEnv.reset_batch / step_batch -----------------
+    # The HumanoidTorque-shaped env (RK4, 10 substeps) at 4096 envs, without
+    # and with joint-damping randomization (the damping rows' plan variant
+    # in the mega forward and the megastep), and A1's env with it (Euler
+    # with per-env damping has no megastep: each substep is one mega
+    # forward with the rows, then the implicit damping per env in torch);
+    # random trajectory starts, seeded actions, episodes of ENV_HORIZON
+    # control steps (the auto-reset merge runs); counters zeroed just
+    # before each run and read just after.
+    import numpy as np
+
+    env_acts = np.random.default_rng(SEED + 7).uniform(
+        -0.3, 0.3, size=(CONTROL_STEPS, E, model.nu))
+    env_acts_a1 = np.random.default_rng(SEED + 8).uniform(
+        -A1_CTRL, A1_CTRL, size=(CONTROL_STEPS, E, m_a1.nu))
+
+    def act_t(acts, c):
+        return torch.as_tensor(acts[c], dtype=torch.float32, device=dev)
+
+    def env_run(env, acts, steps, expect, what):
+        """reset_batch(E), then `steps` step_batch calls; checks the
+        launches (`expect`) and the streams."""
+        kernels.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = env.reset_batch(E, torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st0, resets = st, torch.zeros((), dtype=torch.int64, device=dev)
+        inputs = []  # each step's start state, for `raw_rate`
+        for c in range(steps):
+            inputs.append(st)
+            st = env.step_batch(st, act_t(acts, c))
+            resets = resets + st.done.sum()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        got = dict(kernels.LAUNCHES)
+        assert got == expect, (what, got)
+        for name in ("obs", "reward"):
+            assert bool(torch.isfinite(getattr(st, name)).all()), name
+        assert st.obs.shape == (E, env.obs_dim)
+        assert bool(((st.reward >= 0) & (st.reward <= 1)).all()), "reward"
+        assert bool(torch.isfinite(st.data.qpos).all())
+        rate = E * steps / wall
+        n_con0 = int((st0.data.contact.dist
+                      < st0.data.contact.includemargin).sum())
+        print(f"env layer, {what}: reset_batch({E}) {1e3 * (t1 - t0):.2f} "
+              f"ms, then {steps} step_batch calls in {wall:.3f} s = "
+              f"{rate:.0f} env-steps/s ({card}); {int(resets)} env resets "
+              f"(horizon {env.horizon}), active contacts at the reset "
+              f"{n_con0} ({n_con0 / E:.2f} per env), absorbing at the end "
+              f"{int(st.absorbing.sum())}; reward mean "
+              f"{float(st.reward.mean()):.4f}; launches {got}")
+        return st, st0, got, rate, inputs
+
+    def raw_rate(env, inputs, acts):
+        """`forward.step_n` alone on the env run's own start states (the
+        auto-resets of fallen envs included) with the same controls: the
+        env layer's overhead is the difference."""
+        ds = [env._apply_dr(s.data.replace(
+            ctrl=act_t(acts, c) * env.norm_act_delta + env.norm_act_mean),
+            s.dr) for c, s in enumerate(inputs)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for m_, d_ in ds:
+            fwd.step_n(m_, d_, SUBSTEPS)
+        torch.cuda.synchronize()
+        return E * len(ds) / (time.perf_counter() - t0)
+
+    # episodes of ENV_HORIZON control steps run the auto-reset; the rate
+    # comparisons with step_n alone take episodes longer than the run, so
+    # that both step the same states
+    env_resets = make_env(model, horizon=ENV_HORIZON)
+    env = make_env(model, horizon=CONTROL_STEPS + 1)
+    env_dr = make_env(model, dr=damping_dr(model), horizon=CONTROL_STEPS + 1)
+    env_a1_dr = make_env(m_a1, dr=damping_dr(m_a1), horizon=ENV_HORIZON)
+    m_dr, m_a1_dr = env_dr.model_dr, env_a1_dr.model_dr
+    assert m_dr.plan is model.plan.dyn_damping() and m_dr.plan.mega
+    assert m_a1_dr.plan.mega_ell and not m_a1_dr.plan.euler_dv
+    assert hm.megastep_mode(m_a1_dr) is None  # the per-substep path
+    mega_launches = {"mega_forward": 1, "megastep": CONTROL_STEPS}
+    env_run(env_resets, env_acts, CONTROL_STEPS, mega_launches,
+            f"RK4, episodes of {ENV_HORIZON} control steps")
+    _, _, _, env_rate, env_inputs = env_run(
+        env, env_acts, CONTROL_STEPS, mega_launches, "RK4")
+    st_dr, _, env_dr_launches, env_dr_rate, env_dr_inputs = env_run(
+        env_dr, env_acts, CONTROL_STEPS, mega_launches,
+        "RK4 with damping randomization")
+    st_a1dr, _, env_a1dr_launches, env_a1dr_rate, _ = env_run(
+        env_a1_dr, env_acts_a1, CONTROL_STEPS,
+        {"mega_forward": 1 + CONTROL_STEPS * SUBSTEPS},
+        "A1 Euler with damping randomization (per-substep mega forward)")
+    draws = st_dr.dr["dof_damping"]
+    assert torch.equal(st_dr.data.dof_damping, draws)
+    assert not torch.equal(draws[0], draws[1]), "one damping draw for all"
+    raw = raw_rate(env, env_inputs, env_acts)
+    raw_dr = raw_rate(env_dr, env_dr_inputs, env_acts)
+    del env_inputs, env_dr_inputs
+    print(f"env layer against step_n alone (same model, start states and "
+          f"controls of each step): RK4 {env_rate:.0f} against {raw:.0f} env-steps/s "
+          f"({100 * (raw / env_rate - 1):.2f}% overhead), with damping "
+          f"randomization {env_dr_rate:.0f} against {raw_dr:.0f} "
+          f"({100 * (raw_dr / env_dr_rate - 1):.2f}%) ({card})")
+    # the damping rows' cost on the megastep: the DR env's end state, with
+    # and without its per-env damping (the model's own), in turns
+    S_dr = st_dr.data
+    S_nodr = S_dr.replace(dof_damping=None)
+    ms_turns = [
+        _time_ms(torch, lambda: hm.mega_step_n(m, d_, SUBSTEPS), reps=3)
+        for m, d_ in ((model, S_nodr), (m_dr, S_dr), (m_dr, S_dr),
+                      (model, S_nodr))]
+    print(f"megastep per control step at the DR env's end state, without / "
+          f"with / with / without the damping rows: "
+          + " / ".join(f"{t:.3f}" for t in ms_turns) + f" ms ({card})")
+    # the staged path of both DR envs (LMT_MEGA=0): the fused kernel's
+    # smooth and elliptic layouts with the damping rows
+    with _staged_path():
+        fwd_per_step = 4 * SUBSTEPS
+        st_sdr, _, staged_dr_launches, staged_dr_rate, _ = env_run(
+            env_dr, env_acts, STAGED_STEPS,
+            {k: n * (1 + fwd_per_step * STAGED_STEPS)
+             for k, n in per_fused.items()},
+            "staged RK4 with damping randomization")
+        st_sa1dr, _, staged_a1dr_launches, staged_a1dr_rate, _ = env_run(
+            env_a1_dr, env_acts_a1, STAGED_STEPS,
+            {"fused": 1 + SUBSTEPS * STAGED_STEPS},
+            "staged A1 Euler with damping randomization")
+
     # ---- the mega forward and the megastep against their plain versions --
     # From the main path's end state. The plain version replays the
     # kernel's Newton decisions (see the Newton check above); envs whose
@@ -1156,6 +1475,15 @@ def main() -> int:
         errs[f"mega_forward_{name}"] = mega_forward_check(m, S_, name)
         errs[f"megastep_{name}"], S1_, flops_ = megastep_check(m, S_, name)
         biped_runs[name] = (S1_, flops_)
+    # the damping rows: the mega forward's plane-only and extended
+    # instances and the megastep, at the DR envs' end states
+    errs["mega_forward_dr"] = mega_forward_check(m_dr, S_dr,
+                                                 "RK4 damping DR")
+    errs["megastep_dr"], S1_dr, step_flops_dr = megastep_check(
+        m_dr, S_dr, "RK4 damping DR")
+    S_a1dr = st_a1dr.data
+    errs["mega_forward_a1_dr"] = mega_forward_check(m_a1_dr, S_a1dr,
+                                                    "A1 damping DR")
 
     # ---- the fused kernel against its plain version, four configurations --
     # At the staged RK4 run's end state, carried into each configuration:
@@ -1163,15 +1491,19 @@ def main() -> int:
     # their active rows agree by construction and every env is held.
     # The muscle model's non-smooth layout at its own staged run's end
     # state, from the staged stages' outputs.
+    # The damping rows (smooth and elliptic layouts) at the staged DR envs'
+    # end states, each env's damping carried along.
     fused_in = {}
-    models.update(muscle=m_mu, a1=m_a1, **bipeds)
+    models.update(muscle=m_mu, a1=m_a1, dr=m_dr, a1_dr=m_a1_dr, **bipeds)
     for name in ("rk4", "euler", "fric", "solref", "muscle", "a1", "h1",
-                 "atlas"):
+                 "atlas", "dr", "a1_dr"):
         m = models[name]
         src = {"muscle": d_staged_mu, "a1": d_staged_a1, "h1": d_staged_h1,
-               "atlas": d_staged_at}.get(name, d_staged)
-        d = start(m).replace(qpos=src.qpos, qvel=src.qvel, ctrl=src.ctrl,
-                             act=src.act, qacc_warmstart=src.qacc_warmstart)
+               "atlas": d_staged_at, "dr": st_sdr.data,
+               "a1_dr": st_sa1dr.data}.get(name, d_staged)
+        d = io.make_data(m, E).replace(
+            qpos=src.qpos, qvel=src.qvel, ctrl=src.ctrl, act=src.act,
+            qacc_warmstart=src.qacc_warmstart, dof_damping=src.dof_damping)
         if name == "muscle":
             d = fwd.stages(m, d)
         else:
@@ -1230,7 +1562,10 @@ def main() -> int:
         "main Euler": launches_eu, "main muscle": launches_mu,
         "staged A1": staged_a1_launches, "main A1": launches_a1,
         "staged H1": staged_h1_launches, "main H1": launches_h1,
-        "staged Atlas": staged_at_launches, "main Atlas": launches_at}
+        "staged Atlas": staged_at_launches, "main Atlas": launches_at,
+        "env RK4 DR": env_dr_launches, "env A1 DR": env_a1dr_launches,
+        "staged env RK4 DR": staged_dr_launches,
+        "staged env A1 DR": staged_a1dr_launches}
 
     def row(name, kernel, run, source, replaces, ms, plain_ms, nbytes_,
             flops, library_ms=None):
@@ -1335,7 +1670,9 @@ def main() -> int:
                            ("muscle", "fused_muscle", "staged muscle"),
                            ("a1", "fused_a1", "staged A1"),
                            ("h1", "fused_h1", "staged H1"),
-                           ("atlas", "fused_atlas", "staged Atlas")):
+                           ("atlas", "fused_atlas", "staged Atlas"),
+                           ("dr", "fused_dr", "staged env RK4 DR"),
+                           ("a1_dr", "fused_a1_dr", "staged env A1 DR")):
         m, d = models[name], fused_in[name]
         k = hf.fused_constraint(m, d)
         vec, pack = hf.vec(m, d), hf.contact_pack(m, d)
@@ -1358,7 +1695,8 @@ def main() -> int:
         step whose forwards did `sflops`."""
         pt = m.plan.tables(dev)
         ins = (S_.qpos, S_.qvel, S_.act, S_.ctrl, S_.qfrc_applied,
-               S_.xfrc_applied, S_.qacc_warmstart)
+               S_.xfrc_applied, S_.qacc_warmstart) + (
+            () if S_.dof_damping is None else (S_.dof_damping,))
         k = fwd.forward(m, S_)
         out_bytes = nbytes(k.qacc, k.qacc_smooth, k.qfrc_constraint,
                            k.contact.dist, k.solver_niter, k.solver_taken) \
@@ -1378,7 +1716,8 @@ def main() -> int:
             (m_mu, S_mu, S1_mu, step_flops_mu, "_muscle", "main muscle"),
             (m_a1, S_a1, S1_a1, step_flops_a1, "_a1", "main A1"),
             (m_h1, S_h1, *biped_runs["h1"], "_h1", "main H1"),
-            (m_at, S_at, *biped_runs["atlas"], "_atlas", "main Atlas")):
+            (m_at, S_at, *biped_runs["atlas"], "_atlas", "main Atlas"),
+            (m_dr, S_dr, S1_dr, step_flops_dr, "_dr", "env RK4 DR")):
         b_fwd, b_step = mega_bounds(m, S_, sflops)
         ms = _time_ms(torch, lambda: hm.mega_forward(m, S_))
         plain = _time_ms(torch, lambda: hm.mega_forward_plain(m, S_), reps=3)
@@ -1389,6 +1728,14 @@ def main() -> int:
                          reps=1)
         row("megastep" + sfx, "megastep", run, "mega.cu",
             "pallas_constraint.py:2800", ms, plain, *b_step)
+    # the mega forward's extended instance with the damping rows (A1's DR
+    # env: no megastep)
+    b_fwd, _ = mega_bounds(m_a1_dr, S_a1dr, [torch.zeros(E, device=dev)])
+    ms = _time_ms(torch, lambda: hm.mega_forward(m_a1_dr, S_a1dr))
+    plain = _time_ms(torch, lambda: hm.mega_forward_plain(m_a1_dr, S_a1dr),
+                     reps=3)
+    row("mega_forward_a1_dr", "mega_forward", "env A1 DR", "mega.cu",
+        "pallas_constraint.py:2335", ms, plain, *b_fwd)
     # the muscle kernels again in deep contact (after the first control step)
     b_fwd, b_step = mega_bounds(m_mu, S_mu_c, step_flops_mu_c)
     ms_fc = _time_ms(torch, lambda: hm.mega_forward(m_mu, S_mu_c))
@@ -1403,6 +1750,11 @@ def main() -> int:
         print(f"  {r['name']:18s} {r['ms']:9.4f} ms  plain {r['plain_ms']:9.4f}"
               f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
               f"launches {r['launches']}")
+    print(f"env layer (step_batch) {env_rate:.0f} env-steps/s RK4 (step_n "
+          f"alone {raw:.0f}), {env_dr_rate:.0f} RK4 with damping DR (step_n "
+          f"alone {raw_dr:.0f}), {env_a1dr_rate:.0f} A1 with damping DR; "
+          f"staged {staged_dr_rate:.0f} RK4 DR, {staged_a1dr_rate:.0f} A1 DR; "
+          f"card: {card}")
     print(f"main path {env_steps:.0f} env-steps/s RK4, {env_steps_eu:.0f} "
           f"Euler, {env_steps_mu:.0f} muscle Euler, {env_steps_a1:.0f} A1, "
           f"{env_steps_h1:.0f} H1, {env_steps_at:.0f} Atlas; staged path "

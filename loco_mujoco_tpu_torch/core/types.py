@@ -343,3 +343,9 @@ class Data:
     # (E, iterations, row words) int32 (hopper_newton.row_bits), written by
     # the fused and mega kernels and their plain versions; None elsewhere
     solver_rows: torch.Tensor | None = None
+    # each env's joint damping (E, nv) where it is domain-randomized
+    # (envs/base.py `_apply_dr`), read by passive, Euler's implicit damping
+    # and the kernels of a plan's `dyn_damping()` variant in place of
+    # Model.dof_damping; None where every env has the model's (the JAX
+    # package carries it as a per-env Model leaf under vmap)
+    dof_damping: torch.Tensor | None = None

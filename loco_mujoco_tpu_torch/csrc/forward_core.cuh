@@ -49,7 +49,12 @@ enum Header {
 };
 enum Flag {
   PASSIVE = 1, ACTUATION = 2, CLAMPCTRL = 4, REFSAFE = 8, UNIFORM = 16,
-  FRIC_UNIFORM = 32, SMOOTH = 64, MUSCLE = 128, ELLIPTIC = 256
+  FRIC_UNIFORM = 32, SMOOTH = 64, MUSCLE = 128, ELLIPTIC = 256,
+  // per-env joint damping (the reference's sm_dyn_damping): the passive
+  // force reads each env's damping row instead of F_DOF's column. The
+  // launchers select the kernel instance that reads the rows (a template
+  // parameter), so the instances without them are the plan's as before.
+  DAMP_ROWS = 512
 };
 // F_CON: plane normal (3), plane point (3), contact frame (9), margin,
 // solref (2), solimp (5), friction (2) -- zero unless UNIFORM -- then the
@@ -265,10 +270,14 @@ __device__ void crb_factor(const Tab& T, Body& s, const float* arm) {
 }
 
 // Velocity stage, passive, motors and xfrc: qfrc_smooth. ctrl (nu),
-// qfrc_applied (nv) and xfrc (nbody, 6) are this env's inputs.
+// qfrc_applied (nv) and xfrc (nbody, 6) are this env's inputs; DAMP: damp
+// (nv) is its joint damping (DAMP_ROWS), else the plan's F_DOF column
+// serves and damp is not read.
+template <bool DAMP>
 __device__ void smooth_force(const Tab& T, const float* ctrl,
                              const float* qfrc_applied, const float* xfrc,
-                             const float* qpos, const float* qvel, Body& s) {
+                             const float* damp, const float* qpos,
+                             const float* qvel, Body& s) {
   const int nb = T.h(NBODY), nv = T.h(NV), nmot = T.h(NMOT), njnt = T.h(NJNT);
   const int flags = T.h(FLAGS);
   const int* topo = T.i(I_TOPO);
@@ -338,7 +347,8 @@ __device__ void smooth_force(const Tab& T, const float* ctrl,
       const float* Jf = jf + 10 * j;
       passive[ji[4 * j + 2]] += -Jf[7] * (qpos[ji[4 * j + 1]] - Jf[8]);
     }
-    for (int d = 0; d < nv; ++d) passive[d] = passive[d] - df[2 * d] * qvel[d];
+    for (int d = 0; d < nv; ++d)
+      passive[d] = passive[d] - (DAMP ? damp[d] : df[2 * d]) * qvel[d];
   }
   if (nmot) {  // the joint motors: ctrl index ai[4 m + 3]
     const float* af = T.f(F_ACT);

@@ -17,7 +17,10 @@
 // rows of the slots the staged collision filled (:1447-1590), the Newton
 // solve (newton_core.cuh), the force of every row and qfrc = J'f
 // (:1864-1890), and euler_dv = (M + h diag(damping))^-1 M qacc
-// (:1893-1906). The device functions are forward_core.cuh's (csrc/mega.cu
+// (:1893-1906). A plan with DAMP_ROWS (per-env joint damping, the
+// reference's sm_dyn_damping, :529-537, with its rows at :1270) carries
+// each env's damping after the warm start in the smooth vector, and the
+// passive force reads it there. The device functions are forward_core.cuh's (csrc/mega.cu
 // has warp-per-env counterparts of them); the arithmetic follows the
 // port's staged path, the
 // kernel's plain version (ops/hopper_fused.py fused_constraint_plain).
@@ -70,7 +73,8 @@ using namespace lmt;
 // Env-major operands and outputs of the fused kernel.
 struct Fused {
   const float* vec;   // (E, nvec) smooth: [qpos qvel xipos ximat xanchor
-                      // xaxis ctrl qfrc_applied xfrc ws]; non-smooth: [qpos
+                      // xaxis ctrl qfrc_applied xfrc ws], then the env's
+                      // damping (nv) under DAMP_ROWS; non-smooth: [qpos
                       // qvel cdof com cinert qfrc_smooth ws armature]
   const float* pack;  // (E, ncon, pack_w)
   float *qacc, *force, *qfrc, *qacc_smooth, *dv;  // dv null: no euler_dv
@@ -79,6 +83,9 @@ struct Fused {
   int nvec;
 };
 
+// DAMP: the plan's per-env damping rows (DAMP_ROWS), an instance of its
+// own, so that the kernel without them is unchanged.
+template <bool DAMP>
 __global__ void __launch_bounds__(32) fused_kernel(Tab T, Io io, Fused F) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= io.E) return;
@@ -110,9 +117,12 @@ __global__ void __launch_bounds__(32) fused_kernel(Tab T, Io io, Fused F) {
     const float* app = ctrl + nu;
     const float* xfrc = app + nv;
     for (int k = 0; k < nv; ++k) ws[k] = xfrc[6 * nb + k];
+    // per-env damping rows after the warm start (_forward_env_block
+    // :1270, the vec of fused_constraint :2254)
+    const float* damp = DAMP ? xfrc + 6 * nb + nv : nullptr;
     com_pos(T, s);
     crb_factor(T, s, nullptr);
-    smooth_force(T, ctrl, app, xfrc, qpos, qvel, s);
+    smooth_force<DAMP>(T, ctrl, app, xfrc, damp, qpos, qvel, s);
   } else {
     for (int d = 0; d < nv; ++d)
       for (int k = 0; k < 6; ++k) s.cdof[d][k] = v[6 * d + k];
@@ -211,8 +221,9 @@ extern "C" int lmt_fused(const void* ints, const void* flts, const void* vec,
                          void* aref, void* D,
                          void* R,
                          void* act, void* fl, void* jar, void* jv, void* mu,
-                         int E, int nvec, int iterations, int ls_iterations,
-                         float scale, float tol, void* stream) {
+                         int E, int nvec, int damp_rows, int iterations,
+                         int ls_iterations, float scale, float tol,
+                         void* stream) {
   if (E <= 0) return 0;
   const Tab T{(const int*)ints, (const float*)flts};
   const Io io{(float*)J,   (float*)aref, (float*)D,  (float*)R,
@@ -222,7 +233,10 @@ extern "C" int lmt_fused(const void* ints, const void* flts, const void* vec,
   const Fused F{(const float*)vec, (const float*)pack, (float*)qacc,
                 (float*)force, (float*)qfrc, (float*)qacc_smooth, (float*)dv,
                 (int*)iters, (int*)taken, (int*)ls, (int*)rows, nvec};
-  fused_kernel<<<(E + kBlock - 1) / kBlock, kBlock, 0,
-                 (cudaStream_t)stream>>>(T, io, F);
+  const int grid = (E + kBlock - 1) / kBlock;
+  if (damp_rows)
+    fused_kernel<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(T, io, F);
+  else
+    fused_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(T, io, F);
   return (int)cudaGetLastError();
 }

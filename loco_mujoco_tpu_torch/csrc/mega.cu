@@ -23,6 +23,12 @@
 // pallas_constraint.py:1245-1264) after the smooth stage: qfrc_smooth gains
 // the muscles' joint forces and the kernel writes act_dot (E, na) in act
 // slot order.
+// A plan with per-env joint damping (flag DAMP_ROWS, the reference's
+// sm_dyn_damping, pallas_constraint.py:529-537) reads each env's damping
+// from the (E, nv) operand `damp` (the rows _forward_env_block appends to
+// its packed vec, :1237-1240) in the smooth stage's passive force; such a
+// plan has no euler_dv (:314-329), so Euler with it is no megastep path
+// and the one-forward kernel serves its substeps.
 // megastep_kernel replaces _megastep_batched (:2800, its pallas_call) with
 // its body _make_megastep_kernel (:2638): the same forward looped over n
 // substeps, carrying qpos, qvel and the warm start. RK4 runs the four
@@ -685,6 +691,7 @@ struct In {
   const float* ctrl;
   const float* qfrc_applied;
   const float* xfrc;
+  const float* damp;  // (E, nv) per-env joint damping, read under DAMP_ROWS
 };
 
 // The solve's options.
@@ -1520,10 +1527,14 @@ __device__ void crb(const Tab& T, const Env& s) {
 
 // Velocity stage, passive, motors and xfrc: qfrc_smooth into V_QFS (the
 // muscles add theirs after). ctrl (nu), qfrc_applied (nv) and xfrc
-// (nbody, 6) are this env's inputs (global).
+// (nbody, 6) are this env's inputs (global); DAMP: damp (nv) is its joint
+// damping (DAMP_ROWS), else the plan's F_DOF column serves and damp is not
+// read.
+template <bool DAMP>
 __device__ void smooth_force(const Tab& T, const Env& s, const float* ctrl,
                              const float* qfrc_applied, const float* xfrc,
-                             const float* qpos, const float* qvel) {
+                             const float* damp, const float* qpos,
+                             const float* qvel) {
   const int nb = s.nb, nv = s.nv, nmot = T.h(NMOT), njnt = T.h(NJNT);
   const int flags = T.h(FLAGS);
   const int* topo = T.i(I_TOPO);
@@ -1602,7 +1613,7 @@ __device__ void smooth_force(const Tab& T, const Env& s, const float* ctrl,
       const float* Jf = jf + 10 * j;
       const int d = ji[4 * j + 2];
       passive[d] = (passive[d] + -Jf[7] * (qpos[ji[4 * j + 1]] - Jf[8])) -
-                   dfp[2 * d] * qvel[d];
+                   (DAMP ? damp[d] : dfp[2 * d]) * qvel[d];
     }
   }
   if (nmot && s.lane == 0) {  // the joint motors: ctrl index ai[4 m + 3]
@@ -2649,6 +2660,7 @@ __device__ void euler_dv(const Tab& T, const Env& s, const float* qacc,
 struct Out {
   float *qacc_smooth, *qfrc, *cdist, *cforce, *dv;
   int *cgid, *cgid1;
+  float* cpos;  // the slots' points (E, ncon, 3), or null
 };
 
 // The row quantities of the solve over the env's shared arrays.
@@ -2663,8 +2675,10 @@ __device__ Rows rows_of(const Tab& T, const Env& s) {
 // the decisions out (ls_out: the line search's words, row_out: each
 // step's row words; either may be null). EXT: the
 // extended collision and elliptic rows of a mega_ell plan (a separate
-// instance, so that the plane-only kernels carry none of its code).
-template <bool EXT>
+// instance, so that the plane-only kernels carry none of its code). DAMP:
+// the plan's per-env damping rows (DAMP_ROWS), read from in.damp; an
+// instance of its own, so that the kernels without them are unchanged.
+template <bool EXT, bool DAMP>
 __device__ void forward_env(const Tab& T, const Opt& o, const In& in,
                             const Env& s, const float* qpos,
                             const float* qvel, int& iters, unsigned& taken,
@@ -2675,8 +2689,9 @@ __device__ void forward_env(const Tab& T, const Opt& o, const In& in,
   phase_tick(e, s.lane, PH_FK);
   com_pos(T, s);
   crb(T, s);
-  smooth_force(T, s, ctrl, in.qfrc_applied + (size_t)e * nv,
-               in.xfrc + (size_t)e * s.nb * 6, qpos, qvel);
+  smooth_force<DAMP>(T, s, ctrl, in.qfrc_applied + (size_t)e * nv,
+                     in.xfrc + (size_t)e * s.nb * 6,
+                     DAMP ? in.damp + (size_t)e * nv : nullptr, qpos, qvel);
   if (T.h(FLAGS) & MUSCLE) muscle_block(T, s, ctrl);
   // qacc_smooth = M^-1 qfrc_smooth (inertia.factor_m, linalg.cho_solve)
   for (int a = s.lane; a < nv; a += kWarp)
@@ -2703,7 +2718,8 @@ __device__ void forward_env(const Tab& T, const Opt& o, const In& in,
 
 // The one-forward kernel's outputs of the warp's env: qacc, qacc_smooth,
 // qfrc = J'f with the row forces at the solution, the contact rows'
-// forces, the slots' depths and geom ids, euler_dv, act_dot.
+// forces, the slots' depths and geom ids (and points, where asked),
+// euler_dv, act_dot.
 template <bool EXT>
 __device__ void forward_out(const Tab& T, const Out& out, const Env& s,
                             float* act_dot_out) {
@@ -2731,6 +2747,9 @@ __device__ void forward_out(const Tab& T, const Out& out, const Env& s,
     out.cdist[(size_t)e * ncon + c] = S[S_DIST];
     out.cgid[(size_t)e * ncon + c] = ibits(S[S_GID]);
     if constexpr (EXT) out.cgid1[(size_t)e * ncon + c] = ibits(S[S_GID1]);
+    if (out.cpos)
+      for (int k = 0; k < 3; ++k)
+        out.cpos[((size_t)e * ncon + c) * 3 + k] = S[S_POS + k];
   }
   if (T.h(FLAGS) & MUSCLE) {
     const int na = T.h(NA);
@@ -2769,7 +2788,7 @@ __device__ Env load_env(const Tab& T, float* smem, int env_floats, int e,
 
 // One warp per env, kMaxEnvsPerBlock envs at most per block (blockDim.x /
 // 32 of them), env_floats of dynamic shared memory each.
-template <bool EXT>
+template <bool EXT, bool DAMP>
 __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
     mega_forward_kernel(Tab T, Opt o, In in, Out out,
                         const float* __restrict__ qpos_in,
@@ -2790,9 +2809,9 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
   const int nrw = (s.nrows + 31) >> 5;
   int it;
   unsigned taken;
-  forward_env<EXT>(T, o, in, s, s.vec(V_QPOS), s.vec(V_QVEL), it, taken,
-                   (unsigned*)ls_out + (size_t)e * kLsWords,
-                   (unsigned*)rows_out + (size_t)e * o.iterations * nrw);
+  forward_env<EXT, DAMP>(T, o, in, s, s.vec(V_QPOS), s.vec(V_QVEL), it,
+                         taken, (unsigned*)ls_out + (size_t)e * kLsWords,
+                         (unsigned*)rows_out + (size_t)e * o.iterations * nrw);
   forward_out<EXT>(T, out, s, act_dot_out);
   const int nv = s.nv;
   for (int k = s.lane; k < nv; k += kWarp)
@@ -2811,7 +2830,7 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
 // kLsWords + iterations (nrows + 31) / 32: the iteration count, the taken
 // bits, the line search's decision bits and the rows' Hessian decision
 // words of every forward, when not null.
-template <bool EXT>
+template <bool EXT, bool DAMP>
 __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
     megastep_kernel(Tab T, Opt o, In in, const float* __restrict__ qpos_in,
                     const float* __restrict__ qvel_in,
@@ -2871,9 +2890,9 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
     int it;
     unsigned taken;
     int* dd = record(f);
-    forward_env<EXT>(T, o, in, s, rk4 ? qs : qpos, rk4 ? vs : qvel, it,
-                     taken, dd ? (unsigned*)(dd + 2) : nullptr,
-                     dd ? (unsigned*)(dd + 2 + kLsWords) : nullptr);
+    forward_env<EXT, DAMP>(T, o, in, s, rk4 ? qs : qpos, rk4 ? vs : qvel,
+                           it, taken, dd ? (unsigned*)(dd + 2) : nullptr,
+                           dd ? (unsigned*)(dd + 2 + kLsWords) : nullptr);
     put(dd, it, taken);
     // the updates round as the plain version's separate tensor operations
     // do (forward.euler, forward.rk4: each product, then each sum), so
@@ -2942,23 +2961,27 @@ int prepare(K kernel, size_t bytes) {
 
 // ints/flts: the packed plan (ops/plan.py). Per-env inputs env-major:
 // qpos (E, nq), qvel, ws (E, nv), act_in (E, na), ctrl (E, nu), qfrc_applied
-// (E, nv), xfrc (E, nbody, 6). Outputs env-major: qacc, qacc_smooth, qfrc
-// (E, nv), cdist (E, ncon), cgid and cgid1 (E, ncon) int (geom 2 and, from
-// the extended collision, geom 1), cforce (E, nrows - first contact row) in
-// the plan's row layout, iters and taken (E,) int, ls (E, 4) int (the line
-// search's decisions), rows (E, iterations, (nrows + 31) / 32) int (each
-// step's Hessian decisions of the rows), dv (E, nv) or null (no euler_dv),
-// act_dot (E, na) (written with muscles). The launch (ops/plan.py
+// (E, nv), xfrc (E, nbody, 6), damp (E, nv) (each env's joint damping,
+// for a plan with DAMP_ROWS; null selects the instances without the
+// rows). Outputs env-major: qacc, qacc_smooth, qfrc (E, nv), cdist (E,
+// ncon), cgid and cgid1 (E, ncon) int (geom 2 and, from the extended
+// collision, geom 1), cforce (E, nrows - first contact row) in the plan's
+// row layout, iters and taken (E,) int, ls (E, 4) int (the line search's
+// decisions), rows (E, iterations, (nrows + 31) / 32) int (each step's
+// Hessian decisions of the rows), dv (E, nv) or null (no euler_dv),
+// act_dot (E, na) (written with muscles), cpos (E, ncon, 3) the slots'
+// points, or null (the checks read them; the main path does not). The launch (ops/plan.py
 // MegaLaunch): env_floats of shared memory per env, envs_per_block envs
 // (warps) per block. ext: the plan is mega_ell (the extended collision and
 // elliptic rows).
 extern "C" int lmt_mega_forward(
     const void* ints, const void* flts, const void* qpos, const void* qvel,
     const void* act_in, const void* ctrl, const void* qfrc_applied,
-    const void* xfrc, const void* ws, void* qacc, void* qacc_smooth,
-    void* qfrc, void* cdist, void* cgid, void* cgid1, void* cforce,
+    const void* xfrc, const void* ws, const void* damp, void* qacc,
+    void* qacc_smooth, void* qfrc, void* cdist, void* cgid, void* cgid1, void* cforce,
     void* iters, void* taken, void* ls, void* rows, void* dv, void* act_dot,
-    int E, int iterations, int ls_iterations, int ext, int env_floats,
+    void* cpos, int E, int iterations, int ls_iterations, int ext,
+    int env_floats,
     int envs_per_block, float scale, float tol, void* stream) {
   if (E <= 0) return 0;
   if (envs_per_block < 1 || envs_per_block > kMaxEnvsPerBlock)
@@ -2966,9 +2989,10 @@ extern "C" int lmt_mega_forward(
   const Tab T{(const int*)ints, (const float*)flts};
   const Opt o{E, iterations, ls_iterations, scale, tol};
   const In in{(const float*)ctrl, (const float*)qfrc_applied,
-              (const float*)xfrc};
+              (const float*)xfrc, (const float*)damp};
   const Out out{(float*)qacc_smooth, (float*)qfrc, (float*)cdist,
-                (float*)cforce, (float*)dv, (int*)cgid, (int*)cgid1};
+                (float*)cforce, (float*)dv, (int*)cgid, (int*)cgid1,
+                (float*)cpos};
   const size_t bytes = (size_t)envs_per_block * env_floats * sizeof(float);
   const int grid = (E + envs_per_block - 1) / envs_per_block;
   auto go = [&](auto kernel) {
@@ -2981,7 +3005,11 @@ extern "C" int lmt_mega_forward(
         env_floats);
     return (int)cudaGetLastError();
   };
-  return ext ? go(mega_forward_kernel<true>) : go(mega_forward_kernel<false>);
+  if (damp)
+    return ext ? go(mega_forward_kernel<true, true>)
+               : go(mega_forward_kernel<false, true>);
+  return ext ? go(mega_forward_kernel<true, false>)
+             : go(mega_forward_kernel<false, false>);
 }
 
 // The same inputs; outputs qpos, qvel, ws (E, nv) and act_out (E, na)
@@ -2991,7 +3019,8 @@ extern "C" int lmt_mega_forward(
 extern "C" int lmt_megastep(
     const void* ints, const void* flts, const void* qpos, const void* qvel,
     const void* act_in, const void* ctrl, const void* qfrc_applied,
-    const void* xfrc, const void* ws, void* qpos_out, void* qvel_out,
+    const void* xfrc, const void* ws, const void* damp, void* qpos_out,
+    void* qvel_out,
     void* act_out, void* ws_out, void* decisions, int E, int n_steps,
     int iterations, int ls_iterations, int rk4, int use_dv, int ext,
     int env_floats, int envs_per_block, float scale, float tol, float dt,
@@ -3002,7 +3031,7 @@ extern "C" int lmt_megastep(
   const Tab T{(const int*)ints, (const float*)flts};
   const Opt o{E, iterations, ls_iterations, scale, tol};
   const In in{(const float*)ctrl, (const float*)qfrc_applied,
-              (const float*)xfrc};
+              (const float*)xfrc, (const float*)damp};
   const size_t bytes = (size_t)envs_per_block * env_floats * sizeof(float);
   const int grid = (E + envs_per_block - 1) / envs_per_block;
   auto go = [&](auto kernel) {
@@ -3015,14 +3044,18 @@ extern "C" int lmt_megastep(
         n_steps, dt, rk4, use_dv, env_floats);
     return (int)cudaGetLastError();
   };
-  return ext ? go(megastep_kernel<true>) : go(megastep_kernel<false>);
+  if (damp)
+    return ext ? go(megastep_kernel<true, true>)
+               : go(megastep_kernel<false, true>);
+  return ext ? go(megastep_kernel<true, false>)
+             : go(megastep_kernel<false, false>);
 }
 
 // Resident warps (envs) per SM of both kernels at this launch (out[0] the
-// one-forward kernel, out[1] the megastep), from
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+// one-forward kernel, out[1] the megastep; damp: the instances with the
+// damping rows), from cudaOccupancyMaxActiveBlocksPerMultiprocessor.
 extern "C" int lmt_mega_occupancy(int env_floats, int envs_per_block,
-                                  int ext, int* out) {
+                                  int ext, int damp, int* out) {
   const size_t bytes = (size_t)envs_per_block * env_floats * sizeof(float);
   int n[2] = {0, 0};
   auto occ = [&](auto kernel, int* o) {
@@ -3032,11 +3065,20 @@ extern "C" int lmt_mega_occupancy(int env_floats, int envs_per_block,
         o, kernel, kWarp * envs_per_block, bytes);
     return (int)cudaGetLastError();
   };
-  int rc = ext ? occ(mega_forward_kernel<true>, n)
-               : occ(mega_forward_kernel<false>, n);
-  if (!rc)
-    rc = ext ? occ(megastep_kernel<true>, n + 1)
-             : occ(megastep_kernel<false>, n + 1);
+  int rc;
+  if (damp) {
+    rc = ext ? occ(mega_forward_kernel<true, true>, n)
+             : occ(mega_forward_kernel<false, true>, n);
+    if (!rc)
+      rc = ext ? occ(megastep_kernel<true, true>, n + 1)
+               : occ(megastep_kernel<false, true>, n + 1);
+  } else {
+    rc = ext ? occ(mega_forward_kernel<true, false>, n)
+             : occ(mega_forward_kernel<false, false>, n);
+    if (!rc)
+      rc = ext ? occ(megastep_kernel<true, false>, n + 1)
+               : occ(megastep_kernel<false, false>, n + 1);
+  }
   out[0] = n[0] * envs_per_block;
   out[1] = n[1] * envs_per_block;
   return rc;

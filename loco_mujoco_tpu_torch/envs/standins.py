@@ -1,0 +1,135 @@
+"""LocoEnv of the committed stand-in models (`assets/*.npz`).
+
+The reference builds its envs from the robot classes' XML and its
+datasets, which the port does not carry. A stand-in's env is built here
+from the model alone: the obs spec of its joints (positions, then
+velocities, in the reference robot's order), a seeded synthetic
+trajectory inside its joint ranges, the target-velocity reward and the fall
+predicate of its kind (`base.humanoid_has_fallen` with the root and
+abdomen joints in the pelvis and lumbar roles, or
+`base.quadruped_has_fallen`). `env_parts` gives the same parts as plain
+values, so that another package's env can be built from them;
+`damping_dr` is a Joints-section randomization config of the model's own
+damping.
+
+    from loco_mujoco_tpu_torch.core import io
+    from loco_mujoco_tpu_torch.envs import standins
+    model = io.load_model_npz(".../humanoid_torque_shape.npz")
+    env = standins.make_env(model, dr=standins.damping_dr(model))
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+TRAJ_DT = 0.004  # the synthetic trajectory's own dt (resampled to control)
+TARGET_VELOCITY = 1.25  # the target-velocity reward's v*
+# the reference humanoid's fall roles (models/humanoids/humanoid.py:192-196,
+# pelvis_ty .. lumbar_rotation) as the stand-in's root and abdomen joints;
+# without an abdomen (the small fixture) the root hinges take the lumbar
+# roles too
+HUMANOID_ROLES = ("root_z", "root_ry", "root_rx", "root_rz", "abdomen_y",
+                  "abdomen_x", "abdomen_z")
+LUMBAR_FALLBACK = {"abdomen_y": "root_ry", "abdomen_x": "root_rx",
+                   "abdomen_z": "root_rz"}
+
+
+def env_joints(model):
+    """The joints in the obs order of the reference robot: the two
+    horizontal root slides (dropped from the obs) first, then the height
+    (the humanoid stand-ins' root_z; A1's trunk_tz already third)."""
+    names = sorted(model.names["joint"], key=model.names["joint"].get)
+    lead = [j for j in ("root_x", "root_y", "root_z") if j in names]
+    return lead + [j for j in names if j not in lead]
+
+
+def synthetic_trajectory(model, joints, traj_dt=TRAJ_DT, n=120, seed=3):
+    """Seeded trajectory files (numpy): sinusoids of the hinges about their
+    qpos0 (the stand-ins' standing pose, clipped into range) over a tenth
+    of their half range, the forward slide a ramp at 0.8 m/s, the height
+    10 mm below qpos0 (the feet pressed into the floor, in contact from
+    the start), the other root coordinates small; the velocities their
+    derivatives; cut into two trajectories of n / 2 samples."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) * traj_dt
+    jid = model.names["joint"]
+    jr = model.jnt_range.cpu().numpy().astype(np.float64)
+    q0 = model.qpos0.cpu().numpy().astype(np.float64)
+    files = {}
+    for k, j in enumerate(joints):
+        w, ph = 2 * np.pi * rng.uniform(0.5, 1.5), rng.uniform(0, 2 * np.pi)
+        q = float(q0[int(model.jnt_qposadr[jid[j]])])
+        if k == 0:
+            mid, amp, ramp = q, 0.01, 0.8
+        elif k == 2:  # the height
+            mid, amp, ramp = q - 0.01, 0.002, 0.0
+        elif k < 6:
+            mid, amp, ramp = q, 0.02, 0.0
+        else:
+            lo, hi = jr[jid[j]]
+            mid, amp, ramp = min(max(q, lo), hi), 0.1 * (hi - lo) / 2, 0.0
+        files[f"q_{j}"] = mid + amp * np.sin(w * t + ph) + ramp * t
+        files[f"dq_{j}"] = amp * w * np.cos(w * t + ph) + ramp
+    files["split_points"] = np.array([0, n // 2, n])  # two trajectories
+    return files
+
+
+def env_parts(model, n_substeps=10):
+    """What a LocoEnv of the stand-in is built from, in either package:
+    the obs spec entries (key, joint, 0 position / 1 velocity), the
+    trajectory's keyword arguments (synthetic, resampled from TRAJ_DT to
+    the control dt), the target-velocity reward's x-velocity index and
+    the fall predicate's obs indices (None for A1, whose predicate reads
+    obs 0-2)."""
+    joints = env_joints(model)
+    spec = ([(f"q_{j}", j, 0) for j in joints]
+            + [(f"dq_{j}", j, 1) for j in joints])
+    keys = [k for k, _, _ in spec]
+    ki = {k: i - 2 for i, k in enumerate(keys)}
+    jr = model.jnt_range.cpu().numpy().astype(np.float64)
+    jid = model.names["joint"]
+    traj = dict(keys=keys, key_dims=[1] * len(keys),
+                traj_files=synthetic_trajectory(model, joints),
+                traj_dt=TRAJ_DT,
+                control_dt=n_substeps * float(model.opt.timestep),
+                low=np.array([jr[jid[j], 0] for j in joints[2:]]),
+                high=np.array([jr[jid[j], 1] for j in joints[2:]]),
+                joint_pos_idx=list(range(len(joints))), warn=False)
+    fall = None
+    if "root_z" in jid:
+        fall = [ki["q_" + (r if r in jid else LUMBAR_FALLBACK[r])]
+                for r in HUMANOID_ROLES]
+    return dict(spec=spec, traj=traj, x_vel=ki[f"dq_{joints[0]}"],
+                fall=fall)
+
+
+def damping_dr(model, lo=0.5, hi=1.5):
+    """A Joints-section randomization config: each joint's damping d > 0
+    drawn from uniform_range [lo d, hi d]."""
+    d = model.dof_damping.cpu().numpy()
+    jid = model.names["joint"]
+    return {"Joints": {j: {"damping": {"uniform_range": [
+        lo * float(d[int(model.jnt_dofadr[i])]),
+        hi * float(d[int(model.jnt_dofadr[i])])]}}
+        for j, i in jid.items() if d[int(model.jnt_dofadr[i])] > 0}}
+
+
+def make_env(model, dr=None, n_substeps=10, **kw):
+    """The LocoEnv of a stand-in (see `env_parts`) on the model's device;
+    `dr` a randomization config dict, `kw` LocoEnv's other options."""
+    from ..datasets.trajectory import TrajectoryData
+    from ..rewards.rewards import make_reward
+    from . import base
+    from .observation import ObsIndex
+
+    parts = env_parts(model, n_substeps)
+    fall = (base.quadruped_has_fallen if parts["fall"] is None
+            else base.humanoid_has_fallen(parts["fall"]))
+    return base.LocoEnv(
+        model, ObsIndex(model, parts["spec"]), n_substeps=n_substeps,
+        reward_fn=make_reward("target_velocity",
+                              {"target_velocity": TARGET_VELOCITY},
+                              {"x_vel_idx": parts["x_vel"]}),
+        traj_data=TrajectoryData(dtype=model.qpos0.dtype,
+                                 device=model.qpos0.device, **parts["traj"]),
+        has_fallen=fall, domain_randomization_config=dr, **kw)

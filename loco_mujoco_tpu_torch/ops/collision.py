@@ -407,11 +407,18 @@ def _convex_group(model: Model, g: Group, data: Data):
 
 def plane_in_mesh_frame(data: Data, pg1, pg2):
     """The plane of each pair in its mesh's frame: normal a (E, P, 3) and
-    offset b (E, P), so that a mesh-local vertex v lies a.v + b above it."""
+    offset b (E, P), so that a mesh-local vertex v lies a.v + b above it.
+    Written as the mega kernels' separate products and sums, in their order
+    (csrc/mega.cu `collide`: a_j = (R_0j n_0 + R_1j n_1) + R_2j n_2), so
+    that a support-vertex tie within an ulp resolves the same way on every
+    device."""
     gxp, gxm = data.geom_xpos, data.geom_xmat
     n = gxm[:, pg1, :, 2]  # (E, P, 3)
-    a = torch.einsum("epij,epi->epj", gxm[:, pg2], n)
-    b = torch.sum(n * (gxp[:, pg2] - gxp[:, pg1]), dim=-1)
+    R = gxm[:, pg2]  # (E, P, 3, 3)
+    a = ((R[..., 0, :] * n[..., 0:1] + R[..., 1, :] * n[..., 1:2])
+         + R[..., 2, :] * n[..., 2:3])
+    d = gxp[:, pg2] - gxp[:, pg1]
+    b = (n[..., 0] * d[..., 0] + n[..., 1] * d[..., 1]) + n[..., 2] * d[..., 2]
     return a, b
 
 

@@ -102,11 +102,20 @@ def fwd_constraint(model: Model, data: Data, plain: bool = False) -> Data:
     return hopper_fused.fused_constraint(model, data)
 
 
+def needs_qm(model: Model, plan) -> bool:
+    """Euler reads qM for its implicit damping: the plan has no `euler_dv`
+    (per-env damping, `plan.dyn_damping()`) and EULERDAMP is on. The
+    reference keeps crb upstream of its kernels then (forward.py:72-77)."""
+    return (model.opt.integrator == int(IntegratorType.EULER)
+            and not model.opt.disableflags & DisableBit.EULERDAMP
+            and not plan.euler_dv)
+
+
 def stages(model: Model, data: Data, plain: bool = False) -> Data:
     """The stages before the constraint stage, with the reference's stage
-    gates (see the module note). With a plan, crb is skipped under Euler
-    too: the port's plans set `euler_dv` unless EULERDAMP is disabled, when
-    Euler reads no qM."""
+    gates (see the module note). With a plan, crb runs only where Euler
+    reads qM (`needs_qm`): the port's plans set `euler_dv` unless
+    EULERDAMP is disabled or the damping is per env."""
     plan = maybe_plan(model, data)
     if plan is None:
         data = fwd_position(model, data, plain)
@@ -114,8 +123,12 @@ def stages(model: Model, data: Data, plain: bool = False) -> Data:
             model, fwd_velocity(model, data)))
     data = kinematics.kinematics(model, data)
     if plan.smooth:
+        if needs_qm(model, plan):
+            data = inertia.crb(model, kinematics.com_pos(model, data))
         return coll_mod.collision(model, data, plain)
     data = tendon.tendon(model, kinematics.com_pos(model, data))
+    if needs_qm(model, plan):
+        data = inertia.crb(model, data)
     data = coll_mod.collision(model, data, plain)
     data = fwd_actuation(model, fwd_velocity(model, data))
     return data.replace(qfrc_smooth=qfrc_smooth(model, data))
@@ -138,9 +151,15 @@ def mega_enabled(model: Model, data: Data):
 def forward(model: Model, data: Data, plain: bool = False) -> Data:
     """mj_forward: the mega path where it applies (see the module note),
     else the staged path. On the mega path the position- and
-    velocity-stage fields of Data stay stale (hopper_mega)."""
-    if mega_enabled(model, data) is not None:
+    velocity-stage fields of Data stay stale (hopper_mega), but for qM
+    where Euler reads it (`needs_qm`): crb runs upstream of the kernel."""
+    plan = mega_enabled(model, data)
+    if plan is not None:
         from . import hopper_mega
+
+        if needs_qm(model, plan):
+            data = inertia.crb(model, kinematics.com_pos(
+                model, kinematics.kinematics(model, data)))
 
         if plain:
             return hopper_mega.mega_forward_plain(model, data)
@@ -193,8 +212,13 @@ def _advance_act(model: Model, act: torch.Tensor,
 
 def damping_dv(model: Model, data: Data) -> torch.Tensor:
     """Euler's implicit-damping velocity change from qM (forward.py:255-
-    259): (qM + dt diag(damping))^-1 (qM qacc)."""
-    mh = data.qM + model.opt.timestep * torch.diag(model.dof_damping)
+    259): (qM + dt diag(damping))^-1 (qM qacc), with each env's damping
+    where `Data.dof_damping` holds it."""
+    if data.dof_damping is None:
+        damp = torch.diag(model.dof_damping)
+    else:
+        damp = torch.diag_embed(data.dof_damping)
+    mh = data.qM + model.opt.timestep * damp
     return linalg.spd_solve(mh, inertia.mul_m(model, data, data.qacc))
 
 

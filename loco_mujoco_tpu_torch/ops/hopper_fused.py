@@ -11,7 +11,8 @@ tables of the model's row plan (`ops/plan.py`).
 
 `fused_constraint` packs the per-env vector of the plan's layout (smooth:
 qpos, qvel, xipos, ximat, xanchor, xaxis, ctrl, qfrc_applied, xfrc_applied,
-qacc_warmstart, `:2246-2256`; non-smooth, the muscle humanoid's: qpos,
+qacc_warmstart, `:2246-2256`, and with `sm_dyn_damping` each env's joint
+damping, `Data.dof_damping`; non-smooth, the muscle humanoid's: qpos,
 qvel, cdof, the root subtree com, cinert, qfrc_smooth, qacc_warmstart,
 armature, `:2257-2264`) and the contact slots in the plan's pack width
 (`:2215-2243`; elliptic plans take the generic 29-float pack with 5
@@ -50,7 +51,7 @@ from . import inertia, kernels, kinematics
 from .kernels import FLOAT, INT, PTR
 from .support import static_tensor
 
-_SIGNATURES = {"lmt_fused": [PTR] * 22 + [INT] * 4 + [FLOAT, FLOAT, PTR]}
+_SIGNATURES = {"lmt_fused": [PTR] * 22 + [INT] * 5 + [FLOAT, FLOAT, PTR]}
 
 
 def smooth_vec(data: Data) -> torch.Tensor:
@@ -76,11 +77,29 @@ def nonsmooth_vec(model: Model, data: Data) -> torch.Tensor:
         model.dof_armature.expand(E, -1)], dim=1)
 
 
+def damping_rows(plan, data: Data):
+    """The (E, nv) per-env damping operand (`Data.dof_damping`) of a plan
+    with `sm_dyn_damping`, or None; raises where the plan and the data
+    disagree (per-env damping needs the plan's `dyn_damping()` variant,
+    and that variant needs it)."""
+    rows = data.dof_damping
+    if plan.sm_dyn_damping != (rows is not None):
+        raise ValueError(
+            "per-env damping (Data.dof_damping) and the plan's "
+            "dyn_damping() variant go together")
+    return rows
+
+
 def vec(model: Model, data: Data) -> torch.Tensor:
-    """The per-env vector in the plan's layout."""
-    if model.plan.smooth:
+    """The per-env vector in the plan's layout; a smooth plan with
+    `sm_dyn_damping` appends each env's damping (`:2254`)."""
+    plan = model.plan
+    damp = damping_rows(plan, data)
+    if not plan.smooth:
+        return nonsmooth_vec(model, data)
+    if damp is None:
         return smooth_vec(data)
-    return nonsmooth_vec(model, data)
+    return torch.cat([smooth_vec(data), damp], dim=1)
 
 
 def contact_pack(model: Model, data: Data) -> torch.Tensor:
@@ -180,7 +199,7 @@ def fused_constraint(model: Model, data: Data) -> Data:
         p(ints), p(flts), p(v), p(pack),
         *map(p, (qacc, force, qfrc, asm)), None if dv is None else p(dv),
         p(iters), p(taken), p(ls), p(rows), *map(p, scratch), E, v.shape[1],
-        plan.iterations, plan.ls_iterations, plan.scale, plan.tolerance,
+        int(plan.sm_dyn_damping), plan.iterations, plan.ls_iterations, plan.scale, plan.tolerance,
         kernels.stream())
     kernels.check(rc, "fused")
     kernels.LAUNCHES["fused"] += 1
@@ -250,6 +269,7 @@ def fused_constraint_plain(model: Model, data: Data, replay=None,
     from . import forward as fwd
 
     plan = model.plan
+    damping_rows(plan, data)
     d, problem, ell = newton_problem(model, data)
     J, active = problem[0], problem[6]
     ws = d.qacc_warmstart

@@ -6,7 +6,9 @@ Counterpart of `loco_mujoco_tpu/ops/pallas_constraint.py`: `mega_forward`
 `mega_step_n` (`:2926-2978`) over `_megastep_batched`, RK4 and Euler
 branches, with the tendon and muscle stage of a plan with muscles (`mp`;
 `:1245-1264`, `:2762-2787`) and the extended collision and elliptic rows
-of a `mega_ell` plan (A1; `_mega_ell_finish` `:2559-2610`). The kernels
+of a `mega_ell` plan (A1; `_mega_ell_finish` `:2559-2610`), and each
+env's joint damping (`Data.dof_damping`) for a plan with `sm_dyn_damping`
+(the reference's operand rows, `:2505`, `:2967`). The kernels
 are `csrc/mega.cu`'s `mega_forward_kernel` and `megastep_kernel` (each in
 a plane-only and an extended instance), one warp per env with the env's
 state in shared memory, over the static tables of the model's row plan
@@ -23,9 +25,9 @@ plane, or with `mega_ell` the kernel's, self pairs included), `geom2`, the
 static `includemargin` and `friction` (with `mega_ell` per slot from its
 group's statics), and the Newton decisions `solver_niter` /
 `solver_taken` / `solver_ls` / `solver_rows`; slots of a convex tail are
-padded inactive;
-every other position- and velocity-stage field stays as it came in
-(stale).
+padded inactive; the slots' points `pos` only where asked (`points`, the
+checks'; the plain version always has them); every other position- and
+velocity-stage field stays as it came in (stale).
 `mega_step_n` returns Data with `qpos`, `qvel`, `act` (Euler with muscles:
 act += dt act_dot, clamped to actrange, every substep), `qacc =
 qacc_warmstart` = the carried warm start and `time + n dt`, or None outside
@@ -63,9 +65,9 @@ from .kernels import FLOAT, INT, PTR
 from .plan import mega_launch
 
 _SIGNATURES = {
-    "lmt_mega_forward": [PTR] * 22 + [INT] * 6 + [FLOAT, FLOAT, PTR],
-    "lmt_megastep": [PTR] * 14 + [INT] * 9 + [FLOAT] * 3 + [PTR],
-    "lmt_mega_occupancy": [INT] * 3 + [PTR],
+    "lmt_mega_forward": [PTR] * 24 + [INT] * 6 + [FLOAT, FLOAT, PTR],
+    "lmt_megastep": [PTR] * 15 + [INT] * 9 + [FLOAT] * 3 + [PTR],
+    "lmt_mega_occupancy": [INT] * 4 + [PTR],
 }
 
 
@@ -104,12 +106,14 @@ def occupancy(model: Model) -> tuple:
     lib = kernels.library("mega", _SIGNATURES)
     kernels.check(lib.lmt_mega_occupancy(
         launch.env_floats, launch.envs_per_block, int(plan.mega_ell),
-        ctypes.cast(out, ctypes.c_void_p)), "mega occupancy")
+        int(plan.sm_dyn_damping), ctypes.cast(out, ctypes.c_void_p)),
+        "mega occupancy")
     return out[0], out[1]
 
 
 def _inputs(model: Model, data: Data):
-    """The per-env operands of both kernels, checked (env-major)."""
+    """The per-env operands of both kernels, checked (env-major): the
+    last is the per-env damping of a plan with `sm_dyn_damping`, or None."""
     E, nv, nu, nb = data.qpos.shape[0], model.nv, model.nu, model.nbody
     xfrc = data.xfrc_applied.reshape(E, nb * 6)
     ops = [("qpos", data.qpos, (E, nv)), ("qvel", data.qvel, (E, nv)),
@@ -117,9 +121,12 @@ def _inputs(model: Model, data: Data):
            ("qfrc_applied", data.qfrc_applied, (E, nv)),
            ("xfrc_applied", xfrc, (E, nb * 6)),
            ("qacc_warmstart", data.qacc_warmstart, (E, nv))]
+    damp = hopper_fused.damping_rows(model.plan, data)
+    if damp is not None:
+        ops.append(("dof_damping", damp, (E, nv)))
     for name, t, shape in ops:
         kernels.require(t, name, shape)
-    return [t for _, t, _ in ops]
+    return [t for _, t, _ in ops] + ([] if damp is not None else [None])
 
 
 def _pad(x, full: int, fill=0):
@@ -133,8 +140,10 @@ def _pad(x, full: int, fill=0):
 
 
 def _pack(model: Model, data: Data, qacc, qacc_smooth, qfrc, cdist, cgid,
-          cgid1, cforce, dv, act_dot, iters, taken, ls, rows) -> Data:
-    """The mega output contract (see the module note) on top of `data`."""
+          cgid1, cforce, dv, act_dot, iters, taken, ls, rows,
+          cpos=None) -> Data:
+    """The mega output contract (see the module note) on top of `data`;
+    `cpos` the slots' points, where asked."""
     plan = model.plan
     E, ncon, full = qacc.shape[0], plan.ncon, model.ncon
     dt, dev = qacc.dtype, qacc.device
@@ -162,6 +171,8 @@ def _pack(model: Model, data: Data, qacc, qacc_smooth, qfrc, cdist, cgid,
         includemargin=_pad(includemargin.clone(), full),
         friction=_pad(friction.clone(), full),
         dim=np.concatenate([plan.con_dim, data.contact.dim[ncon:]]))
+    if cpos is not None:
+        contact = contact.replace(pos=_pad(cpos, full))
     return data.replace(qacc=qacc, qacc_smooth=qacc_smooth,
                         qfrc_constraint=qfrc,
                         efc_force_contact=_pad(efc, full),
@@ -170,9 +181,10 @@ def _pack(model: Model, data: Data, qacc, qacc_smooth, qfrc, cdist, cgid,
                         solver_ls=ls, solver_rows=rows)
 
 
-def mega_forward(model: Model, data: Data) -> Data:
+def mega_forward(model: Model, data: Data, points: bool = False) -> Data:
     """One forward of every env in one kernel launch (see the module
-    note). The model must have a plan with `mega`."""
+    note). The model must have a plan with `mega`. `points`: the contact
+    slots' points too (`contact.pos`), which the checks read."""
     plan = model.plan
     if plan is None or not plan.mega:
         raise ValueError("the model has no mega plan")
@@ -192,19 +204,20 @@ def mega_forward(model: Model, data: Data) -> Data:
     rows = i(E, plan.iterations, hn.row_words(plan.nrows))
     dv = f(E, nv) if plan.euler_dv else None
     act_dot = f(E, model.na) if plan.mp is not None else data.act_dot
+    cpos = f(E, ncon, 3) if points else None
     ints, flts = plan.tables(dev)
     p = lambda t: None if t is None else kernels.ptr(t)  # noqa: E731
     lib = kernels.library("mega", _SIGNATURES)
     rc = lib.lmt_mega_forward(
         p(ints), p(flts), *map(p, ins),
         *map(p, (qacc, asm, qfrc, cdist, cgid, cgid1, cforce, iters,
-                 taken, ls, rows, dv, act_dot)), E, plan.iterations,
+                 taken, ls, rows, dv, act_dot, cpos)), E, plan.iterations,
         plan.ls_iterations, int(plan.mega_ell), launch.env_floats,
         launch.envs_per_block, plan.scale, plan.tolerance, kernels.stream())
     kernels.check(rc, "mega_forward")
     kernels.LAUNCHES["mega_forward"] += 1
     return _pack(model, data, qacc, asm, qfrc, cdist, cgid, cgid1, cforce,
-                 dv, act_dot, iters, taken, ls, rows)
+                 dv, act_dot, iters, taken, ls, rows, cpos)
 
 
 def _forward_plain(model: Model, data: Data, replay, record=None) -> Data:
@@ -212,6 +225,7 @@ def _forward_plain(model: Model, data: Data, replay, record=None) -> Data:
     kernels; `replay` = (iters, taken[, ls[, rows]]) or None."""
     from . import forward as fwd
 
+    hopper_fused.damping_rows(model.plan, data)
     d = fwd.stages(model, data, plain=True)
     return hopper_fused.fused_constraint_plain(
         model, d, replay, solve64=model.plan.mega_ell, record=record)
@@ -226,7 +240,7 @@ def mega_forward_plain(model: Model, data: Data, replay=None,
     d = _forward_plain(model, data, replay, record)
     c = d.contact
     contact = data.contact.replace(
-        dist=c.dist, geom1=c.geom1, geom2=c.geom2,
+        dist=c.dist, pos=c.pos, geom1=c.geom1, geom2=c.geom2,
         includemargin=c.includemargin, friction=c.friction, dim=c.dim)
     return data.replace(qacc=d.qacc, qacc_smooth=d.qacc_smooth,
                         qfrc_constraint=d.qfrc_constraint,

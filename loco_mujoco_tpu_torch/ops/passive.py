@@ -2,7 +2,9 @@
 
 Counterpart of `loco_mujoco_tpu/ops/passive.py` (mj_passive) without the
 tendon springs and dampers: tendon stiffness and damping are refused at
-load (core/io), as the reference's muscle plan refuses them.
+load (core/io), as the reference's muscle plan refuses them. The dampers
+take each env's damping from `Data.dof_damping` where it is set (domain
+randomization), else the model's.
 """
 
 from __future__ import annotations
@@ -20,5 +22,7 @@ def passive(model: Model, data: Data) -> Data:
     spring = -model.jnt_stiffness * (data.qpos[:, qadr]
                                      - model.qpos_spring[qadr])
     qfrc = qfrc.index_add(1, torch.as_tensor(dadr, device=qfrc.device), spring)
-    qfrc = qfrc - model.dof_damping * data.qvel
+    damping = (model.dof_damping if data.dof_damping is None
+               else data.dof_damping)
+    qfrc = qfrc - damping * data.qvel
     return data.replace(qfrc_passive=qfrc)

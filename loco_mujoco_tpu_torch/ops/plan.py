@@ -64,9 +64,16 @@ threads skip their own inactive rows in every solve pass, which makes the
 reduced branch's saving without a branch (as for the pyramidal fast and
 full branches).
 
+Per-env joint damping (domain randomization) keeps the fused and mega
+paths: `dyn_damping()` is the plan's variant with the reference's
+`sm_dyn_damping` (`:529-537`), flag `DAMP_ROWS`, whose kernels read each
+env's damping from an (E, nv) operand (`Data.dof_damping`) instead of
+F_DOF's column, and which has no `euler_dv` (`:314-329`: Euler's implicit
+damping is then solved outside the kernels). The plan without it, its
+tables and its kernels stay as they are.
+
 Float64 data gets no plan (`maybe_plan`), as in the reference. Left out of
-the port's plan: damping as per-env rows (`sm_dyn_damping`) and plane-mesh
-groups in the extended collision plan (G1).
+the port's plan: plane-mesh groups in the extended collision plan (G1).
 
 `tables(device)` packs the plan into the two read-only buffers the kernels
 of `csrc/mega.cu` and `csrc/fused.cu` take: an int32 buffer that starts with
@@ -75,6 +82,8 @@ buffer.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -110,6 +119,7 @@ H = {name: i for i, name in enumerate(HEADER)}
 PASSIVE, ACTUATION, CLAMPCTRL, REFSAFE = 1, 2, 4, 8
 UNIFORM, FRIC_UNIFORM, SMOOTH, MUSCLE = 16, 32, 64, 128
 ELLIPTIC = 256
+DAMP_ROWS = 512  # per-env joint damping (RowPlan.dyn_damping)
 # per-entry widths of the tables (floats / ints), as the kernels read them
 WIDTH = {"F_BODY": 20, "I_BODY": 4, "F_JNT": 10, "I_JNT": 4, "F_DOF": 2,
          "I_DOF": 1, "F_ACT": 6, "I_ACT": 4, "F_EQ": 16, "I_EQ": 4,
@@ -159,6 +169,8 @@ class RowPlan:
     def __init__(self, L: dict, A: dict, groups, mesh_kernel):
         self.ok = False
         self.mega = False
+        self.sm_dyn_damping = False
+        self._dyn = None  # dyn_damping's
         self._launch = None  # mega_launch's
         self.uniform = self.fric_uniform = False
         self.groups = []
@@ -378,6 +390,35 @@ class RowPlan:
         self.act_bounds = act_bounds(self.na, A["actuator_actadr"],
                                      A["actuator_actlimited"],
                                      f64["actuator_actrange"])
+
+    def dyn_damping(self) -> "RowPlan":
+        """This plan with per-env joint damping: `sm_dyn_damping` and the
+        flag DAMP_ROWS set (the kernels read each env's damping row), and
+        `euler_dv` off, as the reference's plan has it when dof_damping is
+        traced (`:314-329`, `:529-537`). Made once; this plan is left as it
+        is."""
+        if self.sm_dyn_damping:
+            return self
+        if self._dyn is None:
+            dyn = copy.copy(self)
+            dyn.sm_dyn_damping = True
+            dyn.euler_dv = False
+            dyn.dof_damping = None
+            dyn._dev = {}
+            self._dyn = dyn
+        return self._dyn
+
+    def with_budget(self, iterations: int, ls_iterations: int) -> "RowPlan":
+        """This plan with another Newton and line-search budget (the
+        kernels take it at launch; the tables do not hold it). This plan
+        is left as it is."""
+        if (iterations, ls_iterations) == (self.iterations,
+                                           self.ls_iterations):
+            return self
+        out = copy.copy(self)
+        out.iterations, out.ls_iterations = iterations, ls_iterations
+        out._dyn = None
+        return out
 
     @property
     def nfric(self):
@@ -667,7 +708,8 @@ class RowPlan:
                  | (FRIC_UNIFORM if self.fric_uniform else 0)
                  | (SMOOTH if self.smooth else 0)
                  | (MUSCLE if mp is not None else 0)
-                 | (ELLIPTIC if self.elliptic else 0))
+                 | (ELLIPTIC if self.elliptic else 0)
+                 | (DAMP_ROWS if self.sm_dyn_damping else 0))
         counts = dict(
             NQ=self.nq, NV=nv, NBODY=nb, NJNT=self.njnt, NU=self.nu,
             NE=self.ne, NFL=self.nfl, NL=self.nl, NPAD=self.npad,

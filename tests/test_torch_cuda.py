@@ -56,6 +56,7 @@ import pytest
 import torch
 
 from loco_mujoco_tpu_torch.core import io
+from loco_mujoco_tpu_torch.envs import standins
 from loco_mujoco_tpu_torch.ops import collision as coll
 from loco_mujoco_tpu_torch.ops import constraint as con
 from loco_mujoco_tpu_torch.ops import forward as fwd
@@ -516,6 +517,32 @@ def test_replayed_row_decisions_are_the_plain_versions_own(state, name):
     chip_smoke._row_departures(torch, k, own["own_rows"], E, name)
 
 
+@pytest.mark.parametrize("name", ["rk4", "a1", "h1"])
+def test_mega_forward_points_match_plain(state, name):
+    """The mega forward's slot points (`points=True`, which the megastep
+    rule reads) against its plain version's, plane-only (the torque
+    humanoid, H1) and extended (A1) instances: at the slots active in both
+    with the same geom, within 1e-5 (the depth's bound), except in at most
+    0.5% of the envs (a support-vertex tie moves a point by a vertex
+    spacing)."""
+    if name == "rk4":
+        model, d = state
+    elif name == "a1":
+        model, d = _a1_state()
+    else:
+        model, d = _biped_state(name, E)
+    k = hm.mega_forward(model, d, points=True)
+    r = hm.mega_forward_plain(model, d, replay=_replay(k))
+    on = ((k.contact.dist < k.contact.includemargin)
+          & (r.contact.dist < r.contact.includemargin)
+          & (k.contact.geom2 == r.contact.geom2))
+    assert bool(on.any())
+    err = (k.contact.pos - r.contact.pos).abs().amax(-1)
+    off = ((err > 1e-5) & on).any(1)
+    assert int(off.sum()) <= 0.005 * off.numel(), off.nonzero().flatten()
+    assert float(err[on & ~off[:, None]].max()) <= 1e-5
+
+
 def _biped_state(name, n):
     """A committed biped with a plane-cylinder group on the card and
     `biped_states`' seeded states of it (env 0's heel discs upright on the
@@ -586,3 +613,151 @@ def test_cyl_megastep_matches_plain(state, name, n):
     k = chip_smoke._megastep_rule(torch, model, d, steps, name)[0]
     assert torch.allclose(k.time, d.time + steps * model.opt.timestep)
     assert torch.equal(k.qacc, k.qacc_warmstart)
+
+
+# ---- per-env joint damping (the damping rows) and the env layer ----------
+
+
+def _with_damping(model, d, seed=3):
+    """The plan's damping-row variant and each env's damping: the model's
+    times U(0.3, 3) per env and dof (numpy, seeded)."""
+    base = model.dof_damping.cpu().numpy()
+    dd = base[None] * np.random.default_rng(seed).uniform(
+        0.3, 3.0, size=(d.qpos.shape[0], model.nv))
+    return (model.replace(plan=model.plan.dyn_damping()),
+            d.replace(dof_damping=torch.as_tensor(dd, dtype=torch.float32,
+                                                  device="cuda")))
+
+
+def _dr_state(name, n=4096):
+    """(DR model, data) of the torque humanoid (RK4, dropped, qvel draw 0)
+    or of A1 (`a1_states`), n envs."""
+    if name == "a1":
+        model, d = _a1_state(n)
+    else:
+        model = _model()
+        d = _dropped(model, n).replace(qvel=_qvel(n, model.nv, 0))
+    return _with_damping(model, d)
+
+
+@pytest.mark.parametrize("name", ["rk4", "a1"])
+def test_dr_mega_forward_matches_plain(state, name):
+    """The mega forward with the damping rows, plane-only (RK4 humanoid)
+    and extended (A1) instances, at 4096 envs: chip_smoke.py's rule for the
+    mega forward (active slots exact; qacc, qfrc_constraint and
+    efc_force_contact rel 5e-4 with the decisions replayed; float32 ties
+    and witnessed Newton disagreements within 0.5% of the envs)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _dr_state(name)
+    assert model.plan.sm_dyn_damping and not model.plan.euler_dv
+    kernels.LAUNCHES.clear()
+    k = fwd.forward(model, d)
+    assert dict(kernels.LAUNCHES) == {"mega_forward": 1}
+    assert k.euler_dv is None
+    r = hm.mega_forward_plain(model, d, replay=_replay(k))
+    act_r = r.contact.dist < r.contact.includemargin
+    same = torch.all((k.contact.dist < k.contact.includemargin) == act_r,
+                     dim=1)
+    apart, witnessed = chip_smoke._newton_witness(torch, model, d, k, r,
+                                                  envs=same)
+    held = same & ~(apart & witnessed)
+    chip_smoke._tie_envs(torch, held, _gap(r), d.qpos.shape[0],
+                         f"DR mega forward {name}", newton=apart & witnessed)
+    for f in ("qacc", "qfrc_constraint", "efc_force_contact"):
+        got, ref = getattr(k, f)[held], getattr(r, f)[held]
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), f
+    # the rows move the answer: the model's own damping gives another
+    base = fwd.forward(_model() if name == "rk4" else _a1_state()[0],
+                       d.replace(dof_damping=None))
+    assert float((base.qacc - k.qacc).abs().max()) > 1e-3
+
+
+def test_dr_megastep_matches_plain(state):
+    """The RK4 megastep with the damping rows, a control step at 4096
+    envs, held to chip_smoke.py's megastep rule."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _dr_state("rk4")
+    kernels.LAUNCHES.clear()
+    fwd.step_n(model, d, 10)
+    assert dict(kernels.LAUNCHES) == {"megastep": 1}
+    chip_smoke._megastep_rule(torch, model, d, 10, "DR rk4")
+
+
+@pytest.mark.parametrize("name", ["rk4", "a1"])
+def test_dr_fused_matches_plain(state, name, monkeypatch):
+    """The fused kernel with the damping rows, smooth (RK4 humanoid) and
+    elliptic (A1) layouts, at 4096 envs, decisions replayed: every env
+    within rel 5e-4, or (elliptic) a Newton disagreement the float64
+    witness settles, at most 0.5% of the envs."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    monkeypatch.setenv("LMT_MEGA", "0")
+    model, d = _dr_state(name)
+    n = d.qpos.shape[0]
+    d = coll.collision(model, kinematics.kinematics(model, d))
+    kernels.LAUNCHES.clear()
+    k = hf.fused_constraint(model, d)
+    assert dict(kernels.LAUNCHES) == {"fused": 1}
+    r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+    held = torch.ones(n, dtype=torch.bool, device="cuda")
+    for f in ("qacc", "qfrc_constraint", "efc_force_contact"):
+        got, ref = getattr(k, f), getattr(r, f)
+        held &= ((got - ref).abs().reshape(n, -1).amax(1)
+                 < 5e-4 * float(ref.abs().max()))
+    if name == "a1":
+        apart, witnessed = chip_smoke._newton_witness(torch, model, d, k, r,
+                                                      staged=True)
+        excused = ~held & apart & witnessed
+        assert bool((held | excused).all()), (~held).nonzero().flatten()
+        assert int(excused.sum()) <= 0.005 * n
+    else:
+        assert bool(held.all()), (~held).nonzero().flatten()
+
+
+@pytest.mark.parametrize("dr", [False, True])
+def test_step_batch_matches_plain(state, dr, monkeypatch):
+    """`LocoEnv.step_batch` of the torque humanoid's env on the card (one
+    megastep launch) against the same step with the megastep's plain
+    version replaying its decisions: the physics held to chip_smoke.py's
+    megastep rule, then obs, reward, absorbing and done of the held envs
+    (rel 5e-4; the booleans exact)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model = _model()
+    env = standins.make_env(
+        model, dr=standins.damping_dr(model) if dr else None,
+        horizon=chip_smoke.ENV_HORIZON)
+    st = env.reset_batch(4096, torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    a = 0.3 * (2 * torch.rand((4096, env.action_dim), device="cuda",
+                              generator=g) - 1)
+    def fresh_rng(s):  # both steps' auto-resets draw the same numbers
+        return s.replace(rng=torch.Generator(device="cuda").manual_seed(5))
+
+    kernels.LAUNCHES.clear()
+    k = env.step_batch(fresh_rng(st), a)
+    assert dict(kernels.LAUNCHES) == {"megastep": 1}
+    m, d = env._apply_dr(st.data.replace(
+        ctrl=a * env.norm_act_delta + env.norm_act_mean), st.dr)
+    ks, _, _, _, errs, dec = chip_smoke._megastep_rule(torch, m, d, 10,
+                                                       f"env dr={dr}")
+    assert torch.equal(ks.qpos[~k.done], k.data.qpos[~k.done])
+    held = torch.ones(4096, dtype=torch.bool, device="cuda")
+    for err, scl in errs.values():
+        held &= err <= 5e-4 * scl
+    monkeypatch.setattr(fwd, "step_n", lambda m_, d_, n_: (
+        hm.mega_step_n_plain(m_, d_, n_, replay=dec)))
+    r = env.step_batch(fresh_rng(st), a)
+    for f in ("absorbing", "done"):
+        assert torch.equal(getattr(k, f)[held], getattr(r, f)[held]), f
+    for f in ("obs", "reward"):
+        got, ref = getattr(k, f)[held], getattr(r, f)[held]
+        assert float((got - ref).abs().max()) <= 5e-4 * float(
+            ref.abs().max()), f

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from loco_mujoco_tpu_torch.core import io
+from loco_mujoco_tpu_torch.ops import hopper_fused as hf
 from loco_mujoco_tpu_torch.ops import hopper_mega as hm
 from loco_mujoco_tpu_torch.ops import hopper_newton as hn
 from loco_mujoco_tpu_torch.ops import kernels
@@ -201,3 +202,59 @@ def test_wrappers_pass_the_prototypes(name, monkeypatch):
     assert hm.decision_width(m) == 2 + hn.LS_WORDS + m.plan.iterations * rw
     with pytest.raises(ValueError, match="decisions"):
         hm.mega_step_n(m, d, n, decisions=dec[:, :1])
+
+
+@pytest.mark.parametrize("name", ["rk4", "a1"])
+def test_wrappers_pass_the_damping_rows(name, monkeypatch):
+    """Both mega launchers and the fused one take each env's damping where
+    the plan has the damping rows (`dyn_damping`): the mega kernels as the
+    operand after the warm start, the fused kernel at the end of its smooth
+    vector; without the rows the mega operand is null and the vector is
+    as it was. The launch (shared floats, envs per block) is the same."""
+    m = _model(name)
+    dyn = m.replace(plan=m.plan.dyn_damping())
+    assert (tplan.mega_launch(dyn.plan).table()
+            == tplan.mega_launch(m.plan).table())
+    rec = _Recorder()
+    monkeypatch.setattr(kernels, "library", lambda *a, **k: rec)
+    monkeypatch.setattr(kernels, "stream", lambda: ctypes.c_void_p(0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    E = 5
+    d = io.make_data(m, E)
+    rows = m.dof_damping.expand(E, -1).contiguous()
+    for model, data, want in ((m, d, None), (dyn, d.replace(dof_damping=rows),
+                                             rows)):
+        rec.calls.clear()
+        hm.mega_forward(model, data)
+        stepped = hm.mega_step_n(model, data, 2)
+        # Euler with per-env damping has no megastep (no euler_dv)
+        assert (stepped is None) == (want is not None and name == "a1")
+        for fn in rec.calls:
+            got = rec.calls[fn][2 + 7]  # ints, flts, 7 state operands
+            assert (got is None) == (want is None), fn
+            if want is not None:
+                assert got.value == want.data_ptr(), fn
+    smooth = hf.smooth_vec(d)
+    assert hf.vec(m, d).shape == smooth.shape
+    torch.testing.assert_close(
+        hf.vec(dyn, d.replace(dof_damping=rows)),
+        torch.cat([smooth, rows], dim=1), rtol=0, atol=0)
+
+
+def test_mega_forward_points_operand(monkeypatch):
+    """`points=True` passes the slots' point output after act_dot and
+    returns it as `contact.pos` (E, ncon, 3); without it the operand is
+    null (the main path's launches)."""
+    m = _model("euler")
+    rec = _Recorder()
+    monkeypatch.setattr(kernels, "library", lambda *a, **k: rec)
+    monkeypatch.setattr(kernels, "stream", lambda: ctypes.c_void_p(0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    E = 5
+    d = io.make_data(m, E)
+    at = 2 + 8 + 13  # ints, flts, 8 operands, 13 outputs before it
+    hm.mega_forward(m, d)
+    assert rec.calls["lmt_mega_forward"][at] is None
+    out = hm.mega_forward(m, d, points=True)
+    assert rec.calls["lmt_mega_forward"][at] is not None
+    assert out.contact.pos.shape == (E, m.ncon, 3)

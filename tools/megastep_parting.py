@@ -3,12 +3,16 @@
 
     python3 tools/megastep_parting.py [--configs h1 atlas]
         [--states smoke card] [--show 6] [--dump DIR]
+    python3 tools/megastep_parting.py --configs rk4 --states env
     python3 tools/megastep_parting.py --analyse FILE CONFIG
 
 For each biped configuration of `chip_smoke.py` (`BIPEDS`) and each start
 state (`smoke`: the main path's end state, as the smoke's megastep check
 takes it; `card`: the seeded states of `tests/test_torch_cuda.py`'s biped
-tests, `biped_states` at 4096 envs) it runs one control step (10
+tests, `biped_states` at 4096 envs; `env`, with the configuration
+`rk4`, the torque humanoid's env reset and first action of
+`tests/test_torch_cuda.py::test_step_batch_matches_plain`) it runs one
+control step (10
 substeps) of the megastep, recording its Newton decisions, and the plain
 version four ways:
 
@@ -74,6 +78,16 @@ def _start(torch, io, fwd, cs, m, name, which, dev):
     """The control step's start state (see the module note)."""
     E = cs.N_ENVS
     t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa
+    if which == "env":
+        from loco_mujoco_tpu_torch.envs import standins
+
+        env = standins.make_env(m, horizon=cs.ENV_HORIZON)
+        st = env.reset_batch(E, torch.Generator(device=dev).manual_seed(0))
+        g = torch.Generator(device=dev).manual_seed(1)
+        a = 0.3 * (2 * torch.rand((E, env.action_dim), device=dev,
+                                  generator=g) - 1)
+        return st.data.replace(ctrl=a * env.norm_act_delta
+                               + env.norm_act_mean)
     if which == "smoke":
         q, c = cs.seeded_biped(m, cs.BIPEDS[name][1], E)
         d = fwd.forward(m, io.make_data(m, E).replace(qpos=t(q)))
@@ -257,6 +271,9 @@ def _shared_state(torch, m, dd, e, where, dump=None):
     with cs._staged_path():
         st = fwd.forward(m, dd)
     idx = torch.tensor([e], device=dd.qpos.device)
+    only = torch.zeros(dd.qpos.shape[0], dtype=torch.bool,
+                       device=dd.qpos.device)
+    only[e] = True
     w = _witness(torch, m, dd, idx, [k.qacc, p.qacc, own.qacc, st.qacc])
     act_k = k.contact.dist[e] < k.contact.includemargin[e]
     act_p = p.contact.dist[e] < p.contact.includemargin[e]
@@ -271,10 +288,10 @@ def _shared_state(torch, m, dd, e, where, dump=None):
             slot_kind = {5: "cylinder", 6: "box", 7: "mesh"}.get(
                 int(g.t2), str(int(g.t2)))
     kk = kinematics.kinematics(m, dd)
-    g = next(g for g in m.groups if int(g.t2) == 5)
+    g = next((g for g in m.groups if int(g.t2) == 5), None)
     n = torch.tensor([0.0, 0.0, 1.0], device=dd.qpos.device)
     tilts = []
-    for q in range(g.k):
+    for q in range(g.k if g is not None else 0):
         sl = slice(g.offset + g.slots * q, g.offset + g.slots * (q + 1))
         gid = int(p.contact.geom2[e, sl.start])
         axis = kk.geom_xmat[e, gid, :, 2]
@@ -329,8 +346,13 @@ def _shared_state(torch, m, dd, e, where, dump=None):
     print(f"      from the float64 converged solution (the plain version's "
           f"rows): kernel {float(w[0][0]):.3g}, plain replaying it "
           f"{float(w[1][0]):.3g}, plain on its own {float(w[2][0]):.3g}, "
-          f"the staged path's kernels {float(w[3][0]):.3g}; cylinders: "
-          + "; ".join(tilts))
+          f"the staged path's kernels {float(w[3][0]):.3g}; support-vertex "
+          f"tie in a slot that differs (chip_smoke._vertex_ties) "
+          f"{bool(cs._vertex_ties(torch, m, dd, k, p, only)[e])}, top-K "
+          f"rank tie (chip_smoke._rank_ties) "
+          f"{bool(cs._rank_ties(torch, m, dd, k, p, only)[e])}; the "
+          f"nearest margin {float(cs._margin_gap(m, p)[e]):.3g}; cylinders: "
+          + ("; ".join(tilts) or "none"))
 
 
 def analyse(torch, path, name):
@@ -406,7 +428,9 @@ def main() -> int:
     card = cs._nvidia_smi()
     print(f"nvidia-smi: {card}")
     for name in args.configs:
-        m = io.load_model_npz(ROOT / cs.BIPEDS[name][0], device=dev)
+        asset = (cs.BIPEDS[name][0] if name in cs.BIPEDS else
+                 "loco_mujoco_tpu_torch/assets/humanoid_torque_shape.npz")
+        m = io.load_model_npz(ROOT / asset, device=dev)
         for which in args.states:
             S1 = _start(torch, io, fwd, cs, m, name, which, dev)
             part(torch, m, S1, cs.SUBSTEPS, f"{name} {which}", args.show,

@@ -2,7 +2,7 @@
 """Time the megastep kernel on one GPU and break it down by phase.
 
     python3 tools/megastep_phases.py [--configs rk4 euler muscle a1 h1 atlas]
-        [--envs 4096] [--reps 3] [--root DIR] [--no-phases]
+        [--envs 4096] [--reps 3] [--root DIR] [--no-phases] [--kernels]
 
 For each configuration of `chip_smoke.py`'s main path (the committed
 HumanoidTorque-shaped model with RK4 and with Euler, the muscle model, the
@@ -13,7 +13,10 @@ a reset forward and 20 control steps of `forward.step_n` (10 substeps
 each), and prints the main path's rate (control steps x envs per
 second, the `env_steps_per_s` key). At that end state, with the first
 control step's controls, it times one megastep launch (one control step,
-CUDA events, mean of `--reps` after a warm-up).
+CUDA events, mean of `--reps` after a warm-up). With `--kernels` it also
+times, at that state, one mega forward launch and one fused kernel launch
+(on the staged path's inputs there: the position stage and collision, the
+muscle model's every stage), the keys `mega_forward_ms` and `fused_ms`.
 
 Unless `--no-phases`, it then builds the compile-time variant of
 `csrc/mega.cu` with the per-phase clocks (`-DLMT_PHASES`; the main path
@@ -108,6 +111,7 @@ def main() -> int:
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parent.parent)
     ap.add_argument("--no-phases", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -117,9 +121,11 @@ def main() -> int:
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from loco_mujoco_tpu_torch.core import io
+    from loco_mujoco_tpu_torch.ops import collision as coll
     from loco_mujoco_tpu_torch.ops import forward as fwd
+    from loco_mujoco_tpu_torch.ops import hopper_fused as hf
     from loco_mujoco_tpu_torch.ops import hopper_mega as hm
-    from loco_mujoco_tpu_torch.ops import kernels
+    from loco_mujoco_tpu_torch.ops import kernels, kinematics
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
@@ -166,6 +172,13 @@ def main() -> int:
         line = {"config": name, "envs": E, "card": card,
                 "env_steps_per_s": E * steps / wall,
                 "megastep_ms": ms}
+        if args.kernels:
+            line["mega_forward_ms"] = _time_ms(
+                torch, lambda: hm.mega_forward(m, S), args.reps)
+            staged = (fwd.stages(m, S) if m.na else
+                      coll.collision(m, kinematics.kinematics(m, S)))
+            line["fused_ms"] = _time_ms(
+                torch, lambda: hf.fused_constraint(m, staged), args.reps)
         if phases:
             variant = ("LMT_PHASES",)
             lib = kernels.library("mega", hm._SIGNATURES, variant)
