@@ -29,15 +29,21 @@ Run from the repository root: `python3 chip_smoke.py`. It
    plane-mesh group, 40 slots, 176 rows; `atlas`: nv = 19, RK4, top-K
    plane-cylinder and plane-box groups, 64 slots, 272 rows), pyramidal
    models on the mega path's plane-only collision with its cylinder
-   branch;
+   branch; and the committed UnitreeG1-shaped biped (the `g1`
+   configuration: nv = 19, Euler, pyramidal cones, 68 slots over 8 foot
+   points, 2 toe rollers, 18 plane-mesh hulls and three self groups
+   between the legs, 288 rows: the mega path's extended collision with
+   pyramidal rows and a plane-mesh group);
 4. holds each kernel of the earlier staged path against its plain PyTorch
    version on the card, on the inputs that path gives it at full width
    (4096 envs);
 5. drives the staged path (`LMT_MEGA=0`) for 2 control steps of 10 RK4
    substeps, 2 of 10 Euler substeps, 2 of 10 muscle Euler substeps (the
    fused kernel's non-smooth layout), 2 of 10 A1 Euler substeps (torch
-   collision and the fused kernel's elliptic layout) and 2 each of H1 and
-   Atlas, through the fused constraint kernel, and 1 control step of the
+   collision and the fused kernel's elliptic layout) and 2 each of H1,
+   Atlas and G1 (its plane-mesh group on the select and top-K kernels,
+   its other groups in torch, the fused kernel's 26-float pack), through
+   the fused constraint kernel, and 1 control step of the
    model with no plan, through the Newton kernel and its relayouts, with
    every launch counter set to 0 just before each run and read just after,
    and checks the counts; then compares one staged forward with the
@@ -47,8 +53,9 @@ Run from the repository root: `python3 chip_smoke.py`. It
    mega forward kernel) and `forward.step_n` for 20 control steps of 10
    substeps (one megastep kernel launch each), RK4, Euler, the muscle
    model (seeded muscle ctrls in [0, 1], act from 0), A1 (dropped 5-20
-   mm, seeded motor ctrls in half its ctrlrange), H1 and Atlas (dropped
-   5-20 mm, seeded motor ctrls in [-0.3, 0.3]), counters again zeroed
+   mm, seeded motor ctrls in half its ctrlrange), H1, Atlas and G1
+   (dropped 5-20 mm, seeded motor ctrls in [-0.3, 0.3]), counters again
+   zeroed
    just before and read just after, and checks the state, the contacts,
    the activations within [0, 1] and that exactly these launches were made;
    then drives the env layer (`LocoEnv`, `envs.standins.make_env`): the RK4
@@ -62,15 +69,21 @@ Run from the repository root: `python3 chip_smoke.py`. It
    with and without the rows in turns, and A1's env with the
    randomization (Euler: the per-substep mega forward with the rows), and
    both randomized envs on the staged path (the fused kernel's smooth and
-   elliptic layouts with the rows), counters zeroed and read as above;
+   elliptic layouts with the rows), then G1's env (its own fall
+   predicate) without randomization beside `step_n` alone and with it
+   (Euler: the per-substep mega forward with the rows), counters zeroed
+   and read as above;
 7. holds the mega forward kernel and the megastep kernel (one control
    step), RK4, Euler, muscle (with act_dot and act; the muscle kernels
    both at the end state, which the seeded activations lift off the
    floor, and after the first control step, in deep contact), A1 (the
-   extended collision's geom1 and geom2 too), H1 and Atlas (their end
-   states in contact), and the fused kernel on all four plan
+   extended collision's geom1 and geom2 too), H1, Atlas and G1 (their end
+   states in contact; G1's the extended pyramidal instance, with and
+   without the damping rows), the plane-mesh select and top-K on the
+   torque model's and G1's mesh groups, and the fused kernel on all four
+   plan
    configurations, the muscle model's non-smooth layout, A1's elliptic
-   layout, H1 and Atlas, and the damping rows (the mega forward's
+   layout, H1, Atlas and G1, and the damping rows (the mega forward's
    plane-only and extended instances, the RK4 megastep, the fused
    kernel's smooth and elliptic layouts, at the randomized envs' end
    states), to their plain versions replaying the kernels'
@@ -143,6 +156,9 @@ A1_ASSET = "loco_mujoco_tpu_torch/assets/unitree_a1_shape.npz"
 # their draws' own stream)
 BIPEDS = {"h1": ("loco_mujoco_tpu_torch/assets/unitree_h1_shape.npz", 2),
           "atlas": ("loco_mujoco_tpu_torch/assets/atlas_shape.npz", 3)}
+# the G1-shaped biped on the extended collision with pyramidal rows and a
+# plane-mesh group: (asset, seed of its draws' own stream)
+G1 = ("loco_mujoco_tpu_torch/assets/unitree_g1_shape.npz", 4)
 # A1's seeded motor ctrls lie in [-A1_CTRL, A1_CTRL] of its ctrlrange
 # [-1, 1] (17 of the motors' 34 N m): with the full range redrawn every
 # control step some envs spin their light, slender calves fast enough that
@@ -485,6 +501,7 @@ def _rank_ties(torch, m, d, fk, fp, envs):
 
     from loco_mujoco_tpu_torch.ops import forward as fwd
     from loco_mujoco_tpu_torch.ops import hopper_fused as hf
+    from loco_mujoco_tpu_torch.ops import hopper_mega as hm
 
     E, dev = d.qpos.shape[0], d.qpos.device
     perm = torch.arange(m.ncon, device=dev).expand(E, -1).clone()
@@ -534,7 +551,7 @@ def _rank_ties(torch, m, d, fk, fp, envs):
     r = hf.fused_constraint_plain(
         m, st.replace(contact=c), (fk.solver_niter, fk.solver_taken,
                                    fk.solver_ls, fk.solver_rows),
-        solve64=m.plan.mega_ell)
+        solve64=hm.ext_mode(m.plan) == 1)
     rel = (fk.qacc - r.qacc).abs().amax(1) / float(fp.qacc.abs().max())
     for e in swapped.nonzero().flatten().tolist()[:SHOW_ENVS]:
         print(f"  env {e}: the plain version in the kernel's slot order "
@@ -727,9 +744,7 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True,
     (dim - 1)(dim - 2) / 2 curvature pairs. The extended collision
     (`mega_ell`) counts both sides' poses and keys of
     every pair of a top-K group and the narrowphase of the selected
-    pairs."""
-    from loco_mujoco_tpu_torch.ops import collision as coll
-
+    pairs, and its plane-mesh group as the plane-only collision's."""
     plan = model.plan
     nv, nb = model.nv, model.nbody
     dev = d.qpos.device
@@ -777,11 +792,17 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True,
     total = total + _muscle_flops(model)
     if plan.mega_ell:
         # per pair side a pose (63), per ranked pair its key (25), per
-        # selected pair its narrowphase (by kind, from csrc/mega.cu)
+        # selected pair its narrowphase (by kind, from csrc/mega.cu); the
+        # plane-mesh group as the plane-only collision's, with the slots'
+        # generic fields (the plane's frame, 40 per selected pair)
         narrow = (20, 60, 150, 200, 40, 60, 100, 120)
         col = nb * 130 + model.njnt * 160
         for g in plan.ext:
             P = len(g["ints"])
+            if g["kind"] == 8:
+                col = col + _mesh_flops(torch, plan.ext_mesh, d, act) \
+                    + 40 * g["k"]
+                continue
             if g["k"] < P:
                 col += P * (2 * 63 + 25) * g["k"]
             col += g["k"] * (2 * 63 + narrow[g["kind"]])
@@ -799,7 +820,18 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True,
     mesh = next((g for g in plan.groups if g["kind"] == "mesh"), None)
     if mesh is None:
         return total + col
-    mk = mesh["mesh"]
+    return total + col + _mesh_flops(torch, mesh, d, act)
+
+
+def _mesh_flops(torch, mesh, d, act):
+    """Float operations of a plane-mesh group per env (csrc/mega.cu
+    mesh_group) on the staged forward's Data `d` and its active slots
+    `act`: every pair's pose and bound (121), the top-k's comparisons, the
+    height maps of the pairs whose bound reaches the margin (7 per vertex)
+    and each selected pair's neighbour walk and slots."""
+    from loco_mujoco_tpu_torch.ops import collision as coll
+
+    mk, dev = mesh["mesh"], d.qpos.device
     a, b, _, _ = coll.mesh_kernel_inputs(mk, d)  # (E, P, 3), (E, P)
     pf = torch.as_tensor(mk.pair_f, device=dev)
     lb = b - 1e-6
@@ -811,8 +843,7 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True,
     near = ((lb < pf[:, 0]).double() * V).sum(dim=1) * 7  # height maps
     o = mesh["offset"]
     sel = act[:, o:o + 3 * mesh["k"]:3].sum(dim=1).double()  # slot 0s
-    return (total + col + 121 * mk.P + mesh["k"] * mk.P + near
-            + sel * (23 * D + 166))
+    return (121 * mk.P + mesh["k"] * mk.P + near + sel * (23 * D + 166))
 
 
 def _load(io, root, name, dev, torch):
@@ -882,7 +913,8 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py runs on the GPU", file=sys.stderr)
         return 2
     from loco_mujoco_tpu_torch.core import io
-    from loco_mujoco_tpu_torch.envs.standins import damping_dr, make_env
+    from loco_mujoco_tpu_torch.envs.standins import (damping_dr, make_env,
+                                                     standin_kind)
     from loco_mujoco_tpu_torch.ops import collision as coll
     from loco_mujoco_tpu_torch.ops import constraint as con
     from loco_mujoco_tpu_torch.ops import forward as fwd
@@ -923,6 +955,7 @@ def main() -> int:
     bipeds = {name: io.load_model_npz(root / asset, device=dev)
               for name, (asset, _) in BIPEDS.items()}
     m_h1, m_at = bipeds["h1"], bipeds["atlas"]
+    m_g1 = io.load_model_npz(root / G1[0], device=dev)
     mesh_groups = [i for i, g in enumerate(model.groups)
                    if coll.is_plane_mesh(g)]
     assert mesh_groups and all(model.mesh_kernel[i] is not None
@@ -943,6 +976,12 @@ def main() -> int:
         assert p.mega and p.uniform and not p.elliptic and not p.mega_ell
         assert "cyl" in [g["kind"] for g in p.groups], name
     assert m_h1.plan.euler_dv and hm.forwards_per_step(m_at) == 4
+    pg1 = m_g1.plan  # the extended collision with pyramidal rows
+    assert pg1.mega and pg1.mega_ell and not pg1.elliptic and pg1.euler_dv
+    assert hm.ext_mode(pg1) == 2 and pg1.pack_w == 26 and not pg1.uniform
+    g1_mesh = next(i for i, g in enumerate(m_g1.groups)
+                   if coll.is_plane_mesh(g))
+    assert m_g1.mesh_kernel[g1_mesh] is not None, "G1 mesh group off kernel"
     plan = model.mesh_kernel[mesh_groups[0]]
     print(f"model: nv={model.nv}, groups "
           f"{[(g.t2, g.k, len(g.pair_ids)) for g in model.groups]}, "
@@ -966,11 +1005,16 @@ def main() -> int:
                              for g in m.plan.groups])
                       + f", {m.plan.ncon} slots, {m.plan.nrows} rows, "
                       f"{hm.forwards_per_step(m)} forwards per substep"
-                      for n, m in bipeds.items()))
+                      for n, m in bipeds.items())
+          + f"; g1: nv={m_g1.nv}, groups "
+          + str([(g.t1, g.t2, g.condim, g.k, len(g.pair_ids))
+                 for g in m_g1.groups])
+          + f", {pg1.ncon} slots, {pg1.nrows} rows (extended collision, "
+          f"pyramidal rows, pack {pg1.pack_w})")
 
     # the mega kernels' launch: a warp per env, its state in shared memory
     for name, m in (("rk4", model), ("euler", m_eu), ("muscle", m_mu),
-                    ("a1", m_a1), *bipeds.items()):
+                    ("a1", m_a1), *bipeds.items(), ("g1", m_g1)):
         launch = mega_launch(m.plan)
         occ = hm.occupancy(m)
         print(f"mega launch {name}: {4 * launch.env_floats} bytes of shared "
@@ -989,10 +1033,12 @@ def main() -> int:
     qpos_a1_t = torch.as_tensor(qpos_a1, dtype=torch.float32, device=dev)
     biped_draws = {name: seeded_biped(m, BIPEDS[name][1], E)
                    for name, m in bipeds.items()}
+    biped_draws["g1"] = seeded_biped(m_g1, G1[1], E)
 
     def biped(m):
-        """The biped configuration's name of model m, or None."""
-        return next((n for n, b in bipeds.items() if b is m), None)
+        """The biped configuration's name of model m (G1 too), or None."""
+        return next((n for n, b in (*bipeds.items(), ("g1", m_g1))
+                     if b is m), None)
 
     def ctrl(c, m=model):
         """Control step c's seeded ctrl of model m (the muscle model's in
@@ -1011,9 +1057,8 @@ def main() -> int:
 
     # ---- each kernel of the earlier staged path against its plain version --
     d_pos = fwd.fwd_position(model, data, plain=True)
-    a, b, gxp, gxm = coll.mesh_kernel_inputs(plan, d_pos)
-    a_t, b_t = lay.moveaxis0_last_plain(a), lay.moveaxis0_last_plain(b)
-    gxp_t, gxm_t = lay.moveaxis0_last_plain(gxp), lay.moveaxis0_last_plain(gxm)
+    a, _, _, _ = coll.mesh_kernel_inputs(plan, d_pos)
+    a_t = lay.moveaxis0_last_plain(a)
 
     errs = {}
     for role, fn, x in (("moveaxis0_last", lay.moveaxis0_last, a),
@@ -1025,34 +1070,51 @@ def main() -> int:
         assert torch.equal(fn(x), ref), f"{role} not bit-exact"
         errs[role] = 0.0
 
-    dist_k, vsel_k = hc.plane_mesh_select(plan, a_t, b_t)
-    dist_p, vsel_p = hc.select_plain(plan, a_t, b_t)
-    margin = torch.as_tensor(plan.pair_f[:, 0], device=dev)[:, None, None]
-    act_p = dist_p < margin
-    assert torch.equal(dist_k < margin, act_p), "select: active mask differs"
-    e_sel = _active_close(dist_k, dist_p, act_p, 1e-6, "select dist")
-    act9 = act_p.repeat_interleave(3, dim=1)
-    e_sel = max(e_sel, _active_close(vsel_k, vsel_p, act9, 1e-5, "select vsel"))
-    errs["plane_mesh_select"] = e_sel
+    def mesh_check(mk, d_pos, what):
+        """The select and the top-K against their plain versions on a
+        plane-mesh group's inputs at d_pos: active masks and geom ids
+        exact, depths and points within 1e-6 / 1e-5, frames 1e-6."""
+        a, b, gxp, gxm = coll.mesh_kernel_inputs(mk, d_pos)
+        a_t, b_t = lay.moveaxis0_last_plain(a), lay.moveaxis0_last_plain(b)
+        gxp_t = lay.moveaxis0_last_plain(gxp)
+        gxm_t = lay.moveaxis0_last_plain(gxm)
+        dist_k, vsel_k = hc.plane_mesh_select(mk, a_t, b_t)
+        dist_p, vsel_p = hc.select_plain(mk, a_t, b_t)
+        margin = torch.as_tensor(mk.pair_f[:, 0], device=dev)[:, None, None]
+        act_p = dist_p < margin
+        assert torch.equal(dist_k < margin, act_p), \
+            f"select {what}: active mask differs"
+        e_sel = _active_close(dist_k, dist_p, act_p, 1e-6, "select dist")
+        act9 = act_p.repeat_interleave(3, dim=1)
+        e_sel = max(e_sel, _active_close(vsel_k, vsel_p, act9, 1e-5,
+                                         "select vsel"))
+        out_k = hc.group_topk(mk, dist_p, vsel_p, gxp_t, gxm_t)
+        out_p = hc.group_topk_plain(mk, dist_p, vsel_p, gxp_t, gxm_t)
+        act_s = out_p[0] < BIG / 2  # active slot rows (k, 3, E)
+        assert torch.equal(out_k[0] < BIG / 2, act_s), \
+            f"top-K {what}: active differs"
+        slot_on = act_s[:, 0:1]  # pair selected with key < 0
+        geo = slot_on.expand(-1, 2, -1)
+        assert torch.equal(out_k[3][:, :2][geo], out_p[3][:, :2][geo]), \
+            f"top-K {what}: geom ids"
+        e_top = _active_close(out_k[0], out_p[0], act_s, 1e-6, "top-K dist")
+        e_top = max(e_top, _active_close(
+            out_k[1], out_p[1], act_s.repeat_interleave(3, dim=1), 1e-5,
+            "top-K pos"))
+        e_top = max(e_top, _active_close(
+            out_k[2], out_p[2], slot_on.expand(-1, 9, -1), 1e-6,
+            "top-K frame"))
+        print(f"kernel checks ({what}): select active slots "
+              f"{int(act_p.sum())}, max err {e_sel:.3g}; top-K active "
+              f"slots {int(act_s.sum())}, max err {e_top:.3g}")
+        return e_sel, e_top
 
-    out_k = hc.group_topk(plan, dist_p, vsel_p, gxp_t, gxm_t)
-    out_p = hc.group_topk_plain(plan, dist_p, vsel_p, gxp_t, gxm_t)
-    act_s = out_p[0] < BIG / 2  # active slot rows (k, 3, E)
-    assert torch.equal(out_k[0] < BIG / 2, act_s), "top-K: active differs"
-    slot_on = act_s[:, 0:1]  # pair selected with key < 0
-    geo = slot_on.expand(-1, 2, -1)
-    assert torch.equal(out_k[3][:, :2][geo], out_p[3][:, :2][geo]), "geom ids"
-    e_top = _active_close(out_k[0], out_p[0], act_s, 1e-6, "top-K dist")
-    e_top = max(e_top, _active_close(
-        out_k[1], out_p[1], act_s.repeat_interleave(3, dim=1), 1e-5,
-        "top-K pos"))
-    e_top = max(e_top, _active_close(
-        out_k[2], out_p[2], slot_on.expand(-1, 9, -1), 1e-6, "top-K frame"))
-    errs["group_topk"] = e_top
-    n_active = int(act_s.sum())
-    print(f"kernel checks: relayout bit-exact; select active slots "
-          f"{int(act_p.sum())}, max err {e_sel:.3g}; top-K active slots "
-          f"{n_active}, max err {e_top:.3g}")
+    errs["plane_mesh_select"], errs["group_topk"] = mesh_check(
+        plan, d_pos, "torque humanoid")
+    print("kernel checks: relayout bit-exact")
+    d_g1_pos = fwd.fwd_position(m_g1, start(m_g1), plain=True)
+    errs["plane_mesh_select_g1"], errs["group_topk_g1"] = mesh_check(
+        m_g1.mesh_kernel[g1_mesh], d_g1_pos, "G1")
 
     def newton_check(m, d, what):
         """The Newton kernel against its plain version on the rows of the
@@ -1149,6 +1211,10 @@ def main() -> int:
         d_staged_at, staged_at_launches, staged_at_rate, _ = staged_run(
             m_at, STAGED_STEPS, {"fused": 1}, "Atlas RK4 through torch "
             "collision and the fused kernel")
+        d_staged_g1, staged_g1_launches, staged_g1_rate, staged_g1_ops = \
+            staged_run(m_g1, STAGED_STEPS, per_fused, "G1 Euler through the "
+                       "plane-mesh kernels, torch narrowphases and the fused "
+                       "kernel (26-float pack)")
         d_wide, wide_launches, wide_rate, wide_ops = staged_run(
             m_wide, WIDE_STEPS, per_newton,
             f"RK4, no plan ({m_wide.ncon} slots), through the Newton kernel")
@@ -1219,6 +1285,9 @@ def main() -> int:
         m_h1, "H1 Euler (plane-cylinder pairs in order, plane-mesh)")
     S_at, launches_at, env_steps_at, _ = main_run(
         m_at, "Atlas RK4 (top-K plane-cylinder and plane-box)")
+    S_g1, launches_g1, env_steps_g1, _ = main_run(
+        m_g1, "G1 Euler (extended collision: pyramidal rows, plane-mesh and "
+        "self groups)")
     print(f"muscle activations at the end: mean "
           f"{float(S_mu.act.mean()):.4f}, min {float(S_mu.act.min()):.4f}, "
           f"max {float(S_mu.act.max()):.4f}")
@@ -1238,6 +1307,8 @@ def main() -> int:
         -0.3, 0.3, size=(CONTROL_STEPS, E, model.nu))
     env_acts_a1 = np.random.default_rng(SEED + 8).uniform(
         -A1_CTRL, A1_CTRL, size=(CONTROL_STEPS, E, m_a1.nu))
+    env_acts_g1 = np.random.default_rng(SEED + 9).uniform(
+        -0.3, 0.3, size=(CONTROL_STEPS, E, m_g1.nu))
 
     def act_t(acts, c):
         return torch.as_tensor(acts[c], dtype=torch.float32, device=dev)
@@ -1315,6 +1386,28 @@ def main() -> int:
         env_a1_dr, env_acts_a1, CONTROL_STEPS,
         {"mega_forward": 1 + CONTROL_STEPS * SUBSTEPS},
         "A1 Euler with damping randomization (per-substep mega forward)")
+    # G1's env (its own fall predicate): through step_n's megastep, and
+    # with damping randomization (Euler: the per-substep mega forward with
+    # the rows in the extended pyramidal instance), beside step_n alone
+    env_g1 = make_env(m_g1, horizon=CONTROL_STEPS + 1)
+    env_g1_dr = make_env(m_g1, dr=damping_dr(m_g1),
+                         horizon=CONTROL_STEPS + 1)
+    m_g1_dr = env_g1_dr.model_dr
+    assert standin_kind(m_g1) == "g1"  # G1's own fall predicate
+    assert m_g1_dr.plan.mega_ell and hm.megastep_mode(m_g1_dr) is None
+    _, _, env_g1_launches, env_g1_rate, env_g1_inputs = env_run(
+        env_g1, env_acts_g1, CONTROL_STEPS, mega_launches, "G1 Euler")
+    raw_g1 = raw_rate(env_g1, env_g1_inputs, env_acts_g1)
+    del env_g1_inputs
+    st_g1dr, _, env_g1dr_launches, env_g1dr_rate, _ = env_run(
+        env_g1_dr, env_acts_g1, CONTROL_STEPS,
+        {"mega_forward": 1 + CONTROL_STEPS * SUBSTEPS},
+        "G1 Euler with damping randomization (per-substep mega forward)")
+    print(f"env layer G1: {env_g1_rate:.0f} env-steps/s against "
+          f"{raw_g1:.0f} for step_n alone "
+          f"({100 * (raw_g1 / env_g1_rate - 1):.2f}% overhead); with damping "
+          f"randomization {env_g1dr_rate:.0f} (the per-substep mega forward)"
+          f" ({card})")
     draws = st_dr.dr["dof_damping"]
     assert torch.equal(st_dr.data.dof_damping, draws)
     assert not torch.equal(draws[0], draws[1]), "one damping draw for all"
@@ -1475,6 +1568,23 @@ def main() -> int:
         errs[f"mega_forward_{name}"] = mega_forward_check(m, S_, name)
         errs[f"megastep_{name}"], S1_, flops_ = megastep_check(m, S_, name)
         biped_runs[name] = (S1_, flops_)
+    # G1: the extended collision's pyramidal instance with its plane-mesh
+    # and self groups, at the end state (which must touch the floor in 90%
+    # of the envs too), and with the damping rows at its DR env's end
+    f_ = fwd.forward(m_g1, S_g1)
+    act_ = f_.contact.dist < f_.contact.includemargin
+    touching = int(act_.any(1).sum())
+    print("g1 end state: active slots per group "
+          + str([int(act_[:, g.offset:g.offset + g.k * g.slots].sum())
+                 for g in m_g1.groups]) + f" ({int(act_.sum()) / E:.2f} per "
+          f"env; {touching} of {E} envs touch)")
+    assert touching >= 0.9 * E, "g1: the end state is contact-light"
+    errs["mega_forward_g1"] = mega_forward_check(m_g1, S_g1, "g1")
+    errs["megastep_g1"], S1_g1, step_flops_g1 = megastep_check(m_g1, S_g1,
+                                                               "g1")
+    S_g1dr = st_g1dr.data
+    errs["mega_forward_g1_dr"] = mega_forward_check(m_g1_dr, S_g1dr,
+                                                    "G1 damping DR")
     # the damping rows: the mega forward's plane-only and extended
     # instances and the megastep, at the DR envs' end states
     errs["mega_forward_dr"] = mega_forward_check(m_dr, S_dr,
@@ -1494,12 +1604,13 @@ def main() -> int:
     # The damping rows (smooth and elliptic layouts) at the staged DR envs'
     # end states, each env's damping carried along.
     fused_in = {}
-    models.update(muscle=m_mu, a1=m_a1, dr=m_dr, a1_dr=m_a1_dr, **bipeds)
+    models.update(muscle=m_mu, a1=m_a1, dr=m_dr, a1_dr=m_a1_dr, g1=m_g1,
+                  **bipeds)
     for name in ("rk4", "euler", "fric", "solref", "muscle", "a1", "h1",
-                 "atlas", "dr", "a1_dr"):
+                 "atlas", "g1", "dr", "a1_dr"):
         m = models[name]
         src = {"muscle": d_staged_mu, "a1": d_staged_a1, "h1": d_staged_h1,
-               "atlas": d_staged_at, "dr": st_sdr.data,
+               "atlas": d_staged_at, "g1": d_staged_g1, "dr": st_sdr.data,
                "a1_dr": st_sa1dr.data}.get(name, d_staged)
         d = io.make_data(m, E).replace(
             qpos=src.qpos, qvel=src.qvel, ctrl=src.ctrl, act=src.act,
@@ -1563,6 +1674,8 @@ def main() -> int:
         "staged A1": staged_a1_launches, "main A1": launches_a1,
         "staged H1": staged_h1_launches, "main H1": launches_h1,
         "staged Atlas": staged_at_launches, "main Atlas": launches_at,
+        "staged G1": staged_g1_launches, "main G1": launches_g1,
+        "env G1 DR": env_g1dr_launches,
         "env RK4 DR": env_dr_launches, "env A1 DR": env_a1dr_launches,
         "staged env RK4 DR": staged_dr_launches,
         "staged env A1 DR": staged_a1dr_launches}
@@ -1621,29 +1734,34 @@ def main() -> int:
             plain, 2 * nbytes(*ts), 0, lib)
 
     # the select and top-K at the staged RK4 run's end state (the model's
-    # mesh group, k = 8)
-    d_pos = fwd.fwd_position(model, d_staged)
-    a, b, gxp, gxm = coll.mesh_kernel_inputs(plan, d_pos)
-    a_t, b_t = lay.moveaxis0_last(a), lay.moveaxis0_last(b)
-    gxp_t, gxm_t = lay.moveaxis0_last(gxp), lay.moveaxis0_last(gxm)
-    dist, vsel = hc.plane_mesh_select(plan, a_t, b_t)
-    topk_out = hc.group_topk(plan, dist, vsel, gxp_t, gxm_t)
-    ms = _time_ms(torch, lambda: hc.plane_mesh_select(plan, a_t, b_t))
-    plain = _time_ms(torch, lambda: hc.select_plain(plan, a_t, b_t))
-    pt = plan.tensors(dev)
-    row("plane_mesh_select", "plane_mesh_select", "staged RK4",
-        "plane_mesh.cu", "pallas_collision.py:230", ms, plain,
-        nbytes(a_t, b_t, pt.flat, pt.pair_i, pt.pair_f, dist, vsel),
-        _select_flops(torch, plan, a_t, b_t, dist))
-
-    ms = _time_ms(torch, lambda: hc.group_topk(plan, dist, vsel, gxp_t, gxm_t))
-    plain = _time_ms(
-        torch, lambda: hc.group_topk_plain(plan, dist, vsel, gxp_t, gxm_t))
-    slots_on = int((topk_out[0][:, 0] < BIG / 2).sum())
-    row("group_topk", "group_topk", "staged RK4", "plane_mesh.cu",
-        "pallas_collision.py:556", ms, plain,
-        nbytes(dist, vsel, gxp_t, gxm_t, pt.tbl16, pt.pg_local32, *topk_out),
-        2 * plan.k * plan.P * E + 90 * slots_on)
+    # mesh group, k = 8) and at the staged G1 run's (its mesh group, k = 8)
+    for sfx, m, d_end, mk, run in (
+            ("", model, d_staged, plan, "staged RK4"),
+            ("_g1", m_g1, d_staged_g1, m_g1.mesh_kernel[g1_mesh],
+             "staged G1")):
+        d_pos = fwd.fwd_position(m, d_end)
+        a, b, gxp, gxm = coll.mesh_kernel_inputs(mk, d_pos)
+        a_t, b_t = lay.moveaxis0_last(a), lay.moveaxis0_last(b)
+        gxp_t, gxm_t = lay.moveaxis0_last(gxp), lay.moveaxis0_last(gxm)
+        dist, vsel = hc.plane_mesh_select(mk, a_t, b_t)
+        topk_out = hc.group_topk(mk, dist, vsel, gxp_t, gxm_t)
+        ms = _time_ms(torch, lambda: hc.plane_mesh_select(mk, a_t, b_t))
+        plain = _time_ms(torch, lambda: hc.select_plain(mk, a_t, b_t))
+        pt = mk.tensors(dev)
+        row("plane_mesh_select" + sfx, "plane_mesh_select", run,
+            "plane_mesh.cu", "pallas_collision.py:230", ms, plain,
+            nbytes(a_t, b_t, pt.flat, pt.pair_i, pt.pair_f, dist, vsel),
+            _select_flops(torch, mk, a_t, b_t, dist))
+        ms = _time_ms(torch, lambda: hc.group_topk(mk, dist, vsel, gxp_t,
+                                                   gxm_t))
+        plain = _time_ms(torch, lambda: hc.group_topk_plain(
+            mk, dist, vsel, gxp_t, gxm_t))
+        slots_on = int((topk_out[0][:, 0] < BIG / 2).sum())
+        row("group_topk" + sfx, "group_topk", run, "plane_mesh.cu",
+            "pallas_collision.py:556", ms, plain,
+            nbytes(dist, vsel, gxp_t, gxm_t, pt.tbl16, pt.pg_local32,
+                   *topk_out),
+            2 * mk.k * mk.P * E + 90 * slots_on)
 
     ms = _time_ms(torch, lambda: hn.solve(*operands, **options))
     plain = _time_ms(torch, lambda: hn.newton_plain(*operands, **options),
@@ -1671,6 +1789,7 @@ def main() -> int:
                            ("a1", "fused_a1", "staged A1"),
                            ("h1", "fused_h1", "staged H1"),
                            ("atlas", "fused_atlas", "staged Atlas"),
+                           ("g1", "fused_g1", "staged G1"),
                            ("dr", "fused_dr", "staged env RK4 DR"),
                            ("a1_dr", "fused_a1_dr", "staged env A1 DR")):
         m, d = models[name], fused_in[name]
@@ -1717,6 +1836,7 @@ def main() -> int:
             (m_a1, S_a1, S1_a1, step_flops_a1, "_a1", "main A1"),
             (m_h1, S_h1, *biped_runs["h1"], "_h1", "main H1"),
             (m_at, S_at, *biped_runs["atlas"], "_atlas", "main Atlas"),
+            (m_g1, S_g1, S1_g1, step_flops_g1, "_g1", "main G1"),
             (m_dr, S_dr, S1_dr, step_flops_dr, "_dr", "env RK4 DR")):
         b_fwd, b_step = mega_bounds(m, S_, sflops)
         ms = _time_ms(torch, lambda: hm.mega_forward(m, S_))
@@ -1736,6 +1856,13 @@ def main() -> int:
                      reps=3)
     row("mega_forward_a1_dr", "mega_forward", "env A1 DR", "mega.cu",
         "pallas_constraint.py:2335", ms, plain, *b_fwd)
+    # and the extended pyramidal instance with the rows (G1's DR env)
+    b_fwd, _ = mega_bounds(m_g1_dr, S_g1dr, [torch.zeros(E, device=dev)])
+    ms = _time_ms(torch, lambda: hm.mega_forward(m_g1_dr, S_g1dr))
+    plain = _time_ms(torch, lambda: hm.mega_forward_plain(m_g1_dr, S_g1dr),
+                     reps=3)
+    row("mega_forward_g1_dr", "mega_forward", "env G1 DR", "mega.cu",
+        "pallas_constraint.py:2335", ms, plain, *b_fwd)
     # the muscle kernels again in deep contact (after the first control step)
     b_fwd, b_step = mega_bounds(m_mu, S_mu_c, step_flops_mu_c)
     ms_fc = _time_ms(torch, lambda: hm.mega_forward(m_mu, S_mu_c))
@@ -1754,13 +1881,18 @@ def main() -> int:
           f"alone {raw:.0f}), {env_dr_rate:.0f} RK4 with damping DR (step_n "
           f"alone {raw_dr:.0f}), {env_a1dr_rate:.0f} A1 with damping DR; "
           f"staged {staged_dr_rate:.0f} RK4 DR, {staged_a1dr_rate:.0f} A1 DR; "
+          f"G1 {env_g1_rate:.0f} (step_n alone {raw_g1:.0f}), G1 with damping "
+          f"DR {env_g1dr_rate:.0f}; "
           f"card: {card}")
     print(f"main path {env_steps:.0f} env-steps/s RK4, {env_steps_eu:.0f} "
           f"Euler, {env_steps_mu:.0f} muscle Euler, {env_steps_a1:.0f} A1, "
-          f"{env_steps_h1:.0f} H1, {env_steps_at:.0f} Atlas; staged path "
+          f"{env_steps_h1:.0f} H1, {env_steps_at:.0f} Atlas, "
+          f"{env_steps_g1:.0f} G1; staged path "
           f"{staged_rate:.0f} env-steps/s RK4, {staged_eu_rate:.0f} Euler, "
           f"{staged_mu_rate:.0f} muscle, {staged_a1_rate:.0f} A1, "
-          f"{staged_h1_rate:.0f} H1, {staged_at_rate:.0f} Atlas "
+          f"{staged_h1_rate:.0f} H1, {staged_at_rate:.0f} Atlas, "
+          f"{staged_g1_rate:.0f} G1 ({staged_g1_ops or 'not measured'} "
+          f"kernels per G1 forward) "
           f"({staged_a1_ops or 'not measured'} kernels per A1 forward; "
           f"{staged_ops or 'not measured'} "
           f"kernels per forward), no-plan staged path {wide_rate:.0f} "

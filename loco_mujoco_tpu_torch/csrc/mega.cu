@@ -12,12 +12,17 @@
 // JOINT-equality / friction-loss / limit / pyramidal contact rows,
 // solve_core and, for Euler models, the implicit-damping dv (euler_dv,
 // :1893-1906).
-// An elliptic plan with the extended collision (mega_ell: ELLIPTIC and
-// NXGRP > 0) runs collide_ext instead, the counterpart of
-// pallas_fk.collide_env_block_ext (:1714-2039): every classic analytic
-// pair kind, self pairs included, into generic contact slots (frame, both
-// geoms and bodies, the group's statics), then dim elliptic rows per slot
-// and the Newton solve's cone zones.
+// A plan with the extended collision (mega_ell: NXGRP > 0) runs
+// collide_ext instead, the counterpart of pallas_fk.collide_env_block_ext
+// (:1714-2039): every classic analytic pair kind, self pairs included, and
+// a plane-mesh group (mesh_group, the plane-only collision's, then the
+// selected hulls' geoms, bodies and invweight, _mesh_group_slots :663 and
+// its gmap :1752-1768) into generic contact slots (frame, both geoms and
+// bodies, the group's statics); then, with elliptic cones, dim elliptic
+// rows per slot and the Newton solve's cone zones in double, or, with
+// pyramidal cones (G1), the four blocked facet rows of each slot
+// (_mega_ell_finish :2594-2600) and the float solve: three instances
+// (plane-only, extended elliptic, extended pyramidal; LMT_INSTANCE).
 // A plan with muscles (flag MUSCLE) adds the tendon and muscle stage
 // (muscle_block; pallas_fk.muscle_env_block :1140-1350, inlined at
 // pallas_constraint.py:1245-1264) after the smooth stage: qfrc_smooth gains
@@ -956,66 +961,16 @@ __device__ __forceinline__ MeshBuf mesh_buf(const Env& s) {
                  (int*)(s.mesh + 3 * s.pmax), s.mesh + 3 * s.pmax + s.kmax};
 }
 
-__device__ void collide(const Tab& T, const Env& s) {
-  const float* con = T.f(F_CON);
-  const float* n = con;
-  const float* pp = con + 3;
+// The plane-mesh group, of the plane-only and the extended collision alike:
+// per pair its support depth (or the conservative bound), the top-k by
+// depth - margin, then the manifold of each selected pair into slots off + 3 r
+// + f: position, depth, the hull's body and geom (an inactive rank: pair 0's
+// ids and the 1e10 depth). Over the plan's F_MESH, I_MESH and F_VERT; n and pp
+// the plane's normal and a point on it. The selection (sel, mk) stays in the
+// mesh buffer for the caller.
+__device__ void mesh_group(const Tab& T, const Env& s, const float* n,
+                           const float* pp, int P, int kmesh, int offmesh) {
   const MeshBuf mb = mesh_buf(s);
-  // the plane-box and the plane-cylinder group, in that order, through one
-  // loop: k == P takes the pairs in order, else the top-k by the exact
-  // support distance minus the margin (collision.midphase_key); each pair
-  // row holds the geom's pose, its size and the margin (B[10])
-#pragma unroll 1
-  for (int cyl = 0; cyl < 2; ++cyl) {
-    const int P = T.h(cyl ? NCYL : NBOX), k = T.h(cyl ? KCYL : KBOX);
-    if (!P) continue;
-    const int off = T.h(cyl ? OFFCYL : OFFBOX);
-    const float* gf = T.f(cyl ? F_CYL : F_BOX);
-    const int* gi = T.i(cyl ? I_CYL : I_BOX);
-    if (k < P) {
-      for (int q = s.lane; q < P; q += kWarp) {
-        const float* B = gf + 12 * q;
-        float qp[3], R[9];
-        geom_pose(s, gi[2 * q], B, qp, R);
-        const float h = rdot3(n[0], n[1], n[2], qp[0] - pp[0], qp[1] - pp[1],
-                              qp[2] - pp[2]);
-        float supp = 0.f;
-        if (cyl) {
-          const float ca = fabsf(rdot3(n[0], n[1], n[2], R[2], R[5], R[8]));
-          supp = radd(rmul(B[8], ca),
-                      rmul(B[7], sqrtf(fmaxf(rsub(1.f, rmul(ca, ca)), 0.f))));
-        } else {
-          for (int j = 0; j < 3; ++j)
-            supp = radd(supp, rmul(fabsf(rdot3(n[0], n[1], n[2], R[j],
-                                               R[3 + j], R[6 + j])),
-                                   B[7 + j]));
-        }
-        mb.key[q] = rsub(rsub(h, supp), B[10]);
-      }
-      __syncwarp();
-      wtopk(s, mb.key, P, k, mb.sel, mb.mk);
-    }
-    for (int r = s.lane; r < k; r += kWarp) {
-      const int p = k < P ? mb.sel[r] : r;
-      const float* B = gf + 12 * p;
-      float qp[3], R[9];
-      geom_pose(s, gi[2 * p], B, qp, R);
-      if (cyl) {
-        float w[4][3], h[4];
-        cyl_slots(n, pp, qp, R, B[7], B[8], w, h);
-        for (int q = 0; q < 4; ++q)
-          put_slot(s, off + 4 * r + q, w[q], h[q], gi[2 * p], gi[2 * p + 1]);
-      } else {
-        box_slots(s, n, pp, qp, R, B + 7, off + 4 * r, gi[2 * p],
-                  gi[2 * p + 1]);
-      }
-    }
-    __syncwarp();
-  }
-  // plane-mesh group: support depth (or the conservative bound) per pair,
-  // top-k by depth - margin, then the manifold of the selected pairs
-  const int P = T.h(NMESH), kmesh = T.h(KMESH), offmesh = T.h(OFFMESH);
-  if (!P) return;
   const float* mf = T.f(F_MESH);
   const int* mi = T.i(I_MESH);
   const float* vert = T.f(F_VERT);
@@ -1127,6 +1082,67 @@ __device__ void collide(const Tab& T, const Env& s) {
   __syncwarp();
 }
 
+__device__ void collide(const Tab& T, const Env& s) {
+  const float* con = T.f(F_CON);
+  const float* n = con;
+  const float* pp = con + 3;
+  const MeshBuf mb = mesh_buf(s);
+  // the plane-box and the plane-cylinder group, in that order, through one
+  // loop: k == P takes the pairs in order, else the top-k by the exact
+  // support distance minus the margin (collision.midphase_key); each pair
+  // row holds the geom's pose, its size and the margin (B[10])
+#pragma unroll 1
+  for (int cyl = 0; cyl < 2; ++cyl) {
+    const int P = T.h(cyl ? NCYL : NBOX), k = T.h(cyl ? KCYL : KBOX);
+    if (!P) continue;
+    const int off = T.h(cyl ? OFFCYL : OFFBOX);
+    const float* gf = T.f(cyl ? F_CYL : F_BOX);
+    const int* gi = T.i(cyl ? I_CYL : I_BOX);
+    if (k < P) {
+      for (int q = s.lane; q < P; q += kWarp) {
+        const float* B = gf + 12 * q;
+        float qp[3], R[9];
+        geom_pose(s, gi[2 * q], B, qp, R);
+        const float h = rdot3(n[0], n[1], n[2], qp[0] - pp[0], qp[1] - pp[1],
+                              qp[2] - pp[2]);
+        float supp = 0.f;
+        if (cyl) {
+          const float ca = fabsf(rdot3(n[0], n[1], n[2], R[2], R[5], R[8]));
+          supp = radd(rmul(B[8], ca),
+                      rmul(B[7], sqrtf(fmaxf(rsub(1.f, rmul(ca, ca)), 0.f))));
+        } else {
+          for (int j = 0; j < 3; ++j)
+            supp = radd(supp, rmul(fabsf(rdot3(n[0], n[1], n[2], R[j],
+                                               R[3 + j], R[6 + j])),
+                                   B[7 + j]));
+        }
+        mb.key[q] = rsub(rsub(h, supp), B[10]);
+      }
+      __syncwarp();
+      wtopk(s, mb.key, P, k, mb.sel, mb.mk);
+    }
+    for (int r = s.lane; r < k; r += kWarp) {
+      const int p = k < P ? mb.sel[r] : r;
+      const float* B = gf + 12 * p;
+      float qp[3], R[9];
+      geom_pose(s, gi[2 * p], B, qp, R);
+      if (cyl) {
+        float w[4][3], h[4];
+        cyl_slots(n, pp, qp, R, B[7], B[8], w, h);
+        for (int q = 0; q < 4; ++q)
+          put_slot(s, off + 4 * r + q, w[q], h[q], gi[2 * p], gi[2 * p + 1]);
+      } else {
+        box_slots(s, n, pp, qp, R, B + 7, off + 4 * r, gi[2 * p],
+                  gi[2 * p + 1]);
+      }
+    }
+    __syncwarp();
+  }
+  // the plane-mesh group
+  if (T.h(NMESH))
+    mesh_group(T, s, n, pp, T.h(NMESH), T.h(KMESH), T.h(OFFMESH));
+}
+
 // ---- extended collision (mega_ell) ------------------------------------------
 // The counterpart of pallas_fk.collide_env_block_ext (:1714-2039) over the
 // plan's ColPlanExt tables: per group (I_XGRP [kind k slots P offset first
@@ -1216,7 +1232,7 @@ __device__ void seg_seg(const float* p1, const float* d1, float l1,
 
 enum ExtKind {
   PLANE_SPHERE, PLANE_CAPSULE, PLANE_CYLINDER, PLANE_BOX, SPHERE_SPHERE,
-  SPHERE_CAPSULE, SPHERE_BOX, CAPSULE_CAPSULE
+  SPHERE_CAPSULE, SPHERE_BOX, CAPSULE_CAPSULE, PLANE_MESH
 };
 
 // midphase key of one pair (collision.midphase_key), minus the margin
@@ -1363,8 +1379,38 @@ __device__ void ext_slots(const Env& s, int kind, const float* pp,
   put_gen(s, o, pos, dist, fr);
 }
 
+// The generic fields of a plane-mesh group's slots after mesh_group: the
+// plane's frame, both geoms and bodies, the group and the hull's invweight
+// of each selected pair (its row of I_XPAIR / F_XPAIR, in the mesh tables'
+// pair order); an inactive rank keeps the plain version's convention (pair
+// 0's ids, the canonical frame).
+__device__ void mesh_generic(const Env& s, const int* pi, const float* pf,
+                             const float* n, int g, int k, int off) {
+  const MeshBuf mb = mesh_buf(s);
+  for (int r = s.lane; r < k; r += kWarp) {
+    const bool on = mb.mk[r] < 0.f;
+    const int p = on ? mb.sel[r] : 0;
+    const int* I = pi + 4 * p;
+    float fr[9] = {0.f, 0.f, 1.f, 0.f, 1.f, 0.f, -1.f, 0.f, 0.f};
+    if (on) make_frame(n, fr);
+    for (int f = 0; f < 3; ++f) {
+      float* S = s.slot(off + 3 * r + f);
+      for (int i = 0; i < 9; ++i) S[S_FRAME + i] = fr[i];
+      S[S_GID1] = fbits(I[0]);
+      S[S_BODY1] = fbits(I[1]);
+      S[S_GID] = fbits(I[2]);
+      S[S_BODY] = fbits(I[3]);
+      S[S_GRP] = fbits(g);
+      S[S_IW] = pf[24 * p + 22];
+    }
+  }
+  __syncwarp();
+}
+
 // The extended collision (see above): per group, lane per pair for the
-// keys (k < P) and lane per selected pair for the narrowphase.
+// keys (k < P) and lane per selected pair for the narrowphase; the
+// plane-mesh group through mesh_group (the plan's hull tables, its pairs in
+// their order), against the plane of its first pair.
 __device__ void collide_ext(const Tab& T, const Env& s) {
   const int ng = T.h(NXGRP);
   const int* gi = T.i(I_XGRP);
@@ -1377,6 +1423,14 @@ __device__ void collide_ext(const Tab& T, const Env& s) {
     const int kind = G[0], k = G[1], slots = G[2], P = G[3], off = G[4],
               first = G[5];
     const float margin = gf[16 * g];
+    if (kind == PLANE_MESH) {
+      float pp[3], R1[9];
+      geom_pose(s, pi[4 * first + 1], pf + 24 * first, pp, R1);
+      const float n[3] = {R1[2], R1[5], R1[8]};
+      mesh_group(T, s, n, pp, P, k, off);
+      mesh_generic(s, pi + 4 * first, pf + 24 * first, n, g, k, off);
+      continue;
+    }
     if (k < P) {
       for (int q = s.lane; q < P; q += kWarp) {
         const float* F = pf + 24 * (first + q);
@@ -2044,10 +2098,11 @@ __device__ void ell_contact_rows(const Tab& T, const Env& s, int nR, int r0,
 
 // The contact rows after the joint and pad rows: lane per slot, the
 // pyramidal facets of the plane-only collision's slots (the plan's uniform
-// statics), or (EXT) the elliptic rows of the extended collision's generic
-// slots (their group's statics), each elliptic contact's cone coefficient
-// at its index among the slots of dim >= 3.
-template <bool EXT>
+// statics), or, from the extended collision's generic slots (their frame,
+// bodies and invweight, their group's statics), (ELL) the elliptic rows,
+// each elliptic contact's cone coefficient at its index among the slots of
+// dim >= 3, or the pyramidal facets.
+template <bool EXT, bool ELL>
 __device__ void contact_rows_all(const Tab& T, const Env& s,
                                  const float* qvel) {
   const int ncon = s.ncon;
@@ -2055,7 +2110,20 @@ __device__ void contact_rows_all(const Tab& T, const Env& s,
   const int base = T.h(NE) + T.h(NFL) + T.h(NL) + T.h(NPAD);
   const float* con = T.f(F_CON);
   const float* bf = T.f(F_BODY);
-  if constexpr (EXT) {
+  if constexpr (EXT && !ELL) {
+    const float* gf = T.f(F_XGRP);
+    for (int c = s.lane; c < ncon; c += kWarp) {
+      const float* S = s.slot(c);
+      const float* G = gf + 16 * ibits(S[S_GRP]);
+      if (!(S[S_DIST] < G[1])) {
+        for (int f = 0; f < 4; ++f) row_off(s, base + f * ncon + c);
+        continue;
+      }
+      contact_rows(T, s, nR, base, c, S + S_POS, S + S_FRAME,
+                   ibits(S[S_BODY1]), ibits(S[S_BODY]), S[S_DIST] - G[1],
+                   G + 2, G + 4, S[S_IW], G[9], G[10], qvel);
+    }
+  } else if constexpr (EXT) {
     const int* cinfo = T.i(I_CON);  // per slot: dim, first row
     const float* gf = T.f(F_XGRP);
     int cbase = 0;  // elliptic contacts before this round's slots
@@ -2673,12 +2741,14 @@ __device__ Rows rows_of(const Tab& T, const Env& s) {
 // One forward of the warp's env at (qpos, qvel, act in SH_MUS) from the
 // warm start in V_WS: qacc into V_X, act_dot (with muscles) into SH_MUS,
 // the decisions out (ls_out: the line search's words, row_out: each
-// step's row words; either may be null). EXT: the
-// extended collision and elliptic rows of a mega_ell plan (a separate
-// instance, so that the plane-only kernels carry none of its code). DAMP:
-// the plan's per-env damping rows (DAMP_ROWS), read from in.damp; an
-// instance of its own, so that the kernels without them are unchanged.
-template <bool EXT, bool DAMP>
+// step's row words; either may be null). EXT: the extended collision of a
+// mega_ell plan; ELL (with EXT): its elliptic rows and the double solve,
+// else its pyramidal facets and the float solve (separate instances, so
+// that the plane-only kernels carry none of the extended code and the
+// elliptic ones none of the pyramidal). DAMP: the plan's per-env damping
+// rows (DAMP_ROWS), read from in.damp; an instance of its own, so that the
+// kernels without them are unchanged.
+template <bool EXT, bool ELL, bool DAMP>
 __device__ void forward_env(const Tab& T, const Opt& o, const In& in,
                             const Env& s, const float* qpos,
                             const float* qvel, int& iters, unsigned& taken,
@@ -2706,12 +2776,12 @@ __device__ void forward_env(const Tab& T, const Opt& o, const In& in,
     collide(T, s);
   phase_tick(e, s.lane, PH_COLLISION);
   joint_rows(T, s, qpos, qvel);
-  contact_rows_all<EXT>(T, s, qvel);
+  contact_rows_all<EXT, ELL>(T, s, qvel);
   phase_tick(e, s.lane, PH_ROWS);
   const Rows rows = rows_of(T, s);
   // the elliptic plans' Newton solve in double (see Solve)
-  newton<typename std::conditional<EXT, double, float>::type>(
-      s, rows, EXT, s.vec(V_WS), o.iterations, o.ls_iterations, o.scale,
+  newton<typename std::conditional<ELL, double, float>::type>(
+      s, rows, ELL, s.vec(V_WS), o.iterations, o.ls_iterations, o.scale,
       o.tol, iters, taken, ls_out, row_out);
   phase_tick(e, s.lane, PH_NEWTON);
 }
@@ -2720,15 +2790,15 @@ __device__ void forward_env(const Tab& T, const Opt& o, const In& in,
 // qfrc = J'f with the row forces at the solution, the contact rows'
 // forces, the slots' depths and geom ids (and points, where asked),
 // euler_dv, act_dot.
-template <bool EXT>
+template <bool EXT, bool ELL>
 __device__ void forward_out(const Tab& T, const Out& out, const Env& s,
                             float* act_dot_out) {
   const int e = s.e, nv = s.nv, nrows = s.nrows, ncon = s.ncon;
   const float* x = s.vec(V_X);
-  if constexpr (EXT)  // at the double solve's x
-    row_forces(s, rows_of(T, s), EXT, (const double*)solve_vecs(s));
+  if constexpr (ELL)  // at the double solve's x
+    row_forces(s, rows_of(T, s), ELL, (const double*)solve_vecs(s));
   else
-    row_forces(s, rows_of(T, s), EXT, x);
+    row_forces(s, rows_of(T, s), ELL, x);
   const float* F = s.ra(R_F);
   unsigned short* lf = s.list(L_F);
   const int nF = compact(s, nrows, lf, [&](int r) { return F[r] != 0.f; });
@@ -2765,8 +2835,8 @@ __device__ void forward_out(const Tab& T, const Out& out, const Env& s,
 }
 
 // The warp's env and its inputs in shared memory: qpos, qvel, ws (E, nv)
-// and act (E, na) env-major; the row classes of an elliptic plan.
-template <bool EXT>
+// and act (E, na) env-major; the row classes of an elliptic plan (ELL).
+template <bool ELL>
 __device__ Env load_env(const Tab& T, float* smem, int env_floats, int e,
                         const float* qpos_in, const float* qvel_in,
                         const float* act_in, const float* ws_in) {
@@ -2781,14 +2851,14 @@ __device__ Env load_env(const Tab& T, float* smem, int env_floats, int e,
   if (T.h(FLAGS) & MUSCLE)
     for (int a = s.lane; a < na; a += kWarp)
       s.mus[a] = act_in[(size_t)e * na + a];
-  if (EXT) row_classes(T, s);  // ends in a warp barrier
+  if (ELL) row_classes(T, s);  // ends in a warp barrier
   __syncwarp();
   return s;
 }
 
 // One warp per env, kMaxEnvsPerBlock envs at most per block (blockDim.x /
 // 32 of them), env_floats of dynamic shared memory each.
-template <bool EXT, bool DAMP>
+template <bool EXT, bool ELL, bool DAMP>
 __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
     mega_forward_kernel(Tab T, Opt o, In in, Out out,
                         const float* __restrict__ qpos_in,
@@ -2803,16 +2873,17 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
   extern __shared__ float smem[];
   const int e = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
   if (e >= o.E) return;  // the whole warp
-  const Env s = load_env<EXT>(T, smem, env_floats, e, qpos_in, qvel_in,
+  const Env s = load_env<ELL>(T, smem, env_floats, e, qpos_in, qvel_in,
                               act_in, ws_in);
   phase_start(e, s.lane);
   const int nrw = (s.nrows + 31) >> 5;
   int it;
   unsigned taken;
-  forward_env<EXT, DAMP>(T, o, in, s, s.vec(V_QPOS), s.vec(V_QVEL), it,
-                         taken, (unsigned*)ls_out + (size_t)e * kLsWords,
-                         (unsigned*)rows_out + (size_t)e * o.iterations * nrw);
-  forward_out<EXT>(T, out, s, act_dot_out);
+  forward_env<EXT, ELL, DAMP>(
+      T, o, in, s, s.vec(V_QPOS), s.vec(V_QVEL), it, taken,
+      (unsigned*)ls_out + (size_t)e * kLsWords,
+      (unsigned*)rows_out + (size_t)e * o.iterations * nrw);
+  forward_out<EXT, ELL>(T, out, s, act_dot_out);
   const int nv = s.nv;
   for (int k = s.lane; k < nv; k += kWarp)
     qacc_out[(size_t)e * nv + k] = s.vec(V_X)[k];
@@ -2830,7 +2901,7 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
 // kLsWords + iterations (nrows + 31) / 32: the iteration count, the taken
 // bits, the line search's decision bits and the rows' Hessian decision
 // words of every forward, when not null.
-template <bool EXT, bool DAMP>
+template <bool EXT, bool ELL, bool DAMP>
 __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
     megastep_kernel(Tab T, Opt o, In in, const float* __restrict__ qpos_in,
                     const float* __restrict__ qvel_in,
@@ -2844,7 +2915,7 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
   extern __shared__ float smem[];
   const int e = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
   if (e >= o.E) return;  // the whole warp
-  const Env s = load_env<EXT>(T, smem, env_floats, e, qpos_in, qvel_in,
+  const Env s = load_env<ELL>(T, smem, env_floats, e, qpos_in, qvel_in,
                               act_in, ws_in);
   const int nv = s.nv, na = T.h(NA), lane = s.lane;
   const bool muscle = T.h(FLAGS) & MUSCLE;
@@ -2890,9 +2961,10 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
     int it;
     unsigned taken;
     int* dd = record(f);
-    forward_env<EXT, DAMP>(T, o, in, s, rk4 ? qs : qpos, rk4 ? vs : qvel,
-                           it, taken, dd ? (unsigned*)(dd + 2) : nullptr,
-                           dd ? (unsigned*)(dd + 2 + kLsWords) : nullptr);
+    forward_env<EXT, ELL, DAMP>(T, o, in, s, rk4 ? qs : qpos,
+                                rk4 ? vs : qvel, it, taken,
+                                dd ? (unsigned*)(dd + 2) : nullptr,
+                                dd ? (unsigned*)(dd + 2 + kLsWords) : nullptr);
     put(dd, it, taken);
     // the updates round as the plain version's separate tensor operations
     // do (forward.euler, forward.rk4: each product, then each sum), so
@@ -2946,6 +3018,18 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
     act_out[(size_t)e * na + k] = muscle ? s.mus[k] : act_in[(size_t)e * na + k];
 }
 
+// The instance of a kernel template that a launcher's ext (0: the
+// plane-only collision; the extended collision with 1: elliptic rows and the
+// double solve, 2: pyramidal rows) and damp (the damping rows) select,
+// handed to go.
+#define LMT_INSTANCE(KERNEL, ext, damp, go)                      \
+  ((damp) ? ((ext) == 1   ? go(KERNEL<true, true, true>)          \
+             : (ext) == 2 ? go(KERNEL<true, false, true>)         \
+                          : go(KERNEL<false, false, true>))       \
+          : ((ext) == 1   ? go(KERNEL<true, true, false>)         \
+             : (ext) == 2 ? go(KERNEL<true, false, false>)        \
+                          : go(KERNEL<false, false, false>)))
+
 // the kernel's dynamic shared memory limit past 48 KB, and all of the
 // SM's shared memory for it
 template <class K>
@@ -2972,8 +3056,9 @@ int prepare(K kernel, size_t bytes) {
 // act_dot (E, na) (written with muscles), cpos (E, ncon, 3) the slots'
 // points, or null (the checks read them; the main path does not). The launch (ops/plan.py
 // MegaLaunch): env_floats of shared memory per env, envs_per_block envs
-// (warps) per block. ext: the plan is mega_ell (the extended collision and
-// elliptic rows).
+// (warps) per block. ext: 0 a plane-only plan, 1 a mega_ell plan with
+// elliptic cones (the extended collision, elliptic rows, the double
+// solve), 2 a mega_ell plan with pyramidal cones (LMT_INSTANCE).
 extern "C" int lmt_mega_forward(
     const void* ints, const void* flts, const void* qpos, const void* qvel,
     const void* act_in, const void* ctrl, const void* qfrc_applied,
@@ -2984,7 +3069,8 @@ extern "C" int lmt_mega_forward(
     int env_floats,
     int envs_per_block, float scale, float tol, void* stream) {
   if (E <= 0) return 0;
-  if (envs_per_block < 1 || envs_per_block > kMaxEnvsPerBlock)
+  if (envs_per_block < 1 || envs_per_block > kMaxEnvsPerBlock || ext < 0 ||
+      ext > 2)
     return (int)cudaErrorInvalidValue;
   const Tab T{(const int*)ints, (const float*)flts};
   const Opt o{E, iterations, ls_iterations, scale, tol};
@@ -3005,11 +3091,7 @@ extern "C" int lmt_mega_forward(
         env_floats);
     return (int)cudaGetLastError();
   };
-  if (damp)
-    return ext ? go(mega_forward_kernel<true, true>)
-               : go(mega_forward_kernel<false, true>);
-  return ext ? go(mega_forward_kernel<true, false>)
-             : go(mega_forward_kernel<false, false>);
+  return LMT_INSTANCE(mega_forward_kernel, ext, damp, go);
 }
 
 // The same inputs; outputs qpos, qvel, ws (E, nv) and act_out (E, na)
@@ -3026,7 +3108,8 @@ extern "C" int lmt_megastep(
     int env_floats, int envs_per_block, float scale, float tol, float dt,
     void* stream) {
   if (E <= 0) return 0;
-  if (envs_per_block < 1 || envs_per_block > kMaxEnvsPerBlock)
+  if (envs_per_block < 1 || envs_per_block > kMaxEnvsPerBlock || ext < 0 ||
+      ext > 2)
     return (int)cudaErrorInvalidValue;
   const Tab T{(const int*)ints, (const float*)flts};
   const Opt o{E, iterations, ls_iterations, scale, tol};
@@ -3044,11 +3127,7 @@ extern "C" int lmt_megastep(
         n_steps, dt, rk4, use_dv, env_floats);
     return (int)cudaGetLastError();
   };
-  if (damp)
-    return ext ? go(megastep_kernel<true, true>)
-               : go(megastep_kernel<false, true>);
-  return ext ? go(megastep_kernel<true, false>)
-             : go(megastep_kernel<false, false>);
+  return LMT_INSTANCE(megastep_kernel, ext, damp, go);
 }
 
 // Resident warps (envs) per SM of both kernels at this launch (out[0] the
@@ -3065,20 +3144,11 @@ extern "C" int lmt_mega_occupancy(int env_floats, int envs_per_block,
         o, kernel, kWarp * envs_per_block, bytes);
     return (int)cudaGetLastError();
   };
-  int rc;
-  if (damp) {
-    rc = ext ? occ(mega_forward_kernel<true, true>, n)
-             : occ(mega_forward_kernel<false, true>, n);
-    if (!rc)
-      rc = ext ? occ(megastep_kernel<true, true>, n + 1)
-               : occ(megastep_kernel<false, true>, n + 1);
-  } else {
-    rc = ext ? occ(mega_forward_kernel<true, false>, n)
-             : occ(mega_forward_kernel<false, false>, n);
-    if (!rc)
-      rc = ext ? occ(megastep_kernel<true, false>, n + 1)
-               : occ(megastep_kernel<false, false>, n + 1);
-  }
+  if (ext < 0 || ext > 2) return (int)cudaErrorInvalidValue;
+  auto fwd = [&](auto kernel) { return occ(kernel, n); };
+  auto step = [&](auto kernel) { return occ(kernel, n + 1); };
+  int rc = LMT_INSTANCE(mega_forward_kernel, ext, damp, fwd);
+  if (!rc) rc = LMT_INSTANCE(megastep_kernel, ext, damp, step);
   out[0] = n[0] * envs_per_block;
   out[1] = n[1] * envs_per_block;
   return rc;

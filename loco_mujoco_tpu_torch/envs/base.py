@@ -291,6 +291,11 @@ def with_solver_budget(model: Model, iterations: int,
 # ---- fall predicates, as functions of the obs (E, obs_dim) ---------------
 
 
+def _out(x, lo, hi):
+    """x outside [lo, hi]."""
+    return (x < lo) | (x > hi)
+
+
 def humanoid_has_fallen(idx):
     """The humanoids' fall predicate (models/humanoids/humanoid.py:196-205,
     reference base_humanoid.py:129-180); `idx` the obs indices of the
@@ -299,15 +304,56 @@ def humanoid_has_fallen(idx):
     idx = list(idx)
     pi = np.pi
 
-    def out(x, lo, hi):
-        return (x < lo) | (x > hi)
-
     def has_fallen(obs):
         o = [obs[:, i] for i in idx]
-        return (out(o[0], -0.46, 0.1) | out(o[1], -pi / 4.5, pi / 12)
-                | out(o[2], -pi / 12, pi / 8) | out(o[3], -pi / 9, pi / 9)
-                | out(o[4], -pi / 4, pi / 10) | out(o[5], -pi / 10, pi / 10)
-                | out(o[6], -pi / 4.5, pi / 4.5))
+        return (_out(o[0], -0.46, 0.1) | _out(o[1], -pi / 4.5, pi / 12)
+                | _out(o[2], -pi / 12, pi / 8) | _out(o[3], -pi / 9, pi / 9)
+                | _out(o[4], -pi / 4, pi / 10)
+                | _out(o[5], -pi / 10, pi / 10)
+                | _out(o[6], -pi / 4.5, pi / 4.5))
+
+    return has_fallen
+
+
+def _pelvis_has_fallen(obs, idx, rot):
+    """The bipeds' pelvis terms: ty, tilt, list and rotation (the last
+    within +-rot)."""
+    pi = np.pi
+    o = [obs[:, i] for i in idx[:4]]
+    return (_out(o[0], -0.3, 0.1) | _out(o[1], -pi / 4.5, pi / 12)
+            | _out(o[2], -pi / 12, pi / 8) | _out(o[3], -rot, rot))
+
+
+def h1_has_fallen(idx):
+    """UnitreeH1's fall predicate (models/humanoids/unitree_h1.py:44-56);
+    `idx` the obs indices of pelvis_ty, pelvis_tilt, pelvis_list and
+    pelvis_rotation."""
+    idx = list(idx)
+    return lambda obs: _pelvis_has_fallen(obs, idx, np.pi / 8)
+
+
+def g1_has_fallen(idx):
+    """UnitreeG1's fall predicate (models/humanoids/unitree_g1.py:43-54):
+    H1's terms and limits; `idx` as `h1_has_fallen`'s."""
+    return h1_has_fallen(idx)
+
+
+def atlas_has_fallen(idx):
+    """Atlas's fall predicate (models/humanoids/atlas.py:41-61): the pelvis
+    terms with a rotation limit of pi/10, and, where `idx` goes on past
+    the pelvis's four with the obs indices of back_bky, back_bkx and
+    back_bkz, the back's extension, bending and rotation."""
+    idx = list(idx)
+    pi = np.pi
+
+    def has_fallen(obs):
+        cond = _pelvis_has_fallen(obs, idx, pi / 10)
+        if len(idx) > 4:
+            b = [obs[:, i] for i in idx[4:7]]
+            cond = (cond | _out(b[0], -pi / 4, pi / 10)
+                    | _out(b[1], -pi / 10, pi / 10)
+                    | _out(b[2], -pi / 4.5, pi / 4.5))
+        return cond
 
     return has_fallen
 

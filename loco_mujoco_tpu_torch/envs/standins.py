@@ -5,12 +5,14 @@ datasets, which the port does not carry. A stand-in's env is built here
 from the model alone: the obs spec of its joints (positions, then
 velocities, in the reference robot's order), a seeded synthetic
 trajectory inside its joint ranges, the target-velocity reward and the fall
-predicate of its kind (`base.humanoid_has_fallen` with the root and
-abdomen joints in the pelvis and lumbar roles, or
-`base.quadruped_has_fallen`). `env_parts` gives the same parts as plain
-values, so that another package's env can be built from them;
-`damping_dr` is a Joints-section randomization config of the model's own
-damping.
+predicate of the robot it stands in for (`standin_kind`):
+`base.humanoid_has_fallen` with the root and abdomen joints in the pelvis
+and lumbar roles, `base.quadruped_has_fallen` (A1), or the bipeds' own
+`base.h1_has_fallen`, `atlas_has_fallen` and `g1_has_fallen` on their
+pelvis (and Atlas's back) joints. A model of no known kind raises.
+`env_parts` gives the same parts as plain values, so that another
+package's env can be built from them; `damping_dr` is a Joints-section
+randomization config of the model's own damping.
 
     from loco_mujoco_tpu_torch.core import io
     from loco_mujoco_tpu_torch.envs import standins
@@ -32,6 +34,37 @@ HUMANOID_ROLES = ("root_z", "root_ry", "root_rx", "root_rz", "abdomen_y",
                   "abdomen_x", "abdomen_z")
 LUMBAR_FALLBACK = {"abdomen_y": "root_ry", "abdomen_x": "root_rx",
                    "abdomen_z": "root_rz"}
+# the bipeds' root (models/humanoids/unitree_h1.py PELVIS, atlas.py and
+# unitree_g1.py alike), the joints their predicates read, and the joints
+# that tell them apart: H1's back_bkz, Atlas's back_bky and back_bkx
+# (atlas.py BACK), G1's torso_joint (unitree_g1.py)
+PELVIS = ("pelvis_tx", "pelvis_tz", "pelvis_ty", "pelvis_tilt",
+          "pelvis_list", "pelvis_rotation")
+ATLAS_BACK = ("back_bky", "back_bkx", "back_bkz")
+HEIGHT = ("root_z", "trunk_tz", "pelvis_tz")  # the root's vertical slide
+
+
+def standin_kind(model) -> str:
+    """The robot a stand-in is shaped after ("humanoid", "a1", "h1",
+    "atlas" or "g1"), from its joint names: the torque humanoid's root_z,
+    A1's trunk_tz, and on a pelvis root G1's torso_joint, Atlas's back_bky
+    / back_bkx or H1's back_bkz. Raises for a model it cannot tell (a
+    pelvis root with none of those joints fits H1 and Atlas alike)."""
+    jid = model.names["joint"]
+    if "root_z" in jid:
+        return "humanoid"
+    if "trunk_tz" in jid:
+        return "a1"
+    if all(j in jid for j in PELVIS):
+        if "torso_joint" in jid:
+            return "g1"
+        if "back_bky" in jid or "back_bkx" in jid:
+            return "atlas"
+        if "back_bkz" in jid:
+            return "h1"
+    raise ValueError("cannot tell which robot the model stands in for "
+                     "(its fall predicate): joints "
+                     + ", ".join(sorted(jid, key=jid.get)))
 
 
 def env_joints(model):
@@ -49,7 +82,9 @@ def synthetic_trajectory(model, joints, traj_dt=TRAJ_DT, n=120, seed=3):
     of their half range, the forward slide a ramp at 0.8 m/s, the height
     10 mm below qpos0 (the feet pressed into the floor, in contact from
     the start), the other root coordinates small; the velocities their
-    derivatives; cut into two trajectories of n / 2 samples."""
+    derivatives; cut into two trajectories of n / 2 samples. The height
+    is the root's vertical slide (HEIGHT): third in the humanoid's and
+    A1's obs order, second on the bipeds' pelvis."""
     rng = np.random.default_rng(seed)
     t = np.arange(n) * traj_dt
     jid = model.names["joint"]
@@ -61,7 +96,7 @@ def synthetic_trajectory(model, joints, traj_dt=TRAJ_DT, n=120, seed=3):
         q = float(q0[int(model.jnt_qposadr[jid[j]])])
         if k == 0:
             mid, amp, ramp = q, 0.01, 0.8
-        elif k == 2:  # the height
+        elif j in HEIGHT:
             mid, amp, ramp = q - 0.01, 0.002, 0.0
         elif k < 6:
             mid, amp, ramp = q, 0.02, 0.0
@@ -78,9 +113,11 @@ def env_parts(model, n_substeps=10):
     """What a LocoEnv of the stand-in is built from, in either package:
     the obs spec entries (key, joint, 0 position / 1 velocity), the
     trajectory's keyword arguments (synthetic, resampled from TRAJ_DT to
-    the control dt), the target-velocity reward's x-velocity index and
-    the fall predicate's obs indices (None for A1, whose predicate reads
-    obs 0-2)."""
+    the control dt), the target-velocity reward's x-velocity index, the
+    stand-in's kind (`standin_kind`) and its fall predicate's obs indices
+    (None for A1, whose predicate reads obs 0-2; on the bipeds pelvis_ty,
+    tilt, list and rotation, then Atlas's back_bky, bkx and bkz where it
+    has them)."""
     joints = env_joints(model)
     spec = ([(f"q_{j}", j, 0) for j in joints]
             + [(f"dq_{j}", j, 1) for j in joints])
@@ -95,12 +132,18 @@ def env_parts(model, n_substeps=10):
                 low=np.array([jr[jid[j], 0] for j in joints[2:]]),
                 high=np.array([jr[jid[j], 1] for j in joints[2:]]),
                 joint_pos_idx=list(range(len(joints))), warn=False)
-    fall = None
-    if "root_z" in jid:
+    kind = standin_kind(model)
+    if kind == "humanoid":
         fall = [ki["q_" + (r if r in jid else LUMBAR_FALLBACK[r])]
                 for r in HUMANOID_ROLES]
+    elif kind == "a1":
+        fall = None
+    else:
+        fall = [ki[f"q_{j}"] for j in PELVIS[2:]]
+        if kind == "atlas" and all(j in jid for j in ATLAS_BACK):
+            fall += [ki[f"q_{j}"] for j in ATLAS_BACK]
     return dict(spec=spec, traj=traj, x_vel=ki[f"dq_{joints[0]}"],
-                fall=fall)
+                kind=kind, fall=fall)
 
 
 def damping_dr(model, lo=0.5, hi=1.5):
@@ -123,8 +166,11 @@ def make_env(model, dr=None, n_substeps=10, **kw):
     from .observation import ObsIndex
 
     parts = env_parts(model, n_substeps)
-    fall = (base.quadruped_has_fallen if parts["fall"] is None
-            else base.humanoid_has_fallen(parts["fall"]))
+    kind, idx = parts["kind"], parts["fall"]
+    fall = (base.quadruped_has_fallen if kind == "a1" else
+            {"humanoid": base.humanoid_has_fallen, "h1": base.h1_has_fallen,
+             "atlas": base.atlas_has_fallen,
+             "g1": base.g1_has_fallen}[kind](idx))
     return base.LocoEnv(
         model, ObsIndex(model, parts["spec"]), n_substeps=n_substeps,
         reward_fn=make_reward("target_velocity",

@@ -4,8 +4,8 @@ step.
 Counterpart of `loco_mujoco_tpu/ops/forward.py`. `forward` takes the mega
 path, the whole forward as one Hopper kernel (`hopper_mega.mega_forward`),
 when the model's row plan (`ops/plan.py`) has `mega` (plane-only
-collision, or with `mega_ell` the extended collision of an elliptic
-model), the data is float32 and `LMT_MEGA` is not "0" (forward.py:202-210);
+collision, or with `mega_ell` the extended collision, elliptic or
+pyramidal), the data is float32 and `LMT_MEGA` is not "0" (forward.py:202-210);
 otherwise it runs the staged
 path, `forward_staged`: the stages as separate functions over a leading env
 axis E, with the Hopper kernels of the plane-mesh collision

@@ -6,11 +6,13 @@ Counterpart of `loco_mujoco_tpu/ops/pallas_constraint.py`: `mega_forward`
 `mega_step_n` (`:2926-2978`) over `_megastep_batched`, RK4 and Euler
 branches, with the tendon and muscle stage of a plan with muscles (`mp`;
 `:1245-1264`, `:2762-2787`) and the extended collision and elliptic rows
-of a `mega_ell` plan (A1; `_mega_ell_finish` `:2559-2610`), and each
+of a `mega_ell` plan (A1's elliptic rows, G1's pyramidal ones with its
+plane-mesh group; `_mega_ell_finish` `:2559-2610`), and each
 env's joint damping (`Data.dof_damping`) for a plan with `sm_dyn_damping`
 (the reference's operand rows, `:2505`, `:2967`). The kernels
 are `csrc/mega.cu`'s `mega_forward_kernel` and `megastep_kernel` (each in
-a plane-only and an extended instance), one warp per env with the env's
+a plane-only, an extended elliptic and an extended pyramidal instance,
+`ext_mode`), one warp per env with the env's
 state in shared memory, over the static tables of the model's row plan
 (`ops/plan.py`, `mega` set); the launch (shared floats per env, envs per
 block) is the plan's `mega_launch`, which raises where the state leaves
@@ -42,8 +44,8 @@ also com_pos, the tendons, velocity, passive, rne and actuation, then
 `hopper_fused.fused_constraint_plain`, whose rows, contact facets blocked,
 are the ones the kernel builds), repackaged into the contract above, and
 `mega_step_n_plain` is n such RK4 or Euler steps; with the extended
-collision (elliptic cones) both solve the Newton problem in float64, as
-the kernels do. Their `replay` makes
+collision and elliptic cones both solve the Newton problem in float64, as
+the kernels do (with pyramidal cones, G1's, in float32). Their `replay` makes
 every Newton solve take the kernel's recorded decisions (the iteration
 count, the taken-step bits, the line search's sign tests and each step's
 Hessian decisions of the rows, `hopper_newton.newton_plain`), so the two
@@ -69,6 +71,16 @@ _SIGNATURES = {
     "lmt_megastep": [PTR] * 15 + [INT] * 9 + [FLOAT] * 3 + [PTR],
     "lmt_mega_occupancy": [INT] * 4 + [PTR],
 }
+
+
+def ext_mode(plan) -> int:
+    """The kernels' instance of a plan's collision and rows (`csrc/mega.cu`
+    LMT_INSTANCE): 0 the plane-only collision; with the extended collision
+    (`mega_ell`) 1 for elliptic cones (elliptic rows, the float64 solve)
+    and 2 for pyramidal cones (the facet rows, the float32 solve)."""
+    if not plan.mega_ell:
+        return 0
+    return 1 if plan.elliptic else 2
 
 
 def decision_width(model: Model) -> int:
@@ -105,7 +117,7 @@ def occupancy(model: Model) -> tuple:
     out = (ctypes.c_int * 2)()
     lib = kernels.library("mega", _SIGNATURES)
     kernels.check(lib.lmt_mega_occupancy(
-        launch.env_floats, launch.envs_per_block, int(plan.mega_ell),
+        launch.env_floats, launch.envs_per_block, ext_mode(plan),
         int(plan.sm_dyn_damping), ctypes.cast(out, ctypes.c_void_p)),
         "mega occupancy")
     return out[0], out[1]
@@ -212,7 +224,7 @@ def mega_forward(model: Model, data: Data, points: bool = False) -> Data:
         p(ints), p(flts), *map(p, ins),
         *map(p, (qacc, asm, qfrc, cdist, cgid, cgid1, cforce, iters,
                  taken, ls, rows, dv, act_dot, cpos)), E, plan.iterations,
-        plan.ls_iterations, int(plan.mega_ell), launch.env_floats,
+        plan.ls_iterations, ext_mode(plan), launch.env_floats,
         launch.envs_per_block, plan.scale, plan.tolerance, kernels.stream())
     kernels.check(rc, "mega_forward")
     kernels.LAUNCHES["mega_forward"] += 1
@@ -228,7 +240,7 @@ def _forward_plain(model: Model, data: Data, replay, record=None) -> Data:
     hopper_fused.damping_rows(model.plan, data)
     d = fwd.stages(model, data, plain=True)
     return hopper_fused.fused_constraint_plain(
-        model, d, replay, solve64=model.plan.mega_ell, record=record)
+        model, d, replay, solve64=ext_mode(model.plan) == 1, record=record)
 
 
 def mega_forward_plain(model: Model, data: Data, replay=None,
@@ -308,7 +320,7 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
     rc = lib.lmt_megastep(
         p(ints), p(flts), *map(p, ins), p(qpos_out), p(qvel_out),
         p(act_out), p(ws_out), p(decisions), E, n, plan.iterations, plan.ls_iterations, int(mode[0]),
-        int(mode[1]), int(plan.mega_ell), launch.env_floats,
+        int(mode[1]), ext_mode(plan), launch.env_floats,
         launch.envs_per_block, plan.scale, plan.tolerance, plan.timestep,
         kernels.stream())
     kernels.check(rc, "megastep")

@@ -53,16 +53,22 @@ tendon and muscle stage (`smooth_mu`, the reference's
 `_build_smooth(allow_muscle=True)` `:366-378`, with the tables of
 `MusclePlan`, `pallas_fk.py:1001-1128`, within `MUS_MAX` muscles); the
 joint motors beside the muscles keep the smooth stage's actuator table.
-An elliptic smooth model takes it with the extended collision (`mega_ell`,
-`:428-461`; its tables `ext`, the port's `ColPlanExt`,
-`pallas_fk.py:1507-1697`): every classic analytic group kind but
-plane-mesh, per-group uniform statics, one static plane on the world
-body, both geoms of self pairs. The reference's `ell_fast` branch
-specialization (`:301-312`, `:463-493`: a reduced slot subset when no env
-of a TPU block has an outside slot active) is not ported: the port's
-threads skip their own inactive rows in every solve pass, which makes the
-reduced branch's saving without a branch (as for the pyramidal fast and
-full branches).
+A smooth model of either cone that the plane-only plan refuses takes it
+with the extended collision (`mega_ell`, the reference's gate `:428-461`;
+its tables `ext`, the port's `ColPlanExt`, `pallas_fk.py:1507-1697`):
+every classic analytic group kind and one plane-mesh group on the
+plane-mesh kernels (its `MeshPlan`'s pairs and hull tables, `ext_mesh`),
+per-group uniform statics, one static plane on the world body, both geoms
+of self pairs. Elliptic cones keep their dim rows per slot (A1), pyramidal
+ones the four blocked facets per slot and `euler_dv` (G1); the kernels
+have an instance each (`hopper_mega.ext_mode`), and the per-env shared
+state of a pyramidal extended plan is the plane-only one's with the
+generic slots (`mega_census`: `ext` without `ell`). The reference's
+`ell_fast` branch specialization (`:301-312`, `:463-493`: a reduced slot
+subset when no env of a TPU block has an outside slot active) is not
+ported: the port's threads skip their own inactive rows in every solve
+pass, which makes the reduced branch's saving without a branch (as for
+the pyramidal fast and full branches).
 
 Per-env joint damping (domain randomization) keeps the fused and mega
 paths: `dyn_damping()` is the plan's variant with the reference's
@@ -73,7 +79,8 @@ damping is then solved outside the kernels). The plan without it, its
 tables and its kernels stay as they are.
 
 Float64 data gets no plan (`maybe_plan`), as in the reference. Left out of
-the port's plan: plane-mesh groups in the extended collision plan (G1).
+the port's extended plan: a plane-mesh group with k >= P (the reference
+runs it in order; the port's plane-mesh kernels take k < P only).
 
 `tables(device)` packs the plan into the two read-only buffers the kernels
 of `csrc/mega.cu` and `csrc/fused.cu` take: an int32 buffer that starts with
@@ -128,8 +135,8 @@ WIDTH = {"F_BODY": 20, "I_BODY": 4, "F_JNT": 10, "I_JNT": 4, "F_DOF": 2,
          "I_MESH": 5, "F_MUS": 28, "I_MUS": 6, "I_SEG": 2, "F_SITE": 4,
          "I_SITE": 1, "F_ACTB": 2, "I_ELL": 3, "I_CON": 2, "I_XGRP": 8,
          "F_XGRP": 16, "I_XPAIR": 4, "F_XPAIR": 24}
-# pair kinds of the extended in-kernel collision (ColPlanExt._SUP without
-# plane-mesh), as the kernels number them (csrc/mega.cu `collide_ext`)
+# pair kinds of the extended in-kernel collision (ColPlanExt._SUP), as the
+# kernels number them (csrc/mega.cu `collide_ext`)
 EXT_KINDS = {(int(GeomType.PLANE), int(GeomType.SPHERE)): 0,
              (int(GeomType.PLANE), int(GeomType.CAPSULE)): 1,
              (int(GeomType.PLANE), int(GeomType.CYLINDER)): 2,
@@ -137,7 +144,8 @@ EXT_KINDS = {(int(GeomType.PLANE), int(GeomType.SPHERE)): 0,
              (int(GeomType.SPHERE), int(GeomType.SPHERE)): 4,
              (int(GeomType.SPHERE), int(GeomType.CAPSULE)): 5,
              (int(GeomType.SPHERE), int(GeomType.BOX)): 6,
-             (int(GeomType.CAPSULE), int(GeomType.CAPSULE)): 7}
+             (int(GeomType.CAPSULE), int(GeomType.CAPSULE)): 7,
+             (int(GeomType.PLANE), int(GeomType.MESH)): 8}
 
 
 def _floats(x):
@@ -174,6 +182,7 @@ class RowPlan:
         self._launch = None  # mega_launch's
         self.uniform = self.fric_uniform = False
         self.groups = []
+        self.ext_mesh = None  # _ext_plan's plane-mesh group
         nv, nb, njnt = int(A["nv"]), int(A["nbody"]), int(A["njnt"])
         flags = int(A["opt.disableflags"])
         # the convex tail's slots stay inactive in float32 and are left out
@@ -377,11 +386,12 @@ class RowPlan:
                          and self.ncon <= CON_MAX
                          and self._col_plan(A, groups, mesh_kernel, f64))
         # --- mega_ell: FK and the extended collision of every analytic
-        # group kind in the kernel (ColPlanExt, :428-461), for elliptic
-        # models with the smooth stage ------------------------------------
-        if (self.elliptic and not self.mega and self.ncon and self.smooth
+        # group kind and plane-mesh in the kernel (ColPlanExt, :428-461),
+        # for the smooth models of either cone that the plane-only plan
+        # refuses ---------------------------------------------------------
+        if (not self.mega and self.ncon and self.smooth
                 and self.ncon <= CON_MAX):
-            self.mega_ell = self._ext_plan(A, groups, f64)
+            self.mega_ell = self._ext_plan(A, groups, mesh_kernel, f64)
             self.mega = self.mega_ell
         if self.mega and not self.smooth:
             self.mp = MusclePlan.build(L, A, self.dofmask, flags)
@@ -511,14 +521,21 @@ class RowPlan:
         self.groups = col
         return True
 
-    def _ext_plan(self, A, groups, f64) -> bool:
+    def _ext_plan(self, A, groups, mesh_kernel, f64) -> bool:
         """The port's ColPlanExt (pallas_fk.py:1507-1697): per group its
         kind, budget and uniform pair statics (margin, includemargin,
         solref, solimp, the 5 frictions), per candidate pair both geoms'
         ids, bodies, local poses, sizes and static bounding radii (the
         self groups' midphase) and the slot's invweight; one static plane
-        on the world body. False where a group falls outside it (plane-mesh
-        groups, non-uniform statics in a group, several planes)."""
+        on the world body. A plane-mesh group keeps its pairs in its
+        `hopper_collision.MeshPlan`'s order (bucket-major, the staged
+        collision's, whose top-K takes the first index on ties), so that a
+        selected pair's row maps back to its hull's geom, body and
+        invweight (the reference's gmap, pallas_fk.py:1755-1766), and its
+        hull tables are the plane-only plan's (`ext_mesh`: F_MESH, I_MESH,
+        F_VERT). False where a group falls outside it (non-uniform statics
+        in a group, several planes, a plane-mesh group off the kernels or
+        a second one, a ranked group past the kernels' pair widths)."""
         from .collision import rbound_of
 
         gbody = np.asarray(A["geom_bodyid"])
@@ -533,11 +550,23 @@ class RowPlan:
                             np.asarray(A["pair_geom2"]))
         planes = set()
         col = []
-        for g in groups:
+        tup = lambda x: tuple(float(v) for v in x)  # noqa: E731
+        for g, mk in zip(groups, mesh_kernel):
             kind = EXT_KINDS.get((int(g.t1), int(g.t2)))
             if kind is None:
                 return False
             pid = np.asarray(g.pair_ids)
+            if kind == EXT_KINDS[(int(GeomType.PLANE), int(GeomType.MESH))]:
+                if (mk is None or self.ext_mesh is not None
+                        or len(mk.pid) > PAIR_MAX):
+                    return False
+                pid = np.asarray(mk.pid)  # the kernels' pair order
+                self.ext_mesh = dict(
+                    kind="mesh", k=int(g.k), offset=int(g.offset), mesh=mk,
+                    pairs=[dict(gid=int(q), body=int(gbody[q]),
+                                gpos=tup(f64["geom_pos"][q]),
+                                gquat=tup(f64["geom_quat"][q]))
+                           for q in mk.pg2])
             for name in ("pair_solref", "pair_solimp", "pair_margin",
                          "pair_gap", "pair_friction"):
                 arr = f64[name]
@@ -567,8 +596,8 @@ class RowPlan:
                         for a, b in zip(pg1, pg2)]))
         if len(planes) > 1 or any(int(gbody[q]) != 0 for q in planes):
             return False
-        if any(len(d["ints"]) > 32 for d in col):
-            return False  # the kernel's top-K mask holds 32 pairs
+        if any(len(d["ints"]) > 32 for d in col if d["kind"] != 8):
+            return False  # the kernel's top-K ranks a warp of pairs
         self.ext = col
         return True
 
@@ -649,6 +678,7 @@ class RowPlan:
                       self.impratio, 0, 0])
         box, cyl, mesh = (next((d for d in self.groups if d["kind"] == kind),
                                None) for kind in ("box", "cyl", "mesh"))
+        mesh = mesh or (self.ext_mesh if self.mega_ell else None)
         # box and cylinder pairs: local pose, size (half extents, or the
         # radius and half-length), the group's margin; body and geom
         for name, grp in (("BOX", box), ("CYL", cyl)):
@@ -913,7 +943,7 @@ class MegaLaunch:
             raise ValueError(f"mega kernels: nv {nv} > {NV_MAX}")
         nvj = nv | 1  # odd: lanes read J rows without conflicts
         rs = -(-nrows // 4) * 4
-        ell = c["ell"]
+        ell, ext = c["ell"], c["ext"]
         pmax, kmax = max(c["pairs"], default=1), max(c["ks"], default=1)
         mus = (2 * c["na"] + c["nmus"] + 6 * c["nbody"]) if c["nmus"] else 1
         # the J region: J; before the rows, the smooth stage's and the
@@ -930,7 +960,7 @@ class MegaLaunch:
             "ROW": (ROW_ARRAYS_ELL if ell else ROW_ARRAYS) * rs,
             "R": max(c["ne"] + c["nfl"], 1), "FL": max(c["nfl"], 1),
             "MU": max(c["ncon_ell"], 1),
-            "SLOT": c["ncon"] * (SLOT_W_EXT if ell else SLOT_W),
+            "SLOT": c["ncon"] * (SLOT_W_EXT if ext else SLOT_W),
             "MUS": mus,
             "MISC": MISC_W + 2 * -(-nrows // 64)
             + (2 * (CONE_VECS * nv + CONE_SCR) if ell else 0)}
@@ -941,7 +971,7 @@ class MegaLaunch:
                 f"per env leave {self.resident_warps} resident warps per SM, "
                 f"fewer than {RESIDENT_FLOOR}")
         self.extra = {"NVJ": nvj, "RS": rs,
-                      "SLOTW": SLOT_W_EXT if ell else SLOT_W,
+                      "SLOTW": SLOT_W_EXT if ext else SLOT_W,
                       "PMAX": pmax, "KMAX": kmax}
 
     def _place(self, sizes):
@@ -984,7 +1014,8 @@ def mega_census(plan) -> dict:
              ncon_ell=plan.ncon_ell, na=plan.na, nmus=mp.nmus if mp else 0,
              nseg=len(mp.i_seg) if mp else 0)
     c = {k: int(v) for k, v in c.items()}
-    return dict(c, ell=bool(plan.mega_ell), pairs=[int(p) for p, _ in groups],
+    return dict(c, ell=bool(plan.mega_ell and plan.elliptic),
+                ext=bool(plan.mega_ell), pairs=[int(p) for p, _ in groups],
                 ks=[int(k) for _, k in groups])
 
 

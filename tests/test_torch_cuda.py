@@ -37,7 +37,12 @@ plane-cylinder and plane-box groups) are held the same way on
 `test_torch_h1_fixture.biped_states`' states, whose env 0 stands with its
 heel discs upright on the floor and env 1 with them on their rim: both
 mega kernels at 4096 envs, at a ragged count and at one env, the upright
-and the rim envs held with no tie excuse.
+and the rim envs held with no tie excuse. The committed G1-shaped model
+(`unitree_g1_shape.npz`, Euler, the extended collision with pyramidal rows,
+a plane-mesh group among sphere, capsule and self groups) is held the same
+way on `test_torch_g1_fixture.g1_states`' states: its mega forward (geom1
+and geom2 exact on active slots) and megastep at 4096 envs, its staged
+fused kernel (the 26-float pack) on every env, and its env's `step_batch`.
 
 Every random input comes from numpy's seeded generator or from a CUDA
 generator seeded with the draw's number (`_qvel`, the draws of
@@ -517,11 +522,12 @@ def test_replayed_row_decisions_are_the_plain_versions_own(state, name):
     chip_smoke._row_departures(torch, k, own["own_rows"], E, name)
 
 
-@pytest.mark.parametrize("name", ["rk4", "a1", "h1"])
+@pytest.mark.parametrize("name", ["rk4", "a1", "h1", "g1"])
 def test_mega_forward_points_match_plain(state, name):
     """The mega forward's slot points (`points=True`, which the megastep
     rule reads) against its plain version's, plane-only (the torque
-    humanoid, H1) and extended (A1) instances: at the slots active in both
+    humanoid, H1), extended elliptic (A1) and extended pyramidal (G1)
+    instances: at the slots active in both
     with the same geom, within 1e-5 (the depth's bound), except in at most
     0.5% of the envs (a support-vertex tie moves a point by a vertex
     spacing)."""
@@ -529,6 +535,8 @@ def test_mega_forward_points_match_plain(state, name):
         model, d = state
     elif name == "a1":
         model, d = _a1_state()
+    elif name == "g1":
+        model, d = _g1_state(E)
     else:
         model, d = _biped_state(name, E)
     k = hm.mega_forward(model, d, points=True)
@@ -613,6 +621,101 @@ def test_cyl_megastep_matches_plain(state, name, n):
     k = chip_smoke._megastep_rule(torch, model, d, steps, name)[0]
     assert torch.allclose(k.time, d.time + steps * model.opt.timestep)
     assert torch.equal(k.qacc, k.qacc_warmstart)
+
+
+# ---- G1: the extended collision with pyramidal rows and a plane-mesh group
+
+
+def _g1_state(n):
+    """The committed G1-shaped model on the card and `g1_states`' seeded
+    states of it (env 0 standing, envs 1-3 with each self group in
+    contact)."""
+    from test_torch_g1_fixture import ASSET as G1_ASSET
+    from test_torch_g1_fixture import g1_states
+
+    model = io.load_model_npz(G1_ASSET, device="cuda")
+    qpos, qvel, ctrl = g1_states(io.load_model_npz(G1_ASSET, device="cpu"),
+                                 n)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")  # noqa
+    return model, io.make_data(model, n).replace(qpos=t(qpos), qvel=t(qvel),
+                                                 ctrl=t(ctrl))
+
+
+def test_g1_mega_forward_matches_plain(state):
+    """The mega forward's extended pyramidal instance (G1) at 4096 envs:
+    chip_smoke.py's rule for the mega forward (active slots exact, geom1
+    and geom2 exact on them, depths atol 1e-5; qacc, qfrc_constraint,
+    efc_force_contact and euler_dv rel 5e-4 with the decisions replayed;
+    float32 ties and witnessed Newton disagreements within 0.5% of the
+    envs); the standing env and the self-contact envs 1-3 with no tie
+    excuse."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _g1_state(4096)
+    assert hm.ext_mode(model.plan) == 2
+    kernels.LAUNCHES.clear()
+    k = fwd.forward(model, d)
+    assert dict(kernels.LAUNCHES) == {"mega_forward": 1}
+    r = hm.mega_forward_plain(model, d, replay=_replay(k))
+    act_r = r.contact.dist < r.contact.includemargin
+    same = torch.all((k.contact.dist < k.contact.includemargin) == act_r,
+                     dim=1)
+    assert bool(same[:4].all()), "a standing or self-contact env differs"
+    apart, witnessed = chip_smoke._newton_witness(torch, model, d, k, r,
+                                                  envs=same)
+    held = same & ~(apart & witnessed)
+    chip_smoke._tie_envs(torch, held, _gap(r), 4096, "G1 mega forward",
+                         newton=apart & witnessed)
+    for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
+        got, ref = getattr(k, f)[held], getattr(r, f)[held]
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), f
+    on = act_r & same[:, None]
+    for f in ("geom1", "geom2"):
+        assert torch.equal(getattr(k.contact, f)[on],
+                           getattr(r.contact, f)[on]), f
+    assert float((k.contact.dist - r.contact.dist).abs()[on].max()) <= 1e-5
+    for g in model.groups:  # every group held in contact
+        assert bool(on[:, g.offset:g.offset + g.k * g.slots].any()), g[:3]
+
+
+def test_g1_megastep_matches_plain(state):
+    """G1's Euler megastep (the extended pyramidal instance), a control
+    step of 10 substeps at 4096 envs, held to chip_smoke.py's megastep
+    rule."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _g1_state(4096)
+    kernels.LAUNCHES.clear()
+    fwd.step_n(model, d, 10)
+    assert dict(kernels.LAUNCHES) == {"megastep": 1}
+    k = chip_smoke._megastep_rule(torch, model, d, 10, "g1")[0]
+    assert torch.allclose(k.time, d.time + 10 * model.opt.timestep)
+
+
+def test_g1_fused_matches_plain(state, monkeypatch):
+    """G1's staged path at 4096 envs: the plane-mesh select and top-K and
+    the torch narrowphases of the other groups, then the fused kernel with
+    the generic 26-float pack against its plain version replaying its
+    decisions, every env within rel 5e-4 (qacc, qfrc_constraint,
+    efc_force_contact, euler_dv)."""
+    monkeypatch.setenv("LMT_MEGA", "0")
+    model, d = _g1_state(4096)
+    assert model.plan.pack_w == 26
+    kernels.LAUNCHES.clear()
+    d = coll.collision(model, kinematics.kinematics(model, d))
+    k = hf.fused_constraint(model, d)
+    assert dict(kernels.LAUNCHES) == {
+        "fused": 1, "plane_mesh_select": 1, "group_topk": 1,
+        "moveaxis0_last": 4, "moveaxis_last0": 4}
+    r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+    for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
+        got, ref = getattr(k, f), getattr(r, f)
+        err = (got - ref).abs().reshape(4096, -1).amax(1)
+        bad = err >= 5e-4 * float(ref.abs().max())
+        assert not bool(bad.any()), (f, bad.nonzero().flatten())
 
 
 # ---- per-env joint damping (the damping rows) and the env layer ----------
@@ -720,17 +823,15 @@ def test_dr_fused_matches_plain(state, name, monkeypatch):
         assert bool(held.all()), (~held).nonzero().flatten()
 
 
-@pytest.mark.parametrize("dr", [False, True])
-def test_step_batch_matches_plain(state, dr, monkeypatch):
-    """`LocoEnv.step_batch` of the torque humanoid's env on the card (one
-    megastep launch) against the same step with the megastep's plain
-    version replaying its decisions: the physics held to chip_smoke.py's
-    megastep rule, then obs, reward, absorbing and done of the held envs
-    (rel 5e-4; the booleans exact)."""
+def _step_batch_check(model, dr, monkeypatch, what):
+    """`LocoEnv.step_batch` of a stand-in's env on the card (one megastep
+    launch) against the same step with the megastep's plain version
+    replaying its decisions: the physics held to chip_smoke.py's megastep
+    rule, then obs, reward, absorbing and done of the held envs (rel 5e-4;
+    the booleans exact)."""
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import chip_smoke
 
-    model = _model()
     env = standins.make_env(
         model, dr=standins.damping_dr(model) if dr else None,
         horizon=chip_smoke.ENV_HORIZON)
@@ -746,8 +847,7 @@ def test_step_batch_matches_plain(state, dr, monkeypatch):
     assert dict(kernels.LAUNCHES) == {"megastep": 1}
     m, d = env._apply_dr(st.data.replace(
         ctrl=a * env.norm_act_delta + env.norm_act_mean), st.dr)
-    ks, _, _, _, errs, dec = chip_smoke._megastep_rule(torch, m, d, 10,
-                                                       f"env dr={dr}")
+    ks, _, _, _, errs, dec = chip_smoke._megastep_rule(torch, m, d, 10, what)
     assert torch.equal(ks.qpos[~k.done], k.data.qpos[~k.done])
     held = torch.ones(4096, dtype=torch.bool, device="cuda")
     for err, scl in errs.values():
@@ -761,3 +861,18 @@ def test_step_batch_matches_plain(state, dr, monkeypatch):
         got, ref = getattr(k, f)[held], getattr(r, f)[held]
         assert float((got - ref).abs().max()) <= 5e-4 * float(
             ref.abs().max()), f
+
+
+@pytest.mark.parametrize("dr", [False, True])
+def test_step_batch_matches_plain(state, dr, monkeypatch):
+    """The torque humanoid's env (RK4), without and with damping
+    randomization (`_step_batch_check`)."""
+    _step_batch_check(_model(), dr, monkeypatch, f"env dr={dr}")
+
+
+def test_g1_step_batch_matches_plain(state, monkeypatch):
+    """G1's env (Euler, the extended pyramidal megastep; its own fall
+    predicate) (`_step_batch_check`)."""
+    model, _ = _g1_state(1)
+    assert standins.standin_kind(model) == "g1"
+    _step_batch_check(model, False, monkeypatch, "env g1")

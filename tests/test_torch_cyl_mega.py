@@ -214,8 +214,12 @@ def test_cyl_plan_tables_match_groups(name, monkeypatch):
 
 @pytest.mark.parametrize("change", ["split", "margin"])
 def test_cyl_outside_the_envelope_gets_no_mega_plan(change):
-    """Two plane-cylinder groups (the Atlas group split in two), or one
-    cylinder pair's margin changed: a row plan, no mega."""
+    """Two plane-cylinder groups (the Atlas group split in two): no
+    plane-only mega plan, so the extended plan with pyramidal rows takes
+    the model (the reference's gate, `pallas_constraint.py:435-460`: any
+    smooth model that the plane-only plan refuses); one cylinder pair's
+    margin changed (statics no longer uniform within the group): a row
+    plan, no mega of either kind."""
     leaves, aux = tio.read_model_npz(atlas_fix.ASSET)
     m = tio.model_from_numpy(leaves, aux, device="cpu")
     assert m.plan.mega
@@ -226,7 +230,7 @@ def test_cyl_outside_the_envelope_gets_no_mega_plan(change):
         leaves["pair_margin"] = arr
         m = tio.model_from_numpy(leaves, aux, device="cpu")
         assert m.plan is not None and not m.plan.mega
-        assert m.plan.pack_w == 26
+        assert not m.plan.mega_ell and m.plan.pack_w == 26
         return
     g = m.groups[0]
     half = len(g.pair_ids) // 2
@@ -235,4 +239,5 @@ def test_cyl_outside_the_envelope_gets_no_mega_plan(change):
                         offset=g.offset + 4 * half)
     groups = [first, second, *m.groups[1:]]
     plan = tplan.build_plan(leaves, aux, groups, (None,) * len(groups))
-    assert plan is not None and plan.uniform and not plan.mega
+    assert plan is not None and plan.uniform and not plan.groups
+    assert plan.mega and plan.mega_ell and not plan.elliptic

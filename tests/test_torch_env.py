@@ -2,8 +2,9 @@
 `LocoEnv`, in float64 on the CPU.
 
 Both envs are built from one compile of the small HumanoidTorque-shaped
-fixture (RK4; the A1-shaped fixture's, Euler, in tests/test_torch_env_a1.py)
-from `standins.env_parts`, what the card's env phase runs: the same
+fixture (RK4; the A1-shaped fixture's, Euler, in tests/test_torch_env_a1.py,
+and the G1-shaped fixture's, Euler, in tests/test_torch_env_g1.py) from
+`standins.env_parts`, what the card's env phase runs: the same
 observation spec (every joint's position, then every joint's velocity; the
 first two, the root's horizontal slides, dropped), the same synthetic
 trajectory (seeded numpy sinusoids within the joint ranges, resampled from
@@ -36,6 +37,9 @@ from loco_mujoco_tpu.rewards.rewards import make_reward as jmake_reward
 from loco_mujoco_tpu_torch.rewards.rewards import make_reward
 import test_torch_a1_fixture as a1fx
 import test_torch_fixture as hfx
+import test_torch_g1_fixture as g1fx
+from loco_mujoco_tpu.models.humanoids.unitree_g1 import \
+    _has_fallen_fn as g1_has_fallen_fn
 from loco_mujoco_tpu_torch.core import io
 from loco_mujoco_tpu_torch.envs import standins
 from test_torch_fixture import ASSET
@@ -46,13 +50,14 @@ E, STEPS, HORIZON, SUBSTEPS = 4, 3, 2, 2
 def build(robot, **budget):
     """(JAX env, port env) from `standins.env_parts` of the fixture;
     `budget` the envs' solver_iterations / ls_iterations."""
-    if robot == "humanoid":
-        jm, tm = hfx.torch_model(full=False)
-    else:
-        jm, tm = a1fx.torch_model(full=False)
+    fixture = {"humanoid": hfx, "a1": a1fx, "g1": g1fx}[robot]
+    jm, tm = fixture.torch_model(full=False)
     parts = standins.env_parts(tm, SUBSTEPS)
     idx = parts["fall"]
-    if robot == "humanoid":
+    if robot == "g1":  # models/humanoids/unitree_g1.py:43-54
+        keys = [k for k, _, _ in parts["spec"]]
+        j_fall = g1_has_fallen_fn({k: i - 2 for i, k in enumerate(keys)})
+    elif robot == "humanoid":
         def j_fall(obs):  # models/humanoids/humanoid.py:196-205
             pi = jnp.pi
             o = [obs[i] for i in idx]

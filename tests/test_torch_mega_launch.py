@@ -4,8 +4,9 @@
 dynamic shared memory, laid out per env from the model's census by
 `ops/plan.py`'s `MegaLaunch` (the table I_SHM of the packed plan). Here,
 for the configurations of `chip_smoke.py`'s main path (the torque
-humanoid with RK4 and with Euler, the muscle humanoid, A1, and the H1- and
-Atlas-shaped bipeds with their plane-cylinder groups):
+humanoid with RK4 and with Euler, the muscle humanoid, A1, the H1- and
+Atlas-shaped bipeds with their plane-cylinder groups, and the G1-shaped
+biped on the extended collision with pyramidal rows):
 
 - the shared bytes per env and the envs per block fit a Hopper block's
   227 KB, and leave at least `RESIDENT_FLOOR` (4) resident warps per SM;
@@ -40,9 +41,10 @@ from loco_mujoco_tpu_torch.ops import plan as tplan
 REPO = Path(__file__).resolve().parent.parent
 ASSETS = REPO / "loco_mujoco_tpu_torch" / "assets"
 SRC = (REPO / "loco_mujoco_tpu_torch" / "csrc" / "mega.cu").read_text()
-CONFIGS = ("rk4", "euler", "muscle", "a1", "h1", "atlas")
+CONFIGS = ("rk4", "euler", "muscle", "a1", "h1", "atlas", "g1")
 ASSET_OF = {"muscle": "humanoid_muscle_shape", "a1": "unitree_a1_shape",
-            "h1": "unitree_h1_shape", "atlas": "atlas_shape"}
+            "h1": "unitree_h1_shape", "atlas": "atlas_shape",
+            "g1": "unitree_g1_shape"}
 
 
 def _model(name):
@@ -70,18 +72,21 @@ def test_launch_fits_and_layout_holds(name):
         <= tplan.SHM_PER_SM
     # regions: aligned, in order, disjoint, large enough
     c = tplan.mega_census(plan)
+    ell = plan.mega_ell and plan.elliptic  # the double solve's state
     nvj = launch.extra["NVJ"]
     assert nvj % 2 == 1 and nvj >= plan.nv
     assert launch.extra["RS"] % 4 == 0 and launch.extra["RS"] >= plan.nrows
     need = {"VEC": tplan.NVEC * plan.nv, "J": plan.nrows * nvj,
             "M": plan.nv ** 2,
-            "L": (2 * (plan.nv ** 2 + 5 * plan.nv) if plan.mega_ell
+            "L": (2 * (plan.nv ** 2 + 5 * plan.nv) if ell
                   else plan.nv ** 2 + plan.nv),
             "BODY": tplan.BODY_W * plan.nbody,
             "SLOT": plan.ncon * launch.extra["SLOTW"],
-            "ROW": (tplan.ROW_ARRAYS_ELL if plan.mega_ell
+            "ROW": (tplan.ROW_ARRAYS_ELL if ell
                     else tplan.ROW_ARRAYS) * launch.extra["RS"],
             "MU": plan.ncon_ell, "FL": plan.nfl}
+    assert launch.extra["SLOTW"] == (tplan.SLOT_W_EXT if plan.mega_ell
+                                     else tplan.SLOT_W)
     # the collision's scratch lives in the J region (MESH)
     assert launch.offset["MESH"] == launch.offset["J"]
     need["J"] = max(need["J"], 3 * max(c["pairs"]) + 2 * max(c["ks"]))
@@ -169,12 +174,13 @@ class _Recorder:
         return call
 
 
-@pytest.mark.parametrize("name", ["euler", "a1", "h1", "atlas"])
+@pytest.mark.parametrize("name", ["euler", "a1", "h1", "atlas", "g1"])
 def test_wrappers_pass_the_prototypes(name, monkeypatch):
     """The wrappers' operands, launch and outputs against the prototypes:
     no scratch, the launch plan's shared floats and envs per block, the
-    row record (E, iterations, row words) and the megastep's decisions
-    (E, F n, decision_width)."""
+    kernels' instance (`ext`: 0 plane-only, 1 extended elliptic, 2
+    extended pyramidal), the row record (E, iterations, row words) and the
+    megastep's decisions (E, F n, decision_width)."""
     m = _model(name)
     launch = tplan.mega_launch(m.plan)
     rec = _Recorder()
@@ -196,7 +202,8 @@ def test_wrappers_pass_the_prototypes(name, monkeypatch):
             else:
                 assert isinstance(a, int if t is kernels.INT else float), fn
         ints = [a for a, t in zip(args, types) if t is kernels.INT]
-        assert ints[-2:] == [launch.env_floats, launch.envs_per_block], fn
+        assert ints[-3:] == [{"a1": 1, "g1": 2}.get(name, 0),
+                             launch.env_floats, launch.envs_per_block], fn
     rw = hn.row_words(m.plan.nrows)
     assert out.solver_rows.shape == (E, m.plan.iterations, rw)
     assert hm.decision_width(m) == 2 + hn.LS_WORDS + m.plan.iterations * rw

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Time the megastep kernel on one GPU and break it down by phase.
 
-    python3 tools/megastep_phases.py [--configs rk4 euler muscle a1 h1 atlas]
+    python3 tools/megastep_phases.py [--configs rk4 euler muscle a1 h1 atlas g1]
         [--envs 4096] [--reps 3] [--root DIR] [--no-phases] [--kernels]
 
 For each configuration of `chip_smoke.py`'s main path (the committed
 HumanoidTorque-shaped model with RK4 and with Euler, the muscle model, the
-A1-shaped model, the H1- and Atlas-shaped bipeds) it drives the main path
-as the smoke does: the seeded dropped state and controls of this
+A1-shaped model, the H1-, Atlas- and G1-shaped bipeds) it drives the main
+path as the smoke does: the seeded dropped state and controls of this
 checkout's `chip_smoke.seeded_draws` (the bipeds': `seeded_biped`),
 a reset forward and 20 control steps of `forward.step_n` (10 substeps
 each), and prints the main path's rate (control steps x envs per
@@ -51,9 +51,10 @@ import time
 from pathlib import Path
 
 PHASES = ("fk", "collision", "smooth", "rows", "newton", "integration")
-CONFIGS = ("rk4", "euler", "muscle", "a1", "h1", "atlas")
+CONFIGS = ("rk4", "euler", "muscle", "a1", "h1", "atlas", "g1")
 ASSET_OF = {"muscle": "humanoid_muscle_shape", "a1": "unitree_a1_shape",
-            "h1": "unitree_h1_shape", "atlas": "atlas_shape"}
+            "h1": "unitree_h1_shape", "atlas": "atlas_shape",
+            "g1": "unitree_g1_shape"}
 # the Newton solve's parts (where the kernel splits it; the rest of the
 # Newton phase is its row passes)
 NEWTON_PARTS = ("gradient_hessian", "factor_solve", "line_search")
@@ -149,8 +150,9 @@ def main() -> int:
     t = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
                                   device="cuda")
     for name, m in _models(io, torch, root, args.configs).items():
-        if name in smoke.BIPEDS:
-            q0, ctrls = smoke.seeded_biped(m, smoke.BIPEDS[name][1], E)
+        if name in smoke.BIPEDS or name == "g1":
+            seed = smoke.G1[1] if name == "g1" else smoke.BIPEDS[name][1]
+            q0, ctrls = smoke.seeded_biped(m, seed, E)
         else:
             q0, ctrls = {"a1": (qpos_a1, ctrls_a1),
                          "muscle": (qpos, ctrls_mu)}.get(name,
