@@ -33,7 +33,11 @@ Run from the repository root: `python3 chip_smoke.py`. It
    configuration: nv = 19, Euler, pyramidal cones, 68 slots over 8 foot
    points, 2 toe rollers, 18 plane-mesh hulls and three self groups
    between the legs, 288 rows: the mega path's extended collision with
-   pyramidal rows and a plane-mesh group);
+   pyramidal rows and a plane-mesh group); and the committed A1 position
+   stand-in (the `a1pos` configuration: A1's tree, contacts and rows with
+   a position servo per leg joint, fixed gain and affine bias, the ctrl a
+   target angle: the smooth stage's affine terms in the mega kernels'
+   extended elliptic instance and in the fused kernel);
 4. holds each kernel of the earlier staged path against its plain PyTorch
    version on the card, on the inputs that path gives it at full width
    (4096 envs);
@@ -42,7 +46,8 @@ Run from the repository root: `python3 chip_smoke.py`. It
    fused kernel's non-smooth layout), 2 of 10 A1 Euler substeps (torch
    collision and the fused kernel's elliptic layout) and 2 each of H1,
    Atlas and G1 (its plane-mesh group on the select and top-K kernels,
-   its other groups in torch, the fused kernel's 26-float pack), through
+   its other groups in torch, the fused kernel's 26-float pack) and 2 of
+   A1's position mode (the elliptic layout with affine bias), through
    the fused constraint kernel, and 1 control step of the
    model with no plan, through the Newton kernel and its relayouts, with
    every launch counter set to 0 just before each run and read just after,
@@ -54,7 +59,9 @@ Run from the repository root: `python3 chip_smoke.py`. It
    substeps (one megastep kernel launch each), RK4, Euler, the muscle
    model (seeded muscle ctrls in [0, 1], act from 0), A1 (dropped 5-20
    mm, seeded motor ctrls in half its ctrlrange), H1, Atlas and G1
-   (dropped 5-20 mm, seeded motor ctrls in [-0.3, 0.3]), counters again
+   (dropped 5-20 mm, seeded motor ctrls in [-0.3, 0.3]) and A1's position
+   mode (dropped 5-20 mm, seeded targets uniform in the joint ranges),
+   counters again
    zeroed
    just before and read just after, and checks the state, the contacts,
    the activations within [0, 1] and that exactly these launches were made;
@@ -71,19 +78,23 @@ Run from the repository root: `python3 chip_smoke.py`. It
    both randomized envs on the staged path (the fused kernel's smooth and
    elliptic layouts with the rows), then G1's env (its own fall
    predicate) without randomization beside `step_n` alone and with it
-   (Euler: the per-substep mega forward with the rows), counters zeroed
-   and read as above;
+   (Euler: the per-substep mega forward with the rows), and A1's position
+   mode's env (actions unnormalized into the joint ranges) beside `step_n`
+   alone, counters zeroed and read as above;
 7. holds the mega forward kernel and the megastep kernel (one control
    step), RK4, Euler, muscle (with act_dot and act; the muscle kernels
    both at the end state, which the seeded activations lift off the
    floor, and after the first control step, in deep contact), A1 (the
    extended collision's geom1 and geom2 too), H1, Atlas and G1 (their end
    states in contact; G1's the extended pyramidal instance, with and
-   without the damping rows), the plane-mesh select and top-K on the
+   without the damping rows), A1's position mode (the servos' affine
+   bias; at its env's end state, where A1's fall predicate has reset the
+   tipped trunks), the plane-mesh select and top-K on the
    torque model's and G1's mesh groups, and the fused kernel on all four
    plan
    configurations, the muscle model's non-smooth layout, A1's elliptic
-   layout, H1, Atlas and G1, and the damping rows (the mega forward's
+   layout, H1, Atlas, G1 and A1's position mode, and the damping rows
+   (the mega forward's
    plane-only and extended instances, the RK4 megastep, the fused
    kernel's smooth and elliptic layouts, at the randomized envs' end
    states), to their plain versions replaying the kernels'
@@ -164,6 +175,11 @@ G1 = ("loco_mujoco_tpu_torch/assets/unitree_g1_shape.npz", 4)
 # control step some envs spin their light, slender calves fast enough that
 # Euler at 2 ms diverges, in the JAX package's float64 path as in the port
 A1_CTRL = 0.5
+# A1's position mode (`a1pos`): the committed stand-in of
+# `envs.standins.STANDINS`, its draws' own stream; its servos' targets lie
+# uniform in the joint ranges (the JAX package's float64 path stays bounded
+# there under Euler at 2 ms over this depth)
+A1POS_SEED = 5
 
 
 def _nvidia_smi() -> str:
@@ -709,6 +725,16 @@ def _muscle_flops(model):
             + 12 * int(model.plan.dofmask[1:].sum()) + model.nv)
 
 
+def _affine_flops(plan):
+    """Float operations of the smooth stage's affine terms per env-forward
+    (csrc/forward_core.cuh affine_force): per joint actuator with an
+    affine gain or bias its length and velocity (2), the gain's two
+    products and sums (4), the bias's (4), and their sum with gain c (1)."""
+    return sum((3 if a["g_affine"] or a["b_affine"] else 0)
+               + 4 * a["g_affine"] + 4 * a["b_affine"]
+               for a in plan.sm_acts)
+
+
 def _cone_census(torch, model, d, qacc):
     """The elliptic contacts' census of one solve, from the plain version's
     rows at data `d` and the solution `qacc`: (active, sticking, in the
@@ -734,7 +760,8 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True,
     counted from the data: the near plane-mesh pairs' height maps, the
     selected pairs' neighbour walks, the active constraint rows and the
     Newton iterations; the rest is per-env arithmetic of fixed size. A
-    plan with euler_dv adds its solve (M qacc, Cholesky, substitutions).
+    plan with euler_dv adds its solve (M qacc, Cholesky, substitutions),
+    one whose joint actuators are affine their terms (_affine_flops).
     Elliptic contacts count their dim rows and, per Newton step, each
     active contact's cone zone at each of the solve's 3 + ls_iterations
     evaluations, and the Hessian outer products of its zone at the
@@ -779,6 +806,7 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True,
              + nb * nv * 18 + nv * nv * 6 + nb * 130 + 20 * nv)
     if plan.euler_dv:
         fixed += 4 * nv * nv + nv ** 3 / 3 + 2 * nv * nv
+    fixed += _affine_flops(plan)
     rows = (plan.ne + plan.nfl) * (4 * nv + 40) + lim * (2 * nv + 40) \
         + con_rows
     per_iter = (4 * nv * nv + nv * nv / 2 + 2 * nv ** 3 / 3 + 4 * nv * nv
@@ -887,6 +915,23 @@ def seeded_draws(model, m_mu, m_a1, E):
     return qpos, ctrls, ctrls_mu, qpos_a1, ctrls_a1
 
 
+def seeded_a1pos(m, E):
+    """A1 position mode's seeded start state and targets (numpy), from a
+    stream of its own: qpos0 with the torque model's noise, the trunk
+    dropped 5-20 mm, and the servos' targets uniform in their ctrlrange
+    (the joint ranges), (CONTROL_STEPS, E, nu)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + A1POS_SEED)
+    qpos = m.qpos0.cpu().numpy()[None] + rng.normal(scale=0.02,
+                                                    size=(E, m.nq))
+    z = int(m.jnt_qposadr[m.names["joint"]["trunk_tz"]])
+    qpos[:, z] = float(m.qpos0[z]) - rng.uniform(0.005, 0.02, size=E)
+    cr = m.actuator_ctrlrange.double().cpu().numpy()
+    return qpos, rng.uniform(cr[:, 0], cr[:, 1],
+                             size=(CONTROL_STEPS, E, m.nu))
+
+
 def seeded_biped(m, seed, E):
     """A biped's seeded start state and controls (numpy), from a stream of
     its own (`BIPEDS`): qpos0 with the torque model's noise, the pelvis
@@ -913,7 +958,8 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py runs on the GPU", file=sys.stderr)
         return 2
     from loco_mujoco_tpu_torch.core import io
-    from loco_mujoco_tpu_torch.envs.standins import (damping_dr, make_env,
+    from loco_mujoco_tpu_torch.envs.standins import (damping_dr,
+                                                     load_standin, make_env,
                                                      standin_kind)
     from loco_mujoco_tpu_torch.ops import collision as coll
     from loco_mujoco_tpu_torch.ops import constraint as con
@@ -956,6 +1002,7 @@ def main() -> int:
               for name, (asset, _) in BIPEDS.items()}
     m_h1, m_at = bipeds["h1"], bipeds["atlas"]
     m_g1 = io.load_model_npz(root / G1[0], device=dev)
+    m_a1p = load_standin("a1pos", device=dev)
     mesh_groups = [i for i, g in enumerate(model.groups)
                    if coll.is_plane_mesh(g)]
     assert mesh_groups and all(model.mesh_kernel[i] is not None
@@ -971,6 +1018,10 @@ def main() -> int:
     pa1 = m_a1.plan
     assert pa1.mega and pa1.mega_ell and pa1.elliptic and pa1.euler_dv
     assert pa1.pack_w == 29 and m_a1.ncon == pa1.ncon, "A1 plan"
+    pa1p = m_a1p.plan  # A1's position servos: affine bias in the smooth stage
+    assert pa1p.mega_ell and pa1p.elliptic and pa1p.euler_dv and pa1p.smooth
+    assert hm.ext_mode(pa1p) == 1 and standin_kind(m_a1p) == "a1"
+    assert all(a["b_affine"] for a in pa1p.sm_acts), "a1pos servos"
     for name, m in bipeds.items():  # the plane-only plan with cylinders
         p = m.plan
         assert p.mega and p.uniform and not p.elliptic and not p.mega_ell
@@ -1010,11 +1061,16 @@ def main() -> int:
           + str([(g.t1, g.t2, g.condim, g.k, len(g.pair_ids))
                  for g in m_g1.groups])
           + f", {pg1.ncon} slots, {pg1.nrows} rows (extended collision, "
-          f"pyramidal rows, pack {pg1.pack_w})")
+          f"pyramidal rows, pack {pg1.pack_w}); a1pos: A1's tree and "
+          f"contacts, {m_a1p.nu} position servos (gain "
+          f"{pa1p.sm_acts[0]['gain'][0]:g}, bias "
+          f"{pa1p.sm_acts[0]['bias']}, force limit "
+          f"{float(m_a1p.actuator_forcerange[0, 1]):g}), {pa1p.nrows} rows")
 
     # the mega kernels' launch: a warp per env, its state in shared memory
     for name, m in (("rk4", model), ("euler", m_eu), ("muscle", m_mu),
-                    ("a1", m_a1), *bipeds.items(), ("g1", m_g1)):
+                    ("a1", m_a1), *bipeds.items(), ("g1", m_g1),
+                    ("a1pos", m_a1p)):
         launch = mega_launch(m.plan)
         occ = hm.occupancy(m)
         print(f"mega launch {name}: {4 * launch.env_floats} bytes of shared "
@@ -1034,6 +1090,7 @@ def main() -> int:
     biped_draws = {name: seeded_biped(m, BIPEDS[name][1], E)
                    for name, m in bipeds.items()}
     biped_draws["g1"] = seeded_biped(m_g1, G1[1], E)
+    qpos_a1p, ctrls_a1p = seeded_a1pos(m_a1p, E)
 
     def biped(m):
         """The biped configuration's name of model m (G1 too), or None."""
@@ -1044,15 +1101,19 @@ def main() -> int:
         """Control step c's seeded ctrl of model m (the muscle model's in
         [0, 1])."""
         src = (biped_draws[biped(m)][1] if biped(m) else ctrls_a1
-               if m is m_a1 else ctrls_mu if m.na else ctrls)
+               if m is m_a1 else ctrls_a1p if m is m_a1p
+               else ctrls_mu if m.na else ctrls)
         return torch.as_tensor(src[c], dtype=torch.float32, device=dev)
 
     def start(m):
         """The seeded state in model m (every humanoid configuration has
-        the same dofs and bodies; A1 and the bipeds their own)."""
+        the same dofs and bodies; A1, its position mode and the bipeds
+        their own)."""
         q = (torch.as_tensor(biped_draws[biped(m)][0], dtype=torch.float32,
                              device=dev) if biped(m)
-             else qpos_a1_t if m is m_a1 else qpos_t)
+             else qpos_a1_t if m is m_a1
+             else torch.as_tensor(qpos_a1p, dtype=torch.float32, device=dev)
+             if m is m_a1p else qpos_t)
         return io.make_data(m, E).replace(qpos=q)
 
     # ---- each kernel of the earlier staged path against its plain version --
@@ -1215,6 +1276,10 @@ def main() -> int:
             staged_run(m_g1, STAGED_STEPS, per_fused, "G1 Euler through the "
                        "plane-mesh kernels, torch narrowphases and the fused "
                        "kernel (26-float pack)")
+        d_staged_a1p, staged_a1p_launches, staged_a1p_rate, _ = staged_run(
+            m_a1p, STAGED_STEPS, {"fused": 1}, "A1 position Euler through "
+            "torch collision and the fused kernel (elliptic layout, the "
+            "servos' affine bias in its smooth stage)")
         d_wide, wide_launches, wide_rate, wide_ops = staged_run(
             m_wide, WIDE_STEPS, per_newton,
             f"RK4, no plan ({m_wide.ncon} slots), through the Newton kernel")
@@ -1288,6 +1353,9 @@ def main() -> int:
     S_g1, launches_g1, env_steps_g1, _ = main_run(
         m_g1, "G1 Euler (extended collision: pyramidal rows, plane-mesh and "
         "self groups)")
+    S_a1p, launches_a1p, env_steps_a1p, S_a1p_c = main_run(
+        m_a1p, "A1 position Euler (elliptic cones, extended collision, the "
+        "servos' affine bias)")
     print(f"muscle activations at the end: mean "
           f"{float(S_mu.act.mean()):.4f}, min {float(S_mu.act.min()):.4f}, "
           f"max {float(S_mu.act.max()):.4f}")
@@ -1408,6 +1476,19 @@ def main() -> int:
           f"({100 * (raw_g1 / env_g1_rate - 1):.2f}% overhead); with damping "
           f"randomization {env_g1dr_rate:.0f} (the per-substep mega forward)"
           f" ({card})")
+    # A1's position mode: the env unnormalizes its actions into the
+    # ctrlrange, so they are the servos' targets over the joint ranges
+    env_acts_a1p = np.random.default_rng(SEED + 10).uniform(
+        -1.0, 1.0, size=(CONTROL_STEPS, E, m_a1p.nu))
+    env_a1p = make_env(m_a1p, horizon=CONTROL_STEPS + 1)
+    st_a1p, _, env_a1p_launches, env_a1p_rate, env_a1p_inputs = env_run(
+        env_a1p, env_acts_a1p, CONTROL_STEPS, mega_launches,
+        "A1 position Euler")
+    raw_a1p = raw_rate(env_a1p, env_a1p_inputs, env_acts_a1p)
+    del env_a1p_inputs
+    print(f"env layer A1 position: {env_a1p_rate:.0f} env-steps/s against "
+          f"{raw_a1p:.0f} for step_n alone "
+          f"({100 * (raw_a1p / env_a1p_rate - 1):.2f}% overhead) ({card})")
     draws = st_dr.dr["dof_damping"]
     assert torch.equal(st_dr.data.dof_damping, draws)
     assert not torch.equal(draws[0], draws[1]), "one damping draw for all"
@@ -1551,6 +1632,37 @@ def main() -> int:
                                                          "A1, in contact"))
         errs["megastep_a1"] = max(errs["megastep_a1"], megastep_check(
             m_a1, S_a1_c, "A1, in contact")[0])
+    # A1's position mode: the servos' affine bias in the extended elliptic
+    # instance, held at the end state of its env's 20 step_batch calls (the
+    # path its users run: A1's fall predicate resets a trunk past 0.192 rad
+    # of tilt), and after the main path's first control step where that is
+    # contact-light. step_n alone resets nothing: at its end state the
+    # full-range targets have tipped trunks to the Euler root's gimbal lock
+    # (trunk_tilt near pi/2, cond(M) ~1e6), where float32 resolves
+    # qacc_smooth only to ~2e-3, in the kernel and the plain version alike
+    # (ROADMAP Queue 3)
+    S_a1p_env = st_a1p.data
+    print("A1 position, step_n's end state (no resets): envs at the root's "
+          "gimbal lock (|trunk_tilt| within 0.05 of pi/2): "
+          f"{int(((S_a1p.qpos[:, 4].abs() - torch.pi / 2).abs() < 0.05).sum())}"
+          "; the env's end state (A1's fall predicate resets): "
+          f"{int(((S_a1p_env.qpos[:, 4].abs() - torch.pi / 2).abs() < 0.05).sum())}")
+    errs["mega_forward_a1pos"] = mega_forward_check(m_a1p, S_a1p_env,
+                                                    "A1 position")
+    errs["megastep_a1pos"], S1_a1p, step_flops_a1p = megastep_check(
+        m_a1p, S_a1p_env, "A1 position")
+    f_a1p = fwd.forward(m_a1p, S_a1p_env)
+    act_a1p = f_a1p.contact.dist < f_a1p.contact.includemargin
+    n_con_a1p = int(act_a1p.sum())
+    print("A1 position env's end state: active slots per group "
+          + str([int(act_a1p[:, g.offset:g.offset + g.k * g.slots].sum())
+                 for g in m_a1p.groups]) + f" ({n_con_a1p / E:.2f} per env)")
+    if n_con_a1p < E:
+        errs["mega_forward_a1pos"] = max(
+            errs["mega_forward_a1pos"],
+            mega_forward_check(m_a1p, S_a1p_c, "A1 position, in contact"))
+        errs["megastep_a1pos"] = max(errs["megastep_a1pos"], megastep_check(
+            m_a1p, S_a1p_c, "A1 position, in contact")[0])
     # H1 and Atlas: the plane-only collision's cylinder branch, at the end
     # state, which must hold a contact in at least 90% of the envs (else
     # the kernels would be held off the floor; the muscle model's case)
@@ -1605,13 +1717,14 @@ def main() -> int:
     # end states, each env's damping carried along.
     fused_in = {}
     models.update(muscle=m_mu, a1=m_a1, dr=m_dr, a1_dr=m_a1_dr, g1=m_g1,
-                  **bipeds)
+                  a1pos=m_a1p, **bipeds)
     for name in ("rk4", "euler", "fric", "solref", "muscle", "a1", "h1",
-                 "atlas", "g1", "dr", "a1_dr"):
+                 "atlas", "g1", "dr", "a1_dr", "a1pos"):
         m = models[name]
         src = {"muscle": d_staged_mu, "a1": d_staged_a1, "h1": d_staged_h1,
                "atlas": d_staged_at, "g1": d_staged_g1, "dr": st_sdr.data,
-               "a1_dr": st_sa1dr.data}.get(name, d_staged)
+               "a1_dr": st_sa1dr.data,
+               "a1pos": d_staged_a1p}.get(name, d_staged)
         d = io.make_data(m, E).replace(
             qpos=src.qpos, qvel=src.qvel, ctrl=src.ctrl, act=src.act,
             qacc_warmstart=src.qacc_warmstart, dof_damping=src.dof_damping)
@@ -1678,7 +1791,9 @@ def main() -> int:
         "env G1 DR": env_g1dr_launches,
         "env RK4 DR": env_dr_launches, "env A1 DR": env_a1dr_launches,
         "staged env RK4 DR": staged_dr_launches,
-        "staged env A1 DR": staged_a1dr_launches}
+        "staged env A1 DR": staged_a1dr_launches,
+        "staged A1 position": staged_a1p_launches,
+        "main A1 position": launches_a1p, "env A1 position": env_a1p_launches}
 
     def row(name, kernel, run, source, replaces, ms, plain_ms, nbytes_,
             flops, library_ms=None):
@@ -1791,7 +1906,8 @@ def main() -> int:
                            ("atlas", "fused_atlas", "staged Atlas"),
                            ("g1", "fused_g1", "staged G1"),
                            ("dr", "fused_dr", "staged env RK4 DR"),
-                           ("a1_dr", "fused_a1_dr", "staged env A1 DR")):
+                           ("a1_dr", "fused_a1_dr", "staged env A1 DR"),
+                           ("a1pos", "fused_a1pos", "staged A1 position")):
         m, d = models[name], fused_in[name]
         k = hf.fused_constraint(m, d)
         vec, pack = hf.vec(m, d), hf.contact_pack(m, d)
@@ -1837,7 +1953,9 @@ def main() -> int:
             (m_h1, S_h1, *biped_runs["h1"], "_h1", "main H1"),
             (m_at, S_at, *biped_runs["atlas"], "_atlas", "main Atlas"),
             (m_g1, S_g1, S1_g1, step_flops_g1, "_g1", "main G1"),
-            (m_dr, S_dr, S1_dr, step_flops_dr, "_dr", "env RK4 DR")):
+            (m_dr, S_dr, S1_dr, step_flops_dr, "_dr", "env RK4 DR"),
+            (m_a1p, S_a1p_env, S1_a1p, step_flops_a1p, "_a1pos",
+             "main A1 position")):
         b_fwd, b_step = mega_bounds(m, S_, sflops)
         ms = _time_ms(torch, lambda: hm.mega_forward(m, S_))
         plain = _time_ms(torch, lambda: hm.mega_forward_plain(m, S_), reps=3)
@@ -1882,16 +2000,24 @@ def main() -> int:
           f"alone {raw_dr:.0f}), {env_a1dr_rate:.0f} A1 with damping DR; "
           f"staged {staged_dr_rate:.0f} RK4 DR, {staged_a1dr_rate:.0f} A1 DR; "
           f"G1 {env_g1_rate:.0f} (step_n alone {raw_g1:.0f}), G1 with damping "
-          f"DR {env_g1dr_rate:.0f}; "
+          f"DR {env_g1dr_rate:.0f}; A1 position {env_a1p_rate:.0f} (step_n "
+          f"alone {raw_a1p:.0f}); "
           f"card: {card}")
+    print(f"A1 position (a1pos): main path {env_steps_a1p:.0f} env-steps/s, "
+          f"staged path {staged_a1p_rate:.0f}, megastep "
+          f"{next(r['ms'] for r in rows if r['name'] == 'megastep_a1pos'):.3f}"
+          f" ms per control step, step_batch {env_a1p_rate:.0f} against "
+          f"step_n alone {raw_a1p:.0f}; card: {card}")
     print(f"main path {env_steps:.0f} env-steps/s RK4, {env_steps_eu:.0f} "
           f"Euler, {env_steps_mu:.0f} muscle Euler, {env_steps_a1:.0f} A1, "
           f"{env_steps_h1:.0f} H1, {env_steps_at:.0f} Atlas, "
-          f"{env_steps_g1:.0f} G1; staged path "
+          f"{env_steps_g1:.0f} G1, {env_steps_a1p:.0f} A1 position; "
+          f"staged path "
           f"{staged_rate:.0f} env-steps/s RK4, {staged_eu_rate:.0f} Euler, "
           f"{staged_mu_rate:.0f} muscle, {staged_a1_rate:.0f} A1, "
           f"{staged_h1_rate:.0f} H1, {staged_at_rate:.0f} Atlas, "
-          f"{staged_g1_rate:.0f} G1 ({staged_g1_ops or 'not measured'} "
+          f"{staged_g1_rate:.0f} G1, {staged_a1p_rate:.0f} A1 position "
+          f"({staged_g1_ops or 'not measured'} "
           f"kernels per G1 forward) "
           f"({staged_a1_ops or 'not measured'} kernels per A1 forward; "
           f"{staged_ops or 'not measured'} "

@@ -10,8 +10,11 @@ the contact groups and slot layout, which plane-mesh groups run the Hopper
 select/top-K kernels, and the row plan of the fused constraint kernel and
 the mega path (the reference's static gates).
 
-The port covers the physics step of the torque and muscle humanoids and
-the A1 quadruped: hinge/slide joints, joint-transmission motors, site-path
+The port covers the physics step of the torque and muscle humanoids, the
+A1 quadruped (torque and position mode) and the bipeds: hinge/slide
+joints, joint-transmission actuators with fixed or affine gain, no or
+affine bias and no activation or one integrator or filter activation
+(FILTEREXACT integrated as FILTER, as the reference does), site-path
 spatial tendons (no stiffness, damping or limits) driving MUSCLE actuators
 with one activation each, JOINT equalities, friction loss, limits,
 pyramidal and elliptic contact cones over every classic analytic pair kind
@@ -136,24 +139,26 @@ def _check_supported(aux: dict, dtype) -> None:
         trn = np.asarray(aux["actuator_trntype"])
         dyn, gain, bias = (np.asarray(aux[f"actuator_{k}type"])
                            for k in ("dyn", "gain", "bias"))
-        motor = (np.isin(trn, [int(TrnType.JOINT), int(TrnType.JOINTINPARENT)])
-                 & (dyn == int(DynType.NONE)) & (gain == int(GainType.FIXED))
-                 & (bias == int(BiasType.NONE)))
+        one_act = ((np.asarray(aux["actuator_actadr"]) >= 0)
+                   & (np.asarray(aux["actuator_actnum"]) == 1))
+        # joint transmissions: fixed or affine gain, no or affine bias, no
+        # activation or one integrator / filter activation (the reference
+        # integrates FILTEREXACT as FILTER)
+        joint = (np.isin(trn, [int(TrnType.JOINT), int(TrnType.JOINTINPARENT)])
+                 & np.isin(gain, [int(GainType.FIXED), int(GainType.AFFINE)])
+                 & np.isin(bias, [int(BiasType.NONE), int(BiasType.AFFINE)])
+                 & ((dyn == int(DynType.NONE))
+                    | (np.isin(dyn, [int(DynType.INTEGRATOR),
+                                     int(DynType.FILTER),
+                                     int(DynType.FILTEREXACT)]) & one_act)))
         muscle = ((trn == int(TrnType.TENDON)) & (dyn == int(DynType.MUSCLE))
                   & (gain == int(GainType.MUSCLE))
-                  & (bias == int(BiasType.MUSCLE))
-                  & (np.asarray(aux["actuator_actadr"]) >= 0)
-                  & (np.asarray(aux["actuator_actnum"]) == 1))
-        if np.any(np.isin(gain, [int(GainType.AFFINE)])
-                  | np.isin(bias, [int(BiasType.AFFINE)])):
-            raise NotImplementedError("affine gain and bias are not ported yet")
-        if np.any(np.isin(dyn, [int(DynType.INTEGRATOR), int(DynType.FILTER),
-                                int(DynType.FILTEREXACT)])):
+                  & (bias == int(BiasType.MUSCLE)) & one_act)
+        if not np.all(joint | muscle):
             raise NotImplementedError(
-                "integrator and filter activations are not ported yet")
-        if not np.all(motor | muscle):
-            raise NotImplementedError(
-                "joint motors and tendon muscles are the only actuators ported")
+                "joint actuators (fixed or affine gain, no or affine bias, "
+                "no activation or one integrator or filter activation) and "
+                "tendon muscles are the only actuators ported")
     from ..ops.collision import CONVEX_SLOTS
 
     pair_types = {(int(aux["geom_type"][a]), int(aux["geom_type"][b]))

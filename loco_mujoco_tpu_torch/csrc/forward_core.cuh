@@ -10,7 +10,8 @@
 //   pallas_constraint.py _smooth_preamble :950-1180 and the in-kernel CRB
 //   :1301-1346): com, cinert, cdof (com_pos), the CRB mass matrix and its
 //   Cholesky factor (crb_factor), cvel / cdof_dot, the RNE bias, joint
-//   springs and dampers, motors, the xfrc projection and qfrc_smooth
+//   springs and dampers, the joint actuators with their affine gain and
+//   bias (affine_force), the xfrc projection and qfrc_smooth
 //   (smooth_force), and qacc_smooth = M^-1 qfrc_smooth (smooth_acc);
 // - the constraint row builders (:1374-1590): JOINT equalities, friction
 //   loss, limits, the inert pad rows, the four pyramidal facets of one
@@ -105,6 +106,33 @@ __device__ void inert_mul(const float* ci, const float* v, float* o) {
 
 __device__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
+}
+
+// A joint actuator's force before its limit (actuation.actuation,
+// `_smooth_preamble` :1126-1147): gain c + bias, the gain fixed or affine
+// (g0 + g1 ln + g2 vel), the bias none or affine (b0 + b1 ln + b2 vel),
+// ln = qpos[q] gear, vel = qvel[v] gear. A: the F_ACT entry (gear, g0, ctrl
+// and force limits, g1, g2, b0, b1, b2), B: the I_ACT entry (v, limits,
+// ctrl index, q, gain affine, bias affine). A motor (fixed gain, no bias)
+// keeps its one product, gain c: its own branch, ahead of the affine
+// terms, kept the plane-only megastep at its earlier time (a form that
+// added a zero bias to every motor cost it ~1%). The affine terms round
+// each product and sum on its own, in the reference's order, as the plain
+// version does.
+__device__ __forceinline__ float affine_force(const float* A, const int* B,
+                                              float c, const float* qpos,
+                                              const float* qvel) {
+  if (!(B[5] | B[6])) return A[1] * c;
+  float gain = A[1], bias = 0.f;
+  const float ln = __fmul_rn(qpos[B[4]], A[0]);
+  const float vel = __fmul_rn(qvel[B[0]], A[0]);
+  if (B[5])
+    gain = __fadd_rn(__fadd_rn(gain, __fmul_rn(A[6], ln)),
+                     __fmul_rn(A[7], vel));
+  if (B[6])
+    bias = __fadd_rn(__fadd_rn(A[8], __fmul_rn(A[9], ln)),
+                     __fmul_rn(A[10], vel));
+  return __fadd_rn(__fmul_rn(gain, c), bias);
 }
 
 // constraint.kbi: stiffness, damping and impedance at `pos`
@@ -350,15 +378,15 @@ __device__ void smooth_force(const Tab& T, const float* ctrl,
     for (int d = 0; d < nv; ++d)
       passive[d] = passive[d] - (DAMP ? damp[d] : df[2 * d]) * qvel[d];
   }
-  if (nmot) {  // the joint motors: ctrl index ai[4 m + 3]
+  if (nmot) {  // the joint actuators: ctrl index ai[8 m + 3]
     const float* af = T.f(F_ACT);
     const int* ai = T.i(I_ACT);
     for (int m = 0; m < nmot; ++m) {
-      const float* A = af + 6 * m;
-      const int* B = ai + 4 * m;
+      const float* A = af + 12 * m;
+      const int* B = ai + 8 * m;
       float c = ctrl[B[3]];
       if ((flags & CLAMPCTRL) && B[1]) c = fminf(fmaxf(c, A[2]), A[3]);
-      float f = A[1] * c;
+      float f = affine_force(A, B, c, qpos, qvel);
       if (B[2]) f = fminf(fmaxf(f, A[4]), A[5]);
       if (!(flags & ACTUATION)) f = 0.f;
       actf[B[0]] += f * A[0];

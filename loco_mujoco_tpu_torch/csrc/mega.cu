@@ -1670,15 +1670,15 @@ __device__ void smooth_force(const Tab& T, const Env& s, const float* ctrl,
                    (DAMP ? damp[d] : dfp[2 * d]) * qvel[d];
     }
   }
-  if (nmot && s.lane == 0) {  // the joint motors: ctrl index ai[4 m + 3]
+  if (nmot && s.lane == 0) {  // the joint actuators: ctrl index ai[8 m + 3]
     const float* af = T.f(F_ACT);
     const int* ai = T.i(I_ACT);
     for (int m = 0; m < nmot; ++m) {
-      const float* A = af + 6 * m;
-      const int* B = ai + 4 * m;
+      const float* A = af + 12 * m;
+      const int* B = ai + 8 * m;
       float c = ctrl[B[3]];
       if ((flags & CLAMPCTRL) && B[1]) c = fminf(fmaxf(c, A[2]), A[3]);
-      float f = A[1] * c;
+      float f = affine_force(A, B, c, qpos, qvel);
       if (B[2]) f = fminf(fmaxf(f, A[4]), A[5]);
       if (!(flags & ACTUATION)) f = 0.f;
       actf[B[0]] += f * A[0];

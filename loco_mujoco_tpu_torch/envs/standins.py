@@ -12,11 +12,13 @@ and lumbar roles, `base.quadruped_has_fallen` (A1), or the bipeds' own
 pelvis (and Atlas's back) joints. A model of no known kind raises.
 `env_parts` gives the same parts as plain values, so that another
 package's env can be built from them; `damping_dr` is a Joints-section
-randomization config of the model's own damping.
+randomization config of the model's own damping; `load_standin` loads a
+committed stand-in by name (`STANDINS`; A1's position mode, "a1pos", is
+A1's kind with the position servos, whose actions the env unnormalizes into
+the ctrlrange, the joints' ranges).
 
-    from loco_mujoco_tpu_torch.core import io
     from loco_mujoco_tpu_torch.envs import standins
-    model = io.load_model_npz(".../humanoid_torque_shape.npz")
+    model = standins.load_standin("a1pos")
     env = standins.make_env(model, dr=standins.damping_dr(model))
 """
 
@@ -42,6 +44,27 @@ PELVIS = ("pelvis_tx", "pelvis_tz", "pelvis_ty", "pelvis_tilt",
           "pelvis_list", "pelvis_rotation")
 ATLAS_BACK = ("back_bky", "back_bkx", "back_bkz")
 HEIGHT = ("root_z", "trunk_tz", "pelvis_tz")  # the root's vertical slide
+# the committed stand-ins, `assets/<file>.npz`, by name: A1's torque and
+# position modes are two files of one robot (its kind "a1")
+STANDINS = {"humanoid": "humanoid_torque_shape",
+            "muscle": "humanoid_muscle_shape", "a1": "unitree_a1_shape",
+            "a1pos": "unitree_a1_position_shape", "h1": "unitree_h1_shape",
+            "atlas": "atlas_shape", "g1": "unitree_g1_shape"}
+
+
+def load_standin(name: str, device=None, dtype=None):
+    """The committed stand-in `name` (`STANDINS`) on `device` (the card
+    unless the caller passes another one), float32 unless `dtype`."""
+    from pathlib import Path
+
+    import torch
+
+    from ..core import io
+
+    path = (Path(__file__).resolve().parent.parent / "assets"
+            / f"{STANDINS[name]}.npz")
+    return io.load_model_npz(path, device=device,
+                             dtype=dtype or torch.float32)
 
 
 def standin_kind(model) -> str:

@@ -1,12 +1,17 @@
 """Actuation: transmission, activation dynamics, gain/bias force production.
 
 Counterpart of `loco_mujoco_tpu/ops/actuation.py` (`:35-273`) for the
-actuators core/io admits: joint-transmission motors (fixed gain, no bias,
-no activation) and tendon-transmission muscles (MuJoCo's mju_muscleGain /
+actuators core/io admits: joint-transmission actuators with fixed or
+affine gain (gainprm[0] + gainprm[1] length + gainprm[2] velocity), no or
+affine bias (the same in biasprm; a position servo is fixed gain kp and
+bias (0, -kp, -kv)) and no activation or one integrator or filter
+activation (act_dot = (ctrl - act) / dynprm[0] for FILTER and FILTEREXACT,
+0 for INTEGRATOR, as the reference has it, `:201-208`; the force then reads
+act), and tendon-transmission muscles (MuJoCo's mju_muscleGain /
 mju_muscleBias / mju_muscleDynamics: piecewise quadratic FLV surfaces, one
 activation each). Mixed actuator types in one model are combined with
 static masks, every formula evaluated for every actuator, as the reference
-does.
+does, in its order of operations.
 """
 
 from __future__ import annotations
@@ -155,9 +160,13 @@ def actuation(model: Model, data: Data) -> Data:
         act_u = data.act[:, np.where(model.actuator_actadr >= 0,
                                      model.actuator_actadr, 0)]
         dyn_muscle = _mask(dyn == int(DynType.MUSCLE), dev)
+        dyn_filter = _mask(np.isin(dyn, [int(DynType.FILTER),
+                                         int(DynType.FILTEREXACT)]), dev)
+        tau = torch.clamp(model.actuator_dynprm[:, 0], min=1e-15)
         act_dot_u = torch.where(
             dyn_muscle, muscle_dynamics(ctrl, act_u, model.actuator_dynprm),
-            torch.zeros_like(ctrl))
+            torch.where(dyn_filter, (ctrl - act_u) / tau,
+                        torch.zeros_like(ctrl)))
         act_dot = act_dot_u @ scatter.T
         force_input = torch.where(_mask(dyn != int(DynType.NONE), dev),
                                   act_u, ctrl)
@@ -166,16 +175,25 @@ def actuation(model: Model, data: Data) -> Data:
         force_input = ctrl
 
     gp, bp = model.actuator_gainprm, model.actuator_biasprm
+    gt, bt = model.actuator_gaintype, model.actuator_biastype
     gain = gp[:, 0].expand_as(ctrl)
     bias = torch.zeros_like(ctrl)
-    if np.any(model.actuator_gaintype == int(GainType.MUSCLE)):
+    if np.any(gt == int(GainType.AFFINE)):
+        gain = torch.where(_mask(gt == int(GainType.AFFINE), dev),
+                           gp[:, 0] + gp[:, 1] * length + gp[:, 2] * velocity,
+                           gain)
+    if np.any(bt == int(BiasType.AFFINE)):
+        bias = torch.where(_mask(bt == int(BiasType.AFFINE), dev),
+                           bp[:, 0] + bp[:, 1] * length + bp[:, 2] * velocity,
+                           bias)
+    if np.any(gt == int(GainType.MUSCLE)):
         gain = torch.where(
-            _mask(model.actuator_gaintype == int(GainType.MUSCLE), dev),
+            _mask(gt == int(GainType.MUSCLE), dev),
             muscle_gain(length, velocity, model.actuator_lengthrange,
                         model.actuator_acc0, gp), gain)
-    if np.any(model.actuator_biastype == int(BiasType.MUSCLE)):
+    if np.any(bt == int(BiasType.MUSCLE)):
         bias = torch.where(
-            _mask(model.actuator_biastype == int(BiasType.MUSCLE), dev),
+            _mask(bt == int(BiasType.MUSCLE), dev),
             muscle_bias(length, model.actuator_lengthrange,
                         model.actuator_acc0, bp), bias)
     force = gain * force_input + bias

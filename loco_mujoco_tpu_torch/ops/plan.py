@@ -26,10 +26,16 @@ in the reference.
 
 `smooth` (`_build_smooth`, `:495-627`) is set for models without tendons or
 activations: the fused kernel then rebuilds the smooth stage from the FK
-outputs (the smooth vec layout). Other models (the muscle humanoid) get a
-non-smooth plan: the staged path computes com, cinert, cdof and qfrc_smooth
-and hands them to the fused kernel (the non-smooth vec layout,
-`_forward_env_block` `:1282-1299`).
+outputs (the smooth vec layout). Its actuator table (F_ACT / I_ACT) holds
+per joint actuator the reference's `sm_acts` (`:565-584`): the qpos and dof
+addresses, gear, gainprm[0:3] and biasprm[0:3] with the affine flags (a
+position servo: fixed gain, affine bias), the ctrl and force limits.
+Other models (the muscle humanoid, or joint actuators with integrator or
+filter activations) get a non-smooth plan: the staged path computes com,
+cinert, cdof and qfrc_smooth and hands them to the fused kernel (the
+non-smooth vec layout, `_forward_env_block` `:1282-1299`). A joint actuator
+with an activation also keeps the mega path off (`:561-577`), in a muscle
+model too.
 
 Within it, the contact pack the fused kernel reads per slot (`pack_w`,
 `:750-757`) is 5 floats when every candidate pair shares one static plane,
@@ -95,8 +101,9 @@ import copy
 import numpy as np
 import torch
 
-from ..core.types import (ConeType, DisableBit, EqType, GeomType,
-                          IntegratorType, JointType, TrnType)
+from ..core.types import (BiasType, ConeType, DisableBit, DynType, EqType,
+                          GainType, GeomType, IntegratorType, JointType,
+                          TrnType)
 
 MINVAL = 1e-15
 NV_MAX = 24  # the local-array widths compiled in csrc/forward_core.cuh
@@ -129,7 +136,7 @@ ELLIPTIC = 256
 DAMP_ROWS = 512  # per-env joint damping (RowPlan.dyn_damping)
 # per-entry widths of the tables (floats / ints), as the kernels read them
 WIDTH = {"F_BODY": 20, "I_BODY": 4, "F_JNT": 10, "I_JNT": 4, "F_DOF": 2,
-         "I_DOF": 1, "F_ACT": 6, "I_ACT": 4, "F_EQ": 16, "I_EQ": 4,
+         "I_DOF": 1, "F_ACT": 12, "I_ACT": 8, "F_EQ": 16, "I_EQ": 4,
          "F_FL": 10, "I_FL": 1, "F_LIM": 12, "I_LIM": 2, "F_CON": 32,
          "F_BOX": 12, "I_BOX": 2, "F_CYL": 12, "I_CYL": 2, "F_MESH": 16,
          "I_MESH": 5, "F_MUS": 28, "I_MUS": 6, "I_SEG": 2, "F_SITE": 4,
@@ -205,9 +212,14 @@ class RowPlan:
         if not (int(A["opt.iterations"]) <= 16
                 and int(A["opt.ls_iterations"]) <= 8):
             return
-        # the smooth stage (_build_smooth): no tendons, no activations
-        # (core/io admits joint motors and tendon muscles only)
+        # the smooth stage (_build_smooth): no tendons, no activations; a
+        # joint actuator with an activation (integrator, filter) keeps the
+        # muscle variant off too (`:561-577`)
         self.smooth = not (int(A["ntendon"]) or int(A["na"]))
+        trn = np.asarray(A["actuator_trntype"])
+        joint_dyn = bool(np.any(
+            (trn != int(TrnType.TENDON))
+            & (np.asarray(A["actuator_dyntype"]) != int(DynType.NONE))))
         self.smooth_mu = False
         self.mp = None
         self.na = int(A["na"])
@@ -352,8 +364,12 @@ class RowPlan:
                 continue
             j = int(A["actuator_trnid"][u, 0])
             self.sm_acts.append(dict(
-                u=u, v=int(dadr[j]), gear=float(f64["actuator_gear"][u, 0]),
-                gain=float(f64["actuator_gainprm"][u, 0]),
+                u=u, q=int(qadr[j]), v=int(dadr[j]),
+                gear=float(f64["actuator_gear"][u, 0]),
+                gain=_floats(f64["actuator_gainprm"][u, :3]),
+                g_affine=int(A["actuator_gaintype"][u]) == int(GainType.AFFINE),
+                bias=_floats(f64["actuator_biasprm"][u, :3]),
+                b_affine=int(A["actuator_biastype"][u]) == int(BiasType.AFFINE),
                 clo=float(f64["actuator_ctrlrange"][u, 0]),
                 chi=float(f64["actuator_ctrlrange"][u, 1]),
                 climited=bool(A["actuator_ctrllimited"][u]),
@@ -394,7 +410,8 @@ class RowPlan:
             self.mega_ell = self._ext_plan(A, groups, mesh_kernel, f64)
             self.mega = self.mega_ell
         if self.mega and not self.smooth:
-            self.mp = MusclePlan.build(L, A, self.dofmask, flags)
+            self.mp = None if joint_dyn else MusclePlan.build(
+                L, A, self.dofmask, flags)
             self.smooth_mu = self.mp is not None
             self.mega = self.smooth_mu
         self.act_bounds = act_bounds(self.na, A["actuator_actadr"],
@@ -651,10 +668,13 @@ class RowPlan:
         put("I_DOF", self.dof_bodyid)
         put("I_ANC", self.anc.astype(np.int32))
         put("I_DMASK", self.dofmask.astype(np.int32))
-        put("F_ACT", [[a["gear"], a["gain"], a["clo"], a["chi"], a["flo"],
-                       a["fhi"]] for a in self.sm_acts] or [[0] * 6])
+        put("F_ACT", [[a["gear"], a["gain"][0], a["clo"], a["chi"], a["flo"],
+                       a["fhi"], *a["gain"][1:], *a["bias"], 0]
+                      for a in self.sm_acts] or [[0] * 12])
         put("I_ACT", [[a["v"], int(a["climited"]), int(a["flimited"]),
-                       a["u"]] for a in self.sm_acts] or [[0] * 4])
+                       a["u"], a["q"], int(a["g_affine"]),
+                       int(a["b_affine"]), 0] for a in self.sm_acts]
+            or [[0] * 8])
         put("F_EQ", [[*r["data"], *r["solref"], *r["solimp"], r["m2"],
                       r["iw"], self.qpos0[r["q1"]], self.qpos0[r["q2"]]]
                      for r in self.eq] or [[0] * 16])

@@ -25,11 +25,26 @@ same generator:
 * full width: nv = 18, 76 contact slots (16 of them condim 6), 300 rows,
   the census A1 is cited at (nv 18, 306 rows, 76 slots). Committed as
   `loco_mujoco_tpu_torch/assets/unitree_a1_shape.npz` (the model
-  `chip_smoke.py` runs); regenerate it with
+  `chip_smoke.py` runs); regenerate it and the position stand-in with
   `JAX_PLATFORMS=cpu python tests/test_torch_a1_fixture.py`.
 * small: two diagonal legs (nv = 12), plane budget 2 and self budget 1, so
   every group keeps its kind and most take the top-K path (k < P): 23
   slots, 100 rows, for the interpret-mode comparisons.
+
+The actuators come in three modes (`MODES`): A1's torque motors; its
+position mode (`UnitreeA1(action_mode="position")` loads
+`unitree_a1_position.xml` in the reference, which is not in the
+repository): a position servo per leg joint as MuJoCo compiles `<position
+kp>` with a velocity term, fixed gain KP, affine bias (0, -KP, -KV), the
+ctrl a target angle in the joint's range, the force limited to A1's 33.5 N
+m, committed at full width as
+`loco_mujoco_tpu_torch/assets/unitree_a1_position_shape.npz`; and, small
+only, an all-terms variant (`ALL_TERMS`: affine gain and bias, filter,
+FILTEREXACT and integrator activations). KP and KV were chosen on the CPU:
+the JAX package's float64 path stays bounded under Euler at 2 ms over the
+smoke's 20 control steps with targets redrawn uniform in the joint ranges
+each step (leg speeds below 50 rad/s), and KV dt over the lightest joint's
+inertia (the calf with its armature, ~0.015 kg m^2) is ~0.2.
 
 It is compiled by the JAX package's own `put_model`; the model arrays are
 the "weights" carried across to the port.
@@ -53,6 +68,7 @@ from loco_mujoco_tpu_torch.core import io as tio  # noqa: E402
 from test_torch_fixture import _same, export_model  # noqa: E402
 
 ASSET = REPO / "loco_mujoco_tpu_torch" / "assets" / "unitree_a1_shape.npz"
+POSITION_ASSET = ASSET.with_name("unitree_a1_position_shape.npz")
 SEED = 0
 LEGS = {"FR": (1, -1), "FL": (1, 1), "RR": (-1, -1), "RL": (-1, 1)}
 SMALL_LEGS = ("FL", "RR")
@@ -62,6 +78,37 @@ A1_LINKS = {"trunk": (4.713, (0.0168, 0.0566, 0.0647)),
             "hip": (0.696, (0.00047, 0.00081, 0.00055)),
             "thigh": (1.013, (0.00553, 0.00514, 0.00137)),
             "calf": (0.166, (0.00300, 0.00301, 0.0000325))}
+
+# the leg joints' ranges (rad), which are the position servos' ctrlranges
+JOINT_RANGE = {"hip": (-0.8, 0.8), "thigh": (-1.0, 3.0), "calf": (-2.7, 0.3)}
+# the position servos (`MODES`): stiffness kp (N m / rad), damping kv
+# (N m s / rad) and the force limit (N m, A1's torque limit)
+KP, KV, FORCE = 60.0, 1.5, 33.5
+# the all-terms variant's six actuators (small size: FL then RR, hip, thigh,
+# calf): affine gain and bias with all six prms nonzero, a filter with
+# actlimited, a FILTEREXACT, an integrator, a position servo and an affine
+# gain without bias
+ALL_TERMS = (
+    'gaintype="affine" gainprm="20 -3 -0.4" biastype="affine" '
+    'biasprm="0.5 -25 -1.2" ctrllimited="true" ctrlrange="-1 1"',
+    'dyntype="filter" dynprm="0.03" gaintype="affine" gainprm="15 2 -0.3" '
+    'biastype="affine" biasprm="-0.4 -20 -0.8" actlimited="true" '
+    'actrange="-0.5 0.8" ctrllimited="true" ctrlrange="-1 1"',
+    'dyntype="filterexact" dynprm="0.05" gaintype="fixed" gainprm="18" '
+    'biastype="affine" biasprm="0.3 -12 -0.5" ctrllimited="true" '
+    'ctrlrange="-1 1" forcelimited="true" forcerange="-20 20"',
+    'dyntype="integrator" gaintype="fixed" gainprm="10" biastype="affine" '
+    'biasprm="0.2 -8 -0.6" ctrllimited="true" ctrlrange="-1 1" '
+    'actlimited="true" actrange="-1 1"',
+    f'gaintype="fixed" gainprm="{KP}" biastype="affine" '
+    f'biasprm="0 {-KP} {-KV}" ctrllimited="true" ctrlrange="-1 3"',
+    'gaintype="affine" gainprm="12 1.5 -0.2" ctrllimited="true" '
+    'ctrlrange="-1 1"')
+# the actuators of `a1_xml`: A1's torque motors (gear 34, ctrl in [-1, 1]),
+# its position mode (`<position kp>` with a velocity term as MuJoCo compiles
+# it: fixed gain kp, affine bias (0, -kp, -kv), the ctrl a target angle in
+# the joint's range, the force limited), and the all-terms variant
+MODES = ("torque", "position", "all_terms")
 
 # contype / conaffinity bits: 1 the floor, 2 the feet, 4 the lower calves
 # (the floor collides with everything; feet with feet, lower calves and the
@@ -73,8 +120,10 @@ _TRUNK = 'contype="0" conaffinity="3"'
 _OTHER = 'contype="0" conaffinity="1"'
 
 
-def a1_xml(full: bool, seed: int = SEED) -> str:
-    """The fixture's MJCF (see the module note)."""
+def a1_xml(full: bool, seed: int = SEED, mode: str = "torque") -> str:
+    """The fixture's MJCF (see the module note); `mode` the actuators
+    (`MODES`: the torque motors, the position servos, or the all-terms
+    variant of the small size)."""
     rng = np.random.default_rng(seed)
 
     def u(lo, hi):
@@ -128,9 +177,9 @@ def a1_xml(full: bool, seed: int = SEED) -> str:
       </body>"""
 
     legs = [n for n in LEGS if full or n in SMALL_LEGS]
-    motors = [f'<motor name="{n}_{j}" joint="{n}_{j}_joint" gear="34" '
-              f'ctrllimited="true" ctrlrange="-1 1"/>'
-              for n in legs for j in ("hip", "thigh", "calf")]
+    motors = [actuator(mode, i, n, j)
+              for i, (n, j) in enumerate((n, j) for n in legs
+                                         for j in ("hip", "thigh", "calf"))]
     root = "\n".join(
         f'<joint name="trunk_{n}" type="{t}" axis="{a}" limited="false" '
         f'damping="0" armature="0" frictionloss="0"/>'
@@ -138,8 +187,9 @@ def a1_xml(full: bool, seed: int = SEED) -> str:
                         ("tz", "slide", "0 0 1"), ("list", "hinge", "1 0 0"),
                         ("tilt", "hinge", "0 1 0"),
                         ("rotation", "hinge", "0 0 1")))
+    name = "" if mode == "torque" else f"_{mode}"
     return f"""
-<mujoco model="unitree_a1_shape_{'full' if full else 'small'}">
+<mujoco model="unitree_a1{name}_shape_{'full' if full else 'small'}">
   <compiler angle="radian"/>
   <option timestep="0.002" integrator="Euler" cone="elliptic"
           impratio="100" iterations="8" ls_iterations="8"/>
@@ -162,7 +212,22 @@ def a1_xml(full: bool, seed: int = SEED) -> str:
 </mujoco>"""
 
 
-def jax_model(full: bool, dtype=None):
+def actuator(mode: str, i: int, leg: str, joint: str) -> str:
+    """The MJCF of leg joint `joint`'s actuator, the i-th (see `MODES`)."""
+    name = f'name="{leg}_{joint}" joint="{leg}_{joint}_joint"'
+    if mode == "torque":
+        return f'<motor {name} gear="34" ctrllimited="true" ctrlrange="-1 1"/>'
+    lo, hi = JOINT_RANGE[joint]
+    servo = (f'gaintype="fixed" gainprm="{KP}" biastype="affine" '
+             f'biasprm="0 {-KP} {-KV}" ctrllimited="true" '
+             f'ctrlrange="{lo} {hi}" forcelimited="true" '
+             f'forcerange="{-FORCE} {FORCE}"')
+    if mode == "position":
+        return f"<general {name} {servo}/>"
+    return f"<general {name} {ALL_TERMS[i]}/>"
+
+
+def jax_model(full: bool, dtype=None, mode: str = "torque"):
     """The fixture compiled by the JAX package's own `put_model` (plane
     budget 8 and self budget 4 at full width, 2 and 1 small)."""
     import jax.numpy as jnp
@@ -170,15 +235,16 @@ def jax_model(full: bool, dtype=None):
 
     from loco_mujoco_tpu.core.io import put_model
 
-    mjm = mujoco.MjModel.from_xml_string(a1_xml(full))
+    mjm = mujoco.MjModel.from_xml_string(a1_xml(full, mode=mode))
     return put_model(mjm, dtype=dtype or jnp.float64,
                      contact_k_plane=8 if full else 2,
                      contact_k_other=4 if full else 1)
 
 
-def torch_model(full: bool, dtype=torch.float64, device="cpu"):
+def torch_model(full: bool, dtype=torch.float64, device="cpu",
+                mode: str = "torque"):
     """(JAX model, port model) of the fixture, both from one compile."""
-    jm = jax_model(full)
+    jm = jax_model(full, mode=mode)
     leaves, aux = export_model(jm)
     return jm, tio.model_from_numpy(leaves, aux, device=device, dtype=dtype)
 
@@ -242,11 +308,21 @@ def a1_states(model, E: int, seed: int = 7, drop=(0.005, 0.015)):
     return qpos, qvel, ctrl
 
 
-def ell_states(n_envs: int, full: bool = False, seed: int = 7):
+def servo_targets(model, E: int, seed: int = 9):
+    """(E, nu) seeded position-servo targets, uniform in each actuator's
+    ctrlrange (the leg joints' ranges)."""
+    cr = np.asarray(model.actuator_ctrlrange, np.float64)
+    return np.random.default_rng(seed).uniform(cr[:, 0], cr[:, 1],
+                                               size=(E, model.nu))
+
+
+def ell_states(n_envs: int, full: bool = False, seed: int = 7,
+               mode: str = "torque"):
     """(JAX model, port model, JAX data, port data) in float32 for the
-    interpret-mode comparisons: `a1_states` of the fixture, the JAX data
-    with its contacts and dims from one collision pass, as the env's reset
-    does. Call inside `jax.enable_x64(False)`."""
+    interpret-mode comparisons: `a1_states` of the fixture (the position
+    servos' ctrls `servo_targets`), the JAX data with its contacts and dims
+    from one collision pass, as the env's reset does. Call inside
+    `jax.enable_x64(False)`."""
     import jax
     import jax.numpy as jnp
 
@@ -254,11 +330,13 @@ def ell_states(n_envs: int, full: bool = False, seed: int = 7):
     from loco_mujoco_tpu.ops import collision as jcoll
     from loco_mujoco_tpu.ops import kinematics as jkin
 
-    leaves, aux = export_model(jax_model(full))
+    leaves, aux = export_model(jax_model(full, mode=mode))
     tm = tio.model_from_numpy(leaves, aux, device="cpu", dtype=torch.float32)
-    jm = jax_model(full, dtype=jnp.float32)
-    qpos, qvel, ctrl = (np.asarray(x, np.float32)
-                        for x in a1_states(tm, n_envs, seed))
+    jm = jax_model(full, dtype=jnp.float32, mode=mode)
+    qpos, qvel, ctrl = a1_states(tm, n_envs, seed)
+    if mode != "torque":
+        ctrl = servo_targets(tm, n_envs)
+    qpos, qvel, ctrl = (np.asarray(x, np.float32) for x in (qpos, qvel, ctrl))
     d0 = jax_make_data(jm)
     jd = jax.jit(jax.vmap(lambda q, v, u: jcoll.collision(
         jm, jkin.kinematics(jm, d0.replace(qpos=q, qvel=v, ctrl=u)))))(
@@ -269,8 +347,8 @@ def ell_states(n_envs: int, full: bool = False, seed: int = 7):
     return jm, tm, jd, td
 
 
-def write_full_width(path) -> None:
-    leaves, aux = export_model(jax_model(full=True))
+def write_full_width(path, mode: str = "torque") -> None:
+    leaves, aux = export_model(jax_model(full=True, mode=mode))
     tio.save_model_npz(path, leaves, aux)
 
 
@@ -340,6 +418,58 @@ def test_committed_a1_npz_matches_generator(tmp_path):
         assert _same(got_a[k], ref_a[k]), k
 
 
+def test_committed_a1_position_npz_matches_generator(tmp_path):
+    """Drift test of the committed position stand-in, leaf for leaf."""
+    fresh = tmp_path / "fresh.npz"
+    write_full_width(fresh, "position")
+    got_l, got_a = tio.read_model_npz(fresh)
+    ref_l, ref_a = tio.read_model_npz(POSITION_ASSET)
+    assert got_l.keys() == ref_l.keys() and got_a.keys() == ref_a.keys()
+    for k in ref_l:
+        np.testing.assert_array_equal(got_l[k], ref_l[k], err_msg=k)
+    for k in ref_a:
+        assert _same(got_a[k], ref_a[k]), k
+
+
+def test_a1_position_census_and_plan():
+    """A1's position mode on the stand-in: the torque stand-in's tree,
+    contacts and rows, with 12 position servos (gear 1, fixed gain KP,
+    affine bias (0, -KP, -KV), the ctrlrange each joint's range, the force
+    limited to FORCE); its plan is the extended elliptic one (`mega_ell`)
+    and its actuator table carries each servo's qpos address, gain and
+    bias (`sm_acts`, F_ACT / I_ACT)."""
+    from loco_mujoco_tpu_torch.ops import plan as plan_mod
+
+    m = tio.load_model_npz(POSITION_ASSET, device="cpu")
+    torque = tio.load_model_npz(ASSET, device="cpu")
+    assert (m.nv, m.nu, m.na) == (18, 12, 0)
+    assert _census(m) == _census(torque) == CENSUS_FULL
+    np.testing.assert_array_equal(m.actuator_gear[:, 0].numpy(), 1.0)
+    np.testing.assert_array_equal(m.actuator_gainprm[:, :3].numpy(),
+                                  np.float32([[KP, 0, 0]] * 12))
+    np.testing.assert_array_equal(m.actuator_biasprm[:, :3].numpy(),
+                                  np.float32([[0, -KP, -KV]] * 12))
+    jnt = m.actuator_trnid[:, 0]
+    assert bool((m.actuator_ctrlrange == m.jnt_range[jnt]).all())
+    assert m.actuator_forcelimited.all() and bool(
+        (m.actuator_forcerange == torch.tensor([-FORCE, FORCE])).all())
+    p = m.plan
+    assert p.mega and p.mega_ell and p.elliptic and p.smooth
+    assert (p.ncon, p.nrows, p.pack_w) == (76, 300, 29)
+    assert [(a["u"], a["q"], a["v"]) for a in p.sm_acts] == [
+        (u, int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j]))
+        for u, j in enumerate(jnt)]
+    assert all(a["b_affine"] and not a["g_affine"] for a in p.sm_acts)
+    ints, flts = p.pack()
+    hdr = {k: int(ints[plan_mod.H[k]]) for k in ("F_ACT", "I_ACT")}
+    f_act = flts[hdr["F_ACT"]:hdr["F_ACT"] + 12 * 12].reshape(12, 12)
+    i_act = ints[hdr["I_ACT"]:hdr["I_ACT"] + 8 * 12].reshape(12, 8)
+    np.testing.assert_array_equal(f_act[:, 6:11], np.float32(
+        [[0, 0, 0, -KP, -KV]] * 12))
+    np.testing.assert_array_equal(i_act[:, 4:7], [[a["q"], 0, 1]
+                                                  for a in p.sm_acts])
+
+
 def test_a1_states_touch_every_group():
     """The seeded states put every group's slots in contact somewhere."""
     from loco_mujoco_tpu_torch.ops import collision, kinematics
@@ -358,5 +488,6 @@ if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_enable_x64", True)  # as tests/conftest.py does
-    write_full_width(ASSET)
-    print(f"wrote {ASSET} ({os.path.getsize(ASSET)} bytes)")
+    for path, mode in ((ASSET, "torque"), (POSITION_ASSET, "position")):
+        write_full_width(path, mode)
+        print(f"wrote {path} ({os.path.getsize(path)} bytes)")

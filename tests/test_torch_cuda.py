@@ -43,6 +43,12 @@ a plane-mesh group among sphere, capsule and self groups) is held the same
 way on `test_torch_g1_fixture.g1_states`' states: its mega forward (geom1
 and geom2 exact on active slots) and megastep at 4096 envs, its staged
 fused kernel (the 26-float pack) on every env, and its env's `step_batch`.
+The committed A1 position stand-in (`unitree_a1_position_shape.npz`:
+position servos, fixed gain and affine bias in the smooth stage) is held
+the same way on `a1_states`' states with targets in the joint ranges: its
+mega forward and megastep at 4096 envs, its staged fused kernel and its
+env's `step_batch`; the torque humanoid with affine motors (gain and bias)
+on its plane-only megastep.
 
 Every random input comes from numpy's seeded generator or from a CUDA
 generator seeded with the draw's number (`_qvel`, the draws of
@@ -876,3 +882,127 @@ def test_g1_step_batch_matches_plain(state, monkeypatch):
     model, _ = _g1_state(1)
     assert standins.standin_kind(model) == "g1"
     _step_batch_check(model, False, monkeypatch, "env g1")
+
+
+# ---- affine gain and bias in the smooth stage: A1's position mode --------
+
+
+def _a1pos_state(n):
+    """The committed A1 position stand-in on the card and `a1_states`'
+    seeded states of it, the servos' targets `servo_targets` (uniform in
+    the joint ranges)."""
+    from test_torch_a1_fixture import POSITION_ASSET, a1_states, servo_targets
+
+    model = io.load_model_npz(POSITION_ASSET, device="cuda")
+    cpu = io.load_model_npz(POSITION_ASSET, device="cpu")
+    qpos, qvel, _ = a1_states(cpu, n)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")  # noqa
+    return model, io.make_data(model, n).replace(
+        qpos=t(qpos), qvel=t(qvel), ctrl=t(servo_targets(cpu, n)))
+
+
+def test_a1pos_mega_forward_matches_plain(state):
+    """The mega forward's extended elliptic instance with the servos'
+    affine bias at 4096 envs, held to chip_smoke.py's rule for the mega
+    forward (as test_g1_mega_forward_matches_plain)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _a1pos_state(4096)
+    assert hm.ext_mode(model.plan) == 1
+    assert all(a["b_affine"] for a in model.plan.sm_acts)
+    kernels.LAUNCHES.clear()
+    k = fwd.forward(model, d)
+    assert dict(kernels.LAUNCHES) == {"mega_forward": 1}
+    r = hm.mega_forward_plain(model, d, replay=_replay(k))
+    act_r = r.contact.dist < r.contact.includemargin
+    same = torch.all((k.contact.dist < k.contact.includemargin) == act_r,
+                     dim=1)
+    apart, witnessed = chip_smoke._newton_witness(torch, model, d, k, r,
+                                                  envs=same)
+    held = same & ~(apart & witnessed)
+    chip_smoke._tie_envs(torch, held, _gap(r), 4096, "a1pos mega forward",
+                         newton=apart & witnessed)
+    for f in ("qacc", "qacc_smooth", "qfrc_constraint", "efc_force_contact",
+              "euler_dv"):
+        got, ref = getattr(k, f)[held], getattr(r, f)[held]
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), f
+    on = act_r & same[:, None]
+    for f in ("geom1", "geom2"):
+        assert torch.equal(getattr(k.contact, f)[on],
+                           getattr(r.contact, f)[on]), f
+    assert float((k.contact.dist - r.contact.dist).abs()[on].max()) <= 1e-5
+
+
+def test_a1pos_megastep_matches_plain(state):
+    """A1 position mode's Euler megastep, a control step of 10 substeps
+    at 4096 envs, held to chip_smoke.py's megastep rule."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _a1pos_state(4096)
+    kernels.LAUNCHES.clear()
+    fwd.step_n(model, d, 10)
+    assert dict(kernels.LAUNCHES) == {"megastep": 1}
+    k = chip_smoke._megastep_rule(torch, model, d, 10, "a1pos")[0]
+    assert torch.allclose(k.time, d.time + 10 * model.opt.timestep)
+
+
+def test_a1pos_fused_matches_plain(state, monkeypatch):
+    """The fused kernel's elliptic layout with the servos' affine bias in
+    its smooth stage, decisions replayed (test_a1_fused_matches_plain's
+    rule), and its qacc_smooth on every env."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    monkeypatch.setenv("LMT_MEGA", "0")
+    model, d = _a1pos_state(E)
+    d = fwd.stages(model, d)
+    kernels.LAUNCHES.clear()
+    k = hf.fused_constraint(model, d)
+    assert dict(kernels.LAUNCHES) == {"fused": 1}
+    r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+    assert float((k.qacc_smooth - r.qacc_smooth).abs().max()) < 5e-4 * float(
+        r.qacc_smooth.abs().max())
+    held = torch.ones(E, dtype=torch.bool, device="cuda")
+    for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
+        got, ref = getattr(k, f), getattr(r, f)
+        held &= ((got - ref).abs().reshape(E, -1).amax(1)
+                 < 5e-4 * float(ref.abs().max()))
+    apart, witnessed = chip_smoke._newton_witness(torch, model, d, k, r,
+                                                  staged=True)
+    excused = ~held & apart & witnessed
+    assert bool((held | excused).all()), (~held).nonzero().flatten()
+    assert int(excused.sum()) <= 0.005 * E
+
+
+def test_a1pos_step_batch_matches_plain(state, monkeypatch):
+    """A1 position mode's env (the actions unnormalized into the joint
+    ranges; A1's fall predicate) (`_step_batch_check`)."""
+    model, _ = _a1pos_state(1)
+    assert standins.standin_kind(model) == "a1"
+    _step_batch_check(model, False, monkeypatch, "env a1pos")
+
+
+def test_affine_humanoid_megastep_matches_plain(state):
+    """The plane-only instance with affine motors: the committed torque
+    humanoid with each motor's gain and bias made affine
+    (`test_torch_fixture.AFFINE_GAIN` / `AFFINE_BIAS`, the arrays MuJoCo
+    compiles from `humanoid_xml(affine=True)`'s actuators), RK4, seeded
+    ctrls, one control step held as test_megastep_matches_plain."""
+    from test_torch_fixture import AFFINE_BIAS, AFFINE_GAIN
+
+    leaves, aux = io.read_model_npz(ASSET)
+    nu = int(aux["nu"])
+    for kind, prm in (("gain", AFFINE_GAIN), ("bias", AFFINE_BIAS)):
+        aux[f"actuator_{kind}type"] = np.ones(nu, dtype=np.int32)
+        leaves[f"actuator_{kind}prm"] = np.array(leaves[f"actuator_{kind}prm"])
+        leaves[f"actuator_{kind}prm"][:, :3] = prm
+    model = io.model_from_numpy(leaves, aux, device="cuda")
+    assert model.plan.mega and not model.plan.mega_ell
+    assert all(a["g_affine"] and a["b_affine"] for a in model.plan.sm_acts)
+    ctrl = np.random.default_rng(4).uniform(-0.3, 0.3, size=(E, nu))
+    d = _dropped(model).replace(ctrl=torch.as_tensor(
+        ctrl, dtype=torch.float32, device="cuda"))
+    _megastep_check(model, fwd.fwd_position(model, d, plain=True))

@@ -3,7 +3,8 @@
 
 Both envs are built from one compile of the small HumanoidTorque-shaped
 fixture (RK4; the A1-shaped fixture's, Euler, in tests/test_torch_env_a1.py,
-and the G1-shaped fixture's, Euler, in tests/test_torch_env_g1.py) from
+its position variant's in tests/test_torch_env_a1pos.py, and the G1-shaped
+fixture's, Euler, in tests/test_torch_env_g1.py) from
 `standins.env_parts`, what the card's env phase runs: the same
 observation spec (every joint's position, then every joint's velocity; the
 first two, the root's horizontal slides, dropped), the same synthetic
@@ -50,8 +51,9 @@ E, STEPS, HORIZON, SUBSTEPS = 4, 3, 2, 2
 def build(robot, **budget):
     """(JAX env, port env) from `standins.env_parts` of the fixture;
     `budget` the envs' solver_iterations / ls_iterations."""
-    fixture = {"humanoid": hfx, "a1": a1fx, "g1": g1fx}[robot]
-    jm, tm = fixture.torch_model(full=False)
+    fixture = {"humanoid": hfx, "a1": a1fx, "a1pos": a1fx, "g1": g1fx}[robot]
+    kw = {"mode": "position"} if robot == "a1pos" else {}
+    jm, tm = fixture.torch_model(full=False, **kw)
     parts = standins.env_parts(tm, SUBSTEPS)
     idx = parts["fall"]
     if robot == "g1":  # models/humanoids/unitree_g1.py:43-54

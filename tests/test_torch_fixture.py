@@ -83,6 +83,13 @@ _LUMBAR = 8  # torso -> abdomen tendons (full width)
 # the compiler's muscle length ranges: the default tolerance (0.05) does not
 # converge on the shortest-range muscles
 LENGTHRANGE = '<lengthrange tolrange="0.5"/>'
+# the motors of the affine variant (`humanoid_xml(affine=True)`): gain
+# g0 + g1 ln + g2 vel and bias b0 + b1 ln + b2 vel, ln and vel in the
+# actuator's units (gear 100 times the joint's)
+AFFINE_GAIN, AFFINE_BIAS = (1.0, 0.002, -0.0005), (0.02, -0.003, -0.001)
+AFFINE_MOTOR = ('gaintype="affine" gainprm="{} {} {}" '
+                'biastype="affine" biasprm="{} {} {}"').format(
+                    *AFFINE_GAIN, *AFFINE_BIAS)
 
 
 def _muscle_parts(full: bool, seed: int):
@@ -130,7 +137,8 @@ def _muscle_parts(full: bool, seed: int):
     return sites, tendons, muscles
 
 
-def humanoid_xml(full: bool, seed: int = SEED, muscle: bool = False) -> str:
+def humanoid_xml(full: bool, seed: int = SEED, muscle: bool = False,
+                 affine: bool = False) -> str:
     """The fixture's MJCF (see the module note); `muscle`: the muscle
     variant (sites, spatial tendons and muscles, Euler)."""
     rng = np.random.default_rng(seed)
@@ -255,6 +263,9 @@ def humanoid_xml(full: bool, seed: int = SEED, muscle: bool = False) -> str:
                         ("ry", "hinge", "0 1 0"), ("rz", "hinge", "0 0 1")))
     motors = [f'<motor joint="{j}" gear="100" ctrllimited="true" '
               f'ctrlrange="-1 1"/>' for j in actuated]
+    if affine:
+        motors = [m.replace("<motor ", f"<general {AFFINE_MOTOR} ")
+                  for m in motors]
     if muscle and full:
         actuators = muscles  # the muscles replace the joint motors
     else:  # motors and muscles interleaved
@@ -317,8 +328,10 @@ CONFIGS = {
 }
 
 
-def jax_model(full: bool, dtype=None, change=None, muscle=False):
-    """The fixture (or its muscle variant) compiled by the JAX package's
+def jax_model(full: bool, dtype=None, change=None, muscle=False,
+              affine=False):
+    """The fixture (or its muscle variant, or with `affine` its motors'
+    gain and bias affine, `AFFINE_MOTOR`) compiled by the JAX package's
     own `put_model`, with a configuration change (`CONFIGS`)."""
     import jax.numpy as jnp
     import mujoco
@@ -326,7 +339,7 @@ def jax_model(full: bool, dtype=None, change=None, muscle=False):
     from loco_mujoco_tpu.core.io import put_model
 
     mjm = mujoco.MjModel.from_xml_string(
-        _joint_friction(humanoid_xml(full, muscle=muscle)))
+        _joint_friction(humanoid_xml(full, muscle=muscle, affine=affine)))
     jm = put_model(mjm, dtype=dtype or jnp.float64,
                    contact_k_plane=8 if full else 4)
     for k, v in (change or {}).items():
@@ -360,15 +373,15 @@ def export_model(model):
 
 
 def torch_model(full: bool, dtype=torch.float64, device="cpu", change=None,
-                muscle=False):
+                muscle=False, affine=False):
     """(JAX model, port model) of the fixture, both from one compile."""
-    jm = jax_model(full, change=change, muscle=muscle)
+    jm = jax_model(full, change=change, muscle=muscle, affine=affine)
     leaves, aux = export_model(jm)
     return jm, tio.model_from_numpy(leaves, aux, device=device, dtype=dtype)
 
 
 def mega_states(monkeypatch, full: bool, n_envs: int, seed: int = 7,
-                change=None, muscle=False):
+                change=None, muscle=False, affine=False):
     """(JAX model, port model, JAX data, port data) in float32 for the mega
     path tests: n_envs seeded states of the fixture in light contact (the
     feet pressed 5-15 mm into the floor, small joint noise and velocities).
@@ -377,7 +390,8 @@ def mega_states(monkeypatch, full: bool, n_envs: int, seed: int = 7,
     hull past it; ROADMAP, Queue 3), and the JAX data gets its contact dims
     from one collision pass, as the env's reset does. `change`: a
     configuration (`CONFIGS`) applied to both models; `muscle`: the muscle
-    variant, its muscle ctrls in [0, 1] and activations from `seeded_act`.
+    variant, its muscle ctrls in [0, 1] and activations from `seeded_act`;
+    `affine`: the motors' gain and bias affine (`AFFINE_MOTOR`).
     Call inside `jax.enable_x64(False)`."""
     import jax
     import jax.numpy as jnp
@@ -387,12 +401,13 @@ def mega_states(monkeypatch, full: bool, n_envs: int, seed: int = 7,
     from loco_mujoco_tpu.ops import kinematics as jkin
     from loco_mujoco_tpu.ops import pallas_constraint as pc
 
-    jm64 = jax_model(full, change=change, muscle=muscle)
+    jm64 = jax_model(full, change=change, muscle=muscle, affine=affine)
     leaves, aux = export_model(jm64)
     tm = tio.model_from_numpy(leaves, aux, device="cpu", dtype=torch.float32)
     monkeypatch.setenv("LMT_MESH_VCAP", str(tm.mesh_vert.shape[1]))
     monkeypatch.setattr(pc, "_PLAN_CACHE", {})
-    jm = jax_model(full, dtype=jnp.float32, change=change, muscle=muscle)
+    jm = jax_model(full, dtype=jnp.float32, change=change, muscle=muscle,
+                   affine=affine)
     rng = np.random.default_rng(seed)
     E = n_envs
     qpos = np.asarray(tm.qpos0)[None] + rng.normal(scale=0.02,
@@ -569,23 +584,25 @@ def test_committed_npz_matches_generator(tmp_path, muscle):
     {"tendon_stiffness": 1.0},
     {"eq_type": 0},
     {"opt.integrator": 2},
-    {"actuator_gaintype": 1},
+    {"actuator_gaintype": 2},
     {"jnt_type": 1},
     {"actuator_trntype": 4},
     {"tendon_damping": 1.0},
     {"tendon_limited": 1},
     {"tendon_sitemask": False},
     {"actuator_dyntype": 2},
-    {"actuator_biastype": 1},
+    {"actuator_biastype": 2},
     {"pair_geom1": 76},
 ])
 def test_unsupported_features_raise_at_load(change):
     """Features outside this slice are refused when the model is loaded in
     float64 (tendon changes on the muscle fixture: its last tendon's
     stiffness, damping, limits, or a path of no site; the equality as a
-    CONNECT; the last actuator's site transmission, filter activation or
-    affine bias; the last pair between two hulls, a convex pair, which
-    float64 would need GJK for)."""
+    CONNECT; the last joint motor's muscle gain, site transmission, filter
+    activation without an act slot or muscle bias; the last pair between
+    two hulls, a convex pair, which float64 would need GJK for). Affine
+    gain and bias and one integrator or filter activation are admitted
+    (tests/test_torch_affine.py)."""
     tendon = any(k.startswith("tendon_") for k in change)
     leaves, aux = tio.read_model_npz(MUSCLE_ASSET if tendon else ASSET)
     for k, v in change.items():

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Time the megastep kernel on one GPU and break it down by phase.
 
-    python3 tools/megastep_phases.py [--configs rk4 euler muscle a1 h1 atlas g1]
+    python3 tools/megastep_phases.py
+        [--configs rk4 euler muscle a1 h1 atlas g1 a1pos]
         [--envs 4096] [--reps 3] [--root DIR] [--no-phases] [--kernels]
 
 For each configuration of `chip_smoke.py`'s main path (the committed
 HumanoidTorque-shaped model with RK4 and with Euler, the muscle model, the
-A1-shaped model, the H1-, Atlas- and G1-shaped bipeds) it drives the main
-path as the smoke does: the seeded dropped state and controls of this
-checkout's `chip_smoke.seeded_draws` (the bipeds': `seeded_biped`),
+A1-shaped model, the H1-, Atlas- and G1-shaped bipeds, A1's position mode)
+it drives the main path as the smoke does: the seeded dropped state and
+controls of this checkout's `chip_smoke.seeded_draws` (the bipeds':
+`seeded_biped`; A1's position mode: `seeded_a1pos`),
 a reset forward and 20 control steps of `forward.step_n` (10 substeps
 each), and prints the main path's rate (control steps x envs per
 second, the `env_steps_per_s` key). At that end state, with the first
@@ -35,7 +37,7 @@ waits.
 `--root DIR` runs the port of another checkout (for example an archive of
 a parent commit, to put both in one call: parent, change, change,
 parent); a checkout whose `mega.cu` has no `LMT_PHASES` variant is timed
-only. Prints the card's name and power limit, one JSON line per
+only, and one without a configuration's committed model cannot run it. Prints the card's name and power limit, one JSON line per
 configuration and nothing else on standard output.
 """
 
@@ -51,10 +53,10 @@ import time
 from pathlib import Path
 
 PHASES = ("fk", "collision", "smooth", "rows", "newton", "integration")
-CONFIGS = ("rk4", "euler", "muscle", "a1", "h1", "atlas", "g1")
+CONFIGS = ("rk4", "euler", "muscle", "a1", "h1", "atlas", "g1", "a1pos")
 ASSET_OF = {"muscle": "humanoid_muscle_shape", "a1": "unitree_a1_shape",
             "h1": "unitree_h1_shape", "atlas": "atlas_shape",
-            "g1": "unitree_g1_shape"}
+            "g1": "unitree_g1_shape", "a1pos": "unitree_a1_position_shape"}
 # the Newton solve's parts (where the kernel splits it; the rest of the
 # Newton phase is its row passes)
 NEWTON_PARTS = ("gradient_hessian", "factor_solve", "line_search")
@@ -153,6 +155,8 @@ def main() -> int:
         if name in smoke.BIPEDS or name == "g1":
             seed = smoke.G1[1] if name == "g1" else smoke.BIPEDS[name][1]
             q0, ctrls = smoke.seeded_biped(m, seed, E)
+        elif name == "a1pos":
+            q0, ctrls = smoke.seeded_a1pos(m, E)
         else:
             q0, ctrls = {"a1": (qpos_a1, ctrls_a1),
                          "muscle": (qpos, ctrls_mu)}.get(name,
