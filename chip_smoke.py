@@ -37,7 +37,12 @@ Run from the repository root: `python3 chip_smoke.py`. It
    stand-in (the `a1pos` configuration: A1's tree, contacts and rows with
    a position servo per leg joint, fixed gain and affine bias, the ctrl a
    target angle: the smooth stage's affine terms in the mega kernels'
-   extended elliptic instance and in the fused kernel);
+   extended elliptic instance and in the fused kernel); and the committed
+   stand-in of G1 with its arms (the `g1arms` configuration: nv = 29,
+   past the first compiled width, 25 bodies, 72 slots, 312 rows: the
+   libraries built a second time at width 32, the mega kernels' extended
+   pyramidal instance with the rows' J in a global scratch), and with 20
+   plane-mesh slots (455 rows: no plan, the Newton kernel at width 32);
 4. holds each kernel of the earlier staged path against its plain PyTorch
    version on the card, on the inputs that path gives it at full width
    (4096 envs);
@@ -48,8 +53,10 @@ Run from the repository root: `python3 chip_smoke.py`. It
    Atlas and G1 (its plane-mesh group on the select and top-K kernels,
    its other groups in torch, the fused kernel's 26-float pack) and 2 of
    A1's position mode (the elliptic layout with affine bias), through
-   the fused constraint kernel, and 1 control step of the
-   model with no plan, through the Newton kernel and its relayouts, with
+   the fused constraint kernel, 1 of G1 with its arms (the fused kernel at
+   width 32; cut from 2 to keep the run short), and 1 control step of the
+   model with no plan, through the Newton kernel and its relayouts, and
+   1 of G1 with its arms with no plan (the Newton kernel at width 32), with
    every launch counter set to 0 just before each run and read just after,
    and checks the counts; then compares one staged forward with the
    all-plain forward and holds the Newton kernel to its plain version at
@@ -58,7 +65,8 @@ Run from the repository root: `python3 chip_smoke.py`. It
    mega forward kernel) and `forward.step_n` for 20 control steps of 10
    substeps (one megastep kernel launch each), RK4, Euler, the muscle
    model (seeded muscle ctrls in [0, 1], act from 0), A1 (dropped 5-20
-   mm, seeded motor ctrls in half its ctrlrange), H1, Atlas and G1
+   mm, seeded motor ctrls in half its ctrlrange), H1, Atlas, G1 and G1
+   with its arms
    (dropped 5-20 mm, seeded motor ctrls in [-0.3, 0.3]) and A1's position
    mode (dropped 5-20 mm, seeded targets uniform in the joint ranges),
    counters again
@@ -78,9 +86,10 @@ Run from the repository root: `python3 chip_smoke.py`. It
    both randomized envs on the staged path (the fused kernel's smooth and
    elliptic layouts with the rows), then G1's env (its own fall
    predicate) without randomization beside `step_n` alone and with it
-   (Euler: the per-substep mega forward with the rows), and A1's position
-   mode's env (actions unnormalized into the joint ranges) beside `step_n`
-   alone, counters zeroed and read as above;
+   (Euler: the per-substep mega forward with the rows), A1's position
+   mode's env (actions unnormalized into the joint ranges) and the env of
+   G1 with its arms beside `step_n` alone, counters zeroed and read as
+   above;
 7. holds the mega forward kernel and the megastep kernel (one control
    step), RK4, Euler, muscle (with act_dot and act; the muscle kernels
    both at the end state, which the seeded activations lift off the
@@ -89,11 +98,14 @@ Run from the repository root: `python3 chip_smoke.py`. It
    states in contact; G1's the extended pyramidal instance, with and
    without the damping rows), A1's position mode (the servos' affine
    bias; at its env's end state, where A1's fall predicate has reset the
-   tipped trunks), the plane-mesh select and top-K on the
+   tipped trunks), G1 with its arms (the wide library's extended
+   pyramidal instance), the plane-mesh select and top-K on the
    torque model's and G1's mesh groups, and the fused kernel on all four
    plan
    configurations, the muscle model's non-smooth layout, A1's elliptic
-   layout, H1, Atlas, G1 and A1's position mode, and the damping rows
+   layout, H1, Atlas, G1, A1's position mode and G1 with its arms (width
+   32), the Newton kernel at width 32 at the end state of the no-plan G1
+   with arms, and the damping rows
    (the mega forward's
    plane-only and extended instances, the RK4 megastep, the fused
    kernel's smooth and elliptic layouts, at the randomized envs' end
@@ -125,6 +137,7 @@ constraint Hessian can go indefinite at lower precision.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -135,7 +148,7 @@ from pathlib import Path
 N_ENVS = 4096
 CONTROL_STEPS = 20  # the main path
 STAGED_STEPS = 2  # the staged path, cut from 20 to keep the run short
-WIDE_STEPS = 1  # the no-plan staged path (the Newton kernel's)
+WIDE_STEPS = 1  # the no-plan staged paths (the Newton kernel's) and G1 arms' staged path
 SUBSTEPS = 10  # physics substeps per control step (RK4: 4 forwards each)
 TIE = 1e-5  # a slot or limit this close to its margin is a float32 tie
 # a slot whose point moved farther (m) between two forwards of one state
@@ -170,6 +183,11 @@ BIPEDS = {"h1": ("loco_mujoco_tpu_torch/assets/unitree_h1_shape.npz", 2),
 # the G1-shaped biped on the extended collision with pyramidal rows and a
 # plane-mesh group: (asset, seed of its draws' own stream)
 G1 = ("loco_mujoco_tpu_torch/assets/unitree_g1_shape.npz", 4)
+# G1 with its arms (nv 29: the kernels' second compiled width, 32), its
+# draws' own stream; with 20 plane-mesh slots it has no plan (455 rows) and
+# its staged path runs the Newton kernel at width 32
+G1ARMS = ("loco_mujoco_tpu_torch/assets/unitree_g1_arms_shape.npz", 6)
+G1ARMS_WIDE = {"contact_k_plane": 20}
 # A1's seeded motor ctrls lie in [-A1_CTRL, A1_CTRL] of its ctrlrange
 # [-1, 1] (17 of the motors' 34 N m): with the full range redrawn every
 # control step some envs spin their light, slender calves fast enough that
@@ -202,6 +220,15 @@ def _time_ms(torch, fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _kernel_code():
+    """tools/kernel_code.py (its ptxas log parser), from this checkout."""
+    path = Path(__file__).resolve().parent / "tools" / "kernel_code.py"
+    spec = importlib.util.spec_from_file_location("kernel_code", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _device_ops(torch, fn):
@@ -983,14 +1010,17 @@ def main() -> int:
 
     # ---- build -------------------------------------------------------------
     build_s = kernels.build_all()
-    print(f"kernel build: {build_s:.1f} s ({', '.join(kernels.SOURCES)})")
-    for name in kernels.SOURCES:
-        log = (kernels.build_dir() / f"{name}.ptxas")
+    libs = kernels.libraries()
+    print(f"kernel build: {build_s:.1f} s ("
+          + ", ".join("-".join([n, *d]) for n, d in libs) + ")")
+    for name, defines in libs:
+        log = kernels.ptxas_log(name, defines)
+        label = "-".join([name, *defines])
         if log.exists():
             for line in log.read_text().splitlines():
                 if ("registers" in line or "spill" in line
                         or "Compiling entry" in line):
-                    print(f"  ptxas {name}: {line.strip()}")
+                    print(f"  ptxas {label}: {line.strip()}")
 
     # ---- models and state --------------------------------------------------
     root = Path(__file__).resolve().parent
@@ -1003,6 +1033,11 @@ def main() -> int:
     m_h1, m_at = bipeds["h1"], bipeds["atlas"]
     m_g1 = io.load_model_npz(root / G1[0], device=dev)
     m_a1p = load_standin("a1pos", device=dev)
+    m_g1a = load_standin("g1arms", device=dev)
+    leaves, aux = io.read_model_npz(root / G1ARMS[0])
+    aux.update(G1ARMS_WIDE)
+    m_g1a_wide = io.model_from_numpy(leaves, aux, device=dev,
+                                     dtype=torch.float32)
     mesh_groups = [i for i, g in enumerate(model.groups)
                    if coll.is_plane_mesh(g)]
     assert mesh_groups and all(model.mesh_kernel[i] is not None
@@ -1033,6 +1068,13 @@ def main() -> int:
     g1_mesh = next(i for i, g in enumerate(m_g1.groups)
                    if coll.is_plane_mesh(g))
     assert m_g1.mesh_kernel[g1_mesh] is not None, "G1 mesh group off kernel"
+    pg1a = m_g1a.plan  # G1 with its arms: the second compiled width
+    assert m_g1a.nv == 29 and pg1a.nvm == 32 and hm.ext_mode(pg1a) == 2
+    assert pg1a.mega and pg1a.mega_ell and not pg1a.elliptic and pg1a.euler_dv
+    assert mega_launch(pg1a).j_global, "G1 with arms: J in shared memory"
+    assert all(m_g1a.mesh_kernel[i] is not None for i, g in enumerate(
+        m_g1a.groups) if coll.is_plane_mesh(g)), "G1 arms mesh group"
+    assert m_g1a_wide.plan is None and m_g1a_wide.nv == 29
     plan = model.mesh_kernel[mesh_groups[0]]
     print(f"model: nv={model.nv}, groups "
           f"{[(g.t2, g.k, len(g.pair_ids)) for g in model.groups]}, "
@@ -1065,21 +1107,52 @@ def main() -> int:
           f"contacts, {m_a1p.nu} position servos (gain "
           f"{pa1p.sm_acts[0]['gain'][0]:g}, bias "
           f"{pa1p.sm_acts[0]['bias']}, force limit "
-          f"{float(m_a1p.actuator_forcerange[0, 1]):g}), {pa1p.nrows} rows")
-
+          f"{float(m_a1p.actuator_forcerange[0, 1]):g}), {pa1p.nrows} rows"
+          f"; g1arms: nv={m_g1a.nv} (width {pg1a.nvm}), {m_g1a.nbody} "
+          f"bodies, groups "
+          + str([(g.t1, g.t2, g.condim, g.k, len(g.pair_ids))
+                 for g in m_g1a.groups])
+          + f", {pg1a.ncon} slots, {pg1a.nrows} rows; with 20 plane-mesh "
+          f"slots {m_g1a_wide.ncon} slots and no plan")
     # the mega kernels' launch: a warp per env, its state in shared memory
     for name, m in (("rk4", model), ("euler", m_eu), ("muscle", m_mu),
                     ("a1", m_a1), *bipeds.items(), ("g1", m_g1),
-                    ("a1pos", m_a1p)):
+                    ("a1pos", m_a1p), ("g1arms", m_g1a)):
         launch = mega_launch(m.plan)
         occ = hm.occupancy(m)
-        print(f"mega launch {name}: {4 * launch.env_floats} bytes of shared "
-              f"memory per env, {launch.envs_per_block} envs (warps) per "
+        print(f"mega launch {name}: width {m.plan.nvm}, "
+              f"{4 * launch.env_floats} bytes of shared "
+              f"memory per env, J in "
+              f"{'a global scratch' if launch.j_global else 'shared memory'}"
+              f", {launch.envs_per_block} envs (warps) per "
               f"block; resident warps per SM "
               f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor): mega "
               f"forward {occ[0]}, megastep {occ[1]} (the launch plan's "
               f"shared-memory bound {launch.resident_warps})")
         assert min(occ) >= RESIDENT_FLOOR, (name, occ)
+    kc = _kernel_code()
+    wide = ("LMT_NVM=32",)
+    census = {}
+    for name in ("mega", "fused", "newton"):
+        for fn, props in kc.ptxas(
+                kernels.ptxas_log(name, wide).read_text()).items():
+            if "registers" in props:
+                kind = next(k for k in ("mega_forward_kernel",
+                                        "megastep_kernel", "fused_kernel",
+                                        "newton_kernel") if k in fn)
+                census.setdefault(kind, []).append(
+                    f"{props['registers']} registers, {props['stack']} B "
+                    f"stack, {props['spill_st']} / {props['spill_ld']} B "
+                    f"spill stores / loads")
+    l_g1a = mega_launch(pg1a)
+    print(f"g1arms census: {4 * l_g1a.env_floats} bytes of shared memory "
+          f"per env, the rows' J ({pg1a.nrows} x {l_g1a.extra['NVJ']} "
+          f"floats) in a global scratch of "
+          f"{l_g1a.nrows * l_g1a.extra['NVJ'] * 4 * N_ENVS} bytes at "
+          f"{N_ENVS} envs, "
+          f"{l_g1a.resident_warps} resident warps per "
+          f"SM by shared memory; the width-32 instances: "
+          + "; ".join(f"{k} " + " / ".join(v) for k, v in census.items()))
 
     E = N_ENVS
     qpos, ctrls, ctrls_mu, qpos_a1, ctrls_a1 = seeded_draws(model, m_mu, m_a1,
@@ -1090,11 +1163,13 @@ def main() -> int:
     biped_draws = {name: seeded_biped(m, BIPEDS[name][1], E)
                    for name, m in bipeds.items()}
     biped_draws["g1"] = seeded_biped(m_g1, G1[1], E)
+    biped_draws["g1arms"] = seeded_biped(m_g1a, G1ARMS[1], E)
     qpos_a1p, ctrls_a1p = seeded_a1pos(m_a1p, E)
 
     def biped(m):
         """The biped configuration's name of model m (G1 too), or None."""
-        return next((n for n, b in (*bipeds.items(), ("g1", m_g1))
+        return next((n for n, b in (*bipeds.items(), ("g1", m_g1),
+                                    ("g1arms", m_g1a), ("g1arms", m_g1a_wide))
                      if b is m), None)
 
     def ctrl(c, m=model):
@@ -1283,6 +1358,15 @@ def main() -> int:
         d_wide, wide_launches, wide_rate, wide_ops = staged_run(
             m_wide, WIDE_STEPS, per_newton,
             f"RK4, no plan ({m_wide.ncon} slots), through the Newton kernel")
+        d_staged_g1a, staged_g1a_launches, staged_g1a_rate, staged_g1a_ops = \
+            staged_run(m_g1a, WIDE_STEPS, per_fused, "G1 with arms Euler "
+                       "through the plane-mesh kernels, torch narrowphases "
+                       "and the fused kernel at width 32 (26-float pack)")
+        d_g1a_wide, g1a_wide_launches, g1a_wide_rate, _ = staged_run(
+            m_g1a_wide, WIDE_STEPS,
+            {"newton": 1, "to_grouped": 8, "from_grouped": 2},
+            f"G1 with arms Euler, no plan ({m_g1a_wide.ncon} slots), "
+            f"through the Newton kernel at width 32")
 
         # one staged forward against the all-plain forward
         d = d_staged
@@ -1307,6 +1391,11 @@ def main() -> int:
     d_wide_pos = fwd.fwd_position(m_wide, d_wide)
     errs["newton"] = max(e_newton, newton_check(
         m_wide, d_wide_pos, "no-plan path's end state")[0])
+    # and at width 32, at the end state of G1 with its arms' no-plan path
+    d_g1a_wide_pos = fwd.fwd_position(m_g1a_wide, d_g1a_wide)
+    errs["newton_g1arms"] = newton_check(
+        m_g1a_wide, d_g1a_wide_pos, "G1 with arms, no-plan path's end state, "
+        "width 32")[0]
 
     # ---- the main path: reset forward, then step_n per control step -----
     def main_run(m, what):
@@ -1356,6 +1445,9 @@ def main() -> int:
     S_a1p, launches_a1p, env_steps_a1p, S_a1p_c = main_run(
         m_a1p, "A1 position Euler (elliptic cones, extended collision, the "
         "servos' affine bias)")
+    S_g1a, launches_g1a, env_steps_g1a, _ = main_run(
+        m_g1a, "G1 with arms Euler (width 32: the extended pyramidal "
+        "instance, J in a global scratch)")
     print(f"muscle activations at the end: mean "
           f"{float(S_mu.act.mean()):.4f}, min {float(S_mu.act.min()):.4f}, "
           f"max {float(S_mu.act.max()):.4f}")
@@ -1489,6 +1581,19 @@ def main() -> int:
     print(f"env layer A1 position: {env_a1p_rate:.0f} env-steps/s against "
           f"{raw_a1p:.0f} for step_n alone "
           f"({100 * (raw_a1p / env_a1p_rate - 1):.2f}% overhead) ({card})")
+    # G1 with its arms (width 32), without damping randomization
+    env_acts_g1a = np.random.default_rng(SEED + 11).uniform(
+        -0.3, 0.3, size=(CONTROL_STEPS, E, m_g1a.nu))
+    env_g1a = make_env(m_g1a, horizon=CONTROL_STEPS + 1)
+    assert standin_kind(m_g1a) == "g1"
+    _, _, env_g1a_launches, env_g1a_rate, env_g1a_inputs = env_run(
+        env_g1a, env_acts_g1a, CONTROL_STEPS, mega_launches,
+        "G1 with arms Euler (width 32)")
+    raw_g1a = raw_rate(env_g1a, env_g1a_inputs, env_acts_g1a)
+    del env_g1a_inputs
+    print(f"env layer G1 with arms: {env_g1a_rate:.0f} env-steps/s against "
+          f"{raw_g1a:.0f} for step_n alone "
+          f"({100 * (raw_g1a / env_g1a_rate - 1):.2f}% overhead) ({card})")
     draws = st_dr.dr["dof_damping"]
     assert torch.equal(st_dr.data.dof_damping, draws)
     assert not torch.equal(draws[0], draws[1]), "one damping draw for all"
@@ -1697,6 +1802,19 @@ def main() -> int:
     S_g1dr = st_g1dr.data
     errs["mega_forward_g1_dr"] = mega_forward_check(m_g1_dr, S_g1dr,
                                                     "G1 damping DR")
+    # G1 with its arms: the wide library's extended pyramidal instance, J
+    # in a global scratch, at the end state (touching in 90% of the envs)
+    f_ = fwd.forward(m_g1a, S_g1a)
+    act_ = f_.contact.dist < f_.contact.includemargin
+    touching = int(act_.any(1).sum())
+    print("g1arms end state: active slots per group "
+          + str([int(act_[:, g.offset:g.offset + g.k * g.slots].sum())
+                 for g in m_g1a.groups]) + f" ({int(act_.sum()) / E:.2f} per "
+          f"env; {touching} of {E} envs touch)")
+    assert touching >= 0.9 * E, "g1arms: the end state is contact-light"
+    errs["mega_forward_g1arms"] = mega_forward_check(m_g1a, S_g1a, "g1arms")
+    errs["megastep_g1arms"], S1_g1a, step_flops_g1a = megastep_check(
+        m_g1a, S_g1a, "g1arms")
     # the damping rows: the mega forward's plane-only and extended
     # instances and the megastep, at the DR envs' end states
     errs["mega_forward_dr"] = mega_forward_check(m_dr, S_dr,
@@ -1717,14 +1835,14 @@ def main() -> int:
     # end states, each env's damping carried along.
     fused_in = {}
     models.update(muscle=m_mu, a1=m_a1, dr=m_dr, a1_dr=m_a1_dr, g1=m_g1,
-                  a1pos=m_a1p, **bipeds)
+                  a1pos=m_a1p, g1arms=m_g1a, **bipeds)
     for name in ("rk4", "euler", "fric", "solref", "muscle", "a1", "h1",
-                 "atlas", "g1", "dr", "a1_dr", "a1pos"):
+                 "atlas", "g1", "dr", "a1_dr", "a1pos", "g1arms"):
         m = models[name]
         src = {"muscle": d_staged_mu, "a1": d_staged_a1, "h1": d_staged_h1,
                "atlas": d_staged_at, "g1": d_staged_g1, "dr": st_sdr.data,
-               "a1_dr": st_sa1dr.data,
-               "a1pos": d_staged_a1p}.get(name, d_staged)
+               "a1_dr": st_sa1dr.data, "a1pos": d_staged_a1p,
+               "g1arms": d_staged_g1a}.get(name, d_staged)
         d = io.make_data(m, E).replace(
             qpos=src.qpos, qvel=src.qvel, ctrl=src.ctrl, act=src.act,
             qacc_warmstart=src.qacc_warmstart, dof_damping=src.dof_damping)
@@ -1793,7 +1911,10 @@ def main() -> int:
         "staged env RK4 DR": staged_dr_launches,
         "staged env A1 DR": staged_a1dr_launches,
         "staged A1 position": staged_a1p_launches,
-        "main A1 position": launches_a1p, "env A1 position": env_a1p_launches}
+        "main A1 position": launches_a1p, "env A1 position": env_a1p_launches,
+        "staged G1 arms": staged_g1a_launches, "main G1 arms": launches_g1a,
+        "no-plan staged G1 arms": g1a_wide_launches,
+        "env G1 arms": env_g1a_launches}
 
     def row(name, kernel, run, source, replaces, ms, plain_ms, nbytes_,
             flops, library_ms=None):
@@ -1878,20 +1999,33 @@ def main() -> int:
                    *topk_out),
             2 * mk.k * mk.P * E + 90 * slots_on)
 
-    ms = _time_ms(torch, lambda: hn.solve(*operands, **options))
-    plain = _time_ms(torch, lambda: hn.newton_plain(*operands, **options),
-                     reps=3)
-    n_act = operands[6].sum(dim=1).double()  # active rows per env
-    ls = options["ls_iterations"]
-    per_iter = (4 * nefc * nv + 6 * nv * nv + n_act * (2 * nv + nv * (nv + 1))
-                + 2 * nv ** 3 / 3 + (8 * ls + 8) * nefc)
-    flops = float((2 * (2 * nefc * nv + 2 * nv * nv + 8 * nefc)
-                   + iters.double() * per_iter + 2 * nefc * nv).sum())
-    row("newton", "newton", "no-plan staged RK4", "newton.cu",
-        "pallas_newton.py:755", ms, plain,
-        nbytes(*operands, x, force, iters), flops)
-    print(f"newton iterations at the timed state ({nefc} rows): mean "
-          f"{float(iters.float().mean()):.2f}, max {int(iters.max())}")
+    def newton_row(name, run, operands, options):
+        """The Newton kernel's row at these operands."""
+        x, force, iters, _ = hn.solve(*operands, **options)
+        _, nefc, nv = operands[0].shape
+        ms = _time_ms(torch, lambda: hn.solve(*operands, **options))
+        plain = _time_ms(torch, lambda: hn.newton_plain(*operands,
+                                                        **options), reps=3)
+        n_act = operands[6].sum(dim=1).double()  # active rows per env
+        ls = options["ls_iterations"]
+        per_iter = (4 * nefc * nv + 6 * nv * nv
+                    + n_act * (2 * nv + nv * (nv + 1))
+                    + 2 * nv ** 3 / 3 + (8 * ls + 8) * nefc)
+        flops = float((2 * (2 * nefc * nv + 2 * nv * nv + 8 * nefc)
+                       + iters.double() * per_iter + 2 * nefc * nv).sum())
+        row(name, "newton", run, "newton.cu", "pallas_newton.py:755", ms,
+            plain, nbytes(*operands, x, force, iters), flops)
+        print(f"newton {name} iterations at the timed state ({nefc} rows, "
+              f"nv {nv}): mean {float(iters.float().mean()):.2f}, max "
+              f"{int(iters.max())}")
+
+    newton_row("newton", "no-plan staged RK4", operands, options)
+    # at width 32, at the end state of G1 with its arms' no-plan path
+    d_acc = fwd.fwd_acceleration(m_g1a_wide, fwd.fwd_actuation(
+        m_g1a_wide, fwd.fwd_velocity(m_g1a_wide, d_g1a_wide_pos)))
+    newton_row("newton_g1arms", "no-plan staged G1 arms",
+               *solver.newton_inputs(m_g1a_wide, d_acc, con.make_constraint(
+                   m_g1a_wide, d_acc)))
 
     # the fused kernel at the staged RK4 run's end state (RK4 and Euler),
     # and the mega forward there (FK and collision besides), like for like
@@ -1907,7 +2041,8 @@ def main() -> int:
                            ("g1", "fused_g1", "staged G1"),
                            ("dr", "fused_dr", "staged env RK4 DR"),
                            ("a1_dr", "fused_a1_dr", "staged env A1 DR"),
-                           ("a1pos", "fused_a1pos", "staged A1 position")):
+                           ("a1pos", "fused_a1pos", "staged A1 position"),
+                           ("g1arms", "fused_g1arms", "staged G1 arms")):
         m, d = models[name], fused_in[name]
         k = hf.fused_constraint(m, d)
         vec, pack = hf.vec(m, d), hf.contact_pack(m, d)
@@ -1955,7 +2090,9 @@ def main() -> int:
             (m_g1, S_g1, S1_g1, step_flops_g1, "_g1", "main G1"),
             (m_dr, S_dr, S1_dr, step_flops_dr, "_dr", "env RK4 DR"),
             (m_a1p, S_a1p_env, S1_a1p, step_flops_a1p, "_a1pos",
-             "main A1 position")):
+             "main A1 position"),
+            (m_g1a, S_g1a, S1_g1a, step_flops_g1a, "_g1arms",
+             "main G1 arms")):
         b_fwd, b_step = mega_bounds(m, S_, sflops)
         ms = _time_ms(torch, lambda: hm.mega_forward(m, S_))
         plain = _time_ms(torch, lambda: hm.mega_forward_plain(m, S_), reps=3)
@@ -2008,6 +2145,14 @@ def main() -> int:
           f"{next(r['ms'] for r in rows if r['name'] == 'megastep_a1pos'):.3f}"
           f" ms per control step, step_batch {env_a1p_rate:.0f} against "
           f"step_n alone {raw_a1p:.0f}; card: {card}")
+    print(f"G1 with arms (g1arms, width 32): main path {env_steps_g1a:.0f} "
+          f"env-steps/s, staged path {staged_g1a_rate:.0f} "
+          f"({staged_g1a_ops or 'not measured'} kernels per forward), "
+          f"no-plan staged path {g1a_wide_rate:.0f} (the Newton kernel at "
+          f"width 32), megastep "
+          f"{next(r['ms'] for r in rows if r['name'] == 'megastep_g1arms'):.3f}"
+          f" ms per control step, step_batch {env_g1a_rate:.0f} against "
+          f"step_n alone {raw_g1a:.0f}; card: {card}")
     print(f"main path {env_steps:.0f} env-steps/s RK4, {env_steps_eu:.0f} "
           f"Euler, {env_steps_mu:.0f} muscle Euler, {env_steps_a1:.0f} A1, "
           f"{env_steps_h1:.0f} H1, {env_steps_at:.0f} Atlas, "

@@ -33,7 +33,7 @@
 
 namespace lmt {
 
-constexpr int NVM = 24;   // dofs (ops/plan.py NV_MAX)
+constexpr int NVM = LMT_NVM;  // dofs (24, or 32: ops/plan.py NV_WIDTHS)
 constexpr int BMAX = 32;  // bodies (BODY_MAX)
 constexpr int MUSM = 128; // muscles and activations (MUS_MAX)
 constexpr float kMinImp = 0.0001f, kMaxImp = 0.9999f;

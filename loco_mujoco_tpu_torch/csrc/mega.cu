@@ -111,8 +111,19 @@
 // Layout: the inputs and outputs are env-major (E, k) as the Data fields
 // hold them, so no relayout kernel runs around these kernels, and the rows
 // (J as (nrows, nv | 1), odd so that a warp's lanes read its rows without
-// bank conflicts) stay in shared memory: no global scratch (a launch whose
-// state leaves fewer than 4 envs resident per SM is refused).
+// bank conflicts) stay in shared memory where the env's whole state leaves
+// at least 4 envs resident per SM (ops/plan.py RESIDENT_FLOOR). Past the
+// first nv width (the library built with LMT_NVM=32) a census that would
+// leave fewer keeps J in a per-env global scratch (the launchers' jrows,
+// (E, nrows, nv | 1), env-major, so a lane per dof reads a row coalesced;
+// G1 with its arms: 312 rows at nv 29), while the shared region J shrinks
+// to the scratch that aliases it before the rows (the smooth stage's, the
+// collision's); any other launch that does not fit is refused.
+//
+// Two nv widths are compiled: the libraries without LMT_NVM hold nv <= 24
+// and every instance; the wide library (LMT_NVM=32, nv 25-32) holds only
+// the extended pyramidal instance without the damping rows (G1 with its
+// arms), and refuses the others (LMT_INSTANCE).
 //
 // Rounding: the collision functions (geom_pose, box_slots, cyl_slots,
 // collide and the extended collision's) write each product and each sum
@@ -136,8 +147,8 @@ constexpr float kBig = 1e10f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarp = 32;
 constexpr int kMaxEnvsPerBlock = 4;  // ops/plan.py ENVS_PER_BLOCK_MAX
-// Hessian entries a lane owns: nv (nv + 1) / 2 over a warp, nv <= 24
-// (ops/plan.py NV_MAX)
+// Hessian entries a lane owns: nv (nv + 1) / 2 over a warp, nv <= NVM
+// (10 at 24, 17 at 32)
 constexpr int kEnt = (NVM * (NVM + 1) / 2 + kWarp - 1) / kWarp;
 
 // ---- per-phase clocks (a compile-time variant) ------------------------------
@@ -273,8 +284,9 @@ enum SlotF {
 constexpr int kMiscCom = 0, kMiscBits = 8, kConeVecs = 11;
 
 struct Env {
-  // J: the rows' Jacobian; scr, the same region, holds scratch before the
-  // rows
+  // J: the rows' Jacobian; scr, the shared region J, holds scratch before
+  // the rows (J is that region, or the env's rows of the global scratch,
+  // `place_rows`)
   float *v, *cdof, *jnt, *bd, *M, *L, *J, *scr, *row, *R, *fl, *mu, *sl,
       *mesh, *mus, *misc;
   int nv, nvj, rs, sw, pmax, kmax, nb, nrows, ncon, e, lane;
@@ -697,6 +709,7 @@ struct In {
   const float* qfrc_applied;
   const float* xfrc;
   const float* damp;  // (E, nv) per-env joint damping, read under DAMP_ROWS
+  float* jrows;  // (E, nrows, nv | 1) the rows' J, or null (J in shared)
 };
 
 // The solve's options.
@@ -2834,14 +2847,23 @@ __device__ void forward_out(const Tab& T, const Out& out, const Env& s,
   }
 }
 
+// The env's rows in the global scratch in.jrows where the launch keeps J
+// there (ops/plan.py MegaLaunch.j_global); only the wide library has it.
+__device__ __forceinline__ void place_rows(Env& s, const In& in) {
+#if LMT_NVM > 24
+  if (in.jrows) s.J = in.jrows + (size_t)s.e * s.nrows * s.nvj;
+#endif
+}
+
 // The warp's env and its inputs in shared memory: qpos, qvel, ws (E, nv)
 // and act (E, na) env-major; the row classes of an elliptic plan (ELL).
 template <bool ELL>
-__device__ Env load_env(const Tab& T, float* smem, int env_floats, int e,
-                        const float* qpos_in, const float* qvel_in,
-                        const float* act_in, const float* ws_in) {
-  const Env s = env_of(T, smem + (size_t)(threadIdx.x / kWarp) * env_floats,
-                       e);
+__device__ Env load_env(const Tab& T, const In& in, float* smem,
+                        int env_floats, int e, const float* qpos_in,
+                        const float* qvel_in, const float* act_in,
+                        const float* ws_in) {
+  Env s = env_of(T, smem + (size_t)(threadIdx.x / kWarp) * env_floats, e);
+  place_rows(s, in);
   const int nv = s.nv, na = T.h(NA);
   for (int k = s.lane; k < nv; k += kWarp) {
     s.vec(V_QPOS)[k] = qpos_in[(size_t)e * nv + k];
@@ -2873,8 +2895,8 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
   extern __shared__ float smem[];
   const int e = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
   if (e >= o.E) return;  // the whole warp
-  const Env s = load_env<ELL>(T, smem, env_floats, e, qpos_in, qvel_in,
-                              act_in, ws_in);
+  const Env s = load_env<ELL>(T, in, smem, env_floats, e, qpos_in,
+                              qvel_in, act_in, ws_in);
   phase_start(e, s.lane);
   const int nrw = (s.nrows + 31) >> 5;
   int it;
@@ -2915,8 +2937,8 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
   extern __shared__ float smem[];
   const int e = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
   if (e >= o.E) return;  // the whole warp
-  const Env s = load_env<ELL>(T, smem, env_floats, e, qpos_in, qvel_in,
-                              act_in, ws_in);
+  const Env s = load_env<ELL>(T, in, smem, env_floats, e, qpos_in,
+                              qvel_in, act_in, ws_in);
   const int nv = s.nv, na = T.h(NA), lane = s.lane;
   const bool muscle = T.h(FLAGS) & MUSCLE;
   const float* act_lim = T.f(F_ACTB);  // (lo, hi) per act slot
@@ -3021,7 +3043,15 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
 // The instance of a kernel template that a launcher's ext (0: the
 // plane-only collision; the extended collision with 1: elliptic rows and the
 // double solve, 2: pyramidal rows) and damp (the damping rows) select,
-// handed to go.
+// handed to go. The wide library (LMT_NVM > 24) compiles only the extended
+// pyramidal instance without the rows (ROADMAP Queue 2 #3.1: the others at
+// nv 25-32 are still to come; the reference has no elliptic plan past
+// nv 24) and returns cudaErrorNotSupported for the others.
+#if LMT_NVM > 24
+#define LMT_INSTANCE(KERNEL, ext, damp, go)              \
+  ((ext) == 2 && !(damp) ? go(KERNEL<true, false, false>) \
+                         : (int)cudaErrorNotSupported)
+#else
 #define LMT_INSTANCE(KERNEL, ext, damp, go)                      \
   ((damp) ? ((ext) == 1   ? go(KERNEL<true, true, true>)          \
              : (ext) == 2 ? go(KERNEL<true, false, true>)         \
@@ -3029,6 +3059,7 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
           : ((ext) == 1   ? go(KERNEL<true, true, false>)         \
              : (ext) == 2 ? go(KERNEL<true, false, false>)        \
                           : go(KERNEL<false, false, false>)))
+#endif
 
 // the kernel's dynamic shared memory limit past 48 KB, and all of the
 // SM's shared memory for it
@@ -3054,9 +3085,11 @@ int prepare(K kernel, size_t bytes) {
 // decisions), rows (E, iterations, (nrows + 31) / 32) int (each step's
 // Hessian decisions of the rows), dv (E, nv) or null (no euler_dv),
 // act_dot (E, na) (written with muscles), cpos (E, ncon, 3) the slots'
-// points, or null (the checks read them; the main path does not). The launch (ops/plan.py
-// MegaLaunch): env_floats of shared memory per env, envs_per_block envs
-// (warps) per block. ext: 0 a plane-only plan, 1 a mega_ell plan with
+// points, or null (the checks read them; the main path does not). jrows:
+// the rows' J scratch (E, nrows, nv | 1) where the launch keeps J out of
+// shared memory, else null (read by the wide library only). The launch
+// (ops/plan.py MegaLaunch): env_floats of shared memory per env,
+// envs_per_block envs (warps) per block. ext: 0 a plane-only plan, 1 a mega_ell plan with
 // elliptic cones (the extended collision, elliptic rows, the double
 // solve), 2 a mega_ell plan with pyramidal cones (LMT_INSTANCE).
 extern "C" int lmt_mega_forward(
@@ -3065,7 +3098,8 @@ extern "C" int lmt_mega_forward(
     const void* xfrc, const void* ws, const void* damp, void* qacc,
     void* qacc_smooth, void* qfrc, void* cdist, void* cgid, void* cgid1, void* cforce,
     void* iters, void* taken, void* ls, void* rows, void* dv, void* act_dot,
-    void* cpos, int E, int iterations, int ls_iterations, int ext,
+    void* cpos, void* jrows, int E, int iterations, int ls_iterations,
+    int ext,
     int env_floats,
     int envs_per_block, float scale, float tol, void* stream) {
   if (E <= 0) return 0;
@@ -3075,7 +3109,7 @@ extern "C" int lmt_mega_forward(
   const Tab T{(const int*)ints, (const float*)flts};
   const Opt o{E, iterations, ls_iterations, scale, tol};
   const In in{(const float*)ctrl, (const float*)qfrc_applied,
-              (const float*)xfrc, (const float*)damp};
+              (const float*)xfrc, (const float*)damp, (float*)jrows};
   const Out out{(float*)qacc_smooth, (float*)qfrc, (float*)cdist,
                 (float*)cforce, (float*)dv, (int*)cgid, (int*)cgid1,
                 (float*)cpos};
@@ -3097,13 +3131,14 @@ extern "C" int lmt_mega_forward(
 // The same inputs; outputs qpos, qvel, ws (E, nv) and act_out (E, na)
 // after n_steps substeps of `dt` (rk4: RK4, else Euler with use_dv);
 // decisions (E, F n_steps, 2 + 4 + iterations (nrows + 31) / 32) int or
-// null.
+// null; jrows as for lmt_mega_forward.
 extern "C" int lmt_megastep(
     const void* ints, const void* flts, const void* qpos, const void* qvel,
     const void* act_in, const void* ctrl, const void* qfrc_applied,
     const void* xfrc, const void* ws, const void* damp, void* qpos_out,
     void* qvel_out,
-    void* act_out, void* ws_out, void* decisions, int E, int n_steps,
+    void* act_out, void* ws_out, void* decisions, void* jrows, int E,
+    int n_steps,
     int iterations, int ls_iterations, int rk4, int use_dv, int ext,
     int env_floats, int envs_per_block, float scale, float tol, float dt,
     void* stream) {
@@ -3114,7 +3149,7 @@ extern "C" int lmt_megastep(
   const Tab T{(const int*)ints, (const float*)flts};
   const Opt o{E, iterations, ls_iterations, scale, tol};
   const In in{(const float*)ctrl, (const float*)qfrc_applied,
-              (const float*)xfrc, (const float*)damp};
+              (const float*)xfrc, (const float*)damp, (float*)jrows};
   const size_t bytes = (size_t)envs_per_block * env_floats * sizeof(float);
   const int grid = (E + envs_per_block - 1) / envs_per_block;
   auto go = [&](auto kernel) {

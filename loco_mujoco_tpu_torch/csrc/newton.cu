@@ -17,7 +17,8 @@
 // multiply-adds for the Hessian and nv^3 / 3 for the Cholesky against
 // nefc * nv * 4 bytes of J, so it is far above the card's 20 flop/byte f32
 // balance. What limits this simple first version is latency: H and its
-// factor (24 x 24 floats) live in per-thread local memory, cached in L1/L2
+// factor (24 x 24 floats, 32 x 32 in the wide library) live in per-thread
+// local memory, cached in L1/L2
 // (the stack frame ptxas reports), and only E / 32 warps are in flight (128 warps
 // at 4096 envs, one per SM). The row passes re-read J from L2 each time.
 // jar and jv (nefc per env) go to global scratch allocated by the wrapper,
@@ -78,8 +79,9 @@ int launch(const float* J, const float* M, const float* aref, const float* D,
 }  // namespace
 
 // Env-last operands (see the note above); jar/jv are (nefc, E) scratch.
-// One local-array width is compiled, 24, for the committed models (nv = 19;
-// the CPU fixture's nv = 10 never reaches the card); a larger nv is refused.
+// One local-array width is compiled per library: LMT_NVM, 24, or 32 in the
+// library built for nv 25-32 (ops/kernels.py WIDE; there H and its factor
+// take 4 KB of local memory per thread); a larger nv is refused.
 extern "C" int lmt_newton_solve(
     const void* J, const void* M, const void* aref, const void* D,
     const void* R, const void* fl, const void* act, const void* qacc_smooth,
@@ -97,7 +99,7 @@ extern "C" int lmt_newton_solve(
                      (float*)jar, (float*)jv, E, nv, nefc, ne, nfl,         \
                      iterations,                                            \
                      ls_iterations, scale, tol, (cudaStream_t)stream)
-  if (nv <= 24) LMT_NEWTON(24);
+  if (nv <= LMT_NVM) LMT_NEWTON(LMT_NVM);
 #undef LMT_NEWTON
   return (int)cudaErrorInvalidValue;
 }

@@ -40,6 +40,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+// The widest nv of the kernels' per-thread and per-lane arrays (the
+// template width of newton_solve's callers, forward_core.cuh's NVM): 24,
+// or 32 in the libraries built a second time with -DLMT_NVM=32 for the
+// models with nv 25-32 (ops/kernels.py NV_WIDTHS, WIDE).
+#ifndef LMT_NVM
+#define LMT_NVM 24
+#endif
+
 namespace lmt {
 
 constexpr float kMinVal = 1e-15f;

@@ -49,7 +49,8 @@ HEIGHT = ("root_z", "trunk_tz", "pelvis_tz")  # the root's vertical slide
 STANDINS = {"humanoid": "humanoid_torque_shape",
             "muscle": "humanoid_muscle_shape", "a1": "unitree_a1_shape",
             "a1pos": "unitree_a1_position_shape", "h1": "unitree_h1_shape",
-            "atlas": "atlas_shape", "g1": "unitree_g1_shape"}
+            "atlas": "atlas_shape", "g1": "unitree_g1_shape",
+            "g1arms": "unitree_g1_arms_shape"}
 
 
 def load_standin(name: str, device=None, dtype=None):

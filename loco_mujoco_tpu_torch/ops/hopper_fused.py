@@ -7,7 +7,9 @@ Counterpart of `loco_mujoco_tpu/ops/pallas_constraint.py`'s
 `fused_constraint` (`:2204-2300`) over `_fused_batched` (`:2052`, its
 `pallas_call` at `:2134`), in both vec layouts. The kernel is
 `csrc/fused.cu`'s `fused_kernel`, one thread per env, over the static
-tables of the model's row plan (`ops/plan.py`).
+tables of the model's row plan (`ops/plan.py`), from the library compiled
+at the plan's nv width (`plan.nvm`: 24, or 32 for nv 25-32; every layout
+at both).
 
 `fused_constraint` packs the per-env vector of the plan's layout (smooth:
 qpos, qvel, xipos, ximat, xanchor, xaxis, ctrl, qfrc_applied, xfrc_applied,
@@ -194,7 +196,8 @@ def fused_constraint(model: Model, data: Data) -> Data:
     ints, flts = plan.tables(dev)
     scratch = plan.scratch(E, dev)  # held until the launch is queued
     p = kernels.ptr
-    lib = kernels.library("fused", _SIGNATURES)
+    lib = kernels.library("fused", _SIGNATURES,
+                          kernels.width_defines(plan.nvm))
     rc = lib.lmt_fused(
         p(ints), p(flts), p(v), p(pack),
         *map(p, (qacc, force, qfrc, asm)), None if dv is None else p(dv),

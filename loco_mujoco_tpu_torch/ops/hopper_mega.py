@@ -15,8 +15,12 @@ a plane-only, an extended elliptic and an extended pyramidal instance,
 `ext_mode`), one warp per env with the env's
 state in shared memory, over the static tables of the model's row plan
 (`ops/plan.py`, `mega` set); the launch (shared floats per env, envs per
-block) is the plan's `mega_launch`, which raises where the state leaves
-fewer than `plan.RESIDENT_FLOOR` warps resident per SM.
+block, and for G1 with its arms the rows' J in a global scratch) is the
+plan's `mega_launch`, which raises where the state leaves fewer than
+`plan.RESIDENT_FLOOR` warps resident per SM. A plan with nv 25-32 runs the
+library compiled at the second width (`kernels.width_defines`), which
+holds only the extended pyramidal instance without the damping rows;
+another instance there raises (`library`).
 
 Output contract (the reference's): `mega_forward` returns Data with
 `qacc`, `qacc_smooth`, `qfrc_constraint`, `efc_force_contact` (the four
@@ -67,8 +71,8 @@ from .kernels import FLOAT, INT, PTR
 from .plan import mega_launch
 
 _SIGNATURES = {
-    "lmt_mega_forward": [PTR] * 24 + [INT] * 6 + [FLOAT, FLOAT, PTR],
-    "lmt_megastep": [PTR] * 15 + [INT] * 9 + [FLOAT] * 3 + [PTR],
+    "lmt_mega_forward": [PTR] * 25 + [INT] * 6 + [FLOAT, FLOAT, PTR],
+    "lmt_megastep": [PTR] * 16 + [INT] * 9 + [FLOAT] * 3 + [PTR],
     "lmt_mega_occupancy": [INT] * 4 + [PTR],
 }
 
@@ -81,6 +85,23 @@ def ext_mode(plan) -> int:
     if not plan.mega_ell:
         return 0
     return 1 if plan.elliptic else 2
+
+
+def library(plan, defines=()):
+    """The compiled mega kernels of the plan's nv width (`plan.nvm`), with
+    the macros `defines` besides. Past the first width only the extended
+    pyramidal instance without the damping rows is compiled (G1 with its
+    arms); any other instance there raises."""
+    if plan.nvm != kernels.NV_WIDTHS[0] and (ext_mode(plan) != 2
+                                             or plan.sm_dyn_damping):
+        raise NotImplementedError(
+            f"the mega kernels at nv {plan.nv} (width {plan.nvm}) are "
+            f"compiled for the extended pyramidal instance without damping "
+            f"rows only; this plan needs instance {ext_mode(plan)}"
+            f"{' with the damping rows' if plan.sm_dyn_damping else ''} "
+            f"(ROADMAP Queue 2 #3.1)")
+    return kernels.library("mega", _SIGNATURES,
+                           kernels.width_defines(plan.nvm) + tuple(defines))
 
 
 def decision_width(model: Model) -> int:
@@ -115,7 +136,7 @@ def occupancy(model: Model) -> tuple:
     plan = model.plan
     launch = mega_launch(plan)
     out = (ctypes.c_int * 2)()
-    lib = kernels.library("mega", _SIGNATURES)
+    lib = library(plan)
     kernels.check(lib.lmt_mega_occupancy(
         launch.env_floats, launch.envs_per_block, ext_mode(plan),
         int(plan.sm_dyn_damping), ctypes.cast(out, ctypes.c_void_p)),
@@ -202,6 +223,7 @@ def mega_forward(model: Model, data: Data, points: bool = False) -> Data:
         raise ValueError("the model has no mega plan")
     if not data.qpos.is_cuda:
         return mega_forward_plain(model, data)
+    lib = library(plan)
     ins = _inputs(model, data)
     qpos = ins[0]
     E, nv, ncon, dev = qpos.shape[0], model.nv, plan.ncon, qpos.device
@@ -217,13 +239,14 @@ def mega_forward(model: Model, data: Data, points: bool = False) -> Data:
     dv = f(E, nv) if plan.euler_dv else None
     act_dot = f(E, model.na) if plan.mp is not None else data.act_dot
     cpos = f(E, ncon, 3) if points else None
+    jrows = launch.jrows(E, dev)
     ints, flts = plan.tables(dev)
     p = lambda t: None if t is None else kernels.ptr(t)  # noqa: E731
-    lib = kernels.library("mega", _SIGNATURES)
     rc = lib.lmt_mega_forward(
         p(ints), p(flts), *map(p, ins),
         *map(p, (qacc, asm, qfrc, cdist, cgid, cgid1, cforce, iters,
-                 taken, ls, rows, dv, act_dot, cpos)), E, plan.iterations,
+                 taken, ls, rows, dv, act_dot, cpos, jrows)), E,
+        plan.iterations,
         plan.ls_iterations, ext_mode(plan), launch.env_floats,
         launch.envs_per_block, plan.scale, plan.tolerance, kernels.stream())
     kernels.check(rc, "mega_forward")
@@ -304,6 +327,7 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
     if not data.qpos.is_cuda:
         return mega_step_n_plain(model, data, n_steps)
     plan = model.plan
+    lib = library(plan, defines)
     ins = _inputs(model, data)
     E, nv, dev = ins[0].shape[0], model.nv, ins[0].device
     n = int(n_steps)
@@ -314,12 +338,13 @@ def mega_step_n(model: Model, data: Data, n_steps: int,
     launch = mega_launch(plan)
     f = lambda k: torch.empty((E, k), dtype=torch.float32, device=dev)  # noqa
     qpos_out, qvel_out, act_out, ws_out = f(nv), f(nv), f(model.na), f(nv)
+    jrows = launch.jrows(E, dev)
     ints, flts = plan.tables(dev)
     p = lambda t: None if t is None else kernels.ptr(t)  # noqa: E731
-    lib = kernels.library("mega", _SIGNATURES, defines)
     rc = lib.lmt_megastep(
         p(ints), p(flts), *map(p, ins), p(qpos_out), p(qvel_out),
-        p(act_out), p(ws_out), p(decisions), E, n, plan.iterations, plan.ls_iterations, int(mode[0]),
+        p(act_out), p(ws_out), p(decisions), p(jrows), E, n, plan.iterations,
+        plan.ls_iterations, int(mode[0]),
         int(mode[1]), ext_mode(plan), launch.env_floats,
         launch.envs_per_block, plan.scale, plan.tolerance, plan.timestep,
         kernels.stream())

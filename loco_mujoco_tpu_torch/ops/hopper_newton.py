@@ -15,7 +15,9 @@ M + J'diag(w)J, Cholesky, a safeguarded-secant line search of
 which of them took their step (bit i of an int32 per env, (E,)).
 On a CUDA tensor it relays the operands out to env-last with
 `hopper_layout.to_grouped`, launches the kernel (float32 only) or raises,
-and relays the results back with `from_grouped`. On a CPU tensor it runs
+and relays the results back with `from_grouped`. The kernel's local arrays
+are compiled at two nv widths (`kernels.NV_WIDTHS`, 24 and 32, a library
+each); a larger nv raises. On a CPU tensor it runs
 the plain version, `newton_plain`, a port of the XLA fast path
 (solver.py:217-383) in PyTorch, which is also the float64 path.
 """
@@ -30,7 +32,6 @@ from . import kernels, linalg
 from .kernels import FLOAT, INT, PTR
 
 MINVAL = 1e-15
-NV_MAX = 24  # the local-array width compiled in csrc/newton.cu
 LS_WORDS = 4  # line-search decision words (csrc/newton_core.cuh kLsWords)
 
 _SIGNATURES = {"lmt_newton_solve": [PTR] * 15 + [INT] * 7 + [FLOAT, FLOAT, PTR]}
@@ -387,9 +388,12 @@ def solve(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl, iterations,
             "the standalone Newton kernel has no elliptic cone zones; an "
             "elliptic model runs the fused or mega kernels (a row plan)")
     E, nefc, nv = J.shape
-    if nv > NV_MAX:
+    width = kernels.nv_width(nv)  # the library of this width
+    if width is None:
         raise NotImplementedError(
-            f"the Newton kernel is compiled for nv <= {NV_MAX}")
+            f"the Newton kernel is compiled for nv <= "
+            f"{kernels.NV_WIDTHS[-1]} (widths {kernels.NV_WIDTHS}), not nv "
+            f"{nv} (ROADMAP Queue 2 #3.1)")
     for name, t, shape in (("J", J, (E, nefc, nv)), ("M", M, (E, nv, nv)),
                            ("aref", aref, (E, nefc)), ("D", D, (E, nefc)),
                            ("R", R, (E, nefc)), ("floss", floss, (E, nefc)),
@@ -409,7 +413,8 @@ def solve(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl, iterations,
     taken = torch.empty(E, dtype=torch.int32, device=dev)
     jar = torch.empty((nefc, E), dtype=torch.float32, device=dev)
     jv = torch.empty((nefc, E), dtype=torch.float32, device=dev)
-    lib = kernels.library("newton", _SIGNATURES)
+    lib = kernels.library("newton", _SIGNATURES,
+                          kernels.width_defines(width))
     p = kernels.ptr
     rc = lib.lmt_newton_solve(
         p(Jt), p(Mt), p(aref_t), p(D_t), p(R_t), p(fl_t), p(act_t), p(asm_t),

@@ -6,8 +6,13 @@ It is compiled by `nvcc` for `sm_90a` into a shared library under
 headers, so a build takes seconds, and no `ninja`). A library's file name
 carries a hash of its source, the shared headers (`csrc/*.cuh`) and its
 flags, so an edited source is rebuilt and a stale library is never
-loaded. `build_all()` starts one `nvcc` per
-source, all at once.
+loaded. `build_all()` starts one `nvcc` per library, all at once.
+
+Two nv widths are compiled (`NV_WIDTHS`): every source at the first, 24,
+with no macro, and the sources whose local arrays or lanes hold nv
+(`WIDE`: the Newton kernel, the fused kernel and the mega kernels) a
+second time at 32 (`-DLMT_NVM=32`, `width_defines`). A wrapper loads the
+library of the width its model needs (`nv_width`).
 
 Every launcher returns `cudaGetLastError()` after its launch; `check()`
 raises on a non-zero code. `LAUNCHES` counts, per kernel name, the launches
@@ -34,6 +39,10 @@ SOURCES = ("layout", "newton", "plane_mesh", "mega", "fused")
 # same active contacts; mega.cu unfuses its collision functions itself
 # (__fmul_rn / __fadd_rn) and keeps contraction elsewhere
 _EXTRA_FLAGS = {"plane_mesh": ["--fmad=false"]}
+# the compiled nv widths (csrc LMT_NVM; ops/plan.py NV_WIDTHS) and the
+# sources built again at each width past the first
+NV_WIDTHS = (24, 32)
+WIDE = ("newton", "fused", "mega")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -70,33 +79,62 @@ def _target(name: str, defines=()) -> tuple[Path, list]:
     return build_dir() / so, flags
 
 
+def nv_width(nv: int):
+    """The narrowest compiled width that holds nv dofs, or None."""
+    return next((w for w in NV_WIDTHS if nv <= w), None)
+
+
+def width_defines(width: int) -> tuple:
+    """The macros of the libraries compiled at nv width `width`."""
+    return () if width == NV_WIDTHS[0] else (f"LMT_NVM={width}",)
+
+
+def libraries(names=SOURCES, defines=()) -> list:
+    """(name, macros) of every library of `names`: each at the first
+    width, and those of `WIDE` at every width past it, all with the
+    macros `defines` besides."""
+    return ([(n, tuple(defines)) for n in names]
+            + [(n, width_defines(w) + tuple(defines))
+               for w in NV_WIDTHS[1:] for n in names if n in WIDE])
+
+
 def build_all(names=SOURCES, defines=()) -> float:
-    """Compile every missing library, one `nvcc` per source in parallel
-    (each with the macros `defines`). Returns the seconds spent; raises
+    """Compile every missing library of `libraries(names, defines)`."""
+    return _build(libraries(names, defines))
+
+
+def _build(targets) -> float:
+    """Compile the missing libraries of `targets` ((name, macros) each),
+    one `nvcc` per library in parallel. Returns the seconds spent; raises
     with the compiler's output on a failed build. `-Xptxas -v` (registers,
-    spills) goes to `<name>.ptxas`."""
+    spills) goes to `<label>.ptxas` (`ptxas_log`)."""
     t0 = time.perf_counter()
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in names:
+    for name, defines in targets:
         so, flags = _target(name, defines)
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, so, tmp, subprocess.Popen(
+        procs.append((name, defines, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []
-    for name, so, tmp, proc in procs:
+    for name, defines, so, tmp, proc in procs:
         out, _ = proc.communicate()
-        (build_dir() / f"{_label(name, defines)}.ptxas").write_text(out)
+        ptxas_log(name, defines).write_text(out)
         if proc.returncode != 0:
-            errors.append(f"nvcc {name}.cu failed:\n{out}")
+            errors.append(f"nvcc {_label(name, defines)} failed:\n{out}")
         else:
             os.replace(tmp, so)
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
+
+
+def ptxas_log(name: str, defines=()) -> Path:
+    """The `-Xptxas -v` output of a library's last build."""
+    return build_dir() / f"{_label(name, defines)}.ptxas"
 
 
 def library(name: str, signatures: dict, defines=()) -> ctypes.CDLL:
@@ -108,7 +146,7 @@ def library(name: str, signatures: dict, defines=()) -> ctypes.CDLL:
     if lib is None:
         so, _ = _target(name, defines)
         if not so.exists():
-            build_all([name], defines)
+            _build([(name, tuple(defines))])
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes

@@ -17,8 +17,10 @@ The row envelope (a plan, and the fused kernel of `csrc/fused.cu`):
 - JOINT equalities, dof friction loss and joint limits; at most
   `ROWS_MAX` rows (the reference's `LMT_MAX_PYR_ROWS`, `:202-210`), or,
   elliptic, `ELL_ROWS_MAX` rows and nv <= 24 (`:211-214`);
-- hinge and slide joints and the kernels' compiled widths (`NV_MAX`,
-  `BODY_MAX`).
+- hinge and slide joints and the kernels' compiled widths: nv up to
+  `NV_MAX`, the wider of the two nv widths the kernels are compiled at
+  (`NV_WIDTHS`; the plan's `nvm` is the narrower one that holds the
+  model), and `BODY_MAX` bodies.
 
 The convex (GJK) groups at the tail of the slot layout are left out of the
 rows (`collision.classic_ncon`): their slots stay inactive in float32, as
@@ -104,9 +106,12 @@ import torch
 from ..core.types import (BiasType, ConeType, DisableBit, DynType, EqType,
                           GainType, GeomType, IntegratorType, JointType,
                           TrnType)
+from .kernels import NV_WIDTHS, nv_width
 
 MINVAL = 1e-15
-NV_MAX = 24  # the local-array widths compiled in csrc/forward_core.cuh
+# the local-array widths compiled in csrc/forward_core.cuh (NVM, the macro
+# LMT_NVM): each kernel library is built at 24 and, for nv 25-32, at 32
+NV_MAX = NV_WIDTHS[-1]
 BODY_MAX = 32
 CON_MAX = 80  # csrc/mega.cu
 PAIR_MAX = 128
@@ -233,6 +238,7 @@ class RowPlan:
             return
         f64 = {k: np.asarray(v, np.float64) for k, v in L.items()}
         self.nq, self.nv, self.nbody, self.njnt = nv, nv, nb, njnt
+        self.nvm = nv_width(nv)  # the kernels' compiled width
         self.nu = int(A["nu"])
         self.timestep = float(f64["opt.timestep"])
         self.refsafe = not (flags & DisableBit.REFSAFE)
@@ -303,7 +309,8 @@ class RowPlan:
         self.nrows = base + sum(self.rows_per)
         if self.nrows == 0:
             return
-        if self.elliptic and (self.nrows > ELL_ROWS_MAX or nv > 24):
+        if self.elliptic and (self.nrows > ELL_ROWS_MAX
+                              or nv > NV_WIDTHS[0]):
             return  # the validated elliptic envelope (:211-214)
         if not self.elliptic and self.nrows > ROWS_MAX:
             return  # the standalone Newton kernel's staged path
@@ -945,16 +952,23 @@ SHM_PER_SM, SHM_PER_BLOCK, SHM_RESERVED = 233472, 232448, 1024
 BLOCKS_PER_SM, WARPS_PER_SM = 32, 64
 ENVS_PER_BLOCK_MAX = 4  # csrc/mega.cu kMaxEnvsPerBlock
 # the fewest resident warps (envs) per SM a launch takes. J stays in
-# shared memory: on the A1-shaped model (4 warps per SM with J in shared
-# memory, 7 with J in a global scratch) the megastep ran 92.0 against
-# 93.1 ms (NVIDIA H100 80GB HBM3, 700 W, tools/megastep_phases.py)
+# shared memory where the census leaves that many: on the A1-shaped model
+# (4 warps per SM with J in shared memory, 7 with J in a global scratch) the
+# megastep ran 92.0 against 93.1 ms (NVIDIA H100 80GB HBM3, 700 W,
+# tools/megastep_phases.py). A census past the first nv width whose J in
+# shared memory would leave fewer (G1 with its arms: 3) keeps J in a per-env
+# global scratch instead (`j_global`, the wide kernels' `jrows` operand);
+# the collision's and the smooth stage's scratch stay in shared memory
 RESIDENT_FLOOR = 4
 
 
 class MegaLaunch:
     """The mega kernels' launch: per-env shared layout (offsets in floats
-    of each region of SHM), its size, the envs (warps) per block and the
-    resident warps per SM that shared memory allows."""
+    of each region of SHM), its size, the envs (warps) per block, the
+    resident warps per SM that shared memory allows and where the rows' J
+    lives (`j_global`: in a global scratch of E x nrows x NVJ floats,
+    `jrows`, rather than in the shared region J, which then holds only the
+    scratch that aliases it)."""
 
     def __init__(self, census: dict):
         c = census
@@ -985,14 +999,33 @@ class MegaLaunch:
             "MISC": MISC_W + 2 * -(-nrows // 64)
             + (2 * (CONE_VECS * nv + CONE_SCR) if ell else 0)}
         self._place(sizes)
+        self.j_global = False
+        if self.resident_warps < RESIDENT_FLOOR and nv > NV_WIDTHS[0]:
+            sizes["J"] = scratch  # only the wide kernels take the scratch
+            self._place(sizes)
+            self.j_global = True
         if self.resident_warps < RESIDENT_FLOOR:
             raise ValueError(
                 f"mega kernels: {4 * self.env_floats} bytes of shared memory "
                 f"per env leave {self.resident_warps} resident warps per SM, "
                 f"fewer than {RESIDENT_FLOOR}")
+        self.nrows, self._jrows = nrows, {}
         self.extra = {"NVJ": nvj, "RS": rs,
                       "SLOTW": SLOT_W_EXT if ext else SLOT_W,
                       "PMAX": pmax, "KMAX": kmax}
+
+    def jrows(self, E: int, device):
+        """The rows' J scratch of E envs on `device` ((E, nrows, NVJ)
+        float32, made once and kept for the next launches), or None where
+        J lives in shared memory."""
+        if not self.j_global:
+            return None
+        key = (str(device), E)
+        if key not in self._jrows:
+            self._jrows[key] = torch.empty(
+                (E, self.nrows, self.extra["NVJ"]), dtype=torch.float32,
+                device=device)
+        return self._jrows[key]
 
     def _place(self, sizes):
         """The regions' offsets, the env's floats and the launch."""

@@ -48,7 +48,13 @@ position servos, fixed gain and affine bias in the smooth stage) is held
 the same way on `a1_states`' states with targets in the joint ranges: its
 mega forward and megastep at 4096 envs, its staged fused kernel and its
 env's `step_batch`; the torque humanoid with affine motors (gain and bias)
-on its plane-only megastep.
+on its plane-only megastep. The committed stand-in of G1 with its arms
+(`unitree_g1_arms_shape.npz`: nv 29, the libraries compiled at the second
+width, 32, the rows' J in the launch's global scratch) is held the same
+way on `g1_states`' states: its mega forward and megastep at 4096 envs,
+its staged fused kernel, the Newton kernel at width 32 on its staged rows,
+its env's `step_batch`, and the refusal of an instance the wide library
+does not hold.
 
 Every random input comes from numpy's seeded generator or from a CUDA
 generator seeded with the draw's number (`_qvel`, the draws of
@@ -1006,3 +1012,153 @@ def test_affine_humanoid_megastep_matches_plain(state):
     d = _dropped(model).replace(ctrl=torch.as_tensor(
         ctrl, dtype=torch.float32, device="cuda"))
     _megastep_check(model, fwd.fwd_position(model, d, plain=True))
+
+
+# ---- G1 with its arms: the second compiled width (nv 29) -----------------
+
+
+def _g1arms_state(n):
+    """The committed G1-with-arms stand-in on the card (nv 29: the library
+    compiled at width 32, the rows' J in the launch's global scratch) and
+    `g1_states`' seeded states of it."""
+    from test_torch_g1_fixture import ASSET_ARMS, g1_states
+
+    model = io.load_model_npz(ASSET_ARMS, device="cuda")
+    qpos, qvel, ctrl = g1_states(io.load_model_npz(ASSET_ARMS, device="cpu"),
+                                 n)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")  # noqa
+    return model, io.make_data(model, n).replace(qpos=t(qpos), qvel=t(qvel),
+                                                 ctrl=t(ctrl))
+
+
+def test_g1arms_mega_forward_matches_plain(state):
+    """G1 with its arms at 4096 envs: the wide library's extended
+    pyramidal mega forward, J in global scratch, held as
+    `test_g1_mega_forward_matches_plain` holds G1's."""
+    from loco_mujoco_tpu_torch.ops.plan import mega_launch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _g1arms_state(4096)
+    assert model.plan.nvm == 32 and mega_launch(model.plan).j_global
+    assert min(hm.occupancy(model)) >= 4
+    kernels.LAUNCHES.clear()
+    k = fwd.forward(model, d)
+    assert dict(kernels.LAUNCHES) == {"mega_forward": 1}
+    r = hm.mega_forward_plain(model, d, replay=_replay(k))
+    act_r = r.contact.dist < r.contact.includemargin
+    same = torch.all((k.contact.dist < k.contact.includemargin) == act_r,
+                     dim=1)
+    assert bool(same[:4].all()), "a standing or self-contact env differs"
+    apart, witnessed = chip_smoke._newton_witness(torch, model, d, k, r,
+                                                  envs=same)
+    held = same & ~(apart & witnessed)
+    chip_smoke._tie_envs(torch, held, _gap(r), 4096, "G1 arms mega forward",
+                         newton=apart & witnessed)
+    for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
+        got, ref = getattr(k, f)[held], getattr(r, f)[held]
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), f
+    on = act_r & same[:, None]
+    for f in ("geom1", "geom2"):
+        assert torch.equal(getattr(k.contact, f)[on],
+                           getattr(r.contact, f)[on]), f
+    assert float((k.contact.dist - r.contact.dist).abs()[on].max()) <= 1e-5
+
+
+def test_g1arms_megastep_matches_plain(state):
+    """G1 with its arms: the wide Euler megastep, a control step of 10
+    substeps at 4096 envs, held to chip_smoke.py's megastep rule."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _g1arms_state(4096)
+    kernels.LAUNCHES.clear()
+    fwd.step_n(model, d, 10)
+    assert dict(kernels.LAUNCHES) == {"megastep": 1}
+    k = chip_smoke._megastep_rule(torch, model, d, 10, "g1arms")[0]
+    assert torch.allclose(k.time, d.time + 10 * model.opt.timestep)
+
+
+def test_g1arms_fused_matches_plain(state, monkeypatch):
+    """G1 with its arms on the staged path: the fused kernel of the wide
+    library (26-float pack) against its plain version replaying its
+    decisions, every env within rel 5e-4."""
+    monkeypatch.setenv("LMT_MEGA", "0")
+    model, d = _g1arms_state(4096)
+    d = coll.collision(model, kinematics.kinematics(model, d))
+    kernels.LAUNCHES.clear()
+    k = hf.fused_constraint(model, d)
+    assert dict(kernels.LAUNCHES) == {"fused": 1}
+    r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+    for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
+        got, ref = getattr(k, f), getattr(r, f)
+        err = (got - ref).abs().reshape(4096, -1).amax(1)
+        bad = err >= 5e-4 * float(ref.abs().max())
+        assert not bool(bad.any()), (f, bad.nonzero().flatten())
+
+
+def test_g1arms_newton_matches_plain(state):
+    """The standalone Newton kernel at width 32 on G1-with-arms' staged
+    rows (make_constraint at 4096 envs), against its plain version
+    replaying its decisions: qacc and forces rel 5e-4 on every env but
+    those where the two part and the converged float64 witness settles it
+    for the kernel (chip_smoke.py's rule, at most 0.5% of the envs: this
+    kernel records the iteration count and the taken steps, not the line
+    search's sign tests or the rows' Hessian decisions, so the plain
+    version can take another step there)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _g1arms_state(4096)
+    d = fwd.fwd_position(model, d, plain=True)
+    d = fwd.fwd_acceleration(model, fwd.fwd_actuation(
+        model, fwd.fwd_velocity(model, d)))
+    operands, options = solver.newton_inputs(model, d,
+                                             con.make_constraint(model, d))
+    assert operands[0].shape[2] == 29
+    kernels.LAUNCHES.clear()
+    x_k, f_k, it_k, tk_k = hn.solve(*operands, **options)
+    assert kernels.LAUNCHES["newton"] == 1
+    x_p, f_p, _, _ = hn.newton_plain(*operands, **options,
+                                     replay=(it_k, tk_k))
+    scale = float(x_p.abs().max())
+    apart = (x_k - x_p).abs().amax(1) >= 5e-4 * scale
+    witnessed = torch.zeros_like(apart)
+    idx = apart.nonzero().flatten()
+    if len(idx):
+        sub = [t[idx].double() for t in operands[:8]]
+        x_c = hn.newton_plain(*sub, x_k[idx].double(), **dict(
+            options, iterations=chip_smoke.WITNESS_ITERATIONS,
+            ls_iterations=chip_smoke.WITNESS_ITERATIONS, tol=1e-14))[0]
+        e_k = (x_k[idx].double() - x_c).abs().amax(1) / scale
+        e_p = (x_p[idx].double() - x_c).abs().amax(1) / scale
+        witnessed[idx] = (e_k <= 5e-4) & (e_k <= e_p)
+    held = ~apart
+    chip_smoke._tie_envs(torch, held, torch.full((4096,), float("inf"),
+                                                 device="cuda"), 4096,
+                         "G1 arms Newton kernel", newton=witnessed)
+    assert float((f_k - f_p)[held].abs().max()) < 5e-4 * float(
+        f_p.abs().max())
+
+
+def test_g1arms_step_batch_matches_plain(state, monkeypatch):
+    """G1-with-arms' env without damping randomization
+    (`_step_batch_check`)."""
+    model, _ = _g1arms_state(1)
+    assert standins.standin_kind(model) == "g1"
+    _step_batch_check(model, False, monkeypatch, "env g1arms")
+
+
+def test_wide_uncompiled_instance_raises(state):
+    """At nv 25-32 only the extended pyramidal instance without the
+    damping rows is compiled: the damping rows' instance raises the named
+    error on a CUDA tensor, with no launch."""
+    model, d = _g1arms_state(8)
+    dyn = model.replace(plan=model.plan.dyn_damping())
+    d = d.replace(dof_damping=model.dof_damping.expand(8, -1).contiguous())
+    kernels.LAUNCHES.clear()
+    with pytest.raises(NotImplementedError, match="Queue 2 #3.1"):
+        hm.mega_forward(dyn, d)
+    assert not kernels.LAUNCHES

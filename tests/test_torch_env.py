@@ -51,12 +51,14 @@ E, STEPS, HORIZON, SUBSTEPS = 4, 3, 2, 2
 def build(robot, **budget):
     """(JAX env, port env) from `standins.env_parts` of the fixture;
     `budget` the envs' solver_iterations / ls_iterations."""
-    fixture = {"humanoid": hfx, "a1": a1fx, "a1pos": a1fx, "g1": g1fx}[robot]
-    kw = {"mode": "position"} if robot == "a1pos" else {}
+    fixture = {"humanoid": hfx, "a1": a1fx, "a1pos": a1fx, "g1": g1fx,
+               "g1arms": g1fx}[robot]
+    kw = ({"mode": "position"} if robot == "a1pos"
+          else {"arms": True} if robot == "g1arms" else {})
     jm, tm = fixture.torch_model(full=False, **kw)
     parts = standins.env_parts(tm, SUBSTEPS)
     idx = parts["fall"]
-    if robot == "g1":  # models/humanoids/unitree_g1.py:43-54
+    if robot in ("g1", "g1arms"):  # models/humanoids/unitree_g1.py:43-54
         keys = [k for k, _, _ in parts["spec"]]
         j_fall = g1_has_fallen_fn({k: i - 2 for i, k in enumerate(keys)})
     elif robot == "humanoid":

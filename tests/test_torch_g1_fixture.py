@@ -47,6 +47,19 @@ Two sizes come from the same generator:
   10 hulls (k 4), 4 point pairs (k 2), 4 point-capsule pairs (k 2) and 1
   capsule pair: 26 slots, 120 rows, for the interpret-mode comparisons.
 
+With `arms=True` the generator keeps G1's arms
+(`UnitreeG1(disable_arms=False)`): the 10 limited hinges of the model
+class's `ARMS` (shoulder pitch, roll and yaw, elbow pitch and roll, the
+real G1's ranges) on five links per arm under the torso, their motors
+(gear 25), a forearm capsule each (the plane-capsule group, with the feet's
+statics) and a hand hull each (the plane-mesh group), drawn after every
+other part so that the model without them is unchanged: at full width nv
+29, 25 bodies, 23 limited hinges and motors, 72 slots, 312 rows
+(committed as `loco_mujoco_tpu_torch/assets/unitree_g1_arms_shape.npz`,
+the `g1arms` configuration; the script below writes both files); small,
+nv 25, 30 slots, 144 rows, past the kernels' first compiled width, for
+the float32 mega comparison (tests/test_torch_g1arms_mega.py).
+
 It is compiled by the JAX package's own `put_model`; the model arrays are
 the "weights" carried across to the port.
 """
@@ -72,6 +85,8 @@ from test_torch_h1_fixture import (PELVIS, Hulls, census, hinge,  # noqa: E402
                                    inertial, root_joints)
 
 ASSET = REPO / "loco_mujoco_tpu_torch" / "assets" / "unitree_g1_shape.npz"
+ASSET_ARMS = (REPO / "loco_mujoco_tpu_torch" / "assets"
+              / "unitree_g1_arms_shape.npz")
 SEED = 0
 SOLE = -0.04  # the sole (the foot points' bottom) in the ankle roll link
 # chosen link masses (kg) and principal inertias (kg m^2)
@@ -81,16 +96,30 @@ LINKS = {"pelvis": (3.8, (0.022, 0.011, 0.023)),
          "thigh": (2.0, (0.011, 0.011, 0.0025)),
          "shin": (1.8, (0.012, 0.012, 0.0017)),
          "ankle": (0.08, (0.00002, 0.00002, 0.00002)),
-         "foot": (0.6, (0.0004, 0.0019, 0.0021))}
+         "foot": (0.6, (0.0004, 0.0019, 0.0021)),
+         # the arms (`arms=True`)
+         "shoulder": (0.5, (0.0006, 0.0005, 0.0005)),
+         "upper_arm": (0.6, (0.0030, 0.0030, 0.0006)),
+         "elbow": (0.4, (0.0004, 0.0004, 0.0003)),
+         "forearm": (0.5, (0.0025, 0.0025, 0.0004))}
 # contype / conaffinity bits: 1 the floor, 2 the left leg, 4 the right leg
 _FLOOR = 'contype="1" conaffinity="0"'
 _ONLY_FLOOR = 'contype="0" conaffinity="1"'
 # the foot points and toe rollers: their own friction and solref
 _FOOT = 'friction="1.2 0.005 0.0001" solref="0.015 1"'
+# the arms' hinges (unitree_g1.py ARMS) with the real G1's ranges
+ARM_JOINTS = (("shoulder_pitch", "0 1 0", (-2.97, 2.79)),
+              ("shoulder_roll", "1 0 0", (-1.59, 2.25)),
+              ("shoulder_yaw", "0 0 1", (-2.62, 2.62)),
+              ("elbow_pitch", "0 1 0", (-0.23, 3.42)),
+              ("elbow_roll", "1 0 0", (-2.09, 2.09)))
+ARM_GEAR = 25
 
 
-def g1_xml(full: bool, seed: int = SEED) -> str:
-    """The fixture's MJCF (see the module note)."""
+def g1_xml(full: bool, seed: int = SEED, arms: bool = False) -> str:
+    """The fixture's MJCF (see the module note); `arms` keeps G1's arms
+    (`UnitreeG1(disable_arms=False)`), drawn after every other part so
+    that the model without them is unchanged."""
     rng = np.random.default_rng(seed)
     hulls = Hulls(rng)
 
@@ -161,6 +190,45 @@ def g1_xml(full: bool, seed: int = SEED) -> str:
         </body>
       </body>"""
 
+    def arm(side):
+        """Shoulder pitch, roll and yaw, elbow pitch and roll under the
+        torso, hanging down; a forearm capsule (the plane-capsule group,
+        with the feet's statics) and a hand hull (the plane-mesh group)."""
+        sy = 1.0 if side == "left" else -1.0
+        j = {n: (axis, lo_hi if side == "left" or n != "shoulder_roll"
+                 else (-lo_hi[1], -lo_hi[0]))
+             for n, axis, lo_hi in ARM_JOINTS}
+
+        def h(n):
+            return hinge(rng, f"{side}_{n}_joint", j[n][0], *j[n][1])
+
+        return f"""
+        <body name="{side}_shoulder_pitch_link" pos="0 {0.10 * sy:.4f} 0.24">
+          {inertial(rng, "shoulder", links=LINKS)}
+          {h("shoulder_pitch")}
+          <body name="{side}_shoulder_roll_link" pos="0 {0.04 * sy:.4f} 0">
+            {inertial(rng, "shoulder", links=LINKS)}
+            {h("shoulder_roll")}
+            <body name="{side}_shoulder_yaw_link" pos="0 0 -0.04">
+              {inertial(rng, "upper_arm", -0.06, links=LINKS)}
+              {h("shoulder_yaw")}
+              <body name="{side}_elbow_pitch_link" pos="0 0 -0.12">
+                {inertial(rng, "elbow", links=LINKS)}
+                {h("elbow_pitch")}
+                <body name="{side}_elbow_roll_link" pos="0 0 -0.03">
+                  {inertial(rng, "forearm", -0.1, links=LINKS)}
+                  {h("elbow_roll")}
+                  <geom name="{side}_forearm_col" type="capsule"
+                        size="{float(rng.uniform(0.025, 0.03)):.4f}"
+                        fromto="0 0 -0.02 0 0 -0.18" {_ONLY_FLOOR} {_FOOT}/>
+                  {hulls.geoms(1, (0, 0, -0.22), (0.01, 0.01, 0.01),
+                               0.025, 0.04)}
+                </body>
+              </body>
+            </body>
+          </body>
+        </body>"""
+
     legs = [("left", 1.0), ("right", -1.0)]
     leg_joints = (("hip_pitch", "hip_roll", "hip_yaw", "knee", "ankle_pitch",
                    "ankle_roll") if full else
@@ -169,6 +237,10 @@ def g1_xml(full: bool, seed: int = SEED) -> str:
               + ["torso_joint"])
     motors = [f'<motor name="{j}" joint="{j}" gear="80" '
               f'ctrllimited="true" ctrlrange="-1 1"/>' for j in joints]
+    if arms:  # in unitree_g1.py's ARMS order
+        motors += [f'<motor name="{s}_{n}_joint" joint="{s}_{n}_joint" '
+                   f'gear="{ARM_GEAR}" ctrllimited="true" ctrlrange="-1 1"/>'
+                   for s in ("right", "left") for n, _, _ in ARM_JOINTS]
     # pelvis height: the foot points sit 2 mm above the floor at qpos0
     height = 0.1 + 0.03 + 0.3 + 0.3 + 0.01 - SOLE + 0.002
     body = f"""
@@ -182,11 +254,12 @@ def g1_xml(full: bool, seed: int = SEED) -> str:
         {inertial(rng, "torso", 0.2, links=LINKS)}
         {hinge(rng, "torso_joint", "0 0 1", -2.62, 2.62)}
         {hulls.geoms(3 if full else 2, (0, 0, 0.22), (0.05, 0.08, 0.12),
-                     0.05, 0.09)}
+                     0.05, 0.09)}{"".join(arm(s) for s in ("right", "left"))
+                                  if arms else ""}
       </body>
     </body>"""
     return f"""
-<mujoco model="unitree_g1_shape_{'full' if full else 'small'}">
+<mujoco model="unitree_g1{'_arms' if arms else ''}_shape_{'full' if full else 'small'}">
   <compiler angle="radian"/>
   <option timestep="0.002" integrator="Euler" iterations="8"
           ls_iterations="8"/>
@@ -207,7 +280,7 @@ def g1_xml(full: bool, seed: int = SEED) -> str:
 </mujoco>"""
 
 
-def jax_model(full: bool, dtype=None):
+def jax_model(full: bool, dtype=None, arms: bool = False):
     """The fixture compiled by the JAX package's own `put_model` (plane
     budget 8 and self budget 8 at full width, 4 and 2 small)."""
     import jax.numpy as jnp
@@ -215,15 +288,16 @@ def jax_model(full: bool, dtype=None):
 
     from loco_mujoco_tpu.core.io import put_model
 
-    mjm = mujoco.MjModel.from_xml_string(g1_xml(full))
+    mjm = mujoco.MjModel.from_xml_string(g1_xml(full, arms=arms))
     return put_model(mjm, dtype=dtype or jnp.float64,
                      contact_k_plane=8 if full else 4,
                      contact_k_other=8 if full else 2)
 
 
-def torch_model(full: bool, dtype=torch.float64, device="cpu"):
+def torch_model(full: bool, dtype=torch.float64, device="cpu",
+                arms: bool = False):
     """(JAX model, port model) of the fixture, both from one compile."""
-    jm = jax_model(full)
+    jm = jax_model(full, arms=arms)
     leaves, aux = export_model(jm)
     return jm, tio.model_from_numpy(leaves, aux, device=device, dtype=dtype)
 
@@ -295,7 +369,8 @@ def g1_states(model, E: int, seed: int = 7, drop=(0.003, 0.012)):
     return qpos, qvel, ctrl
 
 
-def g1_mega_states(monkeypatch, n_envs: int, seed: int = 7):
+def g1_mega_states(monkeypatch, n_envs: int, seed: int = 7,
+                   arms: bool = False):
     """(JAX model, port model, JAX data, port data) in float32 for the
     mega path tests, small variant: `g1_states`, the JAX plan built afresh
     with `LMT_MESH_VCAP` at the vertex-table width (test_torch_fixture.
@@ -310,11 +385,11 @@ def g1_mega_states(monkeypatch, n_envs: int, seed: int = 7):
     from loco_mujoco_tpu.ops import kinematics as jkin
     from loco_mujoco_tpu.ops import pallas_constraint as pc
 
-    leaves, aux = export_model(jax_model(False))
+    leaves, aux = export_model(jax_model(False, arms=arms))
     tm = tio.model_from_numpy(leaves, aux, device="cpu", dtype=torch.float32)
     monkeypatch.setenv("LMT_MESH_VCAP", str(max(tm.mesh_vert.shape[1], 8)))
     monkeypatch.setattr(pc, "_PLAN_CACHE", {})
-    jm = jax_model(False, dtype=jnp.float32)
+    jm = jax_model(False, dtype=jnp.float32, arms=arms)
     qpos, qvel, ctrl = (np.asarray(x, np.float32)
                         for x in g1_states(tm, n_envs, seed))
     d0 = jax_make_data(jm)
@@ -327,8 +402,8 @@ def g1_mega_states(monkeypatch, n_envs: int, seed: int = 7):
     return jm, tm, jd, td
 
 
-def write_full_width(path) -> None:
-    leaves, aux = export_model(jax_model(full=True))
+def write_full_width(path, arms: bool = False) -> None:
+    leaves, aux = export_model(jax_model(full=True, arms=arms))
     tio.save_model_npz(path, leaves, aux)
 
 
@@ -438,5 +513,6 @@ if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_enable_x64", True)  # as tests/conftest.py does
-    write_full_width(ASSET)
-    print(f"wrote {ASSET} ({os.path.getsize(ASSET)} bytes)")
+    for path, arms in ((ASSET, False), (ASSET_ARMS, True)):
+        write_full_width(path, arms=arms)
+        print(f"wrote {path} ({os.path.getsize(path)} bytes)")

@@ -12,8 +12,10 @@ biped on the extended collision with pyramidal rows):
   227 KB, and leave at least `RESIDENT_FLOOR` (4) resident warps per SM;
   every region of the layout is 16-byte aligned, disjoint and as large as
   what the kernels put there, and the packed I_SHM table is the layout's;
-- the kernels take no global scratch (J stays in shared memory): every
-  operand the wrappers pass
+- on these configurations the kernels take no global scratch (J stays in
+  shared memory; the scratch of G1 with its arms, at the second compiled
+  width, is tests/test_torch_g1arms_plan.py's): every operand the
+  wrappers pass
   (`hopper_mega.mega_forward`, `mega_step_n`, with a recording stand-in
   for the compiled library) matches the C prototypes in `csrc/mega.cu`
   and `hopper_mega._SIGNATURES`, with the decision record's shape from

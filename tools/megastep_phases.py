@@ -2,15 +2,17 @@
 """Time the megastep kernel on one GPU and break it down by phase.
 
     python3 tools/megastep_phases.py
-        [--configs rk4 euler muscle a1 h1 atlas g1 a1pos]
+        [--configs rk4 euler muscle a1 h1 atlas g1 a1pos g1arms]
         [--envs 4096] [--reps 3] [--root DIR] [--no-phases] [--kernels]
+        [--floor N]
 
 For each configuration of `chip_smoke.py`'s main path (the committed
 HumanoidTorque-shaped model with RK4 and with Euler, the muscle model, the
-A1-shaped model, the H1-, Atlas- and G1-shaped bipeds, A1's position mode)
+A1-shaped model, the H1-, Atlas- and G1-shaped bipeds, A1's position mode,
+G1 with its arms at the second compiled width)
 it drives the main path as the smoke does: the seeded dropped state and
-controls of this checkout's `chip_smoke.seeded_draws` (the bipeds':
-`seeded_biped`; A1's position mode: `seeded_a1pos`),
+controls of this checkout's `chip_smoke.seeded_draws` (the bipeds' and G1
+with its arms': `seeded_biped`; A1's position mode: `seeded_a1pos`),
 a reset forward and 20 control steps of `forward.step_n` (10 substeps
 each), and prints the main path's rate (control steps x envs per
 second, the `env_steps_per_s` key). At that end state, with the first
@@ -34,6 +36,12 @@ that share of the timed launch, in ms. The clocks count the cycles between a war
 waiting for another warp of the same SM is charged to the phase that
 waits.
 
+`--floor N` sets `ops/plan.py`'s RESIDENT_FLOOR to N before any launch is
+planned: with 3, G1 with its arms keeps the rows' J in shared memory at 3
+resident warps per SM instead of in the global scratch (the line's
+`j_global` says which), so the two layouts of the same kernel can be timed
+in turns.
+
 `--root DIR` runs the port of another checkout (for example an archive of
 a parent commit, to put both in one call: parent, change, change,
 parent); a checkout whose `mega.cu` has no `LMT_PHASES` variant is timed
@@ -53,10 +61,12 @@ import time
 from pathlib import Path
 
 PHASES = ("fk", "collision", "smooth", "rows", "newton", "integration")
-CONFIGS = ("rk4", "euler", "muscle", "a1", "h1", "atlas", "g1", "a1pos")
+CONFIGS = ("rk4", "euler", "muscle", "a1", "h1", "atlas", "g1", "a1pos",
+           "g1arms")
 ASSET_OF = {"muscle": "humanoid_muscle_shape", "a1": "unitree_a1_shape",
             "h1": "unitree_h1_shape", "atlas": "atlas_shape",
-            "g1": "unitree_g1_shape", "a1pos": "unitree_a1_position_shape"}
+            "g1": "unitree_g1_shape", "a1pos": "unitree_a1_position_shape",
+            "g1arms": "unitree_g1_arms_shape"}
 # the Newton solve's parts (where the kernel splits it; the rest of the
 # Newton phase is its row passes)
 NEWTON_PARTS = ("gradient_hessian", "factor_solve", "line_search")
@@ -115,6 +125,7 @@ def main() -> int:
                     default=Path(__file__).resolve().parent.parent)
     ap.add_argument("--no-phases", action="store_true")
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--floor", type=int, default=None)
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -129,6 +140,10 @@ def main() -> int:
     from loco_mujoco_tpu_torch.ops import hopper_fused as hf
     from loco_mujoco_tpu_torch.ops import hopper_mega as hm
     from loco_mujoco_tpu_torch.ops import kernels, kinematics
+    from loco_mujoco_tpu_torch.ops import plan as tplan
+
+    if args.floor is not None:
+        tplan.RESIDENT_FLOOR = args.floor
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
@@ -152,8 +167,9 @@ def main() -> int:
     t = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
                                   device="cuda")
     for name, m in _models(io, torch, root, args.configs).items():
-        if name in smoke.BIPEDS or name == "g1":
-            seed = smoke.G1[1] if name == "g1" else smoke.BIPEDS[name][1]
+        if name in smoke.BIPEDS or name in ("g1", "g1arms"):
+            seed = {"g1": smoke.G1[1], "g1arms": smoke.G1ARMS[1]}.get(
+                name) or smoke.BIPEDS[name][1]
             q0, ctrls = smoke.seeded_biped(m, seed, E)
         elif name == "a1pos":
             q0, ctrls = smoke.seeded_a1pos(m, E)
@@ -177,7 +193,9 @@ def main() -> int:
                       args.reps)
         line = {"config": name, "envs": E, "card": card,
                 "env_steps_per_s": E * steps / wall,
-                "megastep_ms": ms}
+                "megastep_ms": ms,
+                "j_global": bool(getattr(tplan.mega_launch(m.plan),
+                                         "j_global", False))}
         if args.kernels:
             line["mega_forward_ms"] = _time_ms(
                 torch, lambda: hm.mega_forward(m, S), args.reps)
@@ -187,7 +205,9 @@ def main() -> int:
                 torch, lambda: hf.fused_constraint(m, staged), args.reps)
         if phases:
             variant = ("LMT_PHASES",)
-            lib = kernels.library("mega", hm._SIGNATURES, variant)
+            wide = (kernels.width_defines(m.plan.nvm)
+                    if hasattr(kernels, "width_defines") else ())
+            lib = kernels.library("mega", hm._SIGNATURES, wide + variant)
             lib.lmt_mega_phases.argtypes = [kernels.PTR]
             buf = torch.zeros((E, ncol + 1), dtype=torch.int64,
                               device="cuda")
