@@ -43,18 +43,24 @@ Run from the repository root: `python3 chip_smoke.py`. It
    libraries built a second time at width 32, the mega kernels' extended
    pyramidal instance with the rows' J in a global scratch), and with 20
    plane-mesh slots (455 rows: no plan, the Newton kernel at width 32);
+   and the committed stand-ins of H1 and Atlas with their arms (the
+   `h1arms` configuration: nv = 25, Euler, 40 slots, 184 rows, J in shared
+   memory; `atlasarms`: nv = 31, RK4, 64 slots, 288 rows, J in the global
+   scratch: the wide library's plane-only instance);
 4. holds each kernel of the earlier staged path against its plain PyTorch
    version on the card, on the inputs that path gives it at full width
    (4096 envs);
-5. drives the staged path (`LMT_MEGA=0`) for 2 control steps of 10 RK4
-   substeps, 2 of 10 Euler substeps, 2 of 10 muscle Euler substeps (the
-   fused kernel's non-smooth layout), 2 of 10 A1 Euler substeps (torch
-   collision and the fused kernel's elliptic layout) and 2 each of H1,
+5. drives the staged path (`LMT_MEGA=0`) for 1 control step of 10 RK4
+   substeps, 1 of 10 Euler substeps, 1 of 10 muscle Euler substeps (the
+   fused kernel's non-smooth layout), 1 of 10 A1 Euler substeps (torch
+   collision and the fused kernel's elliptic layout) and 1 each of H1,
    Atlas and G1 (its plane-mesh group on the select and top-K kernels,
-   its other groups in torch, the fused kernel's 26-float pack) and 2 of
+   its other groups in torch, the fused kernel's 26-float pack) and 1 of
    A1's position mode (the elliptic layout with affine bias), through
-   the fused constraint kernel, 1 of G1 with its arms (the fused kernel at
-   width 32; cut from 2 to keep the run short), and 1 control step of the
+   the fused constraint kernel (each cut from 2 to keep the run short),
+   1 of G1 with its arms (the fused kernel at width 32), 1 each of H1 and
+   Atlas with their arms (the fused kernel at width 32), and 1 control
+   step of the
    model with no plan, through the Newton kernel and its relayouts, and
    1 of G1 with its arms with no plan (the Newton kernel at width 32), with
    every launch counter set to 0 just before each run and read just after,
@@ -65,8 +71,8 @@ Run from the repository root: `python3 chip_smoke.py`. It
    mega forward kernel) and `forward.step_n` for 20 control steps of 10
    substeps (one megastep kernel launch each), RK4, Euler, the muscle
    model (seeded muscle ctrls in [0, 1], act from 0), A1 (dropped 5-20
-   mm, seeded motor ctrls in half its ctrlrange), H1, Atlas, G1 and G1
-   with its arms
+   mm, seeded motor ctrls in half its ctrlrange), H1, Atlas, G1, G1
+   with its arms, H1 with its arms and Atlas with its arms
    (dropped 5-20 mm, seeded motor ctrls in [-0.3, 0.3]) and A1's position
    mode (dropped 5-20 mm, seeded targets uniform in the joint ranges),
    counters again
@@ -87,9 +93,12 @@ Run from the repository root: `python3 chip_smoke.py`. It
    elliptic layouts with the rows), then G1's env (its own fall
    predicate) without randomization beside `step_n` alone and with it
    (Euler: the per-substep mega forward with the rows), A1's position
-   mode's env (actions unnormalized into the joint ranges) and the env of
-   G1 with its arms beside `step_n` alone, counters zeroed and read as
-   above;
+   mode's env (actions unnormalized into the joint ranges), the env of
+   G1 with its arms beside `step_n` alone and with damping randomization
+   (Euler: the wide per-substep mega forward with the rows), the envs of H1
+   with its arms beside `step_n` alone and of Atlas with its arms with
+   damping randomization (RK4: the wide megastep with the rows) beside
+   `step_n` alone, counters zeroed and read as above;
 7. holds the mega forward kernel and the megastep kernel (one control
    step), RK4, Euler, muscle (with act_dot and act; the muscle kernels
    both at the end state, which the seeded activations lift off the
@@ -99,13 +108,18 @@ Run from the repository root: `python3 chip_smoke.py`. It
    without the damping rows), A1's position mode (the servos' affine
    bias; at its env's end state, where A1's fall predicate has reset the
    tipped trunks), G1 with its arms (the wide library's extended
-   pyramidal instance), the plane-mesh select and top-K on the
+   pyramidal instance), H1 and Atlas with their arms (the wide library's
+   plane-only instance, J in shared memory and in the global scratch),
+   the damping rows at width 32 (the mega forward's plane-only and
+   extended pyramidal instances and the RK4 megastep, at the randomized
+   arms envs' end states), the plane-mesh select and top-K on the
    torque model's and G1's mesh groups, and the fused kernel on all four
    plan
    configurations, the muscle model's non-smooth layout, A1's elliptic
-   layout, H1, Atlas, G1, A1's position mode and G1 with its arms (width
-   32), the Newton kernel at width 32 at the end state of the no-plan G1
-   with arms, and the damping rows
+   layout, H1, Atlas, G1, A1's position mode, G1, H1 and Atlas with their
+   arms (width 32; with the damping rows at the randomized arms envs' end
+   states), the Newton kernel at width 32 at the end state of the no-plan
+   G1 with arms, and the damping rows
    (the mega forward's
    plane-only and extended instances, the RK4 megastep, the fused
    kernel's smooth and elliptic layouts, at the randomized envs' end
@@ -140,6 +154,7 @@ import contextlib
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -147,7 +162,7 @@ from pathlib import Path
 
 N_ENVS = 4096
 CONTROL_STEPS = 20  # the main path
-STAGED_STEPS = 2  # the staged path, cut from 20 to keep the run short
+STAGED_STEPS = 1  # the staged path, cut from 20 to keep the run short
 WIDE_STEPS = 1  # the no-plan staged paths (the Newton kernel's) and G1 arms' staged path
 SUBSTEPS = 10  # physics substeps per control step (RK4: 4 forwards each)
 TIE = 1e-5  # a slot or limit this close to its margin is a float32 tie
@@ -188,6 +203,10 @@ G1 = ("loco_mujoco_tpu_torch/assets/unitree_g1_shape.npz", 4)
 # its staged path runs the Newton kernel at width 32
 G1ARMS = ("loco_mujoco_tpu_torch/assets/unitree_g1_arms_shape.npz", 6)
 G1ARMS_WIDE = {"contact_k_plane": 20}
+# H1 and Atlas with their arms (nv 25 and 31: the wide library's plane-only
+# instance, H1's J in shared memory, Atlas's in the global scratch): the
+# committed stand-ins of `envs.standins.STANDINS`, their draws' own streams
+ARMS = {"h1arms": 12, "atlasarms": 13}
 # A1's seeded motor ctrls lie in [-A1_CTRL, A1_CTRL] of its ctrlrange
 # [-1, 1] (17 of the motors' 34 N m): with the full range redrawn every
 # control step some envs spin their light, slender calves fast enough that
@@ -208,9 +227,12 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(torch, fn, reps=10):
-    """Mean CUDA-event time of `fn()` over `reps` runs after a warm-up."""
-    fn()
+def _time_ms(torch, fn, reps=10, warmup=True):
+    """Mean CUDA-event time of `fn()` over `reps` runs after a warm-up (a
+    plain version, no yardstick and already run by its check, is timed
+    once without one: `warmup` False)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1038,6 +1060,8 @@ def main() -> int:
     aux.update(G1ARMS_WIDE)
     m_g1a_wide = io.model_from_numpy(leaves, aux, device=dev,
                                      dtype=torch.float32)
+    arms = {name: load_standin(name, device=dev) for name in ARMS}
+    m_h1a, m_ata = arms["h1arms"], arms["atlasarms"]
     mesh_groups = [i for i, g in enumerate(model.groups)
                    if coll.is_plane_mesh(g)]
     assert mesh_groups and all(model.mesh_kernel[i] is not None
@@ -1075,6 +1099,14 @@ def main() -> int:
     assert all(m_g1a.mesh_kernel[i] is not None for i, g in enumerate(
         m_g1a.groups) if coll.is_plane_mesh(g)), "G1 arms mesh group"
     assert m_g1a_wide.plan is None and m_g1a_wide.nv == 29
+    for name, m in arms.items():  # the wide library's plane-only instance
+        p = m.plan
+        assert m.nv > 24 and p.nvm == 32 and hm.ext_mode(p) == 0, name
+        assert p.mega and p.uniform and not p.mega_ell and not p.elliptic
+        assert standin_kind(m) == name[:-4], name
+    assert m_h1a.plan.euler_dv and hm.forwards_per_step(m_ata) == 4
+    assert not mega_launch(m_h1a.plan).j_global, "H1 arms: J global"
+    assert mega_launch(m_ata.plan).j_global, "Atlas arms: J in shared memory"
     plan = model.mesh_kernel[mesh_groups[0]]
     print(f"model: nv={model.nv}, groups "
           f"{[(g.t2, g.k, len(g.pair_ids)) for g in model.groups]}, "
@@ -1113,11 +1145,18 @@ def main() -> int:
           + str([(g.t1, g.t2, g.condim, g.k, len(g.pair_ids))
                  for g in m_g1a.groups])
           + f", {pg1a.ncon} slots, {pg1a.nrows} rows; with 20 plane-mesh "
-          f"slots {m_g1a_wide.ncon} slots and no plan")
+          f"slots {m_g1a_wide.ncon} slots and no plan; "
+          + "; ".join(f"{n}: nv={m.nv} (width {m.plan.nvm}), {m.nbody} "
+                      f"bodies, groups "
+                      + str([(g["kind"], g["k"], len(g["pairs"]))
+                             for g in m.plan.groups])
+                      + f", {m.plan.ncon} slots, {m.plan.nrows} rows, "
+                      f"{hm.forwards_per_step(m)} forwards per substep"
+                      for n, m in arms.items()))
     # the mega kernels' launch: a warp per env, its state in shared memory
     for name, m in (("rk4", model), ("euler", m_eu), ("muscle", m_mu),
                     ("a1", m_a1), *bipeds.items(), ("g1", m_g1),
-                    ("a1pos", m_a1p), ("g1arms", m_g1a)):
+                    ("a1pos", m_a1p), ("g1arms", m_g1a), *arms.items()):
         launch = mega_launch(m.plan)
         occ = hm.occupancy(m)
         print(f"mega launch {name}: width {m.plan.nvm}, "
@@ -1140,18 +1179,29 @@ def main() -> int:
                 kind = next(k for k in ("mega_forward_kernel",
                                         "megastep_kernel", "fused_kernel",
                                         "newton_kernel") if k in fn)
+                # the template arguments: <EXT, ELL, DAMP> of the mega
+                # kernels, <DAMP> of the fused kernel, <NVM> of Newton's
+                args = re.findall(r"L([bi])(\d+)E", fn.split(kind)[1])
                 census.setdefault(kind, []).append(
-                    f"{props['registers']} registers, {props['stack']} B "
-                    f"stack, {props['spill_st']} / {props['spill_ld']} B "
+                    "<" + ", ".join(("true" if v == "1" else "false")
+                                    if t == "b" else v for t, v in args)
+                    + f"> {props['registers']} registers, {props['stack']} "
+                    f"B stack, {props['spill_st']} / {props['spill_ld']} B "
                     f"spill stores / loads")
-    l_g1a = mega_launch(pg1a)
-    print(f"g1arms census: {4 * l_g1a.env_floats} bytes of shared memory "
-          f"per env, the rows' J ({pg1a.nrows} x {l_g1a.extra['NVJ']} "
-          f"floats) in a global scratch of "
-          f"{l_g1a.nrows * l_g1a.extra['NVJ'] * 4 * N_ENVS} bytes at "
-          f"{N_ENVS} envs, "
-          f"{l_g1a.resident_warps} resident warps per "
-          f"SM by shared memory; the width-32 instances: "
+    for name, m in (("g1arms", m_g1a), *arms.items()):
+        launch = mega_launch(m.plan)
+        j_bytes = launch.nrows * launch.extra["NVJ"] * 4
+        print(f"{name} census: {m.plan.ncon} slots, {m.plan.nrows} rows, "
+              f"{4 * launch.env_floats} bytes of shared memory per env, "
+              f"the rows' J ({m.plan.nrows} x {launch.extra['NVJ']} "
+              f"floats, {j_bytes} bytes per env) "
+              + (f"in a global scratch of {j_bytes * N_ENVS} bytes at "
+                 f"{N_ENVS} envs" if launch.j_global else
+                 "in shared memory")
+              + f", j_global {launch.j_global}, {launch.resident_warps} "
+              f"resident warps per SM by shared memory")
+    print("the width-32 instances (plane-only, extended pyramidal; without "
+          "and with the damping rows): "
           + "; ".join(f"{k} " + " / ".join(v) for k, v in census.items()))
 
     E = N_ENVS
@@ -1164,12 +1214,17 @@ def main() -> int:
                    for name, m in bipeds.items()}
     biped_draws["g1"] = seeded_biped(m_g1, G1[1], E)
     biped_draws["g1arms"] = seeded_biped(m_g1a, G1ARMS[1], E)
+    for name, m in arms.items():
+        biped_draws[name] = seeded_biped(m, ARMS[name], E)
     qpos_a1p, ctrls_a1p = seeded_a1pos(m_a1p, E)
+
+    dr_bipeds = []  # (configuration, its env's damping-rows model), below
 
     def biped(m):
         """The biped configuration's name of model m (G1 too), or None."""
         return next((n for n, b in (*bipeds.items(), ("g1", m_g1),
-                                    ("g1arms", m_g1a), ("g1arms", m_g1a_wide))
+                                    ("g1arms", m_g1a), ("g1arms", m_g1a_wide),
+                                    *arms.items(), *dr_bipeds)
                      if b is m), None)
 
     def ctrl(c, m=model):
@@ -1367,6 +1422,14 @@ def main() -> int:
             {"newton": 1, "to_grouped": 8, "from_grouped": 2},
             f"G1 with arms Euler, no plan ({m_g1a_wide.ncon} slots), "
             f"through the Newton kernel at width 32")
+        # H1 and Atlas with their arms: the fused kernel at width 32 (H1's
+        # plane-mesh group on the select and top-K kernels)
+        d_staged_h1a, staged_h1a_launches, staged_h1a_rate, _ = staged_run(
+            m_h1a, WIDE_STEPS, per_fused, "H1 with arms Euler through the "
+            "fused kernel at width 32")
+        d_staged_ata, staged_ata_launches, staged_ata_rate, _ = staged_run(
+            m_ata, WIDE_STEPS, {"fused": 1}, "Atlas with arms RK4 through "
+            "torch collision and the fused kernel at width 32")
 
         # one staged forward against the all-plain forward
         d = d_staged
@@ -1448,6 +1511,12 @@ def main() -> int:
     S_g1a, launches_g1a, env_steps_g1a, _ = main_run(
         m_g1a, "G1 with arms Euler (width 32: the extended pyramidal "
         "instance, J in a global scratch)")
+    S_h1a, launches_h1a, env_steps_h1a, _ = main_run(
+        m_h1a, "H1 with arms Euler (width 32: the plane-only instance, J in "
+        "shared memory)")
+    S_ata, launches_ata, env_steps_ata, _ = main_run(
+        m_ata, "Atlas with arms RK4 (width 32: the plane-only instance, J in "
+        "a global scratch)")
     print(f"muscle activations at the end: mean "
           f"{float(S_mu.act.mean()):.4f}, min {float(S_mu.act.min()):.4f}, "
           f"max {float(S_mu.act.max()):.4f}")
@@ -1594,6 +1663,49 @@ def main() -> int:
     print(f"env layer G1 with arms: {env_g1a_rate:.0f} env-steps/s against "
           f"{raw_g1a:.0f} for step_n alone "
           f"({100 * (raw_g1a / env_g1a_rate - 1):.2f}% overhead) ({card})")
+    # the damping rows at width 32: G1 with its arms (Euler: the wide
+    # per-substep mega forward with the rows, extended pyramidal) and
+    # Atlas with its arms (RK4: the wide megastep with the rows,
+    # plane-only) beside step_n alone; H1 with its arms without
+    env_g1a_dr = make_env(m_g1a, dr=damping_dr(m_g1a),
+                          horizon=CONTROL_STEPS + 1)
+    m_g1a_dr = env_g1a_dr.model_dr
+    assert m_g1a_dr.plan.nvm == 32 and m_g1a_dr.plan.sm_dyn_damping
+    assert hm.megastep_mode(m_g1a_dr) is None  # the per-substep path
+    st_g1adr, _, env_g1adr_launches, env_g1adr_rate, _ = env_run(
+        env_g1a_dr, env_acts_g1a, CONTROL_STEPS,
+        {"mega_forward": 1 + CONTROL_STEPS * SUBSTEPS},
+        "G1 with arms Euler with damping randomization (width 32: the "
+        "per-substep mega forward with the rows)")
+    env_acts_h1a = np.random.default_rng(SEED + 12).uniform(
+        -0.3, 0.3, size=(CONTROL_STEPS, E, m_h1a.nu))
+    env_h1a = make_env(m_h1a, horizon=CONTROL_STEPS + 1)
+    _, _, env_h1a_launches, env_h1a_rate, env_h1a_inputs = env_run(
+        env_h1a, env_acts_h1a, CONTROL_STEPS, mega_launches,
+        "H1 with arms Euler (width 32)")
+    raw_h1a = raw_rate(env_h1a, env_h1a_inputs, env_acts_h1a)
+    del env_h1a_inputs
+    env_acts_ata = np.random.default_rng(SEED + 13).uniform(
+        -0.3, 0.3, size=(CONTROL_STEPS, E, m_ata.nu))
+    env_ata_dr = make_env(m_ata, dr=damping_dr(m_ata),
+                          horizon=CONTROL_STEPS + 1)
+    m_ata_dr = env_ata_dr.model_dr
+    assert m_ata_dr.plan.nvm == 32 and m_ata_dr.plan.sm_dyn_damping
+    assert hm.megastep_mode(m_ata_dr) is not None  # RK4: the megastep
+    dr_bipeds.extend((("atlasarms", m_ata_dr), ("g1arms", m_g1a_dr)))
+    st_atadr, _, env_atadr_launches, env_atadr_rate, env_atadr_inputs = \
+        env_run(env_ata_dr, env_acts_ata, CONTROL_STEPS, mega_launches,
+                "Atlas with arms RK4 with damping randomization (width 32: "
+                "the megastep with the rows)")
+    raw_atadr = raw_rate(env_ata_dr, env_atadr_inputs, env_acts_ata)
+    del env_atadr_inputs
+    print(f"env layer H1 with arms: {env_h1a_rate:.0f} env-steps/s against "
+          f"{raw_h1a:.0f} for step_n alone "
+          f"({100 * (raw_h1a / env_h1a_rate - 1):.2f}% overhead); Atlas with "
+          f"arms with damping randomization {env_atadr_rate:.0f} against "
+          f"{raw_atadr:.0f} ({100 * (raw_atadr / env_atadr_rate - 1):.2f}%);"
+          f" G1 with arms with damping randomization {env_g1adr_rate:.0f} "
+          f"(the per-substep mega forward) ({card})")
     draws = st_dr.dr["dof_damping"]
     assert torch.equal(st_dr.data.dof_damping, draws)
     assert not torch.equal(draws[0], draws[1]), "one damping draw for all"
@@ -1616,6 +1728,17 @@ def main() -> int:
     print(f"megastep per control step at the DR env's end state, without / "
           f"with / with / without the damping rows: "
           + " / ".join(f"{t:.3f}" for t in ms_turns) + f" ms ({card})")
+    # and at width 32, at Atlas with its arms' DR env's end state
+    S_atadr_end = st_atadr.data
+    ms_turns_ata = [
+        _time_ms(torch, lambda: hm.mega_step_n(m, d_, SUBSTEPS), reps=3)
+        for m, d_ in ((m_ata, S_atadr_end.replace(dof_damping=None)),
+                      (m_ata_dr, S_atadr_end), (m_ata_dr, S_atadr_end),
+                      (m_ata, S_atadr_end.replace(dof_damping=None)))]
+    print(f"megastep per control step at Atlas with arms' DR env's end "
+          f"state (width 32), without / with / with / without the damping "
+          f"rows: " + " / ".join(f"{t:.3f}" for t in ms_turns_ata)
+          + f" ms ({card})")
     # the staged path of both DR envs (LMT_MEGA=0): the fused kernel's
     # smooth and elliptic layouts with the damping rows
     with _staged_path():
@@ -1629,6 +1752,20 @@ def main() -> int:
             env_a1_dr, env_acts_a1, STAGED_STEPS,
             {"fused": 1 + SUBSTEPS * STAGED_STEPS},
             "staged A1 Euler with damping randomization")
+        # and at width 32, one control step each: Atlas with its arms
+        # (RK4, the smooth layout) and G1 with its arms (Euler, the
+        # 26-float pack, its plane-mesh group on the kernels)
+        st_satadr, _, staged_atadr_launches, _, _ = env_run(
+            env_ata_dr, env_acts_ata, WIDE_STEPS,
+            {"fused": 1 + fwd_per_step * WIDE_STEPS},
+            "staged Atlas with arms RK4 with damping randomization (width "
+            "32)")
+        st_sg1adr, _, staged_g1adr_launches, _, _ = env_run(
+            env_g1a_dr, env_acts_g1a, WIDE_STEPS,
+            {k: n * (1 + SUBSTEPS * WIDE_STEPS)
+             for k, n in per_fused.items()},
+            "staged G1 with arms Euler with damping randomization (width "
+            "32)")
 
     # ---- the mega forward and the megastep against their plain versions --
     # From the main path's end state. The plain version replays the
@@ -1815,6 +1952,32 @@ def main() -> int:
     errs["mega_forward_g1arms"] = mega_forward_check(m_g1a, S_g1a, "g1arms")
     errs["megastep_g1arms"], S1_g1a, step_flops_g1a = megastep_check(
         m_g1a, S_g1a, "g1arms")
+    # H1 and Atlas with their arms: the wide library's plane-only instance
+    # (H1's J in shared memory, Atlas's in the global scratch), at the end
+    # state (touching in 90% of the envs)
+    arms_runs = {}
+    for name, m, S_ in (("h1arms", m_h1a, S_h1a), ("atlasarms", m_ata, S_ata)):
+        f_ = fwd.forward(m, S_)
+        act_ = f_.contact.dist < f_.contact.includemargin
+        touching = int(act_.any(1).sum())
+        print(f"{name} end state: active slots per group "
+              + str([int(act_[:, g.offset:g.offset + g.k * g.slots].sum())
+                     for g in m.groups]) + f" ({int(act_.sum()) / E:.2f} per "
+              f"env; {touching} of {E} envs touch)")
+        assert touching >= 0.9 * E, f"{name}: the end state is contact-light"
+        errs[f"mega_forward_{name}"] = mega_forward_check(m, S_, name)
+        errs[f"megastep_{name}"], S1_, flops_ = megastep_check(m, S_, name)
+        arms_runs[name] = (S1_, flops_)
+    # the damping rows at width 32, at the randomized arms envs' end states:
+    # the plane-only mega forward and RK4 megastep (Atlas with its arms)
+    # and the extended pyramidal mega forward (G1 with its arms)
+    S_atadr, S_g1adr = st_atadr.data, st_g1adr.data
+    errs["mega_forward_atlasarms_dr"] = mega_forward_check(
+        m_ata_dr, S_atadr, "Atlas arms damping DR")
+    errs["megastep_atlasarms_dr"], S1_atadr, step_flops_atadr = \
+        megastep_check(m_ata_dr, S_atadr, "Atlas arms damping DR")
+    errs["mega_forward_g1arms_dr"] = mega_forward_check(
+        m_g1a_dr, S_g1adr, "G1 arms damping DR")
     # the damping rows: the mega forward's plane-only and extended
     # instances and the megastep, at the DR envs' end states
     errs["mega_forward_dr"] = mega_forward_check(m_dr, S_dr,
@@ -1835,14 +1998,18 @@ def main() -> int:
     # end states, each env's damping carried along.
     fused_in = {}
     models.update(muscle=m_mu, a1=m_a1, dr=m_dr, a1_dr=m_a1_dr, g1=m_g1,
-                  a1pos=m_a1p, g1arms=m_g1a, **bipeds)
+                  a1pos=m_a1p, g1arms=m_g1a, atlasarms_dr=m_ata_dr,
+                  g1arms_dr=m_g1a_dr, **bipeds, **arms)
     for name in ("rk4", "euler", "fric", "solref", "muscle", "a1", "h1",
-                 "atlas", "g1", "dr", "a1_dr", "a1pos", "g1arms"):
+                 "atlas", "g1", "dr", "a1_dr", "a1pos", "g1arms", "h1arms",
+                 "atlasarms", "atlasarms_dr", "g1arms_dr"):
         m = models[name]
         src = {"muscle": d_staged_mu, "a1": d_staged_a1, "h1": d_staged_h1,
                "atlas": d_staged_at, "g1": d_staged_g1, "dr": st_sdr.data,
                "a1_dr": st_sa1dr.data, "a1pos": d_staged_a1p,
-               "g1arms": d_staged_g1a}.get(name, d_staged)
+               "g1arms": d_staged_g1a, "h1arms": d_staged_h1a,
+               "atlasarms": d_staged_ata, "atlasarms_dr": st_satadr.data,
+               "g1arms_dr": st_sg1adr.data}.get(name, d_staged)
         d = io.make_data(m, E).replace(
             qpos=src.qpos, qvel=src.qvel, ctrl=src.ctrl, act=src.act,
             qacc_warmstart=src.qacc_warmstart, dof_damping=src.dof_damping)
@@ -1914,7 +2081,14 @@ def main() -> int:
         "main A1 position": launches_a1p, "env A1 position": env_a1p_launches,
         "staged G1 arms": staged_g1a_launches, "main G1 arms": launches_g1a,
         "no-plan staged G1 arms": g1a_wide_launches,
-        "env G1 arms": env_g1a_launches}
+        "env G1 arms": env_g1a_launches,
+        "staged H1 arms": staged_h1a_launches, "main H1 arms": launches_h1a,
+        "env H1 arms": env_h1a_launches,
+        "staged Atlas arms": staged_ata_launches, "main Atlas arms":
+        launches_ata, "env Atlas arms DR": env_atadr_launches,
+        "staged env Atlas arms DR": staged_atadr_launches,
+        "env G1 arms DR": env_g1adr_launches,
+        "staged env G1 arms DR": staged_g1adr_launches}
 
     def row(name, kernel, run, source, replaces, ms, plain_ms, nbytes_,
             flops, library_ms=None):
@@ -2005,7 +2179,8 @@ def main() -> int:
         _, nefc, nv = operands[0].shape
         ms = _time_ms(torch, lambda: hn.solve(*operands, **options))
         plain = _time_ms(torch, lambda: hn.newton_plain(*operands,
-                                                        **options), reps=3)
+                                                        **options),
+                         reps=1, warmup=False)
         n_act = operands[6].sum(dim=1).double()  # active rows per env
         ls = options["ls_iterations"]
         per_iter = (4 * nefc * nv + 6 * nv * nv
@@ -2042,7 +2217,14 @@ def main() -> int:
                            ("dr", "fused_dr", "staged env RK4 DR"),
                            ("a1_dr", "fused_a1_dr", "staged env A1 DR"),
                            ("a1pos", "fused_a1pos", "staged A1 position"),
-                           ("g1arms", "fused_g1arms", "staged G1 arms")):
+                           ("g1arms", "fused_g1arms", "staged G1 arms"),
+                           ("h1arms", "fused_h1arms", "staged H1 arms"),
+                           ("atlasarms", "fused_atlasarms",
+                            "staged Atlas arms"),
+                           ("atlasarms_dr", "fused_atlasarms_dr",
+                            "staged env Atlas arms DR"),
+                           ("g1arms_dr", "fused_g1arms_dr",
+                            "staged env G1 arms DR")):
         m, d = models[name], fused_in[name]
         k = hf.fused_constraint(m, d)
         vec, pack = hf.vec(m, d), hf.contact_pack(m, d)
@@ -2055,7 +2237,7 @@ def main() -> int:
             qacc=k.qacc).sum())
         ms = _time_ms(torch, lambda: hf.fused_constraint(m, d))
         plain = _time_ms(torch, lambda: hf.fused_constraint_plain(m, d),
-                         reps=3)
+                         reps=1, warmup=False)
         row(key, "fused", run, "fused.cu", "pallas_constraint.py:2052", ms,
             plain, nbytes(*m.plan.tables(dev), vec, pack) + out_bytes, flops)
 
@@ -2092,15 +2274,21 @@ def main() -> int:
             (m_a1p, S_a1p_env, S1_a1p, step_flops_a1p, "_a1pos",
              "main A1 position"),
             (m_g1a, S_g1a, S1_g1a, step_flops_g1a, "_g1arms",
-             "main G1 arms")):
+             "main G1 arms"),
+            (m_h1a, S_h1a, *arms_runs["h1arms"], "_h1arms", "main H1 arms"),
+            (m_ata, S_ata, *arms_runs["atlasarms"], "_atlasarms",
+             "main Atlas arms"),
+            (m_ata_dr, S_atadr, S1_atadr, step_flops_atadr, "_atlasarms_dr",
+             "env Atlas arms DR")):
         b_fwd, b_step = mega_bounds(m, S_, sflops)
         ms = _time_ms(torch, lambda: hm.mega_forward(m, S_))
-        plain = _time_ms(torch, lambda: hm.mega_forward_plain(m, S_), reps=3)
+        plain = _time_ms(torch, lambda: hm.mega_forward_plain(m, S_), reps=1,
+                         warmup=False)
         row("mega_forward" + sfx, "mega_forward", run, "mega.cu",
             "pallas_constraint.py:2335", ms, plain, *b_fwd)
         ms = _time_ms(torch, lambda: hm.mega_step_n(m, S1_, SUBSTEPS), reps=3)
         plain = _time_ms(torch, lambda: hm.mega_step_n_plain(m, S1_, SUBSTEPS),
-                         reps=1)
+                         reps=1, warmup=False)
         row("megastep" + sfx, "megastep", run, "mega.cu",
             "pallas_constraint.py:2800", ms, plain, *b_step)
     # the mega forward's extended instance with the damping rows (A1's DR
@@ -2108,15 +2296,22 @@ def main() -> int:
     b_fwd, _ = mega_bounds(m_a1_dr, S_a1dr, [torch.zeros(E, device=dev)])
     ms = _time_ms(torch, lambda: hm.mega_forward(m_a1_dr, S_a1dr))
     plain = _time_ms(torch, lambda: hm.mega_forward_plain(m_a1_dr, S_a1dr),
-                     reps=3)
+                     reps=1, warmup=False)
     row("mega_forward_a1_dr", "mega_forward", "env A1 DR", "mega.cu",
         "pallas_constraint.py:2335", ms, plain, *b_fwd)
     # and the extended pyramidal instance with the rows (G1's DR env)
     b_fwd, _ = mega_bounds(m_g1_dr, S_g1dr, [torch.zeros(E, device=dev)])
     ms = _time_ms(torch, lambda: hm.mega_forward(m_g1_dr, S_g1dr))
     plain = _time_ms(torch, lambda: hm.mega_forward_plain(m_g1_dr, S_g1dr),
-                     reps=3)
+                     reps=1, warmup=False)
     row("mega_forward_g1_dr", "mega_forward", "env G1 DR", "mega.cu",
+        "pallas_constraint.py:2335", ms, plain, *b_fwd)
+    # and at width 32 (G1 with its arms' DR env)
+    b_fwd, _ = mega_bounds(m_g1a_dr, S_g1adr, [torch.zeros(E, device=dev)])
+    ms = _time_ms(torch, lambda: hm.mega_forward(m_g1a_dr, S_g1adr))
+    plain = _time_ms(torch, lambda: hm.mega_forward_plain(m_g1a_dr, S_g1adr),
+                     reps=1, warmup=False)
+    row("mega_forward_g1arms_dr", "mega_forward", "env G1 arms DR", "mega.cu",
         "pallas_constraint.py:2335", ms, plain, *b_fwd)
     # the muscle kernels again in deep contact (after the first control step)
     b_fwd, b_step = mega_bounds(m_mu, S_mu_c, step_flops_mu_c)
@@ -2153,6 +2348,22 @@ def main() -> int:
           f"{next(r['ms'] for r in rows if r['name'] == 'megastep_g1arms'):.3f}"
           f" ms per control step, step_batch {env_g1a_rate:.0f} against "
           f"step_n alone {raw_g1a:.0f}; card: {card}")
+    ms_of = {r["name"]: r["ms"] for r in rows}
+    print(f"H1 with arms (h1arms, width 32): main path {env_steps_h1a:.0f} "
+          f"env-steps/s, staged path {staged_h1a_rate:.0f}, megastep "
+          f"{ms_of['megastep_h1arms']:.3f} ms per control step, mega forward "
+          f"{ms_of['mega_forward_h1arms']:.3f} ms, fused "
+          f"{ms_of['fused_h1arms']:.3f} ms, step_batch {env_h1a_rate:.0f} "
+          f"against step_n alone {raw_h1a:.0f}; Atlas with arms (atlasarms, "
+          f"width 32): main path {env_steps_ata:.0f} env-steps/s, staged "
+          f"path {staged_ata_rate:.0f}, megastep "
+          f"{ms_of['megastep_atlasarms']:.3f} ms per control step, mega "
+          f"forward {ms_of['mega_forward_atlasarms']:.3f} ms, fused "
+          f"{ms_of['fused_atlasarms']:.3f} ms, with damping DR: step_batch "
+          f"{env_atadr_rate:.0f} against step_n alone {raw_atadr:.0f}, "
+          f"megastep {ms_of['megastep_atlasarms_dr']:.3f} ms; G1 with arms "
+          f"with damping DR {env_g1adr_rate:.0f} env-steps/s (mega forward "
+          f"{ms_of['mega_forward_g1arms_dr']:.3f} ms); card: {card}")
     print(f"main path {env_steps:.0f} env-steps/s RK4, {env_steps_eu:.0f} "
           f"Euler, {env_steps_mu:.0f} muscle Euler, {env_steps_a1:.0f} A1, "
           f"{env_steps_h1:.0f} H1, {env_steps_at:.0f} Atlas, "

@@ -121,9 +121,9 @@
 // collision's); any other launch that does not fit is refused.
 //
 // Two nv widths are compiled: the libraries without LMT_NVM hold nv <= 24
-// and every instance; the wide library (LMT_NVM=32, nv 25-32) holds only
-// the extended pyramidal instance without the damping rows (G1 with its
-// arms), and refuses the others (LMT_INSTANCE).
+// and every instance; the wide library (LMT_NVM=32, nv 25-32) holds every
+// instance but the extended elliptic one (no elliptic plan passes nv 24,
+// ops/plan.py), and refuses that one (LMT_INSTANCE).
 //
 // Rounding: the collision functions (geom_pose, box_slots, cyl_slots,
 // collide and the extended collision's) write each product and each sum
@@ -3043,14 +3043,17 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
 // The instance of a kernel template that a launcher's ext (0: the
 // plane-only collision; the extended collision with 1: elliptic rows and the
 // double solve, 2: pyramidal rows) and damp (the damping rows) select,
-// handed to go. The wide library (LMT_NVM > 24) compiles only the extended
-// pyramidal instance without the rows (ROADMAP Queue 2 #3.1: the others at
-// nv 25-32 are still to come; the reference has no elliptic plan past
-// nv 24) and returns cudaErrorNotSupported for the others.
+// handed to go. The wide library (LMT_NVM > 24) compiles the plane-only
+// and the extended pyramidal instances, with and without the rows, and
+// returns cudaErrorNotSupported for the extended elliptic one (elliptic
+// plans stop at nv 24, as the reference's do).
 #if LMT_NVM > 24
-#define LMT_INSTANCE(KERNEL, ext, damp, go)              \
-  ((ext) == 2 && !(damp) ? go(KERNEL<true, false, false>) \
-                         : (int)cudaErrorNotSupported)
+#define LMT_INSTANCE(KERNEL, ext, damp, go)                        \
+  ((ext) == 1 ? (int)cudaErrorNotSupported                          \
+   : (damp)   ? ((ext) == 2 ? go(KERNEL<true, false, true>)         \
+                            : go(KERNEL<false, false, true>))       \
+              : ((ext) == 2 ? go(KERNEL<true, false, false>)        \
+                            : go(KERNEL<false, false, false>)))
 #else
 #define LMT_INSTANCE(KERNEL, ext, damp, go)                      \
   ((damp) ? ((ext) == 1   ? go(KERNEL<true, true, true>)          \

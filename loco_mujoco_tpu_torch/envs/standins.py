@@ -50,7 +50,8 @@ STANDINS = {"humanoid": "humanoid_torque_shape",
             "muscle": "humanoid_muscle_shape", "a1": "unitree_a1_shape",
             "a1pos": "unitree_a1_position_shape", "h1": "unitree_h1_shape",
             "atlas": "atlas_shape", "g1": "unitree_g1_shape",
-            "g1arms": "unitree_g1_arms_shape"}
+            "g1arms": "unitree_g1_arms_shape",
+            "h1arms": "unitree_h1_arms_shape", "atlasarms": "atlas_arms_shape"}
 
 
 def load_standin(name: str, device=None, dtype=None):

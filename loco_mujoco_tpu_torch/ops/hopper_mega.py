@@ -15,12 +15,13 @@ a plane-only, an extended elliptic and an extended pyramidal instance,
 `ext_mode`), one warp per env with the env's
 state in shared memory, over the static tables of the model's row plan
 (`ops/plan.py`, `mega` set); the launch (shared floats per env, envs per
-block, and for G1 with its arms the rows' J in a global scratch) is the
-plan's `mega_launch`, which raises where the state leaves fewer than
-`plan.RESIDENT_FLOOR` warps resident per SM. A plan with nv 25-32 runs the
-library compiled at the second width (`kernels.width_defines`), which
-holds only the extended pyramidal instance without the damping rows;
-another instance there raises (`library`).
+block, and past the first nv width where shared memory runs short the
+rows' J in a global scratch) is the plan's `mega_launch`, which raises
+where the state leaves fewer than `plan.RESIDENT_FLOOR` warps resident per
+SM. A plan with nv 25-32 runs the library compiled at the second width
+(`kernels.width_defines`), which holds the plane-only and the extended
+pyramidal instances, with and without the damping rows; an elliptic plan
+there (which `plan.RowPlan` never builds past nv 24) raises (`library`).
 
 Output contract (the reference's): `mega_forward` returns Data with
 `qacc`, `qacc_smooth`, `qfrc_constraint`, `efc_force_contact` (the four
@@ -89,17 +90,14 @@ def ext_mode(plan) -> int:
 
 def library(plan, defines=()):
     """The compiled mega kernels of the plan's nv width (`plan.nvm`), with
-    the macros `defines` besides. Past the first width only the extended
-    pyramidal instance without the damping rows is compiled (G1 with its
-    arms); any other instance there raises."""
-    if plan.nvm != kernels.NV_WIDTHS[0] and (ext_mode(plan) != 2
-                                             or plan.sm_dyn_damping):
+    the macros `defines` besides. Past the first width every instance but
+    the extended elliptic one is compiled (elliptic plans stop at nv 24,
+    as the reference's do); an elliptic plan there raises."""
+    if plan.nvm != kernels.NV_WIDTHS[0] and ext_mode(plan) == 1:
         raise NotImplementedError(
-            f"the mega kernels at nv {plan.nv} (width {plan.nvm}) are "
-            f"compiled for the extended pyramidal instance without damping "
-            f"rows only; this plan needs instance {ext_mode(plan)}"
-            f"{' with the damping rows' if plan.sm_dyn_damping else ''} "
-            f"(ROADMAP Queue 2 #3.1)")
+            f"the mega kernels at nv {plan.nv} (width {plan.nvm}) have no "
+            f"elliptic instance: elliptic plans stop at nv "
+            f"{kernels.NV_WIDTHS[0]}")
     return kernels.library("mega", _SIGNATURES,
                            kernels.width_defines(plan.nvm) + tuple(defines))
 

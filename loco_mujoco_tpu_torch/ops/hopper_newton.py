@@ -391,9 +391,9 @@ def solve(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl, iterations,
     width = kernels.nv_width(nv)  # the library of this width
     if width is None:
         raise NotImplementedError(
-            f"the Newton kernel is compiled for nv <= "
-            f"{kernels.NV_WIDTHS[-1]} (widths {kernels.NV_WIDTHS}), not nv "
-            f"{nv} (ROADMAP Queue 2 #3.1)")
+            f"the Newton kernel is compiled at nv widths "
+            f"{kernels.NV_WIDTHS}: nv {nv} > {kernels.NV_WIDTHS[-1]} has "
+            f"no compiled width")
     for name, t, shape in (("J", J, (E, nefc, nv)), ("M", M, (E, nv, nv)),
                            ("aref", aref, (E, nefc)), ("D", D, (E, nefc)),
                            ("R", R, (E, nefc)), ("floss", floss, (E, nefc)),

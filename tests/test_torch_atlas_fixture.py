@@ -33,6 +33,21 @@ Two sizes come from the same generator:
   plane budget 3: 6 cylinders (k 3) and 5 boxes (k 3): 24 slots, 104
   rows, for the interpret-mode comparisons.
 
+With `arms=True` the generator keeps Atlas's arms
+(`Atlas(disable_arms=False)`): the 12 limited hinges of the model class's
+`ARMS` (shoulder z and x, elbow y and x, wrist y and x, the real Atlas's
+ranges) on six links per arm under the upper torso, their motors (gear
+60), a forearm cylinder each in the plane-cylinder group and a hand box
+each in the plane-box group (both k 8 already: no slot added), the upper
+torso lighter by the arms' masses, drawn after every other part so that
+the model without them is unchanged: nv 31, 25 bodies, 25 limited hinges
+and motors, 64 slots, 288 rows, on the plane-only plan (committed as
+`loco_mujoco_tpu_torch/assets/atlas_arms_shape.npz`, the `atlasarms`
+configuration; the script below writes both files). Its small variant
+keeps the back chain that carries the arms and the small legs (nv 27, 8
+cylinders and 10 boxes, k 3: 24 slots, 120 rows), for the float32 mega
+comparison (tests/test_torch_arms_mega.py).
+
 It is compiled by the JAX package's own `put_model`; the model arrays are
 the "weights" carried across to the port. The seeded states are the H1
 fixture's `biped_states`.
@@ -57,7 +72,9 @@ from test_torch_h1_fixture import (PELVIS, biped_states, census,  # noqa: E402
                                    hinge, inertial, root_joints)
 
 ASSET = REPO / "loco_mujoco_tpu_torch" / "assets" / "atlas_shape.npz"
+ASSET_ARMS = REPO / "loco_mujoco_tpu_torch" / "assets" / "atlas_arms_shape.npz"
 SEED = 0
+_ARMS = "<!-- arms -->"  # where the upper torso takes the arms (drawn last)
 SOLE = -0.08  # the sole (the heel disc's bottom) in the foot body's frame
 # chosen link masses (kg) and principal inertias (kg m^2)
 LINKS = {"pelvis": (9.5, (0.11, 0.03, 0.12)),
@@ -67,12 +84,36 @@ LINKS = {"pelvis": (9.5, (0.11, 0.03, 0.12)),
          "hip": (2.2, (0.004, 0.006, 0.005)),
          "uleg": (8.2, (0.09, 0.09, 0.02)),
          "lleg": (4.5, (0.08, 0.08, 0.01)),
-         "foot": (2.5, (0.004, 0.007, 0.008))}
+         "foot": (2.5, (0.004, 0.007, 0.008)),
+         # the arms (`arms=True`)
+         "clav": (3.4, (0.011, 0.009, 0.005)),
+         "scap": (3.0, (0.007, 0.005, 0.006)),
+         "uarm": (1.9, (0.009, 0.009, 0.003)),
+         "larm": (2.4, (0.010, 0.010, 0.003)),
+         "ufarm": (0.6, (0.0007, 0.0007, 0.0005)),
+         "lfarm": (1.0, (0.0015, 0.0015, 0.0008))}
+# the arms' hinges (atlas.py ARMS, without the side) with the real
+# Atlas's ranges (the left arm's; the right arm mirrors shz and elx)
+ARM_JOINTS = (("arm_shz", "0 0 1", (-1.5708, 0.7854)),
+              ("arm_shx", "1 0 0", (-1.5708, 1.5708)),
+              ("arm_ely", "0 1 0", (0.0, 3.1416)),
+              ("arm_elx", "1 0 0", (0.0, 2.3562)),
+              ("arm_wry", "0 1 0", (-3.011, 3.011)),
+              ("arm_wrx", "1 0 0", (-1.7628, 1.7628)))
+ARM_LINKS = ("clav", "scap", "uarm", "larm", "ufarm", "lfarm")
+ARM_GEAR = 60
 
 
-def atlas_xml(full: bool, seed: int = SEED) -> str:
-    """The fixture's MJCF (see the module note)."""
+def atlas_xml(full: bool, seed: int = SEED, arms: bool = False) -> str:
+    """The fixture's MJCF (see the module note); `arms` keeps Atlas's arms
+    (`Atlas(disable_arms=False)`), drawn after every other part so that
+    the model without them is unchanged."""
     rng = np.random.default_rng(seed)
+    links = LINKS
+    if arms:  # the upper torso no longer carries the arms' masses
+        arm_mass = 2 * sum(LINKS[n][0] for n in ARM_LINKS)
+        links = dict(LINKS, utorso=(LINKS["utorso"][0] - arm_mass,
+                                    LINKS["utorso"][1]))
 
     def u(lo, hi):
         return float(rng.uniform(lo, hi))
@@ -133,11 +174,45 @@ def atlas_xml(full: bool, seed: int = SEED) -> str:
         </body>
       </body>"""
 
+    def arm(side):
+        """Shoulder z and x, elbow y and x, wrist y and x under the upper
+        torso, hanging down; a forearm cylinder (the plane-cylinder group)
+        and a hand box (the plane-box group)."""
+        sy = 1.0 if side == "l" else -1.0
+        h = [hinge(rng, f"{side}_{n}", a, *(r if side == "l" or n not in (
+            "arm_shz", "arm_elx") else (-r[1], -r[0])))
+             for n, a, r in ARM_JOINTS]
+        i = {n: inertial(rng, n, -0.1 if n in ("uarm", "larm") else 0, links)
+             for n in ARM_LINKS}
+        return f"""
+        <body name="{side}_clav" pos="0 {0.22 * sy:.4f} 0.4">
+          {i["clav"]}{h[0]}
+          <body name="{side}_scap" pos="0 {0.05 * sy:.4f} 0">
+            {i["scap"]}{h[1]}
+            <body name="{side}_uarm" pos="0 {0.05 * sy:.4f} -0.05">
+              {i["uarm"]}{h[2]}
+              <body name="{side}_larm" pos="0 0 -0.25">
+                {i["larm"]}{h[3]}
+                {cyl(f"forearm_{side}", (0, 0, -0.12), u(0.04, 0.05), 0.08)}
+                <body name="{side}_ufarm" pos="0 0 -0.25">
+                  {i["ufarm"]}{h[4]}
+                  <body name="{side}_lfarm" pos="0 0 -0.02">
+                    {i["lfarm"]}{h[5]}
+                    {box(f"hand_{side}", (0, 0, -0.07),
+                         (u(0.035, 0.045), 0.02, 0.05))}
+                  </body>
+                </body>
+              </body>
+            </body>
+          </body>
+        </body>"""
+
     legs = [("r", -0.11), ("l", 0.11)]
+    tree = full or arms  # the back chain, which carries the arms
     joints = [f"{j}_{s}" for s, _ in legs
               for j in (("hip_rotation", "hip_adduction") if full else ())
               + ("hip_flexion", "knee_angle", "ankle_angle")]
-    if full:
+    if tree:
         joints = ["back_bkz", "back_bky", "back_bkx"] + joints
         torso = f"""
       <body name="ltorso" pos="0 0 0.1">
@@ -149,9 +224,9 @@ def atlas_xml(full: bool, seed: int = SEED) -> str:
           {hinge(rng, "back_bky", "0 1 0", -0.22, 0.54)}
           {box("mtorso", (0, 0, 0.03), (0.08, 0.1, 0.03))}
           <body name="utorso" pos="0 0 0.06">
-            {inertial(rng, "utorso", 0.25, LINKS)}
+            {inertial(rng, "utorso", 0.25, links)}
             {hinge(rng, "back_bkx", "1 0 0", -0.52, 0.52)}
-            {box("utorso", (0, 0, 0.25), (0.15, 0.2, 0.22))}
+            {box("utorso", (0, 0, 0.25), (0.15, 0.2, 0.22))}{_ARMS}
           </body>
         </body>
       </body>"""
@@ -159,10 +234,18 @@ def atlas_xml(full: bool, seed: int = SEED) -> str:
         torso = ""
     motors = [f'<motor name="{j}_actuator" joint="{j}" gear="100" '
               f'ctrllimited="true" ctrlrange="-1 1"/>' for j in joints]
+    if arms:  # in atlas.py's ARMS order
+        motors += [f'<motor name="{s}_{n}_actuator" joint="{s}_{n}" '
+                   f'gear="{ARM_GEAR}" ctrllimited="true" ctrlrange="-1 1"/>'
+                   for s in "lr" for n, _, _ in ARM_JOINTS]
     # pelvis height: the heel discs sit 2 mm above the floor at qpos0
     height = 0.05 + 0.05 + 0.42 + 0.42 - SOLE + 0.002
+    pelvis = inertial(rng, "pelvis", 0, LINKS)
+    legs_xml = "".join(leg(s, y) for s, y in legs)
+    torso = torso.replace(_ARMS, "".join(arm(s) for s in "lr") if arms
+                          else "")
     return f"""
-<mujoco model="atlas_shape_{'full' if full else 'small'}">
+<mujoco model="atlas{'_arms' if arms else ''}_shape_{'full' if full else 'small'}">
   <compiler angle="radian"/>
   <option timestep="0.002" integrator="RK4" iterations="8"
           ls_iterations="8"/>
@@ -174,11 +257,11 @@ def atlas_xml(full: bool, seed: int = SEED) -> str:
     <geom name="floor" type="plane" size="0 0 0.05" contype="1"
           conaffinity="2"/>
     <body name="pelvis" pos="0 0 {height:.4f}">
-      {inertial(rng, "pelvis", 0, LINKS)}
+      {pelvis}
       {root_joints()}
       {box("pelvis", (0, 0, 0), (0.1, 0.13, 0.08))}
       {torso}
-      {"".join(leg(s, y) for s, y in legs)}
+      {legs_xml}
     </body>
   </worldbody>
   <actuator>
@@ -187,7 +270,7 @@ def atlas_xml(full: bool, seed: int = SEED) -> str:
 </mujoco>"""
 
 
-def jax_model(full: bool, dtype=None):
+def jax_model(full: bool, dtype=None, arms: bool = False):
     """The fixture compiled by the JAX package's own `put_model` (plane
     budget 8 at full width, 3 small)."""
     import jax.numpy as jnp
@@ -195,20 +278,21 @@ def jax_model(full: bool, dtype=None):
 
     from loco_mujoco_tpu.core.io import put_model
 
-    mjm = mujoco.MjModel.from_xml_string(atlas_xml(full))
+    mjm = mujoco.MjModel.from_xml_string(atlas_xml(full, arms=arms))
     return put_model(mjm, dtype=dtype or jnp.float64,
                      contact_k_plane=8 if full else 3)
 
 
-def torch_model(full: bool, dtype=torch.float64, device="cpu"):
+def torch_model(full: bool, dtype=torch.float64, device="cpu",
+                arms: bool = False):
     """(JAX model, port model) of the fixture, both from one compile."""
-    jm = jax_model(full)
+    jm = jax_model(full, arms=arms)
     leaves, aux = export_model(jm)
     return jm, tio.model_from_numpy(leaves, aux, device=device, dtype=dtype)
 
 
-def write_full_width(path) -> None:
-    leaves, aux = export_model(jax_model(full=True))
+def write_full_width(path, arms: bool = False) -> None:
+    leaves, aux = export_model(jax_model(full=True, arms=arms))
     tio.save_model_npz(path, leaves, aux)
 
 
@@ -282,5 +366,6 @@ if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_enable_x64", True)  # as tests/conftest.py does
-    write_full_width(ASSET)
-    print(f"wrote {ASSET} ({os.path.getsize(ASSET)} bytes)")
+    for path, arms in ((ASSET, False), (ASSET_ARMS, True)):
+        write_full_width(path, arms=arms)
+        print(f"wrote {path} ({os.path.getsize(path)} bytes)")

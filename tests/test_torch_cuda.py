@@ -65,6 +65,7 @@ The mega forward and the megastep are also held at a ragged env count
 bit-deterministic from run to run.
 """
 
+import ctypes
 import sys
 from pathlib import Path
 
@@ -83,6 +84,7 @@ from loco_mujoco_tpu_torch.ops import hopper_layout as lay
 from loco_mujoco_tpu_torch.ops import hopper_mega as hm
 from loco_mujoco_tpu_torch.ops import hopper_newton as hn
 from loco_mujoco_tpu_torch.ops import kernels, kinematics, solver
+from loco_mujoco_tpu_torch.ops.plan import mega_launch
 from test_torch_fixture import CONFIGS, hold_ctrl, seeded_act
 
 pytestmark = pytest.mark.cuda
@@ -1151,14 +1153,195 @@ def test_g1arms_step_batch_matches_plain(state, monkeypatch):
     _step_batch_check(model, False, monkeypatch, "env g1arms")
 
 
-def test_wide_uncompiled_instance_raises(state):
-    """At nv 25-32 only the extended pyramidal instance without the
-    damping rows is compiled: the damping rows' instance raises the named
-    error on a CUDA tensor, with no launch."""
+def test_wide_uncompiled_instance_raises(state, monkeypatch):
+    """At nv 25-32 every instance but the extended elliptic one is
+    compiled (no elliptic plan passes nv 24): a plan taken for elliptic
+    there raises the named error on a CUDA tensor, with no launch, and the
+    wide library's launcher itself refuses that instance."""
     model, d = _g1arms_state(8)
-    dyn = model.replace(plan=model.plan.dyn_damping())
-    d = d.replace(dof_damping=model.dof_damping.expand(8, -1).contiguous())
+    monkeypatch.setattr(hm, "ext_mode", lambda plan: 1)
     kernels.LAUNCHES.clear()
-    with pytest.raises(NotImplementedError, match="Queue 2 #3.1"):
-        hm.mega_forward(dyn, d)
+    with pytest.raises(NotImplementedError, match="no elliptic instance"):
+        hm.mega_forward(model, d)
     assert not kernels.LAUNCHES
+    monkeypatch.undo()
+    lib = hm.library(model.plan)
+    out = (ctypes.c_int * 2)()
+    launch = mega_launch(model.plan)
+    assert lib.lmt_mega_occupancy(
+        launch.env_floats, launch.envs_per_block, 1, 0,
+        ctypes.cast(out, ctypes.c_void_p)) != 0
+
+
+# ---- H1 and Atlas with their arms: the plane-only instance at width 32 ----
+
+
+def _arms_state(name, n):
+    """A committed biped with its arms on the card (`h1arms`: nv 25, J in
+    shared memory; `atlasarms`: nv 31, J in the launch's global scratch;
+    both on the wide library's plane-only instance) and `biped_states`'
+    seeded states of it."""
+    from test_torch_h1_fixture import biped_states
+
+    model = standins.load_standin(name, device="cuda")
+    qpos, qvel, ctrl = biped_states(
+        standins.load_standin(name, device="cpu"), n)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")  # noqa
+    return model, io.make_data(model, n).replace(qpos=t(qpos), qvel=t(qvel),
+                                                 ctrl=t(ctrl))
+
+
+def _mega_forward_rule(model, d, what, upright=True):
+    """chip_smoke.py's rule for the mega forward: active slots exact,
+    geom2 exact on them, depths atol 1e-5; qacc, qfrc_constraint,
+    efc_force_contact (and euler_dv) rel 5e-4 with the decisions
+    replayed; float32 ties and witnessed Newton disagreements within 0.5%
+    of the envs; `upright`: envs 0 and 1 (heel discs upright and on their
+    rim) held with no excuse."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    n = d.qpos.shape[0]
+    kernels.LAUNCHES.clear()
+    k = fwd.forward(model, d)
+    assert dict(kernels.LAUNCHES) == {"mega_forward": 1}
+    r = hm.mega_forward_plain(model, d, replay=_replay(k))
+    act_r = r.contact.dist < r.contact.includemargin
+    same = torch.all((k.contact.dist < k.contact.includemargin) == act_r,
+                     dim=1)
+    apart, witnessed = chip_smoke._newton_witness(torch, model, d, k, r,
+                                                  envs=same)
+    held = same & ~(apart & witnessed)
+    if upright:
+        assert bool(held[:2].all()), "an upright or rim env differs"
+    chip_smoke._tie_envs(torch, held, _gap(r), n, what,
+                         newton=apart & witnessed)
+    fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
+    if model.plan.euler_dv:
+        fields.append("euler_dv")
+    for f in fields:
+        got, ref = getattr(k, f)[held], getattr(r, f)[held]
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), f
+    on = act_r & same[:, None]
+    assert torch.equal(k.contact.geom2[on], r.contact.geom2[on])
+    assert float((k.contact.dist - r.contact.dist).abs()[on].max()) <= 1e-5
+    return k
+
+
+@pytest.mark.parametrize("name", ["h1arms", "atlasarms"])
+def test_arms_mega_forward_matches_plain(state, name):
+    """H1 (J in shared memory) and Atlas (J in the global scratch) with
+    their arms at 4096 envs: the wide library's plane-only mega forward
+    (`_mega_forward_rule`)."""
+    model, d = _arms_state(name, 4096)
+    plan = model.plan
+    assert plan.nvm == 32 and plan.mega and not plan.mega_ell
+    assert hm.ext_mode(plan) == 0 and "cyl" in [g["kind"]
+                                               for g in plan.groups]
+    assert mega_launch(plan).j_global == (name == "atlasarms")
+    assert min(hm.occupancy(model)) >= 4
+    _mega_forward_rule(model, d, f"{name} mega forward")
+
+
+@pytest.mark.parametrize("name", ["h1arms", "atlasarms"])
+def test_arms_megastep_matches_plain(state, name):
+    """The wide plane-only megastep (H1 with its arms Euler, Atlas with
+    its arms RK4), a control step of 10 substeps at 4096 envs, held to
+    chip_smoke.py's megastep rule."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _arms_state(name, 4096)
+    kernels.LAUNCHES.clear()
+    fwd.step_n(model, d, 10)
+    assert dict(kernels.LAUNCHES) == {"megastep": 1}
+    k = chip_smoke._megastep_rule(torch, model, d, 10, name)[0]
+    assert torch.allclose(k.time, d.time + 10 * model.opt.timestep)
+
+
+def _fused_rule(model, d, what):
+    """The fused kernel of the model's width against its plain version
+    replaying its decisions: every env within rel 5e-4."""
+    n = d.qpos.shape[0]
+    d = coll.collision(model, kinematics.kinematics(model, d))
+    kernels.LAUNCHES.clear()
+    k = hf.fused_constraint(model, d)
+    assert dict(kernels.LAUNCHES) == {"fused": 1}, what
+    r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+    fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
+    if model.plan.euler_dv:
+        fields.append("euler_dv")
+    for f in fields:
+        got, ref = getattr(k, f), getattr(r, f)
+        err = (got - ref).abs().reshape(n, -1).amax(1)
+        bad = err >= 5e-4 * float(ref.abs().max())
+        assert not bool(bad.any()), (what, f, bad.nonzero().flatten())
+
+
+@pytest.mark.parametrize("name", ["h1arms", "atlasarms"])
+def test_arms_fused_matches_plain(state, name, monkeypatch):
+    """The bipeds with their arms on the staged path: the fused kernel at
+    width 32 (the 5-float pack), every env within rel 5e-4."""
+    monkeypatch.setenv("LMT_MEGA", "0")
+    _fused_rule(*_arms_state(name, 4096), f"{name} fused")
+
+
+def _wide_dr_state(name, n=4096):
+    """(DR model, data) of a stand-in past the first width: Atlas with its
+    arms (RK4, `biped_states`) or G1 with its arms (Euler, `g1_states`),
+    each env's damping from `_with_damping`."""
+    model, d = (_g1arms_state(n) if name == "g1arms"
+                else _arms_state(name, n))
+    return _with_damping(model, d)
+
+
+@pytest.mark.parametrize("name", ["atlasarms", "g1arms"])
+def test_wide_dr_mega_forward_matches_plain(state, name):
+    """The mega forward with the damping rows at width 32: the plane-only
+    (Atlas with its arms) and extended pyramidal (G1 with its arms, the
+    per-substep forward of its Euler DR env) instances at 4096 envs
+    (`_mega_forward_rule`); the rows move the answer."""
+    model, d = _wide_dr_state(name)
+    assert model.plan.nvm == 32 and model.plan.sm_dyn_damping
+    k = _mega_forward_rule(model, d, f"{name} DR mega forward",
+                           upright=name != "g1arms")
+    assert k.euler_dv is None
+    base = standins.load_standin(name, device="cuda")
+    own = fwd.forward(base, d.replace(dof_damping=None))
+    assert float((own.qacc - k.qacc).abs().max()) > 1e-3
+
+
+def test_wide_dr_megastep_matches_plain(state):
+    """Atlas with its arms: the RK4 megastep with the damping rows at
+    width 32, a control step at 4096 envs, held to chip_smoke.py's
+    megastep rule."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _wide_dr_state("atlasarms")
+    kernels.LAUNCHES.clear()
+    fwd.step_n(model, d, 10)
+    assert dict(kernels.LAUNCHES) == {"megastep": 1}
+    chip_smoke._megastep_rule(torch, model, d, 10, "DR atlasarms")
+
+
+@pytest.mark.parametrize("name", ["atlasarms", "g1arms"])
+def test_wide_dr_fused_matches_plain(state, name, monkeypatch):
+    """The fused kernel with the damping rows at width 32 (the 5-float and
+    26-float packs), every env within rel 5e-4."""
+    monkeypatch.setenv("LMT_MEGA", "0")
+    model, d = _wide_dr_state(name)
+    assert model.plan.nvm == 32 and model.plan.sm_dyn_damping
+    _fused_rule(model, d, f"{name} DR fused")
+
+
+@pytest.mark.parametrize("name,dr", [("h1arms", False), ("atlasarms", False),
+                                     ("atlasarms", True)])
+def test_arms_step_batch_matches_plain(state, name, dr, monkeypatch):
+    """The arms envs (H1's and Atlas's own fall predicates; Atlas's with
+    damping randomization too: the RK4 megastep with the rows)
+    (`_step_batch_check`)."""
+    model, _ = _arms_state(name, 1)
+    assert standins.standin_kind(model) == name[:-4]
+    _step_batch_check(model, dr, monkeypatch, f"env {name} dr={dr}")

@@ -193,7 +193,8 @@ def test_cyl_plan_tables_match_groups(name, monkeypatch):
     # the JAX plan, built as its forward builds it
     monkeypatch.setenv("LMT_MESH_VCAP", str(max(tm.mesh_vert.shape[1], 8)))
     monkeypatch.setattr(pc, "_PLAN_CACHE", {})
-    d = jcoll.collision(jm, jkin.kinematics(jm, jax_make_data(jm)))
+    d = jax.jit(lambda d: jcoll.collision(jm, jkin.kinematics(
+            jm, d)))(jax_make_data(jm))
     with jax.enable_x64(False):
         jp = pc.get_plan(jm, d.contact)
     assert jp is not None and jp.mega and plan.mega

@@ -96,7 +96,8 @@ def _plans(name, monkeypatch):
                                   dtype=torch.float32)
         monkeypatch.setenv("LMT_MESH_VCAP", str(tm.mesh_vert.shape[1]))
     monkeypatch.setattr(pc, "_PLAN_CACHE", {})
-    d = jcoll.collision(jm, jkin.kinematics(jm, jax_make_data(jm)))
+    d = jax.jit(lambda d: jcoll.collision(jm, jkin.kinematics(
+            jm, d)))(jax_make_data(jm))
     with jax.enable_x64(False):
         jbase = pc.get_plan(jm, d.contact)
         jdyn = _jax_dr_plan(jm, d.contact, draws(tm, 2))

@@ -39,8 +39,11 @@ from loco_mujoco_tpu_torch.rewards.rewards import make_reward
 import test_torch_a1_fixture as a1fx
 import test_torch_fixture as hfx
 import test_torch_g1_fixture as g1fx
+import test_torch_h1_fixture as h1fx
 from loco_mujoco_tpu.models.humanoids.unitree_g1 import \
     _has_fallen_fn as g1_has_fallen_fn
+from loco_mujoco_tpu.models.humanoids.unitree_h1 import \
+    _has_fallen_fn as h1_has_fallen_fn
 from loco_mujoco_tpu_torch.core import io
 from loco_mujoco_tpu_torch.envs import standins
 from test_torch_fixture import ASSET
@@ -52,15 +55,17 @@ def build(robot, **budget):
     """(JAX env, port env) from `standins.env_parts` of the fixture;
     `budget` the envs' solver_iterations / ls_iterations."""
     fixture = {"humanoid": hfx, "a1": a1fx, "a1pos": a1fx, "g1": g1fx,
-               "g1arms": g1fx}[robot]
+               "g1arms": g1fx, "h1arms": h1fx}[robot]
     kw = ({"mode": "position"} if robot == "a1pos"
-          else {"arms": True} if robot == "g1arms" else {})
+          else {"arms": True} if robot in ("g1arms", "h1arms") else {})
     jm, tm = fixture.torch_model(full=False, **kw)
     parts = standins.env_parts(tm, SUBSTEPS)
     idx = parts["fall"]
-    if robot in ("g1", "g1arms"):  # models/humanoids/unitree_g1.py:43-54
+    if robot in ("g1", "g1arms", "h1arms"):
+        # models/humanoids/unitree_g1.py:43-54, unitree_h1.py:44-54
         keys = [k for k, _, _ in parts["spec"]]
-        j_fall = g1_has_fallen_fn({k: i - 2 for i, k in enumerate(keys)})
+        j_fall = (h1_has_fallen_fn if robot == "h1arms" else
+                  g1_has_fallen_fn)({k: i - 2 for i, k in enumerate(keys)})
     elif robot == "humanoid":
         def j_fall(obs):  # models/humanoids/humanoid.py:196-205
             pi = jnp.pi

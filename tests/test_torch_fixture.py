@@ -46,6 +46,14 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 if str(REPO) not in sys.path:  # direct `python tests/test_torch_fixture.py`
     sys.path.insert(0, str(REPO))
+# One torch thread per test process where pytest-xdist runs several at
+# once (every worker imports this module when it collects the suite):
+# torch's default of a thread per core in each of them oversubscribes the
+# cores, and its spinning threads made the port's CPU tests 10-100 times
+# slower than alone (A1's plain elliptic solves: 5 s alone, 636 s in the
+# suite).
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 from loco_mujoco_tpu_torch.core import io as tio  # noqa: E402
 

@@ -55,7 +55,8 @@ def test_plan_matches_jax_row_plan(name, monkeypatch):
     tm = tio.model_from_numpy(leaves, aux, device="cpu", dtype=torch.float32)
     monkeypatch.setenv("LMT_MESH_VCAP", str(tm.mesh_vert.shape[1]))
     monkeypatch.setattr(pc, "_PLAN_CACHE", {})
-    d = jcoll.collision(jm, jkin.kinematics(jm, jax_make_data(jm)))
+    d = jax.jit(lambda d: jcoll.collision(jm, jkin.kinematics(
+            jm, d)))(jax_make_data(jm))
     with jax.enable_x64(False):
         jp = pc.get_plan(jm, d.contact)
     tp = tm.plan

@@ -462,7 +462,8 @@ def test_g1_fixture_census(monkeypatch):
     monkeypatch.setattr(pc, "_PLAN_CACHE", {})
     with jax.enable_x64(False):
         jm = jax_model(True, dtype=jnp.float32)
-        jd = jcoll.collision(jm, jkin.kinematics(jm, jax_make_data(jm)))
+        jd = jax.jit(lambda d: jcoll.collision(jm, jkin.kinematics(
+            jm, d)))(jax_make_data(jm))
         jplan = pc.get_plan(jm, jd.contact)
     assert jplan is not None and jplan.mega and jplan.mega_ell
     assert not jplan.elliptic

@@ -47,7 +47,8 @@ def test_g1_plan_matches_jax_row_plan(full, monkeypatch):
     monkeypatch.setattr(pc, "_PLAN_CACHE", {})
     with jax.enable_x64(False):
         jm = jax_model(full, dtype=jnp.float32)
-        jd = jcoll.collision(jm, jkin.kinematics(jm, jax_make_data(jm)))
+        jd = jax.jit(lambda d: jcoll.collision(jm, jkin.kinematics(
+            jm, d)))(jax_make_data(jm))
         jp = pc.get_plan(jm, jd.contact)
     tp = tm.plan
     assert jp is not None and tp is not None

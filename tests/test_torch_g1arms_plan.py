@@ -21,10 +21,10 @@ cannot add the 8 rows to that count cleanly).
   gets no plan, and the Newton kernel's wrapper refuses it.
 - The launch keeps the rows' J in a global scratch (J in shared memory
   would leave 3 resident warps per SM, under `RESIDENT_FLOOR`); the
-  wrappers load the libraries compiled at 32 and pass the scratch; an
-  instance the wide library does not hold raises the error naming ROADMAP
-  Queue 2 #3.1; the I_SHM tables of the earlier stand-ins are as they
-  were.
+  wrappers load the libraries compiled at 32 and pass the scratch; the
+  damping rows' instance loads the wide library too, and only an elliptic
+  plan there, which the wide library does not hold, raises; the I_SHM
+  tables of the earlier stand-ins are as they were.
 """
 
 import ctypes
@@ -239,7 +239,7 @@ def test_nv33_gets_no_plan(monkeypatch):
         "the Newton library was loaded for nv 33"))
     E, nefc, nv = 2, 4, 33
     z = lambda *s: torch.zeros(s)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="Queue 2 #3.1"):
+    with pytest.raises(NotImplementedError, match="no compiled width"):
         hn.solve(z(E, nefc, nv), z(E, nv, nv), z(E, nefc), z(E, nefc),
                  z(E, nefc), z(E, nefc), z(E, nefc), z(E, nv), z(E, nv),
                  ne=0, nfl=0, iterations=8, ls_iterations=8, scale=1.0,
@@ -299,22 +299,26 @@ def test_wrappers_load_the_wide_libraries(arms, monkeypatch):
 
 
 def test_uncompiled_wide_instance_raises(arms, monkeypatch):
-    """The wide mega library holds only the extended pyramidal instance
-    without the damping rows: the damping rows' instance and the
-    plane-only and elliptic instances at width 32 raise the error naming
-    ROADMAP Queue 2 #3.1 before any library is loaded."""
+    """The wide mega library holds every instance but the extended
+    elliptic one: the damping rows' instance (G1 with its arms under
+    damping randomization) and the plane-only instance load it, and only
+    an elliptic plan at width 32 raises, before any library is loaded."""
     libs = _record(monkeypatch)
     E = 3
     dyn = arms.replace(plan=arms.plan.dyn_damping())
     d = tio.make_data(dyn, E).replace(
         dof_damping=arms.dof_damping.expand(E, -1).contiguous())
-    with pytest.raises(NotImplementedError, match="Queue 2 #3.1"):
-        hm.mega_forward(dyn, d)
-    for mode in (0, 1):
-        monkeypatch.setattr(hm, "ext_mode", lambda plan, mode=mode: mode)
-        with pytest.raises(NotImplementedError, match="Queue 2 #3.1"):
-            hm.library(arms.plan)
+    monkeypatch.setattr(hm, "ext_mode", lambda plan: 1)
+    with pytest.raises(NotImplementedError, match="no elliptic instance"):
+        hm.library(arms.plan)
     assert "mega" not in libs
+    monkeypatch.undo()
+    libs = _record(monkeypatch)
+    hm.mega_forward(dyn, d)
+    assert libs["mega"].defines == ("LMT_NVM=32",)
+    assert libs["mega"].calls["lmt_mega_forward"][9] is not None
+    monkeypatch.setattr(hm, "ext_mode", lambda plan: 0)
+    assert hm.library(arms.plan).defines == ("LMT_NVM=32",)
 
 
 def test_committed_i_shm_tables_unchanged():

@@ -32,6 +32,22 @@ Two sizes come from the same generator:
   plane budget 3: the heel discs (k 2 of 2) and 8 hulls (k 3): 17 slots,
   76 rows, for the interpret-mode comparisons.
 
+With `arms=True` the generator keeps H1's arms
+(`UnitreeH1(disable_arms=False)`): the 8 limited hinges of the model
+class's `ARMS` (shoulder pitch, roll and yaw and the elbow, the real H1's
+ranges) on four links per arm under the torso, their motors (gear 40) and
+an upper-arm and a forearm hull each in the plane-mesh group (k 8 already:
+no slot added), the torso lighter by the arms' masses, drawn after every
+other part so that the model without them is unchanged: nv 25 (past the
+kernels' first compiled width, 24), 17 bodies, 19 limited hinges and
+motors, 40 slots, 184 rows, on the plane-only plan (committed as
+`loco_mujoco_tpu_torch/assets/unitree_h1_arms_shape.npz`, the `h1arms`
+configuration; the script below writes both files). H1's tree with its
+arms has nv 25 at any size, so the small arms variant keeps the whole tree
+and takes the small variant's geoms and budget (the hip adduction and
+rotation hinges stay: nv 25, 17 slots, 92 rows), for the float32 mega
+comparison (tests/test_torch_arms_mega.py).
+
 It is compiled by the JAX package's own `put_model`; the model arrays are
 the "weights" carried across to the port.
 """
@@ -55,6 +71,8 @@ from loco_mujoco_tpu_torch.core.types import GeomType  # noqa: E402
 from test_torch_fixture import _hull, _same, export_model  # noqa: E402
 
 ASSET = REPO / "loco_mujoco_tpu_torch" / "assets" / "unitree_h1_shape.npz"
+ASSET_ARMS = (REPO / "loco_mujoco_tpu_torch" / "assets"
+              / "unitree_h1_arms_shape.npz")
 SEED = 0
 # H1's root joints (models/humanoids/unitree_h1.py PELVIS)
 PELVIS = (("pelvis_tx", "slide", "1 0 0"), ("pelvis_tz", "slide", "0 0 1"),
@@ -62,12 +80,31 @@ PELVIS = (("pelvis_tx", "slide", "1 0 0"), ("pelvis_tz", "slide", "0 0 1"),
           ("pelvis_list", "hinge", "1 0 0"),
           ("pelvis_rotation", "hinge", "0 0 1"))
 SOLE = -0.08  # the sole (the heel disc's bottom) in the foot body's frame
+_ARMS = "<!-- arms -->"  # where the torso takes the arms (drawn last)
 # chosen link masses (kg) and principal inertias (kg m^2)
 LINKS = {"pelvis": (5.4, (0.044, 0.009, 0.049)),
          "torso": (17.8, (0.49, 0.41, 0.14)),
          "thigh": (8.6, (0.12, 0.12, 0.018)),
          "shin": (1.7, (0.031, 0.031, 0.002)),
-         "foot": (0.55, (0.0003, 0.0018, 0.0017))}
+         "foot": (0.55, (0.0003, 0.0018, 0.0017)),
+         # the arms (`arms=True`)
+         "shoulder": (1.0, (0.0010, 0.0009, 0.0008)),
+         "upper_arm": (0.8, (0.0040, 0.0040, 0.0008)),
+         "forearm": (0.7, (0.0035, 0.0035, 0.0006))}
+# the arms' hinges (unitree_h1.py ARMS) with the real H1's ranges (the
+# left arm's; the right arm mirrors the roll and the yaw)
+ARM_JOINTS = (("arm_shy", "0 1 0", (-2.87, 2.87)),
+              ("arm_shx", "1 0 0", (-0.34, 3.11)),
+              ("arm_shz", "0 0 1", (-1.3, 4.45)),
+              ("elbow", "0 1 0", (-1.25, 2.61)))
+ARM_GEAR = 40
+
+
+def arm_joint_names(side: str) -> list:
+    """H1's arm joints of one side ("l" or "r"), in `ARMS` order."""
+    return [f"{side}_{n}" if n != "elbow" else
+            f"{'left' if side == 'l' else 'right'}_elbow"
+            for n, _, _ in ARM_JOINTS]
 
 
 def root_joints() -> str:
@@ -113,16 +150,25 @@ class Hulls:
         return "\n".join(out)
 
 
-def h1_xml(full: bool, seed: int = SEED) -> str:
-    """The fixture's MJCF (see the module note)."""
+def h1_xml(full: bool, seed: int = SEED, arms: bool = False) -> str:
+    """The fixture's MJCF (see the module note); `arms` keeps H1's arms
+    (`UnitreeH1(disable_arms=False)`), drawn after every other part so
+    that the model without them is unchanged."""
     rng = np.random.default_rng(seed)
     hulls = Hulls(rng)
+    tree = full or arms  # the whole joint tree (H1 with arms: nv 25)
+    links = LINKS
+    if arms:  # the torso no longer carries the arms' masses
+        arm_mass = 2 * sum(LINKS[n][0] for n in ("shoulder", "shoulder",
+                                                 "upper_arm", "forearm"))
+        links = dict(LINKS, torso=(LINKS["torso"][0] - arm_mass,
+                                   LINKS["torso"][1]))
 
     def leg(side, y):
         hip = (hinge(rng, f"hip_flexion_{side}", "0 1 0", -1.57, 1.0)
                + (hinge(rng, f"hip_adduction_{side}", "1 0 0", -0.43, 0.43)
                   + hinge(rng, f"hip_rotation_{side}", "0 0 1", -0.43, 0.43)
-                  if full else ""))
+                  if tree else ""))
         toe = (f'<geom name="toe_{side}" type="cylinder" size="0.02 0.035" '
                f'pos="0.12 0 {SOLE + 0.02:.4f}" '
                f'quat="0.70710678 0.70710678 0 0"/>' if full else "")
@@ -149,24 +195,61 @@ def h1_xml(full: bool, seed: int = SEED) -> str:
         </body>
       </body>"""
 
+    def arm(side):
+        """Shoulder pitch, roll and yaw and the elbow under the torso,
+        hanging down; an upper-arm and a forearm hull (the plane-mesh
+        group)."""
+        sy = 1.0 if side == "l" else -1.0
+        names = arm_joint_names(side)
+        lo_hi = [r if side == "l" or n not in ("arm_shx", "arm_shz")
+                 else (-r[1], -r[0]) for n, _, r in ARM_JOINTS]
+        h = [hinge(rng, j, a, *r)
+             for j, (_, a, _), r in zip(names, ARM_JOINTS, lo_hi)]
+        return f"""
+        <body name="{side}_shoulder_pitch_link" pos="0 {0.16 * sy:.4f} 0.4">
+          {inertial(rng, "shoulder", links=links)}
+          {h[0]}
+          <body name="{side}_shoulder_roll_link" pos="0 {0.05 * sy:.4f} 0">
+            {inertial(rng, "shoulder", links=links)}
+            {h[1]}
+            <body name="{side}_shoulder_yaw_link" pos="0 0 -0.05">
+              {inertial(rng, "upper_arm", -0.1, links=links)}
+              {h[2]}
+              {hulls.geoms(1, (0, 0, -0.12), (0.01, 0.01, 0.03), 0.03,
+                           0.05)}
+              <body name="{side}_elbow_link" pos="0 0 -0.22">
+                {inertial(rng, "forearm", -0.12, links=links)}
+                {h[3]}
+                {hulls.geoms(1, (0, 0, -0.15), (0.01, 0.01, 0.03), 0.025,
+                             0.045)}
+              </body>
+            </body>
+          </body>
+        </body>"""
+
     legs = [("r", -0.0875), ("l", 0.0875)]
     joints = ([f"{j}_{s}" for s, _ in legs for j in (
         "hip_flexion", "hip_adduction", "hip_rotation", "knee_angle",
-        "ankle_angle")] if full else
+        "ankle_angle")] if tree else
         [f"{j}_{s}" for s, _ in legs
          for j in ("hip_flexion", "knee_angle", "ankle_angle")])
-    if full:
+    if tree:
         joints = ["back_bkz"] + joints
         torso = f"""
       <body name="torso" pos="0 0 0.15">
-        {inertial(rng, "torso", 0.25)}
+        {inertial(rng, "torso", 0.25, links)}
         {hinge(rng, "back_bkz", "0 0 1", -2.35, 2.35)}
-        {hulls.geoms(4, (0, 0, 0.25), (0.06, 0.12, 0.15), 0.05, 0.1)}
+        {hulls.geoms(4 if full else 2, (0, 0, 0.25), (0.06, 0.12, 0.15),
+                     0.05, 0.1)}{_ARMS}
       </body>"""
     else:
         torso = ""
     motors = [f'<motor name="{j}_actuator" joint="{j}" gear="100" '
               f'ctrllimited="true" ctrlrange="-1 1"/>' for j in joints]
+    if arms:  # in unitree_h1.py's ARMS order
+        motors += [f'<motor name="{j}_actuator" joint="{j}" '
+                   f'gear="{ARM_GEAR}" ctrllimited="true" ctrlrange="-1 1"/>'
+                   for s in "lr" for j in arm_joint_names(s)]
     # pelvis height: the heel discs sit 2 mm above the floor at qpos0
     height = 0.05 + 0.4 + 0.4 - SOLE + 0.002
     body = f"""
@@ -178,8 +261,9 @@ def h1_xml(full: bool, seed: int = SEED) -> str:
       {torso}
       {"".join(leg(s, y) for s, y in legs)}
     </body>"""
+    body = body.replace(_ARMS, "".join(arm(s) for s in "lr") if arms else "")
     return f"""
-<mujoco model="unitree_h1_shape_{'full' if full else 'small'}">
+<mujoco model="unitree_h1{'_arms' if arms else ''}_shape_{'full' if full else 'small'}">
   <compiler angle="radian"/>
   <option timestep="0.002" integrator="Euler" iterations="8"
           ls_iterations="8"/>
@@ -201,7 +285,7 @@ def h1_xml(full: bool, seed: int = SEED) -> str:
 </mujoco>"""
 
 
-def jax_model(full: bool, dtype=None):
+def jax_model(full: bool, dtype=None, arms: bool = False):
     """The fixture compiled by the JAX package's own `put_model` (plane
     budget 8 at full width, 3 small)."""
     import jax.numpy as jnp
@@ -209,14 +293,15 @@ def jax_model(full: bool, dtype=None):
 
     from loco_mujoco_tpu.core.io import put_model
 
-    mjm = mujoco.MjModel.from_xml_string(h1_xml(full))
+    mjm = mujoco.MjModel.from_xml_string(h1_xml(full, arms=arms))
     return put_model(mjm, dtype=dtype or jnp.float64,
                      contact_k_plane=8 if full else 3)
 
 
-def torch_model(full: bool, dtype=torch.float64, device="cpu"):
+def torch_model(full: bool, dtype=torch.float64, device="cpu",
+                arms: bool = False):
     """(JAX model, port model) of the fixture, both from one compile."""
-    jm = jax_model(full)
+    jm = jax_model(full, arms=arms)
     leaves, aux = export_model(jm)
     return jm, tio.model_from_numpy(leaves, aux, device=device, dtype=dtype)
 
@@ -287,8 +372,8 @@ def cyl_states(monkeypatch, fixture, n_envs: int, seed: int = 7):
     return jm, tm, jd, td
 
 
-def write_full_width(path) -> None:
-    leaves, aux = export_model(jax_model(full=True))
+def write_full_width(path, arms: bool = False) -> None:
+    leaves, aux = export_model(jax_model(full=True, arms=arms))
     tio.save_model_npz(path, leaves, aux)
 
 
@@ -371,5 +456,6 @@ if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_enable_x64", True)  # as tests/conftest.py does
-    write_full_width(ASSET)
-    print(f"wrote {ASSET} ({os.path.getsize(ASSET)} bytes)")
+    for path, arms in ((ASSET, False), (ASSET_ARMS, True)):
+        write_full_width(path, arms=arms)
+        print(f"wrote {path} ({os.path.getsize(path)} bytes)")
