@@ -46,7 +46,13 @@ Run from the repository root: `python3 chip_smoke.py`. It
    and the committed stand-ins of H1 and Atlas with their arms (the
    `h1arms` configuration: nv = 25, Euler, 40 slots, 184 rows, J in shared
    memory; `atlasarms`: nv = 31, RK4, 64 slots, 288 rows, J in the global
-   scratch: the wide library's plane-only instance);
+   scratch: the wide library's plane-only instance); and the committed
+   stand-ins whose plane-mesh group is at k = P, which the mega kernels
+   rank, deepest first, where the staged path keeps its pairs in order
+   (`KP`: `talos`, the Talos-shaped biped, nv = 18, Euler, a plane-box
+   group and 8 hulls at k 8, 32 slots, 144 rows, the plane-only instance;
+   `g1kp`, the small G1 at plane budget 10, nv = 15, 10 hulls at k 10, 44
+   slots, 192 rows, the extended pyramidal instance);
 4. holds each kernel of the earlier staged path against its plain PyTorch
    version on the card, on the inputs that path gives it at full width
    (4096 envs);
@@ -59,8 +65,9 @@ Run from the repository root: `python3 chip_smoke.py`. It
    A1's position mode (the elliptic layout with affine bias), through
    the fused constraint kernel (each cut from 2 to keep the run short),
    1 of G1 with its arms (the fused kernel at width 32), 1 each of H1 and
-   Atlas with their arms (the fused kernel at width 32), and 1 control
-   step of the
+   Atlas with their arms (the fused kernel at width 32), 1 of Talos (its
+   plane-mesh group at k = P in torch, in pair order, and the fused
+   kernel), and 1 control step of the
    model with no plan, through the Newton kernel and its relayouts, and
    1 of G1 with its arms with no plan (the Newton kernel at width 32), with
    every launch counter set to 0 just before each run and read just after,
@@ -72,7 +79,8 @@ Run from the repository root: `python3 chip_smoke.py`. It
    substeps (one megastep kernel launch each), RK4, Euler, the muscle
    model (seeded muscle ctrls in [0, 1], act from 0), A1 (dropped 5-20
    mm, seeded motor ctrls in half its ctrlrange), H1, Atlas, G1, G1
-   with its arms, H1 with its arms and Atlas with its arms
+   with its arms, H1 with its arms, Atlas with its arms, Talos and G1 at
+   k = P
    (dropped 5-20 mm, seeded motor ctrls in [-0.3, 0.3]) and A1's position
    mode (dropped 5-20 mm, seeded targets uniform in the joint ranges),
    counters again
@@ -98,7 +106,10 @@ Run from the repository root: `python3 chip_smoke.py`. It
    (Euler: the wide per-substep mega forward with the rows), the envs of H1
    with its arms beside `step_n` alone and of Atlas with its arms with
    damping randomization (RK4: the wide megastep with the rows) beside
-   `step_n` alone, counters zeroed and read as above;
+   `step_n` alone, and Talos's env (its own fall predicate) beside
+   `step_n` alone, counters zeroed and read as above; each pairing of
+   `step_batch` with `step_n` alone runs PAIRINGS (3) times in turns, and
+   the medians and spreads are printed;
 7. holds the mega forward kernel and the megastep kernel (one control
    step), RK4, Euler, muscle (with act_dot and act; the muscle kernels
    both at the end state, which the seeded activations lift off the
@@ -112,13 +123,15 @@ Run from the repository root: `python3 chip_smoke.py`. It
    plane-only instance, J in shared memory and in the global scratch),
    the damping rows at width 32 (the mega forward's plane-only and
    extended pyramidal instances and the RK4 megastep, at the randomized
-   arms envs' end states), the plane-mesh select and top-K on the
+   arms envs' end states), Talos and G1 at k = P (their plane-mesh groups
+   ranked: the plane-only and extended pyramidal instances), the
+   plane-mesh select and top-K on the
    torque model's and G1's mesh groups, and the fused kernel on all four
    plan
    configurations, the muscle model's non-smooth layout, A1's elliptic
    layout, H1, Atlas, G1, A1's position mode, G1, H1 and Atlas with their
    arms (width 32; with the damping rows at the randomized arms envs' end
-   states), the Newton kernel at width 32 at the end state of the no-plan
+   states), Talos, the Newton kernel at width 32 at the end state of the no-plan
    G1 with arms, and the damping rows
    (the mega forward's
    plane-only and extended instances, the RK4 megastep, the fused
@@ -138,7 +151,9 @@ Run from the repository root: `python3 chip_smoke.py`. It
 8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the least time the card
    could take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
-   the H100 SXM data-sheet peaks at 700 W);
+   the H100 SXM data-sheet peaks at 700 W); the layout kernels also by
+   their launch alone (the launcher on outputs made beforehand: the row's
+   time brackets the wrapper's ctypes dispatch and allocation);
 9. prints one JSON line of kernels and, last, one JSON line with `"ok"`.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -207,6 +222,13 @@ G1ARMS_WIDE = {"contact_k_plane": 20}
 # instance, H1's J in shared memory, Atlas's in the global scratch): the
 # committed stand-ins of `envs.standins.STANDINS`, their draws' own streams
 ARMS = {"h1arms": 12, "atlasarms": 13}
+# the stand-ins with a plane-mesh group at k = P, which the mega kernels rank
+# (`envs.standins.STANDINS`), their draws' own streams: Talos (nv 18, the
+# plane-only instance beside a plane-box group) and the small G1 at plane
+# budget 10 (nv 15, the extended pyramidal instance)
+KP = {"talos": 14, "g1kp": 15}
+# runs of each env-phase pairing of step_batch and step_n alone, in turns
+PAIRINGS = 3
 # A1's seeded motor ctrls lie in [-A1_CTRL, A1_CTRL] of its ctrlrange
 # [-1, 1] (17 of the motors' 34 N m): with the full range redrawn every
 # control step some envs spin their light, slender calves fast enough that
@@ -351,8 +373,8 @@ def _newton_witness(torch, m, S, k, p, envs=None, staged=False):
 
     `staged`: S already holds the stages' outputs (the fused kernel's
     inputs). Prints each apart env's reading."""
-    from loco_mujoco_tpu_torch.ops import forward as fwd
     from loco_mujoco_tpu_torch.ops import hopper_fused as hf
+    from loco_mujoco_tpu_torch.ops import hopper_mega as hm
     from loco_mujoco_tpu_torch.ops import hopper_newton as hn
 
     ell_model = m.plan.elliptic
@@ -374,7 +396,7 @@ def _newton_witness(torch, m, S, k, p, envs=None, staged=False):
         return apart, witnessed
     plan = m.plan
     _, problem, ell = hf.newton_problem(
-        m, S if staged else fwd.stages(m, S, plain=True))
+        m, S if staged else hm.plain_stages(m, S))
     if ell is not None:  # these envs' cone coefficients, in float64
         ell = (ell[0], ell[1].double(), ell[2][idx].double(), ell[3])
     sub = [t[idx].double() for t in problem]
@@ -564,7 +586,7 @@ def _rank_ties(torch, m, d, fk, fp, envs):
     no such tie. Prints each env's ranks with both versions' depths."""
     import dataclasses
 
-    from loco_mujoco_tpu_torch.ops import forward as fwd
+    from loco_mujoco_tpu_torch.ops import collision as coll
     from loco_mujoco_tpu_torch.ops import hopper_fused as hf
     from loco_mujoco_tpu_torch.ops import hopper_mega as hm
 
@@ -573,7 +595,9 @@ def _rank_ties(torch, m, d, fk, fp, envs):
     swapped = torch.zeros(E, dtype=torch.bool, device=dev)
     other = torch.zeros_like(swapped)
     for g in m.groups:
-        if g.convex or g.k >= len(g.pair_ids):
+        # the ranked groups: top-K ones, and a plane-mesh group at k = P,
+        # which the mega kernels rank too
+        if g.convex or (g.k >= len(g.pair_ids) and not coll.is_plane_mesh(g)):
             continue
         first = g.offset + g.slots * torch.arange(g.k, device=dev)
         ids = [f.contact.geom1[:, first] * m.ngeom + f.contact.geom2[:, first]
@@ -603,7 +627,7 @@ def _rank_ties(torch, m, d, fk, fp, envs):
     swapped &= ~other
     if not bool(swapped.any()):
         return swapped
-    st = fwd.stages(m, d, plain=True)
+    st = hm.plain_stages(m, d)
     c = st.contact
 
     def take(t):
@@ -1062,6 +1086,8 @@ def main() -> int:
                                      dtype=torch.float32)
     arms = {name: load_standin(name, device=dev) for name in ARMS}
     m_h1a, m_ata = arms["h1arms"], arms["atlasarms"]
+    kp = {name: load_standin(name, device=dev) for name in KP}
+    m_ta, m_g1k = kp["talos"], kp["g1kp"]
     mesh_groups = [i for i, g in enumerate(model.groups)
                    if coll.is_plane_mesh(g)]
     assert mesh_groups and all(model.mesh_kernel[i] is not None
@@ -1107,6 +1133,14 @@ def main() -> int:
     assert m_h1a.plan.euler_dv and hm.forwards_per_step(m_ata) == 4
     assert not mega_launch(m_h1a.plan).j_global, "H1 arms: J global"
     assert mega_launch(m_ata.plan).j_global, "Atlas arms: J in shared memory"
+    for name, m in kp.items():  # a plane-mesh group at k = P: ranked
+        gi = next(i for i, g in enumerate(m.groups) if coll.is_plane_mesh(g))
+        g, p = m.groups[gi], m.plan
+        assert g.k == len(g.pair_ids) and m.mesh_kernel[gi] is None, name
+        assert p.mega and p.mesh is not None and p.mesh.k == p.mesh.P, name
+    assert hm.ext_mode(m_ta.plan) == 0 and m_ta.plan.euler_dv
+    assert standin_kind(m_ta) == "talos" and m_ta.nv == 18
+    assert hm.ext_mode(m_g1k.plan) == 2 and m_g1k.plan.euler_dv
     plan = model.mesh_kernel[mesh_groups[0]]
     print(f"model: nv={model.nv}, groups "
           f"{[(g.t2, g.k, len(g.pair_ids)) for g in model.groups]}, "
@@ -1152,11 +1186,20 @@ def main() -> int:
                              for g in m.plan.groups])
                       + f", {m.plan.ncon} slots, {m.plan.nrows} rows, "
                       f"{hm.forwards_per_step(m)} forwards per substep"
-                      for n, m in arms.items()))
+                      for n, m in arms.items())
+          + "; " + "; ".join(f"{n}: nv={m.nv}, {m.nbody} bodies, groups "
+                             + str([(g.t1, g.t2, g.condim, g.k,
+                                     len(g.pair_ids)) for g in m.groups])
+                             + f", {m.plan.ncon} slots, {m.plan.nrows} rows "
+                             f"(instance {hm.ext_mode(m.plan)}), its "
+                             f"plane-mesh group at k = P ({m.plan.mesh.P} "
+                             f"hulls) ranked by the mega kernels"
+                             for n, m in kp.items()))
     # the mega kernels' launch: a warp per env, its state in shared memory
     for name, m in (("rk4", model), ("euler", m_eu), ("muscle", m_mu),
                     ("a1", m_a1), *bipeds.items(), ("g1", m_g1),
-                    ("a1pos", m_a1p), ("g1arms", m_g1a), *arms.items()):
+                    ("a1pos", m_a1p), ("g1arms", m_g1a), *arms.items(),
+                    *kp.items()):
         launch = mega_launch(m.plan)
         occ = hm.occupancy(m)
         print(f"mega launch {name}: width {m.plan.nvm}, "
@@ -1216,6 +1259,8 @@ def main() -> int:
     biped_draws["g1arms"] = seeded_biped(m_g1a, G1ARMS[1], E)
     for name, m in arms.items():
         biped_draws[name] = seeded_biped(m, ARMS[name], E)
+    for name, m in kp.items():
+        biped_draws[name] = seeded_biped(m, KP[name], E)
     qpos_a1p, ctrls_a1p = seeded_a1pos(m_a1p, E)
 
     dr_bipeds = []  # (configuration, its env's damping-rows model), below
@@ -1224,7 +1269,7 @@ def main() -> int:
         """The biped configuration's name of model m (G1 too), or None."""
         return next((n for n, b in (*bipeds.items(), ("g1", m_g1),
                                     ("g1arms", m_g1a), ("g1arms", m_g1a_wide),
-                                    *arms.items(), *dr_bipeds)
+                                    *arms.items(), *kp.items(), *dr_bipeds)
                      if b is m), None)
 
     def ctrl(c, m=model):
@@ -1430,6 +1475,12 @@ def main() -> int:
         d_staged_ata, staged_ata_launches, staged_ata_rate, _ = staged_run(
             m_ata, WIDE_STEPS, {"fused": 1}, "Atlas with arms RK4 through "
             "torch collision and the fused kernel at width 32")
+        # Talos: its plane-mesh group at k = P keeps the staged path's
+        # pair order in torch (no select or top-K kernel), the fused kernel
+        d_staged_ta, staged_ta_launches, staged_ta_rate, staged_ta_ops = \
+            staged_run(m_ta, STAGED_STEPS, {"fused": 1}, "Talos Euler "
+                       "through torch collision (its plane-mesh group at "
+                       "k = P in pair order) and the fused kernel")
 
         # one staged forward against the all-plain forward
         d = d_staged
@@ -1517,6 +1568,12 @@ def main() -> int:
     S_ata, launches_ata, env_steps_ata, _ = main_run(
         m_ata, "Atlas with arms RK4 (width 32: the plane-only instance, J in "
         "a global scratch)")
+    S_ta, launches_ta, env_steps_ta, _ = main_run(
+        m_ta, "Talos Euler (the plane-only instance, its plane-mesh group at "
+        "k = P ranked)")
+    S_g1k, launches_g1k, env_steps_g1k, _ = main_run(
+        m_g1k, "G1 at k = P Euler (the extended pyramidal instance, its "
+        "plane-mesh group at k = P ranked)")
     print(f"muscle activations at the end: mean "
           f"{float(S_mu.act.mean()):.4f}, min {float(S_mu.act.min()):.4f}, "
           f"max {float(S_mu.act.max()):.4f}")
@@ -1542,9 +1599,9 @@ def main() -> int:
     def act_t(acts, c):
         return torch.as_tensor(acts[c], dtype=torch.float32, device=dev)
 
-    def env_run(env, acts, steps, expect, what):
+    def env_run(env, acts, steps, expect, what, quiet=False):
         """reset_batch(E), then `steps` step_batch calls; checks the
-        launches (`expect`) and the streams."""
+        launches (`expect`) and the streams (`quiet`: prints nothing)."""
         kernels.LAUNCHES.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1569,13 +1626,14 @@ def main() -> int:
         rate = E * steps / wall
         n_con0 = int((st0.data.contact.dist
                       < st0.data.contact.includemargin).sum())
-        print(f"env layer, {what}: reset_batch({E}) {1e3 * (t1 - t0):.2f} "
-              f"ms, then {steps} step_batch calls in {wall:.3f} s = "
-              f"{rate:.0f} env-steps/s ({card}); {int(resets)} env resets "
-              f"(horizon {env.horizon}), active contacts at the reset "
-              f"{n_con0} ({n_con0 / E:.2f} per env), absorbing at the end "
-              f"{int(st.absorbing.sum())}; reward mean "
-              f"{float(st.reward.mean()):.4f}; launches {got}")
+        if not quiet:
+            print(f"env layer, {what}: reset_batch({E}) {1e3 * (t1 - t0):.2f} "
+                  f"ms, then {steps} step_batch calls in {wall:.3f} s = "
+                  f"{rate:.0f} env-steps/s ({card}); {int(resets)} env "
+                  f"resets (horizon {env.horizon}), active contacts at the "
+                  f"reset {n_con0} ({n_con0 / E:.2f} per env), absorbing at "
+                  f"the end {int(st.absorbing.sum())}; reward mean "
+                  f"{float(st.reward.mean()):.4f}; launches {got}")
         return st, st0, got, rate, inputs
 
     def raw_rate(env, inputs, acts):
@@ -1592,6 +1650,30 @@ def main() -> int:
         torch.cuda.synchronize()
         return E * len(ds) / (time.perf_counter() - t0)
 
+    def pairing(env, acts, expect, what):
+        """`env_run` of CONTROL_STEPS step_batch calls and `raw_rate` on its
+        own start states, in turns, PAIRINGS times (the host clock spreads
+        single readings): (the first run's end state, start state and
+        launches, the median step_batch rate, the median step_n rate, a
+        line of both medians, their spreads and the overhead's)."""
+        env_rates, raw_rates, first = [], [], None
+        for i in range(PAIRINGS):
+            st, st0, got, rate, inputs = env_run(env, acts, CONTROL_STEPS,
+                                                 expect, what, quiet=i > 0)
+            raw_rates.append(raw_rate(env, inputs, acts))
+            env_rates.append(rate)
+            del inputs
+            first = first or (st, st0, got)
+        over = [100 * (r / e - 1) for e, r in zip(env_rates, raw_rates)]
+        med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+        line = (f"{med(env_rates):.0f} env-steps/s (spread "
+                f"{min(env_rates):.0f}-{max(env_rates):.0f}) against "
+                f"{med(raw_rates):.0f} for step_n alone (spread "
+                f"{min(raw_rates):.0f}-{max(raw_rates):.0f}), overhead "
+                f"median {med(over):.2f}% (spread {min(over):.2f} to "
+                f"{max(over):.2f}%), {PAIRINGS} pairings")
+        return (*first, med(env_rates), med(raw_rates), line)
+
     # episodes of ENV_HORIZON control steps run the auto-reset; the rate
     # comparisons with step_n alone take episodes longer than the run, so
     # that both step the same states
@@ -1606,11 +1688,10 @@ def main() -> int:
     mega_launches = {"mega_forward": 1, "megastep": CONTROL_STEPS}
     env_run(env_resets, env_acts, CONTROL_STEPS, mega_launches,
             f"RK4, episodes of {ENV_HORIZON} control steps")
-    _, _, _, env_rate, env_inputs = env_run(
-        env, env_acts, CONTROL_STEPS, mega_launches, "RK4")
-    st_dr, _, env_dr_launches, env_dr_rate, env_dr_inputs = env_run(
-        env_dr, env_acts, CONTROL_STEPS, mega_launches,
-        "RK4 with damping randomization")
+    _, _, _, env_rate, raw, pair_rk4 = pairing(
+        env, env_acts, mega_launches, "RK4")
+    st_dr, _, env_dr_launches, env_dr_rate, raw_dr, pair_dr = pairing(
+        env_dr, env_acts, mega_launches, "RK4 with damping randomization")
     st_a1dr, _, env_a1dr_launches, env_a1dr_rate, _ = env_run(
         env_a1_dr, env_acts_a1, CONTROL_STEPS,
         {"mega_forward": 1 + CONTROL_STEPS * SUBSTEPS},
@@ -1624,17 +1705,13 @@ def main() -> int:
     m_g1_dr = env_g1_dr.model_dr
     assert standin_kind(m_g1) == "g1"  # G1's own fall predicate
     assert m_g1_dr.plan.mega_ell and hm.megastep_mode(m_g1_dr) is None
-    _, _, env_g1_launches, env_g1_rate, env_g1_inputs = env_run(
-        env_g1, env_acts_g1, CONTROL_STEPS, mega_launches, "G1 Euler")
-    raw_g1 = raw_rate(env_g1, env_g1_inputs, env_acts_g1)
-    del env_g1_inputs
+    _, _, env_g1_launches, env_g1_rate, raw_g1, pair_g1 = pairing(
+        env_g1, env_acts_g1, mega_launches, "G1 Euler")
     st_g1dr, _, env_g1dr_launches, env_g1dr_rate, _ = env_run(
         env_g1_dr, env_acts_g1, CONTROL_STEPS,
         {"mega_forward": 1 + CONTROL_STEPS * SUBSTEPS},
         "G1 Euler with damping randomization (per-substep mega forward)")
-    print(f"env layer G1: {env_g1_rate:.0f} env-steps/s against "
-          f"{raw_g1:.0f} for step_n alone "
-          f"({100 * (raw_g1 / env_g1_rate - 1):.2f}% overhead); with damping "
+    print(f"env layer G1: {pair_g1}; with damping "
           f"randomization {env_g1dr_rate:.0f} (the per-substep mega forward)"
           f" ({card})")
     # A1's position mode: the env unnormalizes its actions into the
@@ -1642,27 +1719,17 @@ def main() -> int:
     env_acts_a1p = np.random.default_rng(SEED + 10).uniform(
         -1.0, 1.0, size=(CONTROL_STEPS, E, m_a1p.nu))
     env_a1p = make_env(m_a1p, horizon=CONTROL_STEPS + 1)
-    st_a1p, _, env_a1p_launches, env_a1p_rate, env_a1p_inputs = env_run(
-        env_a1p, env_acts_a1p, CONTROL_STEPS, mega_launches,
-        "A1 position Euler")
-    raw_a1p = raw_rate(env_a1p, env_a1p_inputs, env_acts_a1p)
-    del env_a1p_inputs
-    print(f"env layer A1 position: {env_a1p_rate:.0f} env-steps/s against "
-          f"{raw_a1p:.0f} for step_n alone "
-          f"({100 * (raw_a1p / env_a1p_rate - 1):.2f}% overhead) ({card})")
+    st_a1p, _, env_a1p_launches, env_a1p_rate, raw_a1p, pair_a1p = pairing(
+        env_a1p, env_acts_a1p, mega_launches, "A1 position Euler")
+    print(f"env layer A1 position: {pair_a1p} ({card})")
     # G1 with its arms (width 32), without damping randomization
     env_acts_g1a = np.random.default_rng(SEED + 11).uniform(
         -0.3, 0.3, size=(CONTROL_STEPS, E, m_g1a.nu))
     env_g1a = make_env(m_g1a, horizon=CONTROL_STEPS + 1)
     assert standin_kind(m_g1a) == "g1"
-    _, _, env_g1a_launches, env_g1a_rate, env_g1a_inputs = env_run(
-        env_g1a, env_acts_g1a, CONTROL_STEPS, mega_launches,
-        "G1 with arms Euler (width 32)")
-    raw_g1a = raw_rate(env_g1a, env_g1a_inputs, env_acts_g1a)
-    del env_g1a_inputs
-    print(f"env layer G1 with arms: {env_g1a_rate:.0f} env-steps/s against "
-          f"{raw_g1a:.0f} for step_n alone "
-          f"({100 * (raw_g1a / env_g1a_rate - 1):.2f}% overhead) ({card})")
+    _, _, env_g1a_launches, env_g1a_rate, raw_g1a, pair_g1a = pairing(
+        env_g1a, env_acts_g1a, mega_launches, "G1 with arms Euler (width 32)")
+    print(f"env layer G1 with arms: {pair_g1a} ({card})")
     # the damping rows at width 32: G1 with its arms (Euler: the wide
     # per-substep mega forward with the rows, extended pyramidal) and
     # Atlas with its arms (RK4: the wide megastep with the rows,
@@ -1680,11 +1747,8 @@ def main() -> int:
     env_acts_h1a = np.random.default_rng(SEED + 12).uniform(
         -0.3, 0.3, size=(CONTROL_STEPS, E, m_h1a.nu))
     env_h1a = make_env(m_h1a, horizon=CONTROL_STEPS + 1)
-    _, _, env_h1a_launches, env_h1a_rate, env_h1a_inputs = env_run(
-        env_h1a, env_acts_h1a, CONTROL_STEPS, mega_launches,
-        "H1 with arms Euler (width 32)")
-    raw_h1a = raw_rate(env_h1a, env_h1a_inputs, env_acts_h1a)
-    del env_h1a_inputs
+    _, _, env_h1a_launches, env_h1a_rate, raw_h1a, pair_h1a = pairing(
+        env_h1a, env_acts_h1a, mega_launches, "H1 with arms Euler (width 32)")
     env_acts_ata = np.random.default_rng(SEED + 13).uniform(
         -0.3, 0.3, size=(CONTROL_STEPS, E, m_ata.nu))
     env_ata_dr = make_env(m_ata, dr=damping_dr(m_ata),
@@ -1693,30 +1757,28 @@ def main() -> int:
     assert m_ata_dr.plan.nvm == 32 and m_ata_dr.plan.sm_dyn_damping
     assert hm.megastep_mode(m_ata_dr) is not None  # RK4: the megastep
     dr_bipeds.extend((("atlasarms", m_ata_dr), ("g1arms", m_g1a_dr)))
-    st_atadr, _, env_atadr_launches, env_atadr_rate, env_atadr_inputs = \
-        env_run(env_ata_dr, env_acts_ata, CONTROL_STEPS, mega_launches,
+    st_atadr, _, env_atadr_launches, env_atadr_rate, raw_atadr, pair_atadr = \
+        pairing(env_ata_dr, env_acts_ata, mega_launches,
                 "Atlas with arms RK4 with damping randomization (width 32: "
                 "the megastep with the rows)")
-    raw_atadr = raw_rate(env_ata_dr, env_atadr_inputs, env_acts_ata)
-    del env_atadr_inputs
-    print(f"env layer H1 with arms: {env_h1a_rate:.0f} env-steps/s against "
-          f"{raw_h1a:.0f} for step_n alone "
-          f"({100 * (raw_h1a / env_h1a_rate - 1):.2f}% overhead); Atlas with "
-          f"arms with damping randomization {env_atadr_rate:.0f} against "
-          f"{raw_atadr:.0f} ({100 * (raw_atadr / env_atadr_rate - 1):.2f}%);"
-          f" G1 with arms with damping randomization {env_g1adr_rate:.0f} "
-          f"(the per-substep mega forward) ({card})")
+    print(f"env layer H1 with arms: {pair_h1a}; Atlas with arms with damping "
+          f"randomization {pair_atadr}; G1 with arms with damping "
+          f"randomization {env_g1adr_rate:.0f} (the per-substep mega "
+          f"forward) ({card})")
+    # Talos's env (its own fall predicate; its plane-mesh group at k = P
+    # ranked in the megastep) beside step_n alone
+    env_acts_ta = np.random.default_rng(SEED + 14).uniform(
+        -0.3, 0.3, size=(CONTROL_STEPS, E, m_ta.nu))
+    env_ta = make_env(m_ta, horizon=CONTROL_STEPS + 1)
+    _, _, env_ta_launches, env_ta_rate, raw_ta, pair_ta = pairing(
+        env_ta, env_acts_ta, mega_launches, "Talos Euler")
+    print(f"env layer Talos: {pair_ta} ({card})")
     draws = st_dr.dr["dof_damping"]
     assert torch.equal(st_dr.data.dof_damping, draws)
     assert not torch.equal(draws[0], draws[1]), "one damping draw for all"
-    raw = raw_rate(env, env_inputs, env_acts)
-    raw_dr = raw_rate(env_dr, env_dr_inputs, env_acts)
-    del env_inputs, env_dr_inputs
     print(f"env layer against step_n alone (same model, start states and "
-          f"controls of each step): RK4 {env_rate:.0f} against {raw:.0f} env-steps/s "
-          f"({100 * (raw / env_rate - 1):.2f}% overhead), with damping "
-          f"randomization {env_dr_rate:.0f} against {raw_dr:.0f} "
-          f"({100 * (raw_dr / env_dr_rate - 1):.2f}%) ({card})")
+          f"controls of each step): RK4 {pair_rk4}; with damping "
+          f"randomization {pair_dr} ({card})")
     # the damping rows' cost on the megastep: the DR env's end state, with
     # and without its per-env damping (the model's own), in turns
     S_dr = st_dr.data
@@ -1968,6 +2030,26 @@ def main() -> int:
         errs[f"mega_forward_{name}"] = mega_forward_check(m, S_, name)
         errs[f"megastep_{name}"], S1_, flops_ = megastep_check(m, S_, name)
         arms_runs[name] = (S1_, flops_)
+    # Talos and G1 at k = P: a plane-mesh group at k = P, which the mega
+    # kernels rank (the plane-only and the extended pyramidal instances),
+    # at the end state (touching in 90% of the envs)
+    kp_runs = {}
+    for name, m, S_ in (("talos", m_ta, S_ta), ("g1kp", m_g1k, S_g1k)):
+        f_ = fwd.forward(m, S_)
+        act_ = f_.contact.dist < f_.contact.includemargin
+        touching = int(act_.any(1).sum())
+        g = next(g for g in m.groups if coll.is_plane_mesh(g))
+        pairs_on = act_[:, g.offset:g.offset + g.k * g.slots:g.slots].sum(1)
+        print(f"{name} end state: active slots per group "
+              + str([int(act_[:, g_.offset:g_.offset + g_.k * g_.slots].sum())
+                     for g_ in m.groups]) + f" ({int(act_.sum()) / E:.2f} per "
+              f"env; {touching} of {E} envs touch); envs with 2 or more "
+              f"plane-mesh pairs in contact (ranked among each other) "
+              f"{int((pairs_on >= 2).sum())}")
+        assert touching >= 0.9 * E, f"{name}: the end state is contact-light"
+        errs[f"mega_forward_{name}"] = mega_forward_check(m, S_, name)
+        errs[f"megastep_{name}"], S1_, flops_ = megastep_check(m, S_, name)
+        kp_runs[name] = (S1_, flops_)
     # the damping rows at width 32, at the randomized arms envs' end states:
     # the plane-only mega forward and RK4 megastep (Atlas with its arms)
     # and the extended pyramidal mega forward (G1 with its arms)
@@ -1999,17 +2081,18 @@ def main() -> int:
     fused_in = {}
     models.update(muscle=m_mu, a1=m_a1, dr=m_dr, a1_dr=m_a1_dr, g1=m_g1,
                   a1pos=m_a1p, g1arms=m_g1a, atlasarms_dr=m_ata_dr,
-                  g1arms_dr=m_g1a_dr, **bipeds, **arms)
+                  g1arms_dr=m_g1a_dr, talos=m_ta, **bipeds, **arms)
     for name in ("rk4", "euler", "fric", "solref", "muscle", "a1", "h1",
                  "atlas", "g1", "dr", "a1_dr", "a1pos", "g1arms", "h1arms",
-                 "atlasarms", "atlasarms_dr", "g1arms_dr"):
+                 "atlasarms", "atlasarms_dr", "g1arms_dr", "talos"):
         m = models[name]
         src = {"muscle": d_staged_mu, "a1": d_staged_a1, "h1": d_staged_h1,
                "atlas": d_staged_at, "g1": d_staged_g1, "dr": st_sdr.data,
                "a1_dr": st_sa1dr.data, "a1pos": d_staged_a1p,
                "g1arms": d_staged_g1a, "h1arms": d_staged_h1a,
                "atlasarms": d_staged_ata, "atlasarms_dr": st_satadr.data,
-               "g1arms_dr": st_sg1adr.data}.get(name, d_staged)
+               "g1arms_dr": st_sg1adr.data,
+               "talos": d_staged_ta}.get(name, d_staged)
         d = io.make_data(m, E).replace(
             qpos=src.qpos, qvel=src.qvel, ctrl=src.ctrl, act=src.act,
             qacc_warmstart=src.qacc_warmstart, dof_damping=src.dof_damping)
@@ -2088,7 +2171,9 @@ def main() -> int:
         launches_ata, "env Atlas arms DR": env_atadr_launches,
         "staged env Atlas arms DR": staged_atadr_launches,
         "env G1 arms DR": env_g1adr_launches,
-        "staged env G1 arms DR": staged_g1adr_launches}
+        "staged env G1 arms DR": staged_g1adr_launches,
+        "staged Talos": staged_ta_launches, "main Talos": launches_ta,
+        "env Talos": env_ta_launches, "main G1 k=P": launches_g1k}
 
     def row(name, kernel, run, source, replaces, ms, plain_ms, nbytes_,
             flops, library_ms=None):
@@ -2135,6 +2220,7 @@ def main() -> int:
     fns = {"moveaxis0_last": lay.moveaxis0_last,
            "moveaxis_last0": lay.moveaxis_last0,
            "to_grouped": lay.to_grouped, "from_grouped": lay.from_grouped}
+    lay_lib = kernels.library("layout", lay._SIGNATURES)
     for role, (replaces, ts) in roles.items():
         ts = [t.contiguous() for t in ts]
         ms = _time_ms(torch, lambda: [fns[role](t) for t in ts])
@@ -2142,6 +2228,22 @@ def main() -> int:
         lib = _time_ms(torch, lambda: [t.t().contiguous() for t in ts])
         row(role, role, "no-plan staged RK4", "layout.cu", replaces, ms,
             plain, 2 * nbytes(*ts), 0, lib)
+        # the kernel's launch alone: the launcher called on outputs made
+        # beforehand, pointers and stream taken once (the row's `ms` times
+        # the wrapper: its ctypes dispatch, checks and allocation)
+        ys = [torch.empty(t.shape[::-1], dtype=t.dtype, device=dev)
+              for t in ts]
+        launch_args = [(kernels.ptr(t), kernels.ptr(y), *t.shape)
+                       for t, y in zip(ts, ys)]
+        stream = kernels.stream()
+        alone = _time_ms(torch, lambda: [lay_lib.lmt_transpose2d(
+            *a, stream) for a in launch_args])
+        for t, y in zip(ts, ys):
+            assert torch.equal(y, t.t()), f"{role}: launch alone"
+        print(f"layout {role} ({len(ts)} calls per forward): the wrapper "
+              f"{ms:.4f} ms, the launch alone {alone:.4f} ms, "
+              f"x.t().contiguous() {lib:.4f} ms, plain {plain:.4f} ms "
+              f"({card})")
 
     # the select and top-K at the staged RK4 run's end state (the model's
     # mesh group, k = 8) and at the staged G1 run's (its mesh group, k = 8)
@@ -2224,7 +2326,8 @@ def main() -> int:
                            ("atlasarms_dr", "fused_atlasarms_dr",
                             "staged env Atlas arms DR"),
                            ("g1arms_dr", "fused_g1arms_dr",
-                            "staged env G1 arms DR")):
+                            "staged env G1 arms DR"),
+                           ("talos", "fused_talos", "staged Talos")):
         m, d = models[name], fused_in[name]
         k = hf.fused_constraint(m, d)
         vec, pack = hf.vec(m, d), hf.contact_pack(m, d)
@@ -2279,7 +2382,9 @@ def main() -> int:
             (m_ata, S_ata, *arms_runs["atlasarms"], "_atlasarms",
              "main Atlas arms"),
             (m_ata_dr, S_atadr, S1_atadr, step_flops_atadr, "_atlasarms_dr",
-             "env Atlas arms DR")):
+             "env Atlas arms DR"),
+            (m_ta, S_ta, *kp_runs["talos"], "_talos", "main Talos"),
+            (m_g1k, S_g1k, *kp_runs["g1kp"], "_g1kp", "main G1 k=P")):
         b_fwd, b_step = mega_bounds(m, S_, sflops)
         ms = _time_ms(torch, lambda: hm.mega_forward(m, S_))
         plain = _time_ms(torch, lambda: hm.mega_forward_plain(m, S_), reps=1,
@@ -2364,6 +2469,16 @@ def main() -> int:
           f"megastep {ms_of['megastep_atlasarms_dr']:.3f} ms; G1 with arms "
           f"with damping DR {env_g1adr_rate:.0f} env-steps/s (mega forward "
           f"{ms_of['mega_forward_g1arms_dr']:.3f} ms); card: {card}")
+    print(f"Talos (talos; its plane-mesh group at k = P ranked): main path "
+          f"{env_steps_ta:.0f} env-steps/s, staged path {staged_ta_rate:.0f} "
+          f"({staged_ta_ops or 'not measured'} kernels per forward), megastep "
+          f"{ms_of['megastep_talos']:.3f} ms per control step, mega forward "
+          f"{ms_of['mega_forward_talos']:.3f} ms, fused "
+          f"{ms_of['fused_talos']:.3f} ms, step_batch {env_ta_rate:.0f} "
+          f"against step_n alone {raw_ta:.0f} (medians of {PAIRINGS}); G1 at "
+          f"k = P (g1kp): main path {env_steps_g1k:.0f} env-steps/s, megastep "
+          f"{ms_of['megastep_g1kp']:.3f} ms, mega forward "
+          f"{ms_of['mega_forward_g1kp']:.3f} ms; card: {card}")
     print(f"main path {env_steps:.0f} env-steps/s RK4, {env_steps_eu:.0f} "
           f"Euler, {env_steps_mu:.0f} muscle Euler, {env_steps_a1:.0f} A1, "
           f"{env_steps_h1:.0f} H1, {env_steps_at:.0f} Atlas, "

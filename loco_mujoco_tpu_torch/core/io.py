@@ -207,14 +207,18 @@ def model_from_numpy(leaves: dict, aux: dict, device=None,
         aux["geom_type"], int(aux["contact_k_plane"]),
         int(aux["contact_k_other"]),
     )
-    mesh_kernel = tuple(
-        hopper_collision.build_plan(leaves, aux, g)
+    # each plane-mesh group's hull tables at any budget (the mega plans'),
+    # and the staged kernels' plan where the group ranks its pairs (k < P)
+    mesh_tables = tuple(
+        hopper_collision.mesh_tables(leaves, aux, g)
         if collision.is_plane_mesh(g) else None
         for g in groups
     )
+    mesh_kernel = tuple(hopper_collision.staged_plan(g, t)
+                        for g, t in zip(groups, mesh_tables))
     return Model(opt=opt, groups=tuple(groups), ncon=ncon,
                  mesh_kernel=mesh_kernel,
-                 plan=plan.build_plan(leaves, aux, groups, mesh_kernel), **kw)
+                 plan=plan.build_plan(leaves, aux, groups, mesh_tables), **kw)
 
 
 def load_model_npz(path, device=None, dtype=torch.float32) -> Model:

@@ -358,6 +358,25 @@ def atlas_has_fallen(idx):
     return has_fallen
 
 
+def talos_has_fallen(idx):
+    """Talos's fall predicate (models/humanoids/talos.py:47-66): the pelvis
+    terms with a rotation limit of pi/10, and, where `idx` goes on past
+    the pelvis's four with the obs indices of back_bky and back_bkz, the
+    back's extension within (-pi/4, pi/10) and rotation within +-pi/10."""
+    idx = list(idx)
+    pi = np.pi
+
+    def has_fallen(obs):
+        cond = _pelvis_has_fallen(obs, idx, pi / 10)
+        if len(idx) > 4:
+            b = [obs[:, i] for i in idx[4:6]]
+            cond = (cond | _out(b[0], -pi / 4, pi / 10)
+                    | _out(b[1], -pi / 10, pi / 10))
+        return cond
+
+    return has_fallen
+
+
 def quadruped_has_fallen(obs):
     """UnitreeA1's fall predicate (models/quadrupeds/unitree_a1.py:134-138):
     obs 0, 1, 2 are the trunk height, list and tilt."""

@@ -8,14 +8,16 @@ trajectory inside its joint ranges, the target-velocity reward and the fall
 predicate of the robot it stands in for (`standin_kind`):
 `base.humanoid_has_fallen` with the root and abdomen joints in the pelvis
 and lumbar roles, `base.quadruped_has_fallen` (A1), or the bipeds' own
-`base.h1_has_fallen`, `atlas_has_fallen` and `g1_has_fallen` on their
-pelvis (and Atlas's back) joints. A model of no known kind raises.
+`base.h1_has_fallen`, `atlas_has_fallen`, `g1_has_fallen` and
+`talos_has_fallen` on their pelvis (and Atlas's and Talos's back) joints.
+A model of no known kind raises.
 `env_parts` gives the same parts as plain values, so that another
 package's env can be built from them; `damping_dr` is a Joints-section
 randomization config of the model's own damping; `load_standin` loads a
 committed stand-in by name (`STANDINS`; A1's position mode, "a1pos", is
 A1's kind with the position servos, whose actions the env unnormalizes into
-the ctrlrange, the joints' ranges).
+the ctrlrange, the joints' ranges; "g1kp" is the small G1 whose
+plane-mesh group is at k = P, of G1's kind).
 
     from loco_mujoco_tpu_torch.envs import standins
     model = standins.load_standin("a1pos")
@@ -37,12 +39,14 @@ HUMANOID_ROLES = ("root_z", "root_ry", "root_rx", "root_rz", "abdomen_y",
 LUMBAR_FALLBACK = {"abdomen_y": "root_ry", "abdomen_x": "root_rx",
                    "abdomen_z": "root_rz"}
 # the bipeds' root (models/humanoids/unitree_h1.py PELVIS, atlas.py and
-# unitree_g1.py alike), the joints their predicates read, and the joints
-# that tell them apart: H1's back_bkz, Atlas's back_bky and back_bkx
-# (atlas.py BACK), G1's torso_joint (unitree_g1.py)
+# unitree_g1.py and talos.py alike), the joints their predicates read, and
+# the joints that tell them apart: H1's back_bkz, Atlas's back_bky and
+# back_bkx (atlas.py BACK), Talos's back_bkz and back_bky without back_bkx
+# (talos.py BACK), G1's torso_joint (unitree_g1.py)
 PELVIS = ("pelvis_tx", "pelvis_tz", "pelvis_ty", "pelvis_tilt",
           "pelvis_list", "pelvis_rotation")
 ATLAS_BACK = ("back_bky", "back_bkx", "back_bkz")
+TALOS_BACK = ("back_bky", "back_bkz")  # talos.py:51, in its predicate's order
 HEIGHT = ("root_z", "trunk_tz", "pelvis_tz")  # the root's vertical slide
 # the committed stand-ins, `assets/<file>.npz`, by name: A1's torque and
 # position modes are two files of one robot (its kind "a1")
@@ -51,7 +55,8 @@ STANDINS = {"humanoid": "humanoid_torque_shape",
             "a1pos": "unitree_a1_position_shape", "h1": "unitree_h1_shape",
             "atlas": "atlas_shape", "g1": "unitree_g1_shape",
             "g1arms": "unitree_g1_arms_shape",
-            "h1arms": "unitree_h1_arms_shape", "atlasarms": "atlas_arms_shape"}
+            "h1arms": "unitree_h1_arms_shape", "atlasarms": "atlas_arms_shape",
+            "talos": "talos_shape", "g1kp": "unitree_g1_kp_shape"}
 
 
 def load_standin(name: str, device=None, dtype=None):
@@ -71,10 +76,11 @@ def load_standin(name: str, device=None, dtype=None):
 
 def standin_kind(model) -> str:
     """The robot a stand-in is shaped after ("humanoid", "a1", "h1",
-    "atlas" or "g1"), from its joint names: the torque humanoid's root_z,
-    A1's trunk_tz, and on a pelvis root G1's torso_joint, Atlas's back_bky
-    / back_bkx or H1's back_bkz. Raises for a model it cannot tell (a
-    pelvis root with none of those joints fits H1 and Atlas alike)."""
+    "atlas", "g1" or "talos"), from its joint names: the torque humanoid's
+    root_z, A1's trunk_tz, and on a pelvis root G1's torso_joint, Talos's
+    back_bkz and back_bky without back_bkx, Atlas's back_bky / back_bkx or
+    H1's back_bkz. Raises for a model it cannot tell (a pelvis root with
+    none of those joints fits H1 and Atlas alike)."""
     jid = model.names["joint"]
     if "root_z" in jid:
         return "humanoid"
@@ -83,6 +89,8 @@ def standin_kind(model) -> str:
     if all(j in jid for j in PELVIS):
         if "torso_joint" in jid:
             return "g1"
+        if all(j in jid for j in TALOS_BACK) and "back_bkx" not in jid:
+            return "talos"
         if "back_bky" in jid or "back_bkx" in jid:
             return "atlas"
         if "back_bkz" in jid:
@@ -142,7 +150,7 @@ def env_parts(model, n_substeps=10):
     stand-in's kind (`standin_kind`) and its fall predicate's obs indices
     (None for A1, whose predicate reads obs 0-2; on the bipeds pelvis_ty,
     tilt, list and rotation, then Atlas's back_bky, bkx and bkz where it
-    has them)."""
+    has them, or Talos's back_bky and bkz)."""
     joints = env_joints(model)
     spec = ([(f"q_{j}", j, 0) for j in joints]
             + [(f"dq_{j}", j, 1) for j in joints])
@@ -167,6 +175,8 @@ def env_parts(model, n_substeps=10):
         fall = [ki[f"q_{j}"] for j in PELVIS[2:]]
         if kind == "atlas" and all(j in jid for j in ATLAS_BACK):
             fall += [ki[f"q_{j}"] for j in ATLAS_BACK]
+        if kind == "talos":
+            fall += [ki[f"q_{j}"] for j in TALOS_BACK]
     return dict(spec=spec, traj=traj, x_vel=ki[f"dq_{joints[0]}"],
                 kind=kind, fall=fall)
 
@@ -194,8 +204,8 @@ def make_env(model, dr=None, n_substeps=10, **kw):
     kind, idx = parts["kind"], parts["fall"]
     fall = (base.quadruped_has_fallen if kind == "a1" else
             {"humanoid": base.humanoid_has_fallen, "h1": base.h1_has_fallen,
-             "atlas": base.atlas_has_fallen,
-             "g1": base.g1_has_fallen}[kind](idx))
+             "atlas": base.atlas_has_fallen, "g1": base.g1_has_fallen,
+             "talos": base.talos_has_fallen}[kind](idx))
     return base.LocoEnv(
         model, ObsIndex(model, parts["spec"]), n_substeps=n_substeps,
         reward_fn=make_reward("target_velocity",

@@ -447,7 +447,7 @@ def _plane_mesh_narrow(model: Model, pid: np.ndarray, vcap: int,
 def _plane_mesh_xla(model: Model, g: Group, data: Data):
     """Port of the reference's XLA plane-mesh group: hull-size buckets,
     per-bucket manifolds, then exact-support top-K (identity order when
-    k >= P)."""
+    k >= P: the reference's staged path, `collision.py:397-410`)."""
     pid = np.asarray(g.pair_ids)
     mesh_ids = np.maximum(np.asarray(model.geom_meshid), 0)
     counts = np.asarray(model.mesh_vertmask).sum(1)[
@@ -509,9 +509,14 @@ def _plane_mesh_kernel(model: Model, g: Group, plan: hc.MeshPlan,
             meta[..., 2:7], meta[..., 7:9], meta[..., 9:14], meta[..., 14])
 
 
-def collision(model: Model, data: Data, plain: bool = False) -> Data:
+def collision(model: Model, data: Data, plain: bool = False,
+              ranked: bool = False) -> Data:
     """Fill every contact slot. plain=True runs the plane-mesh kernels'
-    plain versions on any device (the reference they are held to)."""
+    plain versions on any device (the reference they are held to).
+    ranked=True, with plain, lays the slots out as the mega kernels do
+    (their plain version's collision): a plane-mesh group at k = P, which
+    the staged path keeps in pair order, ranks its pairs on the mega
+    plan's hull tables (`RowPlan.mesh`), deepest first."""
     if model.ncon == 0:
         return data
     parts = []
@@ -519,6 +524,8 @@ def collision(model: Model, data: Data, plain: bool = False) -> Data:
         if g.convex:
             out = _convex_group(model, g, data)
         elif is_plane_mesh(g):
+            if plan is None and ranked and model.plan is not None:
+                plan = model.plan.mesh  # a mega plan holds one such group
             # float64 on the CPU keeps the XLA port; a CUDA tensor always
             # takes the kernels, which raise unless it is float32
             if plan is not None and (data.qpos.is_cuda

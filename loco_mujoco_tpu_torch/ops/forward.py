@@ -111,11 +111,14 @@ def needs_qm(model: Model, plan) -> bool:
             and not plan.euler_dv)
 
 
-def stages(model: Model, data: Data, plain: bool = False) -> Data:
+def stages(model: Model, data: Data, plain: bool = False,
+           ranked: bool = False) -> Data:
     """The stages before the constraint stage, with the reference's stage
     gates (see the module note). With a plan, crb runs only where Euler
     reads qM (`needs_qm`): the port's plans set `euler_dv` unless
-    EULERDAMP is disabled or the damping is per env."""
+    EULERDAMP is disabled or the damping is per env. `ranked`: the
+    collision's slots in the mega kernels' order (`collision.collision`),
+    for the mega plain version."""
     plan = maybe_plan(model, data)
     if plan is None:
         data = fwd_position(model, data, plain)
@@ -125,11 +128,11 @@ def stages(model: Model, data: Data, plain: bool = False) -> Data:
     if plan.smooth:
         if needs_qm(model, plan):
             data = inertia.crb(model, kinematics.com_pos(model, data))
-        return coll_mod.collision(model, data, plain)
+        return coll_mod.collision(model, data, plain, ranked)
     data = tendon.tendon(model, kinematics.com_pos(model, data))
     if needs_qm(model, plan):
         data = inertia.crb(model, data)
-    data = coll_mod.collision(model, data, plain)
+    data = coll_mod.collision(model, data, plain, ranked)
     data = fwd_actuation(model, fwd_velocity(model, data))
     return data.replace(qfrc_smooth=qfrc_smooth(model, data))
 

@@ -6,12 +6,20 @@ Counterpart of `loco_mujoco_tpu/ops/pallas_collision.py`: `_make_kernel` /
 here the CUDA kernels of `csrc/plane_mesh.cu`. The static tables come from
 this module's own numpy copy of `pack_plane_mesh_buckets`.
 
-`build_plan` makes, once at model load, the reference's static gate: a
-plane-mesh group runs these kernels only if it has more pairs than slots
-(k < P; with k >= P the reference keeps its XLA ordering) and every hull
-has a graph and fits the vertex cap. Otherwise the group takes the XLA
-port in `collision.py`. The kernels take float32 only: a CUDA tensor of
-another dtype raises, and float64 on the CPU keeps the XLA port.
+`mesh_tables` builds, once at model load, a plane-mesh group's hull tables
+and bucket order at any budget k, or None where the reference's packing
+refuses the group (a graph-less hull, a hull past the vertex cap); the
+mega plans (`ops/plan.py`) take them at any k, k = P too, as the
+reference's do (`pallas_fk.py:449-458`). `staged_plan` is the reference's
+static gate of these kernels on the staged path: a group runs them only
+if it has more pairs than slots (k < P). With k >= P the reference's
+staged XLA path keeps its pairs in order (`collision.py:397-410`, its
+`_pallas_group_topk_fn` stepping aside at `:438-442`), and so does the
+port's (`collision._plane_mesh_xla`); its mega kernels rank them all
+(`pallas_fk._mesh_group_slots`, `:825-850`), and so do the port's and their
+plain version (`pair_topk(ranked=True)`). The kernels take float32 only: a
+CUDA tensor of another dtype raises, and float64 on the CPU keeps the XLA
+port.
 
 Operands are env-last: a (P, 3, E), b (P, E) -> dist (P, 3, E), vsel
 (P, 9, E); the top-K reads those plus the poses of the geoms the group uses,
@@ -178,13 +186,11 @@ def graph_table(mesh_nbr, mesh_ids, vcap: int):
     return nbr
 
 
-def build_plan(leaves: dict, aux: dict, g) -> MeshPlan | None:
-    """The kernel plan of plane-mesh group `g`, or None when the reference
-    keeps its XLA path for it (k >= P, a graph-less hull, a hull past the
-    vertex cap)."""
+def mesh_tables(leaves: dict, aux: dict, g) -> MeshPlan | None:
+    """The hull tables and bucket order of plane-mesh group `g` at any
+    budget k, or None where the reference's `pack_plane_mesh_buckets`
+    refuses it (a graph-less hull, a hull past the vertex cap)."""
     pid = np.asarray(g.pair_ids)
-    if g.k >= len(pid):
-        return None
     m = SimpleNamespace(**{n: aux[n] for n in (
         "pair_geom1", "pair_geom2", "geom_meshid", "mesh_brute",
         "mesh_vertmask", "mesh_nbr")},
@@ -235,6 +241,15 @@ def build_plan(leaves: dict, aux: dict, g) -> MeshPlan | None:
         vmask=np.asarray(m.mesh_vertmask)[mesh_ids, :vcap],
         nbr=graph_table(m.mesh_nbr, mesh_ids, vcap),
     )
+
+
+def staged_plan(g, tables: MeshPlan | None) -> MeshPlan | None:
+    """The staged path's plan of plane-mesh group `g` from its
+    `mesh_tables`: the tables where the group ranks its pairs (k < P),
+    else None (the staged XLA ordering, see the module note)."""
+    if tables is None or g.k >= tables.P:
+        return None
+    return tables
 
 
 # --------------------------------------------------------------------------
@@ -361,15 +376,18 @@ def plane_mesh_select(plan: MeshPlan, a: torch.Tensor, b: torch.Tensor):
 # --------------------------------------------------------------------------
 
 
-def pair_topk(key, k, dist, vsel, n, qp, qR):
+def pair_topk(key, k, dist, vsel, n, qp, qR, ranked=False):
     """The XLA branch of the reference's `_plane_mesh_group`: per env the
     k pairs of smallest key (first index on ties; every pair in order when
-    k >= P) and their contacts. key (E, P), dist (E, P, 3), vsel
-    (E, P, 3, 3) mesh-local points, n (E, P, 3) plane normals, qp (E, P, 3)
-    and qR (E, P, 3, 3) mesh poses -> sel (E, k), dist (E, k, 3), world
-    positions (E, k, 3, 3) and frames (E, k, 3, 3)."""
+    k >= P) and their contacts. `ranked`: k rounds of the first-index
+    argmin at any k, k = P too (the rank loop of the reference's mega
+    kernels, `pallas_fk._mesh_group_slots` :825-850: deepest pair first).
+    key (E, P), dist (E, P, 3), vsel (E, P, 3, 3) mesh-local points, n
+    (E, P, 3) plane normals, qp (E, P, 3) and qR (E, P, 3, 3) mesh poses ->
+    sel (E, k), dist (E, k, 3), world positions (E, k, 3, 3) and frames
+    (E, k, 3, 3)."""
     E, P = key.shape
-    if k < P:
+    if k < P or ranked:
         sel = []
         for _ in range(k):
             _, i = first_argmin(key, 1)
@@ -387,8 +405,13 @@ def pair_topk(key, k, dist, vsel, n, qp, qR):
 
 def group_topk_plain(plan: MeshPlan, dist, vsel, gxp, gxm):
     """Plain version of the top-K kernel: `pair_topk` on the env-last
-    operands, with the kernel's inactive slots (key >= 0): depth 1e10, zero
-    position, the canonical frame and pair 0's meta."""
+    operands, ranked at any k (the mega kernels' order, which the staged
+    kernel meets only at k < P), with the kernel's inactive slots (key >=
+    0): depth 1e10, zero position, the canonical frame and pair 0's meta.
+    The key of a pair that cannot reach the margin is its support depth
+    here and the conservative extent bound in the kernels: both lie at or
+    past the margin, so such a pair ranks after every active one either
+    way and its rank's slots are inactive, whichever pair it holds."""
     t = plan.tensors(dist.device, dist.dtype)
     P, E = dist.shape[0], dist.shape[-1]
     gxp_e = gxp.permute(2, 0, 1)  # (E, G, 3)
@@ -398,7 +421,7 @@ def group_topk_plain(plan: MeshPlan, dist, vsel, gxp, gxm):
     key = dist_e[..., 0] - t.tbl16[:, 0]
     sel, ds, pos, frame = pair_topk(
         key, plan.k, dist_e, vsel.permute(2, 0, 1).reshape(E, P, 3, 3),
-        gxm_e[:, g1, :, 2], gxp_e[:, g2], gxm_e[:, g2])
+        gxm_e[:, g1, :, 2], gxp_e[:, g2], gxm_e[:, g2], ranked=True)
     act = (take(key, sel) < 0)[..., None]  # (E, k, 1)
     canon = torch.tensor([0.0, 0, 1, 0, 1, 0, -1, 0, 0], dtype=dist.dtype,
                          device=dist.device)

@@ -43,7 +43,9 @@ the envelope (`megastep_mode`).
 A CUDA tensor launches the kernel (float32 only) or raises; a CPU tensor
 runs the plain version. The plain versions are no new copy of the math:
 `mega_forward_plain` is the staged forward of a model with a plan, in its
-plain versions (`forward.stages` with the plain collision: kinematics and
+plain versions (`plain_stages`: `forward.stages` with the plain collision,
+its slots in the kernels' order, a plane-mesh group at k = P ranked as the
+kernels rank it where the staged path keeps it in pair order: kinematics and
 collision for a smooth plan, and for the muscle humanoid's non-smooth plan
 also com_pos, the tendons, velocity, passive, rne and actuation, then
 `hopper_fused.fused_constraint_plain`, whose rows, contact facets blocked,
@@ -253,13 +255,21 @@ def mega_forward(model: Model, data: Data, points: bool = False) -> Data:
                  dv, act_dot, iters, taken, ls, rows, cpos)
 
 
-def _forward_plain(model: Model, data: Data, replay, record=None) -> Data:
-    """The staged forward of a model with a plan, with the plain
-    kernels; `replay` = (iters, taken[, ls[, rows]]) or None."""
+def plain_stages(model: Model, data: Data) -> Data:
+    """The stages of the mega kernels' plain version: the staged path's in
+    their plain versions, with the slots in the kernels' order (a
+    plane-mesh group at k = P ranked, `collision.collision(ranked=True)`)."""
     from . import forward as fwd
 
+    return fwd.stages(model, data, plain=True, ranked=True)
+
+
+def _forward_plain(model: Model, data: Data, replay, record=None) -> Data:
+    """The staged forward of a model with a plan, with the plain
+    kernels and the kernels' slot order (`plain_stages`); `replay` =
+    (iters, taken[, ls[, rows]]) or None."""
     hopper_fused.damping_rows(model.plan, data)
-    d = fwd.stages(model, data, plain=True)
+    d = plain_stages(model, data)
     return hopper_fused.fused_constraint_plain(
         model, d, replay, solve64=ext_mode(model.plan) == 1, record=record)
 

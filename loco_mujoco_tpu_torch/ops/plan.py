@@ -54,9 +54,11 @@ disabled.
 state in shared memory sized by `mega_launch`) is a flag on the plan: set
 for uniform statics with uniform friction, contacts against that one plane
 in at most one plane-box group, one plane-cylinder group and one
-plane-mesh group that runs the plane-mesh kernels (k < P, graph hulls: its
-`hopper_collision.MeshPlan`), and the compiled widths `CON_MAX`,
-`PAIR_MAX`. A non-smooth model takes the mega path through the in-kernel
+plane-mesh group with graph hulls within the vertex cap (its
+`hopper_collision.mesh_tables`, at any budget k: the mega kernels rank
+its pairs, k = P too, as the reference's mega kernels do,
+`pallas_fk._mesh_group_slots`; `mesh`), and the compiled widths
+`CON_MAX`, `PAIR_MAX`. A non-smooth model takes the mega path through the in-kernel
 tendon and muscle stage (`smooth_mu`, the reference's
 `_build_smooth(allow_muscle=True)` `:366-378`, with the tables of
 `MusclePlan`, `pallas_fk.py:1001-1128`, within `MUS_MAX` muscles); the
@@ -64,8 +66,8 @@ joint motors beside the muscles keep the smooth stage's actuator table.
 A smooth model of either cone that the plane-only plan refuses takes it
 with the extended collision (`mega_ell`, the reference's gate `:428-461`;
 its tables `ext`, the port's `ColPlanExt`, `pallas_fk.py:1507-1697`):
-every classic analytic group kind and one plane-mesh group on the
-plane-mesh kernels (its `MeshPlan`'s pairs and hull tables, `ext_mesh`),
+every classic analytic group kind and one plane-mesh group at any k (its
+`MeshPlan`'s pairs and hull tables, `ext_mesh`),
 per-group uniform statics, one static plane on the world body, both geoms
 of self pairs. Elliptic cones keep their dim rows per slot (A1), pyramidal
 ones the four blocked facets per slot and `euler_dv` (G1); the kernels
@@ -86,9 +88,14 @@ F_DOF's column, and which has no `euler_dv` (`:314-329`: Euler's implicit
 damping is then solved outside the kernels). The plan without it, its
 tables and its kernels stay as they are.
 
-Float64 data gets no plan (`maybe_plan`), as in the reference. Left out of
-the port's extended plan: a plane-mesh group with k >= P (the reference
-runs it in order; the port's plane-mesh kernels take k < P only).
+Float64 data gets no plan (`maybe_plan`), as in the reference. A
+plane-mesh group at k = P is ranked by the mega kernels (deepest pair
+first, first index on ties), as the reference's mega kernels rank it
+(`pallas_fk.py:825-850`); only the reference's staged XLA path keeps such
+a group's pairs in order (`collision.py:397-410`), and so does the port's
+staged path (`collision._plane_mesh_xla`; `Model.mesh_kernel` is None
+there). The mega kernels' plain version ranks it too
+(`collision.collision(ranked=True)`).
 
 `tables(device)` packs the plan into the two read-only buffers the kernels
 of `csrc/mega.cu` and `csrc/fused.cu` take: an int32 buffer that starts with
@@ -186,7 +193,7 @@ class RowPlan:
     """Static tables of the fused kernel and the mega path (see the module
     note). Field names follow the reference's RowPlan / FkPlan / ColPlan."""
 
-    def __init__(self, L: dict, A: dict, groups, mesh_kernel):
+    def __init__(self, L: dict, A: dict, groups, mesh_tables):
         self.ok = False
         self.mega = False
         self.sm_dyn_damping = False
@@ -407,14 +414,14 @@ class RowPlan:
         # tendon and muscle stage of a non-smooth model (:359-378) ---------
         self.mega = bool(self.uniform and self.fric_uniform and self.ncon
                          and self.ncon <= CON_MAX
-                         and self._col_plan(A, groups, mesh_kernel, f64))
+                         and self._col_plan(A, groups, mesh_tables, f64))
         # --- mega_ell: FK and the extended collision of every analytic
         # group kind and plane-mesh in the kernel (ColPlanExt, :428-461),
         # for the smooth models of either cone that the plane-only plan
         # refuses ---------------------------------------------------------
         if (not self.mega and self.ncon and self.smooth
                 and self.ncon <= CON_MAX):
-            self.mega_ell = self._ext_plan(A, groups, mesh_kernel, f64)
+            self.mega_ell = self._ext_plan(A, groups, mesh_tables, f64)
             self.mega = self.mega_ell
         if self.mega and not self.smooth:
             self.mp = None if joint_dyn else MusclePlan.build(
@@ -424,6 +431,17 @@ class RowPlan:
         self.act_bounds = act_bounds(self.na, A["actuator_actadr"],
                                      A["actuator_actlimited"],
                                      f64["actuator_actrange"])
+
+    @property
+    def mesh(self):
+        """The `hopper_collision.MeshPlan` of the mega plan's plane-mesh
+        group (its hull tables at any k), or None."""
+        if not self.mega:
+            return None
+        if self.mega_ell:
+            return self.ext_mesh["mesh"] if self.ext_mesh else None
+        return next((d["mesh"] for d in self.groups if d["kind"] == "mesh"),
+                    None)
 
     def dyn_damping(self) -> "RowPlan":
         """This plan with per-env joint damping: `sm_dyn_damping` and the
@@ -500,7 +518,13 @@ class RowPlan:
         self.pp = tuple(float(x) for x in f64["geom_pos"][gid])
         self.uniform = True
 
-    def _col_plan(self, A, groups, mesh_kernel, f64) -> bool:
+    def _col_plan(self, A, groups, mesh_tables, f64) -> bool:
+        """The port's ColPlan (pallas_fk.py:384-528): per group against the
+        one plane its kind, budget, slots, offset and margin, per pair its
+        geom's body and local pose (and a box's or cylinder's size); a
+        plane-mesh group takes its `mesh_tables` at any k, k = P too (the
+        mega kernels rank its pairs, as the reference's do). False where
+        a group falls outside it."""
         gbody = np.asarray(A["geom_bodyid"])
         gtype = np.asarray(A["geom_type"])
         if int(gtype[self.plane_gid]) != int(GeomType.PLANE):
@@ -508,7 +532,7 @@ class RowPlan:
         tup = lambda x: tuple(float(v) for v in x)  # noqa: E731
         col = []
         n_mesh = 0
-        for g, mk in zip(groups, mesh_kernel):
+        for g, mk in zip(groups, mesh_tables):
             pid = np.asarray(g.pair_ids)
             desc = dict(kind=None, k=int(g.k), slots=int(g.slots),
                         offset=int(g.offset), margin=float(
@@ -526,7 +550,7 @@ class RowPlan:
             elif int(g.t2) == int(GeomType.MESH):
                 n_mesh += 1
                 if mk is None or n_mesh > 1 or len(mk.pid) > PAIR_MAX:
-                    return False  # the group keeps the staged kernels
+                    return False  # the group keeps the staged path
                 desc["kind"] = "mesh"
                 desc["mesh"] = mk
                 desc["pairs"] = [dict(gid=int(q), body=int(gbody[q]),
@@ -545,21 +569,22 @@ class RowPlan:
         self.groups = col
         return True
 
-    def _ext_plan(self, A, groups, mesh_kernel, f64) -> bool:
+    def _ext_plan(self, A, groups, mesh_tables, f64) -> bool:
         """The port's ColPlanExt (pallas_fk.py:1507-1697): per group its
         kind, budget and uniform pair statics (margin, includemargin,
         solref, solimp, the 5 frictions), per candidate pair both geoms'
         ids, bodies, local poses, sizes and static bounding radii (the
         self groups' midphase) and the slot's invweight; one static plane
         on the world body. A plane-mesh group keeps its pairs in its
-        `hopper_collision.MeshPlan`'s order (bucket-major, the staged
-        collision's, whose top-K takes the first index on ties), so that a
-        selected pair's row maps back to its hull's geom, body and
+        `hopper_collision.MeshPlan`'s order (bucket-major; the kernels'
+        top-K ranks them at any k, k = P too, first index on ties), so
+        that a selected pair's row maps back to its hull's geom, body and
         invweight (the reference's gmap, pallas_fk.py:1755-1766), and its
         hull tables are the plane-only plan's (`ext_mesh`: F_MESH, I_MESH,
         F_VERT). False where a group falls outside it (non-uniform statics
-        in a group, several planes, a plane-mesh group off the kernels or
-        a second one, a ranked group past the kernels' pair widths)."""
+        in a group, several planes, a plane-mesh group without tables
+        (a graph-less hull, one past the vertex cap) or a second one, a
+        ranked group past the kernels' pair widths)."""
         from .collision import rbound_of
 
         gbody = np.asarray(A["geom_bodyid"])
@@ -575,7 +600,7 @@ class RowPlan:
         planes = set()
         col = []
         tup = lambda x: tuple(float(v) for v in x)  # noqa: E731
-        for g, mk in zip(groups, mesh_kernel):
+        for g, mk in zip(groups, mesh_tables):
             kind = EXT_KINDS.get((int(g.t1), int(g.t2)))
             if kind is None:
                 return False
@@ -914,10 +939,11 @@ class MusclePlan:
         self.i_site = [int(b) for b in sbody]
 
 
-def build_plan(leaves: dict, aux: dict, groups, mesh_kernel):
+def build_plan(leaves: dict, aux: dict, groups, mesh_tables):
     """The row plan of a model, or None when it is outside the row
-    envelope (the staged path with the standalone Newton kernel runs it)."""
-    plan = RowPlan(leaves, aux, groups, mesh_kernel)
+    envelope (the staged path with the standalone Newton kernel runs it);
+    `mesh_tables` per group its `hopper_collision.mesh_tables` or None."""
+    plan = RowPlan(leaves, aux, groups, mesh_tables)
     return plan if plan.ok else None
 
 

@@ -1345,3 +1345,94 @@ def test_arms_step_batch_matches_plain(state, name, dr, monkeypatch):
     model, _ = _arms_state(name, 1)
     assert standins.standin_kind(model) == name[:-4]
     _step_batch_check(model, dr, monkeypatch, f"env {name} dr={dr}")
+
+
+# ---- plane-mesh groups at k = P: the mega kernels rank every pair ----------
+
+
+def _kp_state(name, n):
+    """A committed stand-in whose plane-mesh group is at k = P, on the
+    card (`talos`: the plane-only instance beside a plane-box group;
+    `g1kp`: the small G1 at plane budget 10, the extended pyramidal
+    instance) and seeded states of it (`talos_states`, `g1_states`)."""
+    from test_torch_g1_fixture import g1_states
+    from test_torch_talos_fixture import talos_states
+
+    model = standins.load_standin(name, device="cuda")
+    states = talos_states if name == "talos" else g1_states
+    qpos, qvel, ctrl = states(standins.load_standin(name, device="cpu"), n)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")  # noqa
+    return model, io.make_data(model, n).replace(qpos=t(qpos), qvel=t(qvel),
+                                                 ctrl=t(ctrl))
+
+
+def _kp_group(model):
+    gi = next(i for i, g in enumerate(model.groups) if coll.is_plane_mesh(g))
+    return gi, model.groups[gi]
+
+
+@pytest.mark.parametrize("name", ["talos", "g1kp"])
+def test_kp_mega_forward_matches_plain(state, name):
+    """The mega forward with a plane-mesh group at k = P at 4096 envs:
+    chip_smoke.py's rule (`_mega_forward_rule`, geom1 exact too), and the
+    kernel's group in rank order: its active pairs first, by depth (the
+    reference's mega kernels' order), where the staged path keeps the
+    pairs in order."""
+    model, d = _kp_state(name, 4096)
+    gi, g = _kp_group(model)
+    plan = model.plan
+    assert g.k == len(g.pair_ids) and model.mesh_kernel[gi] is None
+    assert plan.mega and plan.mesh is not None and plan.mesh.k == g.k
+    assert hm.ext_mode(plan) == (0 if name == "talos" else 2)
+    assert min(hm.occupancy(model)) >= 4
+    k = _mega_forward_rule(model, d, f"{name} mega forward", upright=False)
+    r = hm.mega_forward_plain(model, d, replay=_replay(k))
+    on = (r.contact.dist < r.contact.includemargin)
+    assert torch.equal(k.contact.geom1[on], r.contact.geom1[on])
+    first = g.offset + g.slots * torch.arange(g.k, device="cuda")
+    depth = k.contact.dist[:, first]  # each rank's support depth
+    act = depth < k.contact.includemargin[:, first]
+    assert int((act.sum(1) >= 2).sum()) > 100, "too few ranked pairs"
+    assert not bool((~act[:, :-1] & act[:, 1:]).any()), "inactive first"
+    both = act[:, :-1] & act[:, 1:]
+    assert bool((depth[:, :-1] <= depth[:, 1:])[both].all()), "unranked"
+
+
+@pytest.mark.parametrize("name", ["talos", "g1kp"])
+def test_kp_megastep_matches_plain(state, name):
+    """The megastep with a plane-mesh group at k = P (Euler), a control
+    step of 10 substeps at 4096 envs, held to chip_smoke.py's megastep
+    rule."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model, d = _kp_state(name, 4096)
+    kernels.LAUNCHES.clear()
+    fwd.step_n(model, d, 10)
+    assert dict(kernels.LAUNCHES) == {"megastep": 1}
+    chip_smoke._megastep_rule(torch, model, d, 10, name)
+
+
+def test_talos_staged_keeps_the_pair_order(state, monkeypatch):
+    """Talos on the staged path: its plane-mesh group at k = P in torch in
+    pair order (no select or top-K launch), the fused kernel (5-float pack)
+    every env within rel 5e-4 of its plain version (`_fused_rule`)."""
+    monkeypatch.setenv("LMT_MEGA", "0")
+    model, d = _kp_state("talos", 4096)
+    kernels.LAUNCHES.clear()
+    s = fwd.forward(model, d)
+    assert dict(kernels.LAUNCHES) == {"fused": 1}
+    p = coll.collision(model.to(device="cpu", dtype=torch.float64),
+                       kinematics.kinematics(model.to(
+                           device="cpu", dtype=torch.float64),
+                           d.to(device="cpu", dtype=torch.float64)))
+    assert torch.equal(s.contact.geom2.cpu(), p.contact.geom2)
+    _fused_rule(model, d, "talos fused")
+
+
+def test_talos_step_batch_matches_plain(state, monkeypatch):
+    """Talos's env (Euler, the plane-only megastep with its plane-mesh
+    group at k = P; its own fall predicate) (`_step_batch_check`)."""
+    model, _ = _kp_state("talos", 1)
+    assert standins.standin_kind(model) == "talos"
+    _step_batch_check(model, False, monkeypatch, "env talos")

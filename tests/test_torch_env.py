@@ -3,8 +3,9 @@
 
 Both envs are built from one compile of the small HumanoidTorque-shaped
 fixture (RK4; the A1-shaped fixture's, Euler, in tests/test_torch_env_a1.py,
-its position variant's in tests/test_torch_env_a1pos.py, and the G1-shaped
-fixture's, Euler, in tests/test_torch_env_g1.py) from
+its position variant's in tests/test_torch_env_a1pos.py, the G1-shaped
+fixture's, Euler, in tests/test_torch_env_g1.py, and the Talos-shaped
+fixture's, Euler, in tests/test_torch_talos_env.py) from
 `standins.env_parts`, what the card's env phase runs: the same
 observation spec (every joint's position, then every joint's velocity; the
 first two, the root's horizontal slides, dropped), the same synthetic
@@ -40,6 +41,9 @@ import test_torch_a1_fixture as a1fx
 import test_torch_fixture as hfx
 import test_torch_g1_fixture as g1fx
 import test_torch_h1_fixture as h1fx
+import test_torch_talos_fixture as talosfx
+from loco_mujoco_tpu.models.humanoids.talos import \
+    _has_fallen_fn as talos_has_fallen_fn
 from loco_mujoco_tpu.models.humanoids.unitree_g1 import \
     _has_fallen_fn as g1_has_fallen_fn
 from loco_mujoco_tpu.models.humanoids.unitree_h1 import \
@@ -55,17 +59,18 @@ def build(robot, **budget):
     """(JAX env, port env) from `standins.env_parts` of the fixture;
     `budget` the envs' solver_iterations / ls_iterations."""
     fixture = {"humanoid": hfx, "a1": a1fx, "a1pos": a1fx, "g1": g1fx,
-               "g1arms": g1fx, "h1arms": h1fx}[robot]
+               "g1arms": g1fx, "h1arms": h1fx, "talos": talosfx}[robot]
     kw = ({"mode": "position"} if robot == "a1pos"
           else {"arms": True} if robot in ("g1arms", "h1arms") else {})
     jm, tm = fixture.torch_model(full=False, **kw)
     parts = standins.env_parts(tm, SUBSTEPS)
     idx = parts["fall"]
-    if robot in ("g1", "g1arms", "h1arms"):
-        # models/humanoids/unitree_g1.py:43-54, unitree_h1.py:44-54
+    if robot in ("g1", "g1arms", "h1arms", "talos"):
+        # models/humanoids/unitree_g1.py:43-54, unitree_h1.py:44-54,
+        # talos.py:47-66
         keys = [k for k, _, _ in parts["spec"]]
-        j_fall = (h1_has_fallen_fn if robot == "h1arms" else
-                  g1_has_fallen_fn)({k: i - 2 for i, k in enumerate(keys)})
+        j_fall = {"h1arms": h1_has_fallen_fn, "talos": talos_has_fallen_fn}.get(
+            robot, g1_has_fallen_fn)({k: i - 2 for i, k in enumerate(keys)})
     elif robot == "humanoid":
         def j_fall(obs):  # models/humanoids/humanoid.py:196-205
             pi = jnp.pi

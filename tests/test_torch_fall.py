@@ -6,7 +6,8 @@ Each biped predicate takes the obs indices of its joints: H1's and G1's the
 pelvis's ty, tilt, list and rotation (models/humanoids/unitree_h1.py:44-56,
 unitree_g1.py:43-54), Atlas's the same with a rotation limit of pi/10
 and, where the model has them, the back's bky, bkx and bkz
-(models/humanoids/atlas.py:41-61). Seeded obs (numpy, 4096 rows of 40
+(models/humanoids/atlas.py:41-61), Talos's the same pelvis terms and,
+where it has them, the back's bky and bkz (models/humanoids/talos.py:47-66). Seeded obs (numpy, 4096 rows of 40
 columns within +-0.5, past every limit) go through the JAX function
 row by row (vmapped) and through the port's batched one: the booleans
 agree exactly. A committed stand-in's env gets its own robot's predicate;
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from loco_mujoco_tpu.models.humanoids import atlas as j_atlas
+from loco_mujoco_tpu.models.humanoids import talos as j_talos
 from loco_mujoco_tpu.models.humanoids import unitree_g1 as j_g1
 from loco_mujoco_tpu.models.humanoids import unitree_h1 as j_h1
 from loco_mujoco_tpu_torch.core import io
@@ -30,6 +32,7 @@ ASSETS = TORQUE_ASSET.parent
 PELVIS = ["q_pelvis_ty", "q_pelvis_tilt", "q_pelvis_list",
           "q_pelvis_rotation"]
 BACK = ["q_back_bky", "q_back_bkx", "q_back_bkz"]
+TALOS_BACK = ["q_back_bky", "q_back_bkz"]
 
 
 def _obs(n=4096, width=40, seed=3):
@@ -42,6 +45,9 @@ CASES = {
     "g1": (j_g1._has_fallen_fn, base.g1_has_fallen, PELVIS),
     "atlas": (j_atlas._has_fallen_fn, base.atlas_has_fallen, PELVIS + BACK),
     "atlas_no_back": (j_atlas._has_fallen_fn, base.atlas_has_fallen, PELVIS),
+    "talos": (j_talos._has_fallen_fn, base.talos_has_fallen,
+              PELVIS + TALOS_BACK),
+    "talos_no_back": (j_talos._has_fallen_fn, base.talos_has_fallen, PELVIS),
 }
 
 
@@ -60,7 +66,8 @@ def test_biped_predicate_matches_jax(case):
 @pytest.mark.parametrize("asset,kind", [
     ("humanoid_torque_shape", "humanoid"), ("unitree_a1_shape", "a1"),
     ("unitree_h1_shape", "h1"), ("atlas_shape", "atlas"),
-    ("unitree_g1_shape", "g1")])
+    ("unitree_g1_shape", "g1"), ("talos_shape", "talos"),
+    ("unitree_g1_kp_shape", "g1")])
 def test_standins_pick_their_own_predicate(asset, kind):
     """env_parts names the stand-in's robot; the bipeds' predicate indices
     are their pelvis joints' (and Atlas's back joints') obs positions."""
@@ -68,8 +75,8 @@ def test_standins_pick_their_own_predicate(asset, kind):
     parts = standins.env_parts(m)
     assert parts["kind"] == kind
     keys = [k for k, _, _ in parts["spec"]]
-    if kind in ("h1", "atlas", "g1"):
-        want = PELVIS + (BACK if kind == "atlas" else [])
+    if kind in ("h1", "atlas", "g1", "talos"):
+        want = PELVIS + {"atlas": BACK, "talos": TALOS_BACK}.get(kind, [])
         assert parts["fall"] == [keys.index(k) - 2 for k in want]
     env = standins.make_env(m)
     obs = torch.zeros((2, env.obs_dim), dtype=m.qpos0.dtype)

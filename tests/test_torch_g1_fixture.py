@@ -60,6 +60,17 @@ the `g1arms` configuration; the script below writes both files); small,
 nv 25, 30 slots, 144 rows, past the kernels' first compiled width, for
 the float32 mega comparison (tests/test_torch_g1arms_mega.py).
 
+With `k_plane` the plane budget is another: the small size at `K_PLANE_KP`
+= 10, its hull count, puts the plane-mesh group at k = P (10 hulls, k 10;
+the foot points and rollers k = P as before): 44 slots, 192 rows, the
+extended plan with pyramidal rows (`mega_ell`), whose kernels rank every
+hull, deepest first, as the reference's mega kernels do. It is committed
+as `loco_mujoco_tpu_torch/assets/unitree_g1_kp_shape.npz`
+(`load_standin("g1kp")`, the `g1kp` configuration of `chip_smoke.py`;
+the script below writes it too), the stand-in of the extended instance at
+k = P (tests/test_torch_kp_mega.py). The full G1 at k = P would take 98
+slots, past the mega kernels' 80.
+
 It is compiled by the JAX package's own `put_model`; the model arrays are
 the "weights" carried across to the port.
 """
@@ -87,6 +98,8 @@ from test_torch_h1_fixture import (PELVIS, Hulls, census, hinge,  # noqa: E402
 ASSET = REPO / "loco_mujoco_tpu_torch" / "assets" / "unitree_g1_shape.npz"
 ASSET_ARMS = (REPO / "loco_mujoco_tpu_torch" / "assets"
               / "unitree_g1_arms_shape.npz")
+ASSET_KP = REPO / "loco_mujoco_tpu_torch" / "assets" / "unitree_g1_kp_shape.npz"
+K_PLANE_KP = 10  # the small size's hull count: its plane-mesh group at k = P
 SEED = 0
 SOLE = -0.04  # the sole (the foot points' bottom) in the ankle roll link
 # chosen link masses (kg) and principal inertias (kg m^2)
@@ -280,9 +293,11 @@ def g1_xml(full: bool, seed: int = SEED, arms: bool = False) -> str:
 </mujoco>"""
 
 
-def jax_model(full: bool, dtype=None, arms: bool = False):
+def jax_model(full: bool, dtype=None, arms: bool = False,
+              k_plane: int | None = None):
     """The fixture compiled by the JAX package's own `put_model` (plane
-    budget 8 and self budget 8 at full width, 4 and 2 small)."""
+    budget 8 and self budget 8 at full width, 4 and 2 small; `k_plane`
+    another plane budget)."""
     import jax.numpy as jnp
     import mujoco
 
@@ -290,14 +305,14 @@ def jax_model(full: bool, dtype=None, arms: bool = False):
 
     mjm = mujoco.MjModel.from_xml_string(g1_xml(full, arms=arms))
     return put_model(mjm, dtype=dtype or jnp.float64,
-                     contact_k_plane=8 if full else 4,
+                     contact_k_plane=k_plane or (8 if full else 4),
                      contact_k_other=8 if full else 2)
 
 
 def torch_model(full: bool, dtype=torch.float64, device="cpu",
-                arms: bool = False):
+                arms: bool = False, k_plane: int | None = None):
     """(JAX model, port model) of the fixture, both from one compile."""
-    jm = jax_model(full, arms=arms)
+    jm = jax_model(full, arms=arms, k_plane=k_plane)
     leaves, aux = export_model(jm)
     return jm, tio.model_from_numpy(leaves, aux, device=device, dtype=dtype)
 
@@ -370,7 +385,7 @@ def g1_states(model, E: int, seed: int = 7, drop=(0.003, 0.012)):
 
 
 def g1_mega_states(monkeypatch, n_envs: int, seed: int = 7,
-                   arms: bool = False):
+                   arms: bool = False, k_plane: int | None = None):
     """(JAX model, port model, JAX data, port data) in float32 for the
     mega path tests, small variant: `g1_states`, the JAX plan built afresh
     with `LMT_MESH_VCAP` at the vertex-table width (test_torch_fixture.
@@ -385,11 +400,11 @@ def g1_mega_states(monkeypatch, n_envs: int, seed: int = 7,
     from loco_mujoco_tpu.ops import kinematics as jkin
     from loco_mujoco_tpu.ops import pallas_constraint as pc
 
-    leaves, aux = export_model(jax_model(False, arms=arms))
+    leaves, aux = export_model(jax_model(False, arms=arms, k_plane=k_plane))
     tm = tio.model_from_numpy(leaves, aux, device="cpu", dtype=torch.float32)
     monkeypatch.setenv("LMT_MESH_VCAP", str(max(tm.mesh_vert.shape[1], 8)))
     monkeypatch.setattr(pc, "_PLAN_CACHE", {})
-    jm = jax_model(False, dtype=jnp.float32, arms=arms)
+    jm = jax_model(False, dtype=jnp.float32, arms=arms, k_plane=k_plane)
     qpos, qvel, ctrl = (np.asarray(x, np.float32)
                         for x in g1_states(tm, n_envs, seed))
     d0 = jax_make_data(jm)
@@ -404,6 +419,12 @@ def g1_mega_states(monkeypatch, n_envs: int, seed: int = 7,
 
 def write_full_width(path, arms: bool = False) -> None:
     leaves, aux = export_model(jax_model(full=True, arms=arms))
+    tio.save_model_npz(path, leaves, aux)
+
+
+def write_kp(path) -> None:
+    """The small size with its plane-mesh group at k = P (`K_PLANE_KP`)."""
+    leaves, aux = export_model(jax_model(full=False, k_plane=K_PLANE_KP))
     tio.save_model_npz(path, leaves, aux)
 
 
@@ -517,3 +538,5 @@ if __name__ == "__main__":
     for path, arms in ((ASSET, False), (ASSET_ARMS, True)):
         write_full_width(path, arms=arms)
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")
+    write_kp(ASSET_KP)
+    print(f"wrote {ASSET_KP} ({os.path.getsize(ASSET_KP)} bytes)")

@@ -3,17 +3,19 @@
 
     python3 tools/megastep_phases.py
         [--configs rk4 euler muscle a1 h1 atlas g1 a1pos g1arms h1arms
-                   atlasarms]
+                   atlasarms talos g1kp]
         [--envs 4096] [--reps 3] [--root DIR] [--no-phases] [--kernels]
         [--floor N]
 
 For each configuration of `chip_smoke.py`'s main path (the committed
 HumanoidTorque-shaped model with RK4 and with Euler, the muscle model, the
 A1-shaped model, the H1-, Atlas- and G1-shaped bipeds, A1's position mode,
-G1, H1 and Atlas with their arms at the second compiled width)
+G1, H1 and Atlas with their arms at the second compiled width, and the
+Talos-shaped biped and the small G1 whose plane-mesh groups are at k = P)
 it drives the main path as the smoke does: the seeded dropped state and
 controls of this checkout's `chip_smoke.seeded_draws` (the bipeds' and
-those with their arms: `seeded_biped`; A1's position mode: `seeded_a1pos`),
+those with their arms, Talos and G1 at k = P: `seeded_biped`; A1's
+position mode: `seeded_a1pos`),
 a reset forward and 20 control steps of `forward.step_n` (10 substeps
 each), and prints the main path's rate (control steps x envs per
 second, the `env_steps_per_s` key). At that end state, with the first
@@ -63,12 +65,13 @@ from pathlib import Path
 
 PHASES = ("fk", "collision", "smooth", "rows", "newton", "integration")
 CONFIGS = ("rk4", "euler", "muscle", "a1", "h1", "atlas", "g1", "a1pos",
-           "g1arms", "h1arms", "atlasarms")
+           "g1arms", "h1arms", "atlasarms", "talos", "g1kp")
 ASSET_OF = {"muscle": "humanoid_muscle_shape", "a1": "unitree_a1_shape",
             "h1": "unitree_h1_shape", "atlas": "atlas_shape",
             "g1": "unitree_g1_shape", "a1pos": "unitree_a1_position_shape",
             "g1arms": "unitree_g1_arms_shape",
-            "h1arms": "unitree_h1_arms_shape", "atlasarms": "atlas_arms_shape"}
+            "h1arms": "unitree_h1_arms_shape", "atlasarms": "atlas_arms_shape",
+            "talos": "talos_shape", "g1kp": "unitree_g1_kp_shape"}
 # the Newton solve's parts (where the kernel splits it; the rest of the
 # Newton phase is its row passes)
 NEWTON_PARTS = ("gradient_hessian", "factor_solve", "line_search")
@@ -169,9 +172,11 @@ def main() -> int:
     t = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
                                   device="cuda")
     for name, m in _models(io, torch, root, args.configs).items():
-        if name in smoke.BIPEDS or name in ("g1", "g1arms", *smoke.ARMS):
+        kp = getattr(smoke, "KP", {})
+        if name in smoke.BIPEDS or name in ("g1", "g1arms", *smoke.ARMS,
+                                            *kp):
             seed = {"g1": smoke.G1[1], "g1arms": smoke.G1ARMS[1],
-                    **smoke.ARMS}.get(name) or smoke.BIPEDS[name][1]
+                    **smoke.ARMS, **kp}.get(name) or smoke.BIPEDS[name][1]
             q0, ctrls = smoke.seeded_biped(m, seed, E)
         elif name == "a1pos":
             q0, ctrls = smoke.seeded_a1pos(m, E)
