@@ -151,9 +151,13 @@ Run from the repository root: `python3 chip_smoke.py`. It
 8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the least time the card
    could take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
-   the H100 SXM data-sheet peaks at 700 W); the layout kernels also by
-   their launch alone (the launcher on outputs made beforehand: the row's
-   time brackets the wrapper's ctypes dispatch and allocation);
+   the H100 SXM data-sheet peaks at 700 W); the layout kernel per call
+   site (one launch for all of a site's arrays in a forward: the
+   plane-mesh group's four operands and four results, the Newton solve's
+   operands and two results) also by its launch alone (the launcher on
+   outputs made beforehand: the row's time brackets the wrapper's checks,
+   allocation and ctypes dispatch), and the wrapper's host time split by
+   part (`tools/layout_host.py`: 1000 calls at 128 envs);
 9. prints one JSON line of kernels and, last, one JSON line with `"ok"`.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -266,10 +270,10 @@ def _time_ms(torch, fn, reps=10, warmup=True):
     return start.elapsed_time(end) / reps
 
 
-def _kernel_code():
-    """tools/kernel_code.py (its ptxas log parser), from this checkout."""
-    path = Path(__file__).resolve().parent / "tools" / "kernel_code.py"
-    spec = importlib.util.spec_from_file_location("kernel_code", path)
+def _tool(name):
+    """tools/<name>.py of this checkout, as a module."""
+    path = Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1055,6 +1059,15 @@ def main() -> int:
     print(f"nvidia-smi: {card}")
 
     # ---- build -------------------------------------------------------------
+    marks = [("build", time.perf_counter())]
+
+    def phase(name):
+        """Prints the wall seconds of the phase that ends here, so that
+        the run's time can be read by phase."""
+        now = time.perf_counter()
+        print(f"phase {marks[-1][0]}: {now - marks[-1][1]:.1f} s")
+        marks.append((name, now))
+
     build_s = kernels.build_all()
     libs = kernels.libraries()
     print(f"kernel build: {build_s:.1f} s ("
@@ -1069,6 +1082,7 @@ def main() -> int:
                     print(f"  ptxas {label}: {line.strip()}")
 
     # ---- models and state --------------------------------------------------
+    phase("models and state")
     root = Path(__file__).resolve().parent
     models = {name: _load(io, root, name, dev, torch) for name in CONFIGS}
     model, m_eu, m_wide = models["rk4"], models["euler"], models["wide"]
@@ -1212,7 +1226,7 @@ def main() -> int:
               f"forward {occ[0]}, megastep {occ[1]} (the launch plan's "
               f"shared-memory bound {launch.resident_warps})")
         assert min(occ) >= RESIDENT_FLOOR, (name, occ)
-    kc = _kernel_code()
+    kc = _tool("kernel_code")  # its ptxas log parser
     wide = ("LMT_NVM=32",)
     census = {}
     for name in ("mega", "fused", "newton"):
@@ -1292,19 +1306,9 @@ def main() -> int:
         return io.make_data(m, E).replace(qpos=q)
 
     # ---- each kernel of the earlier staged path against its plain version --
+    phase("kernel checks")
     d_pos = fwd.fwd_position(model, data, plain=True)
-    a, _, _, _ = coll.mesh_kernel_inputs(plan, d_pos)
-    a_t = lay.moveaxis0_last_plain(a)
-
     errs = {}
-    for role, fn, x in (("moveaxis0_last", lay.moveaxis0_last, a),
-                        ("moveaxis_last0", lay.moveaxis_last0, a_t),
-                        ("to_grouped", lay.to_grouped, a.reshape(E, -1)),
-                        ("from_grouped", lay.from_grouped, a_t.reshape(-1, E))):
-        ref = (lay.moveaxis_last0_plain(x) if role == "moveaxis_last0"
-               else lay.moveaxis0_last_plain(x))
-        assert torch.equal(fn(x), ref), f"{role} not bit-exact"
-        errs[role] = 0.0
 
     def mesh_check(mk, d_pos, what):
         """The select and the top-K against their plain versions on a
@@ -1347,7 +1351,6 @@ def main() -> int:
 
     errs["plane_mesh_select"], errs["group_topk"] = mesh_check(
         plan, d_pos, "torque humanoid")
-    print("kernel checks: relayout bit-exact")
     d_g1_pos = fwd.fwd_position(m_g1, start(m_g1), plain=True)
     errs["plane_mesh_select_g1"], errs["group_topk_g1"] = mesh_check(
         m_g1.mesh_kernel[g1_mesh], d_g1_pos, "G1")
@@ -1386,7 +1389,29 @@ def main() -> int:
     e_newton, operands, options = newton_check(
         model, d_pos, "the model's rows at the dropped state")
 
+    # each call site's relayout (all its arrays in one launch) against the
+    # plain version, array by array
+    lay_tool = _tool("layout_host")
+    plain_of = {"moveaxis0_last": lay.moveaxis0_last_plain,
+                "moveaxis_last0": lay.moveaxis_last0_plain,
+                "to_grouped": lay.transpose_plain,
+                "from_grouped": lay.transpose_plain}
+    sites = lay_tool.site_arrays(lay, coll, hc, hn, plan, d_pos, operands,
+                                 options)
+    for role, xs in sites.items():
+        kernels.LAUNCHES.clear()
+        ys = lay_tool.wrapper(lay, role)(xs)
+        assert dict(kernels.LAUNCHES) == {role: 1}, kernels.LAUNCHES
+        for x, y in zip(xs, ys):
+            assert torch.equal(y, plain_of[role](x)), \
+                f"{role} not bit-exact at {tuple(x.shape)}"
+        errs[role] = 0.0
+    print("kernel checks: relayout bit-exact, one launch per call site ("
+          + ", ".join(f"{r} {len(xs)} arrays" for r, xs in sites.items())
+          + ")")
+
     # ---- the staged path (LMT_MEGA=0) -------------------------------------
+    phase("staged path")
     def staged_run(m, steps, per_fwd, what):
         """`steps` control steps of `fwd.step`; checks every launch."""
         kernels.LAUNCHES.clear()
@@ -1420,15 +1445,13 @@ def main() -> int:
 
     per_fused = {"fused": 1, "plane_mesh_select": len(mesh_groups),
                  "group_topk": len(mesh_groups),
-                 "moveaxis0_last": 4 * len(mesh_groups),
-                 "moveaxis_last0": 4 * len(mesh_groups)}
-    nfl = options["nfl"]
-    per_newton = {"newton": 1, "to_grouped": 8 + (1 if nfl else 0),
-                  "from_grouped": 2,
+                 "moveaxis0_last": len(mesh_groups),
+                 "moveaxis_last0": len(mesh_groups)}
+    per_newton = {"newton": 1, "to_grouped": 1, "from_grouped": 1,
                   "plane_mesh_select": len(mesh_groups),
                   "group_topk": len(mesh_groups),
-                  "moveaxis0_last": 4 * len(mesh_groups),
-                  "moveaxis_last0": 4 * len(mesh_groups)}
+                  "moveaxis0_last": len(mesh_groups),
+                  "moveaxis_last0": len(mesh_groups)}
     with _staged_path():
         d_staged, staged_launches, staged_rate, staged_ops = staged_run(
             model, STAGED_STEPS, per_fused, "RK4 through the fused kernel")
@@ -1464,7 +1487,7 @@ def main() -> int:
                        "and the fused kernel at width 32 (26-float pack)")
         d_g1a_wide, g1a_wide_launches, g1a_wide_rate, _ = staged_run(
             m_g1a_wide, WIDE_STEPS,
-            {"newton": 1, "to_grouped": 8, "from_grouped": 2},
+            {"newton": 1, "to_grouped": 1, "from_grouped": 1},
             f"G1 with arms Euler, no plan ({m_g1a_wide.ncon} slots), "
             f"through the Newton kernel at width 32")
         # H1 and Atlas with their arms: the fused kernel at width 32 (H1's
@@ -1512,6 +1535,7 @@ def main() -> int:
         "width 32")[0]
 
     # ---- the main path: reset forward, then step_n per control step -----
+    phase("main path")
     def main_run(m, what):
         kernels.LAUNCHES.clear()
         torch.cuda.synchronize()
@@ -1579,6 +1603,7 @@ def main() -> int:
           f"max {float(S_mu.act.max()):.4f}")
 
     # ---- the env layer: LocoEnv.reset_batch / step_batch -----------------
+    phase("env layer")
     # The HumanoidTorque-shaped env (RK4, 10 substeps) at 4096 envs, without
     # and with joint-damping randomization (the damping rows' plan variant
     # in the mega forward and the megastep), and A1's env with it (Euler
@@ -1830,6 +1855,7 @@ def main() -> int:
             "32)")
 
     # ---- the mega forward and the megastep against their plain versions --
+    phase("mega checks")
     # From the main path's end state. The plain version replays the
     # kernel's Newton decisions (see the Newton check above); envs whose
     # active contact set differs may be float32 ties only, and envs with
@@ -2071,6 +2097,7 @@ def main() -> int:
                                                     "A1 damping DR")
 
     # ---- the fused kernel against its plain version, four configurations --
+    phase("fused checks")
     # At the staged RK4 run's end state, carried into each configuration:
     # both versions read the same FK outputs, contacts and warm start, so
     # their active rows agree by construction and every env is held.
@@ -2143,6 +2170,7 @@ def main() -> int:
               f"{float(k.solver_niter.float().mean()):.2f}")
 
     # ---- timings -----------------------------------------------------------
+    phase("timings")
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
@@ -2188,62 +2216,37 @@ def main() -> int:
             "library_ms": library_ms})
 
     # the relayouts and the Newton kernel at the end state of their path
-    # (the no-plan staged run): one forward's calls of each role, summed
+    # (the no-plan staged run): each call site's arrays of one forward, in
+    # the one launch of its list form
     d_acc = fwd.fwd_acceleration(m_wide, fwd.fwd_actuation(
         m_wide, fwd.fwd_velocity(m_wide, d_wide_pos)))
     efc = con.make_constraint(m_wide, d_acc)
     operands, options = solver.newton_inputs(m_wide, d_acc, efc)
-    x, force, iters, _ = hn.solve(*operands, **options)
     wplan = m_wide.mesh_kernel[mesh_groups[0]]
-    a, b, gxp, gxm = coll.mesh_kernel_inputs(wplan, d_wide_pos)
-    a_t, b_t = lay.moveaxis0_last(a), lay.moveaxis0_last(b)
-    gxp_t, gxm_t = lay.moveaxis0_last(gxp), lay.moveaxis0_last(gxm)
-    dist, vsel = hc.plane_mesh_select(wplan, a_t, b_t)
-    topk_out = hc.group_topk(wplan, dist, vsel, gxp_t, gxm_t)
-    E_, nefc, nv = operands[0].shape
-    grouped_in = [t.reshape(E_, -1).contiguous() for t in operands]
-    if nfl:
-        ne = options["ne"]
-        grouped_in[5] = operands[5][:, ne:ne + nfl].contiguous()
-    else:
-        grouped_in.pop(5)
-    roles = {
-        "moveaxis0_last": ("pallas_layout.py:43",
-                           [a.reshape(E_, -1), b, gxp.reshape(E_, -1),
-                            gxm.reshape(E_, -1)]),
-        "moveaxis_last0": ("pallas_layout.py:43",
-                           [t.reshape(-1, E_) for t in topk_out]),
-        "to_grouped": ("pallas_layout.py:112", grouped_in),
-        "from_grouped": ("pallas_layout.py:153",
-                         [lay.to_grouped(x), lay.to_grouped(force)]),
-    }
-    fns = {"moveaxis0_last": lay.moveaxis0_last,
-           "moveaxis_last0": lay.moveaxis_last0,
-           "to_grouped": lay.to_grouped, "from_grouped": lay.from_grouped}
-    lay_lib = kernels.library("layout", lay._SIGNATURES)
-    for role, (replaces, ts) in roles.items():
-        ts = [t.contiguous() for t in ts]
-        ms = _time_ms(torch, lambda: [fns[role](t) for t in ts])
-        plain = _time_ms(torch, lambda: [lay.transpose_plain(t) for t in ts])
-        lib = _time_ms(torch, lambda: [t.t().contiguous() for t in ts])
-        row(role, role, "no-plan staged RK4", "layout.cu", replaces, ms,
-            plain, 2 * nbytes(*ts), 0, lib)
-        # the kernel's launch alone: the launcher called on outputs made
-        # beforehand, pointers and stream taken once (the row's `ms` times
-        # the wrapper: its ctypes dispatch, checks and allocation)
-        ys = [torch.empty(t.shape[::-1], dtype=t.dtype, device=dev)
-              for t in ts]
-        launch_args = [(kernels.ptr(t), kernels.ptr(y), *t.shape)
-                       for t, y in zip(ts, ys)]
-        stream = kernels.stream()
-        alone = _time_ms(torch, lambda: [lay_lib.lmt_transpose2d(
-            *a, stream) for a in launch_args])
-        for t, y in zip(ts, ys):
-            assert torch.equal(y, t.t()), f"{role}: launch alone"
-        print(f"layout {role} ({len(ts)} calls per forward): the wrapper "
-              f"{ms:.4f} ms, the launch alone {alone:.4f} ms, "
-              f"x.t().contiguous() {lib:.4f} ms, plain {plain:.4f} ms "
+    sites = lay_tool.site_arrays(lay, coll, hc, hn, wplan, d_wide_pos,
+                                 operands, options)
+    replaces = {"moveaxis0_last": "pallas_layout.py:43",
+                "moveaxis_last0": "pallas_layout.py:43",
+                "to_grouped": "pallas_layout.py:112",
+                "from_grouped": "pallas_layout.py:153"}
+    for role, xs in sites.items():
+        xs = [t.contiguous() for t in xs]
+        tm = lay_tool.site_times(torch, lay, kernels, role, xs)
+        row(role, role, "no-plan staged RK4", "layout.cu", replaces[role],
+            tm["wrapper_ms"], tm["plain_ms"], 2 * nbytes(*xs), 0,
+            tm["library_ms"])
+        print(f"layout {role} ({len(xs)} arrays, one launch per forward): "
+              f"the wrapper {tm['wrapper_ms']:.4f} ms, the launch alone "
+              f"{tm['launch_alone_ms']:.4f} ms (bound {tm['bound_ms']:.4f} "
+              f"ms: {tm['bound_ms'] / tm['launch_alone_ms']:.0%} of the "
+              f"bound's rate), "
+              f"x.t().contiguous() over the same arrays "
+              f"{tm['library_ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms "
               f"({card})")
+        host = lay_tool.split(torch, lay, kernels, role,
+                              lay_tool.host_arrays(role, xs))
+        print(f"layout {role} host split (1000 calls at 128 envs, us per "
+              f"call): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
 
     # the select and top-K at the staged RK4 run's end state (the model's
     # mesh group, k = 8) and at the staged G1 run's (its mesh group, k = 8)
@@ -2494,6 +2497,7 @@ def main() -> int:
           f"{staged_ops or 'not measured'} "
           f"kernels per forward), no-plan staged path {wide_rate:.0f} "
           f"({wide_ops or 'not measured'} per forward); card: {card}")
+    phase("end")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

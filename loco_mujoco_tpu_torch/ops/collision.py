@@ -490,21 +490,24 @@ def mesh_kernel_inputs(plan: hc.MeshPlan, data: Data):
 
 def _plane_mesh_kernel(model: Model, g: Group, plan: hc.MeshPlan,
                        data: Data, plain: bool):
-    """The kernel path: env-last relayouts around the select and top-K."""
+    """The kernel path: env-last relayouts around the select and top-K,
+    one relayout launch for the four operands and one for the four
+    results."""
     if plain:
         select, topk = hc.select_plain, hc.group_topk_plain
-        last, first = lay.moveaxis0_last_plain, lay.moveaxis_last0_plain
+        last = lambda *xs: [lay.moveaxis0_last_plain(x) for x in xs]  # noqa: E731
+        first = lambda *xs: [lay.moveaxis_last0_plain(x) for x in xs]  # noqa: E731
     else:
         select, topk = hc.plane_mesh_select, hc.group_topk
-        last, first = lay.moveaxis0_last, lay.moveaxis_last0
+        last, first = lay.moveaxis0_last_many, lay.moveaxis_last0_many
     a, b, gxp, gxm = mesh_kernel_inputs(plan, data)
-    dist, vsel = select(plan, last(a), last(b))
-    ds, pos, fr, meta = topk(plan, dist, vsel, last(gxp), last(gxm))
+    a_t, b_t, gxp_t, gxm_t = last(a, b, gxp, gxm)
+    dist, vsel = select(plan, a_t, b_t)
+    ds, pos, fr, meta = first(*topk(plan, dist, vsel, gxp_t, gxm_t))
     E, k = a.shape[0], plan.k
-    ds = first(ds)  # (E, k, 3)
-    pos = first(pos).reshape(E, k, 3, 3)
-    frame = first(fr).reshape(E, k, 1, 3, 3).expand(-1, -1, g.slots, -1, -1)
-    meta = first(meta)  # (E, k, 15)
+    # ds (E, k, 3), meta (E, k, 15)
+    pos = pos.reshape(E, k, 3, 3)
+    frame = fr.reshape(E, k, 1, 3, 3).expand(-1, -1, g.slots, -1, -1)
     return (ds, pos, frame, meta[..., 0].long(), meta[..., 1].long(),
             meta[..., 2:7], meta[..., 7:9], meta[..., 9:14], meta[..., 14])
 

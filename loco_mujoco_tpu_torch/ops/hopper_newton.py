@@ -14,8 +14,9 @@ M + J'diag(w)J, Cholesky, a safeguarded-secant line search of
 (E, nv), the row forces (E, nefc), the iterations each env ran (E,) and
 which of them took their step (bit i of an int32 per env, (E,)).
 On a CUDA tensor it relays the operands out to env-last with
-`hopper_layout.to_grouped`, launches the kernel (float32 only) or raises,
-and relays the results back with `from_grouped`. The kernel's local arrays
+`hopper_layout.to_grouped_many` (one launch), launches the kernel (float32
+only) or raises, and relays the two results back with `from_grouped_many`
+(one launch). The kernel's local arrays
 are compiled at two nv widths (`kernels.NV_WIDTHS`, 24 and 32, a library
 each); a larger nv raises. On a CPU tensor it runs
 the plain version, `newton_plain`, a port of the XLA fast path
@@ -401,11 +402,11 @@ def solve(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl, iterations,
                            ("qacc_smooth", asm, (E, nv)),
                            ("qacc_warmstart", ws, (E, nv))):
         kernels.require(t, name, shape)
-    env_last = lambda t: lay.to_grouped(t.reshape(E, -1).contiguous())  # noqa: E731
-    Jt, Mt = env_last(J), env_last(M)
-    aref_t, D_t, R_t, act_t = (env_last(t) for t in (aref, D, R, active))
-    fl_t = env_last(floss[:, ne:ne + nfl]) if nfl else aref_t
-    asm_t, ws_t = env_last(asm), env_last(ws)
+    # the operands env-last, in one relayout launch
+    fl = [floss[:, ne:ne + nfl].contiguous()] if nfl else []
+    Jt, Mt, aref_t, D_t, R_t, act_t, asm_t, ws_t, *fl_t = lay.to_grouped_many(
+        *(t.reshape(E, -1) for t in (J, M, aref, D, R, active, asm, ws, *fl)))
+    fl_t = fl_t[0] if nfl else aref_t
     dev = J.device
     x_t = torch.empty((nv, E), dtype=torch.float32, device=dev)
     f_t = torch.empty((nefc, E), dtype=torch.float32, device=dev)
@@ -424,4 +425,5 @@ def solve(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl, iterations,
         kernels.stream())
     kernels.check(rc, "newton")
     kernels.LAUNCHES["newton"] += 1
-    return lay.from_grouped(x_t), lay.from_grouped(f_t), iters, taken
+    x, f = lay.from_grouped_many(x_t, f_t)
+    return x, f, iters, taken

@@ -140,8 +140,10 @@ def ptxas_log(name: str, defines=()) -> Path:
 def library(name: str, signatures: dict, defines=()) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu` (compiled with the macros
     `defines`), built first if missing. `signatures` maps each launcher to
-    its argtypes; every launcher returns an int CUDA error code."""
-    key = _label(name, defines)
+    its argtypes; every launcher returns an int CUDA error code. Every
+    launch asks for it, so a loaded library is found by one lookup of
+    (name, defines)."""
+    key = (name, tuple(defines))
     lib = _LIBS.get(key)
     if lib is None:
         so, _ = _target(name, defines)
@@ -165,13 +167,18 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-def stream() -> ctypes.c_void_p:
-    """PyTorch's current stream, for a launcher's `stream` argument."""
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream() -> int:
+    """The handle of PyTorch's current stream on the current device, as
+    the int a launcher's `stream` argument (argtypes `PTR`) takes: the raw
+    handle, as PyTorch's own generated code reads it, since
+    `torch.cuda.current_stream()` builds a Stream object per call, which
+    costs more host time than a small launch."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's address, as the int a `PTR` argument takes."""
+    return t.data_ptr()
 
 
 def require(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
@@ -180,7 +187,7 @@ def require(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
         raise ValueError(f"{name}: expected a CUDA tensor")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -145,6 +145,78 @@ def test_relayouts_bit_exact(state):
     assert torch.equal(lay.moveaxis_last0(lay.moveaxis0_last(y)), y)
 
 
+# (R, C) of a 16-array list: square and ragged tiles, C % 4 != 0 (scalar
+# loads), R % 4 != 0 (scalar stores), R < 32 and C < 32 (the packed
+# strips), one element, and the call sites' widths at 4096 envs
+MIXED = [(4096, 225), (4096, 75), (1, 1), (19, 4096), (4096, 19), (24, 4096),
+         (4096, 2), (33, 97), (97, 33), (5, 3), (3, 70), (70, 3), (64, 64),
+         (456, 4096), (31, 130), (4096, 361)]
+
+
+def test_grouped_relayout_bit_exact(state):
+    """The grouped kernel against its plain version: a 16-array list of
+    mixed shapes in one launch, a list of one, and operands whose base is
+    4 bytes off a 16-byte boundary (the scalar path throughout)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    xs = [torch.randn(s, device="cuda", generator=g) for s in MIXED]
+    kernels.LAUNCHES.clear()
+    for role, fn, plain in (
+            ("to_grouped", lay.to_grouped_many, lay.transpose_plain),
+            ("moveaxis0_last", lay.moveaxis0_last_many,
+             lay.moveaxis0_last_plain)):
+        ys = fn(*xs)
+        torch.cuda.synchronize()
+        for x, y in zip(xs, ys):
+            assert torch.equal(y, plain(x)), (role, tuple(x.shape))
+    (y,) = lay.from_grouped_many(xs[3])
+    assert torch.equal(y, xs[3].t())
+    off = [torch.randn(s[0] * s[1] + 1, device="cuda", generator=g)[1:]
+           .view(s) for s in MIXED[:6]]
+    assert all(x.data_ptr() % 16 == 4 for x in off)
+    for x, y in zip(off, lay.moveaxis_last0_many(*off)):
+        assert torch.equal(y, x.t())
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"to_grouped": 1, "moveaxis0_last": 1,
+                                      "from_grouped": 1, "moveaxis_last0": 1}
+
+
+def test_grouped_relayout_raises(state):
+    """Past 16 arrays, a non-contiguous or a float64 operand, or a CPU one
+    beside CUDA ones, the list form raises and launches nothing."""
+    x = torch.zeros(64, 8, device="cuda")
+    kernels.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="at most 16"):
+        lay.moveaxis0_last_many(*[x] * 17)
+    with pytest.raises(ValueError, match="contiguous"):
+        lay.moveaxis0_last_many(x, torch.zeros(8, 64, device="cuda").t())
+    with pytest.raises(TypeError, match="float32"):
+        lay.to_grouped_many(x, x.double())
+    with pytest.raises(ValueError, match="CUDA"):
+        lay.from_grouped_many(x, torch.zeros(64, 8))
+    assert not kernels.LAUNCHES
+
+
+def test_relayout_on_side_stream(state):
+    """A launch under `torch.cuda.stream(s)` runs on s: with the default
+    stream held asleep, s finishes the relayout and the result is read on
+    s while the default stream still sleeps."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    xs = [torch.randn(s, device="cuda", generator=g) for s in MIXED[:4]]
+    refs = [x.t().contiguous() for x in xs]
+    lay.to_grouped_many(*xs)  # the library built and loaded beforehand
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    torch.cuda._sleep(1 << 30)  # about half a second on the default stream
+    with torch.cuda.stream(s):
+        assert kernels.stream() == s.cuda_stream
+        ys = lay.to_grouped_many(*xs)
+        s.synchronize()
+        same = all(torch.equal(y, r) for y, r in zip(ys, refs))
+    assert not torch.cuda.default_stream().query(), "the sleep ended early"
+    torch.cuda.synchronize()
+    assert same
+
+
 def test_select_and_topk_match_plain(state):
     model, d = state
     plan = model.mesh_kernel[1]
@@ -723,7 +795,7 @@ def test_g1_fused_matches_plain(state, monkeypatch):
     k = hf.fused_constraint(model, d)
     assert dict(kernels.LAUNCHES) == {
         "fused": 1, "plane_mesh_select": 1, "group_topk": 1,
-        "moveaxis0_last": 4, "moveaxis_last0": 4}
+        "moveaxis0_last": 1, "moveaxis_last0": 1}
     r = hf.fused_constraint_plain(model, d, replay=_replay(k))
     for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
         got, ref = getattr(k, f), getattr(r, f)

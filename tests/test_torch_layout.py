@@ -1,0 +1,245 @@
+"""The port's relayouts (`hopper_layout`) on the CPU.
+
+* The list forms' plain version against the JAX package's
+  `pallas_layout` functions, array by array, bit-exact, on lists that mix
+  shapes: E not a multiple of 32, K < 8, K = 1, and one (128, 256) array
+  that runs the reference's `_t2d` Pallas kernel in interpret mode.
+* The kernel path's plumbing with the launcher replaced by a stand-in
+  that does what `csrc/layout.cu` does (each packed (x, y, R, C) array
+  transposed through its pointers): the operand checks, the outputs' one
+  buffer at 16-byte offsets, one launch per list, and the two call sites,
+  `collision._plane_mesh_kernel` and `hopper_newton.solve`, bit for bit
+  against their plain versions (the Newton launcher a stand-in that runs
+  `newton_plain` on the operands it reads back through its pointers).
+"""
+
+import ctypes
+import struct
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from loco_mujoco_tpu.ops import pallas_layout as jlay
+from loco_mujoco_tpu.ops import pallas_newton as jpn
+from loco_mujoco_tpu_torch.core import io
+from loco_mujoco_tpu_torch.ops import collision, kinematics, kernels
+from loco_mujoco_tpu_torch.ops import hopper_collision as hc
+from loco_mujoco_tpu_torch.ops import hopper_layout as lay
+from loco_mujoco_tpu_torch.ops import hopper_newton as hn
+from test_torch_fixture import ASSET
+from test_torch_newton import ITER, LS, NE, NFL, SCALE, TOL, problem
+
+# (E, *rest) arrays of one list: E 45 (not a multiple of 32), K 7 (< 8),
+# K 1, a 3-d array, and the (128, 256) array of the reference's kernel
+ENV_MAJOR = [(45, 7), (45, 1), (45, 5, 3), (128, 256)]
+
+
+def _x(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def test_moveaxis_many_matches_pallas_layout(monkeypatch):
+    monkeypatch.setattr(jpn, "_INTERPRET", True)
+    xs = [_x(s, i) for i, s in enumerate(ENV_MAJOR)]
+    got = lay.moveaxis0_last_many(*map(torch.as_tensor, xs))
+    back = lay.moveaxis_last0_many(*got)
+    assert len(got) == len(back) == len(xs)
+    with jax.enable_x64(False):
+        for x, g, b in zip(xs, got, back):
+            last = np.asarray(jlay.moveaxis0_last(jnp.asarray(x)))
+            np.testing.assert_array_equal(g.numpy(), last)
+            np.testing.assert_array_equal(
+                b.numpy(), np.asarray(jlay.moveaxis_last0(jnp.asarray(last))))
+
+
+def test_grouped_many_matches_pallas_layout(monkeypatch):
+    """to_grouped's (K, R, 128) with the (R, 128) split dropped is (K, E)."""
+    monkeypatch.setattr(jpn, "_INTERPRET", True)
+    xs = [_x(s, 10 + i) for i, s in enumerate(
+        [(45, 7), (45, 1), (130, 24), (128, 256)])]
+    got = lay.to_grouped_many(*map(torch.as_tensor, xs))
+    back = lay.from_grouped_many(*got)
+    with jax.enable_x64(False):
+        for x, g, b in zip(xs, got, back):
+            E_, K = x.shape
+            ref = jlay.to_grouped(jnp.asarray(x))
+            np.testing.assert_array_equal(
+                g.numpy(), np.asarray(ref).reshape(K, -1)[:, :E_])
+            np.testing.assert_array_equal(
+                b.numpy(), np.asarray(jlay.from_grouped(ref, E_)))
+
+
+@pytest.mark.parametrize("role", ["moveaxis0_last", "moveaxis_last0",
+                                  "to_grouped", "from_grouped"])
+def test_one_array_form_is_the_list_of_one(role):
+    x = torch.as_tensor(_x((45, 7), 3))
+    one = getattr(lay, role)(x)
+    (many,) = getattr(lay, f"{role}_many")(x)
+    assert torch.equal(one, many) and torch.equal(one, x.t())
+
+
+def _read(ptr, shape, ctype=ctypes.c_float):
+    """A writable numpy view of the memory at ptr."""
+    n = int(np.prod(shape))
+    return np.ctypeslib.as_array((ctype * n).from_address(ptr)).reshape(shape)
+
+
+class _Layout:
+    """Stand-in for `csrc/layout.cu`'s launcher on CPU memory: each packed
+    (x, y, R, C) array transposed through its pointers; records (R, C) of
+    each launch's arrays."""
+
+    def __init__(self):
+        self.launches = []
+
+    def lmt_transpose_many(self, packed, n, stream):
+        assert 0 < n <= lay.MAX_ARRAYS and stream == 0
+        q = struct.unpack(f"{4 * n}q", packed)
+        self.launches.append([q[4 * k + 2:4 * k + 4] for k in range(n)])
+        for k in range(n):
+            x, y, R, C = q[4 * k:4 * k + 4]
+            assert y % 16 == 0, "an output off its 16-byte offset"
+            _read(y, (C, R))[...] = _read(x, (R, C)).T
+        return 0
+
+
+class _Newton:
+    """Stand-in for `csrc/newton.cu`'s launcher: reads the env-last
+    operands back through their pointers, solves them with `newton_plain`
+    and writes the env-last results."""
+
+    def lmt_newton_solve(self, Jt, Mt, aref, D, R, fl, act, asm, ws, x, f,
+                         iters, taken, jar, jv, E, nv, nefc, ne, nfl, it, ls,
+                         scale, tol, stream):
+        def env_major(p, K):
+            return torch.as_tensor(_read(p, (K, E)).T.copy())
+
+        floss = torch.zeros(E, nefc)
+        if nfl:
+            floss[:, ne:ne + nfl] = env_major(fl, nfl)
+        out = hn.newton_plain(
+            env_major(Jt, nefc * nv).reshape(E, nefc, nv),
+            env_major(Mt, nv * nv).reshape(E, nv, nv), env_major(aref, nefc),
+            env_major(D, nefc), env_major(R, nefc), floss,
+            env_major(act, nefc), env_major(asm, nv), env_major(ws, nv),
+            ne=ne, nfl=nfl, iterations=it, ls_iterations=ls, scale=scale,
+            tol=tol)
+        _read(x, (nv, E))[...] = out[0].numpy().T
+        _read(f, (nefc, E))[...] = out[1].numpy().T
+        _read(iters, (E,), ctypes.c_int32)[...] = out[2].numpy()
+        _read(taken, (E,), ctypes.c_int32)[...] = out[3].numpy()
+        return 0
+
+
+@pytest.fixture
+def on_card(monkeypatch):
+    """CPU tensors through the kernel path: `is_cuda` True, the stand-in
+    launchers, a null stream; yields the layout stand-in."""
+    libs = {"layout": _Layout(), "newton": _Newton()}
+    monkeypatch.setattr(kernels, "library",
+                        lambda name, signatures, defines=(): libs[name])
+    monkeypatch.setattr(kernels, "stream", lambda: 0)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    kernels.LAUNCHES.clear()
+    yield libs["layout"]
+    kernels.LAUNCHES.clear()
+
+
+@pytest.mark.parametrize("n", [1, 3, 16])
+def test_list_launches_once(on_card, n):
+    """n arrays of mixed shapes (ragged tiles, C % 4 != 0, R < 32, one
+    element) in one launch, every result the plain version's."""
+    shapes = [(45, 7), (1, 1), (19, 4096 // 64), (33, 130), (3, 2),
+              (64, 5), (2, 70), (37, 37)] * 2
+    xs = [torch.as_tensor(_x(s, i)) for i, s in enumerate(shapes[:n])]
+    ys = lay.to_grouped_many(*xs)
+    assert on_card.launches == [[tuple(x.shape) for x in xs]]
+    assert dict(kernels.LAUNCHES) == {"to_grouped": 1}
+    base = ys[0].data_ptr()
+    for x, y in zip(xs, ys):
+        assert torch.equal(y, x.t()) and y.is_contiguous()
+        assert (y.data_ptr() - base) % 16 == 0
+
+
+@pytest.mark.parametrize("bad, error, match", [
+    ("many", ValueError, "at most 16"),
+    ("float64", TypeError, "float32"),
+    ("strided", ValueError, "contiguous"),
+])
+def test_list_checks_raise(on_card, bad, error, match):
+    """Past MAX_ARRAYS arrays, a float64 or a non-contiguous operand, the
+    list form raises before any launch; nothing falls back."""
+    xs = [torch.zeros(8, 4) for _ in range(3)]
+    if bad == "many":
+        xs = [torch.zeros(8, 4)] * (lay.MAX_ARRAYS + 1)
+    elif bad == "float64":
+        xs[1] = xs[1].double()
+    else:
+        xs[2] = torch.zeros(4, 8).t()
+    with pytest.raises(error, match=match):
+        lay.moveaxis0_last_many(*xs)
+    assert on_card.launches == [] and not kernels.LAUNCHES
+
+
+def _dropped_state(model, E=6):
+    rng = np.random.default_rng(2)
+    qpos = model.qpos0.numpy()[None] + rng.normal(scale=0.02,
+                                                  size=(E, model.nq))
+    qpos[:, int(model.jnt_qposadr[model.names["joint"]["root_z"]])] -= 0.015
+    d = io.make_data(model, E).replace(
+        qpos=torch.as_tensor(qpos, dtype=torch.float32))
+    return kinematics.kinematics(model, d)
+
+
+def test_plane_mesh_call_site(monkeypatch):
+    """`_plane_mesh_kernel` relays its four operands in one launch and
+    its four results in one, and gives its plain version's outputs bit
+    for bit (the select and top-K kernels' plain versions behind it)."""
+    model = io.load_model_npz(ASSET, device="cpu", dtype=torch.float32)
+    gi = next(i for i, p in enumerate(model.mesh_kernel) if p is not None)
+    g, plan = model.groups[gi], model.mesh_kernel[gi]
+    d = _dropped_state(model)
+    ref = collision._plane_mesh_kernel(model, g, plan, d, plain=True)
+    cpu = collision._plane_mesh_kernel(model, g, plan, d, plain=False)
+    libs = {"layout": _Layout()}
+    monkeypatch.setattr(kernels, "library",
+                        lambda name, signatures, defines=(): libs[name])
+    monkeypatch.setattr(kernels, "stream", lambda: 0)
+    monkeypatch.setattr(hc, "plane_mesh_select", hc.select_plain)
+    monkeypatch.setattr(hc, "group_topk", hc.group_topk_plain)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    kernels.LAUNCHES.clear()
+    got = collision._plane_mesh_kernel(model, g, plan, d, plain=False)
+    assert dict(kernels.LAUNCHES) == {"moveaxis0_last": 1,
+                                      "moveaxis_last0": 1}
+    kernels.LAUNCHES.clear()
+    assert [len(launch) for launch in libs["layout"].launches] == [4, 4]
+    assert bool((ref[0] < ref[8][..., None]).any()), "no active slot"
+    for r, c, k in zip(ref, cpu, got):
+        assert torch.equal(c, r) and torch.equal(k, r)
+
+
+@pytest.mark.parametrize("nfl", [NFL, 0])
+def test_newton_call_site(on_card, nfl):
+    """`hopper_newton.solve` relays its operands in one launch and its two
+    results in one, and the kernel's stand-in, reading them through the
+    pointers, gives `newton_plain`'s outputs bit for bit: every operand
+    reaches its own argument."""
+    p = problem(4)
+    if not nfl:
+        p["floss"][:] = 0
+    args = [torch.as_tensor(p[k]) for k in ("J", "M", "aref", "D", "R",
+                                            "floss", "active", "asm", "ws")]
+    opts = dict(ne=NE, nfl=nfl, iterations=ITER, ls_iterations=LS,
+                scale=SCALE, tol=TOL)
+    got = hn.solve(*args, **opts)
+    assert dict(kernels.LAUNCHES) == {"to_grouped": 1, "newton": 1,
+                                      "from_grouped": 1}
+    assert [len(launch) for launch in on_card.launches] == [
+        8 + (1 if nfl else 0), 2]
+    ref = hn.newton_plain(*args, **opts)
+    for r, k in zip(ref, got):
+        assert torch.equal(k, r)

@@ -1,0 +1,344 @@
+#!/usr/bin/env python3
+"""Time the relayouts of the staged step's call sites on one GPU and split
+each call's host time by part.
+
+    python3 tools/layout_host.py [--root DIR] [--calls 1000] [--envs 4096]
+                                 [--staged STEPS]
+
+At `chip_smoke.py`'s `wide` configuration (the HumanoidTorque-shaped
+model with 34 plane-mesh slots: 456 rows, no plan, so its staged step runs
+the select, top-K and Newton kernels) and a seeded state dropped 15 mm,
+it builds the arrays each call site relays in one forward: the plane-mesh
+group's four select and top-K operands (`moveaxis0_last`) and four top-K
+results (`moveaxis_last0`), the Newton solve's operands (`to_grouped`)
+and its two results (`from_grouped`). For each call site it prints one
+JSON line: the wrapper's time over the site's arrays, the launch alone
+(the launcher on outputs made beforehand, enqueued behind a sleep of the
+stream, so that the events time the card only), one `x.t().contiguous()`
+per array and the bound (each array read and written once over 3.35
+TB/s), in ms (CUDA events, the mean of 100 runs after a warm-up; every
+output is checked against `x.t()`), and the host split: `--calls` calls
+of the wrapper timed with `time.perf_counter` and no synchronize in the
+loop,
+then each part of the wrapper alone over as many calls, in microseconds
+per call of the site (`rest` is the wrapper's time less its timed parts),
+on the site's arrays cut to 128 envs (`host_arrays`: the same calls with
+too little device work to fill the card's queue).
+
+`--staged STEPS` also times STEPS control steps (10 substeps each) of
+the staged path (`LMT_MEGA=0`, `forward.step`) from the dropped state,
+after one untimed control step, in the committed model's `rk4`
+configuration (the fused kernel, the select and top-K and their
+relayouts) and in `wide` (the Newton kernel and its relayouts besides),
+and prints each one's rate (env-steps/s) and launches per control step.
+
+`--root DIR` times the port of another checkout (an archive of a parent
+commit, to put both in one call). A checkout with the list forms
+(`hopper_layout.moveaxis0_last_many` ...) relays a site's arrays in one
+launch, an older one an array per launch; the split follows that
+checkout's own wrapper either way. `chip_smoke.py` imports `split` and
+`site_times` for its layout phase. Prints the card's name and power limit
+and one JSON line per call site.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import struct
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROLES = ("moveaxis0_last", "moveaxis_last0", "to_grouped", "from_grouped")
+HBM_BYTES_PER_S = 3.35e12
+
+
+def site_arrays(lay, coll, hc, hn, plan, d_pos, operands, options) -> dict:
+    """{role: the arrays its call site relays in one forward}: the
+    plane-mesh group `plan`'s select and top-K operands and results at
+    the position stage `d_pos`, and the Newton solve's operands
+    (`solver.newton_inputs`) and results, env-major or env-last as the
+    call sites (`collision._plane_mesh_kernel`, `hopper_newton.solve`)
+    pass them."""
+    a, b, gxp, gxm = coll.mesh_kernel_inputs(plan, d_pos)
+    a_t, b_t, gxp_t, gxm_t = (lay.moveaxis0_last_plain(t)
+                              for t in (a, b, gxp, gxm))
+    dist, vsel = hc.plane_mesh_select(plan, a_t, b_t)
+    topk = hc.group_topk(plan, dist, vsel, gxp_t, gxm_t)
+    E = operands[0].shape[0]
+    ne, nfl = options["ne"], options["nfl"]
+    grouped = [t.reshape(E, -1) for i, t in enumerate(operands) if i != 5]
+    if nfl:
+        grouped.append(operands[5][:, ne:ne + nfl].contiguous())
+    x, f, _, _ = hn.solve(*operands, **options)
+    return {"moveaxis0_last": [a, b, gxp, gxm],
+            "moveaxis_last0": list(topk), "to_grouped": grouped,
+            "from_grouped": [x.t().contiguous(), f.t().contiguous()]}
+
+
+def _dims(role, x):
+    """(R, C, output shape) of x's relayout: (R, C) -> (C, R)."""
+    s = tuple(x.shape)
+    if role in ("moveaxis0_last", "to_grouped"):
+        return s[0], math.prod(s[1:]), (*s[1:], s[0])
+    return math.prod(s[:-1]), s[-1], (s[-1], *s[:-1])
+
+
+def _grouped(lay) -> bool:
+    """The checkout relays a list in one launch (`launch`), or one array
+    per launch (`_t2d`)."""
+    return hasattr(lay, "launch")
+
+
+def wrapper(lay, role):
+    """The call site's relayout of a list of arrays."""
+    if _grouped(lay):
+        many = getattr(lay, f"{role}_many")
+        return lambda xs: many(*xs)
+    one = getattr(lay, role)
+    return lambda xs: [one(x) for x in xs]
+
+
+def _launch_alone(torch, lay, kernels, role, xs):
+    """(launch, outputs): the launcher over xs into outputs made
+    beforehand, pointers and the stream taken once."""
+    dims = [_dims(role, x) for x in xs]
+    lib = kernels.library("layout", lay._SIGNATURES)
+    s = kernels.stream()
+    if _grouped(lay):
+        ys = lay.outputs(xs[0], dims)
+        args = []
+        for x, y, (R, C, _) in zip(xs, ys, dims):
+            args += (x.data_ptr(), y.data_ptr(), R, C)
+        packed, n = struct.pack(f"{len(args)}q", *args), len(xs)
+        return (lambda: lib.lmt_transpose_many(packed, n, s)), ys
+    ys = [torch.empty(shape, dtype=x.dtype, device=x.device)
+          for x, (_, _, shape) in zip(xs, dims)]
+    args = [(kernels.ptr(x), kernels.ptr(y), R, C)
+            for x, y, (R, C, _) in zip(xs, ys, dims)]
+    return (lambda: [lib.lmt_transpose2d(*a, s) for a in args]), ys
+
+
+def _time_ms(torch, fn, reps=100, queued=False):
+    """Mean CUDA-event ms of fn over `reps` calls after a warm-up. With
+    `queued` the calls are enqueued behind a sleep of the stream, so the
+    events time the card alone: a launch of a few microseconds is
+    otherwise timed at the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(1 << 26)  # ~40 ms, past the loop's host time
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def site_times(torch, lay, kernels, role, xs) -> dict:
+    """ms of the call site's relayout of xs: the wrapper, the launch
+    alone, the plain version (`transpose_plain` of each array), one
+    `x.t().contiguous()` per array (the library call) and the bound; the
+    outputs checked."""
+    fn = wrapper(lay, role)
+    for x, y in zip(xs, fn(xs)):
+        R, C, shape = _dims(role, x)
+        assert torch.equal(y, x.reshape(R, C).t().reshape(shape)), role
+    alone, ys = _launch_alone(torch, lay, kernels, role, xs)
+    out = {"wrapper_ms": _time_ms(torch, lambda: fn(xs)),
+           "launch_alone_ms": _time_ms(torch, alone, queued=True)}
+    for x, y in zip(xs, ys):
+        R, C, shape = _dims(role, x)
+        assert torch.equal(y, x.reshape(R, C).t().reshape(shape)), role
+    mats = [x.reshape(_dims(role, x)[:2]) for x in xs]
+    out["plain_ms"] = _time_ms(torch, lambda: [lay.transpose_plain(m)
+                                               for m in mats])
+    out["library_ms"] = _time_ms(torch, lambda: [m.t().contiguous()
+                                                 for m in mats])
+    nbytes = sum(x.numel() * x.element_size() for x in xs)
+    out["bound_ms"] = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def _us(torch, fn, calls):
+    """Host microseconds per call of fn over `calls` calls, with no
+    synchronize in the loop."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def host_arrays(role, xs, envs=128) -> list:
+    """The site's arrays cut to their first `envs` envs (contiguous
+    copies): the same calls, shapes but for E, and checks, with so little
+    device work that a loop of them never waits for the card."""
+    first = role in ("moveaxis0_last", "to_grouped")
+    return [(x[:envs] if first else x[..., :envs]).contiguous() for x in xs]
+
+
+def split(torch, lay, kernels, role, xs, calls=1000) -> dict:
+    """Host microseconds per call of the site's wrapper (`total`) and of
+    its parts: the operand checks, the output allocation, the stream
+    lookup, the library lookup, the pointers (and, for a list, their
+    packing), the ctypes call with its launch, the launch count, and the
+    rest (shapes, views and reshapes, results). An older checkout's site
+    makes one wrapper call per array: its parts are summed over them.
+    Pass `host_arrays` of the site's arrays: at full width the card's
+    queue fills within the loop, and the host then waits for it."""
+    fn = wrapper(lay, role)
+    dims = [_dims(role, x) for x in xs]
+    dev = xs[0].device
+    alone, ys = _launch_alone(torch, lay, kernels, role, xs)
+    counts = kernels.LAUNCHES.copy()
+    if _grouped(lay):
+        parts = {
+            "checks": lambda: lay.check(role, xs),
+            "allocation": lambda: lay.outputs(xs[0], dims),
+            "pointers": lambda: struct.pack(f"{4 * len(xs)}q", *(
+                v for x, y, (R, C, _) in zip(xs, ys, dims)
+                for v in (x.data_ptr(), y.data_ptr(), R, C))),
+        }
+    else:
+        mats = [(x, x.reshape(R, C), (R, C), (C, R))
+                for x, (R, C, _) in zip(xs, dims)]
+        parts = {
+            "checks": lambda: [kernels.require(m, role, rc)
+                               for _, m, rc, _ in mats],
+            "allocation": lambda: [torch.empty(cr, dtype=x.dtype, device=dev)
+                                   for x, _, _, cr in mats],
+            "pointers": lambda: [(kernels.ptr(x), kernels.ptr(y))
+                                 for x, y in zip(xs, ys)],
+        }
+    per = 1 if _grouped(lay) else len(xs)  # wrapper calls per site
+
+    def count():
+        for _ in range(per):
+            kernels.LAUNCHES[role] += 1
+
+    parts.update({
+        "stream": lambda: [kernels.stream() for _ in range(per)],
+        "library": lambda: [kernels.library("layout", lay._SIGNATURES)
+                            for _ in range(per)],
+        "ctypes call": alone,
+        "count": count,
+    })
+    out = {"total": _us(torch, lambda: fn(xs), calls)}
+    for name, part in parts.items():
+        out[name] = _us(torch, part, calls)
+    out["rest"] = out["total"] - sum(v for k, v in out.items()
+                                     if k != "total")
+    kernels.LAUNCHES.clear()
+    kernels.LAUNCHES.update(counts)
+    return out
+
+
+def staged_rate(torch, fwd, kernels, m, d, steps, substeps=10):
+    """(env-steps/s, launches per control step) of `steps` control steps
+    of the staged path from d, after one untimed control step."""
+    os.environ["LMT_MEGA"] = "0"
+    try:
+        for _ in range(substeps):
+            d = fwd.step(m, d)
+        torch.cuda.synchronize()
+        kernels.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        for _ in range(steps * substeps):
+            d = fwd.step(m, d)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["LMT_MEGA"]
+    assert torch.isfinite(d.qvel).all()
+    counts = {k: v // steps for k, v in sorted(kernels.LAUNCHES.items())}
+    return d.qpos.shape[0] * steps / wall, counts
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", type=Path,
+                    default=Path(__file__).resolve().parent.parent)
+    ap.add_argument("--calls", type=int, default=1000)
+    ap.add_argument("--envs", type=int, default=4096)
+    ap.add_argument("--staged", type=int, default=0)
+    args = ap.parse_args()
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from loco_mujoco_tpu_torch.core import io
+    from loco_mujoco_tpu_torch.ops import collision as coll
+    from loco_mujoco_tpu_torch.ops import constraint as con
+    from loco_mujoco_tpu_torch.ops import forward as fwd
+    from loco_mujoco_tpu_torch.ops import hopper_collision as hc
+    from loco_mujoco_tpu_torch.ops import hopper_layout as lay
+    from loco_mujoco_tpu_torch.ops import hopper_newton as hn
+    from loco_mujoco_tpu_torch.ops import kernels, solver
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"nvidia-smi: {card}; port from {root}")
+    kernels.build_all(["layout", "plane_mesh", "newton"])
+    dev = torch.device("cuda")
+    def load(change):
+        leaves, aux = io.read_model_npz(
+            root / "loco_mujoco_tpu_torch/assets/humanoid_torque_shape.npz")
+        aux.update(change)
+        return io.model_from_numpy(leaves, aux, device=dev,
+                                   dtype=torch.float32)
+
+    m = load({"contact_k_plane": 34})  # chip_smoke.CONFIGS["wide"]
+    assert m.plan is None, "the wide configuration has a plan"
+    E = args.envs
+    rng = np.random.default_rng(0)
+    qpos = m.qpos0.cpu().numpy()[None] + rng.normal(scale=0.02,
+                                                    size=(E, m.nq))
+    qpos[:, int(m.jnt_qposadr[m.names["joint"]["root_z"]])] -= 0.015
+    d = io.make_data(m, E).replace(
+        qpos=torch.as_tensor(qpos, dtype=torch.float32, device=dev))
+    d_pos = fwd.fwd_position(m, d)
+    d_acc = fwd.fwd_acceleration(m, fwd.fwd_actuation(
+        m, fwd.fwd_velocity(m, d_pos)))
+    operands, options = solver.newton_inputs(m, d_acc,
+                                             con.make_constraint(m, d_acc))
+    plan = next(p for p in m.mesh_kernel if p is not None)
+    sites = site_arrays(lay, coll, hc, hn, plan, d_pos, operands, options)
+    for role in ROLES:
+        xs = [t.contiguous() for t in sites[role]]
+        line = {"site": role, "arrays": len(xs),
+                "launches": 1 if _grouped(lay) else len(xs),
+                **site_times(torch, lay, kernels, role, xs),
+                "host_us": split(torch, lay, kernels, role,
+                                 host_arrays(role, xs), args.calls),
+                "calls": args.calls, "card": card}
+        print(json.dumps(line))
+    if args.staged:
+        for name, model in (("rk4", load({})), ("wide", m)):
+            start = io.make_data(model, E).replace(qpos=d.qpos.clone())
+            rate, counts = staged_rate(torch, fwd, kernels, model, start,
+                                       args.staged)
+            print(json.dumps({"staged": name, "steps": args.staged,
+                              "env_steps_per_s": rate,
+                              "launches_per_control_step": counts,
+                              "card": card}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
