@@ -10,7 +10,10 @@ Run from the repository root: `python3 chip_smoke.py`. It
    main-path configuration's launch: shared bytes per env, envs per block
    and the resident warps per SM that
    `cudaOccupancyMaxActiveBlocksPerMultiprocessor` gives both kernels (at
-   least 4);
+   least 4); and the same for the fused kernel (every configuration with a
+   plan, with and without the damping rows) and the standalone Newton
+   kernel (the two configurations without a plan), which run a warp per
+   env on the mega kernels' warp core (`csrc/warp_core.cuh`);
 3. loads the committed HumanoidTorque-shaped model (nv = 19, 75 plane-mesh
    pairs) in five configurations, each a change of the loaded arrays: RK4
    and Euler with uniform contact statics (the mega plan), per-pair
@@ -68,7 +71,8 @@ Run from the repository root: `python3 chip_smoke.py`. It
    Atlas with their arms (the fused kernel at width 32), 1 of Talos (its
    plane-mesh group at k = P in torch, in pair order, and the fused
    kernel), and 1 control step of the
-   model with no plan, through the Newton kernel and its relayouts, and
+   model with no plan, through the Newton kernel (a warp per env on the
+   solve's env-major operands: no relayout around it), and
    1 of G1 with its arms with no plan (the Newton kernel at width 32), with
    every launch counter set to 0 just before each run and read just after,
    and checks the counts; then compares one staged forward with the
@@ -153,8 +157,10 @@ Run from the repository root: `python3 chip_smoke.py`. It
    could take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
    the H100 SXM data-sheet peaks at 700 W); the layout kernel per call
    site (one launch for all of a site's arrays in a forward: the
-   plane-mesh group's four operands and four results, the Newton solve's
-   operands and two results) also by its launch alone (the launcher on
+   plane-mesh group's four operands and four results; the Newton solve's
+   operands and two results, which the one-thread solve relayed and the
+   warp solve reads as they are, so no path launches to_grouped or
+   from_grouped now) also by its launch alone (the launcher on
    outputs made beforehand: the row's time brackets the wrapper's checks,
    allocation and ctypes dispatch), and the wrapper's host time split by
    part (`tools/layout_host.py`: 1000 calls at 128 envs);
@@ -178,6 +184,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 N_ENVS = 4096
 CONTROL_STEPS = 20  # the main path
@@ -842,7 +849,7 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True,
     Elliptic contacts count their dim rows and, per Newton step, each
     active contact's cone zone at each of the solve's 3 + ls_iterations
     evaluations, and the Hessian outer products of its zone at the
-    solution (`qacc`, or d.qacc: _cone_census), as csrc/newton_core.cuh
+    solution (`qacc`, or d.qacc: _cone_census), as csrc/warp_core.cuh
     computes them: none separating, dim sticking, and in the middle zone
     its dim - 1 tangential rows, its rank-1 term and its
     (dim - 1)(dim - 2) / 2 curvature pairs. The extended collision
@@ -1047,7 +1054,8 @@ def main() -> int:
     from loco_mujoco_tpu_torch.ops import hopper_mega as hm
     from loco_mujoco_tpu_torch.ops import hopper_newton as hn
     from loco_mujoco_tpu_torch.ops import kernels, kinematics, solver
-    from loco_mujoco_tpu_torch.ops.plan import RESIDENT_FLOOR, mega_launch
+    from loco_mujoco_tpu_torch.ops.plan import (RESIDENT_FLOOR, fused_launch,
+                                                mega_launch, solve_launch)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1237,7 +1245,8 @@ def main() -> int:
                                         "megastep_kernel", "fused_kernel",
                                         "newton_kernel") if k in fn)
                 # the template arguments: <EXT, ELL, DAMP> of the mega
-                # kernels, <DAMP> of the fused kernel, <NVM> of Newton's
+                # kernels, <DAMP, ELL> of the fused kernel (Newton's has
+                # none)
                 args = re.findall(r"L([bi])(\d+)E", fn.split(kind)[1])
                 census.setdefault(kind, []).append(
                     "<" + ", ".join(("true" if v == "1" else "false")
@@ -1260,6 +1269,42 @@ def main() -> int:
     print("the width-32 instances (plane-only, extended pyramidal; without "
           "and with the damping rows): "
           + "; ".join(f"{k} " + " / ".join(v) for k, v in census.items()))
+    # the fused and Newton kernels' launch: a warp per env on the mega
+    # kernels' warp core, its state in shared memory (ops/plan.py
+    # FusedLaunch, SolveLaunch), the rows' J in shared memory or a global
+    # scratch (fused), or read from the operand (Newton)
+    fused_models = {"rk4": model, "fric": models["fric"],
+                    "solref": models["solref"], "muscle": m_mu, "a1": m_a1,
+                    **bipeds, "g1": m_g1, "a1pos": m_a1p, "g1arms": m_g1a,
+                    **arms, **kp}
+    for name in ("rk4", "a1", "atlasarms", "g1arms"):  # the damping rows
+        m = fused_models[name]
+        fused_models[name + "_dr"] = m.replace(plan=m.plan.dyn_damping())
+    for name, m in fused_models.items():
+        launch = fused_launch(m.plan)
+        occ = hf.occupancy(m)
+        print(f"fused launch {name}: width {m.plan.nvm}, instance <DAMP "
+              f"{m.plan.sm_dyn_damping}, ELL {m.plan.elliptic}>, "
+              f"{4 * launch.env_floats} bytes of shared memory per env, J in "
+              f"{'a global scratch' if launch.j_global else 'shared memory'}"
+              f", {launch.envs_per_block} envs (warps) per block; resident "
+              f"warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) "
+              f"{occ} (the launch plan's shared-memory bound "
+              f"{launch.resident_warps})")
+        assert occ >= RESIDENT_FLOOR, (name, occ)
+    for name, m in (("wide", m_wide), ("g1arms_wide", m_g1a_wide)):
+        efc = con.make_constraint(m, fwd.fwd_position(
+            m, io.make_data(m, 1), plain=True))
+        nefc = efc.J.shape[1]
+        ne, nfl = hn.row_class_counts(efc.is_bilateral, efc.is_fl)
+        launch = solve_launch(m.nv, nefc, ne, nfl)
+        occ = hn.occupancy(m.nv, nefc, ne, nfl)
+        print(f"newton launch {name}: nv {m.nv}, {nefc} rows, "
+              f"{4 * launch.env_floats} bytes of shared memory per env, J "
+              f"read from the operand, {launch.envs_per_block} envs (warps) "
+              f"per block; resident warps per SM {occ} (the launch plan's "
+              f"shared-memory bound {launch.resident_warps})")
+        assert occ >= RESIDENT_FLOOR, (name, occ)
 
     E = N_ENVS
     qpos, ctrls, ctrls_mu, qpos_a1, ctrls_a1 = seeded_draws(model, m_mu, m_a1,
@@ -1362,16 +1407,24 @@ def main() -> int:
         costs that reach 1e5 in deep contact, so two float32 orders of
         summation can stop an env one Newton step apart. The plain version
         therefore replays the kernel's discrete decisions (`replay`: warm
-        start, iteration count, steps taken), and the two are held step for
-        step on every env: qacc and row forces within rel 5e-4 of their
-        largest value."""
+        start, iteration count, steps taken, the line search's signs and
+        each step's Hessian decision of every row, which the warp kernel
+        records as the fused and mega kernels do), and the two are held
+        step for step on every env: qacc and row forces within rel 5e-4 of
+        their largest value; the replayed row decisions depart from the
+        plain version's own at the first step in at most 0.5% of the envs
+        (_row_departures)."""
         d_acc = fwd.fwd_acceleration(m, fwd.fwd_actuation(
             m, fwd.fwd_velocity(m, d)))
         efc = con.make_constraint(m, d_acc)
         operands, options = solver.newton_inputs(m, d_acc, efc)
-        x_k, f_k, it_k, tk_k = hn.solve(*operands, **options)
-        x_p, f_p, _, _ = hn.newton_plain(*operands, **options,
-                                         replay=(it_k, tk_k))
+        rec, own = {}, {}
+        x_k, f_k, it_k, tk_k = hn.solve(*operands, **options, record=rec)
+        x_p, f_p, _, _ = hn.newton_plain(
+            *operands, **options, replay=(it_k, tk_k, rec["ls"], rec["rows"]),
+            record=own)
+        _row_departures(torch, SimpleNamespace(solver_rows=rec["rows"]),
+                        own["own_rows"], E, f"newton ({what})")
         it_own, tk_own = hn.newton_plain(*operands, **options)[2:]
         e_x = float((x_k - x_p).abs().max())
         e_f = float((f_k - f_p).abs().max())
@@ -1447,8 +1500,7 @@ def main() -> int:
                  "group_topk": len(mesh_groups),
                  "moveaxis0_last": len(mesh_groups),
                  "moveaxis_last0": len(mesh_groups)}
-    per_newton = {"newton": 1, "to_grouped": 1, "from_grouped": 1,
-                  "plane_mesh_select": len(mesh_groups),
+    per_newton = {"newton": 1, "plane_mesh_select": len(mesh_groups),
                   "group_topk": len(mesh_groups),
                   "moveaxis0_last": len(mesh_groups),
                   "moveaxis_last0": len(mesh_groups)}
@@ -1486,8 +1538,7 @@ def main() -> int:
                        "through the plane-mesh kernels, torch narrowphases "
                        "and the fused kernel at width 32 (26-float pack)")
         d_g1a_wide, g1a_wide_launches, g1a_wide_rate, _ = staged_run(
-            m_g1a_wide, WIDE_STEPS,
-            {"newton": 1, "to_grouped": 1, "from_grouped": 1},
+            m_g1a_wide, WIDE_STEPS, {"newton": 1},
             f"G1 with arms Euler, no plan ({m_g1a_wide.ncon} slots), "
             f"through the Newton kernel at width 32")
         # H1 and Atlas with their arms: the fused kernel at width 32 (H1's
@@ -2134,7 +2185,7 @@ def main() -> int:
         own = {}
         r = hf.fused_constraint_plain(m, d, replay=(
             k.solver_niter, k.solver_taken, k.solver_ls, k.solver_rows),
-            record=own)
+            solve64=m.plan.elliptic, record=own)
         _row_departures(torch, k, own["own_rows"], E, f"fused {name}")
         fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
         assert (k.euler_dv is None) == (not m.plan.euler_dv)
@@ -2235,7 +2286,10 @@ def main() -> int:
         row(role, role, "no-plan staged RK4", "layout.cu", replaces[role],
             tm["wrapper_ms"], tm["plain_ms"], 2 * nbytes(*xs), 0,
             tm["library_ms"])
-        print(f"layout {role} ({len(xs)} arrays, one launch per forward): "
+        where = ("one launch per forward" if role.startswith("move") else
+                 "the Newton solve's arrays, which the warp solve reads "
+                 "env-major: no path launches it")
+        print(f"layout {role} ({len(xs)} arrays, {where}): "
               f"the wrapper {tm['wrapper_ms']:.4f} ms, the launch alone "
               f"{tm['launch_alone_ms']:.4f} ms (bound {tm['bound_ms']:.4f} "
               f"ms: {tm['bound_ms'] / tm['launch_alone_ms']:.0%} of the "
@@ -2286,15 +2340,27 @@ def main() -> int:
         plain = _time_ms(torch, lambda: hn.newton_plain(*operands,
                                                         **options),
                          reps=1, warmup=False)
+        # per env and Newton step, over its active rows (the kernel reads
+        # no inactive row): J x and J dx, the gradient, the Hessian terms,
+        # the line search's and the cost's row terms; M products, the
+        # Cholesky and its substitutions
         n_act = operands[6].sum(dim=1).double()  # active rows per env
         ls = options["ls_iterations"]
-        per_iter = (4 * nefc * nv + 6 * nv * nv
+        per_iter = (4 * n_act * nv + 6 * nv * nv
                     + n_act * (2 * nv + nv * (nv + 1))
-                    + 2 * nv ** 3 / 3 + (8 * ls + 8) * nefc)
-        flops = float((2 * (2 * nefc * nv + 2 * nv * nv + 8 * nefc)
-                       + iters.double() * per_iter + 2 * nefc * nv).sum())
+                    + 2 * nv ** 3 / 3 + (8 * ls + 8) * n_act)
+        flops = float((2 * (2 * n_act * nv + 2 * nv * nv + 8 * n_act)
+                       + iters.double() * per_iter + 2 * n_act * nv).sum())
+        # bytes as the operations: J, aref and D over the active rows, the
+        # active flags, R over the equality and friction-loss rows, the
+        # friction-loss bounds, M and the vectors; the outputs
+        J, M, _, _, R, _, act, asm, ws = operands
+        n_fr = options["ne"] + options["nfl"]
+        moved = (float(n_act.sum()) * (nv + 2) * J.element_size()
+                 + nbytes(M, act, asm, ws, x, force, iters)
+                 + (n_fr + options["nfl"]) * R.shape[0] * R.element_size())
         row(name, "newton", run, "newton.cu", "pallas_newton.py:755", ms,
-            plain, nbytes(*operands, x, force, iters), flops)
+            plain, moved, flops)
         print(f"newton {name} iterations at the timed state ({nefc} rows, "
               f"nv {nv}): mean {float(iters.float().mean()):.2f}, max "
               f"{int(iters.max())}")
@@ -2342,8 +2408,8 @@ def main() -> int:
             torch, m, d, k.solver_niter, in_kernel_collision=False,
             qacc=k.qacc).sum())
         ms = _time_ms(torch, lambda: hf.fused_constraint(m, d))
-        plain = _time_ms(torch, lambda: hf.fused_constraint_plain(m, d),
-                         reps=1, warmup=False)
+        plain = _time_ms(torch, lambda: hf.fused_constraint_plain(
+            m, d, solve64=m.plan.elliptic), reps=1, warmup=False)
         row(key, "fused", run, "fused.cu", "pallas_constraint.py:2052", ms,
             plain, nbytes(*m.plan.tables(dev), vec, pack) + out_bytes, flops)
 

@@ -98,7 +98,8 @@ def fwd_constraint(model: Model, data: Data, plain: bool = False) -> Data:
     from . import hopper_fused
 
     if plain:
-        return hopper_fused.fused_constraint_plain(model, data)
+        return hopper_fused.fused_constraint_plain(
+            model, data, solve64=model.plan.elliptic)
     return hopper_fused.fused_constraint(model, data)
 
 

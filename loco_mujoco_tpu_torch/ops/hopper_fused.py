@@ -6,10 +6,15 @@ the staged path.
 Counterpart of `loco_mujoco_tpu/ops/pallas_constraint.py`'s
 `fused_constraint` (`:2204-2300`) over `_fused_batched` (`:2052`, its
 `pallas_call` at `:2134`), in both vec layouts. The kernel is
-`csrc/fused.cu`'s `fused_kernel`, one thread per env, over the static
-tables of the model's row plan (`ops/plan.py`), from the library compiled
-at the plan's nv width (`plan.nvm`: 24, or 32 for nv 25-32; every layout
-at both).
+`csrc/fused.cu`'s `fused_kernel`, one warp per env on the mega kernels'
+stages and solve (`csrc/warp_core.cuh`), over the static tables of the
+model's row plan (`ops/plan.py`), each env's state in a shared region
+laid out by `plan.fused_launch` (the rows' J in a global scratch where
+shared memory runs short), from the library compiled at the plan's nv
+width (`plan.nvm`: 24, or 32 for nv 25-32; every pyramidal layout at
+both, the elliptic one at 24). An elliptic plan's solve runs in float64,
+as the mega kernels' does: its plain version is
+`fused_constraint_plain(..., solve64=True)`.
 
 `fused_constraint` packs the per-env vector of the plan's layout (smooth:
 qpos, qvel, xipos, ximat, xanchor, xaxis, ctrl, qfrc_applied, xfrc_applied,
@@ -28,7 +33,8 @@ pyramidal facet rows are BLOCKED, facet f of slot c at row s0 + f ncon + c
 per-slot order. Every other Data field stays as it came in.
 
 A CUDA tensor launches the kernel (float32 only) or raises; a CPU tensor
-runs the plain version, `fused_constraint_plain`: the same function in
+runs the plain version, `fused_constraint_plain` (`solve64` for an
+elliptic plan, as the kernel solves): the same function in
 plain PyTorch, from the staged path's own stages (smooth layout: com_pos,
 crb, the velocity stage, passive, actuation, qacc_smooth; non-smooth: crb
 and qacc_smooth from the given cinert and qfrc_smooth), `make_constraint`'s
@@ -43,6 +49,8 @@ writes its own decisions (or the replayed ones) into the same fields.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -51,9 +59,39 @@ from . import constraint as con_mod
 from . import hopper_newton as hn
 from . import inertia, kernels, kinematics
 from .kernels import FLOAT, INT, PTR
+from .plan import fused_launch
 from .support import static_tensor
 
-_SIGNATURES = {"lmt_fused": [PTR] * 22 + [INT] * 5 + [FLOAT, FLOAT, PTR]}
+_SIGNATURES = {
+    "lmt_fused": [PTR] * 15 + [INT] * 8 + [FLOAT, FLOAT, PTR],
+    "lmt_fused_occupancy": [INT] * 4 + [PTR],
+}
+
+
+def library(plan):
+    """The compiled fused kernel of the plan's nv width (`plan.nvm`). Past
+    the first width only the pyramidal instances are compiled (elliptic
+    plans stop at nv 24, as the reference's do); an elliptic plan there
+    raises."""
+    if plan.nvm != kernels.NV_WIDTHS[0] and plan.elliptic:
+        raise NotImplementedError(
+            f"the fused kernel at nv {plan.nv} (width {plan.nvm}) has no "
+            f"elliptic instance: elliptic plans stop at nv "
+            f"{kernels.NV_WIDTHS[0]}")
+    return kernels.library("fused", _SIGNATURES,
+                           kernels.width_defines(plan.nvm))
+
+
+def occupancy(model: Model) -> int:
+    """Resident warps (envs) per SM of the plan's instance at its launch
+    (`plan.fused_launch`), from the CUDA runtime (needs the card)."""
+    plan = model.plan
+    launch = fused_launch(plan)
+    out = (ctypes.c_int * 1)()
+    kernels.check(library(plan).lmt_fused_occupancy(
+        launch.env_floats, launch.envs_per_block, int(plan.sm_dyn_damping),
+        int(plan.elliptic), ctypes.addressof(out)), "fused occupancy")
+    return out[0]
 
 
 def smooth_vec(data: Data) -> torch.Tensor:
@@ -181,7 +219,7 @@ def fused_constraint(model: Model, data: Data) -> Data:
     if plan is None:
         raise ValueError("the model has no row plan")
     if not data.qpos.is_cuda:
-        return fused_constraint_plain(model, data)
+        return fused_constraint_plain(model, data, solve64=plan.elliptic)
     v, pack = vec(model, data), contact_pack(model, data)
     E, nv, dev = v.shape[0], model.nv, v.device
     kernels.require(v, "vec", v.shape)
@@ -194,16 +232,17 @@ def fused_constraint(model: Model, data: Data) -> Data:
     iters, taken, ls = i(E), i(E), i(E, hn.LS_WORDS)
     rows = i(E, plan.iterations, hn.row_words(plan.nrows))
     ints, flts = plan.tables(dev)
-    scratch = plan.scratch(E, dev)  # held until the launch is queued
+    launch = fused_launch(plan)
+    shm, jrows = launch.tensor(dev), launch.jrows(E, dev)
     p = kernels.ptr
-    lib = kernels.library("fused", _SIGNATURES,
-                          kernels.width_defines(plan.nvm))
-    rc = lib.lmt_fused(
-        p(ints), p(flts), p(v), p(pack),
+    rc = library(plan).lmt_fused(
+        p(ints), p(flts), p(shm), p(v), p(pack),
         *map(p, (qacc, force, qfrc, asm)), None if dv is None else p(dv),
-        p(iters), p(taken), p(ls), p(rows), *map(p, scratch), E, v.shape[1],
-        int(plan.sm_dyn_damping), plan.iterations, plan.ls_iterations, plan.scale, plan.tolerance,
-        kernels.stream())
+        p(iters), p(taken), p(ls), p(rows),
+        None if jrows is None else p(jrows), E, v.shape[1],
+        int(plan.sm_dyn_damping), int(plan.elliptic), plan.iterations,
+        plan.ls_iterations, launch.env_floats, launch.envs_per_block,
+        plan.scale, plan.tolerance, kernels.stream())
     kernels.check(rc, "fused")
     kernels.LAUNCHES["fused"] += 1
     return _finish(model, data, qacc, force, qfrc, asm, dv, iters, taken,

@@ -2,7 +2,8 @@
 
 Counterpart of `loco_mujoco_tpu/ops/pallas_newton.py` (`solve_core` with
 `chol_solve_spd`, reached through `_make_kernel` / `_solve_batched` /
-`get_solver`); the kernel is `csrc/newton.cu`, one thread per env. It runs
+`get_solver`); the kernel is `csrc/newton.cu`, one warp per env on the
+warp solve the mega and fused kernels run (`csrc/warp_core.cuh`). It runs
 `solver.solve`'s fast path for rows in the static class order equality,
 friction loss, then one-sided rows (limits and pyramidal contact facets):
 the cost-based warm-start select, `iterations` Newton steps (Hessian
@@ -12,30 +13,36 @@ M + J'diag(w)J, Cholesky, a safeguarded-secant line search of
 `solve` takes env-major operands, J (E, nefc, nv), M (E, nv, nv), rows
 (E, nefc), vectors (E, nv), like `_solve_batched`, and returns qacc
 (E, nv), the row forces (E, nefc), the iterations each env ran (E,) and
-which of them took their step (bit i of an int32 per env, (E,)).
-On a CUDA tensor it relays the operands out to env-last with
-`hopper_layout.to_grouped_many` (one launch), launches the kernel (float32
-only) or raises, and relays the two results back with `from_grouped_many`
-(one launch). The kernel's local arrays
-are compiled at two nv widths (`kernels.NV_WIDTHS`, 24 and 32, a library
-each); a larger nv raises. On a CPU tensor it runs
-the plain version, `newton_plain`, a port of the XLA fast path
+which of them took their step (bit i of an int32 per env, (E,)); its
+`record`, a dict, receives the line search's decisions (`ls`, (E,
+LS_WORDS)) and each step's Hessian decisions of the rows (`rows`, (E,
+iterations, row_words)), which the kernel records too. On a CUDA tensor
+it launches the kernel (float32 only) on the operands as they are, each
+env's state in a shared region laid out by `plan.solve_launch`, or
+raises; the kernel is compiled at two nv widths (`kernels.NV_WIDTHS`, 24
+and 32, a library each); a larger nv raises. On a CPU tensor it runs the
+plain version, `newton_plain`, a port of the XLA fast path
 (solver.py:217-383) in PyTorch, which is also the float64 path.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from . import hopper_layout as lay
 from . import kernels, linalg
 from .kernels import FLOAT, INT, PTR
+from .plan import solve_launch
 
 MINVAL = 1e-15
 LS_WORDS = 4  # line-search decision words (csrc/newton_core.cuh kLsWords)
 
-_SIGNATURES = {"lmt_newton_solve": [PTR] * 15 + [INT] * 7 + [FLOAT, FLOAT, PTR]}
+_SIGNATURES = {
+    "lmt_newton_solve": [PTR] * 16 + [INT] * 9 + [FLOAT, FLOAT, PTR],
+    "lmt_newton_occupancy": [INT, INT, PTR],
+}
 
 
 def row_class_counts(is_bilateral, is_fl):
@@ -110,7 +117,7 @@ def row_bits(bits):
     always, a friction-loss row in its quadratic zone, a limit or
     pyramidal facet below zero); an elliptic contact's first row's bit is
     set in the middle zone and its second row's in the sticking zone. The
-    kernels record the same bits (`csrc/newton_core.cuh`)."""
+    kernels record the same bits (`csrc/warp_core.cuh` `newton`)."""
     E, n = bits.shape
     pad = torch.zeros((E, 32 * row_words(n)), dtype=torch.int64,
                       device=bits.device)
@@ -372,29 +379,49 @@ def newton_plain(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl,
     return x, f, iters, taken
 
 
-def solve(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl, iterations,
-          ls_iterations, scale, tol, ell=None):
-    """Batched Newton solve (see the module note). `active` is the rows'
-    0/1 flag in J's dtype; `floss` holds the friction-loss bounds of the
-    friction rows (the kernel reads rows ne..ne+nfl only). Elliptic rows
-    (`ell`) have no kernel here: the reference keeps its XLA solve for them
-    (solver.py:263), so a CUDA tensor with `ell` raises."""
-    if not J.is_cuda:
-        return newton_plain(J, M, aref, D, R, floss, active, asm, ws, ne=ne,
-                            nfl=nfl, iterations=iterations,
-                            ls_iterations=ls_iterations, scale=scale, tol=tol,
-                            ell=ell)
-    if ell is not None:
-        raise NotImplementedError(
-            "the standalone Newton kernel has no elliptic cone zones; an "
-            "elliptic model runs the fused or mega kernels (a row plan)")
-    E, nefc, nv = J.shape
-    width = kernels.nv_width(nv)  # the library of this width
+def library(nv: int):
+    """The compiled Newton kernel of the narrowest width that holds nv;
+    raises past the widest."""
+    width = kernels.nv_width(nv)
     if width is None:
         raise NotImplementedError(
             f"the Newton kernel is compiled at nv widths "
             f"{kernels.NV_WIDTHS}: nv {nv} > {kernels.NV_WIDTHS[-1]} has "
             f"no compiled width")
+    return kernels.library("newton", _SIGNATURES,
+                           kernels.width_defines(width))
+
+
+def occupancy(nv: int, nefc: int, ne: int, nfl: int) -> int:
+    """Resident warps (envs) per SM of the kernel at this launch, from the
+    CUDA runtime (needs the card)."""
+    launch = solve_launch(nv, nefc, ne, nfl)
+    out = (ctypes.c_int * 1)()
+    kernels.check(library(nv).lmt_newton_occupancy(
+        launch.env_floats, launch.envs_per_block, ctypes.addressof(out)),
+        "newton occupancy")
+    return out[0]
+
+
+def solve(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl, iterations,
+          ls_iterations, scale, tol, ell=None, record=None):
+    """Batched Newton solve (see the module note). `active` is the rows'
+    0/1 flag in J's dtype; `floss` holds the friction-loss bounds of the
+    friction rows (the kernel reads rows ne..ne+nfl only). Elliptic rows
+    (`ell`) have no kernel here: the reference keeps its XLA solve for them
+    (solver.py:263), so a CUDA tensor with `ell` raises. `record`: as in
+    `newton_plain` (the kernel fills `ls` and `rows`)."""
+    if not J.is_cuda:
+        return newton_plain(J, M, aref, D, R, floss, active, asm, ws, ne=ne,
+                            nfl=nfl, iterations=iterations,
+                            ls_iterations=ls_iterations, scale=scale, tol=tol,
+                            ell=ell, record=record)
+    if ell is not None:
+        raise NotImplementedError(
+            "the standalone Newton kernel has no elliptic cone zones; an "
+            "elliptic model runs the fused or mega kernels (a row plan)")
+    E, nefc, nv = J.shape
+    lib = library(nv)
     for name, t, shape in (("J", J, (E, nefc, nv)), ("M", M, (E, nv, nv)),
                            ("aref", aref, (E, nefc)), ("D", D, (E, nefc)),
                            ("R", R, (E, nefc)), ("floss", floss, (E, nefc)),
@@ -402,28 +429,24 @@ def solve(J, M, aref, D, R, floss, active, asm, ws, *, ne, nfl, iterations,
                            ("qacc_smooth", asm, (E, nv)),
                            ("qacc_warmstart", ws, (E, nv))):
         kernels.require(t, name, shape)
-    # the operands env-last, in one relayout launch
-    fl = [floss[:, ne:ne + nfl].contiguous()] if nfl else []
-    Jt, Mt, aref_t, D_t, R_t, act_t, asm_t, ws_t, *fl_t = lay.to_grouped_many(
-        *(t.reshape(E, -1) for t in (J, M, aref, D, R, active, asm, ws, *fl)))
-    fl_t = fl_t[0] if nfl else aref_t
+    launch = solve_launch(nv, nefc, ne, nfl)
     dev = J.device
-    x_t = torch.empty((nv, E), dtype=torch.float32, device=dev)
-    f_t = torch.empty((nefc, E), dtype=torch.float32, device=dev)
+    x = torch.empty((E, nv), dtype=torch.float32, device=dev)
+    f = torch.empty((E, nefc), dtype=torch.float32, device=dev)
     iters = torch.empty(E, dtype=torch.int32, device=dev)
     taken = torch.empty(E, dtype=torch.int32, device=dev)
-    jar = torch.empty((nefc, E), dtype=torch.float32, device=dev)
-    jv = torch.empty((nefc, E), dtype=torch.float32, device=dev)
-    lib = kernels.library("newton", _SIGNATURES,
-                          kernels.width_defines(width))
+    ls = torch.empty((E, LS_WORDS), dtype=torch.int32, device=dev)
+    rows = torch.empty((E, iterations, row_words(nefc)), dtype=torch.int32,
+                       device=dev)
+    shm = launch.tensor(dev)
     p = kernels.ptr
     rc = lib.lmt_newton_solve(
-        p(Jt), p(Mt), p(aref_t), p(D_t), p(R_t), p(fl_t), p(act_t), p(asm_t),
-        p(ws_t), p(x_t), p(f_t), p(iters), p(taken), p(jar), p(jv), E, nv,
-        nefc, ne,
-        nfl, iterations, ls_iterations, float(scale), float(tol),
-        kernels.stream())
+        p(J), p(M), p(aref), p(D), p(R), p(floss), p(active), p(asm), p(ws),
+        p(x), p(f), p(iters), p(taken), p(ls), p(rows), p(shm), E, nv, nefc,
+        ne, nfl, iterations, ls_iterations, launch.env_floats,
+        launch.envs_per_block, float(scale), float(tol), kernels.stream())
     kernels.check(rc, "newton")
     kernels.LAUNCHES["newton"] += 1
-    x, f = lay.from_grouped_many(x_t, f_t)
+    if record is not None:
+        record["ls"], record["rows"] = ls, rows
     return x, f, iters, taken

@@ -101,6 +101,16 @@ there). The mega kernels' plain version ranks it too
 of `csrc/mega.cu` and `csrc/fused.cu` take: an int32 buffer that starts with
 the header `HEADER` (counts and the offsets of every table) and a float32
 buffer.
+
+The warp-per-env kernels (`csrc/warp_core.cuh`) hold each env's state in
+shared memory laid out by a launch census (`WarpLaunch`: offsets per
+region in `SHM` order, envs per block, the resident warps per SM that
+shared memory allows, the rows' J in shared memory or in a per-env global
+scratch): the mega kernels' `mega_launch(plan)` (its table is the plan's
+I_SHM), the fused kernel's `fused_launch(plan)` and the standalone Newton
+kernel's `solve_launch(nv, nrows, ne, nfl)` (their tables go to the
+launchers as an int32 operand). A census that leaves fewer than
+`RESIDENT_FLOOR` warps per SM, J moved out where allowed, raises.
 """
 
 from __future__ import annotations
@@ -116,8 +126,9 @@ from ..core.types import (BiasType, ConeType, DisableBit, DynType, EqType,
 from .kernels import NV_WIDTHS, nv_width
 
 MINVAL = 1e-15
-# the local-array widths compiled in csrc/forward_core.cuh (NVM, the macro
-# LMT_NVM): each kernel library is built at 24 and, for nv 25-32, at 32
+# the per-lane array widths compiled in csrc/forward_core.cuh (NVM, the
+# macro LMT_NVM): each kernel library is built at 24 and, for nv 25-32, at
+# 32
 NV_MAX = NV_WIDTHS[-1]
 BODY_MAX = 32
 CON_MAX = 80  # csrc/mega.cu
@@ -199,6 +210,7 @@ class RowPlan:
         self.sm_dyn_damping = False
         self._dyn = None  # dyn_damping's
         self._launch = None  # mega_launch's
+        self._fused_launch = None  # fused_launch's
         self.uniform = self.fric_uniform = False
         self.groups = []
         self.ext_mesh = None  # _ext_plan's plane-mesh group
@@ -824,21 +836,6 @@ class RowPlan:
         """Elliptic contacts (the slots of `ell_runs`)."""
         return sum(cnt for _, cnt, _ in self.ell_runs)
 
-    def scratch(self, E, device) -> list:
-        """Env-last row scratch of the fused kernel's solve (the mega
-        kernels keep their rows in shared memory): J (nrows, nv, E),
-        aref, D, R, act, jar, jv (nrows, E), fl (max(nfl, 1), E) and the
-        elliptic contacts' cone coefficients mu (max(ncon_ell, 1), E), in
-        the kernels' argument order (J, aref, D, R, act, fl, jar, jv,
-        mu)."""
-        def f(*s):
-            return torch.empty(s, dtype=torch.float32, device=device)
-
-        rows = self.nrows
-        return [f(rows * self.nv, E), f(rows, E), f(rows, E), f(rows, E),
-                f(rows, E), f(max(self.nfl, 1), E), f(rows, E), f(rows, E),
-                f(max(self.ncon_ell, 1), E)]
-
 
 def _dof_body_mask(A) -> np.ndarray:
     """(nbody, nv) bool: dof d moves body b (support.dof_body_mask)."""
@@ -988,57 +985,36 @@ ENVS_PER_BLOCK_MAX = 4  # csrc/mega.cu kMaxEnvsPerBlock
 RESIDENT_FLOOR = 4
 
 
-class MegaLaunch:
-    """The mega kernels' launch: per-env shared layout (offsets in floats
-    of each region of SHM), its size, the envs (warps) per block, the
-    resident warps per SM that shared memory allows and where the rows' J
-    lives (`j_global`: in a global scratch of E x nrows x NVJ floats,
-    `jrows`, rather than in the shared region J, which then holds only the
-    scratch that aliases it)."""
+class WarpLaunch:
+    """The launch of a warp-per-env kernel (csrc/warp_core.cuh `Env`): the
+    per-env shared layout (offsets in floats of each region of SHM), its
+    size, the envs (warps) per block, the resident warps per SM that
+    shared memory allows and where the rows' J lives (`j_global`: in a
+    global scratch of E x nrows x NVJ floats, `jrows`, rather than in the
+    shared region J, which then holds only the scratch that aliases it).
+    `kernel` names the kernels in a refusal."""
 
-    def __init__(self, census: dict):
-        c = census
-        nv, nrows = c["nv"], c["nrows"]
-        if nv > NV_MAX:
-            raise ValueError(f"mega kernels: nv {nv} > {NV_MAX}")
-        nvj = nv | 1  # odd: lanes read J rows without conflicts
-        rs = -(-nrows // 4) * 4
-        ell, ext = c["ell"], c["ext"]
-        pmax, kmax = max(c["pairs"], default=1), max(c["ks"], default=1)
-        mus = (2 * c["na"] + c["nmus"] + 6 * c["nbody"]) if c["nmus"] else 1
-        # the J region: J; before the rows, the smooth stage's and the
-        # muscle block's scratch, then the collision's (MESH)
-        scratch = max(12 * nv, SEG_W * c["nseg"], 3 * pmax + 2 * kmax)
-        sizes = {
-            "VEC": NVEC * nv, "CDOF": 12 * nv, "JNT": 6 * c["njnt"],
-            # L: the factor of M, or the Newton direction's H and
-            # gradient; for elliptic plans in double, with the double
-            # solve's x, dx, M (x - asm) and M dx
-            "BODY": BODY_W * c["nbody"], "M": nv * nv,
-            "L": 2 * (nv * nv + 5 * nv) if ell else nv * nv + nv,
-            "J": max(nrows * nvj, scratch),
-            "ROW": (ROW_ARRAYS_ELL if ell else ROW_ARRAYS) * rs,
-            "R": max(c["ne"] + c["nfl"], 1), "FL": max(c["nfl"], 1),
-            "MU": max(c["ncon_ell"], 1),
-            "SLOT": c["ncon"] * (SLOT_W_EXT if ext else SLOT_W),
-            "MUS": mus,
-            "MISC": MISC_W + 2 * -(-nrows // 64)
-            + (2 * (CONE_VECS * nv + CONE_SCR) if ell else 0)}
+    kernel = "warp kernels"
+
+    def _fit(self, sizes, extra, nrows, scratch=None):
+        """Places `sizes`; where fewer than `RESIDENT_FLOOR` warps would be
+        resident and `scratch` is given, keeps J in the global scratch
+        (the J region `scratch` floats); raises if that does not fit
+        either, naming the regions."""
         self._place(sizes)
         self.j_global = False
-        if self.resident_warps < RESIDENT_FLOOR and nv > NV_WIDTHS[0]:
-            sizes["J"] = scratch  # only the wide kernels take the scratch
+        if self.resident_warps < RESIDENT_FLOOR and scratch is not None:
+            sizes["J"] = scratch
             self._place(sizes)
             self.j_global = True
         if self.resident_warps < RESIDENT_FLOOR:
+            regions = ", ".join(f"{n} {4 * v}" for n, v in sizes.items()
+                                if v)
             raise ValueError(
-                f"mega kernels: {4 * self.env_floats} bytes of shared memory "
-                f"per env leave {self.resident_warps} resident warps per SM, "
-                f"fewer than {RESIDENT_FLOOR}")
-        self.nrows, self._jrows = nrows, {}
-        self.extra = {"NVJ": nvj, "RS": rs,
-                      "SLOTW": SLOT_W_EXT if ext else SLOT_W,
-                      "PMAX": pmax, "KMAX": kmax}
+                f"{self.kernel}: {4 * self.env_floats} bytes of shared "
+                f"memory per env ({regions}) leave {self.resident_warps} "
+                f"resident warps per SM, fewer than {RESIDENT_FLOOR}")
+        self.nrows, self.extra, self._jrows, self._tab = nrows, extra, {}, {}
 
     def jrows(self, E: int, device):
         """The rows' J scratch of E envs on `device` ((E, nrows, NVJ)
@@ -1076,10 +1052,110 @@ class MegaLaunch:
         self.shared_bytes = self.envs_per_block * env_bytes
 
     def table(self) -> list:
-        """The I_SHM table, in SHM order."""
+        """The per-env offsets in SHM order (the I_SHM table)."""
         return ([self.env_floats]
                 + [self.offset[n] for n in SHM[1:16]]
                 + [self.extra[n] for n in SHM[16:]])
+
+    def tensor(self, device) -> torch.Tensor:
+        """`table()` as int32 on `device`, made once per device (the
+        launchers' `shm`)."""
+        key = str(device)
+        if key not in self._tab:
+            self._tab[key] = torch.tensor(self.table(), dtype=torch.int32,
+                                          device=device)
+        return self._tab[key]
+
+
+def _solve_sizes(nv, nrows, ne, nfl, ncon_ell=0, ell=False) -> dict:
+    """The regions (floats) of a warp solve's state: the nv-long vectors,
+    M, L (the factor of M, or the Newton direction's H and gradient; for
+    elliptic rows in double, with the double solve's x, dx, M (x - asm)
+    and M dx), the row arrays and lists, R and the friction-loss bounds,
+    the cone coefficients and the decision words (with an elliptic
+    contact's cone vectors)."""
+    rs = -(-nrows // 4) * 4
+    return {"VEC": NVEC * nv, "M": nv * nv,
+            "L": 2 * (nv * nv + 5 * nv) if ell else nv * nv + nv,
+            "ROW": (ROW_ARRAYS_ELL if ell else ROW_ARRAYS) * rs,
+            "R": max(ne + nfl, 1), "FL": max(nfl, 1),
+            "MU": max(ncon_ell, 1),
+            "MISC": MISC_W + 2 * -(-nrows // 64)
+            + (2 * (CONE_VECS * nv + CONE_SCR) if ell else 0)}
+
+
+class MegaLaunch(WarpLaunch):
+    """The mega kernels' launch (see `WarpLaunch`) from a plan's census
+    (`mega_census`); the plan's I_SHM table carries it."""
+
+    kernel = "mega kernels"
+
+    def __init__(self, census: dict):
+        c = census
+        nv, nrows = c["nv"], c["nrows"]
+        if nv > NV_MAX:
+            raise ValueError(f"mega kernels: nv {nv} > {NV_MAX}")
+        nvj = nv | 1  # odd: lanes read J rows without conflicts
+        ell, ext = c["ell"], c["ext"]
+        pmax, kmax = max(c["pairs"], default=1), max(c["ks"], default=1)
+        mus = (2 * c["na"] + c["nmus"] + 6 * c["nbody"]) if c["nmus"] else 1
+        # the J region: J; before the rows, the smooth stage's and the
+        # muscle block's scratch, then the collision's (MESH)
+        scratch = max(12 * nv, SEG_W * c["nseg"], 3 * pmax + 2 * kmax)
+        sizes = dict(
+            _solve_sizes(nv, nrows, c["ne"], c["nfl"], c["ncon_ell"], ell),
+            CDOF=12 * nv, JNT=6 * c["njnt"], BODY=BODY_W * c["nbody"],
+            J=max(nrows * nvj, scratch),
+            SLOT=c["ncon"] * (SLOT_W_EXT if ext else SLOT_W), MUS=mus)
+        # only the wide kernels take the J scratch
+        self._fit(sizes, {"NVJ": nvj, "RS": -(-nrows // 4) * 4,
+                          "SLOTW": SLOT_W_EXT if ext else SLOT_W,
+                          "PMAX": pmax, "KMAX": kmax}, nrows,
+                  scratch if nv > NV_WIDTHS[0] else None)
+
+
+class FusedLaunch(WarpLaunch):
+    """The fused kernel's launch (csrc/fused.cu; see `WarpLaunch`) from a
+    plan's census (`fused_census`): the mega kernels' regions without FK,
+    collision and muscle state, the slot region holding the staged
+    collision's contact pack (pack_w floats per slot). J stays in shared
+    memory where that leaves `RESIDENT_FLOOR` warps per SM, else in the
+    global scratch, at either width."""
+
+    kernel = "fused kernel"
+
+    def __init__(self, census: dict):
+        c = census
+        nv, nrows = c["nv"], c["nrows"]
+        if nv > NV_MAX:
+            raise ValueError(f"fused kernel: nv {nv} > {NV_MAX}")
+        nvj = nv | 1
+        scratch = 12 * nv  # the CRB's and the velocity stage's
+        sizes = dict(
+            _solve_sizes(nv, nrows, c["ne"], c["nfl"], c["ncon_ell"],
+                         c["ell"]),
+            CDOF=12 * nv, JNT=6 * c["njnt"], BODY=BODY_W * c["nbody"],
+            J=max(nrows * nvj, scratch), SLOT=c["ncon"] * c["pack_w"], MUS=0)
+        self._fit(sizes, {"NVJ": nvj, "RS": -(-nrows // 4) * 4,
+                          "SLOTW": c["pack_w"], "PMAX": 0, "KMAX": 0},
+                  nrows, scratch)
+
+
+class SolveLaunch(WarpLaunch):
+    """The standalone Newton kernel's launch (csrc/newton.cu; see
+    `WarpLaunch`) for nv dofs and nrows rows, ne equality and nfl
+    friction-loss rows first: the solve's regions alone; J stays in the
+    operand, env-major with row stride nv (NVJ)."""
+
+    kernel = "Newton kernel"
+
+    def __init__(self, nv: int, nrows: int, ne: int, nfl: int):
+        if nv > NV_MAX:
+            raise ValueError(f"Newton kernel: nv {nv} > {NV_MAX}")
+        sizes = dict(_solve_sizes(nv, nrows, ne, nfl), CDOF=0, JNT=0,
+                     BODY=0, J=0, SLOT=0, MUS=0)
+        self._fit(sizes, {"NVJ": nv, "RS": -(-nrows // 4) * 4, "SLOTW": 0,
+                          "PMAX": 0, "KMAX": 0}, nrows)
 
 
 def mega_census(plan) -> dict:
@@ -1104,3 +1180,31 @@ def mega_launch(plan) -> MegaLaunch:
     if plan._launch is None:
         plan._launch = MegaLaunch(mega_census(plan))
     return plan._launch
+
+
+def fused_census(plan) -> dict:
+    """The counts of a plan that size the fused kernel's per-env state."""
+    c = dict(nv=plan.nv, nbody=plan.nbody, njnt=plan.njnt, nrows=plan.nrows,
+             ncon=plan.ncon, ne=plan.ne, nfl=plan.nfl,
+             ncon_ell=plan.ncon_ell, pack_w=plan.pack_w)
+    return dict({k: int(v) for k, v in c.items()}, ell=bool(plan.elliptic))
+
+
+def fused_launch(plan) -> FusedLaunch:
+    """The fused kernel's launch for a plan (raises where its state does
+    not fit the card, see `WarpLaunch`); made once."""
+    if plan._fused_launch is None:
+        plan._fused_launch = FusedLaunch(fused_census(plan))
+    return plan._fused_launch
+
+
+_SOLVE_LAUNCHES: dict = {}
+
+
+def solve_launch(nv: int, nrows: int, ne: int, nfl: int) -> SolveLaunch:
+    """The standalone Newton kernel's launch for these counts; made once
+    per count."""
+    key = (nv, nrows, ne, nfl)
+    if key not in _SOLVE_LAUNCHES:
+        _SOLVE_LAUNCHES[key] = SolveLaunch(*key)
+    return _SOLVE_LAUNCHES[key]

@@ -11,7 +11,8 @@ floor. Tolerances are chip_smoke.py's: relayouts bit-exact; select/top-K
 active masks and geom ids exact, dist atol 1e-6, pos atol 1e-5, frame atol
 1e-6; Newton qacc and forces rel 5e-4 on every env, the plain version
 replaying the kernel's discrete decisions (warm start, iteration count,
-steps taken). The fused constraint kernel, on the four configurations of
+steps taken, the line search's signs and each step's Hessian decision of
+every row). The fused constraint kernel, on the four configurations of
 `test_torch_fixture.CONFIGS`, is held to its plain version with the
 kernel's decisions replayed: qacc, qfrc_constraint, efc_force_contact and
 euler_dv rel 5e-4 of their largest value on every env. The mega forward
@@ -60,9 +61,12 @@ Every random input comes from numpy's seeded generator or from a CUDA
 generator seeded with the draw's number (`_qvel`, the draws of
 `tools/fused_determinism.py`, whose draw 14 and draw 27 held the two
 envs the replay missed before it carried the rows' Hessian decisions).
-The mega forward and the megastep are also held at a ragged env count
-(4093, not a multiple of a block's envs) and at one env, and checked
-bit-deterministic from run to run.
+The mega forward and the megastep, the fused kernel and the Newton kernel
+(all four a warp per env) are also held at a ragged env count (4093, not a
+multiple of a block's envs) and at one env, and checked bit-deterministic
+from run to run; every instance of the fused and Newton kernels leaves at
+least `plan.RESIDENT_FLOOR` warps resident per SM. An elliptic plan's fused
+kernel solves in float64, and so does its plain version here.
 """
 
 import ctypes
@@ -84,7 +88,8 @@ from loco_mujoco_tpu_torch.ops import hopper_layout as lay
 from loco_mujoco_tpu_torch.ops import hopper_mega as hm
 from loco_mujoco_tpu_torch.ops import hopper_newton as hn
 from loco_mujoco_tpu_torch.ops import kernels, kinematics, solver
-from loco_mujoco_tpu_torch.ops.plan import mega_launch
+from loco_mujoco_tpu_torch.ops.plan import (RESIDENT_FLOOR, fused_launch,
+                                            mega_launch)
 from test_torch_fixture import CONFIGS, hold_ctrl, seeded_act
 
 pytestmark = pytest.mark.cuda
@@ -249,9 +254,14 @@ def test_newton_matches_plain(state):
         model, fwd.fwd_velocity(model, d)))
     operands, options = solver.newton_inputs(model, d,
                                              con.make_constraint(model, d))
-    x_k, f_k, it_k, tk_k = hn.solve(*operands, **options)
-    x_p, f_p, _, _ = hn.newton_plain(*operands, **options,
-                                     replay=(it_k, tk_k))
+    rec = {}
+    kernels.LAUNCHES.clear()
+    x_k, f_k, it_k, tk_k = hn.solve(*operands, **options, record=rec)
+    assert dict(kernels.LAUNCHES) == {"newton": 1}  # no relayout
+    assert rec["rows"].shape[1:] == (options["iterations"],
+                                     hn.row_words(operands[0].shape[1]))
+    x_p, f_p, _, _ = hn.newton_plain(*operands, **options, replay=(
+        it_k, tk_k, rec["ls"], rec["rows"]))
     assert float((x_k - x_p).abs().max()) < 5e-4 * float(x_p.abs().max())
     assert float((f_k - f_p).abs().max()) < 5e-4 * float(f_p.abs().max())
 
@@ -259,8 +269,8 @@ def test_newton_matches_plain(state):
 def test_step_launches_every_kernel(state, monkeypatch):
     """The staged path (LMT_MEGA=0) launches each of its kernels: the
     fixture's, with a row plan, the fused kernel; a model with no plan
-    (110 contact slots put its rows past 400), the Newton kernel and the
-    relayouts around it."""
+    (110 contact slots put its rows past 400), the Newton kernel on its
+    env-major operands, with no relayout around it."""
     model, d = state
     monkeypatch.setenv("LMT_MEGA", "0")
     kernels.LAUNCHES.clear()
@@ -276,9 +286,10 @@ def test_step_launches_every_kernel(state, monkeypatch):
     out = fwd.step(wide, _dropped(wide))
     torch.cuda.synchronize()
     assert torch.isfinite(out.qpos).all()
-    for name in ("newton", "plane_mesh_select", "group_topk", "to_grouped",
-                 "from_grouped", "moveaxis0_last", "moveaxis_last0"):
+    for name in ("newton", "plane_mesh_select", "group_topk",
+                 "moveaxis0_last", "moveaxis_last0"):
         assert kernels.LAUNCHES[name] > 0, name
+    assert not {"to_grouped", "from_grouped"} & set(kernels.LAUNCHES)
 
 
 def test_float64_on_card_raises(state):
@@ -305,6 +316,14 @@ def _gap(d):
 def _replay(k):
     """A kernel's recorded Newton decisions, for its plain version."""
     return (k.solver_niter, k.solver_taken, k.solver_ls, k.solver_rows)
+
+
+def _fused_plain(model, d, k, **kw):
+    """The fused kernel's plain version replaying its decisions; an
+    elliptic plan's in float64, as the kernel's elliptic instance
+    solves."""
+    return hf.fused_constraint_plain(model, d, replay=_replay(k),
+                                     solve64=model.plan.elliptic, **kw)
 
 
 def test_mega_forward_matches_plain(state):
@@ -341,7 +360,7 @@ def test_fused_matches_plain(state, name):
         kernels.LAUNCHES.clear()
         k = hf.fused_constraint(model, d)
         assert dict(kernels.LAUNCHES) == {"fused": 1}
-        r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+        r = _fused_plain(model, d, k)
         fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
         assert (k.euler_dv is None) == (not model.plan.euler_dv)
         if model.plan.euler_dv:
@@ -440,7 +459,7 @@ def test_muscle_fused_matches_plain(state, monkeypatch):
         kernels.LAUNCHES.clear()
         k = hf.fused_constraint(model, d)
         assert dict(kernels.LAUNCHES) == {"fused": 1}
-        r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+        r = _fused_plain(model, d, k)
         for f in ("qacc", "qfrc_constraint", "efc_force_contact",
                   "euler_dv"):
             got, ref = getattr(k, f), getattr(r, f)
@@ -509,7 +528,7 @@ def test_a1_fused_matches_plain(state, monkeypatch):
     kernels.LAUNCHES.clear()
     k = hf.fused_constraint(model, d)
     assert dict(kernels.LAUNCHES) == {"fused": 1}
-    r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+    r = _fused_plain(model, d, k)
     held = torch.ones(E, dtype=torch.bool, device="cuda")
     for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
         got, ref = getattr(k, f), getattr(r, f)
@@ -581,6 +600,85 @@ def test_mega_bit_deterministic(state):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dr", [False, True])
+@pytest.mark.parametrize("name", ["rk4", "a1", "g1arms"])
+def test_fused_warp_launch_occupancy(state, name, dr):
+    """Each instance of the fused kernel (pyramidal and elliptic, with and
+    without the damping rows, both widths) leaves at least RESIDENT_FLOOR
+    warps resident per SM at its launch, by the CUDA runtime's count
+    (registers and shared memory)."""
+    model = {"rk4": lambda: _model(), "a1": lambda: _a1_state(1)[0],
+             "g1arms": lambda: _g1arms_state(1)[0]}[name]()
+    if dr:
+        model = model.replace(plan=model.plan.dyn_damping())
+    launch = fused_launch(model.plan)
+    assert hf.occupancy(model) >= RESIDENT_FLOOR, launch.table()
+    assert launch.resident_warps >= RESIDENT_FLOOR
+
+
+@pytest.mark.parametrize("width", [24, 32])
+def test_newton_warp_launch_occupancy(state, width):
+    """The Newton kernel at both widths (456 rows at nv 19, 455 at nv 29)
+    leaves at least RESIDENT_FLOOR warps resident per SM."""
+    nv, nefc = (19, 456) if width == 24 else (29, 455)
+    assert hn.occupancy(nv, nefc, 0, 0) >= RESIDENT_FLOOR
+
+
+@pytest.mark.parametrize("n", [4093, 1])
+def test_warp_solve_ragged_and_single_env(state, n):
+    """The fused kernel (Euler: euler_dv too) and the Newton kernel at an
+    env count that is no multiple of a block's envs, and at one env,
+    against their plain versions replaying their decisions."""
+    model = _model(CONFIGS["euler"])
+    d = _dropped(model, n).replace(qvel=_qvel(n, model.nv, 0))
+    d = coll.collision(model, kinematics.kinematics(model, d))
+    k = hf.fused_constraint(model, d)
+    r = _fused_plain(model, d, k)
+    for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
+        got, ref = getattr(k, f), getattr(r, f)
+        assert float((got - ref).abs().max()) < 5e-4 * float(
+            ref.abs().max()), f
+    wide = _model({"contact_k_plane": 34})
+    dw = fwd.fwd_position(wide, _dropped(wide, n), plain=True)
+    dw = fwd.fwd_acceleration(wide, fwd.fwd_actuation(
+        wide, fwd.fwd_velocity(wide, dw)))
+    operands, options = solver.newton_inputs(wide, dw,
+                                             con.make_constraint(wide, dw))
+    rec = {}
+    x_k, f_k, it_k, tk_k = hn.solve(*operands, **options, record=rec)
+    x_p, f_p, _, _ = hn.newton_plain(*operands, **options, replay=(
+        it_k, tk_k, rec["ls"], rec["rows"]))
+    assert float((x_k - x_p).abs().max()) < 5e-4 * float(x_p.abs().max())
+    assert float((f_k - f_p).abs().max()) < 5e-4 * float(f_p.abs().max())
+
+
+def test_warp_solve_bit_deterministic(state):
+    """Two launches of the fused and the Newton kernel on the same inputs,
+    another launch between, are bit-equal in every output."""
+    model = _model(CONFIGS["euler"])
+    d = coll.collision(model, kinematics.kinematics(
+        model, _dropped(model).replace(qvel=_qvel(E, model.nv, 14))))
+    other = d.replace(qvel=_qvel(E, model.nv, 27))
+    wide = _model({"contact_k_plane": 34})
+    dw = fwd.fwd_position(wide, _dropped(wide), plain=True)
+    dw = fwd.fwd_acceleration(wide, fwd.fwd_actuation(
+        wide, fwd.fwd_velocity(wide, dw)))
+    operands, options = solver.newton_inputs(wide, dw,
+                                             con.make_constraint(wide, dw))
+    runs = []
+    for _ in range(2):
+        f = hf.fused_constraint(model, d)
+        hf.fused_constraint(model, other)
+        rec = {}
+        out = hn.solve(*operands, **options, record=rec)
+        runs.append([f.qacc, f.qacc_smooth, f.qfrc_constraint,
+                     f.efc_force_contact, f.euler_dv, f.solver_niter,
+                     f.solver_taken, f.solver_ls, f.solver_rows, *out,
+                     rec["ls"], rec["rows"]])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("name", ["mega", "a1", "fused"])
 def test_replayed_row_decisions_are_the_plain_versions_own(state, name):
     """The plain version's own row tests at each step's x against the
@@ -597,7 +695,7 @@ def test_replayed_row_decisions_are_the_plain_versions_own(state, name):
         d = _dropped(model).replace(qvel=_qvel(E, model.nv, 14))
         d = coll.collision(model, kinematics.kinematics(model, d))
         k = hf.fused_constraint(model, d)
-        hf.fused_constraint_plain(model, d, replay=_replay(k), record=own)
+        _fused_plain(model, d, k, record=own)
     else:
         model, d = state if name == "mega" else _a1_state()
         if name == "mega":
@@ -796,7 +894,7 @@ def test_g1_fused_matches_plain(state, monkeypatch):
     assert dict(kernels.LAUNCHES) == {
         "fused": 1, "plane_mesh_select": 1, "group_topk": 1,
         "moveaxis0_last": 1, "moveaxis_last0": 1}
-    r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+    r = _fused_plain(model, d, k)
     for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
         got, ref = getattr(k, f), getattr(r, f)
         err = (got - ref).abs().reshape(4096, -1).amax(1)
@@ -893,7 +991,7 @@ def test_dr_fused_matches_plain(state, name, monkeypatch):
     kernels.LAUNCHES.clear()
     k = hf.fused_constraint(model, d)
     assert dict(kernels.LAUNCHES) == {"fused": 1}
-    r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+    r = _fused_plain(model, d, k)
     held = torch.ones(n, dtype=torch.bool, device="cuda")
     for f in ("qacc", "qfrc_constraint", "efc_force_contact"):
         got, ref = getattr(k, f), getattr(r, f)
@@ -1042,7 +1140,7 @@ def test_a1pos_fused_matches_plain(state, monkeypatch):
     kernels.LAUNCHES.clear()
     k = hf.fused_constraint(model, d)
     assert dict(kernels.LAUNCHES) == {"fused": 1}
-    r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+    r = _fused_plain(model, d, k)
     assert float((k.qacc_smooth - r.qacc_smooth).abs().max()) < 5e-4 * float(
         r.qacc_smooth.abs().max())
     held = torch.ones(E, dtype=torch.bool, device="cuda")
@@ -1109,7 +1207,8 @@ def test_g1arms_mega_forward_matches_plain(state):
     """G1 with its arms at 4096 envs: the wide library's extended
     pyramidal mega forward, J in global scratch, held as
     `test_g1_mega_forward_matches_plain` holds G1's."""
-    from loco_mujoco_tpu_torch.ops.plan import mega_launch
+    from loco_mujoco_tpu_torch.ops.plan import (RESIDENT_FLOOR, fused_launch,
+                                            mega_launch)
 
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import chip_smoke
@@ -1165,7 +1264,7 @@ def test_g1arms_fused_matches_plain(state, monkeypatch):
     kernels.LAUNCHES.clear()
     k = hf.fused_constraint(model, d)
     assert dict(kernels.LAUNCHES) == {"fused": 1}
-    r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+    r = _fused_plain(model, d, k)
     for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
         got, ref = getattr(k, f), getattr(r, f)
         err = (got - ref).abs().reshape(4096, -1).amax(1)
@@ -1178,10 +1277,10 @@ def test_g1arms_newton_matches_plain(state):
     rows (make_constraint at 4096 envs), against its plain version
     replaying its decisions: qacc and forces rel 5e-4 on every env but
     those where the two part and the converged float64 witness settles it
-    for the kernel (chip_smoke.py's rule, at most 0.5% of the envs: this
-    kernel records the iteration count and the taken steps, not the line
-    search's sign tests or the rows' Hessian decisions, so the plain
-    version can take another step there)."""
+    for the kernel (chip_smoke.py's rule, at most 0.5% of the envs). The
+    kernel records the iteration count, the taken steps, the line
+    search's sign tests and the rows' Hessian decisions, and the plain
+    version replays them all."""
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import chip_smoke
 
@@ -1193,10 +1292,11 @@ def test_g1arms_newton_matches_plain(state):
                                              con.make_constraint(model, d))
     assert operands[0].shape[2] == 29
     kernels.LAUNCHES.clear()
-    x_k, f_k, it_k, tk_k = hn.solve(*operands, **options)
+    rec = {}
+    x_k, f_k, it_k, tk_k = hn.solve(*operands, **options, record=rec)
     assert kernels.LAUNCHES["newton"] == 1
-    x_p, f_p, _, _ = hn.newton_plain(*operands, **options,
-                                     replay=(it_k, tk_k))
+    x_p, f_p, _, _ = hn.newton_plain(*operands, **options, replay=(
+        it_k, tk_k, rec["ls"], rec["rows"]))
     scale = float(x_p.abs().max())
     apart = (x_k - x_p).abs().amax(1) >= 5e-4 * scale
     witnessed = torch.zeros_like(apart)
@@ -1340,7 +1440,7 @@ def _fused_rule(model, d, what):
     kernels.LAUNCHES.clear()
     k = hf.fused_constraint(model, d)
     assert dict(kernels.LAUNCHES) == {"fused": 1}, what
-    r = hf.fused_constraint_plain(model, d, replay=_replay(k))
+    r = _fused_plain(model, d, k)
     fields = ["qacc", "qfrc_constraint", "efc_force_contact"]
     if model.plan.euler_dv:
         fields.append("euler_dv")

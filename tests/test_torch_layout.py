@@ -8,8 +8,9 @@
   that does what `csrc/layout.cu` does (each packed (x, y, R, C) array
   transposed through its pointers): the operand checks, the outputs' one
   buffer at 16-byte offsets, one launch per list, and the two call sites,
-  `collision._plane_mesh_kernel` and `hopper_newton.solve`, bit for bit
-  against their plain versions (the Newton launcher a stand-in that runs
+  `collision._plane_mesh_kernel` (bit for bit against its plain version)
+  and `hopper_newton.solve`, which relays nothing since its kernel reads
+  env-major operands (the Newton launcher a stand-in that runs
   `newton_plain` on the operands it reads back through its pointers).
 """
 
@@ -107,38 +108,50 @@ class _Layout:
 
 
 class _Newton:
-    """Stand-in for `csrc/newton.cu`'s launcher: reads the env-last
+    """Stand-in for `csrc/newton.cu`'s launcher: reads the env-major
     operands back through their pointers, solves them with `newton_plain`
-    and writes the env-last results."""
+    and writes the env-major results and decisions; records the launch's
+    shared-memory table and geometry."""
 
-    def lmt_newton_solve(self, Jt, Mt, aref, D, R, fl, act, asm, ws, x, f,
-                         iters, taken, jar, jv, E, nv, nefc, ne, nfl, it, ls,
-                         scale, tol, stream):
-        def env_major(p, K):
-            return torch.as_tensor(_read(p, (K, E)).T.copy())
+    def __init__(self):
+        self.launches = []
 
-        floss = torch.zeros(E, nefc)
-        if nfl:
-            floss[:, ne:ne + nfl] = env_major(fl, nfl)
+    def lmt_newton_solve(self, J, M, aref, D, R, fl, act, asm, ws, x, f,
+                         iters, taken, ls_out, rows_out, shm, E, nv, nefc,
+                         ne, nfl, it, ls, env_floats, envs_per_block, scale,
+                         tol, stream):
+        def read(p, *shape):
+            return torch.as_tensor(_read(p, (E, *shape)).copy())
+
+        self.launches.append((list(_read(shm, (len(hn.solve_launch(
+            nv, nefc, ne, nfl).table()),), ctypes.c_int32)), env_floats,
+            envs_per_block))
+        rec = {}
         out = hn.newton_plain(
-            env_major(Jt, nefc * nv).reshape(E, nefc, nv),
-            env_major(Mt, nv * nv).reshape(E, nv, nv), env_major(aref, nefc),
-            env_major(D, nefc), env_major(R, nefc), floss,
-            env_major(act, nefc), env_major(asm, nv), env_major(ws, nv),
-            ne=ne, nfl=nfl, iterations=it, ls_iterations=ls, scale=scale,
-            tol=tol)
-        _read(x, (nv, E))[...] = out[0].numpy().T
-        _read(f, (nefc, E))[...] = out[1].numpy().T
+            read(J, nefc, nv), read(M, nv, nv), read(aref, nefc),
+            read(D, nefc), read(R, nefc), read(fl, nefc), read(act, nefc),
+            read(asm, nv), read(ws, nv), ne=ne, nfl=nfl, iterations=it,
+            ls_iterations=ls, scale=scale, tol=tol, record=rec)
+        _read(x, (E, nv))[...] = out[0].numpy()
+        _read(f, (E, nefc))[...] = out[1].numpy()
         _read(iters, (E,), ctypes.c_int32)[...] = out[2].numpy()
         _read(taken, (E,), ctypes.c_int32)[...] = out[3].numpy()
+        _read(ls_out, (E, hn.LS_WORDS), ctypes.c_int32)[...] = \
+            rec["ls"].numpy()
+        _read(rows_out, (E, it, hn.row_words(nefc)), ctypes.c_int32)[...] \
+            = rec["rows"].numpy()
         return 0
+
+
+_NEWTON = _Newton()
 
 
 @pytest.fixture
 def on_card(monkeypatch):
     """CPU tensors through the kernel path: `is_cuda` True, the stand-in
     launchers, a null stream; yields the layout stand-in."""
-    libs = {"layout": _Layout(), "newton": _Newton()}
+    _NEWTON.launches.clear()
+    libs = {"layout": _Layout(), "newton": _NEWTON}
     monkeypatch.setattr(kernels, "library",
                         lambda name, signatures, defines=(): libs[name])
     monkeypatch.setattr(kernels, "stream", lambda: 0)
@@ -224,10 +237,12 @@ def test_plane_mesh_call_site(monkeypatch):
 
 @pytest.mark.parametrize("nfl", [NFL, 0])
 def test_newton_call_site(on_card, nfl):
-    """`hopper_newton.solve` relays its operands in one launch and its two
-    results in one, and the kernel's stand-in, reading them through the
-    pointers, gives `newton_plain`'s outputs bit for bit: every operand
-    reaches its own argument."""
+    """`hopper_newton.solve` launches the Newton kernel once on its
+    env-major operands as they come, with no relayout around it, and the
+    kernel's stand-in, reading them through the pointers, gives
+    `newton_plain`'s outputs and decisions bit for bit: every operand
+    reaches its own argument, and the launch takes `plan.solve_launch`'s
+    table and geometry."""
     p = problem(4)
     if not nfl:
         p["floss"][:] = 0
@@ -235,11 +250,17 @@ def test_newton_call_site(on_card, nfl):
                                             "floss", "active", "asm", "ws")]
     opts = dict(ne=NE, nfl=nfl, iterations=ITER, ls_iterations=LS,
                 scale=SCALE, tol=TOL)
-    got = hn.solve(*args, **opts)
-    assert dict(kernels.LAUNCHES) == {"to_grouped": 1, "newton": 1,
-                                      "from_grouped": 1}
-    assert [len(launch) for launch in on_card.launches] == [
-        8 + (1 if nfl else 0), 2]
-    ref = hn.newton_plain(*args, **opts)
+    rec = {}
+    got = hn.solve(*args, **opts, record=rec)
+    assert dict(kernels.LAUNCHES) == {"newton": 1}
+    assert on_card.launches == []  # no relayout
+    E, nefc, nv = args[0].shape
+    launch = hn.solve_launch(nv, nefc, NE, nfl)
+    assert _NEWTON.launches == [(launch.table(), launch.env_floats,
+                                 launch.envs_per_block)]
+    want = {}
+    ref = hn.newton_plain(*args, **opts, record=want)
     for r, k in zip(ref, got):
         assert torch.equal(k, r)
+    assert torch.equal(rec["ls"], want["ls"])
+    assert torch.equal(rec["rows"], want["rows"])

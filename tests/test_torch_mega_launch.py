@@ -23,7 +23,8 @@ biped on the extended collision with pyramidal rows):
 - a census past the limits (too many rows for four warps per SM, nv past
   the compiled width) raises instead of shrinking;
 - the C enums the layout mirrors (`Shm`, `Vec`, `BodyF`, `RowA`,
-  `SlotF`, `kSegW`, `kMaxEnvsPerBlock`) hold the Python widths.
+  `SlotF`, `kSegW`, `kMaxEnvsPerBlock`; csrc/warp_core.cuh and
+  csrc/mega.cu) hold the Python widths.
 """
 
 import re
@@ -41,7 +42,9 @@ from loco_mujoco_tpu_torch.ops import plan as tplan
 
 REPO = Path(__file__).resolve().parent.parent
 ASSETS = REPO / "loco_mujoco_tpu_torch" / "assets"
-SRC = (REPO / "loco_mujoco_tpu_torch" / "csrc" / "mega.cu").read_text()
+# the kernels' source and the warp core it includes (the enums)
+SRC = "".join((REPO / "loco_mujoco_tpu_torch" / "csrc" / f).read_text()
+              for f in ("mega.cu", "warp_core.cuh"))
 CONFIGS = ("rk4", "euler", "muscle", "a1", "h1", "atlas", "g1")
 ASSET_OF = {"muscle": "humanoid_muscle_shape", "a1": "unitree_a1_shape",
             "h1": "unitree_h1_shape", "atlas": "atlas_shape",

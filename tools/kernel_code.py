@@ -8,11 +8,20 @@ with that checkout's own `ops/kernels.py` (`build_all()`: each source at
 every nv width the checkout compiles), then prints one JSON line per
 library and kernel function (its mangled name, without the anonymous
 namespace's path hashes): its registers, stack frame and spill bytes
-as ptxas reports them (`-Xptxas -v`, the build's `.ptxas` log) and the
-number of SASS instructions `cuobjdump -sass` lists for it. Two
-checkouts' lines side by side (an archive of a parent commit under
-`build/`, and this one) show whether a change altered a kernel's code.
-Needs the CUDA toolkit (nvcc, cuobjdump); no GPU is used.
+as ptxas reports them (`-Xptxas -v`, the build's `.ptxas` log; `smem`,
+the static shared bytes where ptxas prints them) and the number of SASS
+instructions `cuobjdump -sass` lists for it. Two checkouts' lines side by
+side (an archive of a parent commit under `build/`, and this one) show
+whether a change altered a kernel's code.
+
+The warp-per-env kernels take their shared memory dynamically, per env,
+from a launch census (`ops/plan.py`): for a checkout that has them it then
+prints one JSON line per committed stand-in and kernel (the mega kernels'
+`mega_launch`, the fused kernel's `fused_launch`) and for the standalone
+Newton kernel at the two configurations without a plan that
+`chip_smoke.py` drives (`solve_launch`): shared bytes per env, envs per
+block, the resident warps per SM that shared memory allows and where the
+rows' J lives. Needs the CUDA toolkit (nvcc, cuobjdump); no GPU is used.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ _FN_PROPS = re.compile(r"Function properties for (\S+)")
 _PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
 _SASS_FN = re.compile(r"Function : (\S+)")
 _SASS_INSN = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/\s+\S")
 # the anonymous namespace's hashes in a mangled name depend on the source's
@@ -64,6 +74,9 @@ def ptxas(log: str) -> dict:
         m = _REGS.search(line)
         if m and fn is not None:
             out[fn]["registers"] = int(m.group(1))
+            m = _SMEM.search(line)
+            if m:
+                out[fn]["smem"] = int(m.group(1))
     return out
 
 
@@ -104,7 +117,50 @@ def main() -> int:
             print(json.dumps({"library": label, "function": kernel_name(fn),
                               **regs.get(fn, {}),
                               "sass": sass.get(fn)}))
+    census(root)
     return 0
+
+
+def census(root: Path) -> None:
+    """The launch census lines (see the module note) of the checkout at
+    root, as far as it has the census functions."""
+    import torch
+
+    from loco_mujoco_tpu_torch.core import io
+    from loco_mujoco_tpu_torch.ops import constraint, forward
+    from loco_mujoco_tpu_torch.ops import hopper_newton as hn
+    from loco_mujoco_tpu_torch.ops import plan as tplan
+
+    def line(kernel, model, launch):
+        print(json.dumps({
+            "census": kernel, "model": model,
+            "shared_bytes_per_env": 4 * launch.env_floats,
+            "envs_per_block": launch.envs_per_block,
+            "resident_warps": launch.resident_warps,
+            "j_global": bool(getattr(launch, "j_global", False))}))
+
+    assets = root / "loco_mujoco_tpu_torch" / "assets"
+    for npz in sorted(assets.glob("*.npz")):
+        plan = io.load_model_npz(npz, device="cpu").plan
+        if plan is None:
+            continue
+        if plan.mega:
+            line("mega", npz.stem, tplan.mega_launch(plan))
+        if hasattr(tplan, "fused_launch"):
+            line("fused", npz.stem, tplan.fused_launch(plan))
+    if not hasattr(tplan, "solve_launch"):
+        return
+    for stem, change in (("humanoid_torque_shape", {"contact_k_plane": 34}),
+                         ("unitree_g1_arms_shape", {"contact_k_plane": 20})):
+        leaves, aux = io.read_model_npz(assets / f"{stem}.npz")
+        aux.update(change)
+        m = io.model_from_numpy(leaves, aux, device="cpu",
+                                dtype=torch.float32)
+        efc = constraint.make_constraint(m, forward.fwd_position(
+            m, io.make_data(m, 1), plain=True))
+        ne, nfl = hn.row_class_counts(efc.is_bilateral, efc.is_fl)
+        line("newton", f"{stem} (no plan)",
+             tplan.solve_launch(m.nv, efc.J.shape[1], ne, nfl))
 
 
 if __name__ == "__main__":

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Time the relayouts of the staged step's call sites on one GPU and split
-each call's host time by part.
+each call's host time by part; with `--staged`, also the staged path's
+Newton and fused kernels and its rates.
 
     python3 tools/layout_host.py [--root DIR] [--calls 1000] [--envs 4096]
                                  [--staged STEPS]
 
 At `chip_smoke.py`'s `wide` configuration (the HumanoidTorque-shaped
 model with 34 plane-mesh slots: 456 rows, no plan, so its staged step runs
-the select, top-K and Newton kernels) and a seeded state dropped 15 mm,
+the select, top-K and Newton kernels) and a seeded state dropped 5-20 mm
+(`dropped`),
 it builds the arrays each call site relays in one forward: the plane-mesh
 group's four select and top-K operands (`moveaxis0_last`) and four top-K
 results (`moveaxis_last0`), the Newton solve's operands (`to_grouped`)
-and its two results (`from_grouped`). For each call site it prints one
+and its two results (`from_grouped`): the one-thread Newton kernel relayed
+those around its launch; the warp-per-env one reads them env-major, so no
+path launches `to_grouped` or `from_grouped` now, and they are timed on the
+arrays they would relay. For each call site it prints one
 JSON line: the wrapper's time over the site's arrays, the launch alone
 (the launcher on outputs made beforehand, enqueued behind a sleep of the
 stream, so that the events time the card only), one `x.t().contiguous()`
@@ -25,20 +30,33 @@ per call of the site (`rest` is the wrapper's time less its timed parts),
 on the site's arrays cut to 128 envs (`host_arrays`: the same calls with
 too little device work to fill the card's queue).
 
-`--staged STEPS` also times STEPS control steps (10 substeps each) of
-the staged path (`LMT_MEGA=0`, `forward.step`) from the dropped state,
-after one untimed control step, in the committed model's `rk4`
-configuration (the fused kernel, the select and top-K and their
-relayouts) and in `wide` (the Newton kernel and its relayouts besides),
-and prints each one's rate (env-steps/s) and launches per control step.
+`--staged STEPS` also prints, on lines of their own:
+
+- `kernel: newton`: the Newton kernel (`hopper_newton.solve`, with
+  whatever relayouts the checkout runs around it) on the staged rows of
+  `wide` and of G1 with its arms at 20 plane-mesh slots (455 rows at nv
+  29, no plan: the second compiled width), at the dropped state, ms per
+  call (CUDA events, the mean of 10 calls after a warm-up);
+- `staged`: STEPS control steps (10 substeps each) of the staged path
+  (`LMT_MEGA=0`, `forward.step`) from the dropped state, after one
+  untimed control step, each control step timed on its own
+  (`staged_rate`): env-steps/s of each, their median, least and most, and
+  the launches per control step, in the committed model's `rk4`
+  configuration (the fused kernel, the select and top-K and their
+  relayouts), in `wide` (the Newton kernel besides), A1 (the fused
+  kernel's elliptic layout) and G1 with its arms (width 32);
+- `kernel: fused`: the fused kernel (`hopper_fused.fused_constraint`) at
+  the end state of each staged run with a row plan, on its own inputs
+  (FK outputs and the staged collision's slots), ms per call as above.
 
 `--root DIR` times the port of another checkout (an archive of a parent
-commit, to put both in one call). A checkout with the list forms
-(`hopper_layout.moveaxis0_last_many` ...) relays a site's arrays in one
-launch, an older one an array per launch; the split follows that
-checkout's own wrapper either way. `chip_smoke.py` imports `split` and
-`site_times` for its layout phase. Prints the card's name and power limit
-and one JSON line per call site.
+commit, to put both in one call: parent, change, change, parent). A
+checkout with the list forms (`hopper_layout.moveaxis0_last_many` ...)
+relays a site's arrays in one launch, an older one an array per launch;
+the split follows that checkout's own wrapper either way. `chip_smoke.py`
+imports `site_arrays`, `wrapper`, `split`, `host_arrays` and `site_times`
+for its layout phase. Prints the card's name and power limit and one JSON
+line per measurement.
 """
 
 from __future__ import annotations
@@ -47,6 +65,7 @@ import argparse
 import json
 import math
 import os
+import statistics
 import struct
 import subprocess
 import sys
@@ -62,8 +81,8 @@ def site_arrays(lay, coll, hc, hn, plan, d_pos, operands, options) -> dict:
     plane-mesh group `plan`'s select and top-K operands and results at
     the position stage `d_pos`, and the Newton solve's operands
     (`solver.newton_inputs`) and results, env-major or env-last as the
-    call sites (`collision._plane_mesh_kernel`, `hopper_newton.solve`)
-    pass them."""
+    call sites (`collision._plane_mesh_kernel`, and `hopper_newton.solve`
+    of a checkout whose Newton kernel relays them) pass them."""
     a, b, gxp, gxm = coll.mesh_kernel_inputs(plan, d_pos)
     a_t, b_t, gxp_t, gxm_t = (lay.moveaxis0_last_plain(t)
                               for t in (a, b, gxp, gxm))
@@ -244,24 +263,44 @@ def split(torch, lay, kernels, role, xs, calls=1000) -> dict:
 
 
 def staged_rate(torch, fwd, kernels, m, d, steps, substeps=10):
-    """(env-steps/s, launches per control step) of `steps` control steps
-    of the staged path from d, after one untimed control step."""
+    """(env-steps/s of each of `steps` control steps, launches per control
+    step, the end state) of the staged path from d, after one untimed
+    control step; each control step is timed on its own (synchronized at
+    both ends)."""
     os.environ["LMT_MEGA"] = "0"
+    rates = []
     try:
         for _ in range(substeps):
             d = fwd.step(m, d)
         torch.cuda.synchronize()
         kernels.LAUNCHES.clear()
-        t0 = time.perf_counter()
-        for _ in range(steps * substeps):
-            d = fwd.step(m, d)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            for _ in range(substeps):
+                d = fwd.step(m, d)
+            torch.cuda.synchronize()
+            rates.append(d.qpos.shape[0] / (time.perf_counter() - t0))
     finally:
         del os.environ["LMT_MEGA"]
     assert torch.isfinite(d.qvel).all()
     counts = {k: v // steps for k, v in sorted(kernels.LAUNCHES.items())}
-    return d.qpos.shape[0] * steps / wall, counts
+    return rates, counts, d
+
+
+def dropped(io, m, envs, dev):
+    """A seeded state (numpy, seed 0) of `envs` envs: qpos0 with noise of
+    0.02, the root lowered 5-20 mm, at rest."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    qpos = m.qpos0.cpu().numpy()[None] + rng.normal(scale=0.02,
+                                                    size=(envs, m.nq))
+    z = next(n for n in m.names["joint"] if n.endswith("tz") or n == "root_z")
+    a = int(m.jnt_qposadr[m.names["joint"][z]])
+    qpos[:, a] = float(m.qpos0[a]) - rng.uniform(0.005, 0.02, size=envs)
+    return io.make_data(m, envs).replace(
+        qpos=torch.as_tensor(qpos, dtype=torch.float32, device=dev))
 
 
 def main() -> int:
@@ -274,7 +313,6 @@ def main() -> int:
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -285,58 +323,85 @@ def main() -> int:
     from loco_mujoco_tpu_torch.ops import constraint as con
     from loco_mujoco_tpu_torch.ops import forward as fwd
     from loco_mujoco_tpu_torch.ops import hopper_collision as hc
+    from loco_mujoco_tpu_torch.ops import hopper_fused as hf
     from loco_mujoco_tpu_torch.ops import hopper_layout as lay
     from loco_mujoco_tpu_torch.ops import hopper_newton as hn
-    from loco_mujoco_tpu_torch.ops import kernels, solver
+    from loco_mujoco_tpu_torch.ops import kernels, kinematics, solver
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {card}; port from {root}")
-    kernels.build_all(["layout", "plane_mesh", "newton"])
+    kernels.build_all(["layout", "plane_mesh", "newton"]
+                      + (["fused"] if args.staged else []))
     dev = torch.device("cuda")
-    def load(change):
+    E = args.envs
+
+    def load(stem, change=None):
         leaves, aux = io.read_model_npz(
-            root / "loco_mujoco_tpu_torch/assets/humanoid_torque_shape.npz")
-        aux.update(change)
+            root / f"loco_mujoco_tpu_torch/assets/{stem}.npz")
+        aux.update(change or {})
         return io.model_from_numpy(leaves, aux, device=dev,
                                    dtype=torch.float32)
 
-    m = load({"contact_k_plane": 34})  # chip_smoke.CONFIGS["wide"]
+    def emit(**kw):
+        print(json.dumps(dict(kw, card=card)), flush=True)
+
+    def solve_inputs(m):
+        d_pos = fwd.fwd_position(m, dropped(io, m, E, dev))
+        d_acc = fwd.fwd_acceleration(m, fwd.fwd_actuation(
+            m, fwd.fwd_velocity(m, d_pos)))
+        return d_pos, solver.newton_inputs(m, d_acc,
+                                           con.make_constraint(m, d_acc))
+
+    # chip_smoke.CONFIGS["wide"]
+    m = load("humanoid_torque_shape", {"contact_k_plane": 34})
     assert m.plan is None, "the wide configuration has a plan"
-    E = args.envs
-    rng = np.random.default_rng(0)
-    qpos = m.qpos0.cpu().numpy()[None] + rng.normal(scale=0.02,
-                                                    size=(E, m.nq))
-    qpos[:, int(m.jnt_qposadr[m.names["joint"]["root_z"]])] -= 0.015
-    d = io.make_data(m, E).replace(
-        qpos=torch.as_tensor(qpos, dtype=torch.float32, device=dev))
-    d_pos = fwd.fwd_position(m, d)
-    d_acc = fwd.fwd_acceleration(m, fwd.fwd_actuation(
-        m, fwd.fwd_velocity(m, d_pos)))
-    operands, options = solver.newton_inputs(m, d_acc,
-                                             con.make_constraint(m, d_acc))
+    d_pos, (operands, options) = solve_inputs(m)
     plan = next(p for p in m.mesh_kernel if p is not None)
     sites = site_arrays(lay, coll, hc, hn, plan, d_pos, operands, options)
     for role in ROLES:
         xs = [t.contiguous() for t in sites[role]]
-        line = {"site": role, "arrays": len(xs),
-                "launches": 1 if _grouped(lay) else len(xs),
-                **site_times(torch, lay, kernels, role, xs),
-                "host_us": split(torch, lay, kernels, role,
-                                 host_arrays(role, xs), args.calls),
-                "calls": args.calls, "card": card}
-        print(json.dumps(line))
-    if args.staged:
-        for name, model in (("rk4", load({})), ("wide", m)):
-            start = io.make_data(model, E).replace(qpos=d.qpos.clone())
-            rate, counts = staged_rate(torch, fwd, kernels, model, start,
+        emit(site=role, arrays=len(xs),
+             launches=1 if _grouped(lay) else len(xs),
+             **site_times(torch, lay, kernels, role, xs),
+             host_us=split(torch, lay, kernels, role, host_arrays(role, xs),
+                           args.calls),
+             calls=args.calls)
+    if not args.staged:
+        return 0
+    g1w = load("unitree_g1_arms_shape", {"contact_k_plane": 20})
+    for name, mw, (ops, opts) in (
+            ("wide", m, (operands, options)),
+            ("g1arms_wide", g1w, solve_inputs(g1w)[1])):
+        kernels.LAUNCHES.clear()
+        it = hn.solve(*ops, **opts)[2]
+        launches = dict(kernels.LAUNCHES)
+        emit(kernel="newton", config=name, rows=int(ops[0].shape[1]),
+             nv=int(mw.nv), ms=_time_ms(torch, lambda: hn.solve(*ops, **opts),
+                                        reps=10),
+             iterations_mean=float(it.float().mean()), launches=launches)
+    for name, model in (("rk4", load("humanoid_torque_shape")),
+                        ("wide", m), ("a1", load("unitree_a1_shape")),
+                        ("g1arms", load("unitree_g1_arms_shape"))):
+        rates, counts, d = staged_rate(torch, fwd, kernels, model,
+                                       dropped(io, model, E, dev),
                                        args.staged)
-            print(json.dumps({"staged": name, "steps": args.staged,
-                              "env_steps_per_s": rate,
-                              "launches_per_control_step": counts,
-                              "card": card}))
+        emit(staged=name, steps=args.staged,
+             env_steps_per_s=statistics.median(rates),
+             least=min(rates), most=max(rates), each=rates,
+             launches_per_control_step=counts)
+        if model.plan is None:
+            continue
+        d_in = coll.collision(model, kinematics.kinematics(model, d))
+        k = hf.fused_constraint(model, d_in)
+        emit(kernel="fused", config=name, rows=int(model.plan.nrows),
+             nv=int(model.nv), pack_w=int(model.plan.pack_w),
+             ms=_time_ms(torch, lambda: hf.fused_constraint(model, d_in),
+                         reps=10),
+             iterations_mean=float(k.solver_niter.float().mean()))
     return 0
 
 
