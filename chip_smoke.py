@@ -13,7 +13,9 @@ Run from the repository root: `python3 chip_smoke.py`. It
    least 4); and the same for the fused kernel (every configuration with a
    plan, with and without the damping rows) and the standalone Newton
    kernel (the two configurations without a plan), which run a warp per
-   env on the mega kernels' warp core (`csrc/warp_core.cuh`);
+   env on the mega kernels' warp core (`csrc/warp_core.cuh`), and the
+   plane-mesh kernel (`csrc/plane_mesh.cu`, a warp per env) on six
+   kernel-gated groups;
 3. loads the committed HumanoidTorque-shaped model (nv = 19, 75 plane-mesh
    pairs) in five configurations, each a change of the loaded arrays: RK4
    and Euler with uniform contact statics (the mega plan), per-pair
@@ -63,8 +65,8 @@ Run from the repository root: `python3 chip_smoke.py`. It
    substeps, 1 of 10 Euler substeps, 1 of 10 muscle Euler substeps (the
    fused kernel's non-smooth layout), 1 of 10 A1 Euler substeps (torch
    collision and the fused kernel's elliptic layout) and 1 each of H1,
-   Atlas and G1 (its plane-mesh group on the select and top-K kernels,
-   its other groups in torch, the fused kernel's 26-float pack) and 1 of
+   Atlas and G1 (its plane-mesh group on the plane-mesh kernel, its
+   other groups in torch, the fused kernel's 26-float pack) and 1 of
    A1's position mode (the elliptic layout with affine bias), through
    the fused constraint kernel (each cut from 2 to keep the run short),
    1 of G1 with its arms (the fused kernel at width 32), 1 each of H1 and
@@ -129,8 +131,9 @@ Run from the repository root: `python3 chip_smoke.py`. It
    extended pyramidal instances and the RK4 megastep, at the randomized
    arms envs' end states), Talos and G1 at k = P (their plane-mesh groups
    ranked: the plane-only and extended pyramidal instances), the
-   plane-mesh select and top-K on the
-   torque model's and G1's mesh groups, and the fused kernel on all four
+   plane-mesh kernel (`mesh_slots`, select and top-K in one launch) on the
+   torque model's, G1's and `wide`'s (k 34) mesh groups, every pair's key
+   besides the slots, and the fused kernel on all four
    plan
    configurations, the muscle model's non-smooth layout, A1's elliptic
    layout, H1, Atlas, G1, A1's position mode, G1, H1 and Atlas with their
@@ -155,12 +158,15 @@ Run from the repository root: `python3 chip_smoke.py`. It
 8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the least time the card
    could take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
-   the H100 SXM data-sheet peaks at 700 W); the layout kernel per call
-   site (one launch for all of a site's arrays in a forward: the
-   plane-mesh group's four operands and four results; the Newton solve's
+   the H100 SXM data-sheet peaks at 700 W); the plane-mesh kernel also
+   by its launch alone, at the staged RK4, G1 and no-plan runs' end
+   states; the layout kernel per call site (one launch for all of a
+   site's arrays in a forward: the plane-mesh group's four operands and
+   four results, which the one-thread select and top-K relayed and the
+   plane-mesh kernel reads and writes env-major; the Newton solve's
    operands and two results, which the one-thread solve relayed and the
-   warp solve reads as they are, so no path launches to_grouped or
-   from_grouped now) also by its launch alone (the launcher on
+   warp solve reads as they are, so no path launches a relayout now)
+   also by its launch alone (the launcher on
    outputs made beforehand: the row's time brackets the wrapper's checks,
    allocation and ctypes dispatch), and the wrapper's host time split by
    part (`tools/layout_host.py`: 1000 calls at 128 envs);
@@ -286,45 +292,10 @@ def _tool(name):
     return mod
 
 
-def _device_ops(torch, fn):
-    """(kernels, copies and fills, copies from pageable host memory) that
-    one call of `fn` runs on the card, from torch.profiler; all 0 when the
-    profiler sees no device events."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    copies = sum(1 for n in names if n.startswith(("Memcpy", "Memset")))
-    return (len(names) - copies, copies,
-            sum(1 for n in names if "Pageable" in n))
-
-
 def _bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _select_flops(torch, plan, a, b, dist):
-    """Operations the select does on these inputs: the extent bound for
-    every (pair, env), V height evaluations where the bound reaches the
-    margin, and D neighbour tests where the support depth does."""
-    dev = a.device
-    mg = plan.tensors(dev).pair_f
-    V = torch.as_tensor(plan.pair_i[:, 1], device=dev)[:, None]
-    D = torch.as_tensor(plan.pair_i[:, 2], device=dev)[:, None]
-    lb = b - 1e-6
-    for i in range(3):
-        lb = lb + torch.minimum(a[:, i] * mg[:, 2 + i, None],
-                                a[:, i] * mg[:, 5 + i, None])
-    near = lb < mg[:, 0:1]
-    man = near & (dist[:, 0] < mg[:, 0:1])
-    return int((13 + near * (V * 7) + man * (D * 20)).sum())
 
 
 def _active_close(got, ref, active, atol, what):
@@ -332,6 +303,48 @@ def _active_close(got, ref, active, atol, what):
     if not err <= atol:
         raise AssertionError(f"{what}: max abs error {err} > {atol}")
     return err
+
+
+def _mesh_slots_rule(torch, plan, gxp, gxm, what):
+    """The plane-mesh kernel (`hopper_collision.mesh_slots`, one launch)
+    against its plain version on every env of the geom poses gxp, gxm:
+    the active slots and the ranks' geom ids and statics exact, depths
+    within 1e-6, positions 1e-5, frames 1e-6, and the ranking key of every
+    near pair (its extent bound reaches the margin, so the kernel walks
+    its vertices) within 1e-6; a far pair's key lies at or past 0 in both
+    (the kernel's is the bound's). Returns (max abs error, active slots,
+    near pairs)."""
+    from loco_mujoco_tpu_torch.ops import hopper_collision as hc
+    from loco_mujoco_tpu_torch.ops import kernels
+
+    E, P = gxp.shape[0], plan.P
+    k_key = torch.empty(E, P, device=gxp.device)
+    p_key = torch.empty_like(k_key)
+    kernels.LAUNCHES.clear()
+    got = hc.mesh_slots(plan, gxp, gxm, k_key)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"mesh_slots": 1}, kernels.LAUNCHES
+    kernels.LAUNCHES.clear()
+    ref = hc.mesh_slots_plain(plan, gxp, gxm, p_key)
+    on = ref[0] < BIG / 2  # (E, k, 3) active slots
+    assert torch.equal(got[0] < BIG / 2, on), f"{what}: active slots differ"
+    rank = on[..., 0]  # the ranks whose pair's key is below 0
+    for i in range(3, 9):
+        assert torch.equal(got[i][rank], ref[i][rank]), \
+            f"{what}: geom ids or statics differ"
+    t = plan.tensors(gxp.device)
+    a, b = hc.plane_in_mesh_frame(gxp, gxm, t.pg1, t.pg2)
+    near = hc.extent_bound(t.pair_f, a, b) < t.pair_f[:, 0]
+    assert bool((k_key[~near] >= 0).all()) and bool(
+        (p_key[~near] >= 0).all()), f"{what}: a far pair's key below 0"
+    err = max(
+        _active_close(got[0], ref[0], on, 1e-6, f"{what} dist"),
+        _active_close(got[1], ref[1], on[..., None].expand(-1, -1, -1, 3),
+                      1e-5, f"{what} pos"),
+        _active_close(got[2], ref[2], rank[..., None, None].expand(
+            -1, -1, 3, 3), 1e-6, f"{what} frame"),
+        _active_close(k_key, p_key, near, 1e-6, f"{what} key"))
+    return err, int(on.sum()), int(near.sum())
 
 
 @contextlib.contextmanager
@@ -544,6 +557,7 @@ def _vertex_ties(torch, m, d, fk, fp, envs):
     import numpy as np
 
     from loco_mujoco_tpu_torch.ops import collision as coll
+    from loco_mujoco_tpu_torch.ops import hopper_collision as hc
     from loco_mujoco_tpu_torch.ops import kinematics
 
     E, dev = d.qpos.shape[0], d.qpos.device
@@ -554,7 +568,8 @@ def _vertex_ties(torch, m, d, fk, fp, envs):
             continue
         pid = np.asarray(g.pair_ids)
         pg1, pg2 = m.pair_geom1[pid], m.pair_geom2[pid]
-        a, b = coll.plane_in_mesh_frame(pos, pg1, pg2)  # (E, P, 3), (E, P)
+        a, b = hc.plane_in_mesh_frame(pos.geom_xpos, pos.geom_xmat, pg1,
+                                      pg2)  # (E, P, 3), (E, P)
         mesh = np.maximum(np.asarray(m.geom_meshid)[pg2], 0)
         verts = m.mesh_vert[mesh].double()  # (P, V, 3)
         valid = torch.as_tensor(np.asarray(m.mesh_vertmask)[mesh],
@@ -941,15 +956,13 @@ def _mesh_flops(torch, mesh, d, act):
     `act`: every pair's pose and bound (121), the top-k's comparisons, the
     height maps of the pairs whose bound reaches the margin (7 per vertex)
     and each selected pair's neighbour walk and slots."""
-    from loco_mujoco_tpu_torch.ops import collision as coll
+    from loco_mujoco_tpu_torch.ops import hopper_collision as hc
 
     mk, dev = mesh["mesh"], d.qpos.device
-    a, b, _, _ = coll.mesh_kernel_inputs(mk, d)  # (E, P, 3), (E, P)
-    pf = torch.as_tensor(mk.pair_f, device=dev)
-    lb = b - 1e-6
-    for i in range(3):
-        lb = lb + torch.minimum(a[..., i] * pf[:, 2 + i],
-                                a[..., i] * pf[:, 5 + i])
+    t = mk.tensors(dev)
+    a, b = hc.plane_in_mesh_frame(d.geom_xpos, d.geom_xmat, t.pg1, t.pg2)
+    pf = t.pair_f
+    lb = hc.extent_bound(pf, a, b)
     V = torch.as_tensor(mk.pair_i[:, 1], device=dev, dtype=torch.float64)
     D = float(mk.pair_i[:, 2].max())
     near = ((lb < pf[:, 0]).double() * V).sum(dim=1) * 7  # height maps
@@ -1305,6 +1318,16 @@ def main() -> int:
               f"per block; resident warps per SM {occ} (the launch plan's "
               f"shared-memory bound {launch.resident_warps})")
         assert occ >= RESIDENT_FLOOR, (name, occ)
+    # the plane-mesh kernel's launch: a warp per env, its scratch in shared
+    # memory
+    for name, m in (("rk4", model), ("wide", m_wide), ("h1", m_h1),
+                    ("g1", m_g1), ("g1arms", m_g1a), ("h1arms", m_h1a)):
+        mk = next(p for p in m.mesh_kernel if p is not None)
+        print(f"mesh_slots launch {name}: {mk.P} pairs, k {mk.k}, "
+              f"{hc.shared_bytes(mk)} bytes of shared memory per env, "
+              f"{hc.ENVS_PER_BLOCK} envs (warps) per block; resident warps "
+              f"per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) "
+              f"{hc.occupancy(mk)}")
 
     E = N_ENVS
     qpos, ctrls, ctrls_mu, qpos_a1, ctrls_a1 = seeded_draws(model, m_mu, m_a1,
@@ -1356,49 +1379,22 @@ def main() -> int:
     errs = {}
 
     def mesh_check(mk, d_pos, what):
-        """The select and the top-K against their plain versions on a
-        plane-mesh group's inputs at d_pos: active masks and geom ids
-        exact, depths and points within 1e-6 / 1e-5, frames 1e-6."""
-        a, b, gxp, gxm = coll.mesh_kernel_inputs(mk, d_pos)
-        a_t, b_t = lay.moveaxis0_last_plain(a), lay.moveaxis0_last_plain(b)
-        gxp_t = lay.moveaxis0_last_plain(gxp)
-        gxm_t = lay.moveaxis0_last_plain(gxm)
-        dist_k, vsel_k = hc.plane_mesh_select(mk, a_t, b_t)
-        dist_p, vsel_p = hc.select_plain(mk, a_t, b_t)
-        margin = torch.as_tensor(mk.pair_f[:, 0], device=dev)[:, None, None]
-        act_p = dist_p < margin
-        assert torch.equal(dist_k < margin, act_p), \
-            f"select {what}: active mask differs"
-        e_sel = _active_close(dist_k, dist_p, act_p, 1e-6, "select dist")
-        act9 = act_p.repeat_interleave(3, dim=1)
-        e_sel = max(e_sel, _active_close(vsel_k, vsel_p, act9, 1e-5,
-                                         "select vsel"))
-        out_k = hc.group_topk(mk, dist_p, vsel_p, gxp_t, gxm_t)
-        out_p = hc.group_topk_plain(mk, dist_p, vsel_p, gxp_t, gxm_t)
-        act_s = out_p[0] < BIG / 2  # active slot rows (k, 3, E)
-        assert torch.equal(out_k[0] < BIG / 2, act_s), \
-            f"top-K {what}: active differs"
-        slot_on = act_s[:, 0:1]  # pair selected with key < 0
-        geo = slot_on.expand(-1, 2, -1)
-        assert torch.equal(out_k[3][:, :2][geo], out_p[3][:, :2][geo]), \
-            f"top-K {what}: geom ids"
-        e_top = _active_close(out_k[0], out_p[0], act_s, 1e-6, "top-K dist")
-        e_top = max(e_top, _active_close(
-            out_k[1], out_p[1], act_s.repeat_interleave(3, dim=1), 1e-5,
-            "top-K pos"))
-        e_top = max(e_top, _active_close(
-            out_k[2], out_p[2], slot_on.expand(-1, 9, -1), 1e-6,
-            "top-K frame"))
-        print(f"kernel checks ({what}): select active slots "
-              f"{int(act_p.sum())}, max err {e_sel:.3g}; top-K active "
-              f"slots {int(act_s.sum())}, max err {e_top:.3g}")
-        return e_sel, e_top
+        """The plane-mesh kernel against its plain version on a group's
+        poses at d_pos (`_mesh_slots_rule`)."""
+        err, n_on, n_near = _mesh_slots_rule(
+            torch, mk, d_pos.geom_xpos, d_pos.geom_xmat, what)
+        print(f"kernel checks ({what}): mesh_slots, {mk.P} pairs, k "
+              f"{mk.k}, {E} envs: active slots {n_on}, near pairs "
+              f"{n_near}, max err {err:.3g}")
+        return err
 
-    errs["plane_mesh_select"], errs["group_topk"] = mesh_check(
-        plan, d_pos, "torque humanoid")
+    errs["mesh_slots"] = mesh_check(plan, d_pos, "torque humanoid")
     d_g1_pos = fwd.fwd_position(m_g1, start(m_g1), plain=True)
-    errs["plane_mesh_select_g1"], errs["group_topk_g1"] = mesh_check(
-        m_g1.mesh_kernel[g1_mesh], d_g1_pos, "G1")
+    errs["mesh_slots_g1"] = mesh_check(m_g1.mesh_kernel[g1_mesh], d_g1_pos,
+                                       "G1")
+    errs["mesh_slots_wide"] = mesh_check(
+        m_wide.mesh_kernel[mesh_groups[0]],
+        fwd.fwd_position(m_wide, start(m_wide), plain=True), "wide, k 34")
 
     def newton_check(m, d, what):
         """The Newton kernel against its plain version on the rows of the
@@ -1484,7 +1480,7 @@ def main() -> int:
         n_con = int((d.contact.dist < d.contact.includemargin).sum())
         assert n_con > 0, "no active contacts"
         rate = E * steps / wall
-        ops = _device_ops(torch, lambda: fwd.forward(m, d))
+        ops = lay_tool.device_ops(torch, lambda: fwd.forward(m, d))
         print(f"staged path, {what}: {steps} control steps x {SUBSTEPS} "
               f"substeps ({forwards // (steps * SUBSTEPS)} forwards each), "
               f"{E} envs in {wall:.2f} s = {rate:.0f} env-steps/s ({card}); "
@@ -1496,14 +1492,9 @@ def main() -> int:
                  "not measured"))
         return d, got, rate, ops[0]
 
-    per_fused = {"fused": 1, "plane_mesh_select": len(mesh_groups),
-                 "group_topk": len(mesh_groups),
-                 "moveaxis0_last": len(mesh_groups),
-                 "moveaxis_last0": len(mesh_groups)}
-    per_newton = {"newton": 1, "plane_mesh_select": len(mesh_groups),
-                  "group_topk": len(mesh_groups),
-                  "moveaxis0_last": len(mesh_groups),
-                  "moveaxis_last0": len(mesh_groups)}
+    # one plane-mesh launch per kernel-gated group and forward, no relayout
+    per_fused = {"fused": 1, "mesh_slots": len(mesh_groups)}
+    per_newton = {"newton": 1, "mesh_slots": len(mesh_groups)}
     with _staged_path():
         d_staged, staged_launches, staged_rate, staged_ops = staged_run(
             model, STAGED_STEPS, per_fused, "RK4 through the fused kernel")
@@ -1524,7 +1515,7 @@ def main() -> int:
             "collision and the fused kernel")
         d_staged_g1, staged_g1_launches, staged_g1_rate, staged_g1_ops = \
             staged_run(m_g1, STAGED_STEPS, per_fused, "G1 Euler through the "
-                       "plane-mesh kernels, torch narrowphases and the fused "
+                       "plane-mesh kernel, torch narrowphases and the fused "
                        "kernel (26-float pack)")
         d_staged_a1p, staged_a1p_launches, staged_a1p_rate, _ = staged_run(
             m_a1p, STAGED_STEPS, {"fused": 1}, "A1 position Euler through "
@@ -1535,14 +1526,14 @@ def main() -> int:
             f"RK4, no plan ({m_wide.ncon} slots), through the Newton kernel")
         d_staged_g1a, staged_g1a_launches, staged_g1a_rate, staged_g1a_ops = \
             staged_run(m_g1a, WIDE_STEPS, per_fused, "G1 with arms Euler "
-                       "through the plane-mesh kernels, torch narrowphases "
+                       "through the plane-mesh kernel, torch narrowphases "
                        "and the fused kernel at width 32 (26-float pack)")
         d_g1a_wide, g1a_wide_launches, g1a_wide_rate, _ = staged_run(
             m_g1a_wide, WIDE_STEPS, {"newton": 1},
             f"G1 with arms Euler, no plan ({m_g1a_wide.ncon} slots), "
             f"through the Newton kernel at width 32")
         # H1 and Atlas with their arms: the fused kernel at width 32 (H1's
-        # plane-mesh group on the select and top-K kernels)
+        # plane-mesh group on the plane-mesh kernel)
         d_staged_h1a, staged_h1a_launches, staged_h1a_rate, _ = staged_run(
             m_h1a, WIDE_STEPS, per_fused, "H1 with arms Euler through the "
             "fused kernel at width 32")
@@ -1550,7 +1541,7 @@ def main() -> int:
             m_ata, WIDE_STEPS, {"fused": 1}, "Atlas with arms RK4 through "
             "torch collision and the fused kernel at width 32")
         # Talos: its plane-mesh group at k = P keeps the staged path's
-        # pair order in torch (no select or top-K kernel), the fused kernel
+        # pair order in torch (no plane-mesh kernel), the fused kernel
         d_staged_ta, staged_ta_launches, staged_ta_rate, staged_ta_ops = \
             staged_run(m_ta, STAGED_STEPS, {"fused": 1}, "Talos Euler "
                        "through torch collision (its plane-mesh group at "
@@ -2286,9 +2277,10 @@ def main() -> int:
         row(role, role, "no-plan staged RK4", "layout.cu", replaces[role],
             tm["wrapper_ms"], tm["plain_ms"], 2 * nbytes(*xs), 0,
             tm["library_ms"])
-        where = ("one launch per forward" if role.startswith("move") else
-                 "the Newton solve's arrays, which the warp solve reads "
-                 "env-major: no path launches it")
+        where = ("the plane-mesh group's arrays, which the one plane-mesh "
+                 "kernel reads and writes env-major" if role.startswith(
+                     "move") else "the Newton solve's arrays, which the warp "
+                 "solve reads env-major") + ": no path launches it"
         print(f"layout {role} ({len(xs)} arrays, {where}): "
               f"the wrapper {tm['wrapper_ms']:.4f} ms, the launch alone "
               f"{tm['launch_alone_ms']:.4f} ms (bound {tm['bound_ms']:.4f} "
@@ -2302,35 +2294,44 @@ def main() -> int:
         print(f"layout {role} host split (1000 calls at 128 envs, us per "
               f"call): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
 
-    # the select and top-K at the staged RK4 run's end state (the model's
-    # mesh group, k = 8) and at the staged G1 run's (its mesh group, k = 8)
-    for sfx, m, d_end, mk, run in (
-            ("", model, d_staged, plan, "staged RK4"),
-            ("_g1", m_g1, d_staged_g1, m_g1.mesh_kernel[g1_mesh],
-             "staged G1")):
+    # the plane-mesh kernel at the staged RK4 run's end state (the model's
+    # mesh group, k 8), the staged G1 run's (k 8) and the no-plan run's
+    # (k 34), held to its plain version there too; its bytes: the poses of
+    # the geoms the group uses, the hulls' vertex rows and the pair tables,
+    # each read once, and the slots written once
+    for sfx, m, d_end, run in (("", model, d_staged, "staged RK4"),
+                               ("_g1", m_g1, d_staged_g1, "staged G1"),
+                               ("_wide", m_wide, d_wide,
+                                "no-plan staged RK4")):
+        gi = next(i for i, p in enumerate(m.mesh_kernel) if p is not None)
+        g, mk = m.groups[gi], m.mesh_kernel[gi]
         d_pos = fwd.fwd_position(m, d_end)
-        a, b, gxp, gxm = coll.mesh_kernel_inputs(mk, d_pos)
-        a_t, b_t = lay.moveaxis0_last(a), lay.moveaxis0_last(b)
-        gxp_t, gxm_t = lay.moveaxis0_last(gxp), lay.moveaxis0_last(gxm)
-        dist, vsel = hc.plane_mesh_select(mk, a_t, b_t)
-        topk_out = hc.group_topk(mk, dist, vsel, gxp_t, gxm_t)
-        ms = _time_ms(torch, lambda: hc.plane_mesh_select(mk, a_t, b_t))
-        plain = _time_ms(torch, lambda: hc.select_plain(mk, a_t, b_t))
+        gxp, gxm = d_pos.geom_xpos, d_pos.geom_xmat
+        errs["mesh_slots" + sfx] = max(errs["mesh_slots" + sfx],
+                                       _mesh_slots_rule(
+                                           torch, mk, gxp, gxm,
+                                           f"{run} end state")[0])
+        tm = lay_tool.mesh_times(torch, hc, kernels, mk, gxp, gxm)
+        d_col = coll.collision(m, d_pos)
+        act = d_col.contact.dist < d_col.contact.includemargin
         pt = mk.tensors(dev)
-        row("plane_mesh_select" + sfx, "plane_mesh_select", run,
-            "plane_mesh.cu", "pallas_collision.py:230", ms, plain,
-            nbytes(a_t, b_t, pt.flat, pt.pair_i, pt.pair_f, dist, vsel),
-            _select_flops(torch, mk, a_t, b_t, dist))
-        ms = _time_ms(torch, lambda: hc.group_topk(mk, dist, vsel, gxp_t,
-                                                   gxm_t))
-        plain = _time_ms(torch, lambda: hc.group_topk_plain(
-            mk, dist, vsel, gxp_t, gxm_t))
-        slots_on = int((topk_out[0][:, 0] < BIG / 2).sum())
-        row("group_topk" + sfx, "group_topk", run, "plane_mesh.cu",
-            "pallas_collision.py:556", ms, plain,
-            nbytes(dist, vsel, gxp_t, gxm_t, pt.tbl16, pt.pg_local32,
-                   *topk_out),
-            2 * mk.k * mk.P * E + 90 * slots_on)
+        used = len(set(mk.pg1.tolist()) | set(mk.pg2.tolist()))
+        moved = (E * used * 12 * 4 + 12 * int(mk.pair_i[:, 1].sum())
+                 + nbytes(pt.pair_k, pt.pair_f, pt.tbl16)
+                 + E * mk.k * ((21 + hc.META) * 4 + 2 * 8))
+        flops = float(_mesh_flops(torch, {"mesh": mk, "offset": g.offset,
+                                          "k": mk.k}, d_col, act).sum())
+        row("mesh_slots" + sfx, "mesh_slots", run, "plane_mesh.cu",
+            "pallas_collision.py:556", tm["wrapper_ms"], tm["plain_ms"],
+            moved, flops)
+        bound = rows[-1]["bound_ms"]
+        print(f"mesh_slots at the {run} end state ({mk.P} pairs, k {mk.k}): "
+              f"the wrapper {tm['wrapper_ms']:.4f} ms, the launch alone "
+              f"{tm['launch_alone_ms']:.4f} ms (bound {bound:.4f} ms, "
+              f"{rows[-1]['bound_by']}: {bound / tm['launch_alone_ms']:.0%} "
+              f"of the bound's rate), plain {tm['plain_ms']:.4f} ms; "
+              f"active slots {int(act[:, g.offset:g.offset + 3 * mk.k].sum())}"
+              f" ({card})")
 
     def newton_row(name, run, operands, options):
         """The Newton kernel's row at these operands."""

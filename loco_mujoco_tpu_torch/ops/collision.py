@@ -10,7 +10,7 @@ their pairs by the exact support distance of the second geom, self groups
 by centre distance minus the static bounding radii (`_rbound`, `:838`),
 both minus the pair margin, first index on ties (`lax.top_k`'s order); the
 narrowphase then runs on the k selected pairs. A plane-mesh group either
-runs the Hopper select/top-K kernels (`hopper_collision`, gated at load like
+runs the Hopper kernel `hopper_collision.mesh_slots` (gated at load like
 the reference's Pallas path) or the port of the XLA narrowphase
 (`_plane_mesh_xla`), which is the numerical reference and the float64 path.
 
@@ -31,7 +31,6 @@ import torch
 
 from ..core.types import Contact, Data, GeomType, Model
 from . import hopper_collision as hc
-from . import hopper_layout as lay
 from . import math as m3
 
 _PLANE = int(GeomType.PLANE)
@@ -405,23 +404,6 @@ def _convex_group(model: Model, g: Group, data: Data):
             model.pair_margin[sel_p] - model.pair_gap[sel_p])
 
 
-def plane_in_mesh_frame(data: Data, pg1, pg2):
-    """The plane of each pair in its mesh's frame: normal a (E, P, 3) and
-    offset b (E, P), so that a mesh-local vertex v lies a.v + b above it.
-    Written as the mega kernels' separate products and sums, in their order
-    (csrc/mega.cu `collide`: a_j = (R_0j n_0 + R_1j n_1) + R_2j n_2), so
-    that a support-vertex tie within an ulp resolves the same way on every
-    device."""
-    gxp, gxm = data.geom_xpos, data.geom_xmat
-    n = gxm[:, pg1, :, 2]  # (E, P, 3)
-    R = gxm[:, pg2]  # (E, P, 3, 3)
-    a = ((R[..., 0, :] * n[..., 0:1] + R[..., 1, :] * n[..., 1:2])
-         + R[..., 2, :] * n[..., 2:3])
-    d = gxp[:, pg2] - gxp[:, pg1]
-    b = (n[..., 0] * d[..., 0] + n[..., 1] * d[..., 1]) + n[..., 2] * d[..., 2]
-    return a, b
-
-
 def _plane_mesh_narrow(model: Model, pid: np.ndarray, vcap: int,
                        data: Data):
     """Manifold selection for one bucket of plane-mesh pairs
@@ -435,7 +417,7 @@ def _plane_mesh_narrow(model: Model, pid: np.ndarray, vcap: int,
     nbr = hc.graph_table(model.mesh_nbr, mesh_ids, vcap)
     if nbr is not None:
         nbr = torch.as_tensor(nbr, device=dev)
-    a, b = plane_in_mesh_frame(data, pg1, pg2)
+    a, b = hc.plane_in_mesh_frame(data.geom_xpos, data.geom_xmat, pg1, pg2)
     margin = model.pair_margin[pid]
     dist, vsel = hc.manifold_plain(
         model.mesh_vert[mesh_ids, :vcap], vmask, nbr,
@@ -478,44 +460,20 @@ def _plane_mesh_xla(model: Model, g: Group, data: Data):
             model.pair_solref[sel_p], model.pair_solimp[sel_p], marg)
 
 
-def mesh_kernel_inputs(plan: hc.MeshPlan, data: Data):
-    """Env-major inputs of the select/top-K kernels: the mesh-frame plane
-    normal a (E, P, 3) and offset b (E, P) of every pair, and the poses of
-    the geoms the group uses, gxp (E, G, 3) and gxm (E, G, 9)."""
-    a, b = plane_in_mesh_frame(data, plan.pg1, plan.pg2)
-    gxp, gxm = data.geom_xpos, data.geom_xmat
-    E = gxp.shape[0]
-    return a, b, gxp[:, plan.used], gxm[:, plan.used].reshape(E, -1, 9)
-
-
 def _plane_mesh_kernel(model: Model, g: Group, plan: hc.MeshPlan,
                        data: Data, plain: bool):
-    """The kernel path: env-last relayouts around the select and top-K,
-    one relayout launch for the four operands and one for the four
-    results."""
-    if plain:
-        select, topk = hc.select_plain, hc.group_topk_plain
-        last = lambda *xs: [lay.moveaxis0_last_plain(x) for x in xs]  # noqa: E731
-        first = lambda *xs: [lay.moveaxis_last0_plain(x) for x in xs]  # noqa: E731
-    else:
-        select, topk = hc.plane_mesh_select, hc.group_topk
-        last, first = lay.moveaxis0_last_many, lay.moveaxis_last0_many
-    a, b, gxp, gxm = mesh_kernel_inputs(plan, data)
-    a_t, b_t, gxp_t, gxm_t = last(a, b, gxp, gxm)
-    dist, vsel = select(plan, a_t, b_t)
-    ds, pos, fr, meta = first(*topk(plan, dist, vsel, gxp_t, gxm_t))
-    E, k = a.shape[0], plan.k
-    # ds (E, k, 3), meta (E, k, 15)
-    pos = pos.reshape(E, k, 3, 3)
-    frame = fr.reshape(E, k, 1, 3, 3).expand(-1, -1, g.slots, -1, -1)
-    return (ds, pos, frame, meta[..., 0].long(), meta[..., 1].long(),
-            meta[..., 2:7], meta[..., 7:9], meta[..., 9:14], meta[..., 14])
+    """The kernel path: one launch of `hopper_collision.mesh_slots` on the
+    geom poses as Data holds them (or its plain version), its per-pair
+    frame given to each of the pair's slots."""
+    slots = hc.mesh_slots_plain if plain else hc.mesh_slots
+    ds, pos, fr, *rest = slots(plan, data.geom_xpos, data.geom_xmat)
+    return (ds, pos, fr[:, :, None].expand(-1, -1, g.slots, -1, -1), *rest)
 
 
 def collision(model: Model, data: Data, plain: bool = False,
               ranked: bool = False) -> Data:
-    """Fill every contact slot. plain=True runs the plane-mesh kernels'
-    plain versions on any device (the reference they are held to).
+    """Fill every contact slot. plain=True runs the plane-mesh kernel's
+    plain version on any device (the reference it is held to).
     ranked=True, with plain, lays the slots out as the mega kernels do
     (their plain version's collision): a plane-mesh group at k = P, which
     the staged path keeps in pair order, ranks its pairs on the mega
@@ -530,7 +488,7 @@ def collision(model: Model, data: Data, plain: bool = False,
             if plan is None and ranked and model.plan is not None:
                 plan = model.plan.mesh  # a mega plan holds one such group
             # float64 on the CPU keeps the XLA port; a CUDA tensor always
-            # takes the kernels, which raise unless it is float32
+            # takes the kernel, which raises unless it is float32
             if plan is not None and (data.qpos.is_cuda
                                      or data.qpos.dtype == torch.float32):
                 out = _plane_mesh_kernel(model, g, plan, data, plain)

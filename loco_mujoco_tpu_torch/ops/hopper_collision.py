@@ -1,43 +1,49 @@
-"""Plane-mesh contact selection on the card: manifold select and group top-K.
+"""Plane-mesh contact slots on the card: one kernel from a plane-mesh
+group's geom poses to its k contact slots.
 
-Counterpart of `loco_mujoco_tpu/ops/pallas_collision.py`: `_make_kernel` /
-`_select_batched_raw` (the per-pair manifold select) and
-`_topk_kernel_builder` / `make_group_topk` (the per-env top-K slot pick),
-here the CUDA kernels of `csrc/plane_mesh.cu`. The static tables come from
-this module's own numpy copy of `pack_plane_mesh_buckets`.
+Counterpart of `loco_mujoco_tpu/ops/pallas_collision.py`'s
+`make_group_topk`, which chains the per-pair manifold select (`_make_kernel`
+/ `_select_batched_raw`) and the per-env top-K slot pick
+(`_topk_kernel_builder`) behind one `topk(a, b, gxp, gxm)`; here one CUDA
+kernel, `csrc/plane_mesh.cu`, behind one entry point, `mesh_slots`. The
+static tables come from this module's own numpy copy of
+`pack_plane_mesh_buckets`.
 
 `mesh_tables` builds, once at model load, a plane-mesh group's hull tables
 and bucket order at any budget k, or None where the reference's packing
 refuses the group (a graph-less hull, a hull past the vertex cap); the
 mega plans (`ops/plan.py`) take them at any k, k = P too, as the
 reference's do (`pallas_fk.py:449-458`). `staged_plan` is the reference's
-static gate of these kernels on the staged path: a group runs them only
-if it has more pairs than slots (k < P). With k >= P the reference's
-staged XLA path keeps its pairs in order (`collision.py:397-410`, its
+static gate of the kernel on the staged path: a group runs it only if it
+has more pairs than slots (k < P). With k >= P the reference's staged XLA
+path keeps its pairs in order (`collision.py:397-410`, its
 `_pallas_group_topk_fn` stepping aside at `:438-442`), and so does the
 port's (`collision._plane_mesh_xla`); its mega kernels rank them all
-(`pallas_fk._mesh_group_slots`, `:825-850`), and so do the port's and their
-plain version (`pair_topk(ranked=True)`). The kernels take float32 only: a
-CUDA tensor of another dtype raises, and float64 on the CPU keeps the XLA
-port.
+(`pallas_fk._mesh_group_slots`, `:825-850`), and so do the port's, their
+plain version and this kernel (`pair_topk(ranked=True)`'s order at any
+k <= P). The kernel takes float32 only: a CUDA tensor of another dtype
+raises, and float64 on the CPU keeps the XLA port.
 
-Operands are env-last: a (P, 3, E), b (P, E) -> dist (P, 3, E), vsel
-(P, 9, E); the top-K reads those plus the poses of the geoms the group uses,
-gxp (G, 3, E) and gxm (G, 9, E), and writes dist (k, 3, E), pos (k, 9, E),
-frame (k, 9, E), meta (k, 15, E) = [geom1, geom2, friction(5), solref(2),
-solimp(5), margin - gap]. A CUDA tensor launches the kernel or raises; a
-CPU tensor takes the plain version (`select_plain`, `group_topk_plain`).
-The plain versions are env-last relayouts of `manifold_plain` and
-`pair_topk`, the ports of the reference's XLA narrowphase
-(`collision._plane_mesh_narrow`) and of the XLA branch of its
-`_plane_mesh_group`, which `collision.py` runs as its XLA path too. They
-differ from the kernels only where no contact is: the kernels write the
-conservative bound as the depth of a pair that cannot reach the margin,
-and vertex 0 where a pair has no manifold.
+`mesh_slots(plan, geom_xpos, geom_xmat, key_out=None)` reads the poses
+(E, ngeom, 3) and (E, ngeom, 3, 3) as Data holds them and returns the
+group's slots env-major: dist (E, k, 3), pos (E, k, 3, 3), frame
+(E, k, 3, 3) (one per pair), geom1 and geom2 (E, k) int64, friction
+(E, k, 5), solref (E, k, 2), solimp (E, k, 5) and margin - gap (E, k),
+each contiguous or a view of one output, as `collision.collision`
+concatenates them; `key_out` (E, P), if given, receives every pair's
+ranking key. A CUDA tensor launches the kernel or raises; a CPU tensor
+takes the plain version, `mesh_slots_plain`: `plane_in_mesh_frame`, then
+`manifold_plain` and `pair_topk(ranked=True)`, the ports of the
+reference's XLA narrowphase (`collision._plane_mesh_narrow`) and of the
+XLA branch of its `_plane_mesh_group`, which `collision.py` runs as its
+XLA path too. The two differ only where no contact is: the kernel takes
+the conservative extent bound (`extent_bound`) as the depth, and the key,
+of a pair that cannot reach the margin, and computes no manifold for it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from types import SimpleNamespace
 
@@ -50,10 +56,14 @@ from .kernels import INT, PTR
 
 BIG = 1e10
 MESH_VCAP = 5632  # largest bucket the kernels take (pallas_collision.py:333)
+MAX_PAIRS = 1024  # csrc/plane_mesh.cu kMaxPairs
+ENVS_PER_BLOCK = 4  # csrc/plane_mesh.cu kEnvs: a warp per env
+META = 13  # friction (5), solref (2), solimp (5), margin - gap
+CANON = (0.0, 0.0, 1.0, 0.0, 1.0, 0.0, -1.0, 0.0, 0.0)  # an inactive frame
 
 _SIGNATURES = {
-    "lmt_plane_mesh_select": [PTR] * 7 + [INT, INT, INT, PTR],
-    "lmt_group_topk": [PTR] * 10 + [INT, INT, INT, PTR],
+    "lmt_mesh_slots": [PTR] * 12 + [INT] * 4 + [PTR],
+    "lmt_mesh_slots_occupancy": [INT, INT, PTR],
 }
 
 
@@ -138,14 +148,11 @@ class MeshPlan:
     pid: np.ndarray  # (P,) pair ids in bucket-major order
     pg1: np.ndarray  # (P,) plane geom ids
     pg2: np.ndarray  # (P,) mesh geom ids
-    used: np.ndarray  # (G,) geom ids whose poses the top-K reads
-    pg_local: np.ndarray  # (P, 2) int32: pg1, pg2 as indices into `used`
-    tbl16: np.ndarray  # (P, 16) [key margin, meta(15)]
+    tbl16: np.ndarray  # (P, 16) [key margin, geom1, geom2, meta(13)]
     buckets: list  # (start, count, D, table (Pb, 3+3D, V), marg (Pb, 8))
     flat: np.ndarray  # every pair's table, concatenated
     pair_i: np.ndarray  # (P, 3) int32: offset into flat, V, D
     pair_f: np.ndarray  # (P, 8) float32
-    smem_bytes: int  # largest per-pair table, bytes
     verts: np.ndarray  # (P, V, 3) hull vertices, for the plain versions
     vmask: np.ndarray  # (P, V) bool
     nbr: np.ndarray  # (P, V, D) int64 hull-graph neighbours, -1 unused
@@ -156,17 +163,20 @@ class MeshPlan:
         return len(self.pid)
 
     def tensors(self, device, dtype=torch.float32) -> SimpleNamespace:
+        """The tables on `device`: `pair_k` (P, 5) int32 [offset, V, D,
+        geom1, geom2] is the kernel's pair table; `pg1`, `pg2` int64."""
         key = (str(device), dtype)
         hit = self._dev.get(key)
         if hit is None:
             f = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
             i = lambda x: torch.as_tensor(x, device=device)
+            pair_k = np.concatenate([self.pair_i, self.pg1[:, None],
+                                     self.pg2[:, None]], 1).astype(np.int32)
             hit = self._dev[key] = SimpleNamespace(
-                tbl16=f(self.tbl16), flat=f(self.flat),
-                pair_i=i(self.pair_i), pair_f=f(self.pair_f),
-                pg_local=i(self.pg_local.astype(np.int64)),
-                pg_local32=i(self.pg_local),
-                verts=f(self.verts), vmask=i(self.vmask), nbr=i(self.nbr),
+                tbl16=f(self.tbl16), flat=f(self.flat), pair_k=i(pair_k),
+                pair_f=f(self.pair_f), pg1=i(self.pg1.astype(np.int64)),
+                pg2=i(self.pg2.astype(np.int64)), verts=f(self.verts),
+                vmask=i(self.vmask), nbr=i(self.nbr),
             )
         return hit
 
@@ -215,28 +225,21 @@ def mesh_tables(leaves: dict, aux: dict, g) -> MeshPlan | None:
     tbl[:, 10:15] = m.pair_solimp[pid_b]
     tbl[:, 15] = m.pair_margin[pid_b] - m.pair_gap[pid_b]
 
-    used = np.asarray(sorted(set(pg1.tolist()) | set(pg2.tolist())))
-    lid = {int(gid): i for i, gid in enumerate(used)}
-    pg_local = np.asarray([[lid[int(a)], lid[int(b)]]
-                           for a, b in zip(pg1, pg2)], np.int32)
-
     buckets, flats, pair_i, pair_f = [], [], [], []
-    start, off, smem = 0, 0, 0
+    start, off = 0, 0
     for ids, t, marg, D in subs:
         buckets.append((start, len(ids), D, t, marg))
         for i in range(len(ids)):
             flats.append(t[i].reshape(-1))
             pair_i.append((off, t.shape[2], D))
             off += t[i].size
-            smem = max(smem, t[i].size * 4)
         pair_f.append(marg)
         start += len(ids)
     mesh_ids = np.maximum(np.asarray(m.geom_meshid)[pg2], 0)
     return MeshPlan(
-        k=int(g.k), pid=pid_b, pg1=pg1, pg2=pg2, used=used,
-        pg_local=pg_local, tbl16=tbl, buckets=buckets,
+        k=int(g.k), pid=pid_b, pg1=pg1, pg2=pg2, tbl16=tbl, buckets=buckets,
         flat=np.concatenate(flats), pair_i=np.asarray(pair_i, np.int32),
-        pair_f=np.concatenate(pair_f), smem_bytes=int(smem),
+        pair_f=np.concatenate(pair_f),
         verts=m.mesh_vert[mesh_ids, :vcap],
         vmask=np.asarray(m.mesh_vertmask)[mesh_ids, :vcap],
         nbr=graph_table(m.mesh_nbr, mesh_ids, vcap),
@@ -253,7 +256,7 @@ def staged_plan(g, tables: MeshPlan | None) -> MeshPlan | None:
 
 
 # --------------------------------------------------------------------------
-# manifold select
+# plain versions: the plane in the mesh frame, the manifold, the top-K
 # --------------------------------------------------------------------------
 
 
@@ -272,6 +275,36 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     shape = idx.shape + x.shape[2:]
     view = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
     return torch.gather(x, 1, view.expand(shape))
+
+
+def plane_in_mesh_frame(gxp, gxm, pg1, pg2):
+    """The plane of each pair in its mesh's frame: normal a (E, P, 3) and
+    offset b (E, P), so that a mesh-local vertex v lies a.v + b above it,
+    from the geom poses gxp (E, ngeom, 3) and gxm (E, ngeom, 3, 3) and the
+    pairs' plane and mesh geom ids. Written as the kernels' separate
+    products and sums, in their order (csrc/plane_mesh.cu, csrc/mega.cu
+    `mesh_group`: a_j = (R_0j n_0 + R_1j n_1) + R_2j n_2), so that a
+    support-vertex tie within an ulp resolves the same way on every
+    device."""
+    n = gxm[:, pg1, :, 2]  # (E, P, 3)
+    R = gxm[:, pg2]  # (E, P, 3, 3)
+    a = ((R[..., 0, :] * n[..., 0:1] + R[..., 1, :] * n[..., 1:2])
+         + R[..., 2, :] * n[..., 2:3])
+    d = gxp[:, pg2] - gxp[:, pg1]
+    b = (n[..., 0] * d[..., 0] + n[..., 1] * d[..., 1]) + n[..., 2] * d[..., 2]
+    return a, b
+
+
+def extent_bound(pair_f, a, b):
+    """The kernel's conservative bound lb <= min_v (a.v + b) (E, P) from
+    each hull's extents (`pair_f` (P, 8) [margin, dedupe^2, lo (3), hi
+    (3)]), in the kernel's order: a pair whose bound does not reach its
+    margin cannot touch, and the kernel walks no vertex of it."""
+    lb = b - 1e-6
+    for i in range(3):
+        lb = lb + torch.minimum(a[..., i] * pair_f[:, 2 + i],
+                                a[..., i] * pair_f[:, 5 + i])
+    return lb
 
 
 def manifold_plain(verts, vmask, nbr, brute, a, b, margin, dedupe2):
@@ -339,43 +372,6 @@ def manifold_plain(verts, vmask, nbr, brute, a, b, margin, dedupe2):
     return torch.stack([d0, d1, d2], dim=2), torch.stack([v0, v1, v2], dim=2)
 
 
-def select_plain(plan: MeshPlan, a: torch.Tensor, b: torch.Tensor):
-    """Plain version of the select kernel: a (P, 3, E), b (P, E) ->
-    dist (P, 3, E), vsel (P, 9, E)."""
-    t = plan.tensors(a.device, a.dtype)
-    P, E = plan.P, a.shape[-1]
-    dist, vsel = manifold_plain(
-        t.verts, t.vmask, t.nbr, np.zeros(P, bool), a.permute(2, 0, 1),
-        b.t(), t.pair_f[:, 0], t.pair_f[:, 1])
-    return (dist.permute(1, 2, 0).contiguous(),
-            vsel.reshape(E, P, 9).permute(1, 2, 0).contiguous())
-
-
-def plane_mesh_select(plan: MeshPlan, a: torch.Tensor, b: torch.Tensor):
-    """Manifold select for every pair and env (see the module note)."""
-    if not a.is_cuda:
-        return select_plain(plan, a, b)
-    P, E = plan.P, a.shape[-1]
-    kernels.require(a, "a", (P, 3, E))
-    kernels.require(b, "b", (P, E))
-    t = plan.tensors(a.device)
-    dist = torch.empty((P, 3, E), dtype=torch.float32, device=a.device)
-    vsel = torch.empty((P, 9, E), dtype=torch.float32, device=a.device)
-    lib = kernels.library("plane_mesh", _SIGNATURES)
-    rc = lib.lmt_plane_mesh_select(
-        kernels.ptr(t.flat), kernels.ptr(t.pair_i), kernels.ptr(t.pair_f),
-        kernels.ptr(a), kernels.ptr(b), kernels.ptr(dist), kernels.ptr(vsel),
-        P, E, plan.smem_bytes, kernels.stream())
-    kernels.check(rc, "plane_mesh_select")
-    kernels.LAUNCHES["plane_mesh_select"] += 1
-    return dist, vsel
-
-
-# --------------------------------------------------------------------------
-# group top-K
-# --------------------------------------------------------------------------
-
-
 def pair_topk(key, k, dist, vsel, n, qp, qR, ranked=False):
     """The XLA branch of the reference's `_plane_mesh_group`: per env the
     k pairs of smallest key (first index on ties; every pair in order when
@@ -403,56 +399,108 @@ def pair_topk(key, k, dist, vsel, n, qp, qR, ranked=False):
     return sel, dist_s, pos, m3.make_frame(n_s)
 
 
-def group_topk_plain(plan: MeshPlan, dist, vsel, gxp, gxm):
-    """Plain version of the top-K kernel: `pair_topk` on the env-last
-    operands, ranked at any k (the mega kernels' order, which the staged
-    kernel meets only at k < P), with the kernel's inactive slots (key >=
-    0): depth 1e10, zero position, the canonical frame and pair 0's meta.
+# --------------------------------------------------------------------------
+# the kernel: a group's geom poses -> its k contact slots
+# --------------------------------------------------------------------------
+
+
+def mesh_slots_plain(plan: MeshPlan, gxp, gxm, key_out=None):
+    """Plain version of `mesh_slots`: every pair's manifold
+    (`manifold_plain`), the k smallest keys, ranked at any k
+    (`pair_topk(ranked=True)`: the mega kernels' order, which the staged
+    path meets only at k < P), and the kernel's inactive ranks (key >= 0):
+    depth 1e10, zero position, the canonical frame and pair 0's statics.
     The key of a pair that cannot reach the margin is its support depth
-    here and the conservative extent bound in the kernels: both lie at or
+    here and the conservative extent bound in the kernel: both lie at or
     past the margin, so such a pair ranks after every active one either
     way and its rank's slots are inactive, whichever pair it holds."""
-    t = plan.tensors(dist.device, dist.dtype)
-    P, E = dist.shape[0], dist.shape[-1]
-    gxp_e = gxp.permute(2, 0, 1)  # (E, G, 3)
-    gxm_e = gxm.permute(2, 0, 1).reshape(E, -1, 3, 3)
-    g1, g2 = t.pg_local[:, 0], t.pg_local[:, 1]
-    dist_e = dist.permute(2, 0, 1)  # (E, P, 3)
-    key = dist_e[..., 0] - t.tbl16[:, 0]
+    t = plan.tensors(gxp.device, gxp.dtype)
+    a, b = plane_in_mesh_frame(gxp, gxm, t.pg1, t.pg2)
+    dist, vsel = manifold_plain(
+        t.verts, t.vmask, t.nbr, np.zeros(plan.P, bool), a, b,
+        t.pair_f[:, 0], t.pair_f[:, 1])
+    key = dist[..., 0] - t.tbl16[:, 0]
+    if key_out is not None:
+        key_out.copy_(key)
     sel, ds, pos, frame = pair_topk(
-        key, plan.k, dist_e, vsel.permute(2, 0, 1).reshape(E, P, 3, 3),
-        gxm_e[:, g1, :, 2], gxp_e[:, g2], gxm_e[:, g2], ranked=True)
-    act = (take(key, sel) < 0)[..., None]  # (E, k, 1)
-    canon = torch.tensor([0.0, 0, 1, 0, 1, 0, -1, 0, 0], dtype=dist.dtype,
-                         device=dist.device)
-    outs = (torch.where(act, ds, BIG),
-            torch.where(act, pos.reshape(E, -1, 9), 0.0),
-            torch.where(act, frame.reshape(E, -1, 9), canon),
-            torch.where(act, t.tbl16[sel, 1:], t.tbl16[0, 1:]))
-    return tuple(o.permute(1, 2, 0).contiguous() for o in outs)
+        key, plan.k, dist, vsel, gxm[:, t.pg1, :, 2], gxp[:, t.pg2],
+        gxm[:, t.pg2], ranked=True)
+    act = take(key, sel) < 0  # (E, k)
+    canon = torch.tensor(CANON, dtype=gxp.dtype, device=gxp.device)
+    on = act[..., None, None]
+    meta = torch.where(act[..., None], t.tbl16[sel, 3:], t.tbl16[0, 3:])
+    return (torch.where(act[..., None], ds, BIG), torch.where(on, pos, 0.0),
+            torch.where(on, frame, canon.reshape(3, 3)),
+            torch.where(act, t.pg1[sel], t.pg1[0]),
+            torch.where(act, t.pg2[sel], t.pg2[0]), meta[..., 0:5],
+            meta[..., 5:7], meta[..., 7:12], meta[..., 12])
 
 
-def group_topk(plan: MeshPlan, dist, vsel, gxp, gxm):
-    """k deepest pairs per env and their contact slot data."""
-    if not dist.is_cuda:
-        return group_topk_plain(plan, dist, vsel, gxp, gxm)
-    P, k, G, E = plan.P, plan.k, len(plan.used), dist.shape[-1]
-    kernels.require(dist, "dist", (P, 3, E))
-    kernels.require(vsel, "vsel", (P, 9, E))
-    kernels.require(gxp, "gxp", (G, 3, E))
-    kernels.require(gxm, "gxm", (G, 9, E))
-    t = plan.tensors(dist.device)
-    dev = dist.device
-    ds = torch.empty((k, 3, E), dtype=torch.float32, device=dev)
-    pos = torch.empty((k, 9, E), dtype=torch.float32, device=dev)
-    fr = torch.empty((k, 9, E), dtype=torch.float32, device=dev)
-    meta = torch.empty((k, 15, E), dtype=torch.float32, device=dev)
+def check(plan: MeshPlan, gxp, gxm, key_out=None) -> None:
+    """The kernel's operands: CUDA float32 contiguous poses (E, ngeom, 3)
+    and (E, ngeom, 3, 3), key_out (E, P) if given, and a plan within the
+    kernel's limits (k <= P <= MAX_PAIRS); else it raises."""
+    E, G = gxp.shape[0], gxp.shape[1]
+    kernels.require(gxp, "geom_xpos", (E, G, 3))
+    kernels.require(gxm, "geom_xmat", (E, G, 3, 3))
+    if key_out is not None:
+        kernels.require(key_out, "key_out", (E, plan.P))
+    if not 0 < plan.k <= plan.P <= MAX_PAIRS:
+        raise ValueError(f"mesh_slots: k {plan.k} and {plan.P} pairs, the "
+                         f"kernel takes 0 < k <= P <= {MAX_PAIRS}")
+
+
+def _views(flat, shapes):
+    """Contiguous views of `flat`, one after another, of `shapes`."""
+    out, offset = [], 0
+    for shape in shapes:
+        strides, n = [], 1
+        for d in reversed(shape):
+            strides.insert(0, n)
+            n *= d
+        out.append(flat.as_strided(shape, strides, offset))
+        offset += n
+    return out
+
+
+def mesh_slots(plan: MeshPlan, geom_xpos, geom_xmat, key_out=None):
+    """The group's k contact slots per env from its geom poses, in one
+    launch (see the module note)."""
+    if not geom_xpos.is_cuda:
+        return mesh_slots_plain(plan, geom_xpos, geom_xmat, key_out)
+    check(plan, geom_xpos, geom_xmat, key_out)
+    P, k = plan.P, plan.k
+    E, G = geom_xpos.shape[0], geom_xpos.shape[1]
+    t = plan.tensors(geom_xpos.device)
+    ds, pos, frame, meta = _views(
+        geom_xpos.new_empty(E * k * (21 + META)),
+        ((E, k, 3), (E, k, 3, 3), (E, k, 3, 3), (E, k, META)))
+    ids = torch.empty((E, k, 2), dtype=torch.int64, device=geom_xpos.device)
     lib = kernels.library("plane_mesh", _SIGNATURES)
-    rc = lib.lmt_group_topk(
-        kernels.ptr(dist), kernels.ptr(vsel), kernels.ptr(gxp),
-        kernels.ptr(gxm), kernels.ptr(t.tbl16), kernels.ptr(t.pg_local32),
-        kernels.ptr(ds), kernels.ptr(pos), kernels.ptr(fr), kernels.ptr(meta),
-        P, k, E, kernels.stream())
-    kernels.check(rc, "group_topk")
-    kernels.LAUNCHES["group_topk"] += 1
-    return ds, pos, fr, meta
+    rc = lib.lmt_mesh_slots(
+        geom_xpos.data_ptr(), geom_xmat.data_ptr(), t.flat.data_ptr(),
+        t.pair_k.data_ptr(), t.pair_f.data_ptr(), t.tbl16.data_ptr(),
+        ds.data_ptr(), pos.data_ptr(), frame.data_ptr(), ids.data_ptr(),
+        meta.data_ptr(), None if key_out is None else key_out.data_ptr(),
+        P, k, E, G, kernels.stream())
+    kernels.check(rc, "mesh_slots")
+    kernels.LAUNCHES["mesh_slots"] += 1
+    return (ds, pos, frame, ids[..., 0], ids[..., 1], meta[..., 0:5],
+            meta[..., 5:7], meta[..., 7:12], meta[..., 12])
+
+
+def shared_bytes(plan: MeshPlan) -> int:
+    """The kernel's shared memory per env: each pair's key, support depth
+    and vertex, each rank's pair and key."""
+    return 4 * (3 * plan.P + 2 * plan.k)
+
+
+def occupancy(plan: MeshPlan) -> int:
+    """Resident warps (envs) per SM of the kernel's launch for the plan,
+    from the CUDA runtime (needs the card)."""
+    out = (ctypes.c_int * 1)()
+    kernels.check(kernels.library("plane_mesh", _SIGNATURES)
+                  .lmt_mesh_slots_occupancy(plan.P, plan.k,
+                                            ctypes.addressof(out)),
+                  "mesh_slots occupancy")
+    return out[0]

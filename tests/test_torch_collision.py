@@ -2,13 +2,14 @@
 
 * float64: the port's XLA-path collision (plane-box and the plane-mesh XLA
   narrowphase) against `loco_mujoco_tpu.ops.collision` (XLA), atol 1e-9.
-* float32: the plain versions of the port's plane-mesh kernels
-  (`hopper_collision.select_plain`, `group_topk_plain`, reached through the
-  kernel path on CPU tensors) against the JAX package's Pallas kernels run in
-  interpret mode, as tests/test_pallas_collision.py runs them: active masks
-  and geom ids exact, dist atol 1e-6, pos atol 1e-5, frame atol 1e-6 on
-  active slots (on inactive ones the Pallas kernels write their
-  conservative bound, the plain versions the exact depth).
+* float32: the plain version of the port's plane-mesh kernel
+  (`hopper_collision.mesh_slots_plain`, reached through the kernel path on
+  CPU tensors; its manifold, `manifold_plain`, bucket by bucket) against
+  the JAX package's Pallas kernels run in interpret mode, as
+  tests/test_pallas_collision.py runs them: active masks and geom ids
+  exact, dist atol 1e-6, pos atol 1e-5, frame atol 1e-6 on active slots
+  (on inactive ones the Pallas kernels write their conservative bound, the
+  plain version the exact depth).
 * the relayouts against `pallas_layout`: exact.
 """
 
@@ -132,14 +133,20 @@ def test_pack_tables_match_reference(f32_pair):
 
 @pytest.mark.parametrize("drop", DROPS)
 def test_select_plain_matches_pallas(f32_pair, pallas_interpret, drop):
-    """select_plain against _select_batched_raw, bucket by bucket."""
+    """manifold_plain (the select's part of mesh_slots_plain) against
+    _select_batched_raw, bucket by bucket."""
     jm, tm = f32_pair
     plan = tm.mesh_kernel[1]
-    d = tio.make_data(tm, E).replace(
-        qpos=torch.as_tensor(poses(tm, drop), dtype=torch.float32))
-    a, b, _, _ = collision.mesh_kernel_inputs(plan, kinematics.kinematics(tm, d))
-    dist, vsel = hc.select_plain(plan, lay.moveaxis0_last(a),
-                                 lay.moveaxis0_last(b))
+    d = kinematics.kinematics(tm, tio.make_data(tm, E).replace(
+        qpos=torch.as_tensor(poses(tm, drop), dtype=torch.float32)))
+    t = plan.tensors("cpu")
+    a, b = hc.plane_in_mesh_frame(d.geom_xpos, d.geom_xmat, t.pg1, t.pg2)
+    dist, vsel = hc.manifold_plain(t.verts, t.vmask, t.nbr,
+                                   np.zeros(plan.P, bool), a, b,
+                                   t.pair_f[:, 0], t.pair_f[:, 1])
+    # env-last, as the reference's kernel writes them
+    dist = dist.permute(1, 2, 0).numpy()
+    vsel = vsel.reshape(E, plan.P, 9).permute(1, 2, 0).numpy()
     subs, _ = jpc.pack_plane_mesh_buckets(jm, tm.groups[1].pair_ids,
                                           tm.mesh_vertmask.shape[1])
     n_act = 0
@@ -153,12 +160,12 @@ def test_select_plain_matches_pallas(f32_pair, pallas_interpret, drop):
             rd, rv = np.asarray(rd)[..., :E], np.asarray(rv)[..., :E]
             margin = plan.pair_f[s, 0][:, None, None]
             act = rd < margin
-            np.testing.assert_array_equal(dist[s].numpy() < margin, act)
-            np.testing.assert_allclose(dist[s].numpy()[act], rd[act], rtol=0,
+            np.testing.assert_array_equal(dist[s] < margin, act)
+            np.testing.assert_allclose(dist[s][act], rd[act], rtol=0,
                                        atol=1e-6)
             act9 = np.repeat(act, 3, axis=1)
-            np.testing.assert_allclose(vsel[s].numpy()[act9], rv[act9],
-                                       rtol=0, atol=1e-5)
+            np.testing.assert_allclose(vsel[s][act9], rv[act9], rtol=0,
+                                       atol=1e-5)
             n_act += int(act.sum())
     assert n_act > 0
 

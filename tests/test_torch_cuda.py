@@ -7,9 +7,11 @@ conftest:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Inputs are the committed full-width model at 256 envs, dropped onto the
-floor. Tolerances are chip_smoke.py's: relayouts bit-exact; select/top-K
-active masks and geom ids exact, dist atol 1e-6, pos atol 1e-5, frame atol
-1e-6; Newton qacc and forces rel 5e-4 on every env, the plain version
+floor. Tolerances are chip_smoke.py's: relayouts bit-exact; the
+plane-mesh kernel's active slots, geom ids and statics exact, dist atol
+1e-6, pos atol 1e-5, frame atol 1e-6, every near pair's key atol 1e-6
+(`_mesh_slots_rule`, also on G1, `wide`'s k 34, Talos's k = P and a
+ragged and a single env); Newton qacc and forces rel 5e-4 on every env, the plain version
 replaying the kernel's discrete decisions (warm start, iteration count,
 steps taken, the line search's signs and each step's Hessian decision of
 every row). The fused constraint kernel, on the four configurations of
@@ -222,30 +224,55 @@ def test_relayout_on_side_stream(state):
     assert same
 
 
-def test_select_and_topk_match_plain(state):
-    model, d = state
-    plan = model.mesh_kernel[1]
-    a, b, gxp, gxm = coll.mesh_kernel_inputs(plan, d)
-    a, b = lay.moveaxis0_last_plain(a), lay.moveaxis0_last_plain(b)
-    gxp, gxm = lay.moveaxis0_last_plain(gxp), lay.moveaxis0_last_plain(gxm)
-    dk, vk = hc.plane_mesh_select(plan, a, b)
-    dp, vp = hc.select_plain(plan, a, b)
-    margin = torch.as_tensor(plan.pair_f[:, 0], device="cuda")[:, None, None]
-    act = dp < margin
-    assert act.any() and torch.equal(dk < margin, act)
-    assert float((dk - dp).abs()[act].max()) <= 1e-6
-    act9 = act.repeat_interleave(3, dim=1)
-    assert float((vk - vp).abs()[act9].max()) <= 1e-5
-    ok, op = (hc.group_topk(plan, dp, vp, gxp, gxm),
-              hc.group_topk_plain(plan, dp, vp, gxp, gxm))
-    on = op[0] < 1e9
-    assert on.any() and torch.equal(ok[0] < 1e9, on)
-    slot = on[:, 0:1]
-    assert torch.equal(ok[3][:, :2][slot.expand(-1, 2, -1)],
-                       op[3][:, :2][slot.expand(-1, 2, -1)])
-    assert float((ok[0] - op[0]).abs()[on].max()) <= 1e-6
-    assert float((ok[1] - op[1]).abs()[on.repeat_interleave(3, 1)].max()) <= 1e-5
-    assert float((ok[2] - op[2]).abs()[slot.expand(-1, 9, -1)].max()) <= 1e-6
+def _mesh_poses(name):
+    """(plane-mesh plan, geom_xpos, geom_xmat) of a configuration: the
+    torque humanoid dropped (256 envs), G1 (`g1_states`, 4096), `wide`'s
+    34 slots (256) and Talos's group at k = P (`talos_states`, 4096, the
+    mega plan's tables: the kernel ranks every pair there)."""
+    if name == "rk4":
+        model = _model()
+        d = _dropped(model)
+    elif name == "g1":
+        model, d = _g1_state(4096)
+    elif name == "wide":
+        model = _model({"contact_k_plane": 34})
+        d = _dropped(model)
+    else:
+        model, d = _kp_state("talos", 4096)
+    plan = (model.plan.mesh if name == "kp" else
+            next(p for p in model.mesh_kernel if p is not None))
+    d = kinematics.kinematics(model, d)
+    return plan, d.geom_xpos, d.geom_xmat
+
+
+@pytest.mark.parametrize("name", ["rk4", "g1", "wide", "kp"])
+def test_mesh_slots_match_plain(state, name):
+    """The plane-mesh kernel against `mesh_slots_plain` on every env
+    (chip_smoke.py's `_mesh_slots_rule`: one launch; active slots, geom
+    ids and statics exact; dist 1e-6, pos 1e-5, frame 1e-6; every near
+    pair's key 1e-6), at k 8 (P 75 and 18), `wide`'s k 34 and k = P."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    plan, gxp, gxm = _mesh_poses(name)
+    assert (plan.k == plan.P) == (name == "kp")
+    _, n_on, n_near = chip_smoke._mesh_slots_rule(torch, plan, gxp, gxm,
+                                                  name)
+    assert n_on > 0 and n_near > 0
+    assert hc.occupancy(plan) >= 8
+
+
+@pytest.mark.parametrize("n", [4093, 1])
+def test_mesh_slots_ragged_and_single_env(state, n):
+    """The plane-mesh kernel at a ragged env count (not a multiple of a
+    block's 4 envs) and at one env, held as above."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    model = _model()
+    d = kinematics.kinematics(model, _dropped(model, n))
+    chip_smoke._mesh_slots_rule(torch, model.mesh_kernel[1], d.geom_xpos,
+                                d.geom_xmat, f"{n} envs")
 
 
 def test_newton_matches_plain(state):
@@ -267,29 +294,26 @@ def test_newton_matches_plain(state):
 
 
 def test_step_launches_every_kernel(state, monkeypatch):
-    """The staged path (LMT_MEGA=0) launches each of its kernels: the
-    fixture's, with a row plan, the fused kernel; a model with no plan
-    (110 contact slots put its rows past 400), the Newton kernel on its
-    env-major operands, with no relayout around it."""
+    """The staged path (LMT_MEGA=0) launches each of its kernels once per
+    forward: the fixture's, with a row plan, the plane-mesh kernel and the
+    fused kernel; a model with no plan (110 contact slots put its rows
+    past 400), the plane-mesh kernel and the Newton kernel on its
+    env-major operands; no relayout around any of them."""
     model, d = state
     monkeypatch.setenv("LMT_MEGA", "0")
     kernels.LAUNCHES.clear()
     out = fwd.step(model, d)
     torch.cuda.synchronize()
     assert torch.isfinite(out.qpos).all()
-    assert set(kernels.LAUNCHES) == {"fused", "plane_mesh_select",
-                                     "group_topk", "moveaxis0_last",
-                                     "moveaxis_last0"}
+    f = hm.forwards_per_step(model)  # one plane-mesh launch per forward
+    assert dict(kernels.LAUNCHES) == {"fused": f, "mesh_slots": f}
     wide = _model({"contact_k_plane": 34})
     assert wide.plan is None
     kernels.LAUNCHES.clear()
     out = fwd.step(wide, _dropped(wide))
     torch.cuda.synchronize()
     assert torch.isfinite(out.qpos).all()
-    for name in ("newton", "plane_mesh_select", "group_topk",
-                 "moveaxis0_last", "moveaxis_last0"):
-        assert kernels.LAUNCHES[name] > 0, name
-    assert not {"to_grouped", "from_grouped"} & set(kernels.LAUNCHES)
+    assert dict(kernels.LAUNCHES) == {"newton": f, "mesh_slots": f}
 
 
 def test_float64_on_card_raises(state):
@@ -880,7 +904,7 @@ def test_g1_megastep_matches_plain(state):
 
 
 def test_g1_fused_matches_plain(state, monkeypatch):
-    """G1's staged path at 4096 envs: the plane-mesh select and top-K and
+    """G1's staged path at 4096 envs: the plane-mesh kernel and
     the torch narrowphases of the other groups, then the fused kernel with
     the generic 26-float pack against its plain version replaying its
     decisions, every env within rel 5e-4 (qacc, qfrc_constraint,
@@ -892,8 +916,7 @@ def test_g1_fused_matches_plain(state, monkeypatch):
     d = coll.collision(model, kinematics.kinematics(model, d))
     k = hf.fused_constraint(model, d)
     assert dict(kernels.LAUNCHES) == {
-        "fused": 1, "plane_mesh_select": 1, "group_topk": 1,
-        "moveaxis0_last": 1, "moveaxis_last0": 1}
+        "fused": 1, "mesh_slots": 1}
     r = _fused_plain(model, d, k)
     for f in ("qacc", "qfrc_constraint", "efc_force_contact", "euler_dv"):
         got, ref = getattr(k, f), getattr(r, f)
@@ -1587,7 +1610,7 @@ def test_kp_megastep_matches_plain(state, name):
 
 def test_talos_staged_keeps_the_pair_order(state, monkeypatch):
     """Talos on the staged path: its plane-mesh group at k = P in torch in
-    pair order (no select or top-K launch), the fused kernel (5-float pack)
+    pair order (no plane-mesh kernel launch), the fused kernel (5-float pack)
     every env within rel 5e-4 of its plain version (`_fused_rule`)."""
     monkeypatch.setenv("LMT_MEGA", "0")
     model, d = _kp_state("talos", 4096)

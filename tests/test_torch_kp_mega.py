@@ -206,8 +206,12 @@ def _digest(m) -> str:
         if mk is None:
             h.update(b"-")
             continue
+        # the geoms the group uses and each pair's two among them, as the
+        # plans held them before the kernel read the poses in place
+        used = np.unique(np.concatenate([mk.pg1, mk.pg2])).astype(np.int64)
+        pg_local = np.searchsorted(used, np.stack([mk.pg1, mk.pg2], 1))
         for a in (mk.pid, mk.flat, mk.pair_i, mk.pair_f, mk.tbl16,
-                  mk.pg_local, mk.used):
+                  pg_local.astype(np.int32), used):
             h.update(np.ascontiguousarray(a).tobytes())
         h.update(str(mk.k).encode())
     return h.hexdigest()[:16]

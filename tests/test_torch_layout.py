@@ -7,11 +7,15 @@
 * The kernel path's plumbing with the launcher replaced by a stand-in
   that does what `csrc/layout.cu` does (each packed (x, y, R, C) array
   transposed through its pointers): the operand checks, the outputs' one
-  buffer at 16-byte offsets, one launch per list, and the two call sites,
-  `collision._plane_mesh_kernel` (bit for bit against its plain version)
-  and `hopper_newton.solve`, which relays nothing since its kernel reads
-  env-major operands (the Newton launcher a stand-in that runs
-  `newton_plain` on the operands it reads back through its pointers).
+  buffer at 16-byte offsets, one launch per list, and the two call sites
+  that relayed operands before their kernels read them env-major:
+  `collision._plane_mesh_kernel`, one `mesh_slots` launch on the geom
+  poses as Data holds them (bit for bit against its plain version; the
+  plane-mesh launcher a stand-in, `_MeshSlots`, that runs
+  `mesh_slots_plain` on the poses it reads back through its pointers),
+  and `hopper_newton.solve` (the Newton launcher a stand-in that runs
+  `newton_plain` on the operands it reads back through its pointers);
+  neither launches a relayout.
 """
 
 import ctypes
@@ -146,6 +150,43 @@ class _Newton:
 _NEWTON = _Newton()
 
 
+class _MeshSlots:
+    """Stand-in for `csrc/plane_mesh.cu`'s launcher on CPU memory: checks
+    that the plan's tables reach it, reads the env-major poses back
+    through their pointers, runs `mesh_slots_plain` on them and writes the
+    slots (and the keys, where a key pointer is given) through the output
+    pointers; records (P, k, E, ngeom, keys given) of each launch."""
+
+    def __init__(self, plan):
+        self.plan, self.launches = plan, []
+
+    def lmt_mesh_slots(self, gxp, gxm, tbl, pk, pf, st, dist, pos, frame,
+                       ids, meta, key_out, P, k, E, G, stream):
+        t = self.plan.tensors("cpu")
+        assert stream == 0
+        for p, ref, ctype in ((tbl, t.flat, ctypes.c_float),
+                              (pk, t.pair_k, ctypes.c_int32),
+                              (pf, t.pair_f, ctypes.c_float),
+                              (st, t.tbl16, ctypes.c_float)):
+            assert np.array_equal(_read(p, tuple(ref.shape), ctype),
+                                  ref.numpy())
+        self.launches.append((P, k, E, G, key_out is not None))
+        xp = torch.as_tensor(_read(gxp, (E, G, 3)).copy())
+        xm = torch.as_tensor(_read(gxm, (E, G, 3, 3)).copy())
+        keys = None if key_out is None else torch.empty(E, P)
+        out = hc.mesh_slots_plain(self.plan, xp, xm, keys)
+        _read(dist, (E, k, 3))[...] = out[0].numpy()
+        _read(pos, (E, k, 3, 3))[...] = out[1].numpy()
+        _read(frame, (E, k, 3, 3))[...] = out[2].numpy()
+        _read(ids, (E, k, 2), ctypes.c_int64)[...] = torch.stack(
+            out[3:5], dim=-1).numpy()
+        _read(meta, (E, k, hc.META))[...] = torch.cat(
+            [*out[5:8], out[8][..., None]], dim=-1).numpy()
+        if keys is not None:
+            _read(key_out, (E, P))[...] = keys.numpy()
+        return 0
+
+
 @pytest.fixture
 def on_card(monkeypatch):
     """CPU tensors through the kernel path: `is_cuda` True, the stand-in
@@ -208,28 +249,28 @@ def _dropped_state(model, E=6):
 
 
 def test_plane_mesh_call_site(monkeypatch):
-    """`_plane_mesh_kernel` relays its four operands in one launch and
-    its four results in one, and gives its plain version's outputs bit
-    for bit (the select and top-K kernels' plain versions behind it)."""
+    """`_plane_mesh_kernel` launches `mesh_slots` once on the geom poses
+    as Data holds them, with no relayout around it, and gives its plain
+    version's slots bit for bit."""
     model = io.load_model_npz(ASSET, device="cpu", dtype=torch.float32)
     gi = next(i for i, p in enumerate(model.mesh_kernel) if p is not None)
     g, plan = model.groups[gi], model.mesh_kernel[gi]
     d = _dropped_state(model)
     ref = collision._plane_mesh_kernel(model, g, plan, d, plain=True)
     cpu = collision._plane_mesh_kernel(model, g, plan, d, plain=False)
-    libs = {"layout": _Layout()}
+    libs = {"layout": _Layout(), "plane_mesh": _MeshSlots(plan)}
     monkeypatch.setattr(kernels, "library",
                         lambda name, signatures, defines=(): libs[name])
     monkeypatch.setattr(kernels, "stream", lambda: 0)
-    monkeypatch.setattr(hc, "plane_mesh_select", hc.select_plain)
-    monkeypatch.setattr(hc, "group_topk", hc.group_topk_plain)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     kernels.LAUNCHES.clear()
     got = collision._plane_mesh_kernel(model, g, plan, d, plain=False)
-    assert dict(kernels.LAUNCHES) == {"moveaxis0_last": 1,
-                                      "moveaxis_last0": 1}
+    assert dict(kernels.LAUNCHES) == {"mesh_slots": 1}
     kernels.LAUNCHES.clear()
-    assert [len(launch) for launch in libs["layout"].launches] == [4, 4]
+    assert libs["layout"].launches == []
+    E = d.qpos.shape[0]
+    assert libs["plane_mesh"].launches == [(plan.P, plan.k, E, model.ngeom,
+                                            False)]
     assert bool((ref[0] < ref[8][..., None]).any()), "no active slot"
     for r, c, k in zip(ref, cpu, got):
         assert torch.equal(c, r) and torch.equal(k, r)

@@ -21,7 +21,12 @@ prints one JSON line per committed stand-in and kernel (the mega kernels'
 Newton kernel at the two configurations without a plan that
 `chip_smoke.py` drives (`solve_launch`): shared bytes per env, envs per
 block, the resident warps per SM that shared memory allows and where the
-rows' J lives. Needs the CUDA toolkit (nvcc, cuobjdump); no GPU is used.
+rows' J lives. Where a card is present and the checkout has the one
+plane-mesh kernel (`hopper_collision.mesh_slots`), it also prints its
+launch per stand-in with a kernel-gated plane-mesh group (and the torque
+humanoid at 34 slots): pairs, k, shared bytes per env, envs per block and
+the resident warps per SM from the CUDA runtime. Needs the CUDA toolkit
+(nvcc, cuobjdump); the card only for those last lines.
 """
 
 from __future__ import annotations
@@ -139,9 +144,25 @@ def census(root: Path) -> None:
             "resident_warps": launch.resident_warps,
             "j_global": bool(getattr(launch, "j_global", False))}))
 
+    from loco_mujoco_tpu_torch.ops import hopper_collision as hc
+
+    mesh = hasattr(hc, "occupancy") and torch.cuda.is_available()
+
+    def mesh_line(model, name):
+        for mk in model.mesh_kernel:
+            if mk is not None:
+                print(json.dumps({
+                    "census": "mesh_slots", "model": name, "pairs": mk.P,
+                    "k": mk.k, "shared_bytes_per_env": hc.shared_bytes(mk),
+                    "envs_per_block": hc.ENVS_PER_BLOCK,
+                    "resident_warps": hc.occupancy(mk)}))
+
     assets = root / "loco_mujoco_tpu_torch" / "assets"
     for npz in sorted(assets.glob("*.npz")):
-        plan = io.load_model_npz(npz, device="cpu").plan
+        model = io.load_model_npz(npz, device="cpu")
+        if mesh:
+            mesh_line(model, npz.stem)
+        plan = model.plan
         if plan is None:
             continue
         if plan.mega:
@@ -156,6 +177,8 @@ def census(root: Path) -> None:
         aux.update(change)
         m = io.model_from_numpy(leaves, aux, device="cpu",
                                 dtype=torch.float32)
+        if mesh and stem.startswith("humanoid"):
+            mesh_line(m, f"{stem} (34 slots)")
         efc = constraint.make_constraint(m, forward.fwd_position(
             m, io.make_data(m, 1), plain=True))
         ne, nfl = hn.row_class_counts(efc.is_bilateral, efc.is_fl)

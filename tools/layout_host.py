@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
 """Time the relayouts of the staged step's call sites on one GPU and split
 each call's host time by part; with `--staged`, also the staged path's
-Newton and fused kernels and its rates.
+Newton and fused kernels and its rates; with `--mesh`, its plane-mesh
+call site.
 
     python3 tools/layout_host.py [--root DIR] [--calls 1000] [--envs 4096]
-                                 [--staged STEPS]
+                                 [--staged STEPS] [--mesh]
 
 At `chip_smoke.py`'s `wide` configuration (the HumanoidTorque-shaped
 model with 34 plane-mesh slots: 456 rows, no plan, so its staged step runs
-the select, top-K and Newton kernels) and a seeded state dropped 5-20 mm
+the plane-mesh and Newton kernels) and a seeded state dropped 5-20 mm
 (`dropped`),
 it builds the arrays each call site relays in one forward: the plane-mesh
 group's four select and top-K operands (`moveaxis0_last`) and four top-K
 results (`moveaxis_last0`), the Newton solve's operands (`to_grouped`)
-and its two results (`from_grouped`): the one-thread Newton kernel relayed
-those around its launch; the warp-per-env one reads them env-major, so no
-path launches `to_grouped` or `from_grouped` now, and they are timed on the
-arrays they would relay. For each call site it prints one
+and its two results (`from_grouped`): the one-thread kernels relayed those
+around their launches; the plane-mesh kernel reads the geom poses in
+place and writes its slots env-major, and the warp-per-env Newton kernel
+reads its operands env-major, so no path launches a relayout now, and
+they are timed on the arrays they would relay. For each call site it
+prints one
 JSON line: the wrapper's time over the site's arrays, the launch alone
 (the launcher on outputs made beforehand, enqueued behind a sleep of the
 stream, so that the events time the card only), one `x.t().contiguous()`
@@ -42,12 +45,23 @@ too little device work to fill the card's queue).
   untimed control step, each control step timed on its own
   (`staged_rate`): env-steps/s of each, their median, least and most, and
   the launches per control step, in the committed model's `rk4`
-  configuration (the fused kernel, the select and top-K and their
-  relayouts), in `wide` (the Newton kernel besides), A1 (the fused
+  configuration (the fused kernel and the plane-mesh kernels, with
+  whatever relayouts the checkout runs around them), in `wide` (the Newton kernel besides), A1 (the fused
   kernel's elliptic layout) and G1 with its arms (width 32);
 - `kernel: fused`: the fused kernel (`hopper_fused.fused_constraint`) at
   the end state of each staged run with a row plan, on its own inputs
   (FK outputs and the staged collision's slots), ms per call as above.
+
+`--mesh` also prints, on a line of its own per configuration, the
+plane-mesh call site of one forward (`collision._plane_mesh_kernel` on
+the kernel-gated group, `mesh_site`) at the position stage of the staged
+path's state after two control steps from the dropped state, in `rk4` and
+in G1: ms per call (CUDA events, the mean of 100 calls after a warm-up,
+the host's enqueue included, as the staged forward meets it), its launches
+and the kernels, copies and pageable copies one call runs
+(torch.profiler): a checkout before the one plane-mesh kernel runs its
+whole chain there (the inputs, two relayouts, the select and the top-K),
+a later one the one launch.
 
 `--root DIR` times the port of another checkout (an archive of a parent
 commit, to put both in one call: parent, change, change, parent). A
@@ -78,24 +92,43 @@ HBM_BYTES_PER_S = 3.35e12
 
 def site_arrays(lay, coll, hc, hn, plan, d_pos, operands, options) -> dict:
     """{role: the arrays its call site relays in one forward}: the
-    plane-mesh group `plan`'s select and top-K operands and results at
-    the position stage `d_pos`, and the Newton solve's operands
+    plane-mesh group `plan`'s four select and top-K operands and four
+    results at the position stage `d_pos`, and the Newton solve's operands
     (`solver.newton_inputs`) and results, env-major or env-last as the
-    call sites (`collision._plane_mesh_kernel`, and `hopper_newton.solve`
-    of a checkout whose Newton kernel relays them) pass them."""
-    a, b, gxp, gxm = coll.mesh_kernel_inputs(plan, d_pos)
-    a_t, b_t, gxp_t, gxm_t = (lay.moveaxis0_last_plain(t)
-                              for t in (a, b, gxp, gxm))
-    dist, vsel = hc.plane_mesh_select(plan, a_t, b_t)
-    topk = hc.group_topk(plan, dist, vsel, gxp_t, gxm_t)
-    E = operands[0].shape[0]
+    call sites of a checkout that relays them pass them
+    (`collision._plane_mesh_kernel` before its one kernel read the poses
+    in place, `hopper_newton.solve` before its kernel read its operands
+    env-major); a checkout with the one plane-mesh kernel gives the
+    arrays of the same shapes from its slots."""
+    import torch
+
+    gxp, gxm = d_pos.geom_xpos, d_pos.geom_xmat
+    E = gxp.shape[0]
+    if hasattr(hc, "mesh_slots"):
+        t = plan.tensors(gxp.device)
+        a, b = hc.plane_in_mesh_frame(gxp, gxm, t.pg1, t.pg2)
+        used = torch.unique(torch.cat([t.pg1, t.pg2]))
+        ds, pos, fr, g1, g2, fric, sref, simp, marg = hc.mesh_slots(
+            plan, gxp, gxm)
+        meta = torch.cat([g1[..., None].to(ds.dtype),
+                          g2[..., None].to(ds.dtype), fric, sref, simp,
+                          marg[..., None]], dim=-1)
+        topk = [x.reshape(E, plan.k, -1).permute(1, 2, 0).contiguous()
+                for x in (ds, pos, fr, meta)]
+        mesh_in = [a, b, gxp[:, used], gxm[:, used].reshape(E, -1, 9)]
+    else:
+        mesh_in = list(coll.mesh_kernel_inputs(plan, d_pos))
+        a_t, b_t, gxp_t, gxm_t = (lay.moveaxis0_last_plain(t)
+                                  for t in mesh_in)
+        dist, vsel = hc.plane_mesh_select(plan, a_t, b_t)
+        topk = list(hc.group_topk(plan, dist, vsel, gxp_t, gxm_t))
     ne, nfl = options["ne"], options["nfl"]
     grouped = [t.reshape(E, -1) for i, t in enumerate(operands) if i != 5]
     if nfl:
         grouped.append(operands[5][:, ne:ne + nfl].contiguous())
     x, f, _, _ = hn.solve(*operands, **options)
-    return {"moveaxis0_last": [a, b, gxp, gxm],
-            "moveaxis_last0": list(topk), "to_grouped": grouped,
+    return {"moveaxis0_last": mesh_in, "moveaxis_last0": topk,
+            "to_grouped": grouped,
             "from_grouped": [x.t().contiguous(), f.t().contiguous()]}
 
 
@@ -287,6 +320,68 @@ def staged_rate(torch, fwd, kernels, m, d, steps, substeps=10):
     return rates, counts, d
 
 
+def device_ops(torch, fn):
+    """(kernels, copies and fills, copies from pageable host memory) that
+    one call of `fn` runs on the card, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(1 for n in names if n.startswith(("Memcpy", "Memset")))
+    return (len(names) - copies, copies,
+            sum(1 for n in names if "Pageable" in n))
+
+
+def mesh_times(torch, hc, kernels, plan, gxp, gxm) -> dict:
+    """ms of the plane-mesh kernel on the poses gxp, gxm: the wrapper
+    (`hopper_collision.mesh_slots`), the launch alone (the launcher on
+    outputs made beforehand, enqueued behind a sleep of the stream, so
+    that the events time the card only) and the plain version (one run)."""
+    E, G = gxp.shape[0], gxp.shape[1]
+    t = plan.tensors(gxp.device)
+    out = [torch.empty((E, plan.k, n), dtype=torch.float32,
+                       device=gxp.device) for n in (3, 9, 9, hc.META)]
+    ids = torch.empty((E, plan.k, 2), dtype=torch.int64, device=gxp.device)
+    lib = kernels.library("plane_mesh", hc._SIGNATURES)
+    args = [x.data_ptr() for x in (gxp, gxm, t.flat, t.pair_k, t.pair_f,
+                                   t.tbl16, *out[:3], ids, out[3])]
+    s = kernels.stream()
+
+    def alone():
+        return lib.lmt_mesh_slots(*args, None, plan.P, plan.k, E, G, s)
+
+    assert alone() == 0
+    return {"wrapper_ms": _time_ms(torch, lambda: hc.mesh_slots(plan, gxp,
+                                                                 gxm)),
+            "launch_alone_ms": _time_ms(torch, alone, queued=True),
+            "plain_ms": _time_ms(torch, lambda: hc.mesh_slots_plain(
+                plan, gxp, gxm), reps=1)}
+
+
+def mesh_site(torch, coll, kernels, m, d_pos) -> dict:
+    """The plane-mesh call site of one forward (`_plane_mesh_kernel` on the
+    model's kernel-gated group, as the checkout runs it) at the position
+    stage d_pos: ms per call, launches per call, and the kernels, copies
+    and pageable copies of one call."""
+    gi = next(i for i, p in enumerate(m.mesh_kernel) if p is not None)
+    g, plan = m.groups[gi], m.mesh_kernel[gi]
+
+    def call():
+        return coll._plane_mesh_kernel(m, g, plan, d_pos, plain=False)
+
+    kernels.LAUNCHES.clear()
+    call()
+    launches = dict(kernels.LAUNCHES)
+    ops = device_ops(torch, call)
+    return {"ms": _time_ms(torch, call), "launches": launches,
+            "kernels": ops[0], "copies": ops[1], "pageable": ops[2]}
+
+
 def dropped(io, m, envs, dev):
     """A seeded state (numpy, seed 0) of `envs` envs: qpos0 with noise of
     0.02, the root lowered 5-20 mm, at rest."""
@@ -310,6 +405,7 @@ def main() -> int:
     ap.add_argument("--calls", type=int, default=1000)
     ap.add_argument("--envs", type=int, default=4096)
     ap.add_argument("--staged", type=int, default=0)
+    ap.add_argument("--mesh", action="store_true")
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -335,7 +431,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {card}; port from {root}")
     kernels.build_all(["layout", "plane_mesh", "newton"]
-                      + (["fused"] if args.staged else []))
+                      + (["fused"] if args.staged or args.mesh else []))
     dev = torch.device("cuda")
     E = args.envs
 
@@ -370,6 +466,13 @@ def main() -> int:
              host_us=split(torch, lay, kernels, role, host_arrays(role, xs),
                            args.calls),
              calls=args.calls)
+    if args.mesh:
+        for name, model in (("rk4", load("humanoid_torque_shape")),
+                            ("g1", load("unitree_g1_shape"))):
+            d = staged_rate(torch, fwd, kernels, model,
+                            dropped(io, model, E, dev), 1)[2]
+            emit(mesh=name, envs=E, **mesh_site(
+                torch, coll, kernels, model, fwd.fwd_position(model, d)))
     if not args.staged:
         return 0
     g1w = load("unitree_g1_arms_shape", {"contact_k_plane": 20})
