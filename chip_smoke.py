@@ -155,6 +155,20 @@ Run from the repository root: `python3 chip_smoke.py`. It
    state (_megastep_rule); and the replayed row decisions
    may depart from the plain version's own at the first Newton step (the
    shared start) in at most 0.5% of the envs (_row_departures);
+   Then two phases of model leaves that differ per env, at 4096 envs:
+   `variants`, the torque humanoid at the four 4-ages scalings as stacked
+   model variants (`envs.standins.load_variants("humanoid4ages")`, env_id
+   drawn at reset, 3 `step_batch` calls: no row plan, so the staged path
+   with the Newton kernel and the plane-mesh kernel reading each env's
+   variant's hull table of four), the plane-mesh kernel with its four
+   tables (`_mesh_slots_rule`) and the Newton kernel (`newton_check`)
+   held to their plain versions at the end state; and `dr_leaves`, the
+   torque humanoid's env with each env's masses, the torso's full inertia
+   (the SVD rule), armature and the knees' stiffness randomized (2
+   `step_batch` calls through the fused kernel's non-smooth layout, held
+   to its plain version on every env at the end state), then with the
+   knees' friction loss randomized (no row plan: 1 call through the
+   Newton kernel, held); launches counted per run, rates printed;
 8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the least time the card
    could take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
@@ -196,6 +210,9 @@ N_ENVS = 4096
 CONTROL_STEPS = 20  # the main path
 STAGED_STEPS = 1  # the staged path, cut from 20 to keep the run short
 WIDE_STEPS = 1  # the no-plan staged paths (the Newton kernel's) and G1 arms' staged path
+VARIANT_STEPS = 3  # the variants phase's step_batch calls (staged, no plan)
+DR_STEPS = 2  # the dr_leaves phase's env with per-env masses (fused kernel)
+FLOSS_STEPS = 1  # and with per-env friction loss (no plan: Newton kernel)
 SUBSTEPS = 10  # physics substeps per control step (RK4: 4 forwards each)
 TIE = 1e-5  # a slot or limit this close to its margin is a float32 tie
 # a slot whose point moved farther (m) between two forwards of one state
@@ -305,9 +322,11 @@ def _active_close(got, ref, active, atol, what):
     return err
 
 
-def _mesh_slots_rule(torch, plan, gxp, gxm, what):
+def _mesh_slots_rule(torch, plan, gxp, gxm, what, env_id=None):
     """The plane-mesh kernel (`hopper_collision.mesh_slots`, one launch)
-    against its plain version on every env of the geom poses gxp, gxm:
+    against its plain version on every env of the geom poses gxp, gxm
+    (and, for a plan of K > 1 variants' hull tables, each env's variant
+    env_id):
     the active slots and the ranks' geom ids and statics exact, depths
     within 1e-6, positions 1e-5, frames 1e-6, and the ranking key of every
     near pair (its extent bound reaches the margin, so the kernel walks
@@ -321,11 +340,11 @@ def _mesh_slots_rule(torch, plan, gxp, gxm, what):
     k_key = torch.empty(E, P, device=gxp.device)
     p_key = torch.empty_like(k_key)
     kernels.LAUNCHES.clear()
-    got = hc.mesh_slots(plan, gxp, gxm, k_key)
+    got = hc.mesh_slots(plan, gxp, gxm, k_key, env_id=env_id)
     torch.cuda.synchronize()
     assert dict(kernels.LAUNCHES) == {"mesh_slots": 1}, kernels.LAUNCHES
     kernels.LAUNCHES.clear()
-    ref = hc.mesh_slots_plain(plan, gxp, gxm, p_key)
+    ref = hc.mesh_slots_plain(plan, gxp, gxm, p_key, env_id=env_id)
     on = ref[0] < BIG / 2  # (E, k, 3) active slots
     assert torch.equal(got[0] < BIG / 2, on), f"{what}: active slots differ"
     rank = on[..., 0]  # the ranks whose pair's key is below 0
@@ -333,8 +352,9 @@ def _mesh_slots_rule(torch, plan, gxp, gxm, what):
         assert torch.equal(got[i][rank], ref[i][rank]), \
             f"{what}: geom ids or statics differ"
     t = plan.tensors(gxp.device)
+    pf = hc.variant_tables(plan, t, env_id)[1]
     a, b = hc.plane_in_mesh_frame(gxp, gxm, t.pg1, t.pg2)
-    near = hc.extent_bound(t.pair_f, a, b) < t.pair_f[:, 0]
+    near = hc.extent_bound(pf, a, b) < pf[..., 0]
     assert bool((k_key[~near] >= 0).all()) and bool(
         (p_key[~near] >= 0).all()), f"{what}: a far pair's key below 0"
     err = max(
@@ -950,22 +970,23 @@ def _forward_flops(torch, model, d, iters, in_kernel_collision=True,
     return total + col + _mesh_flops(torch, mesh, d, act)
 
 
-def _mesh_flops(torch, mesh, d, act):
+def _mesh_flops(torch, mesh, d, act, env_id=None):
     """Float operations of a plane-mesh group per env (csrc/mega.cu
     mesh_group) on the staged forward's Data `d` and its active slots
     `act`: every pair's pose and bound (121), the top-k's comparisons, the
     height maps of the pairs whose bound reaches the margin (7 per vertex)
-    and each selected pair's neighbour walk and slots."""
+    and each selected pair's neighbour walk and slots (each env's
+    variant's tables where the plan holds K > 1)."""
     from loco_mujoco_tpu_torch.ops import hopper_collision as hc
 
     mk, dev = mesh["mesh"], d.qpos.device
     t = mk.tensors(dev)
     a, b = hc.plane_in_mesh_frame(d.geom_xpos, d.geom_xmat, t.pg1, t.pg2)
-    pf = t.pair_f
+    pf = hc.variant_tables(mk, t, env_id)[1]
     lb = hc.extent_bound(pf, a, b)
     V = torch.as_tensor(mk.pair_i[:, 1], device=dev, dtype=torch.float64)
     D = float(mk.pair_i[:, 2].max())
-    near = ((lb < pf[:, 0]).double() * V).sum(dim=1) * 7  # height maps
+    near = ((lb < pf[..., 0]).double() * V).sum(dim=1) * 7  # height maps
     o = mesh["offset"]
     sel = act[:, o:o + 3 * mesh["k"]:3].sum(dim=1).double()  # slot 0s
     return (121 * mk.P + mesh["k"] * mk.P + near + sel * (23 * D + 166))
@@ -1709,7 +1730,7 @@ def main() -> int:
         env layer's overhead is the difference."""
         ds = [env._apply_dr(s.data.replace(
             ctrl=act_t(acts, c) * env.norm_act_delta + env.norm_act_mean),
-            s.dr) for c, s in enumerate(inputs)]
+            s.env_id, s.dr) for c, s in enumerate(inputs)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for m_, d_ in ds:
@@ -2211,6 +2232,119 @@ def main() -> int:
               + f"; iterations mean "
               f"{float(k.solver_niter.float().mean()):.2f}")
 
+    # ---- stacked model variants: the four 4-ages scalings ----------------
+    phase("variants")
+    # The torque humanoid at the scalings 0.4, 0.6, 0.8 and 1.0 as stacked
+    # model variants (their invweights differ: no row plan, the staged
+    # path with the Newton kernel; the plane-mesh kernel with four hull
+    # tables, each env reading its variant's), env_id drawn at reset
+    from loco_mujoco_tpu_torch.envs.standins import load_variants
+
+    m_vars = load_variants("humanoid4ages", device=dev)
+    env_v = make_env(m_vars[0], model_variants=m_vars,
+                     horizon=CONTROL_STEPS + 1)
+    m_vs = env_v.model_dr
+    v_grp = next(i for i, p in enumerate(m_vs.mesh_kernel) if p is not None)
+    mk_v = m_vs.mesh_kernel[v_grp]
+    assert m_vs.plan is None and env_v.n_variants == 4 and mk_v.K == 4
+    n_v = 1 + hm.forwards_per_step(m_vs) * SUBSTEPS * VARIANT_STEPS
+    st_v, st_v0, env_v_launches, env_v_rate, _ = env_run(
+        env_v, env_acts, VARIANT_STEPS, {"newton": n_v, "mesh_slots": n_v},
+        "4-ages variants (K = 4: the Newton kernel, the plane-mesh kernel "
+        "with four hull tables)")
+    counts = torch.bincount(st_v0.env_id.long(), minlength=4).tolist()
+    assert min(counts) > 0, counts
+    print(f"variants: envs per scaling at the reset {counts}; varied "
+          f"leaves {sorted(m_vs.varied)}; launches per control step "
+          f"{ {k: (v - 1) // VARIANT_STEPS for k, v in env_v_launches.items()} }"
+          f" and 1 each at the reset ({card})")
+    m_ve, _ = env_v._apply_dr(st_v.data, st_v.env_id, st_v.dr)
+    d_v = fwd.fwd_position(m_ve, st_v.data)
+    ids_v = st_v.env_id.to(torch.int32)
+    err, n_on, n_near = _mesh_slots_rule(
+        torch, mk_v, d_v.geom_xpos, d_v.geom_xmat, "variants end state",
+        env_id=ids_v)
+    errs["mesh_slots_variants"] = err
+    print(f"kernel checks (variants end state): mesh_slots with {mk_v.K} "
+          f"hull tables, {mk_v.P} pairs, k {mk_v.k}, {E} envs: active slots "
+          f"{n_on}, near pairs {n_near}, max err {err:.3g}; the K-table "
+          f"instance's resident warps per SM {hc.occupancy(mk_v)} (one "
+          f"table: {hc.occupancy(m_vars[0].mesh_kernel[v_grp])})")
+    e_nv, ops_v, opts_v = newton_check(m_ve, d_v, "variants end state")
+    errs["newton_variants"] = e_nv
+
+    # ---- model leaves per env: the Geoms / Inertial / Joints sections ---
+    phase("dr_leaves")
+    # Masses, inertias and armature per env (each body's mass, the torso's
+    # full inertia by the SVD rule, the joints' armature and the knees'
+    # stiffness): the row plan without its smooth stage, so the fused
+    # kernel's non-smooth layout with each env's cinert and armature; then
+    # friction loss per env: no row plan, the Newton kernel
+    roots = [j for j in model.names["joint"] if j.startswith("root")]
+    leaves_conf = {
+        "Default": {"exclude": roots,
+                    "Joints": {"armature": {"uniform_range": [0.005, 0.03]}},
+                    "Inertial": {"mass": {"uniform_range_delta": 0.5}}},
+        "Inertial": {"torso": {"fullinertia": {"uniform_range_delta": 0.02}}},
+        "Joints": {f"knee_{s}": {"stiffness": {"uniform_range": [1.0, 5.0]},
+                                 "armature": {"uniform_range": [0.005,
+                                                                0.03]}}
+                   for s in "rl"}}
+    env_dl = make_env(model, dr=leaves_conf, horizon=CONTROL_STEPS + 1)
+    m_dl = env_dl.model_dr
+    assert m_dl.plan is not None and not m_dl.plan.smooth \
+        and not m_dl.plan.mega
+    n_dl = 1 + hm.forwards_per_step(model) * SUBSTEPS * DR_STEPS
+    n_mesh = n_dl * len(mesh_groups)
+    with _staged_path():
+        st_dl, _, env_dl_launches, env_dl_rate, _ = env_run(
+            env_dl, env_acts, DR_STEPS, {"fused": n_dl, "mesh_slots": n_mesh},
+            "per-env masses, inertias, armature and stiffness (the fused "
+            "kernel's non-smooth layout)")
+    m_dle, d_dle = env_dl._apply_dr(st_dl.data, st_dl.env_id, st_dl.dr)
+    d_dl = fwd.stages(m_dle, io.make_data(m_dle, E).replace(
+        qpos=d_dle.qpos, qvel=d_dle.qvel, ctrl=d_dle.ctrl,
+        qacc_warmstart=d_dle.qacc_warmstart))
+    kernels.LAUNCHES.clear()
+    k = hf.fused_constraint(m_dle, d_dl)
+    assert dict(kernels.LAUNCHES) == {"fused": 1}
+    own = {}
+    r = hf.fused_constraint_plain(m_dle, d_dl, replay=(
+        k.solver_niter, k.solver_taken, k.solver_ls, k.solver_rows),
+        record=own)
+    _row_departures(torch, k, own["own_rows"], E, "fused dr_leaves")
+    parts = []
+    e_dl = 0.0
+    for f in ("qacc", "qfrc_constraint", "efc_force_contact"):
+        e = (getattr(k, f) - getattr(r, f)).abs().reshape(E, -1).amax(1)
+        scl = float(getattr(r, f).abs().max()) + 1e-9
+        n_out = int((e > 5e-4 * scl).sum())
+        assert n_out == 0, f"fused dr_leaves {f}: {n_out} envs differ"
+        parts.append(f"{f} rel {float(e.max()) / scl:.3g}")
+        if f == "qacc":
+            e_dl = float(e.max())
+    errs["fused_dr_leaves"] = e_dl
+    models["dr_leaves"], fused_in["dr_leaves"] = m_dle, d_dl
+    print(f"fused dr_leaves (non-smooth layout, per-env cinert and "
+          f"armature) vs plain (replayed decisions): all {E} envs held, "
+          + ", ".join(parts) + f"; iterations mean "
+          f"{float(k.solver_niter.float().mean()):.2f}")
+    # the knees' friction loss (the dofs with friction-loss rows)
+    floss_conf = {"Joints": {f"knee_{s}": {"frictionloss": {
+        "uniform_range": [0.2, 1.0]}} for s in "rl"}}
+    env_fl = make_env(model, dr=floss_conf, horizon=CONTROL_STEPS + 1)
+    assert env_fl.model_dr.plan is None
+    n_fl = 1 + hm.forwards_per_step(model) * SUBSTEPS * FLOSS_STEPS
+    st_fl, _, env_fl_launches, env_fl_rate, _ = env_run(
+        env_fl, env_acts, FLOSS_STEPS,
+        {"newton": n_fl, "mesh_slots": n_fl * len(mesh_groups)},
+        "per-env friction loss (no row plan: the Newton kernel)")
+    m_fle, d_fle = env_fl._apply_dr(st_fl.data, st_fl.env_id, st_fl.dr)
+    e_fl, ops_fl, opts_fl = newton_check(
+        m_fle, fwd.fwd_position(m_fle, d_fle), "per-env friction loss end "
+        "state")
+    errs["newton_dr_floss"] = e_fl
+
     # ---- timings -----------------------------------------------------------
     phase("timings")
     def nbytes(*ts):
@@ -2243,7 +2377,9 @@ def main() -> int:
         "env G1 arms DR": env_g1adr_launches,
         "staged env G1 arms DR": staged_g1adr_launches,
         "staged Talos": staged_ta_launches, "main Talos": launches_ta,
-        "env Talos": env_ta_launches, "main G1 k=P": launches_g1k}
+        "env Talos": env_ta_launches, "main G1 k=P": launches_g1k,
+        "env variants": env_v_launches, "env DR leaves": env_dl_launches,
+        "env DR friction loss": env_fl_launches}
 
     def row(name, kernel, run, source, replaces, ms, plain_ms, nbytes_,
             flops, library_ms=None):
@@ -2333,6 +2469,37 @@ def main() -> int:
               f"active slots {int(act[:, g.offset:g.offset + 3 * mk.k].sum())}"
               f" ({card})")
 
+    # and with the variants' four hull tables at their end state, each
+    # env reading its own variant's (the vertex rows of the variants that
+    # the envs hold, each read once)
+    d_vcol = coll.collision(m_ve, d_v)
+    act_v = d_vcol.contact.dist < d_vcol.contact.includemargin
+    tm = lay_tool.mesh_times(torch, hc, kernels, mk_v, d_v.geom_xpos,
+                             d_v.geom_xmat, env_id=ids_v)
+    pt = mk_v.tensors(dev)
+    g_v = m_vs.groups[v_grp]
+    used = len(set(mk_v.pg1.tolist()) | set(mk_v.pg2.tolist()))
+    n_used = len(set(ids_v.tolist()))
+    moved = (E * used * 12 * 4 + n_used * 12 * int(mk_v.pair_i[:, 1].sum())
+             + nbytes(pt.pair_k) + n_used * (nbytes(pt.pair_f, pt.tbl16)
+                                             // mk_v.K)
+             + nbytes(ids_v) + E * mk_v.k * ((21 + hc.META) * 4 + 2 * 8))
+    flops = float(_mesh_flops(torch, {"mesh": mk_v, "offset": g_v.offset,
+                                      "k": mk_v.k}, d_vcol, act_v,
+                              env_id=ids_v).sum())
+    row("mesh_slots_variants", "mesh_slots", "env variants", "plane_mesh.cu",
+        "pallas_collision.py:556", tm["wrapper_ms"], tm["plain_ms"], moved,
+        flops)
+    bound = rows[-1]["bound_ms"]
+    print(f"mesh_slots at the variants end state ({mk_v.K} hull tables, "
+          f"{mk_v.P} pairs, k {mk_v.k}): the wrapper {tm['wrapper_ms']:.4f} "
+          f"ms, the launch alone {tm['launch_alone_ms']:.4f} ms (bound "
+          f"{bound:.4f} ms, {rows[-1]['bound_by']}: "
+          f"{bound / tm['launch_alone_ms']:.0%} of the bound's rate), plain "
+          f"{tm['plain_ms']:.4f} ms; active slots "
+          f"{int(act_v[:, g_v.offset:g_v.offset + 3 * mk_v.k].sum())} "
+          f"({card})")
+
     def newton_row(name, run, operands, options):
         """The Newton kernel's row at these operands."""
         x, force, iters, _ = hn.solve(*operands, **options)
@@ -2367,6 +2534,9 @@ def main() -> int:
               f"{int(iters.max())}")
 
     newton_row("newton", "no-plan staged RK4", operands, options)
+    # the variants' and the per-env friction loss's rows at their end states
+    newton_row("newton_variants", "env variants", ops_v, opts_v)
+    newton_row("newton_dr_floss", "env DR friction loss", ops_fl, opts_fl)
     # at width 32, at the end state of G1 with its arms' no-plan path
     d_acc = fwd.fwd_acceleration(m_g1a_wide, fwd.fwd_actuation(
         m_g1a_wide, fwd.fwd_velocity(m_g1a_wide, d_g1a_wide_pos)))
@@ -2397,7 +2567,9 @@ def main() -> int:
                             "staged env Atlas arms DR"),
                            ("g1arms_dr", "fused_g1arms_dr",
                             "staged env G1 arms DR"),
-                           ("talos", "fused_talos", "staged Talos")):
+                           ("talos", "fused_talos", "staged Talos"),
+                           ("dr_leaves", "fused_dr_leaves",
+                            "env DR leaves")):
         m, d = models[name], fused_in[name]
         k = hf.fused_constraint(m, d)
         vec, pack = hf.vec(m, d), hf.contact_pack(m, d)

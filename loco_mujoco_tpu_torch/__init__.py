@@ -2,10 +2,12 @@
 
 The staged, batched physics step (`ops.forward.step`) over a leading env
 axis, with hand-written Hopper kernels (`csrc/`) for the Newton solve, the
-plane-mesh manifold select, the group top-K and the relayouts around them;
-the mega path (`ops.forward.forward` and `ops.forward.step_n`, one kernel
-each) and the env layer over it (`envs.base.LocoEnv`, with joint-damping
-randomization as per-env kernel operands). Models arrive as `.npz` files of the JAX package's model arrays
+fused constraint stage and a plane-mesh group's contact slots (select and
+top-K in one launch); the mega path (`ops.forward.forward` and
+`ops.forward.step_n`, one kernel each) and the env layer over it
+(`envs.base.LocoEnv`, with joint-damping randomization as per-env kernel
+operands, and stacked model variants and the other randomized leaves as
+per-env Model leaves). Models arrive as `.npz` files of the JAX package's model arrays
 (`core.io.load_model_npz`). Entry points run on the card unless the caller
 passes `device="cpu"`. This package imports neither `jax` nor
 `loco_mujoco_tpu`.

@@ -50,7 +50,30 @@ from .types import (
 _OPT_LEAVES = ("timestep", "gravity", "impratio")
 _OPT_STATIC = ("integrator", "cone", "iterations", "ls_iterations",
                "disableflags", "tolerance", "ls_tolerance")
-_PORT_ONLY = ("groups", "ncon", "mesh_kernel", "plan", "cache")
+_PORT_ONLY = ("groups", "ncon", "mesh_kernel", "plan", "cache", "varied",
+              "env_id", "geom_shape")
+# Leaves a stage reads per env where they vary (`Model.varied`), by the
+# stage that reads them: kinematics and com_pos; crb and the fused
+# kernel's non-smooth vector; passive; actuation; collision (mesh_vert
+# through each env's hull table, `hopper_collision.mesh_slots` with K
+# tables); make_constraint.
+PER_ENV = frozenset({
+    "body_pos", "body_quat", "body_ipos", "body_iquat", "jnt_pos",
+    "geom_pos", "geom_quat", "site_pos", "site_quat",
+    "body_mass", "body_inertia", "dof_armature",
+    "jnt_stiffness", "qpos_spring", "dof_damping",
+    "actuator_gear", "actuator_gainprm", "actuator_biasprm",
+    "actuator_lengthrange", "actuator_acc0",
+    "geom_size", "geom_rbound", "mesh_vert", "pair_margin", "pair_gap",
+    "pair_friction", "pair_solref", "pair_solimp",
+    "dof_invweight0", "body_invweight0", "dof_frictionloss"})
+# Leaves no stage of the step reads (the pair tables carry the contacts'
+# parameters, and tendon springs are refused at load): where they vary,
+# nothing changes, here as in the reference.
+UNREAD = frozenset({
+    "geom_friction", "geom_margin", "geom_gap", "geom_solref",
+    "geom_solimp", "geom_solmix", "actuator_length0", "tendon_invweight0",
+    "tendon_lengthspring"})
 
 
 def resolve_device(device=None) -> torch.device:
@@ -178,15 +201,20 @@ def _check_supported(aux: dict, dtype) -> None:
 
 
 def model_from_numpy(leaves: dict, aux: dict, device=None,
-                     dtype=torch.float32) -> Model:
+                     dtype=torch.float32, variants=None) -> Model:
     """Build the port's `Model` from the JAX package's model as numpy.
 
     leaves: numeric leaves by field name (option leaves as `opt.<name>`);
     aux: static fields by name (`mesh_nbr` a tuple of tables or None,
-    `names` a dict). Floating leaves are cast to `dtype` on `device`."""
+    `names` a dict). Floating leaves are cast to `dtype` on `device`.
+    `variants`: the leaves of more models of this structure (`aux`); the
+    model is then the stack of `leaves` and theirs (`stack_variants`)."""
     from ..ops import collision, hopper_collision, plan
 
     device = resolve_device(device)
+    if variants:
+        return stack_variants([model_from_numpy(v, aux, device, dtype)
+                               for v in (leaves, *variants)])[0]
     _check_supported(aux, dtype)
 
     def t(x):
@@ -216,9 +244,106 @@ def model_from_numpy(leaves: dict, aux: dict, device=None,
     )
     mesh_kernel = tuple(hopper_collision.staged_plan(g, t)
                         for g, t in zip(groups, mesh_tables))
+    shape = None
+    if "geom_shape_volume" in aux:
+        shape = (np.asarray(aux["geom_shape_volume"], np.float64),
+                 np.asarray(aux["geom_shape_inertia"], np.float64))
     return Model(opt=opt, groups=tuple(groups), ncon=ncon,
-                 mesh_kernel=mesh_kernel,
+                 mesh_kernel=mesh_kernel, geom_shape=shape,
                  plan=plan.build_plan(leaves, aux, groups, mesh_tables), **kw)
+
+
+def check_per_env(names) -> None:
+    """Raise for a varying leaf that no stage reads per env (`PER_ENV`),
+    naming it: nothing may silently take one env's value for all."""
+    bad = sorted(set(names) - PER_ENV - UNREAD)
+    if bad:
+        raise NotImplementedError(
+            f"leaves {bad} differ from env to env, and no stage of the "
+            f"port reads them per env")
+
+
+def _same_static(a, b) -> bool:
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_static(a[k], b[k]) for k in a))
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(_same_static(x, y) for x, y in zip(a, b)))
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and np.array_equal(a, b)
+    return a == b
+
+
+def _field(model: Model, name: str):
+    """A field by its carried-over name (option fields as `opt.<name>`)."""
+    if name.startswith("opt."):
+        return getattr(model.opt, name[4:])
+    return getattr(model, name)
+
+
+def stack_variants(models) -> tuple:
+    """(stacked Model, the set of leaves that differ) of K models of one
+    structure (the JAX env's `model_variants`, envs/base.py:117-135):
+    every variant takes the first's Newton and line-search budgets and
+    `stat_meaninertia`; a leaf that differs between them is stacked on a
+    leading K axis and named in `varied`, the others keep the first's.
+    The stack's plane-mesh kernel plans hold one hull table per variant
+    (`hopper_collision.stack_plans`), and its row plan is the first's
+    with the reference's gate for those leaves (`RowPlan.per_env`).
+    Raises where the models differ in structure (static tables, shapes)
+    or in a leaf that no stage reads per env."""
+    from ..ops import hopper_collision
+
+    models = list(models)
+    if len(models) < 2:
+        raise ValueError("stack_variants takes two or more models")
+    base = models[0]
+    leaf_names, aux_names = model_field_names()
+    budget = ("opt.iterations", "opt.ls_iterations", "stat_meaninertia")
+    for i, m in enumerate(models[1:], 1):
+        for n in aux_names:
+            if n not in budget and not _same_static(_field(base, n),
+                                                    _field(m, n)):
+                raise ValueError(
+                    f"variant {i} differs from variant 0 in its structure "
+                    f"({n})")
+        for n in leaf_names:
+            if _field(base, n).shape != _field(m, n).shape:
+                raise ValueError(f"variant {i} differs from variant 0 in "
+                                 f"the shape of {n}")
+        if not _same_static(m.groups, base.groups) or m.ncon != base.ncon:
+            raise ValueError(f"variant {i} differs from variant 0 in its "
+                             f"contact groups")
+    varied = frozenset(
+        n for n in leaf_names
+        if any(not torch.equal(_field(base, n), _field(m, n))
+               for m in models[1:]))
+    check_per_env(varied)
+    kw = {n: torch.stack([getattr(m, n) for m in models])
+          for n in varied}
+    mesh_kernel = tuple(
+        None if p is None else hopper_collision.stack_plans(
+            [m.mesh_kernel[i] for m in models])
+        for i, p in enumerate(base.mesh_kernel))
+    plan = None if base.plan is None else base.plan.per_env(varied)
+    stacked = base.replace(varied=varied, mesh_kernel=mesh_kernel, plan=plan,
+                           cache={}, **kw)
+    return stacked, varied
+
+
+def model_at(model: Model, env_id: torch.Tensor) -> Model:
+    """The per-env model of a batch of envs of stacked variants: each
+    varied leaf's row of each env's variant, (E, ...) (the JAX env's
+    `_model_at`, envs/base.py:262-265), but `mesh_vert`, which keeps its
+    variant axis and is read through `env_id` (see core/types.py)."""
+    env_id = env_id.to(device=model.qpos0.device, dtype=torch.int64)
+    kw = {n: getattr(model, n)[env_id] for n in model.varied
+          if n != "mesh_vert"}
+    return model.replace(env_id=env_id, **kw)
 
 
 def load_model_npz(path, device=None, dtype=torch.float32) -> Model:

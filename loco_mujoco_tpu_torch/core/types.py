@@ -13,6 +13,19 @@ is loaded (`core/io.py`): the contact groups and slot count of
 (None where the reference keeps its XLA path), the row plan of the fused
 constraint kernel and the mega path (`ops/plan.py`; None outside its
 envelope), and a cache of static index tables.
+
+Leaves that differ from env to env (stacked model variants, domain
+randomization) are named in `Model.varied`. In a model of stacked variants
+(`io.stack_variants`) such a leaf carries a leading variant axis K; in the
+per-env model of a batch (`io.model_at`, the env layer) a leading env axis
+E, so that every stage reads its env's row. `mesh_vert` is the exception:
+it keeps its variant axis in both, and the per-env model's `env_id` (E,)
+picks each env's row where a stage reads it (`ops/collision.py`, and the
+per-variant hull tables of `ops/hopper_collision.py`). A leaf that does
+not vary keeps its shape, as in the JAX package. `geom_shape`, where a
+committed stand-in carries it, holds the unit-density shape constants of
+its primitive geoms, which the Geoms section's mass and density
+randomization needs (`utils/domain_randomization.py`).
 """
 
 from __future__ import annotations
@@ -259,6 +272,14 @@ class Model:
     mesh_kernel: tuple = static_field(default=())  # per group: plan or None
     plan: Any = static_field(default=None)  # plan.RowPlan or None
     cache: dict = static_field(default_factory=dict, compare=False)
+    # leaves with a leading variant (K) or env (E) axis (see the module note)
+    varied: frozenset = static_field(default=frozenset())
+    # (E,) int64 variant of each env in a per-env model of variants, or None
+    env_id: Any = None
+    # (volume (ngeom,), inertia (ngeom, 3, 3)): each primitive geom's
+    # volume at unit density and inertia at unit mass about its center in
+    # its body's frame (NaN for other geoms), or None
+    geom_shape: Any = static_field(default=None)
 
 
 @tensor_dataclass

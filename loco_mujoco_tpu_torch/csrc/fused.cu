@@ -12,8 +12,10 @@
 // staged path of the muscle humanoid and of actuators with activations):
 // the vector carries cdof, the root subtree com, cinert, qfrc_smooth (the
 // staged tendon, velocity, passive and actuation stages computed them) and
-// the armature, which is the model's and so the plan's F_DOF column, which
-// the CRB reads. Then, in both, the CRB mass matrix and qacc_smooth =
+// the armature, which the CRB reads there in place of the plan's F_DOF
+// column: each env's own where it is randomized or differs between stacked
+// variants (the reference's per-env leaf under vmap, :2257-2264). Then, in
+// both, the CRB mass matrix and qacc_smooth =
 // M^-1 qfrc_smooth (:1301-1346), the JOINT-equality / friction-loss /
 // limit rows and the contact rows of the slots the staged collision filled
 // (:1447-1590), the Newton solve, the force of every row and qfrc = J'f
@@ -209,6 +211,7 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
     const float* com = cdof + 6 * nv;
     const float* cinert = com + 3;
     const float* qfs = cinert + 10 * nb;
+    const float* arm = qfs + 2 * nv;  // after qfrc_smooth and the warm start
     for (int i = s.lane; i < 6 * nv; i += kWarp) s.cdof[i] = cdof[i];
     if (s.lane < 3) s.misc[kMiscCom + s.lane] = com[s.lane];
     for (int i = s.lane; i < 10 * nb; i += kWarp)
@@ -218,7 +221,7 @@ __global__ void __launch_bounds__(kWarp* kMaxEnvsPerBlock, 1)
       ws[k] = qfs[nv + k];
     }
     __syncwarp();
-    crb(T, s);
+    crb(T, s, arm);
   }
   smooth_acc(s);
   // the staged collision's contact pack into the slot region

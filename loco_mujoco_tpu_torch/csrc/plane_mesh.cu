@@ -64,6 +64,16 @@
 // with a lane per pair's vertex walk; they stay as they are, so the mega
 // libraries keep their code (tools/kernel_code.py).
 //
+// Stacked model variants (the 4-ages scalings: meshes scaled per variant,
+// one hull graph) give the kernel K hull tables, one after another in tbl
+// (tstride floats each), pf and st: env e reads variant env_id[e]'s, so
+// the plane-mesh stage of a batch of mixed variants stays one launch. That
+// is a template instance of its own (kVariants): the variant's three table
+// offsets took the instance from 64 to 72 registers per thread, past the
+// 64 that keep 16 blocks of 4 warps resident per SM, and cost the one-table
+// launch 19-35% (tools/mesh_time.py, PERF.md Findings PR 17). A null
+// env_id launches the one-table instance, every other path's code.
+//
 // Compiled with --fmad=false, so that its products and sums round as the
 // plain PyTorch version's do and both pick the same support vertex. A
 // compile-time variant, -DLMT_PHASES (tools/mesh_time.py --phases, never
@@ -134,14 +144,16 @@ __device__ __forceinline__ void pose_of(const float* xp, const float* xm,
         s.n[2] * (s.q[2] - p1[2]);
 }
 
+template <bool kVariants>
 __global__ void __launch_bounds__(kWarp * kEnvs) mesh_slots_kernel(
     const float* __restrict__ gxp, const float* __restrict__ gxm,
     const float* __restrict__ tbl, const int* __restrict__ pk,
     const float* __restrict__ pf, const float* __restrict__ st,
-    float* __restrict__ dist, float* __restrict__ pos,
-    float* __restrict__ frame, long long* __restrict__ ids,
-    float* __restrict__ meta, float* __restrict__ key_out, int P, int k,
-    int E, int G) {
+    const int* __restrict__ env_id, float* __restrict__ dist,
+    float* __restrict__ pos, float* __restrict__ frame,
+    long long* __restrict__ ids, float* __restrict__ meta,
+    float* __restrict__ key_out, int P, int k, int E, int G,
+    int tstride) {
   extern __shared__ float s_mem[];
   const int lane = threadIdx.x % kWarp;
   const int w = threadIdx.x / kWarp;
@@ -154,6 +166,12 @@ __global__ void __launch_bounds__(kWarp * kEnvs) mesh_slots_kernel(
   float* mk = (float*)(sel + k);
   const float* xp = gxp + (size_t)e * G * 3;
   const float* xm = gxm + (size_t)e * G * 9;
+  if constexpr (kVariants) {  // this env's variant's tables and statics
+    const size_t v = (size_t)env_id[e];
+    tbl += v * (size_t)tstride;
+    pf += v * (size_t)P * kPairFloats;
+    st += v * (size_t)P * kStatics;
+  }
   LMT_CLOCK(t0);
 
   // every pair's bound, a lane per pair, a warp's worth at a time; then the
@@ -369,11 +387,29 @@ size_t shared_bytes(int P, int k) {
   return sizeof(float) * kEnvs * (3 * (size_t)P + 2 * (size_t)k);
 }
 
+template <bool kVariants>
 int set_shared(size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
-      mesh_slots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      mesh_slots_kernel<kVariants>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <bool kVariants>
+int launch(const void* gxp, const void* gxm, const void* tbl, const void* pk,
+           const void* pf, const void* st, const void* env_id, void* dist,
+           void* pos, void* frame, void* ids, void* meta, void* key_out,
+           int P, int k, int E, int G, int tstride, void* stream) {
+  const size_t smem = shared_bytes(P, k);
+  const int rc = set_shared<kVariants>(smem);
+  if (rc) return rc;
+  mesh_slots_kernel<kVariants><<<(E + kEnvs - 1) / kEnvs, kWarp * kEnvs,
+                                 smem, (cudaStream_t)stream>>>(
+      (const float*)gxp, (const float*)gxm, (const float*)tbl,
+      (const int*)pk, (const float*)pf, (const float*)st,
+      (const int*)env_id, (float*)dist, (float*)pos, (float*)frame,
+      (long long*)ids, (float*)meta, (float*)key_out, P, k, E, G, tstride);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -382,41 +418,43 @@ int set_shared(size_t bytes) {
 // hull table [vertex x, y, z rows, then the neighbours' x (D), y (D), z (D)
 // rows], concatenated; pk (P, 5) int [offset into tbl, V, D, geom1, geom2];
 // pf (P, 8) [margin, dedupe^2, extents lo (3), hi (3)]; st (P, 16) [key
-// margin, geom1, geom2, friction (5), solref (2), solimp (5), margin - gap]
-// -> dist (E, k, 3), pos (E, k, 3, 3), frame (E, k, 3, 3), ids (E, k, 2)
-// int64, meta (E, k, 13) = st[:, 3:] of each rank's pair; key_out (E, P),
-// or null, every pair's ranking key.
+// margin, geom1, geom2, friction (5), solref (2), solimp (5), margin - gap];
+// with K variants, tbl, pf and st hold K of these one after another
+// (tstride floats of tbl each) and env_id (E,) int each env's variant, or
+// null for the first alone -> dist (E, k, 3), pos (E, k, 3, 3), frame
+// (E, k, 3, 3), ids (E, k, 2) int64, meta (E, k, 13) = st[:, 3:] of each
+// rank's pair; key_out (E, P), or null, every pair's ranking key.
 extern "C" int lmt_mesh_slots(const void* gxp, const void* gxm,
                               const void* tbl, const void* pk, const void* pf,
-                              const void* st, void* dist, void* pos,
-                              void* frame, void* ids, void* meta,
+                              const void* st, const void* env_id, void* dist,
+                              void* pos, void* frame, void* ids, void* meta,
                               void* key_out, int P, int k, int E, int G,
-                              void* stream) {
+                              int tstride, void* stream) {
   if (P <= 0 || P > kMaxPairs || k <= 0 || k > P)
     return (int)cudaErrorInvalidValue;
   if (E <= 0) return 0;
-  const size_t smem = shared_bytes(P, k);
-  const int rc = set_shared(smem);
-  if (rc) return rc;
-  mesh_slots_kernel<<<(E + kEnvs - 1) / kEnvs, kWarp * kEnvs, smem,
-                      (cudaStream_t)stream>>>(
-      (const float*)gxp, (const float*)gxm, (const float*)tbl,
-      (const int*)pk, (const float*)pf, (const float*)st, (float*)dist,
-      (float*)pos, (float*)frame, (long long*)ids, (float*)meta,
-      (float*)key_out, P, k, E, G);
-  return (int)cudaGetLastError();
+  return env_id ? launch<true>(gxp, gxm, tbl, pk, pf, st, env_id, dist, pos,
+                               frame, ids, meta, key_out, P, k, E, G,
+                               tstride, stream)
+                : launch<false>(gxp, gxm, tbl, pk, pf, st, nullptr, dist,
+                                pos, frame, ids, meta, key_out, P, k, E, G,
+                                tstride, stream);
 }
 
-// The resident warps (envs) per SM of a launch at P pairs and k ranks.
-extern "C" int lmt_mesh_slots_occupancy(int P, int k, int* warps) {
+// The resident warps (envs) per SM of a launch at P pairs and k ranks, of
+// the one-table instance, or with `variants` the K-table one.
+extern "C" int lmt_mesh_slots_occupancy(int P, int k, int variants,
+                                        int* warps) {
   if (P <= 0 || P > kMaxPairs || k <= 0 || k > P)
     return (int)cudaErrorInvalidValue;
   const size_t smem = shared_bytes(P, k);
-  int rc = set_shared(smem);
+  int rc = variants ? set_shared<true>(smem) : set_shared<false>(smem);
   if (rc) return rc;
   int blocks = 0;
   rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, mesh_slots_kernel, kWarp * kEnvs, smem);
+      &blocks,
+      variants ? mesh_slots_kernel<true> : mesh_slots_kernel<false>,
+      kWarp * kEnvs, smem);
   *warps = blocks * kEnvs;
   return rc;
 }

@@ -593,8 +593,11 @@ __device__ void com_pos(const Tab& T, const Env& s) {
 }
 
 // The CRB mass matrix with armature (inertia.crb): the subtree sums lane
-// per component, each entry on its own lane.
-__device__ void crb(const Tab& T, const Env& s) {
+// per component, each entry on its own lane. The armature is the plan's
+// F_DOF column, or this env's `arm` (nv) where the caller gives one (the
+// fused kernel's non-smooth layout, whose vector carries each env's).
+__device__ void crb(const Tab& T, const Env& s,
+                    const float* arm = nullptr) {
   const int nb = s.nb, nv = s.nv;
   const int* topo = T.i(I_TOPO);
   const int* bi = T.i(I_BODY);
@@ -626,7 +629,7 @@ __device__ void crb(const Tab& T, const Env& s) {
       m = u[0] * w[0];
       for (int i = 1; i < 6; ++i) m += u[i] * w[i];
     }
-    if (a == b) m += df[2 * a + 1];
+    if (a == b) m += arm ? arm[a] : df[2 * a + 1];
     s.M[a * nv + b] = m;
     s.M[b * nv + a] = m;
     b += kWarp;

@@ -20,20 +20,31 @@ Correspondence with the reference semantics (base.py's own list):
 - auto-reset: where done, the carried fields of a fresh episode start are
   swapped in by `torch.where` over the batch (base.py:459-496).
 
-Domain randomization (`domain_randomization_config`, a parsed dict, see
-`utils.domain_randomization`) draws each env's joint damping at reset; the
-env carries it to the kernels as `Data.dof_damping` with the plan's
-per-env damping variant (`RowPlan.dyn_damping`), not as a per-env copy of
-the Model. Only `dof_damping` may vary per env in this port. Random draws
-(trajectory samples, randomization) come from the `torch.Generator` that
-the caller gives `reset_batch` and that `EnvState.rng` carries.
+Stacked model variants (`model_variants`, base.py:117-135: K models of
+one structure, the 4-ages scalings or the carried weights) are stacked by
+`io.stack_variants`; each env's variant `env_id` is drawn at reset and at
+auto-reset (uniform over the K, or 0 without `random_env_reset`), and
+every step runs on the per-env Model of its batch (`io.model_at`, the
+reference's `_model_at`). Domain randomization
+(`domain_randomization_config`, a parsed dict, see
+`utils.domain_randomization`) draws each env's values at reset and turns
+them into per-env leaves there (on its variant's model), which the steps
+put into the per-env Model (base.py:267-270), but for joint damping,
+which rides as `Data.dof_damping` with the plan's per-env damping variant
+(`RowPlan.dyn_damping`), so that the mega plans keep it. The leaves that
+vary per env choose, once, where the env is built, which parts of the
+row plan the steps keep (`RowPlan.per_env`, the reference's gates on
+traced leaves), and a varying leaf that no stage reads per env raises
+(`io.check_per_env`). Random draws (variants, trajectory samples,
+randomization) come from the `torch.Generator` that the caller gives
+`reset_batch` and that `EnvState.rng` carries.
 
 Not ported: the foot-force window (`use_foot_forces`), which needs
-per-substep contact forces (a later slice); stacked model variants
-(`model_variants`, ROADMAP Queue 1 #4.2); the robots' observation and
-reset hooks, with the SITE_ROT entries that only such a hook may read
-(base.py:147-162); the switches that turn absorbing states or the
-auto-reset off, and a start at step 0 of a random trajectory.
+per-substep contact forces (a later slice); the robots' observation and
+reset hooks (the 4-ages env-id bits and per-variant trajectory ranges,
+the carried weight's obs), with the SITE_ROT entries that only such a
+hook may read (base.py:147-162); the switches that turn absorbing states
+or the auto-reset off, and a start at step 0 of a random trajectory.
 """
 
 from __future__ import annotations
@@ -93,16 +104,13 @@ class LocoEnv:
         solver_iterations: int = 8,
         ls_iterations: int = 8,
         model_variants=None,
+        random_env_reset: bool = True,
         domain_randomization_config: Optional[dict] = None,
     ):
         if use_foot_forces:
             raise NotImplementedError(
                 "the foot-force window needs per-substep contact forces "
                 "(a later slice)")
-        if model_variants:
-            raise NotImplementedError(
-                "stacked model variants are not ported (ROADMAP Queue 1 "
-                "#4.2)")
         if len(obs_index.site_idx):
             raise NotImplementedError(
                 "SITE_ROT entries read site_xmat, which is stale on the "
@@ -118,21 +126,32 @@ class LocoEnv:
         # (past 16 / 8) keeps none and runs the staged path without one.
         model = with_solver_budget(model, solver_iterations, ls_iterations)
         self.model = model
+        # the variants (base.py:117-135): each takes this model's budgets
+        # and stat_meaninertia (io.stack_variants)
+        self.variants, self.n_variants = None, 1
+        if model_variants:
+            norm = [with_solver_budget(v, model.opt.iterations,
+                                       model.opt.ls_iterations).replace(
+                stat_meaninertia=model.stat_meaninertia)
+                for v in model_variants]
+            self.variants, _ = io.stack_variants(norm)
+            self.n_variants = len(norm)
+        self.random_env_reset = random_env_reset
         self.domain_rand = None
-        self.model_dr = model
+        # the model the steps start from: the stack of the variants or the
+        # model, with the plan of the leaves that vary per env
+        self.model_dr = model if self.variants is None else self.variants
         if domain_randomization_config is not None:
             from ..utils.domain_randomization import DomainRandomizationHandler
 
             self.domain_rand = DomainRandomizationHandler(
                 model, domain_randomization_config)
-            other = set(self.domain_rand.merged) - {"dof_damping"}
-            if other:
-                raise NotImplementedError(
-                    f"only joint damping varies per env in this port; "
-                    f"{sorted(other)} would need per-env leaves in the "
-                    f"kernels (ROADMAP Queue 1 #2)")
-            if self.domain_rand.merged and model.plan is not None:
-                self.model_dr = model.replace(plan=model.plan.dyn_damping())
+            leaves = self.domain_rand.leaves
+            io.check_per_env(leaves)
+            plan = self.model_dr.plan
+            if plan is not None:
+                plan = plan.per_env(leaves)
+            self.model_dr = self.model_dr.replace(plan=plan)
         self.obs_index = obs_index
         self.horizon = horizon
         self.n_substeps = n_substeps
@@ -157,24 +176,49 @@ class LocoEnv:
         """The spec vector minus the global x/y entries (base.py:241-248)."""
         return self.obs_index.build_obs(data).to(self.dtype)[:, 2:]
 
-    def _apply_dr(self, data: Data, dr: dict) -> tuple:
-        """(model, data) of a step: with per-env damping, the plan's
-        damping-row variant and each env's damping in Data (base.py:267-
-        270 replaces the Model's leaves per env instead)."""
-        if not dr:
+    def _model_at(self, env_id: torch.Tensor) -> Model:
+        """The per-env Model of the variants of a batch (base.py:262-265),
+        or the model, with the plan of the leaves that vary per env."""
+        if self.variants is None:
+            return self.model_dr
+        return io.model_at(self.model_dr, env_id)
+
+    def _apply_dr(self, data: Data, env_id: torch.Tensor, dr: dict) -> tuple:
+        """(model, data) of a step: the per-env Model of the batch's
+        variants with each env's randomized leaves in it (base.py:267-270),
+        with the plan of the leaves that vary per env, and each env's joint
+        damping in `Data.dof_damping` (with the plan's damping-row
+        variant)."""
+        if self.variants is None and not dr:
             return self.model, data
-        return self.model_dr, data.replace(dof_damping=dr["dof_damping"])
+        model = self._model_at(env_id)
+        leaves = {k: v for k, v in dr.items() if k != "dof_damping"}
+        if leaves:
+            model = model.replace(varied=model.varied | set(leaves),
+                                  **leaves)
+        if "dof_damping" in dr:
+            data = data.replace(dof_damping=dr["dof_damping"])
+        elif "dof_damping" in model.varied:  # variants' own damping
+            data = data.replace(dof_damping=model.dof_damping)
+        return model, data
 
     def _starts(self, generator: torch.Generator, n: int) -> dict:
-        """What an episode start of n envs draws (base.py:272-358): qpos
-        and qvel (qpos0 and rest, then the trajectory sample), traj_no,
-        subtraj_step and the randomization draws `dr`."""
+        """What an episode start of n envs draws (base.py:272-358): the
+        variant env_id, qpos and qvel (qpos0 and rest, then the trajectory
+        sample), traj_no, subtraj_step and the randomized leaves `dr` (on
+        each env's variant)."""
         dev = self.device
         i32 = lambda: torch.zeros(n, dtype=torch.int32, device=dev)  # noqa
+        env_id = i32()
+        if self.variants is not None and self.random_env_reset:
+            env_id = torch.randint(0, self.n_variants, (n,),
+                                   generator=generator, device=dev,
+                                   dtype=torch.int32)
         dr = {}
-        if self.domain_rand is not None and self.domain_rand.merged:
-            dr = self.domain_rand.apply(self.model, self.domain_rand.sample(
-                generator, n, dtype=self.dtype, device=dev))
+        if self.domain_rand is not None and self.domain_rand.leaves:
+            dr = self.domain_rand.apply(
+                self._model_at(env_id), self.domain_rand.sample(
+                    generator, n, dtype=self.dtype, device=dev))
         qpos = self.model.qpos0.expand(n, -1).clone()
         qvel = torch.zeros((n, self.model.nv), dtype=self.dtype, device=dev)
         traj_no, subtraj_step = i32(), i32()
@@ -189,7 +233,7 @@ class LocoEnv:
                     full(self.init_step_no / tl), full(self.init_step_no % tl))
             qpos, qvel = self.obs_index.sample_to_qpos_qvel(qpos, qvel, sample)
         return dict(qpos=qpos, qvel=qvel, traj_no=traj_no,
-                    subtraj_step=subtraj_step, dr=dr)
+                    subtraj_step=subtraj_step, dr=dr, env_id=env_id)
 
     def reset_batch(self, n_envs: int,
                     generator: torch.Generator) -> EnvState:
@@ -201,7 +245,8 @@ class LocoEnv:
         st = self._starts(generator, n)
         model, data = self._apply_dr(
             io.make_data(self.model, n).replace(qpos=st["qpos"],
-                                                qvel=st["qvel"]), st["dr"])
+                                                qvel=st["qvel"]),
+            st["env_id"], st["dr"])
         data = fwd.forward(model, data)
         dev = self.device
         i32 = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -213,13 +258,14 @@ class LocoEnv:
             rng=generator, step_no=i32, traj_no=st["traj_no"],
             subtraj_step=st["subtraj_step"],
             goal=torch.zeros((n, 2), dtype=self.dtype, device=dev),
-            env_id=i32.clone(), dr=st["dr"])
+            env_id=st["env_id"], dr=st["dr"])
 
     def step_batch(self, state: EnvState, action: torch.Tensor) -> EnvState:
         """One control step of every env (n_substeps physics steps),
         auto-resetting (base.py:364-432)."""
         a = action.to(self.dtype) * self.norm_act_delta + self.norm_act_mean
-        model, data = self._apply_dr(state.data.replace(ctrl=a), state.dr)
+        model, data = self._apply_dr(state.data.replace(ctrl=a),
+                                     state.env_id, state.dr)
         out = fwd.step_n(model, data, self.n_substeps)
         if out is None:  # outside the megastep envelope: per substep
             out = data
@@ -242,9 +288,10 @@ class LocoEnv:
                                 step_no=step_no)
         # where done, a fresh episode's carried fields: qpos and qvel from
         # its start, act, ctrl, qacc, the warm start, the applied forces,
-        # time, the step count, the goal and the variant id back to their
-        # reset zeros, and its bookkeeping; the derived Data fields are
-        # recomputed by the next step's forward, so no Data is built here
+        # time, the step count and the goal back to their reset zeros, and
+        # its bookkeeping, variant and randomized leaves; the derived Data
+        # fields are recomputed by the next step's forward, so no Data is
+        # built here
         fresh = self._starts(state.rng, obs.shape[0])
 
         def sel(f, s):
@@ -271,7 +318,7 @@ class LocoEnv:
             traj_no=sel(fresh["traj_no"], state.traj_no),
             subtraj_step=sel(fresh["subtraj_step"], state.subtraj_step),
             goal=zero(state.goal),
-            env_id=zero(state.env_id), dr=dr)
+            env_id=sel(fresh["env_id"], state.env_id), dr=dr)
 
 
 def with_solver_budget(model: Model, iterations: int,

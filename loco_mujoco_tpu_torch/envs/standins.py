@@ -17,7 +17,12 @@ randomization config of the model's own damping; `load_standin` loads a
 committed stand-in by name (`STANDINS`; A1's position mode, "a1pos", is
 A1's kind with the position servos, whose actions the env unnormalizes into
 the ctrlrange, the joints' ranges; "g1kp" is the small G1 whose
-plane-mesh group is at k = P, of G1's kind).
+plane-mesh group is at k = P, of G1's kind). `VARIANTS` names the
+committed sets of stacked model variants, `load_variants` loads one: the
+torque humanoid at the four 4-ages scalings ("humanoid4ages", the
+scalings 0.4, 0.6, 0.8 and 1.0 of HumanoidTorque4Ages) and H1 carrying a
+weight of 1 or 5 kg ("h1carry"), each set of one structure;
+`make_env(variants[0], model_variants=variants)` builds its env.
 
     from loco_mujoco_tpu_torch.envs import standins
     model = standins.load_standin("a1pos")
@@ -56,7 +61,16 @@ STANDINS = {"humanoid": "humanoid_torque_shape",
             "atlas": "atlas_shape", "g1": "unitree_g1_shape",
             "g1arms": "unitree_g1_arms_shape",
             "h1arms": "unitree_h1_arms_shape", "atlasarms": "atlas_arms_shape",
-            "talos": "talos_shape", "g1kp": "unitree_g1_kp_shape"}
+            "talos": "talos_shape", "g1kp": "unitree_g1_kp_shape",
+            "humanoid_s04": "humanoid_torque_s04_shape",
+            "humanoid_s06": "humanoid_torque_s06_shape",
+            "humanoid_s08": "humanoid_torque_s08_shape",
+            "h1carry1": "unitree_h1_carry_m1_shape",
+            "h1carry5": "unitree_h1_carry_m5_shape"}
+# committed sets of stacked model variants, by name (see the module note)
+VARIANTS = {"humanoid4ages": ("humanoid_s04", "humanoid_s06", "humanoid_s08",
+                              "humanoid"),
+            "h1carry": ("h1carry1", "h1carry5")}
 
 
 def load_standin(name: str, device=None, dtype=None):
@@ -72,6 +86,12 @@ def load_standin(name: str, device=None, dtype=None):
             / f"{STANDINS[name]}.npz")
     return io.load_model_npz(path, device=device,
                              dtype=dtype or torch.float32)
+
+
+def load_variants(name: str, device=None, dtype=None) -> list:
+    """The models of the committed variant set `name` (`VARIANTS`), in
+    order, as `load_standin` loads each."""
+    return [load_standin(n, device, dtype) for n in VARIANTS[name]]
 
 
 def standin_kind(model) -> str:

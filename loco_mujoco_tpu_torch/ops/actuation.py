@@ -11,7 +11,9 @@ act), and tendon-transmission muscles (MuJoCo's mju_muscleGain /
 mju_muscleBias / mju_muscleDynamics: piecewise quadratic FLV surfaces, one
 activation each). Mixed actuator types in one model are combined with
 static masks, every formula evaluated for every actuator, as the reference
-does, in its order of operations.
+does, in its order of operations. Gear, gain and bias parameters, length
+ranges and acc0 are each env's where they vary per env (`Model.varied`,
+leading axis E): every read of them indexes their last axes.
 """
 
 from __future__ import annotations
@@ -117,7 +119,7 @@ def _moment(model: Model, data: Data) -> torch.Tensor:
     joint_sel, tendon_rows, _ = (
         static_tensor(model, f"actuator_{n}", lambda i=i: _tables(model)[i])
         for i, n in enumerate(("joint_sel", "tendon_rows", "scatter")))
-    gear0 = model.actuator_gear[:, 0, None]
+    gear0 = model.actuator_gear[..., 0, None]
     moment = (joint_sel * gear0).expand(data.qvel.shape[0], -1, -1)
     if model.ntendon:
         moment = moment + (tendon_rows @ data.ten_J) * gear0
@@ -133,7 +135,7 @@ def actuation(model: Model, data: Data) -> Data:
     if model.nu == 0:
         return data.replace(qfrc_actuator=torch.zeros_like(data.qvel))
     dev = data.qpos.device
-    gear0 = model.actuator_gear[:, 0]
+    gear0 = model.actuator_gear[..., 0]
     trn = model.actuator_trntype
     is_joint = _mask(np.isin(trn, [int(TrnType.JOINT),
                                    int(TrnType.JOINTINPARENT)]), dev)
@@ -149,7 +151,8 @@ def actuation(model: Model, data: Data) -> Data:
 
     ctrl = data.ctrl
     if not (model.opt.disableflags & DisableBit.CLAMPCTRL):
-        lo, hi = model.actuator_ctrlrange[:, 0], model.actuator_ctrlrange[:, 1]
+        lo, hi = (model.actuator_ctrlrange[..., 0],
+                  model.actuator_ctrlrange[..., 1])
         ctrl = torch.where(_mask(model.actuator_ctrllimited.astype(bool), dev),
                            torch.minimum(torch.maximum(ctrl, lo), hi), ctrl)
 
@@ -162,7 +165,7 @@ def actuation(model: Model, data: Data) -> Data:
         dyn_muscle = _mask(dyn == int(DynType.MUSCLE), dev)
         dyn_filter = _mask(np.isin(dyn, [int(DynType.FILTER),
                                          int(DynType.FILTEREXACT)]), dev)
-        tau = torch.clamp(model.actuator_dynprm[:, 0], min=1e-15)
+        tau = torch.clamp(model.actuator_dynprm[..., 0], min=1e-15)
         act_dot_u = torch.where(
             dyn_muscle, muscle_dynamics(ctrl, act_u, model.actuator_dynprm),
             torch.where(dyn_filter, (ctrl - act_u) / tau,
@@ -176,15 +179,17 @@ def actuation(model: Model, data: Data) -> Data:
 
     gp, bp = model.actuator_gainprm, model.actuator_biasprm
     gt, bt = model.actuator_gaintype, model.actuator_biastype
-    gain = gp[:, 0].expand_as(ctrl)
+    gain = gp[..., 0].expand_as(ctrl)
     bias = torch.zeros_like(ctrl)
     if np.any(gt == int(GainType.AFFINE)):
         gain = torch.where(_mask(gt == int(GainType.AFFINE), dev),
-                           gp[:, 0] + gp[:, 1] * length + gp[:, 2] * velocity,
+                           gp[..., 0] + gp[..., 1] * length
+                           + gp[..., 2] * velocity,
                            gain)
     if np.any(bt == int(BiasType.AFFINE)):
         bias = torch.where(_mask(bt == int(BiasType.AFFINE), dev),
-                           bp[:, 0] + bp[:, 1] * length + bp[:, 2] * velocity,
+                           bp[..., 0] + bp[..., 1] * length
+                           + bp[..., 2] * velocity,
                            bias)
     if np.any(gt == int(GainType.MUSCLE)):
         gain = torch.where(
@@ -197,7 +202,8 @@ def actuation(model: Model, data: Data) -> Data:
             muscle_bias(length, model.actuator_lengthrange,
                         model.actuator_acc0, bp), bias)
     force = gain * force_input + bias
-    lo, hi = model.actuator_forcerange[:, 0], model.actuator_forcerange[:, 1]
+    lo, hi = (model.actuator_forcerange[..., 0],
+              model.actuator_forcerange[..., 1])
     force = torch.where(
         _mask(model.actuator_forcelimited.astype(bool), dev),
         torch.minimum(torch.maximum(force, lo), hi), force)

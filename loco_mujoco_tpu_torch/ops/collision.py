@@ -20,6 +20,12 @@ the convex-tail truncation `classic_ncon`, which the row plan sizes to), and
 so does the port; a float64 model with such pairs is refused at load
 (`core/io.py`), since GJK is not ported. Other pair kinds raise
 `NotImplementedError` at load.
+
+Geom sizes, bounding radii, hull vertices and pair parameters are each
+env's where they vary per env (`Model.varied`: stacked variants, domain
+randomization of the Geoms friction): the plane-mesh kernel reads each
+env's variant's hull table, and per-env pair parameters are gathered by
+the slots' pairs after it (`_plane_mesh_kernel`).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 from ..core.types import Contact, Data, GeomType, Model
 from . import hopper_collision as hc
 from . import math as m3
+from .support import cached, leaf, pick
 
 _PLANE = int(GeomType.PLANE)
 _SPHERE = int(GeomType.SPHERE)
@@ -321,13 +328,14 @@ NARROW = {
 
 
 def rbound_of(size: torch.Tensor, geom_type) -> torch.Tensor:
-    """(ngeom,) static bounding radii of the self groups' midphase
+    """(..., ngeom) static bounding radii of the self groups' midphase
     (`_rbound`: sphere r, capsule r + half length, cylinder hypot, box
-    half diagonal; 0 for other types) from the geom sizes (ngeom, 3)."""
-    per_type = {_SPHERE: size[:, 0], _CAPSULE: size[:, 0] + size[:, 1],
-                _CYLINDER: torch.sqrt(size[:, 0] ** 2 + size[:, 1] ** 2),
+    half diagonal; 0 for other types) from the geom sizes (..., ngeom,
+    3)."""
+    per_type = {_SPHERE: size[..., 0], _CAPSULE: size[..., 0] + size[..., 1],
+                _CYLINDER: torch.sqrt(size[..., 0] ** 2 + size[..., 1] ** 2),
                 _BOX: torch.sqrt(_dot(size, size))}
-    out = torch.zeros_like(size[:, 0])
+    out = torch.zeros_like(size[..., 0])
     gt = torch.as_tensor(np.asarray(geom_type), device=size.device)
     for t, v in per_type.items():
         out = torch.where(gt == t, v, out)
@@ -335,6 +343,8 @@ def rbound_of(size: torch.Tensor, geom_type) -> torch.Tensor:
 
 
 def rbound(model: Model) -> torch.Tensor:
+    """(ngeom,) bounding radii, or (E, ngeom) each env's where geom_size
+    varies per env."""
     return rbound_of(model.geom_size, model.geom_type)
 
 
@@ -346,15 +356,15 @@ def midphase_key(model: Model, g: Group, data: Data, pg1, pg2):
     if g.t1 == _PLANE:
         n = gxm[:, pg1, :, 2]
         h = _dot(n, gxp[:, pg2] - gxp[:, pg1])
-        sz = model.geom_size[pg2]
+        sz = leaf(model, "geom_size")[:, pg2]
         if g.t2 == _SPHERE:
-            supp = sz[:, 0].expand_as(h)
+            supp = sz[..., 0].expand_as(h)
         elif g.t2 == _CAPSULE:
             ca = _dot(n, gxm[:, pg2, :, 2]).abs()
-            supp = sz[:, 1] * ca + sz[:, 0]
+            supp = sz[..., 1] * ca + sz[..., 0]
         elif g.t2 == _CYLINDER:
             ca = _dot(n, gxm[:, pg2, :, 2]).abs()
-            supp = sz[:, 1] * ca + sz[:, 0] * torch.sqrt(
+            supp = sz[..., 1] * ca + sz[..., 0] * torch.sqrt(
                 torch.clamp(1.0 - ca * ca, min=0.0))
         else:  # box
             proj = torch.einsum("eki,ekij->ekj", n, gxm[:, pg2]).abs()
@@ -362,8 +372,8 @@ def midphase_key(model: Model, g: Group, data: Data, pg1, pg2):
         mid = h - supp
     else:
         rb = rbound(model)
-        mid = _norm(gxp[:, pg2] - gxp[:, pg1]) - rb[pg1] - rb[pg2]
-    return mid - model.pair_margin[g.pair_ids]
+        mid = _norm(gxp[:, pg2] - gxp[:, pg1]) - rb[..., pg1] - rb[..., pg2]
+    return mid - leaf(model, "pair_margin")[:, g.pair_ids]
 
 
 def _analytic_group(model: Model, g: Group, data: Data):
@@ -380,11 +390,18 @@ def _analytic_group(model: Model, g: Group, data: Data):
     sg1 = torch.as_tensor(model.pair_geom1, device=dev)[sel_p].long()
     sg2 = torch.as_tensor(model.pair_geom2, device=dev)[sel_p].long()
     d, p, f = NARROW[(g.t1, g.t2)](
-        hc.take(gxp, sg1), hc.take(gxm, sg1), model.geom_size[sg1],
-        hc.take(gxp, sg2), hc.take(gxm, sg2), model.geom_size[sg2])
-    marg = model.pair_margin[sel_p] - model.pair_gap[sel_p]
-    return (d, p, f, sg1, sg2, model.pair_friction[sel_p],
-            model.pair_solref[sel_p], model.pair_solimp[sel_p], marg)
+        hc.take(gxp, sg1), hc.take(gxm, sg1), pick(model, "geom_size", sg1),
+        hc.take(gxp, sg2), hc.take(gxm, sg2), pick(model, "geom_size", sg2))
+    return (d, p, f, sg1, sg2, *_pair_statics(model, sel_p))
+
+
+def _pair_statics(model: Model, sel_p: torch.Tensor) -> tuple:
+    """friction, solref, solimp and margin - gap of the pairs `sel_p`
+    (E, k), each env's where they vary per env."""
+    marg = pick(model, "pair_margin", sel_p) - pick(model, "pair_gap", sel_p)
+    return (pick(model, "pair_friction", sel_p),
+            pick(model, "pair_solref", sel_p),
+            pick(model, "pair_solimp", sel_p), marg)
 
 
 def _convex_group(model: Model, g: Group, data: Data):
@@ -399,9 +416,7 @@ def _convex_group(model: Model, g: Group, data: Data):
     g2 = torch.as_tensor(model.pair_geom2, device=dev)[sel_p].long()
     return (torch.full((E, g.k, 1), BIG, dtype=dt, device=dev),
             torch.zeros((E, g.k, 1, 3), dtype=dt, device=dev), eye, g1, g2,
-            model.pair_friction[sel_p], model.pair_solref[sel_p],
-            model.pair_solimp[sel_p],
-            model.pair_margin[sel_p] - model.pair_gap[sel_p])
+            *_pair_statics(model, sel_p))
 
 
 def _plane_mesh_narrow(model: Model, pid: np.ndarray, vcap: int,
@@ -418,11 +433,16 @@ def _plane_mesh_narrow(model: Model, pid: np.ndarray, vcap: int,
     if nbr is not None:
         nbr = torch.as_tensor(nbr, device=dev)
     a, b = hc.plane_in_mesh_frame(data.geom_xpos, data.geom_xmat, pg1, pg2)
-    margin = model.pair_margin[pid]
+    margin = leaf(model, "pair_margin")[:, pid]
+    if "mesh_vert" in model.varied:  # each env's variant's hulls
+        verts = model.mesh_vert[model.env_id[:, None],
+                                torch.as_tensor(mesh_ids, device=dev)[None],
+                                :vcap]
+    else:
+        verts = model.mesh_vert[mesh_ids, :vcap]
     dist, vsel = hc.manifold_plain(
-        model.mesh_vert[mesh_ids, :vcap], vmask, nbr,
-        np.asarray(model.mesh_brute)[mesh_ids], a, b, margin,
-        (0.3 * model.geom_rbound[pg2]) ** 2)
+        verts, vmask, nbr, np.asarray(model.mesh_brute)[mesh_ids], a, b,
+        margin, (0.3 * leaf(model, "geom_rbound")[:, pg2]) ** 2)
     return dist, vsel, dist[..., 0] - margin
 
 
@@ -455,19 +475,52 @@ def _plane_mesh_xla(model: Model, g: Group, data: Data):
     frame = frame[:, :, None].expand(-1, -1, g.slots, -1, -1)
     g1 = torch.as_tensor(model.pair_geom1, device=dev)[sel_p].long()
     g2 = torch.as_tensor(model.pair_geom2, device=dev)[sel_p].long()
-    marg = model.pair_margin[sel_p] - model.pair_gap[sel_p]
-    return (dist_s, pos, frame, g1, g2, model.pair_friction[sel_p],
-            model.pair_solref[sel_p], model.pair_solimp[sel_p], marg)
+    return (dist_s, pos, frame, g1, g2, *_pair_statics(model, sel_p))
+
+
+_PAIR_STATICS = ("pair_friction", "pair_solref", "pair_solimp",
+                 "pair_margin", "pair_gap")
+
+
+def pair_of_geoms(model: Model, g: Group) -> torch.Tensor:
+    """(ngeom, ngeom) int64: the model's pair id of each (plane geom, mesh
+    geom) of plane-mesh group `g`, on the model's device (made once). A
+    group that holds one geom pair twice raises: its slots' pair would be
+    ambiguous."""
+    def build():
+        t = np.zeros((model.ngeom, model.ngeom), np.int64)
+        seen = set()
+        for p in g.pair_ids:
+            key = (int(model.pair_geom1[p]), int(model.pair_geom2[p]))
+            if key in seen:
+                raise NotImplementedError(
+                    f"plane-mesh group with the geom pair {key} twice: "
+                    f"per-env pair parameters need one pair per geoms")
+            seen.add(key)
+            t[key] = int(p)
+        return torch.as_tensor(t, device=model.qpos0.device)
+
+    return cached(model, ("pair_of_geoms", int(g.offset),
+                          str(model.qpos0.device)), build)
 
 
 def _plane_mesh_kernel(model: Model, g: Group, plan: hc.MeshPlan,
                        data: Data, plain: bool):
     """The kernel path: one launch of `hopper_collision.mesh_slots` on the
-    geom poses as Data holds them (or its plain version), its per-pair
-    frame given to each of the pair's slots."""
+    geom poses as Data holds them (or its plain version), with each env's
+    hull table where the plan holds one per variant, its per-pair frame
+    given to each of the pair's slots. Where the pair parameters vary per
+    env (domain randomization of the Geoms friction), each slot's are
+    gathered after the launch by its pair, found from its geoms (an
+    inactive rank holds pair 0's geoms, and so gets pair 0's, as the
+    kernel gives it)."""
     slots = hc.mesh_slots_plain if plain else hc.mesh_slots
-    ds, pos, fr, *rest = slots(plan, data.geom_xpos, data.geom_xmat)
-    return (ds, pos, fr[:, :, None].expand(-1, -1, g.slots, -1, -1), *rest)
+    ds, pos, fr, g1, g2, *rest = slots(plan, data.geom_xpos, data.geom_xmat,
+                                       env_id=model.env_id)
+    if model.varied & set(_PAIR_STATICS):
+        rest = list(_pair_statics(model, pair_of_geoms(model, g)[g1, g2]))
+    return (ds, pos, fr[:, :, None].expand(-1, -1, g.slots, -1, -1), g1, g2,
+            *rest)
 
 
 def collision(model: Model, data: Data, plain: bool = False,

@@ -11,7 +11,9 @@ impratio-scaled R, with the per-contact bookkeeping (`ell_start`,
 `ell_dim`, `con_mu` = friction0 / sqrt(impratio)) the cone zones of the
 solve read. Every potential row always exists and carries an active flag,
 so shapes are static; all tensors carry a leading env axis E.
-Non-JOINT equalities are refused at load.
+Non-JOINT equalities are refused at load. The invweights and the friction
+loss are each env's where they vary per env (`Model.varied`); the
+contacts' parameters come per slot from the collision stage.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from ..core.types import ConeType, Data, DisableBit, Model
 from . import support
+from .support import leaf
 
 MINVAL = 1e-15
 MINIMP = 0.0001
@@ -110,6 +113,7 @@ def make_constraint(model: Model, data: Data) -> Efc:
 
     # blocks of (J, pos, aref, R, floss, active), in row order
     blocks, types = [], []
+    dof_iw = leaf(model, "dof_invweight0")
 
     def one_hot(rows, cols):
         oh = np.zeros((len(rows), nv))
@@ -141,7 +145,7 @@ def make_constraint(model: Model, data: Data) -> Efc:
                      + 4 * dat[:, 4] * dif ** 3)
             pos = qpos[:, q1] - model.qpos0[q1] - poly
             jblk = one_hot(ids, v1) - (dpoly * m2)[..., None] * one_hot(ids, v2)
-            iw = model.dof_invweight0[v1] + m2 * model.dof_invweight0[v2]
+            iw = dof_iw[:, v1] + m2 * dof_iw[:, v2]
             k, b, imp = kbi(model, model.eq_solref[ids], model.eq_solimp[ids],
                             pos)
             vel = torch.einsum("erv,ev->er", jblk, qvel)
@@ -158,10 +162,10 @@ def make_constraint(model: Model, data: Data) -> Efc:
             k, b, imp = kbi(model, model.dof_solref[fl], model.dof_solimp[fl],
                             zero_pos)
             aref = -b * qvel[:, fl]
-            r = _r_of(imp, model.dof_invweight0[fl])
+            r = _r_of(imp, dof_iw[:, fl])
             blocks.append((one_hot(fl, fl).expand(E, -1, -1), zero_pos, aref,
-                           r, model.dof_frictionloss[fl].expand(E, -1),
-                           ones_b(len(fl))))
+                           r, leaf(model, "dof_frictionloss")[:, fl].expand(
+                               E, -1), ones_b(len(fl))))
             types += [FRICTION_DOF] * len(fl)
 
     # ---- joint limits (one block) ------------------------------------------
@@ -180,7 +184,7 @@ def make_constraint(model: Model, data: Data) -> Efc:
             k, b, imp = kbi(model, model.jnt_solref[lim],
                             model.jnt_solimp[lim], pos)
             aref = -b * (sign * qvel[:, v]) - k * imp * pos
-            blocks.append((jblk, pos, aref, _r_of(imp, model.dof_invweight0[v]),
+            blocks.append((jblk, pos, aref, _r_of(imp, dof_iw[:, v]),
                            zeros(len(lim)), dist < margin))
             types += [LIMIT_JOINT] * len(lim)
 
@@ -208,7 +212,8 @@ def make_constraint(model: Model, data: Data) -> Efc:
             jacp2, jacr2 = support.jac_dyn(model, data, con.pos[:, sl], b2)
             jp = jacp2 - jacp1  # (E, cnt, 3, nv)
             frame = con.frame[:, sl]
-            iw_t = model.body_invweight0[b1, 0] + model.body_invweight0[b2, 0]
+            iw_t = (support.pick(model, "body_invweight0", b1)[..., 0]
+                    + support.pick(model, "body_invweight0", b2)[..., 0])
             mu = con.friction[:, sl, 0]
             k, b_, imp = kbi(model, con.solref[:, sl], con.solimp[:, sl],
                              pos_c)

@@ -19,8 +19,8 @@ tendons, collision, the velocity, passive, rne and actuation stages, and
 acceleration writes qfrc_smooth only (the kernel builds M from cinert and
 solves qacc_smooth); crb is skipped under RK4 or `euler_dv`, and factor_m
 with any plan. Without a plan every stage runs, then `make_constraint` and
-the Newton solve (`hopper_newton`) with the relayouts around it
-(`hopper_layout`). `step_n` runs n physics steps as one megastep kernel
+the standalone Newton kernel (`hopper_newton.solve`, reading the rows
+env-major in place). `step_n` runs n physics steps as one megastep kernel
 launch, or returns None outside that envelope (and under `LMT_MEGASTEP=0`
 or `LMT_MEGA=0`), as forward.py:325-341 does.
 
@@ -218,10 +218,12 @@ def damping_dv(model: Model, data: Data) -> torch.Tensor:
     """Euler's implicit-damping velocity change from qM (forward.py:255-
     259): (qM + dt diag(damping))^-1 (qM qacc), with each env's damping
     where `Data.dof_damping` holds it."""
-    if data.dof_damping is None:
-        damp = torch.diag(model.dof_damping)
-    else:
+    if data.dof_damping is not None:
         damp = torch.diag_embed(data.dof_damping)
+    elif "dof_damping" in model.varied:
+        damp = torch.diag_embed(model.dof_damping)
+    else:
+        damp = torch.diag(model.dof_damping)
     mh = data.qM + model.opt.timestep * damp
     return linalg.spd_solve(mh, inertia.mul_m(model, data, data.qacc))
 

@@ -39,6 +39,16 @@ XLA branch of its `_plane_mesh_group`, which `collision.py` runs as its
 XLA path too. The two differ only where no contact is: the kernel takes
 the conservative extent bound (`extent_bound`) as the depth, and the key,
 of a pair that cannot reach the margin, and computes no manifold for it.
+
+Stacked model variants whose hulls differ (the 4-ages scalings scale the
+meshes; the hull graph is scale-invariant) give a plan K hull tables, one
+per variant (`stack_plans`): the vertex tables, extents, dedupe radii and
+statics one after another, the pairs, bucket order and neighbour tables
+shared. `mesh_slots(..., env_id=)` and its plain version then read each
+env's variant's table; K = 1 is one model's tables, as every other path
+has them. The reference computes such slots in XLA (its Pallas kernels
+step aside for traced hull vertices, `collision.py:436-452`); it is the
+same function, held to the same plain version.
 """
 
 from __future__ import annotations
@@ -62,8 +72,8 @@ META = 13  # friction (5), solref (2), solimp (5), margin - gap
 CANON = (0.0, 0.0, 1.0, 0.0, 1.0, 0.0, -1.0, 0.0, 0.0)  # an inactive frame
 
 _SIGNATURES = {
-    "lmt_mesh_slots": [PTR] * 12 + [INT] * 4 + [PTR],
-    "lmt_mesh_slots_occupancy": [INT, INT, PTR],
+    "lmt_mesh_slots": [PTR] * 13 + [INT] * 5 + [PTR],
+    "lmt_mesh_slots_occupancy": [INT, INT, INT, PTR],
 }
 
 
@@ -142,25 +152,33 @@ def pack_plane_mesh_buckets(m, pid, vcap):
 @dataclasses.dataclass
 class MeshPlan:
     """Static plan of one kernel-gated plane-mesh group (numpy; device
-    copies are made on first use and kept per device and dtype)."""
+    copies are made on first use and kept per device and dtype). The
+    per-variant tables (`tbl16`, `flat`, `pair_f`, `verts`) hold K
+    variants' one after another (`stack_plans`): K = 1 is one model's."""
 
     k: int
     pid: np.ndarray  # (P,) pair ids in bucket-major order
     pg1: np.ndarray  # (P,) plane geom ids
     pg2: np.ndarray  # (P,) mesh geom ids
-    tbl16: np.ndarray  # (P, 16) [key margin, geom1, geom2, meta(13)]
+    tbl16: np.ndarray  # (K P, 16) [key margin, geom1, geom2, meta(13)]
     buckets: list  # (start, count, D, table (Pb, 3+3D, V), marg (Pb, 8))
-    flat: np.ndarray  # every pair's table, concatenated
-    pair_i: np.ndarray  # (P, 3) int32: offset into flat, V, D
-    pair_f: np.ndarray  # (P, 8) float32
-    verts: np.ndarray  # (P, V, 3) hull vertices, for the plain versions
+    flat: np.ndarray  # every pair's table, concatenated, per variant
+    pair_i: np.ndarray  # (P, 3) int32: offset into a variant's flat, V, D
+    pair_f: np.ndarray  # (K P, 8) float32
+    verts: np.ndarray  # (K P, V, 3) hull vertices, for the plain versions
     vmask: np.ndarray  # (P, V) bool
     nbr: np.ndarray  # (P, V, D) int64 hull-graph neighbours, -1 unused
+    K: int = 1  # variants (hull tables)
     _dev: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def P(self) -> int:
         return len(self.pid)
+
+    @property
+    def table_floats(self) -> int:
+        """Floats of one variant's hull table in `flat`."""
+        return self.flat.size // self.K
 
     def tensors(self, device, dtype=torch.float32) -> SimpleNamespace:
         """The tables on `device`: `pair_k` (P, 5) int32 [offset, V, D,
@@ -246,6 +264,34 @@ def mesh_tables(leaves: dict, aux: dict, g) -> MeshPlan | None:
     )
 
 
+def stack_plans(plans) -> MeshPlan:
+    """One plan of K variants' plans of one group (`io.stack_variants`):
+    the same pairs, bucket order, hull layout (vertex counts, neighbour
+    tables) and budget, each variant's vertex table, extents, dedupe
+    radii and statics one after another; raises where the layouts
+    differ. A plan equal in every variant stays as it is (K = 1)."""
+    base = plans[0]
+    for i, p in enumerate(plans[1:], 1):
+        same = (p.k == base.k and np.array_equal(p.pid, base.pid)
+                and np.array_equal(p.pair_i, base.pair_i)
+                and np.array_equal(p.vmask, base.vmask)
+                and (p.nbr is None) == (base.nbr is None)
+                and (p.nbr is None or np.array_equal(p.nbr, base.nbr)))
+        if not same:
+            raise ValueError(f"variant {i}'s plane-mesh hull layout differs "
+                             f"from variant 0's")
+    if all(np.array_equal(p.flat, base.flat)
+           and np.array_equal(p.pair_f, base.pair_f)
+           and np.array_equal(p.tbl16, base.tbl16) for p in plans[1:]):
+        return base
+    return dataclasses.replace(
+        base, K=len(plans), _dev={},
+        tbl16=np.concatenate([p.tbl16 for p in plans]),
+        flat=np.concatenate([p.flat for p in plans]),
+        pair_f=np.concatenate([p.pair_f for p in plans]),
+        verts=np.concatenate([p.verts for p in plans]))
+
+
 def staged_plan(g, tables: MeshPlan | None) -> MeshPlan | None:
     """The staged path's plan of plane-mesh group `g` from its
     `mesh_tables`: the tables where the group ranks its pairs (k < P),
@@ -298,12 +344,13 @@ def plane_in_mesh_frame(gxp, gxm, pg1, pg2):
 def extent_bound(pair_f, a, b):
     """The kernel's conservative bound lb <= min_v (a.v + b) (E, P) from
     each hull's extents (`pair_f` (P, 8) [margin, dedupe^2, lo (3), hi
-    (3)]), in the kernel's order: a pair whose bound does not reach its
-    margin cannot touch, and the kernel walks no vertex of it."""
+    (3)], or each env's (E, P, 8)), in the kernel's order: a pair whose
+    bound does not reach its margin cannot touch, and the kernel walks no
+    vertex of it."""
     lb = b - 1e-6
     for i in range(3):
-        lb = lb + torch.minimum(a[..., i] * pair_f[:, 2 + i],
-                                a[..., i] * pair_f[:, 5 + i])
+        lb = lb + torch.minimum(a[..., i] * pair_f[..., 2 + i],
+                                a[..., i] * pair_f[..., 5 + i])
     return lb
 
 
@@ -314,15 +361,16 @@ def manifold_plain(verts, vmask, nbr, brute, a, b, margin, dedupe2):
     stored edge order, below the margin and outside the dedupe radius (all
     vertices in storage order for a graph-less hull).
 
-    verts (P, V, 3) mesh-local, vmask (P, V) bool, nbr (P, V, D) neighbour
-    ids (-1 unused; None when every hull is graph-less), brute (P,) numpy
-    bool (graph-less hulls), a (E, P, 3) and b (E, P) the plane in the mesh
-    frame (height a.v + b), margin and dedupe2 (squared radius) (P,).
+    verts (P, V, 3) mesh-local, or (E, P, V, 3) each env's, vmask (P, V)
+    bool, nbr (P, V, D) neighbour ids (-1 unused; None when every hull is
+    graph-less), brute (P,) numpy bool (graph-less hulls), a (E, P, 3) and
+    b (E, P) the plane in the mesh frame (height a.v + b), margin and
+    dedupe2 (squared radius) (P,), or (E, P) each env's.
     Returns dist (E, P, 3) (1e10 where a point is missing) and vsel
     (E, P, 3, 3) mesh-local points. The height sums run in the kernel's
     order, so both pick the same support vertex."""
     dev = a.device
-    verts = torch.where(vmask[:, :, None], verts, verts[:, 0:1])
+    verts = torch.where(vmask[:, :, None], verts, verts[..., 0:1, :])
     h = (verts[..., 0] * a[..., 0:1] + verts[..., 1] * a[..., 1:2]
          + verts[..., 2] * a[..., 2:3] + b[..., None])  # (E, P, V)
     h = torch.where(vmask, h, torch.full_like(h, BIG))
@@ -357,7 +405,7 @@ def manifold_plain(verts, vmask, nbr, brute, a, b, margin, dedupe2):
     v_c = torch.gather(vex, 2, j[..., None].expand(-1, -1, -1, 3))
     e = (v_c - v0[:, :, None]) + (0.5 * d0)[..., None, None] * a[:, :, None]
     e2 = e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1] + e[..., 2] * e[..., 2]
-    qual = cand_valid & (h_c < margin[:, None]) & (e2 >= dedupe2[:, None])
+    qual = cand_valid & (h_c < margin[..., None]) & (e2 >= dedupe2[..., None])
     rank = torch.cumsum(qual.to(torch.int32), dim=2) * qual
 
     def pick(r):
@@ -404,22 +452,39 @@ def pair_topk(key, k, dist, vsel, n, qp, qR, ranked=False):
 # --------------------------------------------------------------------------
 
 
-def mesh_slots_plain(plan: MeshPlan, gxp, gxm, key_out=None):
+def variant_tables(plan: MeshPlan, t, env_id):
+    """(verts, pair_f, tbl16) of each env: the plan's tables ((P, V, 3),
+    (P, 8), (P, 16)) where it holds one variant, else each env's
+    variant's, (E, ...) by `env_id` (E,)."""
+    if plan.K == 1:
+        return t.verts, t.pair_f, t.tbl16
+    if env_id is None:
+        raise ValueError(f"mesh_slots: a plan of {plan.K} variants' hull "
+                         f"tables needs each env's variant (env_id)")
+    P = plan.P
+    return (t.verts.reshape(plan.K, P, *t.verts.shape[1:])[env_id],
+            t.pair_f.reshape(plan.K, P, -1)[env_id],
+            t.tbl16.reshape(plan.K, P, -1)[env_id])
+
+
+def mesh_slots_plain(plan: MeshPlan, gxp, gxm, key_out=None, env_id=None):
     """Plain version of `mesh_slots`: every pair's manifold
-    (`manifold_plain`), the k smallest keys, ranked at any k
-    (`pair_topk(ranked=True)`: the mega kernels' order, which the staged
-    path meets only at k < P), and the kernel's inactive ranks (key >= 0):
-    depth 1e10, zero position, the canonical frame and pair 0's statics.
-    The key of a pair that cannot reach the margin is its support depth
-    here and the conservative extent bound in the kernel: both lie at or
-    past the margin, so such a pair ranks after every active one either
-    way and its rank's slots are inactive, whichever pair it holds."""
+    (`manifold_plain`) on each env's hull table, the k smallest keys,
+    ranked at any k (`pair_topk(ranked=True)`: the mega kernels' order,
+    which the staged path meets only at k < P), and the kernel's inactive
+    ranks (key >= 0): depth 1e10, zero position, the canonical frame and
+    pair 0's statics. The key of a pair that cannot reach the margin is
+    its support depth here and the conservative extent bound in the
+    kernel: both lie at or past the margin, so such a pair ranks after
+    every active one either way and its rank's slots are inactive,
+    whichever pair it holds."""
     t = plan.tensors(gxp.device, gxp.dtype)
+    verts, pf, st = variant_tables(plan, t, env_id)
     a, b = plane_in_mesh_frame(gxp, gxm, t.pg1, t.pg2)
     dist, vsel = manifold_plain(
-        t.verts, t.vmask, t.nbr, np.zeros(plan.P, bool), a, b,
-        t.pair_f[:, 0], t.pair_f[:, 1])
-    key = dist[..., 0] - t.tbl16[:, 0]
+        verts, t.vmask, t.nbr, np.zeros(plan.P, bool), a, b,
+        pf[..., 0], pf[..., 1])
+    key = dist[..., 0] - st[..., 0]
     if key_out is not None:
         key_out.copy_(key)
     sel, ds, pos, frame = pair_topk(
@@ -428,7 +493,11 @@ def mesh_slots_plain(plan: MeshPlan, gxp, gxm, key_out=None):
     act = take(key, sel) < 0  # (E, k)
     canon = torch.tensor(CANON, dtype=gxp.dtype, device=gxp.device)
     on = act[..., None, None]
-    meta = torch.where(act[..., None], t.tbl16[sel, 3:], t.tbl16[0, 3:])
+    if plan.K == 1:
+        meta = torch.where(act[..., None], st[sel, 3:], st[0, 3:])
+    else:
+        meta = torch.where(act[..., None], take(st, sel)[..., 3:],
+                           st[:, None, 0, 3:])
     return (torch.where(act[..., None], ds, BIG), torch.where(on, pos, 0.0),
             torch.where(on, frame, canon.reshape(3, 3)),
             torch.where(act, t.pg1[sel], t.pg1[0]),
@@ -436,15 +505,22 @@ def mesh_slots_plain(plan: MeshPlan, gxp, gxm, key_out=None):
             meta[..., 5:7], meta[..., 7:12], meta[..., 12])
 
 
-def check(plan: MeshPlan, gxp, gxm, key_out=None) -> None:
+def check(plan: MeshPlan, gxp, gxm, key_out=None, env_id=None) -> None:
     """The kernel's operands: CUDA float32 contiguous poses (E, ngeom, 3)
-    and (E, ngeom, 3, 3), key_out (E, P) if given, and a plan within the
-    kernel's limits (k <= P <= MAX_PAIRS); else it raises."""
+    and (E, ngeom, 3, 3), key_out (E, P) if given, each env's variant
+    env_id (E,) int32 in [0, K) where the plan holds K > 1 hull tables,
+    and a plan within the kernel's limits (k <= P <= MAX_PAIRS); else it
+    raises."""
     E, G = gxp.shape[0], gxp.shape[1]
+    if plan.K > 1 and env_id is None:
+        raise ValueError(f"mesh_slots: a plan of {plan.K} variants' hull "
+                         f"tables needs each env's variant")
     kernels.require(gxp, "geom_xpos", (E, G, 3))
     kernels.require(gxm, "geom_xmat", (E, G, 3, 3))
     if key_out is not None:
         kernels.require(key_out, "key_out", (E, plan.P))
+    if plan.K > 1:
+        kernels.require(env_id, "env_id", (E,), torch.int32)
     if not 0 < plan.k <= plan.P <= MAX_PAIRS:
         raise ValueError(f"mesh_slots: k {plan.k} and {plan.P} pairs, the "
                          f"kernel takes 0 < k <= P <= {MAX_PAIRS}")
@@ -463,12 +539,19 @@ def _views(flat, shapes):
     return out
 
 
-def mesh_slots(plan: MeshPlan, geom_xpos, geom_xmat, key_out=None):
+def mesh_slots(plan: MeshPlan, geom_xpos, geom_xmat, key_out=None,
+               env_id=None):
     """The group's k contact slots per env from its geom poses, in one
-    launch (see the module note)."""
+    launch (see the module note); `env_id` (E,) picks each env's hull
+    table where the plan holds K > 1 (int32 on the card; an int64 tensor
+    is cast)."""
     if not geom_xpos.is_cuda:
-        return mesh_slots_plain(plan, geom_xpos, geom_xmat, key_out)
-    check(plan, geom_xpos, geom_xmat, key_out)
+        return mesh_slots_plain(plan, geom_xpos, geom_xmat, key_out, env_id)
+    if plan.K == 1:
+        env_id = None
+    elif env_id is not None and env_id.dtype != torch.int32:
+        env_id = env_id.to(torch.int32)
+    check(plan, geom_xpos, geom_xmat, key_out, env_id)
     P, k = plan.P, plan.k
     E, G = geom_xpos.shape[0], geom_xpos.shape[1]
     t = plan.tensors(geom_xpos.device)
@@ -480,9 +563,10 @@ def mesh_slots(plan: MeshPlan, geom_xpos, geom_xmat, key_out=None):
     rc = lib.lmt_mesh_slots(
         geom_xpos.data_ptr(), geom_xmat.data_ptr(), t.flat.data_ptr(),
         t.pair_k.data_ptr(), t.pair_f.data_ptr(), t.tbl16.data_ptr(),
+        None if env_id is None else env_id.data_ptr(),
         ds.data_ptr(), pos.data_ptr(), frame.data_ptr(), ids.data_ptr(),
         meta.data_ptr(), None if key_out is None else key_out.data_ptr(),
-        P, k, E, G, kernels.stream())
+        P, k, E, G, plan.table_floats, kernels.stream())
     kernels.check(rc, "mesh_slots")
     kernels.LAUNCHES["mesh_slots"] += 1
     return (ds, pos, frame, ids[..., 0], ids[..., 1], meta[..., 0:5],
@@ -496,11 +580,12 @@ def shared_bytes(plan: MeshPlan) -> int:
 
 
 def occupancy(plan: MeshPlan) -> int:
-    """Resident warps (envs) per SM of the kernel's launch for the plan,
-    from the CUDA runtime (needs the card)."""
+    """Resident warps (envs) per SM of the kernel's launch for the plan
+    (its K-table instance where it holds K > 1), from the CUDA runtime
+    (needs the card)."""
     out = (ctypes.c_int * 1)()
     kernels.check(kernels.library("plane_mesh", _SIGNATURES)
-                  .lmt_mesh_slots_occupancy(plan.P, plan.k,
+                  .lmt_mesh_slots_occupancy(plan.P, plan.k, int(plan.K > 1),
                                             ctypes.addressof(out)),
                   "mesh_slots occupancy")
     return out[0]

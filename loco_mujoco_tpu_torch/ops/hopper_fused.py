@@ -107,7 +107,10 @@ def smooth_vec(data: Data) -> torch.Tensor:
 def nonsmooth_vec(model: Model, data: Data) -> torch.Tensor:
     """The (E, nvec) per-env vector of the non-smooth layout: [qpos qvel
     cdof(nv 6) com(3) cinert(nbody 10) qfrc_smooth ws armature], com the
-    root's subtree com (one kinematic tree: the plan's envelope)."""
+    root's subtree com (one kinematic tree: the plan's envelope); cinert
+    from each env's masses and inertias and the armature each env's where
+    they vary per env (`Model.varied`; `:2257-2264`, the reference's
+    per-env armature under vmap), so the kernel builds each env's M."""
     E = data.qpos.shape[0]
     root = int(model.body_rootid[1]) if model.nbody > 1 else 0
     return torch.cat([

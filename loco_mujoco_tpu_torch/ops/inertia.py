@@ -16,7 +16,8 @@ from .support import body_subtree_mask, static_tensor
 
 
 def crb(model: Model, data: Data) -> Data:
-    """Dense joint-space mass matrix qM (+ armature)."""
+    """Dense joint-space mass matrix qM (+ armature, each env's where it
+    varies per env)."""
     sub = static_tensor(model, "body_subtree_mask",
                         lambda: body_subtree_mask(model))
     crb_arr = torch.einsum("ab,ebt->eat", sub, data.cinert)  # (E, nbody, 10)
@@ -27,6 +28,8 @@ def crb(model: Model, data: Data) -> Data:
     lower = torch.where(mask, m_full, torch.zeros_like(m_full))
     qm = (lower + lower.transpose(-1, -2)
           - torch.diag_embed(torch.diagonal(lower, dim1=-2, dim2=-1)))
+    if "dof_armature" in model.varied:  # each env's (E, nv)
+        return data.replace(qM=qm + torch.diag_embed(model.dof_armature))
     qm = qm + torch.diag(model.dof_armature)
     return data.replace(qM=qm)
 

@@ -13,7 +13,7 @@ import torch
 
 from ..core.types import Data, JointType, Model
 from . import math as m3
-from .support import body_subtree_mask, cached, static_tensor
+from .support import body_subtree_mask, cached, leaf, static_tensor
 
 
 def _levels(model: Model):
@@ -29,6 +29,14 @@ def _levels(model: Model):
         return [np.where(depth == L)[0] for L in range(1, int(depth.max()) + 1)]
 
     return cached(model, "body_levels", build)
+
+
+def _rotate(model: Model, name: str, R: torch.Tensor) -> torch.Tensor:
+    """R (E, n, 3, 3) times the local offsets of leaf `name` (n, 3), each
+    env's own where the leaf varies per env."""
+    if name in model.varied:
+        return torch.einsum("ebij,ebj->ebi", R, getattr(model, name))
+    return torch.einsum("ebij,bj->ebi", R, getattr(model, name))
 
 
 def kinematics(model: Model, data: Data) -> Data:
@@ -48,15 +56,17 @@ def kinematics(model: Model, data: Data) -> Data:
     xanchor = torch.zeros((E, nj, 3), dtype=dt, device=dev)
     xaxis = torch.zeros((E, nj, 3), dtype=dt, device=dev)
 
+    body_pos, body_quat = leaf(model, "body_pos"), leaf(model, "body_quat")
+    jnt_pos = leaf(model, "jnt_pos")
     for bs in _levels(model):
         pids = parent[bs]
-        pos = xpos[:, pids] + m3.quat_rotate(xquat[:, pids], model.body_pos[bs])
-        quat = m3.quat_mul(xquat[:, pids], model.body_quat[bs])
+        pos = xpos[:, pids] + m3.quat_rotate(xquat[:, pids], body_pos[:, bs])
+        quat = m3.quat_mul(xquat[:, pids], body_quat[:, bs])
         maxj = int(jnum[bs].max()) if nj else 0
         for i in range(maxj):
             sel = np.where(jnum[bs] > i)[0]  # level rows with a joint i
             js = jadr[bs[sel]] + i
-            jp, ja = model.jnt_pos[js], model.jnt_axis[js]
+            jp, ja = jnt_pos[:, js], model.jnt_axis[js]
             pos_s, quat_s = pos[:, sel], quat[:, sel]
             anchor = pos_s + m3.quat_rotate(quat_s, jp)
             axis = m3.quat_rotate(quat_s, ja)
@@ -79,14 +89,12 @@ def kinematics(model: Model, data: Data) -> Data:
     ximat = xmat @ m3.quat_to_mat(model.body_iquat)
 
     gb = np.asarray(model.geom_bodyid)
-    geom_xpos = xpos[:, gb] + torch.einsum("ebij,bj->ebi", xmat[:, gb],
-                                           model.geom_pos)
+    geom_xpos = xpos[:, gb] + _rotate(model, "geom_pos", xmat[:, gb])
     geom_xmat = xmat[:, gb] @ m3.quat_to_mat(model.geom_quat)
 
     if model.nsite:
         sb = np.asarray(model.site_bodyid)
-        site_xpos = xpos[:, sb] + torch.einsum("ebij,bj->ebi", xmat[:, sb],
-                                               model.site_pos)
+        site_xpos = xpos[:, sb] + _rotate(model, "site_pos", xmat[:, sb])
         site_xmat = xmat[:, sb] @ m3.quat_to_mat(model.site_quat)
     else:
         site_xpos = torch.zeros((E, 0, 3), dtype=dt, device=dev)
@@ -102,34 +110,38 @@ def kinematics(model: Model, data: Data) -> Data:
 def com_pos(model: Model, data: Data) -> Data:
     """Subtree com, com-centered packed inertias (cinert) and dof motion
     vectors (cdof), in MuJoCo's mj_comPos conventions."""
-    mass = model.body_mass  # (nbody,)
     sub = static_tensor(model, "body_subtree_mask",
                         lambda: body_subtree_mask(model))
-    weighted = torch.einsum("ab,ebc->eac", sub, mass[:, None] * data.xipos)
-    submass = sub @ mass
-    subtree_com = weighted / torch.clamp(submass, min=1e-12)[:, None]
+    if "body_mass" in model.varied:  # (E, nbody)
+        mass = model.body_mass
+        submass = mass @ sub.T
+    else:
+        mass = model.body_mass[None]
+        submass = (sub @ model.body_mass)[None]
+    weighted = torch.einsum("ab,ebc->eac", sub, mass[..., None] * data.xipos)
+    subtree_com = weighted / torch.clamp(submass, min=1e-12)[..., None]
 
     root = np.asarray(model.body_rootid)
     center = subtree_com[:, root]  # (E, nbody, 3)
 
     R = data.ximat
-    Idiag = model.body_inertia
+    Idiag = leaf(model, "body_inertia")
     c = data.xipos - center
     c2 = torch.sum(c * c, dim=-1)
 
     def iw(i, k):
         v = (
-            R[..., i, 0] * Idiag[:, 0] * R[..., k, 0]
-            + R[..., i, 1] * Idiag[:, 1] * R[..., k, 1]
-            + R[..., i, 2] * Idiag[:, 2] * R[..., k, 2]
+            R[..., i, 0] * Idiag[..., 0] * R[..., k, 0]
+            + R[..., i, 1] * Idiag[..., 1] * R[..., k, 1]
+            + R[..., i, 2] * Idiag[..., 2] * R[..., k, 2]
         )
         shift = mass * ((c2 if i == k else 0.0) - c[..., i] * c[..., k])
         return (v + shift)[..., None]
 
-    mm = mass[:, None].expand_as(c[..., :1])
+    mm = mass[..., None].expand_as(c[..., :1])
     cinert = torch.cat(
         [iw(0, 0), iw(1, 1), iw(2, 2), iw(0, 1), iw(0, 2), iw(1, 2),
-         mass[:, None] * c, mm],
+         mass[..., None] * c, mm],
         dim=-1,
     )
 

@@ -80,8 +80,14 @@ ported: the port's threads skip their own inactive rows in every solve
 pass, which makes the reduced branch's saving without a branch (as for
 the pyramidal fast and full branches).
 
-Per-env joint damping (domain randomization) keeps the fused and mega
-paths: `dyn_damping()` is the plan's variant with the reference's
+Leaves that differ from env to env (stacked variants, domain
+randomization) turn parts of the plan off as the reference's traced
+leaves do (`per_env`, chosen once where the env is built): the row plan
+(none: the staged path and the Newton kernel), the smooth stage (the
+fused kernel's non-smooth layout, whose vector carries each env's
+cinert and armature), the plane plan's uniform pack (the generic one) and
+the mega path. Per-env joint damping (domain randomization) keeps the
+fused and mega paths: `dyn_damping()` is the plan's variant with the reference's
 `sm_dyn_damping` (`:529-537`), flag `DAMP_ROWS`, whose kernels read each
 env's damping from an (E, nv) operand (`Data.dof_damping`) instead of
 F_DOF's column, and which has no `euler_dv` (`:314-329`: Euler's implicit
@@ -198,6 +204,25 @@ def _make_frame(n):
     t1 = ref - n * float(np.dot(n, ref))
     t1 = t1 / np.linalg.norm(t1)
     return np.stack([n, t1, np.cross(n, t1)])
+
+
+# Leaves the reference's plans read as constants (`_conc`), by plan: where
+# one varies per env (a traced leaf there), that plan is off (`per_env`).
+# The row plan's (`:92-101`, the friction loss's `:142`):
+ROW_LEAVES = frozenset({
+    "qpos0", "jnt_range", "jnt_margin", "jnt_solref", "jnt_solimp",
+    "dof_solref", "dof_solimp", "dof_frictionloss", "dof_invweight0",
+    "body_invweight0", "eq_data", "eq_solref", "eq_solimp", "opt.timestep",
+    "opt.impratio"})
+# the smooth stage's (`:519-530`, its actuator table `:545-549`):
+SMOOTH_LEAVES = frozenset({
+    "body_mass", "body_inertia", "jnt_stiffness", "qpos_spring",
+    "dof_armature", "opt.gravity", "actuator_gear", "actuator_gainprm",
+    "actuator_biasprm", "actuator_ctrlrange", "actuator_forcerange"})
+# the plane plan's pair parameters and plane pose (`:651-656`):
+PAIR_LEAVES = frozenset({
+    "pair_solref", "pair_solimp", "pair_margin", "pair_gap",
+    "pair_friction", "geom_quat"})
 
 
 class RowPlan:
@@ -471,6 +496,38 @@ class RowPlan:
             dyn._dev = {}
             self._dyn = dyn
         return self._dyn
+
+    def per_env(self, varied) -> "RowPlan | None":
+        """The plan of a model whose leaves `varied` differ from env to env
+        (stacked variants, domain randomization), with the reference's
+        gates for leaves it cannot take as constants (`_conc` of a traced
+        leaf): None where the row plan reads one of them (`ROW_LEAVES`,
+        `:92-101`, friction loss `:142`), the staged path with the Newton
+        kernel; the non-smooth layout where the smooth stage reads one
+        (`SMOOTH_LEAVES`, `:519-530`, its actuator table `:545-549`); the
+        generic contact pack where the plane plan's pair parameters vary
+        (`PAIR_LEAVES`, `:651-656`); per-env damping rows
+        (`dyn_damping`); and no mega path for any of them, whose FK and
+        collision plans read the rest (`:359-461`). This plan is left as
+        it is; with nothing varied it is the plan."""
+        varied = frozenset(varied)
+        if not varied:
+            return self
+        if varied & ROW_LEAVES:
+            return None
+        out = self.dyn_damping() if "dof_damping" in varied else self
+        if varied <= {"dof_damping"}:
+            return out
+        out = copy.copy(out)
+        out._dev, out._launch, out._fused_launch, out._dyn = {}, None, None, \
+            None
+        out.mega = out.mega_ell = out.smooth_mu = False
+        out.mp = None
+        if varied & SMOOTH_LEAVES:
+            out.smooth = False
+        if varied & PAIR_LEAVES:
+            out.uniform = out.fric_uniform = False
+        return out
 
     def with_budget(self, iterations: int, ls_iterations: int) -> "RowPlan":
         """This plan with another Newton and line-search budget (the

@@ -33,6 +33,24 @@ def static_tensor(model: Model, name: str, build, dtype=None) -> torch.Tensor:
                                           device=dev))
 
 
+def leaf(model: Model, name: str) -> torch.Tensor:
+    """A Model leaf with a leading env axis: (E, ...) where it varies per
+    env (`Model.varied`), else (1, ...), which broadcasts over every env.
+    `mesh_vert` keeps its variant axis (see core/types.py)."""
+    x = getattr(model, name)
+    return x if name in model.varied else x[None]
+
+
+def pick(model: Model, name: str, idx: torch.Tensor) -> torch.Tensor:
+    """Rows `idx` (E, k) of a Model leaf's first axis, each env's from its
+    own row where the leaf varies per env: (E, k, ...)."""
+    x = getattr(model, name)
+    if name not in model.varied:
+        return x[idx]
+    env = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return x[env, idx]
+
+
 def body_chain_mask(model: Model, bodyid: int) -> np.ndarray:
     """(nv,) bool: dofs on the kinematic chain from `bodyid` to the root."""
     mask = np.zeros(model.nv, dtype=bool)

@@ -68,7 +68,12 @@ The mega forward and the megastep, the fused kernel and the Newton kernel
 multiple of a block's envs) and at one env, and checked bit-deterministic
 from run to run; every instance of the fused and Newton kernels leaves at
 least `plan.RESIDENT_FLOOR` warps resident per SM. An elliptic plan's fused
-kernel solves in float64, and so does its plain version here.
+kernel solves in float64, and so does its plain version here. Model leaves
+that differ per env: the plane-mesh kernel with the four 4-ages scalings'
+hull tables, each env reading its variant's (held as above; every env on
+the first table gives the one-table launch bit for bit), and the fused
+kernel's non-smooth layout on a randomized env's per-env masses, full
+inertia and armature, held on every env.
 """
 
 import ctypes
@@ -273,6 +278,74 @@ def test_mesh_slots_ragged_and_single_env(state, n):
     d = kinematics.kinematics(model, _dropped(model, n))
     chip_smoke._mesh_slots_rule(torch, model.mesh_kernel[1], d.geom_xpos,
                                 d.geom_xmat, f"{n} envs")
+
+
+def test_mesh_slots_variant_tables(state):
+    """The plane-mesh kernel with the four 4-ages scalings' hull tables
+    (`standins.load_variants("humanoid4ages")`, K = 4), each of 4096 envs
+    reading its seeded variant's, held as above; every env on variant 0
+    gives the single model's launch bit for bit; without each env's
+    variant the wrapper raises before any launch."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    models = standins.load_variants("humanoid4ages", device="cuda")
+    stacked, _ = io.stack_variants(models)
+    plan = stacked.mesh_kernel[1]
+    assert plan.K == 4
+    ids = torch.as_tensor(np.random.default_rng(3).integers(0, 4, 4096),
+                          dtype=torch.int32, device="cuda")
+    m = io.model_at(stacked, ids)
+    d = kinematics.kinematics(m, _dropped(models[0], 4096))
+    _, n_on, _ = chip_smoke._mesh_slots_rule(
+        torch, plan, d.geom_xpos, d.geom_xmat, "variants", env_id=ids)
+    assert n_on > 0
+    zero = torch.zeros_like(ids)
+    one = models[0].mesh_kernel[1]
+    got = hc.mesh_slots(plan, d.geom_xpos, d.geom_xmat, env_id=zero)
+    ref = hc.mesh_slots(one, d.geom_xpos, d.geom_xmat)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    kernels.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="variant"):
+        hc.mesh_slots(plan, d.geom_xpos, d.geom_xmat)
+    assert not kernels.LAUNCHES
+
+
+def test_fused_nonsmooth_per_env_leaves(state):
+    """The fused kernel's non-smooth layout on a randomized env's per-env
+    Model (every body's mass, the torso's full inertia and the joints'
+    armature per env: the row plan without its smooth stage), at 4096
+    dropped envs: held to its plain version replaying the kernel's
+    decisions, qacc, qfrc_constraint and efc_force_contact rel 5e-4 of
+    their largest on every env; each env's armature reaches the kernel's M
+    (the model's own gives another qacc_smooth)."""
+    model = _model()
+    roots = [j for j in model.names["joint"] if j.startswith("root")]
+    conf = {"Default": {"exclude": roots,
+                        "Joints": {"armature": {"uniform_range": [0.005,
+                                                                  0.1]}},
+                        "Inertial": {"mass": {"uniform_range_delta": 0.5}}},
+            "Inertial": {"torso": {"fullinertia": {
+                "uniform_range_delta": 0.02}}}}
+    env = standins.make_env(model, dr=conf, n_substeps=1)
+    st = env.reset_batch(4096, torch.Generator(device="cuda").manual_seed(0))
+    m, d = env._apply_dr(st.data, st.env_id, st.dr)
+    assert m.plan is not None and not m.plan.smooth
+    d = fwd.stages(m, d.replace(qpos=_dropped(model, 4096).qpos))
+    kernels.LAUNCHES.clear()
+    k = hf.fused_constraint(m, d)
+    assert dict(kernels.LAUNCHES) == {"fused": 1}
+    r = hf.fused_constraint_plain(m, d, replay=(
+        k.solver_niter, k.solver_taken, k.solver_ls, k.solver_rows))
+    for f in ("qacc", "qacc_smooth", "qfrc_constraint", "efc_force_contact"):
+        got, ref = getattr(k, f), getattr(r, f)
+        err = (got - ref).abs().reshape(4096, -1).amax(1)
+        assert bool((err <= 5e-4 * (float(ref.abs().max()) + 1e-9)).all()), f
+    one = m.replace(dof_armature=model.dof_armature,
+                    varied=m.varied - {"dof_armature"})
+    other = hf.fused_constraint(one, d).qacc_smooth
+    assert not torch.allclose(other, k.qacc_smooth, rtol=1e-3, atol=0)
 
 
 def test_newton_matches_plain(state):
@@ -1053,7 +1126,7 @@ def _step_batch_check(model, dr, monkeypatch, what):
     k = env.step_batch(fresh_rng(st), a)
     assert dict(kernels.LAUNCHES) == {"megastep": 1}
     m, d = env._apply_dr(st.data.replace(
-        ctrl=a * env.norm_act_delta + env.norm_act_mean), st.dr)
+        ctrl=a * env.norm_act_delta + env.norm_act_mean), st.env_id, st.dr)
     ks, _, _, _, errs, dec = chip_smoke._megastep_rule(torch, m, d, 10, what)
     assert torch.equal(ks.qpos[~k.done], k.data.qpos[~k.done])
     held = torch.ones(4096, dtype=torch.bool, device="cuda")

@@ -13,9 +13,7 @@ against the JAX package's handler, and the env layer with it, on the CPU.
    same numbers).
 3. `sample` from a `torch.Generator`: draws inside their distributions'
    supports, different per env, repeatable from the seed.
-4. `Geoms` and `Inertial` sections raise NotImplementedError naming ROADMAP
-   Queue 1 #2, as does an env given a Joints leaf other than damping.
-5. The env layer with damping randomization on the small humanoid in
+4. The env layer with damping randomization on the small humanoid in
    float32 (the plain versions on the CPU): each env's draws reach
    `Data.dof_damping`, the model's plan is the damping-row variant, and a
    control step runs and stays finite.
@@ -107,7 +105,7 @@ def test_joint_schema_errors_match_jax(models, conf, match):
 
 def test_other_joint_leaves_match_jax(models):
     """stiffness, frictionloss and armature parse and apply as in the
-    reference (only the env refuses them, below)."""
+    reference (their envs: tests/test_torch_dr_leaves.py)."""
     jm, tm = models
     conf = {"Joints": {"knee_r": {"stiffness": {"uniform_range": [3, 4]},
                                   "frictionloss": {"sigma": 0.1},
@@ -158,29 +156,12 @@ def test_sample_supports_and_seed(models):
         assert col.std() > 0
 
 
-@pytest.mark.parametrize("conf", [
-    {"Geoms": {"torso": {"friction": {"sigma": [0.1, 0, 0]}}}},
-    {"Inertial": {"torso": {"mass": {"uniform_range_delta": 0.1}}}},
-    {"Default": {"Inertial": {"mass": {"sigma": 0.1}}}},
-])
-def test_geoms_and_inertial_refused(models, conf):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match="Queue 1 #2"):
-        tdr.DomainRandomizationHandler(tm, conf)
-
-
 def _env(model, conf, n_substeps=2):
     names = sorted(model.names["joint"], key=model.names["joint"].get)
     spec = ([(f"q_{j}", j, ObservationType.JOINT_POS) for j in names]
             + [(f"dq_{j}", j, ObservationType.JOINT_VEL) for j in names])
     return base.LocoEnv(model, ObsIndex(model, spec), n_substeps=n_substeps,
                         domain_randomization_config=conf)
-
-
-def test_env_refuses_other_joint_leaves(models):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match="Queue 1 #2"):
-        _env(tm, {"Joints": {"knee_r": {"armature": {"sigma": 0.01}}}})
 
 
 def test_env_carries_damping_to_the_kernels():

@@ -29,6 +29,17 @@ both committed models.
 
 Both are compiled by the JAX package's own `put_model`; the model arrays
 are the "weights" carried across to the port.
+
+The 4-ages stand-ins (`scaling=s`, HumanoidTorque4Ages' scalings 0.4, 0.6,
+0.8 and 1.0) apply the body-scaling law of the JAX package's `_scale_spec`
+(models/humanoids/humanoid_4_ages.py:37-60) to the torque fixture's MjSpec
+before compile (`scale_spec`): the meshes scaled by s, body positions by
+s, masses by s^3, the (diagonal) inertias by s^5 and the motors' gear by
+s^2, and, as the reference's surgery scales its box feet, the stand-in's
+own geom offsets and box sizes by s. The hull graphs are scale-invariant,
+so the four share one structure and stack as model variants. The full
+width ones are committed as `assets/humanoid_torque_s0{4,6,8}_shape.npz`;
+scaling 1.0 is `humanoid_torque_shape.npz` itself.
 """
 
 from __future__ import annotations
@@ -336,18 +347,53 @@ CONFIGS = {
 }
 
 
+SCALINGS = (0.4, 0.6, 0.8, 1.0)  # humanoid_4_ages.py DEFAULT_SCALINGS
+
+
+def scale_spec(spec, s: float) -> None:
+    """The 4-ages body-scaling law of the torque model (`_scale_spec`,
+    models/humanoids/humanoid_4_ages.py:37-60) on the fixture's MjSpec: mesh
+    scale x s, body pos x s, mass x s^3, inertia x s^5 (the fixture gives
+    diagonal inertias, `diaginertia`, which `_scale_spec`'s fullinertia
+    branch leaves as they are), motor gear x s^2; and the stand-in's geoms'
+    offsets and box sizes x s, as the reference's surgery scales its box
+    feet (humanoid.py:100-104)."""
+    for mesh in spec.meshes:
+        mesh.scale = np.asarray(mesh.scale) * s
+    for b in spec.bodies:
+        if b.name == "world":
+            continue
+        b.pos = np.asarray(b.pos) * s
+        b.mass = b.mass * s ** 3
+        b.inertia = np.asarray(b.inertia) * s ** 5
+    for g in spec.geoms:
+        if g.name == "floor":
+            continue
+        g.pos = np.asarray(g.pos) * s
+        if g.type == 6:  # mjGEOM_BOX
+            g.size = np.asarray(g.size) * s
+    for a in spec.actuators:
+        a.gear = np.asarray(a.gear) * s ** 2
+
+
 def jax_model(full: bool, dtype=None, change=None, muscle=False,
-              affine=False):
+              affine=False, scaling=None):
     """The fixture (or its muscle variant, or with `affine` its motors'
-    gain and bias affine, `AFFINE_MOTOR`) compiled by the JAX package's
-    own `put_model`, with a configuration change (`CONFIGS`)."""
+    gain and bias affine, `AFFINE_MOTOR`, or at a 4-ages `scaling`,
+    `scale_spec`) compiled by the JAX package's own `put_model`, with a
+    configuration change (`CONFIGS`)."""
     import jax.numpy as jnp
     import mujoco
 
     from loco_mujoco_tpu.core.io import put_model
 
-    mjm = mujoco.MjModel.from_xml_string(
-        _joint_friction(humanoid_xml(full, muscle=muscle, affine=affine)))
+    xml = _joint_friction(humanoid_xml(full, muscle=muscle, affine=affine))
+    if scaling is None:
+        mjm = mujoco.MjModel.from_xml_string(xml)
+    else:
+        spec = mujoco.MjSpec.from_string(xml)
+        scale_spec(spec, scaling)
+        mjm = spec.compile()
     jm = put_model(mjm, dtype=dtype or jnp.float64,
                    contact_k_plane=8 if full else 4)
     for k, v in (change or {}).items():
@@ -381,9 +427,10 @@ def export_model(model):
 
 
 def torch_model(full: bool, dtype=torch.float64, device="cpu", change=None,
-                muscle=False, affine=False):
+                muscle=False, affine=False, scaling=None):
     """(JAX model, port model) of the fixture, both from one compile."""
-    jm = jax_model(full, change=change, muscle=muscle, affine=affine)
+    jm = jax_model(full, change=change, muscle=muscle, affine=affine,
+                   scaling=scaling)
     leaves, aux = export_model(jm)
     return jm, tio.model_from_numpy(leaves, aux, device=device, dtype=dtype)
 
@@ -460,9 +507,18 @@ def hold_ctrl(model, ctrl, act):
     return ctrl
 
 
-def write_full_width(path, muscle=False) -> None:
-    leaves, aux = export_model(jax_model(full=True, muscle=muscle))
+def write_full_width(path, muscle=False, scaling=None) -> None:
+    leaves, aux = export_model(jax_model(full=True, muscle=muscle,
+                                         scaling=scaling))
     tio.save_model_npz(path, leaves, aux)
+
+
+def scaling_asset(s: float) -> Path:
+    """The committed full-width stand-in at 4-ages scaling s."""
+    if s == 1.0:
+        return ASSET
+    return ASSET.with_name(f"humanoid_torque_s{int(round(10 * s)):02d}"
+                           f"_shape.npz")
 
 
 def _same(a, b) -> bool:
@@ -588,6 +644,32 @@ def test_committed_npz_matches_generator(tmp_path, muscle):
         assert _same(got_a[k], ref_a[k]), k
 
 
+@pytest.mark.parametrize("s", SCALINGS)
+def test_committed_scalings_match_generator(tmp_path, s):
+    """Drift test of the 4-ages stand-ins: each committed scaling is what
+    the generator makes now (scaling 1.0 is the torque stand-in itself,
+    leaf for leaf), and the four share one structure."""
+    fresh = tmp_path / "fresh.npz"
+    write_full_width(fresh, scaling=s)
+    got_l, got_a = tio.read_model_npz(fresh)
+    ref_l, ref_a = tio.read_model_npz(scaling_asset(s))
+    assert got_l.keys() == ref_l.keys() and got_a.keys() == ref_a.keys()
+    for k in ref_l:
+        np.testing.assert_array_equal(got_l[k], ref_l[k], err_msg=k)
+    for k in ref_a:
+        assert _same(got_a[k], ref_a[k]), k
+    base_l, base_a = tio.read_model_npz(ASSET)
+    for k in ("mesh_vertmask", "mesh_nbr", "pair_geom2", "geom_meshid"):
+        assert _same(base_a[k], ref_a[k]), k
+    if s != 1.0:
+        np.testing.assert_allclose(ref_l["body_mass"][1:],
+                                   base_l["body_mass"][1:] * s ** 3,
+                                   rtol=1e-12)
+        np.testing.assert_allclose(ref_l["actuator_gear"][:, 0],
+                                   base_l["actuator_gear"][:, 0] * s ** 2,
+                                   rtol=1e-12)
+
+
 @pytest.mark.parametrize("change", [
     {"tendon_stiffness": 1.0},
     {"eq_type": 0},
@@ -642,3 +724,7 @@ if __name__ == "__main__":
     for path, muscle in ((ASSET, False), (MUSCLE_ASSET, True)):
         write_full_width(path, muscle)
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")
+    for s in SCALINGS[:-1]:  # scaling 1.0 is ASSET
+        write_full_width(scaling_asset(s), scaling=s)
+        print(f"wrote {scaling_asset(s)} "
+              f"({os.path.getsize(scaling_asset(s))} bytes)")

@@ -48,6 +48,22 @@ and takes the small variant's geoms and budget (the hip adduction and
 rotation hinges stay: nv 25, 17 slots, 92 rows), for the float32 mega
 comparison (tests/test_torch_arms_mega.py).
 
+With `weight=m` the generator adds H1's carried weight
+(`UnitreeH1(hold_weight=True)`, models/humanoids/unitree_h1.py:110-118 and
+robot_base.py:69-79): a body `weight` on the torso (on the pelvis of the
+small fixture, which has no torso) holding a box of half sizes 0.1, 0.18,
+0.1 at (0.35, 0, 0.1) of mass m, out of every contact pair, drawn last;
+`weight="density"` gives the box no mass, so that its body's inertial
+comes from the geom at the default density (the Geoms section's mass and
+density randomization needs one). The carry pair, the full-width model at
+masses 1 and 5 (two of the reference's `VALID_WEIGHTS`), is committed as
+`assets/unitree_h1_carry_m1_shape.npz` and `..._m5_shape.npz`: stacked
+variants that differ in masses and inertias only, so they share one hull
+table. These carry the shape constants of every primitive geom (its
+volume at unit density and its inertia at unit mass in its body's frame,
+from the JAX package's `_micro_geom_constants`, NaN for planes and
+meshes) as `geom_shape_volume` / `geom_shape_inertia` (`carry_model`).
+
 It is compiled by the JAX package's own `put_model`; the model arrays are
 the "weights" carried across to the port.
 """
@@ -150,10 +166,13 @@ class Hulls:
         return "\n".join(out)
 
 
-def h1_xml(full: bool, seed: int = SEED, arms: bool = False) -> str:
+def h1_xml(full: bool, seed: int = SEED, arms: bool = False,
+           weight=None) -> str:
     """The fixture's MJCF (see the module note); `arms` keeps H1's arms
     (`UnitreeH1(disable_arms=False)`), drawn after every other part so
-    that the model without them is unchanged."""
+    that the model without them is unchanged; `weight` adds the carried
+    weight of that mass (or "density": geom-derived at the default
+    density)."""
     rng = np.random.default_rng(seed)
     hulls = Hulls(rng)
     tree = full or arms  # the whole joint tree (H1 with arms: nv 25)
@@ -262,6 +281,16 @@ def h1_xml(full: bool, seed: int = SEED, arms: bool = False) -> str:
       {"".join(leg(s, y) for s, y in legs)}
     </body>"""
     body = body.replace(_ARMS, "".join(arm(s) for s in "lr") if arms else "")
+    if weight is not None:
+        mass = "" if weight == "density" else f' mass="{float(weight)}"'
+        box = ('<body name="weight"><geom name="weight_geom" type="box" '
+               'size="0.1 0.18 0.1" pos="0.35 0 0.1" contype="0" '
+               f'conaffinity="0"{mass}/></body>')
+        if tree:  # after the torso's hulls (and arms)
+            at = body.index("\n      </body>", body.index('name="torso"'))
+        else:  # the pelvis's last child
+            at = body.rindex("\n    </body>")
+        body = body[:at] + box + body[at:]
     return f"""
 <mujoco model="unitree_h1{'_arms' if arms else ''}_shape_{'full' if full else 'small'}">
   <compiler angle="radian"/>
@@ -285,7 +314,7 @@ def h1_xml(full: bool, seed: int = SEED, arms: bool = False) -> str:
 </mujoco>"""
 
 
-def jax_model(full: bool, dtype=None, arms: bool = False):
+def jax_model(full: bool, dtype=None, arms: bool = False, weight=None):
     """The fixture compiled by the JAX package's own `put_model` (plane
     budget 8 at full width, 3 small)."""
     import jax.numpy as jnp
@@ -293,9 +322,45 @@ def jax_model(full: bool, dtype=None, arms: bool = False):
 
     from loco_mujoco_tpu.core.io import put_model
 
-    mjm = mujoco.MjModel.from_xml_string(h1_xml(full, arms=arms))
+    mjm = mujoco.MjModel.from_xml_string(h1_xml(full, arms=arms,
+                                                weight=weight))
     return put_model(mjm, dtype=dtype or jnp.float64,
                      contact_k_plane=8 if full else 3)
+
+
+CARRY_MASSES = (1.0, 5.0)  # two of RobotHumanoid.VALID_WEIGHTS
+
+
+def carry_asset(mass: float) -> Path:
+    return ASSET.with_name(f"unitree_h1_carry_m{int(mass)}_shape.npz")
+
+
+def shape_constants(jm):
+    """(volume (ngeom,), inertia (ngeom, 3, 3)): each primitive geom's
+    volume at unit density and inertia at unit mass about its center in
+    its body's frame, from the JAX package's `_micro_geom_constants`
+    (MuJoCo's own shape formulas); NaN for planes and meshes."""
+    from loco_mujoco_tpu.utils.domain_randomization import \
+        _micro_geom_constants
+
+    n = len(jm.geom_type)
+    vol, inert = np.full(n, np.nan), np.full((n, 3, 3), np.nan)
+    size, quat = np.asarray(jm.geom_size), np.asarray(jm.geom_quat)
+    for g in range(n):
+        if int(jm.geom_type[g]) in (2, 3, 4, 5, 6):  # primitive solids
+            vol[g], inert[g] = _micro_geom_constants(
+                int(jm.geom_type[g]), size[g], quat[g], 1000.0)
+    return vol, inert
+
+
+def carry_model(full: bool, weight):
+    """(JAX model, leaves, aux) of the fixture with the carried weight,
+    the aux with its geoms' shape constants (`shape_constants`)."""
+    jm = jax_model(full, weight=weight)
+    leaves, aux = export_model(jm)
+    aux["geom_shape_volume"], aux["geom_shape_inertia"] = \
+        shape_constants(jm)
+    return jm, leaves, aux
 
 
 def torch_model(full: bool, dtype=torch.float64, device="cpu",
@@ -372,8 +437,11 @@ def cyl_states(monkeypatch, fixture, n_envs: int, seed: int = 7):
     return jm, tm, jd, td
 
 
-def write_full_width(path, arms: bool = False) -> None:
-    leaves, aux = export_model(jax_model(full=True, arms=arms))
+def write_full_width(path, arms: bool = False, weight=None) -> None:
+    if weight is None:
+        leaves, aux = export_model(jax_model(full=True, arms=arms))
+    else:
+        _, leaves, aux = carry_model(True, weight)
     tio.save_model_npz(path, leaves, aux)
 
 
@@ -427,6 +495,37 @@ def test_committed_h1_npz_matches_generator(tmp_path):
         assert _same(got_a[k], ref_a[k]), k
 
 
+@pytest.mark.parametrize("mass", CARRY_MASSES)
+def test_committed_carry_npz_matches_generator(tmp_path, mass):
+    """Drift test of the carry pair: each committed model is what the
+    generator makes now, leaf for leaf, with its shape constants; the two
+    differ in masses and inertias only (and what MuJoCo derives from
+    them), so they stack with one hull table."""
+    fresh = tmp_path / "fresh.npz"
+    write_full_width(fresh, weight=mass)
+    got_l, got_a = tio.read_model_npz(fresh)
+    ref_l, ref_a = tio.read_model_npz(carry_asset(mass))
+    assert got_l.keys() == ref_l.keys() and got_a.keys() == ref_a.keys()
+    for k in ref_l:
+        np.testing.assert_array_equal(got_l[k], ref_l[k], err_msg=k)
+    for k in ref_a:
+        if k.startswith("geom_shape"):  # NaN where a geom has none
+            np.testing.assert_array_equal(got_a[k], ref_a[k], err_msg=k)
+        else:
+            assert _same(got_a[k], ref_a[k]), k
+    w = ref_a["names"]["body"]["weight"]
+    assert ref_l["body_mass"][w] == mass
+    box = ref_a["names"]["geom"]["weight_geom"]
+    np.testing.assert_allclose(ref_a["geom_shape_volume"][box],
+                               0.2 * 0.36 * 0.2, rtol=1e-12)
+    assert np.isnan(ref_a["geom_shape_volume"][0])  # the floor
+    models = [tio.model_from_numpy(*tio.read_model_npz(carry_asset(m)),
+                                   device="cpu") for m in CARRY_MASSES]
+    stacked, varied = tio.stack_variants(models)
+    assert "body_mass" in varied and "mesh_vert" not in varied
+    assert stacked.mesh_kernel[1].K == 1
+
+
 def test_h1_states_touch_every_group():
     """The seeded states put both groups in contact, env 0's heel discs
     upright (axis along the normal) and env 1's on their rim."""
@@ -459,3 +558,7 @@ if __name__ == "__main__":
     for path, arms in ((ASSET, False), (ASSET_ARMS, True)):
         write_full_width(path, arms=arms)
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")
+    for m in CARRY_MASSES:
+        write_full_width(carry_asset(m), weight=m)
+        print(f"wrote {carry_asset(m)} "
+              f"({os.path.getsize(carry_asset(m))} bytes)")

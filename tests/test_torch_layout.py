@@ -160,10 +160,12 @@ class _MeshSlots:
     def __init__(self, plan):
         self.plan, self.launches = plan, []
 
-    def lmt_mesh_slots(self, gxp, gxm, tbl, pk, pf, st, dist, pos, frame,
-                       ids, meta, key_out, P, k, E, G, stream):
+    def lmt_mesh_slots(self, gxp, gxm, tbl, pk, pf, st, env_id, dist, pos,
+                       frame, ids, meta, key_out, P, k, E, G, tstride,
+                       stream):
         t = self.plan.tensors("cpu")
-        assert stream == 0
+        assert stream == 0 and env_id is None
+        assert tstride == t.flat.numel()
         for p, ref, ctype in ((tbl, t.flat, ctypes.c_float),
                               (pk, t.pair_k, ctypes.c_int32),
                               (pf, t.pair_f, ctypes.c_float),

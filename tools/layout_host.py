@@ -337,30 +337,35 @@ def device_ops(torch, fn):
             sum(1 for n in names if "Pageable" in n))
 
 
-def mesh_times(torch, hc, kernels, plan, gxp, gxm) -> dict:
-    """ms of the plane-mesh kernel on the poses gxp, gxm: the wrapper
-    (`hopper_collision.mesh_slots`), the launch alone (the launcher on
-    outputs made beforehand, enqueued behind a sleep of the stream, so
-    that the events time the card only) and the plain version (one run)."""
+def mesh_times(torch, hc, kernels, plan, gxp, gxm, env_id=None) -> dict:
+    """ms of the plane-mesh kernel on the poses gxp, gxm (and, for a plan
+    of K > 1 variants' hull tables, each env's variant env_id, int32):
+    the wrapper (`hopper_collision.mesh_slots`), the launch alone (the
+    launcher on outputs made beforehand, enqueued behind a sleep of the
+    stream, so that the events time the card only) and the plain version
+    (one run)."""
     E, G = gxp.shape[0], gxp.shape[1]
     t = plan.tensors(gxp.device)
     out = [torch.empty((E, plan.k, n), dtype=torch.float32,
                        device=gxp.device) for n in (3, 9, 9, hc.META)]
     ids = torch.empty((E, plan.k, 2), dtype=torch.int64, device=gxp.device)
     lib = kernels.library("plane_mesh", hc._SIGNATURES)
-    args = [x.data_ptr() for x in (gxp, gxm, t.flat, t.pair_k, t.pair_f,
-                                   t.tbl16, *out[:3], ids, out[3])]
+    vid = None if env_id is None or plan.K == 1 else env_id.data_ptr()
+    args = ([x.data_ptr() for x in (gxp, gxm, t.flat, t.pair_k, t.pair_f,
+                                    t.tbl16)] + [vid]
+            + [x.data_ptr() for x in (*out[:3], ids, out[3])])
     s = kernels.stream()
 
     def alone():
-        return lib.lmt_mesh_slots(*args, None, plan.P, plan.k, E, G, s)
+        return lib.lmt_mesh_slots(*args, None, plan.P, plan.k, E, G,
+                                  plan.table_floats, s)
 
     assert alone() == 0
-    return {"wrapper_ms": _time_ms(torch, lambda: hc.mesh_slots(plan, gxp,
-                                                                 gxm)),
+    return {"wrapper_ms": _time_ms(torch, lambda: hc.mesh_slots(
+                plan, gxp, gxm, env_id=env_id)),
             "launch_alone_ms": _time_ms(torch, alone, queued=True),
             "plain_ms": _time_ms(torch, lambda: hc.mesh_slots_plain(
-                plan, gxp, gxm), reps=1)}
+                plan, gxp, gxm, env_id=env_id), reps=1)}
 
 
 def mesh_site(torch, coll, kernels, m, d_pos) -> dict:

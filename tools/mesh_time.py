@@ -51,10 +51,12 @@ def phase_cycles(torch, hc, kernels, plan, gxp, gxm) -> dict:
     ids = torch.empty((E, plan.k, 2), dtype=torch.int64, device=dev)
     key = torch.zeros((E, plan.P), dtype=torch.float32, device=dev)
     lib = kernels.library("plane_mesh", hc._SIGNATURES, ("LMT_PHASES",))
-    args = [x.data_ptr() for x in (gxp, gxm, t.flat, t.pair_k, t.pair_f,
-                                   t.tbl16, *out[:3], ids, out[3], key)]
+    args = ([x.data_ptr() for x in (gxp, gxm, t.flat, t.pair_k, t.pair_f,
+                                    t.tbl16)] + [None]
+            + [x.data_ptr() for x in (*out[:3], ids, out[3], key)])
     for _ in range(3):  # the last launch's clocks
         kernels.check(lib.lmt_mesh_slots(*args, plan.P, plan.k, E, G,
+                                         plan.table_floats,
                                          kernels.stream()), "mesh_slots")
     torch.cuda.synchronize()
     cycles = key[:, :3].double()
